@@ -11,13 +11,18 @@ non-zero before the final line:
   device   nvidia-smi name/power limit, torch and CUDA versions
   build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc
   kernels  each kernel against its plain PyTorch version at the main
-           path's TinyLlama-1.1B shapes, and at the widest Llama-3-8B ones
-           (error, gate, kernel/plain/library times, roofline bound)
+           paths' shapes: TinyLlama-1.1B and Mixtral-8x7B, plus the widest
+           Llama-3-8B ones (error, gate, kernel/plain/library times,
+           roofline bound)
   serve    a TinyLlama-1.1B-geometry Q4_K GGUF synthesized from seeded
            random block bytes is loaded with Model(path) on cuda and serves
-           three generate() requests plus one batched decode; every kernel's
-           launch count over that run must be > 0, and the logits of a
-           prefill and the next decode steps are held against the plain path
+           three generate() requests plus one batched decode; the launch
+           count of every kernel of that path must be > 0, and the logits
+           of a prefill and the next decode steps are held against the
+           plain path
+  serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 8
+           layers), served by two Contexts, bf16 and q8_0 KV, each with
+           three generate() requests and one batched decode of 8 sequences
 
 Before the last line it prints the kernels summary and the card's
 nvidia-smi name and power limit; the last line is
@@ -43,6 +48,7 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s (data sheet)
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor-core flop/s
 QMM_GATE = 5e-5          # NMSE gate of the qmm suite (tests/test_qmatmul.py)
 ATTN_GATE = 2e-4         # NMSE gate of the attention suites
+GMM_GATE = 2e-4          # NMSE gate of the gmm suite (tests/test_gmm.py:73)
 LOGITS_GATE = 2e-3       # NMSE gate of the engine suite (tests/test_engine.py)
 
 # TinyLlama-1.1B (BASELINE.json config #1) published widths
@@ -51,6 +57,15 @@ TINYLLAMA = dict(n_vocab=32000, n_embd=2048, n_head=32, n_head_kv=4,
 # Llama-3-8B (BASELINE.json config #2) published widths
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_head=32, n_head_kv=8,
                  head_dim=128, n_layer=32, n_ff=14336)
+# Mixtral-8x7B (BASELINE.json config #4; mistralai/Mixtral-8x7B-v0.1
+# config.json) published widths, depth cut from 32 to 8 layers. Weights at
+# half the TinyLlama phase's std (~0.0075): at ~0.015 the q8_0 cache's int8
+# rounding of K/V amplified the kernels' ~2.5e-6 per-projection difference
+# from the plain path to a prefill logits NMSE of 0.022 (measured on an
+# H100); bf16 KV read <= 8.8e-4 there
+MIXTRAL = dict(n_vocab=32000, n_embd=4096, n_head=32, n_head_kv=8,
+               head_dim=128, n_layer=8, n_ff=14336, n_expert=8,
+               n_expert_used=2, rope_base=1e6, weight_std_scale=0.5)
 
 TPU_KERNELS = {
     "qmm_gemv": ("llama_cpp_test_tpu_torch/csrc/qmm.cu",
@@ -61,7 +76,16 @@ TPU_KERNELS = {
                       "llama_cpp_test_tpu/ops/flash_prefill.py:31"),
     "paged_decode": ("llama_cpp_test_tpu_torch/csrc/paged_attention.cu",
                      "llama_cpp_test_tpu/ops/paged_attention.py:50"),
+    "paged_decode_q8": ("llama_cpp_test_tpu_torch/csrc/paged_attention.cu",
+                        "llama_cpp_test_tpu/ops/paged_attention.py:50"),
+    "gmm_gemv": ("llama_cpp_test_tpu_torch/csrc/gmm.cu",
+                 "llama_cpp_test_tpu/ops/gmm.py:118"),
+    "gmm_gemm": ("llama_cpp_test_tpu_torch/csrc/gmm.cu",
+                 "llama_cpp_test_tpu/ops/gmm.py:118"),
 }
+# the kernels each serving path must launch
+DENSE_PATH = ("qmm_gemv", "qmm_gemm", "flash_prefill", "paged_decode")
+MOE_PATH = DENSE_PATH + ("paged_decode_q8", "gmm_gemv", "gmm_gemm")
 
 
 def emit(obj) -> None:
@@ -121,9 +145,11 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # synthetic weights: seeded random block bytes with bounded fp16 scales
 
 
-def random_blocks(rng, ggml_type, n: int, k: int) -> np.ndarray:
+def random_blocks(rng, ggml_type, n: int, k: int,
+                  std_scale: float = 1.0) -> np.ndarray:
     """Packed GGUF bytes for an (n, k) weight: random quant bytes with fp16
-    scale fields drawn from a bounded range, so every weight is finite."""
+    scale fields drawn from a bounded range (times std_scale), so every
+    weight is finite."""
     from llama_cpp_test_tpu_torch.gguf.constants import GGML_BLOCK_SIZES, GGMLType
 
     blk, nbytes = GGML_BLOCK_SIZES[ggml_type]
@@ -134,7 +160,7 @@ def random_blocks(rng, ggml_type, n: int, k: int) -> np.ndarray:
         # std (~0.03) amplifies the bf16 weight-rounding difference between
         # kernels and plain path (NMSE ~3e-6 per projection) to logits NMSE
         # up to 2e-3 (measured on an H100); at ~0.015 it stays below 6e-4
-        d = rng.uniform(0.35e-4, 0.65e-4, nb).astype(np.float16)
+        d = (rng.uniform(0.35e-4, 0.65e-4, nb) * std_scale).astype(np.float16)
         raw[:, 0:2] = d.view(np.uint8).reshape(nb, 2)
         # dmin ~ 7.5 d centers the weights (E[q] = 7.5, scales/mins alike)
         dmin = (d.astype(np.float32) * 7.5).astype(np.float16)
@@ -142,52 +168,77 @@ def random_blocks(rng, ggml_type, n: int, k: int) -> np.ndarray:
     elif ggml_type == GGMLType.Q8_0:
         d = rng.uniform(0.5e-4, 1.5e-4, nb).astype(np.float16)
         raw[:, 0:2] = d.view(np.uint8).reshape(nb, 2)
+    elif ggml_type == GGMLType.Q6_K:
+        # int8 sub-block scales in [4, 12] and d ~ 1e-4: q in [-32, 31]
+        # gives weight std ~0.015, as the Q4_K blocks above
+        raw[:, 192:208] = rng.integers(4, 13, size=(nb, 16), dtype=np.uint8)
+        d = (rng.uniform(0.7e-4, 1.3e-4, nb) * std_scale).astype(np.float16)
+        raw[:, 208:210] = d.view(np.uint8).reshape(nb, 2)
     else:
         raise ValueError(ggml_type)
     return raw.reshape(-1)
 
 
-def write_tinyllama_gguf(path: str, seed: int) -> None:
+def write_llama_gguf(path: str, hp: dict, seed: int) -> None:
+    """A llama-arch GGUF of geometry hp from seeded random block bytes:
+    Q4_K matmul tensors and F32 norms; with hp["n_expert"], Mixtral's
+    layout as llama.cpp writes it (F32 router, Q4_K gate/up expert stacks,
+    ffn_down_exps Q6_K on even layers and Q4_K on odd ones, as a Q4_K_M
+    file mixes them)."""
     from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
-    hp = TINYLLAMA
     rng = np.random.default_rng(seed)
     c, hq, hkv, d = hp["n_embd"], hp["n_head"], hp["n_head_kv"], hp["head_dim"]
     v, ff, n_layer = hp["n_vocab"], hp["n_ff"], hp["n_layer"]
+    n_exp = hp.get("n_expert", 0)
+    std_scale = hp.get("weight_std_scale", 1.0)
     w = GGUFWriter(path, arch="llama")
-    for key, val in {
-            "llama.context_length": 2048, "llama.embedding_length": c,
+    meta = {"llama.context_length": 2048, "llama.embedding_length": c,
             "llama.block_count": n_layer, "llama.attention.head_count": hq,
             "llama.attention.head_count_kv": hkv,
             "llama.attention.key_length": d, "llama.attention.value_length": d,
             "llama.feed_forward_length": ff, "llama.rope.dimension_count": d,
-            "llama.rope.freq_base": 10000.0,
+            "llama.rope.freq_base": hp.get("rope_base", 10000.0),
             "llama.attention.layer_norm_rms_epsilon": 1e-5,
-            "llama.vocab_size": v}.items():
+            "llama.vocab_size": v}
+    if n_exp:
+        meta.update({"llama.expert_count": n_exp,
+                     "llama.expert_used_count": hp["n_expert_used"]})
+    for key, val in meta.items():
         w.add_kv(key, val)
 
-    def q4k(name, n, k):
-        w.add_tensor(name, random_blocks(rng, GGMLType.Q4_K, n, k),
-                     ggml_type=GGMLType.Q4_K, raw_ggml_shape=(k, n))
+    def quant(name, n, k, e=1, gt=GGMLType.Q4_K):
+        shape = (k, n) if e == 1 else (k, n, e)
+        w.add_tensor(name, random_blocks(rng, gt, n * e, k, std_scale),
+                     ggml_type=gt, raw_ggml_shape=shape)
 
     def norm(name):
         w.add_tensor(name, 1.0 + 0.05 * rng.standard_normal(c).astype(np.float32))
 
-    q4k("token_embd.weight", v, c)
+    quant("token_embd.weight", v, c)
     norm("output_norm.weight")
-    q4k("output.weight", v, c)
+    quant("output.weight", v, c)
     for i in range(n_layer):
         p = f"blk.{i}."
         norm(p + "attn_norm.weight")
-        q4k(p + "attn_q.weight", hq * d, c)
-        q4k(p + "attn_k.weight", hkv * d, c)
-        q4k(p + "attn_v.weight", hkv * d, c)
-        q4k(p + "attn_output.weight", c, hq * d)
+        quant(p + "attn_q.weight", hq * d, c)
+        quant(p + "attn_k.weight", hkv * d, c)
+        quant(p + "attn_v.weight", hkv * d, c)
+        quant(p + "attn_output.weight", c, hq * d)
         norm(p + "ffn_norm.weight")
-        q4k(p + "ffn_gate.weight", ff, c)
-        q4k(p + "ffn_up.weight", ff, c)
-        q4k(p + "ffn_down.weight", c, ff)
+        if n_exp:
+            # router logits of std ~3 over the experts
+            w.add_tensor(p + "ffn_gate_inp.weight", 0.05 * rng.standard_normal(
+                (n_exp, c)).astype(np.float32))
+            quant(p + "ffn_gate_exps.weight", ff, c, n_exp)
+            quant(p + "ffn_up_exps.weight", ff, c, n_exp)
+            quant(p + "ffn_down_exps.weight", c, ff, n_exp,
+                  GGMLType.Q6_K if i % 2 == 0 else GGMLType.Q4_K)
+        else:
+            quant(p + "ffn_gate.weight", ff, c)
+            quant(p + "ffn_up.weight", ff, c)
+            quant(p + "ffn_down.weight", c, ff)
     w.write()
 
 
@@ -223,7 +274,7 @@ def phase_build() -> None:
         regs = [int(tok) for line in text.splitlines() if "registers" in line
                 for tok in [line.split("Used ")[1].split(" registers")[0]]]
         spills = [line.strip() for line in text.splitlines()
-                  if "spill" in line and not line.strip().startswith(
+                  if "spill" in line and not line.strip().endswith(
                       "0 bytes spill stores, 0 bytes spill loads")]
         summary[name] = {"functions": len(regs), "max_registers": max(regs or [0]),
                          "spill_lines": spills[:4]}
@@ -259,7 +310,7 @@ class KernelChecks:
         self.failures = []
 
     def _row(self, kernel, shape, out_k, out_p, gate, fn_k, fn_p, fn_lib,
-             nbytes, flops):
+             nbytes, flops, library=None):
         torch = self.torch
         a = out_k.float().reshape(out_p.shape)
         b = out_p.float()
@@ -271,6 +322,8 @@ class KernelChecks:
                "ms": self.timer(fn_k), "plain_ms": self.timer(fn_p, iters=5),
                "library_ms": self.timer(fn_lib), "bound_ms": b_ms,
                "bound_by": b_by}
+        if library:
+            row["library"] = library
         emit({"phase": "kernels", **row})
         if not err < gate:
             self.failures.append(shape)
@@ -295,36 +348,126 @@ class KernelChecks:
                          x.numel() * 2 + plane_bytes + m * n_full * 4,
                          2.0 * m * k * n_full)
 
+    def gmm(self, label, kind, qt, m, top_k=2):
+        """K4 on a stacked expert plane at m tokens routed top_k of E by
+        softmax over random router logits, as moe_ffn routes them."""
+        from llama_cpp_test_tpu_torch.ops import gmm, qmatmul
+
+        torch = self.torch
+        e, k, npk = qt.qs.shape
+        logits = torch.from_numpy(self.rng.standard_normal((m, e)).astype(
+            np.float32)).to("cuda")
+        topv, topi = torch.topk(torch.softmax(logits, -1), top_k, dim=-1)
+        tile_m = gmm.TILE_GEMV if m * top_k <= 256 else gmm.TILE_GEMM
+        rt = gmm.route_tokens(topi, topv / topv.sum(-1, keepdim=True),
+                              n_expert_local=e, tile_m=tile_m)
+        x = torch.from_numpy(self.rng.standard_normal((m, k)).astype(
+            np.float32)).to("cuda").to(torch.bfloat16)
+        xs = x[rt.tok_idx.long()].contiguous()
+        fn_k = lambda: gmm._planes_cuda(xs, qt, rt, tile_m)
+        fn_p = lambda: gmm._planes_plain(xs, qt, rt, tile_m)
+        # the bound counts the experts this routing reads, once each
+        routed = torch.unique(topi).numel()
+        plane_bytes = sum(t.numel() * t.element_size() for t in
+                          (qt.qs, qt.scale, qt.min_) if t is not None)
+        w_all = torch.stack([qmatmul._dequant_t(
+            qt.qs[i], qt.scale[i], None if qt.min_ is None else qt.min_[i],
+            None, kind=qt.kind, group=qt.group) for i in range(e)])
+        fn_lib, lib_name = _grouped_yardstick(torch, x, topi, w_all)
+        row = self._row(
+            "gmm_gemv" if tile_m == gmm.TILE_GEMV else "gmm_gemm",
+            f"{label} {kind} M={m} top{top_k}/{e} K={k} N={qt.shape[0]} "
+            f"tile_m={tile_m} routed={routed}",
+            fn_k(), fn_p(), GMM_GATE, fn_k, fn_p, fn_lib,
+            m * k * 2 + plane_bytes * routed // e + m * top_k * qt.shape[0] * 4,
+            2.0 * m * top_k * k * qt.shape[0], library=lib_name)
+        del w_all
+        return row
+
+    def gmm_reread(self, qt):
+        """Do row tiles of one expert re-read its planes from L2 or from
+        HBM? K4's decode variant over tiles of one live row (the decode
+        regime, bound by bytes): (one) one tile of expert 0; (same) eight
+        tiles, all expert 0; (spread) eight tiles on eight experts. A tile
+        that reads HBM adds one expert's plane bytes / 3.35 TB/s; a tile
+        served by L2 adds less."""
+        from llama_cpp_test_tpu_torch.ops import gmm
+
+        torch = self.torch
+        e, k, _ = qt.qs.shape
+        cases = {"one": [0], "same": [0] * 8, "spread": list(range(8))}
+        out = {"phase": "kernels", "probe": "gmm_reread",
+               "shape": f"K={k} N={qt.shape[0]} kind={qt.kind} tile_m=8, "
+                        "one live row per tile",
+               "expert_plane_bytes": sum(
+                   t[0].numel() * t.element_size()
+                   for t in (qt.qs, qt.scale, qt.min_) if t is not None)}
+        for name, experts in cases.items():
+            t = len(experts)
+            i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+            rt = gmm.Routing(i32([0] * (8 * t)),
+                             torch.zeros(8 * t, device="cuda"),
+                             i32(experts), i32([1] * t))
+            xs = torch.from_numpy(self.rng.standard_normal((8 * t, k)).astype(
+                np.float32)).to("cuda").to(torch.bfloat16)
+            fn = lambda: gmm._planes_cuda(xs, qt, rt, gmm.TILE_GEMV)
+            err = nmse(gmm._planes_plain(xs, qt, rt, gmm.TILE_GEMV).cpu(),
+                       fn().cpu())
+            check(err < GMM_GATE, f"gmm_reread {name}: NMSE {err}")
+            out[f"{name}_ms"] = self.timer(fn)
+        emit(out)
+        return out
+
     def _pool(self, kvh, nb, bs, d):
         return torch_bf16(self.torch, self.rng.standard_normal((kvh, nb, bs, d)) * 0.5)
 
-    def paged_decode(self, hp, b, bs=16, nbmax=32):
+    def paged_decode(self, hp, b, bs=16, nbmax=32, q8=False):
+        """K3 over bf16 pages, or over q8_0 pages (int8 + f32 slot
+        scales) with q8=True."""
         from llama_cpp_test_tpu_torch.ops import flash_prefill as fp
         from llama_cpp_test_tpu_torch.ops import paged_attention as pa
+        from llama_cpp_test_tpu_torch.runtime import kv_cache
 
         torch, rng = self.torch, self.rng
         h, kvh, d = hp["n_head"], hp["n_head_kv"], hp["head_dim"]
         nb = b * nbmax + 4
         kpool, vpool = self._pool(kvh, nb, bs, d), self._pool(kvh, nb, bs, d)
+        scales = {}
+        if q8:
+            (kq, ks), (vq, vs) = (kv_cache.quantize_q8(kpool),
+                                  kv_cache.quantize_q8(vpool))
+            scales = {"k_scale": ks, "v_scale": vs}
+            kpool, vpool = kq, vq
         table = torch.from_numpy(rng.permutation(nb)[: b * nbmax]
                                  .reshape(b, nbmax).astype(np.int32)).to("cuda")
         lens_np = rng.integers(200, 500, size=b).astype(np.int32)
         lens = torch.from_numpy(lens_np).to("cuda")
         q = torch_bf16(torch, rng.standard_normal((b, h, d)) / 8)
-        fn_k = lambda: pa.paged_attention_decode(q, kpool, vpool, lens, table)
-        fn_p = lambda: pa.paged_attention_decode_plain(q, kpool, vpool, lens, table)
+        fn_k = lambda: pa.paged_attention_decode(q, kpool, vpool, lens, table,
+                                                 **scales)
+        fn_p = lambda: pa.paged_attention_decode_plain(q, kpool, vpool, lens,
+                                                       table, **scales)
         s = nbmax * bs
         mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        lk, lv = _sdpa_kv(fp, kpool, vpool, table, h // kvh)
+        if q8:
+            lk, lv = (kv_cache.gather_kv_q8(p, sc, table).permute(0, 2, 1, 3)
+                      .repeat_interleave(h // kvh, dim=1).contiguous()
+                      for p, sc in ((kpool, scales["k_scale"]),
+                                    (vpool, scales["v_scale"])))
+        else:
+            lk, lv = _sdpa_kv(fp, kpool, vpool, table, h // kvh)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lq = q[:, :, None, :]
         n_keys = int(lens_np.sum())
+        # bytes per key or value row: D elements, plus its f32 scale (q8)
+        row_bytes = d + 4 if q8 else 2 * d
         return self._row(
-            "paged_decode",
+            "paged_decode_q8" if q8 else "paged_decode",
             f"B={b} H={h} KV={kvh} D={d} BS={bs} lens={lens_np.tolist()}",
             fn_k(), fn_p(), ATTN_GATE, fn_k, fn_p,
             lambda: sdpa(lq, lk, lv, attn_mask=mask, scale=1.0),
-            2 * q.numel() * 2 + n_keys * kvh * d * 2 * 2, 4.0 * d * h * n_keys)
+            2 * q.numel() * 2 + n_keys * kvh * row_bytes * 2,
+            4.0 * d * h * n_keys)
 
     def flash_prefill(self, hp, t=512, start=0, bs=16):
         """A chunk of t tokens at positions start.. over a cache that holds
@@ -357,6 +500,61 @@ class KernelChecks:
             2 * q.numel() * 2 + n * kvh * d * 2 * 2, 4.0 * d * h * pairs)
 
 
+def _grouped_yardstick(torch, x, topi, w_all):
+    """One library call computing the grouped product on pre-dequantized
+    bf16 experts w_all [E, K, N]: torch._grouped_mm over the routed rows
+    sorted by expert where the installed torch has it, else the per-expert
+    torch.matmul calls (timed together). Returns (callable, label)."""
+    e = w_all.shape[0]
+    m, top_k = topi.shape
+    flat = topi.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    a = x[torch.arange(m, device=x.device).repeat_interleave(top_k)[order]]
+    counts = torch.bincount(flat, minlength=e)
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    gmm_fn = getattr(torch, "_grouped_mm", None)
+    if gmm_fn is not None:
+        for b in (w_all, w_all.transpose(1, 2).contiguous().transpose(1, 2)):
+            fn = lambda b=b: gmm_fn(a, b, offs=offs)
+            try:
+                fn()
+                torch.cuda.synchronize()
+                return fn, "torch._grouped_mm"
+            except (RuntimeError, TypeError, ValueError):
+                continue
+    bounds = [0] + torch.cumsum(counts, 0).tolist()
+    segs = [(a[bounds[i]:bounds[i + 1]], w_all[i]) for i in range(e)
+            if bounds[i + 1] > bounds[i]]
+    return (lambda: [torch.matmul(xa, w) for xa, w in segs],
+            "sum of per-expert torch.matmul")
+
+
+def _expert_planes(torch, rng, kind: str, e: int, n: int, k: int):
+    """Stacked expert planes [E, ...] on the card with the layout of the
+    loader's _repack_3d: 'u4+min' as Q4_K repacks (u4 nibbles, group 32,
+    bf16 scale and min), 'int8' as Q6_K (int8 in [-32, 31], group 16).
+    Drawn on the device: the kernel checks need the shapes and value
+    ranges, and host repacking of 16 Mixtral experts costs minutes."""
+    from llama_cpp_test_tpu_torch.quant.repack import QTensor
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(rng.integers(1 << 30)))
+    pack, group = (2, 32) if kind == "u4+min" else (1, 16)
+    npk = n // pack
+    if pack == 2:
+        qs = torch.randint(0, 256, (e, k, npk), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    else:
+        qs = torch.randint(-32, 32, (e, k, npk), generator=g, device="cuda",
+                           dtype=torch.int8)
+    planes = (e, pack, k // group, npk)
+    scale = (torch.rand(planes, generator=g, device="cuda") * 1e-3 + 5e-4) \
+        .to(torch.bfloat16)
+    min_ = (scale.float() * 7.5).to(torch.bfloat16) if pack == 2 else None
+    return QTensor("u4" if pack == 2 else "int8", (n, k), n, group, qs,
+                   scale, min_)
+
+
 def torch_bf16(torch, a: np.ndarray):
     return torch.from_numpy(a.astype(np.float32)).to("cuda").to(torch.bfloat16)
 
@@ -374,7 +572,8 @@ def phase_kernels(torch, timer) -> dict:
     and Q8_0 (int8) at M in {1, 512}, decode attention at B in {1, 8},
     prefill attention at T = 512 and for a chunk after a cached prefix.
     Llama-3-8B (config #2): the widest projections and both attentions at
-    D = 128, G = 4."""
+    D = 128, G = 4. Mixtral-8x7B (config #4): K4 on both expert
+    projections, u4+min and int8, and K3 over q8_0 pages."""
     from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_test_tpu_torch.weights import qtensor_to_torch
 
@@ -402,97 +601,166 @@ def phase_kernels(torch, timer) -> dict:
             kc.qmm("8B " + label, "u4+min", qt, m)
     kc.paged_decode(LLAMA3_8B, 8)
     kc.flash_prefill(LLAMA3_8B)
+    # Mixtral-8x7B: K4 on the expert stacks of gate/up (K=4096, N=14336)
+    # and down (K=14336, N=4096) at M = 1 and 8 (decode, tile_m 8) and 512
+    # (prefill, tile_m 64); K3 over q8_0 pages at Mixtral's geometry
+    c, ff, e = MIXTRAL["n_embd"], MIXTRAL["n_ff"], MIXTRAL["n_expert"]
+    for kind in ("u4+min", "int8"):
+        for label, n, k in (("gate/up", ff, c), ("down", c, ff)):
+            qt = _expert_planes(torch, rng, kind, e, n, k)
+            for m in (1, 8, 512):
+                row = kc.gmm("Mixtral " + label, kind, qt, m)
+                if label == "gate/up" and kind == "u4+min" and m != 8:
+                    rep[row["kernel"]] = row
+            if label == "gate/up":
+                kc.gmm_reread(qt)
+            del qt
+    rep["paged_decode_q8"] = kc.paged_decode(MIXTRAL, 8, q8=True)
+    kc.paged_decode(MIXTRAL, 1, q8=True)
     check(not kc.failures, f"kernels outside their gate: {kc.failures}")
     return rep
 
 
-def _plane_bytes(w) -> int:
-    """Bytes one decode token must read: every matmul plane (the lm head
-    and all layer projections) once; the embedding row gather is ~0."""
-    qts = [w.output] + [getattr(lw, f) for lw in w.layers
-                        for f in ("wqkv", "wq", "wk", "wv", "wo", "w_gateup",
-                                  "w_gate", "w_up", "w_down")]
-    return int(sum(t.numel() * t.element_size() for qt in qts if qt is not None
-                   for t in (qt.qs, qt.scale, qt.min_) if t is not None))
+def _decode_plane_bytes(w, hp) -> int:
+    """Bytes one decode token (B = 1) must read: every dense matmul plane
+    (the lm head and the layer projections) once, and per MoE layer the
+    planes of the n_expert_used routed experts only (top-2 of 8 for
+    Mixtral), not the whole stacks. The embedding row gather is ~0."""
+    size = lambda qt: sum(t.numel() * t.element_size()
+                          for t in (qt.qs, qt.scale, qt.min_) if t is not None)
+    total = size(w.output)
+    for lw in w.layers:
+        for f in ("wqkv", "wq", "wk", "wv", "wo", "w_gateup", "w_gate",
+                  "w_up", "w_down", "gate_inp"):
+            if getattr(lw, f) is not None:
+                total += size(getattr(lw, f))
+        for f in ("gate_exps", "up_exps", "down_exps"):
+            if getattr(lw, f) is not None:
+                qt = getattr(lw, f)
+                total += size(qt) * hp.n_expert_used // qt.qs.shape[0]
+    return int(total)
 
 
-def phase_serve(torch, profile: bool = False) -> dict:
+def _serve_requests(torch, ctx, prompts, n_vocab, batch: int) -> list:
+    """Three generate() requests one after another, then one batched decode
+    step of `batch` sequences (short prompts). Returns per-request rates."""
+    from llama_cpp_test_tpu_torch.runtime.engine import generate
+
+    requests = []
+    for p in prompts:
+        t0 = time.time()
+        gen = generate(ctx, p, 32)
+        toks = [next(gen)]
+        t_first = time.time()
+        toks.extend(gen)
+        t_end = time.time()
+        check(len(toks) == 32, f"generate gave {len(toks)} tokens")
+        requests.append({"prompt": len(p), "new": len(toks),
+                         "prefill_tok_s": len(p) / (t_first - t0),
+                         "decode_tok_s": (len(toks) - 1) / (t_end - t_first)})
+    seqs = [ctx.new_seq() for _ in range(batch)]
+    last = [ctx.prefill(s, prompts[i % 2][: 16 + 8 * i])
+            for i, s in enumerate(seqs)]
+    t0 = time.time()
+    out = ctx.decode(seqs, [int(np.argmax(l)) for l in last])
+    torch.cuda.synchronize()
+    requests.append({"batched_decode_rows": batch,
+                     "step_ms": (time.time() - t0) * 1e3})
+    check(out.shape == (batch, n_vocab) and np.isfinite(out).all(),
+          "batched decode logits not finite / wrong shape")
+    for s in seqs:
+        ctx.free_seq(s)
+    return requests
+
+
+def _kernels_vs_plain(model, prompt, **ctx_kw) -> dict:
+    """Logits of one prefill and four decode steps on the same tokens,
+    through the kernels and through the plain path."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    ctx_k = Context(model, n_ctx=1024, n_seq_max=2, block_size=16, **ctx_kw)
+    ctx_p = Context(model, n_ctx=1024, n_seq_max=2, block_size=16, plain=True,
+                    **ctx_kw)
+    sk, sp = ctx_k.new_seq(), ctx_p.new_seq()
+    lk, lp = ctx_k.prefill(sk, prompt), ctx_p.prefill(sp, prompt)
+    checks = {"prefill": nmse(lp, lk)}
+    for i in range(4):
+        tok = int(np.argmax(lk))
+        lk = ctx_k.decode([sk], [tok])[0]
+        lp = ctx_p.decode([sp], [tok])[0]
+        checks[f"decode{i}"] = nmse(lp, lk)
+        check(np.isfinite(lk).all(), "decode logits not finite")
+    return checks
+
+
+def _serve(torch, name, hp, seed, kv_types, batch, path_kernels, profile):
+    """Synthesize the GGUF, load it with Model(path) on cuda, serve every
+    KV type's Context with the launch counts zeroed just before and read
+    just after, then hold the kernels against the plain path."""
     from llama_cpp_test_tpu_torch.ops import _cuda
-    from llama_cpp_test_tpu_torch.runtime.engine import Context, Model, generate
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        path = os.path.join(tmp, "tinyllama_q4k.gguf")
+        path = os.path.join(tmp, f"{name}.gguf")
         t0 = time.time()
-        write_tinyllama_gguf(path, seed=7)
+        write_llama_gguf(path, hp, seed=seed)
         write_s = time.time() - t0
         model = Model(path, device="cuda")
-        ctx = Context(model, n_ctx=1024, n_seq_max=4, block_size=16)
+        os.remove(path)
         rng = np.random.default_rng(11)
-        prompts = [rng.integers(3, TINYLLAMA["n_vocab"], size=n).tolist()
+        prompts = [rng.integers(3, hp["n_vocab"], size=n).tolist()
                    for n in (16, 130, 512)]
         torch.cuda.synchronize()
         _cuda.reset_launches()
-        requests = []
-        for p in prompts:
-            t0 = time.time()
-            gen = generate(ctx, p, 32)
-            toks = [next(gen)]
-            t_first = time.time()
-            toks.extend(gen)
-            t_end = time.time()
-            check(len(toks) == 32, f"generate gave {len(toks)} tokens")
-            requests.append({"prompt": len(p), "new": len(toks),
-                             "prefill_tok_s": len(p) / (t_first - t0),
-                             "decode_tok_s": (len(toks) - 1) / (t_end - t_first)})
-        s1, s2 = ctx.new_seq(), ctx.new_seq()
-        l1 = ctx.prefill(s1, prompts[0])
-        l2 = ctx.prefill(s2, prompts[1][:40])
-        batch = ctx.decode([s1, s2], [int(np.argmax(l1)), int(np.argmax(l2))])
+        requests = {}
+        for kv in kv_types:
+            ctx = Context(model, n_ctx=1024, n_seq_max=batch, block_size=16,
+                          kv_type=kv)
+            requests[kv] = _serve_requests(torch, ctx, prompts, hp["n_vocab"],
+                                           batch)
+            del ctx
         torch.cuda.synchronize()
         launches = dict(_cuda.LAUNCHES)
-        check(batch.shape == (2, TINYLLAMA["n_vocab"]) and np.isfinite(batch).all(),
-              "batched decode logits not finite / wrong shape")
-        check(all(v > 0 for v in launches.values()),
-              f"a kernel was not launched on the main path: {launches}")
-        ctx.free_seq(s1)
-        ctx.free_seq(s2)
-
-        # the same tokens through the kernels and through the plain path
-        ctx_k = Context(model, n_ctx=1024, n_seq_max=2, block_size=16)
-        ctx_p = Context(model, n_ctx=1024, n_seq_max=2, block_size=16, plain=True)
-        sk, sp = ctx_k.new_seq(), ctx_p.new_seq()
-        lk, lp = ctx_k.prefill(sk, prompts[1]), ctx_p.prefill(sp, prompts[1])
-        checks = [("prefill", nmse(lp, lk))]
-        for i in range(4):
-            tok = int(np.argmax(lk))
-            lk = ctx_k.decode([sk], [tok])[0]
-            lp = ctx_p.decode([sp], [tok])[0]
-            checks.append((f"decode{i}", nmse(lp, lk)))
-            check(np.isfinite(lk).all(), "decode logits not finite")
-        bad = [c for c in checks if not c[1] < LOGITS_GATE]
-        plane_bytes = _plane_bytes(model.weights)
-        out = {"phase": "serve", "n_layer": TINYLLAMA["n_layer"], "write_gguf_s": write_s,
+        missing = [k for k in path_kernels if launches[k] <= 0]
+        check(not missing, f"{name}: kernels not launched on the path: "
+                           f"{missing} ({launches})")
+        checks = {kv: _kernels_vs_plain(model, prompts[1], kv_type=kv)
+                  for kv in kv_types}
+        bad = [(kv, c, v) for kv, cs in checks.items() for c, v in cs.items()
+               if not v < LOGITS_GATE]
+        plane_bytes = _decode_plane_bytes(model.weights, model.hp)
+        out = {"phase": name, "n_layer": hp["n_layer"], "write_gguf_s": write_s,
                "load_s": model.load_seconds,
                "decode_weight_bytes": plane_bytes,
                "decode_bound_tok_s": PEAK_BYTES / plane_bytes,
-               "requests": requests,
-               "batched_decode_rows": 2, "launches": launches,
-               "plain_vs_kernel_nmse": dict(checks), "gate": LOGITS_GATE}
+               "requests": requests, "launches": launches,
+               "plain_vs_kernel_nmse": checks, "gate": LOGITS_GATE}
         emit(out)
         check(not bad, f"logits outside the gate: {bad}")
         if profile:
-            phase_profile(torch, model)
+            for kv in kv_types:
+                phase_profile(torch, model, hp["n_vocab"], f"{name}/{kv}", kv)
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_serve(torch, profile: bool = False) -> dict:
+    return _serve(torch, "serve", TINYLLAMA, 7, ("bf16",), 2, DENSE_PATH,
+                  profile)
+
+
+def phase_serve_moe(torch, profile: bool = False) -> dict:
+    return _serve(torch, "serve_moe", MIXTRAL, 8, ("bf16", "q8_0"), 8,
+                  MOE_PATH, profile)
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "flash_prefill_kernel",
-                 "paged_decode_kernel")
+                 "paged_decode_kernel", "gmm_gemv_kernel", "gmm_gemm_kernel")
 
 
-def phase_profile(torch, model) -> dict:
+def phase_profile(torch, model, n_vocab, label, kv_type) -> dict:
     """torch.profiler over 8 decode steps (after a 130-token prefill) and
     over one 512-token prefill: wall time, device busy time, idle share,
     the port's kernels' share and the top device kernels."""
@@ -501,9 +769,10 @@ def phase_profile(torch, model) -> dict:
 
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
-    ctx = Context(model, n_ctx=1024, n_seq_max=2, block_size=16)
+    ctx = Context(model, n_ctx=1024, n_seq_max=2, block_size=16,
+                  kv_type=kv_type)
     rng = np.random.default_rng(5)
-    prompt = rng.integers(3, TINYLLAMA["n_vocab"], size=512).tolist()
+    prompt = rng.integers(3, n_vocab, size=512).tolist()
     s = ctx.new_seq()
     logits = ctx.prefill(s, prompt[:130])
     logits = ctx.decode([s], [int(np.argmax(logits))])[0]   # warm-up
@@ -516,7 +785,7 @@ def phase_profile(torch, model) -> dict:
 
     runs = {"decode_8_steps": decode8,
             "prefill_512": lambda: ctx.prefill(s2, prompt)}
-    out = {"phase": "profile"}
+    out = {"phase": "profile", "path": label}
     for name, fn in runs.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -552,8 +821,8 @@ def phase_profile(torch, model) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after serving, profile decode steps and a 512-token "
-                         "prefill with torch.profiler")
+                    help="after each serve phase, profile decode steps and a "
+                         "512-token prefill with torch.profiler")
     args = ap.parse_args()
     try:
         import torch
@@ -578,16 +847,22 @@ def main() -> int:
         phase_build()
         timer = Timer(torch)
         rep = phase_kernels(torch, timer)
-        serve = phase_serve(torch, args.profile)
+        serves = {"serve": phase_serve(torch, args.profile),
+                  "serve_moe": phase_serve_moe(torch, args.profile)}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     kernels = []
     for name, (src, replaces) in TPU_KERNELS.items():
         r = rep[name]
+        # launches: the path of the slice that ported the kernel (dense for
+        # K1-K3, MoE for K4 and K3-q8); launches_by_path: every path
+        own = "serve" if name in DENSE_PATH else "serve_moe"
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "shape": r["shape"],
-                        "launches": serve["launches"][name],
+                        "launches": serves[own]["launches"][name],
+                        "launches_by_path": {p: v["launches"][name]
+                                             for p, v in serves.items()},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

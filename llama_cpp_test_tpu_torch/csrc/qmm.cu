@@ -25,16 +25,14 @@
 // cp.async/TMA pipelining, no wgmma; those are later work.
 #include <mma.h>
 
-#include "common.cuh"
+#include "qmm_gemv.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// GEMV (decode, M <= 8)
-
-constexpr int GEMV_WARPS = 4;
+// GEMV (decode, M <= 8): the body lives in qmm_gemv.cuh (K4 shares it)
 
 template <int KIND, int MT, bool HAS_MIN>
 __global__ void __launch_bounds__(32 * GEMV_WARPS)
@@ -43,107 +41,10 @@ qmm_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                 const __nv_bfloat16* __restrict__ scale,
                 const __nv_bfloat16* __restrict__ minp, int group,
                 float* __restrict__ out, int rows_per_warp) {
-  constexpr int PACK = KIND == 1 ? 2 : 1;
-  constexpr int NO = 4 * PACK;  // outputs per thread per row
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int j0 = (blockIdx.x * 32 + lane) * 4;  // first packed column
-  const int G = K / group;
-  const int k_begin = (blockIdx.y * GEMV_WARPS + warp) * rows_per_warp;
-  const int k_end = min(K, k_begin + rows_per_warp);
-
-  const __nv_bfloat16* xr[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) xr[m] = x + (size_t)min(m, M - 1) * K;
-
-  float acc[MT][NO];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int o = 0; o < NO; ++o) acc[m][o] = 0.f;
-
-  for (int kg = k_begin; kg < k_end; kg += group) {
-    const int g = kg / group;
-    float part[MT][NO];
-    float xs[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      xs[m] = 0.f;
-#pragma unroll
-      for (int o = 0; o < NO; ++o) part[m][o] = 0.f;
-    }
-#pragma unroll 4
-    for (int k = kg; k < kg + group; ++k) {
-      const uint32_t w =
-          __ldg(reinterpret_cast<const uint32_t*>(qs + (size_t)k * npk + j0));
-      float qv[NO];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const uint32_t byte = (w >> (8 * c)) & 0xffu;
-        if constexpr (KIND == 0) {
-          qv[c] = (float)(int8_t)byte;
-        } else {
-          qv[c] = (float)(byte & 0xfu);
-          qv[4 + c] = (float)(byte >> 4);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xv = bf2f(xr[m][k]);
-        if constexpr (HAS_MIN) xs[m] += xv;
-#pragma unroll
-        for (int o = 0; o < NO; ++o) part[m][o] = fmaf(xv, qv[o], part[m][o]);
-      }
-    }
-    float sv[NO], mv[NO];
-#pragma unroll
-    for (int h = 0; h < PACK; ++h) {
-      const size_t off = ((size_t)h * G + g) * npk + j0;
-      const uint2 su = __ldg(reinterpret_cast<const uint2*>(scale + off));
-      const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(&su);
-      float2 a = __bfloat1622float2(s2[0]), b = __bfloat1622float2(s2[1]);
-      sv[h * 4 + 0] = a.x; sv[h * 4 + 1] = a.y;
-      sv[h * 4 + 2] = b.x; sv[h * 4 + 3] = b.y;
-      if constexpr (HAS_MIN) {
-        const uint2 mu = __ldg(reinterpret_cast<const uint2*>(minp + off));
-        const __nv_bfloat162* m2 = reinterpret_cast<const __nv_bfloat162*>(&mu);
-        a = __bfloat1622float2(m2[0]);
-        b = __bfloat1622float2(m2[1]);
-        mv[h * 4 + 0] = a.x; mv[h * 4 + 1] = a.y;
-        mv[h * 4 + 2] = b.x; mv[h * 4 + 3] = b.y;
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int o = 0; o < NO; ++o) {
-        acc[m][o] = fmaf(sv[o], part[m][o], acc[m][o]);
-        if constexpr (HAS_MIN) acc[m][o] = fmaf(-mv[o], xs[m], acc[m][o]);
-      }
-  }
-
-  // reduce the four warps' partial sums, then one add (or atomicAdd when
-  // K is split across blocks) per output
-  __shared__ float red[GEMV_WARPS][MT * NO][32];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int o = 0; o < NO; ++o) red[warp][m * NO + o][lane] = acc[m][o];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < MT * NO * 32; idx += 32 * GEMV_WARPS) {
-    const int mo = idx >> 5, l = idx & 31;
-    const int m = mo / NO, o = mo % NO;
-    if (m >= M) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < GEMV_WARPS; ++w) s += red[w][mo][l];
-    const int h = o / 4, c = o % 4;
-    float* dst = out + ((size_t)m * PACK + h) * npk + (blockIdx.x * 32 + l) * 4 + c;
-    if (gridDim.y == 1)
-      *dst = s;
-    else
-      atomicAdd(dst, s);
-  }
+  __shared__ float red[gemv_red_floats<KIND, MT>()];
+  qmm_gemv_tile<KIND, MT, HAS_MIN>(x, M, K, qs, npk, scale, minp, group, out,
+                                   rows_per_warp, red, blockIdx.x, blockIdx.y,
+                                   gridDim.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -284,17 +185,6 @@ qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
   }
 }
 
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return sms;
-}
-
 template <int KIND, int MT>
 void launch_gemv_mt(dim3 grid, const __nv_bfloat16* x, int M, int K,
                     const uint8_t* qs, int npk, const __nv_bfloat16* sc,
@@ -336,13 +226,8 @@ PORT_API int qmm_gemv(const void* x, int M, int K, const void* qs, int npk,
   cudaStream_t st = (cudaStream_t)stream;
   const int pack = kind == 1 ? 2 : 1;
   const int nbx = npk / 128;
-  const int groups = K / group;
-  // split K so the grid covers the card about twice; each warp takes a
-  // whole number of groups
-  int ky = (2 * num_sms() + nbx - 1) / nbx;
-  ky = max(1, min(ky, (groups + GEMV_WARPS - 1) / GEMV_WARPS));
-  const int gpw = (groups + GEMV_WARPS * ky - 1) / (GEMV_WARPS * ky);
-  ky = (groups + GEMV_WARPS * gpw - 1) / (GEMV_WARPS * gpw);
+  int rpw = 0;
+  const int ky = gemv_k_split(K, group, nbx, num_sms(), &rpw);
   if (ky > 1)
     cudaMemsetAsync(out, 0, (size_t)M * pack * npk * sizeof(float), st);
   dim3 grid(nbx, ky);
@@ -351,10 +236,10 @@ PORT_API int qmm_gemv(const void* x, int M, int K, const void* qs, int npk,
   auto mn = (const __nv_bfloat16*)minp;
   if (kind == 0)
     launch_gemv<0>(grid, xb, M, K, (const uint8_t*)qs, npk, sc, mn, group,
-                   (float*)out, gpw * group, st);
+                   (float*)out, rpw, st);
   else
     launch_gemv<1>(grid, xb, M, K, (const uint8_t*)qs, npk, sc, mn, group,
-                   (float*)out, gpw * group, st);
+                   (float*)out, rpw, st);
   return launch_status();
 }
 

@@ -1,9 +1,10 @@
 """Model hyperparameters parsed from GGUF metadata.
 
-Counterpart of llama_cpp_test_tpu/models/hparams.py, trimmed to the dense
-llama decoder of this slice. Fields that select paths the port does not
-carry yet (MoE, sliding window, softcaps) are parsed so the loader can
-refuse them instead of running a different model.
+Counterpart of llama_cpp_test_tpu/models/hparams.py, trimmed to the llama
+decoder of this port: dense, or Mixtral-style MoE with softmax top-k
+routing. Fields that select paths the port does not carry yet (sigmoid or
+sparsemixer gating, shared experts, sliding window, softcaps) are parsed
+so the loader can refuse them instead of running a different model.
 """
 from __future__ import annotations
 
@@ -31,7 +32,14 @@ class HParams:
     rope_attn_factor: float = 1.0
     yarn_beta_fast: float = 32.0
     yarn_beta_slow: float = 1.0
+    # MoE
     n_expert: int = 0
+    n_expert_used: int = 0
+    # normalize the selected top-k routing weights (true for mixtral)
+    norm_topk: bool = True
+    n_expert_shared: int = 0
+    expert_weights_scale: float = 1.0  # routed output multiplier
+    expert_gating: str = "softmax"     # softmax | sigmoid | sparsemixer
     sliding_window: int = 0
     attn_scale: float = 0.0     # 0 = default 1/sqrt(head_dim)
     attn_softcap: float = 0.0
@@ -74,6 +82,15 @@ def hparams_from_metadata(md: dict) -> HParams:
         rope_orig_ctx=g("rope.scaling.original_context_length", 0),
         rope_attn_factor=g("rope.scaling.attn_factor", 1.0),
         n_expert=g("expert_count", 0),
+        n_expert_used=g("expert_used_count", 0),
+        norm_topk=(bool(g("expert_weights_norm", False))
+                   if arch == "deepseek2"
+                   else arch not in ("qwen2moe", "olmoe", "deepseek")),
+        n_expert_shared=g("expert_shared_count", 0),
+        expert_weights_scale=g("expert_weights_scale", 1.0),
+        expert_gating=("sparsemixer" if arch == "phimoe"
+                       else "sigmoid" if int(g("expert_gating_func", 1)) == 2
+                       else "softmax"),
         sliding_window=g("attention.sliding_window", 0),
         attn_softcap=g("attn_logit_softcapping", 0.0),
         final_softcap=g("final_logit_softcapping", 0.0),

@@ -1,13 +1,18 @@
-"""Dense LLaMA-family model: GGUF weight loading + forward pass.
+"""LLaMA-family model (dense or Mixtral-style MoE): GGUF weight loading +
+forward pass.
 
-Counterpart of the dense path of llama_cpp_test_tpu/models/llama.py: per
-layer RMSNorm -> fused QKV -> RoPE -> paged attention -> residual ->
-RMSNorm -> fused gate|up -> SwiGLU -> down -> residual; final norm + lm
-head. Loading is numpy (host planes); weights.py moves them to a device.
+Counterpart of the llama and Mixtral paths of
+llama_cpp_test_tpu/models/llama.py: per layer RMSNorm -> fused QKV -> RoPE
+-> paged attention -> residual -> RMSNorm -> FFN -> residual; final norm +
+lm head. The FFN is fused gate|up -> SwiGLU -> down, or, in a MoE layer,
+softmax top-k routing over the experts (moe_ffn) with the grouped expert
+matmul of ops/gmm. Loading is numpy (host planes); weights.py moves them
+to a device.
 
-Every projection goes through ops/qmatmul (kernel K1 on CUDA). `plain=True`
-selects the plain PyTorch version of every kernel instead; it exists so a
-run on the card can be held against the plain path.
+Every dense projection goes through ops/qmatmul (kernel K1 on CUDA), every
+expert projection through ops/gmm (kernel K4). `plain=True` selects the
+plain PyTorch version of every kernel instead; it exists so a run on the
+card can be held against the plain path.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from ..gguf.reader import GGUFReader
+from ..ops import gmm as gmm_mod
 from ..ops import layers
 from ..ops.qmatmul import qgather, qmm, qmm_plain, qmm_split, qmm_split_plain
 from ..quant.repack import QTensor, fuse_qtensors, repack
@@ -31,7 +37,7 @@ class LayerWeights:
     attn_norm: Any
     wo: QTensor
     ffn_norm: Any
-    w_down: QTensor
+    w_down: QTensor | None = None
     # fused q|k|v and gate|up planes, built at load when the source tensors
     # share a quant type; the separate planes otherwise
     wqkv: QTensor | None = None
@@ -41,6 +47,14 @@ class LayerWeights:
     w_gateup: QTensor | None = None
     w_gate: QTensor | None = None
     w_up: QTensor | None = None
+    # MoE (Mixtral): router [n_expert, n_embd] and expert stacks whose
+    # planes carry a leading E axis; gate and up stay separate, as the
+    # reference keeps them (gateup_exps is the fuse_expert_qtensors form)
+    gate_inp: QTensor | None = None
+    gate_exps: QTensor | None = None
+    up_exps: QTensor | None = None
+    down_exps: QTensor | None = None
+    gateup_exps: QTensor | None = None
 
 
 @dataclasses.dataclass
@@ -56,9 +70,12 @@ class LlamaWeights:
 # ---------------------------------------------------------------------------
 # loading
 
+_DENSE_FFN = {"ffn_gate.weight", "ffn_up.weight", "ffn_down.weight"}
+_MOE_FFN = {"ffn_gate_inp.weight", "ffn_gate_exps.weight",
+            "ffn_up_exps.weight", "ffn_down_exps.weight"}
 _LAYER_TENSORS = {"attn_norm.weight", "attn_q.weight", "attn_k.weight",
-                  "attn_v.weight", "attn_output.weight", "ffn_norm.weight",
-                  "ffn_gate.weight", "ffn_up.weight", "ffn_down.weight"}
+                  "attn_v.weight", "attn_output.weight",
+                  "ffn_norm.weight"} | _DENSE_FFN | _MOE_FFN
 _TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight"}
 
 
@@ -75,6 +92,22 @@ def _repack_2d(reader: GGUFReader, name: str,
         row_bytes = raw.size // n
         raw = np.ascontiguousarray(raw.reshape(n, row_bytes)[row_perm])
     return repack(raw, info.ggml_type, n, k, layout=layout, tile_n=tile_n)
+
+
+def _repack_3d(reader: GGUFReader, name: str) -> QTensor:
+    """Expert-stacked tensor, ggml ne = (K, N, E) -> one QTensor whose
+    planes are stacked on a leading E axis."""
+    info = reader.tensors[name]
+    k, n, e = info.shape
+    raw = reader.tensor_bytes(name)
+    per = raw.size // e
+    qts = [repack(raw[i * per:(i + 1) * per], info.ggml_type, n, k)
+           for i in range(e)]
+    q0 = qts[0]
+    stack = lambda xs: None if xs[0] is None else np.stack(xs)
+    return QTensor(q0.kind, q0.shape, q0.n_orig, q0.group,
+                   stack([q.qs for q in qts]), stack([q.scale for q in qts]),
+                   stack([q.min_ for q in qts]), q0.lut, q0.ggml_type)
 
 
 def _unpermute_rows(n_head: int, head_dim: int,
@@ -98,32 +131,48 @@ def _f32(reader: GGUFReader, name: str) -> np.ndarray:
 
 
 def _check_supported(reader: GGUFReader, hp: HParams) -> None:
-    """Refuse what this slice does not carry, instead of running another
+    """Refuse what this port does not carry, instead of running another
     model than the file describes."""
     if hp.arch != "llama":
         raise NotImplementedError(
-            f"arch {hp.arch!r}: this port carries the dense llama decoder")
-    if hp.n_expert:
-        raise NotImplementedError("MoE (expert_count > 0) is not ported yet")
+            f"arch {hp.arch!r}: this port carries the llama decoder (dense "
+            "or Mixtral-style MoE)")
+    if hp.n_expert and (hp.expert_gating != "softmax" or hp.n_expert_shared):
+        raise NotImplementedError(
+            f"MoE with {hp.expert_gating} gating and {hp.n_expert_shared} "
+            "shared experts: this port carries softmax top-k routing only")
+    if hp.n_expert and not 0 < hp.n_expert_used <= hp.n_expert:
+        raise ValueError(f"expert_used_count {hp.n_expert_used} of "
+                         f"{hp.n_expert} experts")
     if hp.sliding_window or hp.attn_softcap or hp.final_softcap:
         raise NotImplementedError("sliding window / softcap llama variants "
                                   "are not ported yet")
     unknown = []
+    ffn = [set() for _ in range(hp.n_layer)]
     for name in reader.tensors:
         if name in _TOP_TENSORS:
             continue
         parts = name.split(".", 2)
         if parts[0] == "blk" and len(parts) == 3 and parts[2] in _LAYER_TENSORS:
+            if parts[2] in _DENSE_FFN | _MOE_FFN and int(parts[1]) < hp.n_layer:
+                ffn[int(parts[1])].add(parts[2])
             continue
         unknown.append(name)
     if unknown:
         raise NotImplementedError(
-            f"tensors outside the dense llama layout: {sorted(unknown)[:5]}")
+            f"tensors outside the llama / Mixtral layout: {sorted(unknown)[:5]}")
+    want = _MOE_FFN if hp.n_expert else _DENSE_FFN
+    for i, have in enumerate(ffn):
+        if have != want:
+            raise NotImplementedError(
+                f"blk.{i} FFN tensors {sorted(have)}: this port carries "
+                + ("the Mixtral expert set" if hp.n_expert else
+                   "the dense SwiGLU set") + " in every layer")
 
 
 def load_weights(reader: GGUFReader, hp: HParams | None = None
                  ) -> tuple[HParams, LlamaWeights]:
-    """Load + repack all tensors of a dense llama GGUF into host planes."""
+    """Load + repack all tensors of a llama / Mixtral GGUF into host planes."""
     if hp is None:
         hp = hparams_from_metadata(reader.metadata)
     _check_supported(reader, hp)
@@ -136,16 +185,23 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
             attn_norm=_f32(reader, p + "attn_norm.weight"),
             wo=_repack_2d(reader, p + "attn_output.weight"),
             ffn_norm=_f32(reader, p + "ffn_norm.weight"),
-            w_down=_repack_2d(reader, p + "ffn_down.weight"),
             wq=_repack_2d(reader, p + "attn_q.weight", q_perm),
             wk=_repack_2d(reader, p + "attn_k.weight", k_perm),
             wv=_repack_2d(reader, p + "attn_v.weight"),
-            w_gate=_repack_2d(reader, p + "ffn_gate.weight"),
-            w_up=_repack_2d(reader, p + "ffn_up.weight"),
         )
         lw.wqkv = fuse_qtensors([lw.wq, lw.wk, lw.wv])
         if lw.wqkv is not None:
             lw.wq = lw.wk = lw.wv = None  # fused plane replaces them
+        if hp.n_expert:
+            # an F32 router gives a 'dense' QTensor (a plain product)
+            lw.gate_inp = _repack_2d(reader, p + "ffn_gate_inp.weight")
+            lw.gate_exps = _repack_3d(reader, p + "ffn_gate_exps.weight")
+            lw.up_exps = _repack_3d(reader, p + "ffn_up_exps.weight")
+            lw.down_exps = _repack_3d(reader, p + "ffn_down_exps.weight")
+            return lw
+        lw.w_down = _repack_2d(reader, p + "ffn_down.weight")
+        lw.w_gate = _repack_2d(reader, p + "ffn_gate.weight")
+        lw.w_up = _repack_2d(reader, p + "ffn_up.weight")
         lw.w_gateup = fuse_qtensors([lw.w_gate, lw.w_up])
         if lw.w_gateup is not None:
             lw.w_gate = lw.w_up = None
@@ -224,12 +280,56 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
     return _forward_layer_ffn(x, lw, hp, plain)
 
 
+def moe_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
+            plain: bool = False) -> torch.Tensor:
+    """Mixtral-style routing: softmax over the router logits, top-k
+    experts, weights renormalized (norm_topk) and scaled; the experts run
+    through the grouped matmul (_moe_grouped). x [B, T, C] -> [B, T, C]
+    float32."""
+    b, tdim = x.shape[0], x.shape[1]
+    xf = x.reshape(-1, x.shape[-1])
+    router = linear(xf, lw.gate_inp, plain)               # [M, E]
+    probs = torch.softmax(router, dim=-1)
+    topv, topi = torch.topk(probs, hp.n_expert_used, dim=-1)
+    if hp.norm_topk:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    if hp.expert_weights_scale != 1.0:
+        topv = topv * hp.expert_weights_scale
+    out = _moe_grouped(xf, lw, hp, topi, topv, plain)
+    return out.reshape(b, tdim, hp.n_embd)
+
+
+def _moe_grouped(xf, lw, hp, topi, topv, plain: bool = False):
+    """Route once, reuse the plan for gate/up/down: one gather into
+    scratch-row space, gate -> SwiGLU -> down there, one weighted
+    scatter-add back per token."""
+    m = xf.shape[0]
+    tile_m = (gmm_mod.TILE_GEMV if m * hp.n_expert_used <= 256
+              else gmm_mod.TILE_GEMM)
+    routing = gmm_mod.route_tokens(topi, topv, n_expert_local=hp.n_expert,
+                                   expert_offset=0, tile_m=tile_m)
+    xs = xf[routing.tok_idx.long()]
+    if lw.gateup_exps is not None:
+        g, u = gmm_mod.gmm_apply_split(xs, lw.gateup_exps, routing, tile_m,
+                                       plain)
+    else:
+        g = gmm_mod.gmm_apply(xs, lw.gate_exps, routing, tile_m, plain)
+        u = gmm_mod.gmm_apply(xs, lw.up_exps, routing, tile_m, plain)
+    h = layers.swiglu(g, u)
+    y = gmm_mod.gmm_apply(h, lw.down_exps, routing, tile_m, plain)
+    return gmm_mod.combine(y, routing, m)
+
+
 def _forward_layer_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
                        plain: bool = False) -> torch.Tensor:
-    """FFN half of the layer: RMSNorm -> gate|up -> SwiGLU -> down."""
+    """FFN half of the layer: RMSNorm -> gate|up -> SwiGLU -> down, or the
+    routed experts of a MoE layer."""
     cur = layers.rms_norm(x, lw.ffn_norm, hp.rms_eps)
-    g, u = gateup_proj(cur, lw, plain)
-    ffn = linear(layers.swiglu(g, u), lw.w_down, plain)
+    if lw.gate_inp is not None:
+        ffn = moe_ffn(cur, lw, hp, plain)
+    else:
+        g, u = gateup_proj(cur, lw, plain)
+        ffn = linear(layers.swiglu(g, u), lw.w_down, plain)
     return x + ffn.to(x.dtype)
 
 

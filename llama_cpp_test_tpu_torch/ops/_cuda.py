@@ -3,7 +3,8 @@
 Each csrc/<name>.cu has a plain C interface and is compiled by nvcc into
 its own shared library for sm_90a, loaded with ctypes. The build runs at
 first use, into _build/ next to this package (listed in .gitignore); the
-file name carries a hash of the source, so an edited kernel is rebuilt.
+file name carries a hash of the source and of every csrc/*.cuh header, so
+an edited kernel is rebuilt.
 build_all() compiles every source at once, one nvcc process each.
 
 Every wrapper counts its launches in LAUNCHES, a plain dict of ints, and
@@ -23,13 +24,14 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("qmm", "flash_prefill", "paged_attention")
+SOURCES = ("qmm", "flash_prefill", "paged_attention", "gmm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 
 LAUNCHES: dict[str, int] = {
-    "qmm_gemv": 0, "qmm_gemm": 0, "flash_prefill": 0, "paged_decode": 0}
+    "qmm_gemv": 0, "qmm_gemm": 0, "flash_prefill": 0, "paged_decode": 0,
+    "paged_decode_q8": 0, "gmm_gemv": 0, "gmm_gemm": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -53,7 +55,8 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha1()
-    for path in (src, os.path.join(CSRC, "common.cuh")):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in (src, *(os.path.join(CSRC, f) for f in headers)):
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")

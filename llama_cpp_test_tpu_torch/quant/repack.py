@@ -243,6 +243,37 @@ def fuse_qtensors(parts: list[QTensor]) -> QTensor | None:
     )
 
 
+def fuse_expert_qtensors(parts: list[QTensor]) -> QTensor | None:
+    """fuse_qtensors for expert-stacked tensors (a leading E axis on every
+    plane, models/llama._repack_3d): concatenates along the plane-column
+    axis per expert, so one grouped pass computes gate|up
+    (ops/gmm.gmm_apply_split slices it). None when the tensors can't fuse."""
+    q0 = parts[0]
+    if any(p.kind != q0.kind or p.group != q0.group
+           or p.ggml_type != q0.ggml_type
+           or (p.min_ is None) != (q0.min_ is None)
+           or p.shape[1] != q0.shape[1] or p.parts is not None
+           or np.asarray(p.qs).ndim != 3
+           or np.asarray(p.qs).shape[0] != np.asarray(q0.qs).shape[0]
+           for p in parts):
+        return None
+    if any((p.lut is None) != (q0.lut is None) or
+           (p.lut is not None and not np.array_equal(p.lut, q0.lut))
+           for p in parts):
+        return None
+    cat = lambda xs, ax: None if xs[0] is None else np.concatenate(
+        [np.asarray(x) for x in xs], axis=ax)
+    n_full = sum(p.shape[0] for p in parts)
+    return QTensor(
+        q0.kind, (n_full, q0.shape[1]), n_full, q0.group,
+        cat([p.qs for p in parts], -1),
+        cat([p.scale for p in parts], -1),
+        cat([p.min_ for p in parts], -1),
+        q0.lut, ggml_type=q0.ggml_type, layout="t",
+        parts=tuple((p.npk, p.n_orig) for p in parts),
+    )
+
+
 def dequantize_qtensor_np(qt: QTensor) -> np.ndarray:
     """Reference decode of host planes back to float32, logical row-major
     [n_orig, K]."""

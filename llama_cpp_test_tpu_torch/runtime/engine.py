@@ -55,6 +55,20 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
         window = hparams_mod.layer_window(hp, li)
 
         def attend(q, k_cur, v_cur, _li=li, _window=window):
+            if pools.quantized:
+                # q8_0 KV: quantizing scatter; decode through K3's q8
+                # variant, prefill through the dequantizing gather
+                ks, vs = pools.k_scale[_li], pools.v_scale[_li]
+                kv_cache.write_kv_q8(pools.k[_li], ks, k_cur, rows, slots)
+                kv_cache.write_kv_q8(pools.v[_li], vs, v_cur, rows, slots)
+                if decode:
+                    return kv_cache.attend_decode_q8(
+                        q, pools.k[_li], ks, pools.v[_li], vs, block_table,
+                        kv_len, scale, _window, cap, plain=plain)
+                return kv_cache.attend_gathered(
+                    q, kv_cache.gather_kv_q8(pools.k[_li], ks, block_table),
+                    kv_cache.gather_kv_q8(pools.v[_li], vs, block_table),
+                    positions, kv_len, scale, _window, cap)
             kv_cache.write_kv(pools.k[_li], k_cur, rows, slots)
             kv_cache.write_kv(pools.v[_li], v_cur, rows, slots)
             if decode:

@@ -1,11 +1,12 @@
 """Host planes -> device tensors (counterpart of the reference's
-models/llama.device_put_weights).
+models/llama.device_put_weights), and the reference's loaded parameters
+carried across as host planes.
 
-Takes LlamaWeights whose QTensor planes and norm vectors are numpy arrays:
-the port's own loader output, or the reference's parameters handed over as
-numpy (bf16 planes viewed as uint16 by the caller). bf16 bit patterns
-(uint16) become torch.bfloat16, int8/uint8 planes keep their type, float
-arrays become float32.
+to_device takes LlamaWeights whose QTensor planes and norm vectors are
+numpy arrays: the port's own loader output, or port_weights_from_reference
+of the reference's parameters. bf16 bit patterns (uint16) become
+torch.bfloat16, int8/uint8 planes keep their type, float arrays become
+float32. Expert stacks (a leading E axis on every plane) move the same way.
 """
 from __future__ import annotations
 
@@ -35,6 +36,42 @@ def qtensor_to_torch(qt: QTensor, device: torch.device | str) -> QTensor:
     conv = lambda a: array_to_torch(a, device)
     return dataclasses.replace(qt, qs=conv(qt.qs), scale=conv(qt.scale),
                                min_=conv(qt.min_), lut=conv(qt.lut))
+
+
+def host_array(a):
+    """A reference plane as numpy; 2-byte non-numeric planes (bf16) as their
+    uint16 bit patterns, so no bf16 numpy type is needed here."""
+    if a is None:
+        return None
+    a = np.asarray(a)
+    if a.dtype.itemsize == 2 and a.dtype.kind not in "iuf":
+        return a.view(np.uint16)
+    return a
+
+
+def port_qtensor(jqt) -> QTensor:
+    """A reference QTensor (read by attribute) as a host-plane QTensor."""
+    return QTensor(jqt.kind, tuple(jqt.shape), jqt.n_orig, jqt.group,
+                   host_array(jqt.qs), host_array(jqt.scale),
+                   host_array(jqt.min_), host_array(jqt.lut), None,
+                   jqt.layout, jqt.parts)
+
+
+def port_weights_from_reference(jw) -> LlamaWeights:
+    """The reference's loaded parameters (any object with the attributes
+    of its LlamaWeights, planes as arrays) as the port's host planes: every
+    LayerWeights field by name, the expert stacks and the router
+    included."""
+    conv = lambda x: None if x is None else (
+        port_qtensor(x) if hasattr(x, "kind") else np.asarray(x, np.float32))
+    layers = [LayerWeights(**{f.name: conv(getattr(lw, f.name))
+                              for f in dataclasses.fields(LayerWeights)})
+              for lw in jw.layers]
+    return LlamaWeights(
+        tok_embd=conv(jw.tok_embd), output_norm=conv(jw.output_norm),
+        output=conv(jw.output), layers=layers,
+        rope_inv_freq=np.asarray(jw.rope_inv_freq, np.float32),
+        rope_mscale=jw.rope_mscale)
 
 
 def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:

@@ -1,6 +1,7 @@
 """Import boundary and device rules of the port (llama_cpp_test_tpu_torch):
-it loads no JAX, nothing of the JAX package and no ml_dtypes, and asking
-for CUDA where there is none raises instead of running on the CPU."""
+it loads no JAX, nothing of the JAX package and no ml_dtypes, on the dense
+path and on the MoE + q8_0-KV path, and asking for CUDA where there is none
+raises instead of running on the CPU."""
 import json
 import os
 import subprocess
@@ -10,6 +11,8 @@ import pytest
 import torch
 
 from test_engine import make_tiny_gguf
+
+from __graft_entry__ import _tiny_gguf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -21,6 +24,12 @@ from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
 m = Model(sys.argv[2], device="cpu")
 ctx = Context(m, n_ctx=64, n_seq_max=2, block_size=8)
 logits = ctx.prefill(ctx.new_seq(), [3, 17, 42, 9])
+if len(sys.argv) > 3:    # a MoE file, served over q8_0 pools
+    moe = Model(sys.argv[3], device="cpu")
+    mctx = Context(moe, n_ctx=64, n_seq_max=2, block_size=8, kv_type="q8_0")
+    s = mctx.new_seq()
+    mctx.prefill(s, [3, 17, 42, 9])
+    logits = np.concatenate([logits, mctx.decode([s], [5])[0]])
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "ml_dtypes",
                                              "llama_cpp_test_tpu."))
@@ -30,17 +39,31 @@ print(json.dumps({"finite": bool(np.isfinite(logits).all()),
 """
 
 
-def test_port_imports_no_jax_reference_or_ml_dtypes(tmp_path):
-    path = str(tmp_path / "tiny.gguf")
-    make_tiny_gguf(path)
+def _run_port(tmp_path, *paths):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", _RUN, ROOT, path], env=env,
+    out = subprocess.run([sys.executable, "-c", _RUN, ROOT, *paths], env=env,
                          capture_output=True, text=True, timeout=300,
                          cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr[-2000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_reference_or_ml_dtypes(tmp_path):
+    path = str(tmp_path / "tiny.gguf")
+    make_tiny_gguf(path)
+    res = _run_port(tmp_path, path)
     assert res["bad"] == []
     assert res["finite"] and res["shape"] == [288]
+
+
+def test_moe_q8_path_imports_no_jax_reference_or_ml_dtypes(tmp_path):
+    """The same after a MoE prefill and decode over q8_0 pools."""
+    path = str(tmp_path / "tiny.gguf")
+    make_tiny_gguf(path)
+    moe = _tiny_gguf(str(tmp_path / "moe.gguf"), n_expert=4, n_expert_used=2)
+    res = _run_port(tmp_path, path, moe)
+    assert res["bad"] == []
+    assert res["finite"] and res["shape"] == [288 + 256]
 
 
 def test_cuda_device_raises_without_gpu(tmp_path):

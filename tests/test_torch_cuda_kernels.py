@@ -8,19 +8,24 @@ without JAX, run from the repository root:
 
 Covers kernel paths that the serving path of chip_smoke.py does not reach:
 all four GGML types of K1 at several row counts, K2 with a sliding window,
-softcap, G = 1 and a cached prefix, K3 at G in {1, 4, 8} and D in
-{64, 128} with softcap and very short caches. Gates are the JAX suites':
-qmm NMSE < 5e-5 against the float golden, attention NMSE < 2e-4.
+softcap, G = 1 and a cached prefix, K3 (bf16 and q8 pages) at G in
+{1, 4, 8} and D in {64, 128} with softcap and very short caches, K4 on all
+four GGML types with ragged expert loads, one-expert batches, dead tiles
+and K not a multiple of 2048. Gates are the JAX suites': qmm NMSE < 5e-5
+against the float golden, attention and gmm NMSE < 2e-4.
 """
 import numpy as np
 import pytest
 import torch
 
 from llama_cpp_test_tpu_torch.gguf.constants import GGML_BLOCK_SIZES, GGMLType
+from llama_cpp_test_tpu_torch.ops import _cuda
 from llama_cpp_test_tpu_torch.ops import flash_prefill as fp
+from llama_cpp_test_tpu_torch.ops import gmm
 from llama_cpp_test_tpu_torch.ops import paged_attention as pa
 from llama_cpp_test_tpu_torch.ops import qmatmul
 from llama_cpp_test_tpu_torch.quant import repack
+from llama_cpp_test_tpu_torch.runtime import kv_cache
 from llama_cpp_test_tpu_torch.weights import qtensor_to_torch
 
 pytestmark = pytest.mark.cuda
@@ -136,3 +141,102 @@ def test_paged_decode_kernel_matches_plain(cuda, g, kv, d, cap, short):
     ref = pa.paged_attention_decode_plain(q, kp, vp, lens_t, table,
                                           soft_cap=cap)
     assert nmse(ref.float().cpu(), got.float().cpu()) < 2e-4
+
+
+@pytest.mark.parametrize("g,kv,d", [(1, 4, 64), (4, 2, 64), (4, 8, 128)])
+@pytest.mark.parametrize("cap,short", [(None, False), (30.0, False),
+                                       (None, True)], ids=["plain", "softcap",
+                                                           "short"])
+def test_paged_decode_q8_kernel_matches_plain(cuda, g, kv, d, cap, short):
+    rng = np.random.default_rng(g * kv + d + 1)
+    b, bs, nbmax = 5, 16, 12
+    nb = b * nbmax + 2
+    q = _bf16(rng.standard_normal((b, kv * g, d)) * 0.3, cuda)
+    kq, ks = kv_cache.quantize_q8(_bf16(rng.standard_normal((kv, nb, bs, d)), cuda))
+    vq, vs = kv_cache.quantize_q8(_bf16(rng.standard_normal((kv, nb, bs, d)), cuda))
+    table = _i32(rng.permutation(nb)[: b * nbmax].reshape(b, nbmax), cuda)
+    lens = [1, 2, 17, 3, 9] if short else \
+        rng.integers(1, nbmax * bs + 1, size=b).tolist()
+    lens_t = _i32(lens, cuda)
+    before = _cuda.LAUNCHES["paged_decode_q8"]
+    got = pa.paged_attention_decode(q, kq, vq, lens_t, table, soft_cap=cap,
+                                    k_scale=ks, v_scale=vs)
+    assert _cuda.LAUNCHES["paged_decode_q8"] == before + 1
+    ref = pa.paged_attention_decode_plain(q, kq, vq, lens_t, table,
+                                          soft_cap=cap, k_scale=ks, v_scale=vs)
+    assert nmse(ref.float().cpu(), got.float().cpu()) < 2e-4
+
+
+def expert_stack(ggml_type, e, n, k, seed):
+    """E random experts of one GGML type, planes stacked on a leading axis
+    (the loader's _repack_3d layout)."""
+    qts = [random_qtensor(ggml_type, n, k, seed * 31 + i) for i in range(e)]
+    q0 = qts[0]
+    st = lambda xs: None if xs[0] is None else np.stack(xs)
+    return repack.QTensor(q0.kind, q0.shape, q0.n_orig, q0.group,
+                          st([q.qs for q in qts]), st([q.scale for q in qts]),
+                          st([q.min_ for q in qts]), None, q0.ggml_type)
+
+
+def routing_case(pattern, m, e, rng):
+    """topi/topv [m, 2]: 'ragged' skews the load (some experts get none),
+    'one' sends every token to expert 3 alone (top-1)."""
+    if pattern == "one":
+        return np.full((m, 1), 3, np.int64), np.ones((m, 1), np.float32)
+    p = np.asarray([0.4, 0.25, 0.15, 0.1, 0.1, 0, 0, 0][:e])
+    p = p / p.sum()
+    topi = np.stack([rng.choice(e, size=2, replace=False, p=p)
+                     for _ in range(m)])
+    topv = rng.dirichlet([1.0, 1.0], size=m).astype(np.float32)
+    return topi, topv
+
+
+@pytest.mark.parametrize("pattern", ["ragged", "one"])
+@pytest.mark.parametrize("m", [1, 3, 8, 130, 300])
+@pytest.mark.parametrize("ggml_type", list(_SCALES), ids=lambda t: t.name)
+def test_gmm_kernel_matches_plain(cuda, ggml_type, m, pattern):
+    """K = 2304 (not a multiple of 2048); dead tail tiles come out finite
+    and rows without an assignment come out zero."""
+    e, n, k = 8, 768, 2304
+    rng = np.random.default_rng(m)
+    qt = qtensor_to_torch(expert_stack(ggml_type, e, n, k, seed=m), cuda)
+    topi, topv = routing_case(pattern, m, e, rng)
+    tile_m = gmm.TILE_GEMV if topi.size <= 256 else gmm.TILE_GEMM
+    rt = gmm.route_tokens(torch.from_numpy(topi).to(cuda),
+                          torch.from_numpy(topv).to(cuda),
+                          n_expert_local=e, tile_m=tile_m)
+    x = _bf16(rng.standard_normal((m, k)), cuda)
+    xs = x[rt.tok_idx.long()]
+    name = "gmm_gemv" if tile_m == gmm.TILE_GEMV else "gmm_gemm"
+    before = _cuda.LAUNCHES[name]
+    got = gmm.gmm_apply(xs, qt, rt, tile_m)
+    assert _cuda.LAUNCHES[name] == before + 1
+    ref = gmm.gmm_apply(xs, qt, rt, tile_m, plain=True)
+    assert got.shape == ref.shape == (xs.shape[0], n)
+    assert torch.isfinite(got).all()
+    rows = rt.tile_rows.cpu().numpy()
+    live = np.concatenate([np.arange(tile_m) < r for r in rows])
+    assert (got[torch.from_numpy(~live).to(cuda)] == 0).all()
+    assert nmse(ref.cpu(), got.cpu()) < 2e-4, nmse(ref.cpu(), got.cpu())
+    comb = gmm.gmm(x, qt, rt, tile_m=tile_m)
+    comb_ref = gmm.gmm_plain(x, qt, rt, tile_m=tile_m)
+    assert nmse(comb_ref.cpu(), comb.cpu()) < 2e-4
+
+
+def test_gmm_split_kernel_column_order(cuda):
+    """fuse_expert_qtensors + gmm_apply_split equals two gmm_apply passes."""
+    e, k = 4, 1024
+    parts = [expert_stack(GGMLType.Q4_K, e, n, k, seed=i)
+             for i, n in enumerate((512, 768))]
+    fused = qtensor_to_torch(repack.fuse_expert_qtensors(parts), cuda)
+    rng = np.random.default_rng(5)
+    topi, topv = routing_case("ragged", 6, e, rng)
+    rt = gmm.route_tokens(torch.from_numpy(topi).to(cuda),
+                          torch.from_numpy(topv).to(cuda),
+                          n_expert_local=e, tile_m=gmm.TILE_GEMV)
+    xs = _bf16(rng.standard_normal((6, k)), cuda)[rt.tok_idx.long()]
+    outs = gmm.gmm_apply_split(xs, fused, rt, gmm.TILE_GEMV)
+    for qt, y in zip(parts, outs):
+        one = gmm.gmm_apply(xs, qtensor_to_torch(qt, cuda), rt, gmm.TILE_GEMV)
+        assert y.shape == one.shape
+        assert nmse(one.cpu(), y.cpu()) < 1e-12
