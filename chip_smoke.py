@@ -18,11 +18,13 @@ non-zero before the final line:
            random block bytes is loaded with Model(path) on cuda and serves
            three generate() requests plus one batched decode; the launch
            count of every kernel of that path must be > 0, and the logits
-           of a prefill and the next decode steps are held against the
-           plain path
+           at every row of a prefill and of the next decode steps are held
+           against the plain path
   serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 8
            layers), served by two Contexts, bf16 and q8_0 KV, each with
-           three generate() requests and one batched decode of 8 sequences
+           three generate() requests and one batched decode of 8 sequences;
+           the logits gate holds the rows whose expert routing agrees with
+           the plain path's, and the rows whose routing differs are counted
 
 Before the last line it prints the kernels summary and the card's
 nvidia-smi name and power limit; the last line is
@@ -33,6 +35,7 @@ flushed before each launch (the main path finds weights and pages cold).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -58,14 +61,11 @@ TINYLLAMA = dict(n_vocab=32000, n_embd=2048, n_head=32, n_head_kv=4,
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_head=32, n_head_kv=8,
                  head_dim=128, n_layer=32, n_ff=14336)
 # Mixtral-8x7B (BASELINE.json config #4; mistralai/Mixtral-8x7B-v0.1
-# config.json) published widths, depth cut from 32 to 8 layers. Weights at
-# half the TinyLlama phase's std (~0.0075): at ~0.015 the q8_0 cache's int8
-# rounding of K/V amplified the kernels' ~2.5e-6 per-projection difference
-# from the plain path to a prefill logits NMSE of 0.022 (measured on an
-# H100); bf16 KV read <= 8.8e-4 there
+# config.json) published widths, depth cut from 32 to 8 layers; weights
+# at the TinyLlama phase's std (~0.015)
 MIXTRAL = dict(n_vocab=32000, n_embd=4096, n_head=32, n_head_kv=8,
                head_dim=128, n_layer=8, n_ff=14336, n_expert=8,
-               n_expert_used=2, rope_base=1e6, weight_std_scale=0.5)
+               n_expert_used=2, rope_base=1e6)
 
 TPU_KERNELS = {
     "qmm_gemv": ("llama_cpp_test_tpu_torch/csrc/qmm.cu",
@@ -145,11 +145,9 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # synthetic weights: seeded random block bytes with bounded fp16 scales
 
 
-def random_blocks(rng, ggml_type, n: int, k: int,
-                  std_scale: float = 1.0) -> np.ndarray:
+def random_blocks(rng, ggml_type, n: int, k: int) -> np.ndarray:
     """Packed GGUF bytes for an (n, k) weight: random quant bytes with fp16
-    scale fields drawn from a bounded range (times std_scale), so every
-    weight is finite."""
+    scale fields drawn from a bounded range, so every weight is finite."""
     from llama_cpp_test_tpu_torch.gguf.constants import GGML_BLOCK_SIZES, GGMLType
 
     blk, nbytes = GGML_BLOCK_SIZES[ggml_type]
@@ -160,7 +158,7 @@ def random_blocks(rng, ggml_type, n: int, k: int,
         # std (~0.03) amplifies the bf16 weight-rounding difference between
         # kernels and plain path (NMSE ~3e-6 per projection) to logits NMSE
         # up to 2e-3 (measured on an H100); at ~0.015 it stays below 6e-4
-        d = (rng.uniform(0.35e-4, 0.65e-4, nb) * std_scale).astype(np.float16)
+        d = rng.uniform(0.35e-4, 0.65e-4, nb).astype(np.float16)
         raw[:, 0:2] = d.view(np.uint8).reshape(nb, 2)
         # dmin ~ 7.5 d centers the weights (E[q] = 7.5, scales/mins alike)
         dmin = (d.astype(np.float32) * 7.5).astype(np.float16)
@@ -172,7 +170,7 @@ def random_blocks(rng, ggml_type, n: int, k: int,
         # int8 sub-block scales in [4, 12] and d ~ 1e-4: q in [-32, 31]
         # gives weight std ~0.015, as the Q4_K blocks above
         raw[:, 192:208] = rng.integers(4, 13, size=(nb, 16), dtype=np.uint8)
-        d = (rng.uniform(0.7e-4, 1.3e-4, nb) * std_scale).astype(np.float16)
+        d = rng.uniform(0.7e-4, 1.3e-4, nb).astype(np.float16)
         raw[:, 208:210] = d.view(np.uint8).reshape(nb, 2)
     else:
         raise ValueError(ggml_type)
@@ -192,7 +190,6 @@ def write_llama_gguf(path: str, hp: dict, seed: int) -> None:
     c, hq, hkv, d = hp["n_embd"], hp["n_head"], hp["n_head_kv"], hp["head_dim"]
     v, ff, n_layer = hp["n_vocab"], hp["n_ff"], hp["n_layer"]
     n_exp = hp.get("n_expert", 0)
-    std_scale = hp.get("weight_std_scale", 1.0)
     w = GGUFWriter(path, arch="llama")
     meta = {"llama.context_length": 2048, "llama.embedding_length": c,
             "llama.block_count": n_layer, "llama.attention.head_count": hq,
@@ -210,7 +207,7 @@ def write_llama_gguf(path: str, hp: dict, seed: int) -> None:
 
     def quant(name, n, k, e=1, gt=GGMLType.Q4_K):
         shape = (k, n) if e == 1 else (k, n, e)
-        w.add_tensor(name, random_blocks(rng, gt, n * e, k, std_scale),
+        w.add_tensor(name, random_blocks(rng, gt, n * e, k),
                      ggml_type=gt, raw_ggml_shape=shape)
 
     def norm(name):
@@ -383,40 +380,6 @@ class KernelChecks:
             2.0 * m * top_k * k * qt.shape[0], library=lib_name)
         del w_all
         return row
-
-    def gmm_reread(self, qt):
-        """Do row tiles of one expert re-read its planes from L2 or from
-        HBM? K4's decode variant over tiles of one live row (the decode
-        regime, bound by bytes): (one) one tile of expert 0; (same) eight
-        tiles, all expert 0; (spread) eight tiles on eight experts. A tile
-        that reads HBM adds one expert's plane bytes / 3.35 TB/s; a tile
-        served by L2 adds less."""
-        from llama_cpp_test_tpu_torch.ops import gmm
-
-        torch = self.torch
-        e, k, _ = qt.qs.shape
-        cases = {"one": [0], "same": [0] * 8, "spread": list(range(8))}
-        out = {"phase": "kernels", "probe": "gmm_reread",
-               "shape": f"K={k} N={qt.shape[0]} kind={qt.kind} tile_m=8, "
-                        "one live row per tile",
-               "expert_plane_bytes": sum(
-                   t[0].numel() * t.element_size()
-                   for t in (qt.qs, qt.scale, qt.min_) if t is not None)}
-        for name, experts in cases.items():
-            t = len(experts)
-            i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
-            rt = gmm.Routing(i32([0] * (8 * t)),
-                             torch.zeros(8 * t, device="cuda"),
-                             i32(experts), i32([1] * t))
-            xs = torch.from_numpy(self.rng.standard_normal((8 * t, k)).astype(
-                np.float32)).to("cuda").to(torch.bfloat16)
-            fn = lambda: gmm._planes_cuda(xs, qt, rt, gmm.TILE_GEMV)
-            err = nmse(gmm._planes_plain(xs, qt, rt, gmm.TILE_GEMV).cpu(),
-                       fn().cpu())
-            check(err < GMM_GATE, f"gmm_reread {name}: NMSE {err}")
-            out[f"{name}_ms"] = self.timer(fn)
-        emit(out)
-        return out
 
     def _pool(self, kvh, nb, bs, d):
         return torch_bf16(self.torch, self.rng.standard_normal((kvh, nb, bs, d)) * 0.5)
@@ -612,8 +575,6 @@ def phase_kernels(torch, timer) -> dict:
                 row = kc.gmm("Mixtral " + label, kind, qt, m)
                 if label == "gate/up" and kind == "u4+min" and m != 8:
                     rep[row["kernel"]] = row
-            if label == "gate/up":
-                kc.gmm_reread(qt)
             del qt
     rep["paged_decode_q8"] = kc.paged_decode(MIXTRAL, 8, q8=True)
     kc.paged_decode(MIXTRAL, 1, q8=True)
@@ -673,24 +634,101 @@ def _serve_requests(torch, ctx, prompts, n_vocab, batch: int) -> list:
     return requests
 
 
-def _kernels_vs_plain(model, prompt, **ctx_kw) -> dict:
-    """Logits of one prefill and four decode steps on the same tokens,
-    through the kernels and through the plain path."""
+@contextlib.contextmanager
+def _record_routing():
+    """Collect the expert ids (sorted per row) that moe_ffn routes each MoE
+    layer's rows to, one [rows, top_k] array per layer call, by wrapping
+    models.llama._moe_grouped while the block runs."""
+    from llama_cpp_test_tpu_torch.models import llama
+
+    orig, calls = llama._moe_grouped, []
+
+    def record(xf, lw, hp, topi, topv, plain=False):
+        calls.append(topi.sort(dim=-1).values.cpu().numpy())
+        return orig(xf, lw, hp, topi, topv, plain)
+
+    llama._moe_grouped = record
+    try:
+        yield calls
+    finally:
+        llama._moe_grouped = orig
+
+
+def _trace(ctx, prompt, tokens=None):
+    """One prefill (logits at every position) and four decode steps, on the
+    given decode tokens or else greedy ones. Returns the logits of each
+    step [rows, V], its routing [layers, rows, top_k] (None on a dense
+    model) and the decode tokens."""
+    s = ctx.new_seq()
+    steps, toks = [], []
+    with _record_routing() as calls:
+        logits = ctx.prefill(s, prompt, all_logits=True)
+        for i in range(5):
+            if i:
+                toks.append(tokens[i - 1] if tokens else
+                            int(np.argmax(logits[-1])))
+                logits = ctx.decode([s], toks[-1:])
+            rows = logits.shape[0]
+            steps.append((logits, np.stack(calls)[:, :rows] if calls else None))
+            calls.clear()
+    ctx.free_seq(s)
+    return steps, toks
+
+
+def _compare(steps_a, steps_b) -> dict:
+    """Logits NMSE of b against a per step, over all rows and over the rows
+    whose experts agree in every layer, with the count of rows (and of
+    layer rows) whose routing differs."""
+    out = {}
+    for i, ((la, ra), (lb, rb)) in enumerate(zip(steps_a, steps_b)):
+        diff = (np.zeros((1, la.shape[0]), bool) if ra is None
+                else (ra != rb).any(-1))                  # [layers, rows]
+        same = ~diff.any(0)
+        out["prefill" if i == 0 else f"decode{i - 1}"] = {
+            "rows": int(la.shape[0]), "nmse": nmse(la, lb),
+            "nmse_last_row": nmse(la[-1], lb[-1]),
+            "routing_changed_rows": int((~same).sum()),
+            "routing_changed_layer_rows": int(diff.sum()),
+            "first_changed_row": (int(np.argmin(same)) if not same.all()
+                                  else None),
+            "nmse_same_routing": (nmse(la[same], lb[same]) if same.any()
+                                  else None)}
+    return out
+
+
+def _kernels_vs_plain(model, prompt, kv_types) -> tuple[dict, list]:
+    """Logits at every position of one prefill and of four decode steps on
+    the same tokens, through the kernels and through the plain path, per
+    KV type. Where a MoE router's top-2 probabilities are near-tied, the
+    kernels' rounding can send a row to another expert pair than the plain
+    path does: that row is then another computation, not a kernel error.
+    So the routing of every row is compared, and the gate holds the rows
+    whose experts agree in every layer (and fails if fewer than half of a
+    prefill's rows do). The plain path's q8_0 prefill against its bf16 one
+    is recorded beside, as the witness of what int8 K/V alone moves.
+    Returns the readings and the steps outside the gate."""
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
-    ctx_k = Context(model, n_ctx=1024, n_seq_max=2, block_size=16, **ctx_kw)
-    ctx_p = Context(model, n_ctx=1024, n_seq_max=2, block_size=16, plain=True,
-                    **ctx_kw)
-    sk, sp = ctx_k.new_seq(), ctx_p.new_seq()
-    lk, lp = ctx_k.prefill(sk, prompt), ctx_p.prefill(sp, prompt)
-    checks = {"prefill": nmse(lp, lk)}
-    for i in range(4):
-        tok = int(np.argmax(lk))
-        lk = ctx_k.decode([sk], [tok])[0]
-        lp = ctx_p.decode([sp], [tok])[0]
-        checks[f"decode{i}"] = nmse(lp, lk)
-        check(np.isfinite(lk).all(), "decode logits not finite")
-    return checks
+    out, plain, bad = {}, {}, []
+    for kv in kv_types:
+        ctx = lambda **kw: Context(model, n_ctx=1024, n_seq_max=2,
+                                   block_size=16, kv_type=kv, **kw)
+        steps_k, toks = _trace(ctx(), prompt)
+        steps_p, _ = _trace(ctx(plain=True), prompt, toks)
+        check(all(np.isfinite(lg).all() for lg, _ in steps_k),
+              f"{kv}: kernel logits not finite")
+        plain[kv] = steps_p
+        out[kv] = _compare(steps_p, steps_k)
+        for step, r in out[kv].items():
+            v = r["nmse_same_routing"]
+            if (v is not None and not v < LOGITS_GATE) or (
+                    step == "prefill" and 2 * r["routing_changed_rows"]
+                    > r["rows"]):
+                bad.append((kv, step, v, r["routing_changed_rows"]))
+    if "q8_0" in plain and "bf16" in plain:
+        out["plain_q8_0_vs_bf16"] = _compare(plain["bf16"][:1],
+                                             plain["q8_0"][:1])["prefill"]
+    return out, bad
 
 
 def _serve(torch, name, hp, seed, kv_types, batch, path_kernels, profile):
@@ -725,10 +763,7 @@ def _serve(torch, name, hp, seed, kv_types, batch, path_kernels, profile):
         missing = [k for k in path_kernels if launches[k] <= 0]
         check(not missing, f"{name}: kernels not launched on the path: "
                            f"{missing} ({launches})")
-        checks = {kv: _kernels_vs_plain(model, prompts[1], kv_type=kv)
-                  for kv in kv_types}
-        bad = [(kv, c, v) for kv, cs in checks.items() for c, v in cs.items()
-               if not v < LOGITS_GATE]
+        checks, bad = _kernels_vs_plain(model, prompts[1], kv_types)
         plane_bytes = _decode_plane_bytes(model.weights, model.hp)
         out = {"phase": name, "n_layer": hp["n_layer"], "write_gguf_s": write_s,
                "load_s": model.load_seconds,

@@ -35,7 +35,8 @@ class HParams:
     # MoE
     n_expert: int = 0
     n_expert_used: int = 0
-    # normalize the selected top-k routing weights (true for mixtral)
+    # renormalize the selected top-k routing weights: true for llama
+    # (Mixtral), the one arch the loader accepts
     norm_topk: bool = True
     n_expert_shared: int = 0
     expert_weights_scale: float = 1.0  # routed output multiplier
@@ -83,9 +84,7 @@ def hparams_from_metadata(md: dict) -> HParams:
         rope_attn_factor=g("rope.scaling.attn_factor", 1.0),
         n_expert=g("expert_count", 0),
         n_expert_used=g("expert_used_count", 0),
-        norm_topk=(bool(g("expert_weights_norm", False))
-                   if arch == "deepseek2"
-                   else arch not in ("qwen2moe", "olmoe", "deepseek")),
+        norm_topk=arch == "llama",
         n_expert_shared=g("expert_shared_count", 0),
         expert_weights_scale=g("expert_weights_scale", 1.0),
         expert_gating=("sparsemixer" if arch == "phimoe"

@@ -49,12 +49,11 @@ class LayerWeights:
     w_up: QTensor | None = None
     # MoE (Mixtral): router [n_expert, n_embd] and expert stacks whose
     # planes carry a leading E axis; gate and up stay separate, as the
-    # reference keeps them (gateup_exps is the fuse_expert_qtensors form)
+    # reference keeps them by default
     gate_inp: QTensor | None = None
     gate_exps: QTensor | None = None
     up_exps: QTensor | None = None
     down_exps: QTensor | None = None
-    gateup_exps: QTensor | None = None
 
 
 @dataclasses.dataclass
@@ -137,10 +136,12 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
         raise NotImplementedError(
             f"arch {hp.arch!r}: this port carries the llama decoder (dense "
             "or Mixtral-style MoE)")
-    if hp.n_expert and (hp.expert_gating != "softmax" or hp.n_expert_shared):
+    if hp.n_expert and (hp.expert_gating != "softmax" or hp.n_expert_shared
+                        or not hp.norm_topk):
         raise NotImplementedError(
-            f"MoE with {hp.expert_gating} gating and {hp.n_expert_shared} "
-            "shared experts: this port carries softmax top-k routing only")
+            f"MoE with {hp.expert_gating} gating, {hp.n_expert_shared} shared "
+            f"experts, norm_topk={hp.norm_topk}: this port carries softmax "
+            "top-k routing with renormalized weights only")
     if hp.n_expert and not 0 < hp.n_expert_used <= hp.n_expert:
         raise ValueError(f"expert_used_count {hp.n_expert_used} of "
                          f"{hp.n_expert} experts")
@@ -283,7 +284,7 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
 def moe_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
             plain: bool = False) -> torch.Tensor:
     """Mixtral-style routing: softmax over the router logits, top-k
-    experts, weights renormalized (norm_topk) and scaled; the experts run
+    experts, weights renormalized and scaled; the experts run
     through the grouped matmul (_moe_grouped). x [B, T, C] -> [B, T, C]
     float32."""
     b, tdim = x.shape[0], x.shape[1]
@@ -291,8 +292,7 @@ def moe_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
     router = linear(xf, lw.gate_inp, plain)               # [M, E]
     probs = torch.softmax(router, dim=-1)
     topv, topi = torch.topk(probs, hp.n_expert_used, dim=-1)
-    if hp.norm_topk:
-        topv = topv / topv.sum(dim=-1, keepdim=True)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
     if hp.expert_weights_scale != 1.0:
         topv = topv * hp.expert_weights_scale
     out = _moe_grouped(xf, lw, hp, topi, topv, plain)
@@ -309,12 +309,8 @@ def _moe_grouped(xf, lw, hp, topi, topv, plain: bool = False):
     routing = gmm_mod.route_tokens(topi, topv, n_expert_local=hp.n_expert,
                                    expert_offset=0, tile_m=tile_m)
     xs = xf[routing.tok_idx.long()]
-    if lw.gateup_exps is not None:
-        g, u = gmm_mod.gmm_apply_split(xs, lw.gateup_exps, routing, tile_m,
-                                       plain)
-    else:
-        g = gmm_mod.gmm_apply(xs, lw.gate_exps, routing, tile_m, plain)
-        u = gmm_mod.gmm_apply(xs, lw.up_exps, routing, tile_m, plain)
+    g = gmm_mod.gmm_apply(xs, lw.gate_exps, routing, tile_m, plain)
+    u = gmm_mod.gmm_apply(xs, lw.up_exps, routing, tile_m, plain)
     h = layers.swiglu(g, u)
     y = gmm_mod.gmm_apply(h, lw.down_exps, routing, tile_m, plain)
     return gmm_mod.combine(y, routing, m)

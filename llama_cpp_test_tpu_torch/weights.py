@@ -61,7 +61,14 @@ def port_weights_from_reference(jw) -> LlamaWeights:
     """The reference's loaded parameters (any object with the attributes
     of its LlamaWeights, planes as arrays) as the port's host planes: every
     LayerWeights field by name, the expert stacks and the router
-    included."""
+    included. A reference that fused gate|up expert stacks into one plane
+    (its LLAMA_TPU_MOE_FUSE load) is refused: the port keeps them apart."""
+    for i, lw in enumerate(jw.layers):
+        if getattr(lw, "gate_inp", None) is not None and (
+                lw.gate_exps is None or lw.up_exps is None):
+            raise NotImplementedError(
+                f"layer {i}: fused gate|up expert stacks; the port carries "
+                "separate gate and up stacks")
     conv = lambda x: None if x is None else (
         port_qtensor(x) if hasattr(x, "kind") else np.asarray(x, np.float32))
     layers = [LayerWeights(**{f.name: conv(getattr(lw, f.name))

@@ -182,7 +182,7 @@ def test_moe_loader_planes_match_reference(moe_models):
     path, _, pmodel = moe_models
     assert_same_weights(path)
     lw = pmodel.weights.layers[0]
-    assert lw.w_down is None and lw.gateup_exps is None
+    assert lw.w_down is None and lw.up_exps.qs.shape[0] == 4
     assert lw.gate_inp.kind == "dense" and lw.gate_exps.qs.shape[0] == 4
 
 
@@ -234,11 +234,21 @@ def test_moe_port_runs_on_reference_parameters(moe_models):
     _, jw = jllama.load_weights(GGUFReader(path))
     model = pengine.Model.from_weights(
         pmodel.hp, port_weights_from_reference(jw), device="cpu")
-    ctx =pengine.Context(model, n_ctx=64, n_seq_max=2, block_size=8)
+    ctx = pengine.Context(model, n_ctx=64, n_seq_max=2, block_size=8)
     own = pengine.Context(pmodel, n_ctx=64, n_seq_max=2, block_size=8)
     got = ctx.prefill(ctx.new_seq(), PROMPT, all_logits=True)
     np.testing.assert_array_equal(
         got, own.prefill(own.new_seq(), PROMPT, all_logits=True))
+
+
+def test_moe_fused_reference_parameters_raise(moe_models, monkeypatch):
+    """A reference loaded with its gate|up expert stacks fused is refused:
+    the port carries gate and up as separate stacks."""
+    monkeypatch.setenv("LLAMA_TPU_MOE_FUSE", "1")
+    _, jw = jllama.load_weights(GGUFReader(moe_models[0]))
+    assert jw.layers[0].gate_exps is None
+    with pytest.raises(NotImplementedError):
+        port_weights_from_reference(jw)
 
 
 def _moe_variant(path, arch="llama", md=None, add=(), drop=()):
