@@ -25,6 +25,15 @@ non-zero before the final line:
            three generate() requests and one batched decode of 8 sequences;
            the logits gate holds the rows whose expert routing agrees with
            the plain path's, and the rows whose routing differs are counted
+  serve_iq4xs  the same for a Llama-3-70B-geometry IQ4_XS GGUF (full width,
+           4 layers; u4lut planes), one bf16 Context, then K1 rows on the
+           loaded planes of layer 0 and the lm head at M = 1, 8 and 512
+  serve_lowbit the same for two Llama-3-8B-geometry files (full width, 8
+           layers): Q2_K (u2 planes with a min) and IQ1_S (u2lut, with
+           Q4_K attn_v, IQ2_XXS ffn_down, Q5_K output, Q2_K token_embd),
+           each served by a Context at the default qmm variant and one at
+           "cache", whose prefills must launch K5 (qmm_cache); then K1 rows
+           on each file's loaded planes and K5 rows at M = 512
 
 Before the last line it prints the kernels summary and the card's
 nvidia-smi name and power limit; the last line is
@@ -67,11 +76,20 @@ MIXTRAL = dict(n_vocab=32000, n_embd=4096, n_head=32, n_head_kv=8,
                head_dim=128, n_layer=8, n_ff=14336, n_expert=8,
                n_expert_used=2, rope_base=1e6)
 
+# Llama-3-70B (BASELINE.json config #5; meta-llama/Meta-Llama-3-70B
+# config.json) published widths, depth cut from 80 to 4 layers
+LLAMA3_70B = dict(n_vocab=128256, n_embd=8192, n_head=64, n_head_kv=8,
+                  head_dim=128, n_layer=4, n_ff=28672, rope_base=500000.0)
+# Llama-3-8B widths for the low-bit files, depth cut from 32 to 8 layers
+LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=8, rope_base=500000.0)
+
 TPU_KERNELS = {
     "qmm_gemv": ("llama_cpp_test_tpu_torch/csrc/qmm.cu",
                  "llama_cpp_test_tpu/ops/qmatmul.py:145"),
     "qmm_gemm": ("llama_cpp_test_tpu_torch/csrc/qmm.cu",
                  "llama_cpp_test_tpu/ops/qmatmul.py:145"),
+    "qmm_cache": ("llama_cpp_test_tpu_torch/csrc/qmm_cache.cu",
+                  "llama_cpp_test_tpu/ops/qmatmul.py:276"),
     "flash_prefill": ("llama_cpp_test_tpu_torch/csrc/flash_prefill.cu",
                       "llama_cpp_test_tpu/ops/flash_prefill.py:31"),
     "paged_decode": ("llama_cpp_test_tpu_torch/csrc/paged_attention.cu",
@@ -86,6 +104,9 @@ TPU_KERNELS = {
 # the kernels each serving path must launch
 DENSE_PATH = ("qmm_gemv", "qmm_gemm", "flash_prefill", "paged_decode")
 MOE_PATH = DENSE_PATH + ("paged_decode_q8", "gmm_gemv", "gmm_gemm")
+# the slice whose serve path each kernel's `launches` is read from
+OWN_PATH = {"paged_decode_q8": "serve_moe", "gmm_gemv": "serve_moe",
+            "gmm_gemm": "serve_moe", "qmm_cache": "serve_lowbit"}
 
 
 def emit(obj) -> None:
@@ -145,48 +166,96 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # synthetic weights: seeded random block bytes with bounded fp16 scales
 
 
+def _f16_field(raw, off: int, values) -> None:
+    raw[:, off:off + 2] = np.asarray(values, np.float16).view(np.uint8) \
+        .reshape(-1, 2)
+
+
 def random_blocks(rng, ggml_type, n: int, k: int) -> np.ndarray:
     """Packed GGUF bytes for an (n, k) weight: random quant bytes with fp16
-    scale fields drawn from a bounded range, so every weight is finite."""
+    scale fields drawn from a bounded range, so every weight is finite.
+    Every type aims at a weight std of ~0.015; the scale ranges below come
+    from the std of each type's decoded random blocks at d = 1 (measured
+    with quant/codecs.dequantize on 20000 blocks), divided into 0.015."""
     from llama_cpp_test_tpu_torch.gguf.constants import GGML_BLOCK_SIZES, GGMLType
 
     blk, nbytes = GGML_BLOCK_SIZES[ggml_type]
     nb = n * k // blk
     raw = rng.integers(0, 256, size=(nb, nbytes), dtype=np.uint8)
+    d = lambda lo, hi: rng.uniform(lo, hi, nb).astype(np.float16)
     if ggml_type == GGMLType.Q4_K:
         # weight std ~0.015. A random 22-layer stack at TinyLlama's trained
         # std (~0.03) amplifies the bf16 weight-rounding difference between
         # kernels and plain path (NMSE ~3e-6 per projection) to logits NMSE
         # up to 2e-3 (measured on an H100); at ~0.015 it stays below 6e-4
-        d = rng.uniform(0.35e-4, 0.65e-4, nb).astype(np.float16)
-        raw[:, 0:2] = d.view(np.uint8).reshape(nb, 2)
+        dv = d(0.35e-4, 0.65e-4)
+        _f16_field(raw, 0, dv)
         # dmin ~ 7.5 d centers the weights (E[q] = 7.5, scales/mins alike)
-        dmin = (d.astype(np.float32) * 7.5).astype(np.float16)
-        raw[:, 2:4] = dmin.view(np.uint8).reshape(nb, 2)
+        _f16_field(raw, 2, dv.astype(np.float32) * 7.5)
+    elif ggml_type == GGMLType.Q5_K:
+        # std 528 d with dmin = 15.5 d (E[q] = 15.5 centers the weights)
+        dv = d(2.3e-5, 3.4e-5)
+        _f16_field(raw, 0, dv)
+        _f16_field(raw, 2, dv.astype(np.float32) * 15.5)
+    elif ggml_type == GGMLType.Q2_K:
+        # std 13.9 d with dmin = 1.5 d (E[q] = 1.5 centers the weights)
+        dv = d(0.8e-3, 1.4e-3)
+        _f16_field(raw, 80, dv)
+        _f16_field(raw, 82, dv.astype(np.float32) * 1.5)
     elif ggml_type == GGMLType.Q8_0:
-        d = rng.uniform(0.5e-4, 1.5e-4, nb).astype(np.float16)
-        raw[:, 0:2] = d.view(np.uint8).reshape(nb, 2)
+        _f16_field(raw, 0, d(0.5e-4, 1.5e-4))
     elif ggml_type == GGMLType.Q6_K:
         # int8 sub-block scales in [4, 12] and d ~ 1e-4: q in [-32, 31]
         # gives weight std ~0.015, as the Q4_K blocks above
         raw[:, 192:208] = rng.integers(4, 13, size=(nb, 16), dtype=np.uint8)
-        d = rng.uniform(0.7e-4, 1.3e-4, nb).astype(np.float16)
-        raw[:, 208:210] = d.view(np.uint8).reshape(nb, 2)
+        _f16_field(raw, 208, d(0.7e-4, 1.3e-4))
+    elif ggml_type == GGMLType.IQ4_XS:
+        # std 1246 d (6-bit signed block scales times the IQ4_NL LUT's
+        # |values| up to 127); d ~ 1.2e-5 is an fp16 subnormal, still exact
+        _f16_field(raw, 0, d(0.9e-5, 1.5e-5))
+    elif ggml_type == GGMLType.IQ1_S:
+        # std 7.2 d (ternary grid values +- 0.125, scales 2s + 1 <= 15)
+        _f16_field(raw, 0, d(1.6e-3, 2.6e-3))
+    elif ggml_type == GGMLType.IQ2_XXS:
+        # std 53 d (grid magnitudes 8, 25, 43 times (0.5 + s) / 4)
+        _f16_field(raw, 0, d(2.2e-4, 3.4e-4))
     else:
         raise ValueError(ggml_type)
     return raw.reshape(-1)
 
 
-def write_llama_gguf(path: str, hp: dict, seed: int) -> None:
+_ROLES = ("token_embd", "output", "attn_q", "attn_k", "attn_v",
+          "attn_output", "ffn_gate", "ffn_up", "ffn_down")
+
+
+def file_types(ftype: str) -> dict:
+    """Tensor role -> GGML type of a file of type ftype, by the JAX
+    package's per-tensor rules (quant/quantize_model.tensor_target_type):
+    an IQ4_XS file is IQ4_XS throughout; a Q2_K file keeps a Q6_K head; an
+    IQ1_S file bumps attn_v to Q4_K and ffn_down to IQ2_XXS, keeps a Q5_K
+    head and a Q2_K token embedding."""
+    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType as T
+
+    base = dict.fromkeys(_ROLES, T[ftype])
+    return {"Q4_K": base,
+            "IQ4_XS": base,
+            "Q2_K": {**base, "output": T.Q6_K},
+            "IQ1_S": {**base, "attn_v": T.Q4_K, "ffn_down": T.IQ2_XXS,
+                      "output": T.Q5_K, "token_embd": T.Q2_K}}[ftype]
+
+
+def write_llama_gguf(path: str, hp: dict, seed: int,
+                     ftype: str = "Q4_K") -> None:
     """A llama-arch GGUF of geometry hp from seeded random block bytes:
-    Q4_K matmul tensors and F32 norms; with hp["n_expert"], Mixtral's
-    layout as llama.cpp writes it (F32 router, Q4_K gate/up expert stacks,
-    ffn_down_exps Q6_K on even layers and Q4_K on odd ones, as a Q4_K_M
-    file mixes them)."""
+    matmul tensors by file_types(ftype) and F32 norms; with
+    hp["n_expert"], Mixtral's layout as llama.cpp writes it (F32 router,
+    Q4_K gate/up expert stacks, ffn_down_exps Q6_K on even layers and Q4_K
+    on odd ones, as a Q4_K_M file mixes them)."""
     from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
+    types = file_types(ftype)
     c, hq, hkv, d = hp["n_embd"], hp["n_head"], hp["n_head_kv"], hp["head_dim"]
     v, ff, n_layer = hp["n_vocab"], hp["n_ff"], hp["n_layer"]
     n_exp = hp.get("n_expert", 0)
@@ -205,7 +274,8 @@ def write_llama_gguf(path: str, hp: dict, seed: int) -> None:
     for key, val in meta.items():
         w.add_kv(key, val)
 
-    def quant(name, n, k, e=1, gt=GGMLType.Q4_K):
+    def quant(name, n, k, e=1, gt=None):
+        gt = gt or types[name.split(".")[-2]]
         shape = (k, n) if e == 1 else (k, n, e)
         w.add_tensor(name, random_blocks(rng, gt, n * e, k),
                      ggml_type=gt, raw_ggml_shape=shape)
@@ -228,8 +298,8 @@ def write_llama_gguf(path: str, hp: dict, seed: int) -> None:
             # router logits of std ~3 over the experts
             w.add_tensor(p + "ffn_gate_inp.weight", 0.05 * rng.standard_normal(
                 (n_exp, c)).astype(np.float32))
-            quant(p + "ffn_gate_exps.weight", ff, c, n_exp)
-            quant(p + "ffn_up_exps.weight", ff, c, n_exp)
+            quant(p + "ffn_gate_exps.weight", ff, c, n_exp, GGMLType.Q4_K)
+            quant(p + "ffn_up_exps.weight", ff, c, n_exp, GGMLType.Q4_K)
             quant(p + "ffn_down_exps.weight", c, ff, n_exp,
                   GGMLType.Q6_K if i % 2 == 0 else GGMLType.Q4_K)
         else:
@@ -326,7 +396,8 @@ class KernelChecks:
             self.failures.append(shape)
         return row
 
-    def qmm(self, label, kind, qt, m):
+    def qmm(self, label, kind, qt, m, cache=False):
+        """K1 (GEMV for m <= 8, GEMM above), or K5 with cache=True."""
         from llama_cpp_test_tpu_torch.ops import qmatmul
 
         torch = self.torch
@@ -334,16 +405,22 @@ class KernelChecks:
         x = torch.from_numpy(self.rng.standard_normal((m, k)).astype(np.float32)) \
             .to("cuda").to(torch.bfloat16)
         w_lib = qmatmul.dequantize(qt)                     # [K, N] bf16
-        fn_k = lambda: qmatmul._planes(x, qt)
+        if cache:
+            name, fn_k = "qmm_cache", lambda: qmatmul._qmm_cache_cuda(x, qt)
+        else:
+            name = "qmm_gemv" if m <= 8 else "qmm_gemm"
+            fn_k = lambda: qmatmul._qmm_planes_cuda(x, qt)
         fn_p = lambda: qmatmul._matmul_f32(x, qmatmul.dequantize(qt))
         plane_bytes = sum(t.numel() * t.element_size()
-                          for t in (qt.qs, qt.scale, qt.min_) if t is not None)
-        return self._row("qmm_gemv" if m <= 8 else "qmm_gemm",
-                         f"{label} {kind} M={m} K={k} N={n_full}",
-                         fn_k(), fn_p(), QMM_GATE, fn_k, fn_p,
-                         lambda: torch.matmul(x, w_lib),
-                         x.numel() * 2 + plane_bytes + m * n_full * 4,
-                         2.0 * m * k * n_full)
+                          for t in (qt.qs, qt.scale, qt.min_, qt.lut)
+                          if t is not None)
+        row = self._row(name, f"{label} {kind} M={m} K={k} N={n_full}",
+                        fn_k(), fn_p(), QMM_GATE, fn_k, fn_p,
+                        lambda: torch.matmul(x, w_lib),
+                        x.numel() * 2 + plane_bytes + m * n_full * 4,
+                        2.0 * m * k * n_full)
+        del w_lib
+        return row
 
     def gmm(self, label, kind, qt, m, top_k=2):
         """K4 on a stacked expert plane at m tokens routed top_k of E by
@@ -696,109 +773,236 @@ def _compare(steps_a, steps_b) -> dict:
     return out
 
 
-def _kernels_vs_plain(model, prompt, kv_types) -> tuple[dict, list]:
+@contextlib.contextmanager
+def _qmm_variant(variant):
+    """ops.qmatmul.QMM_VARIANT set to variant (None: left as it is) while
+    the block runs, as a user sets LLAMA_TPU_QMM_VARIANT."""
+    from llama_cpp_test_tpu_torch.ops import qmatmul
+
+    orig = qmatmul.QMM_VARIANT
+    qmatmul.QMM_VARIANT = variant or orig
+    try:
+        yield
+    finally:
+        qmatmul.QMM_VARIANT = orig
+
+
+@contextlib.contextmanager
+def _record_kinds():
+    """Count the K1 and K5 launches per plane kind ("K1 u2": n, ...) while
+    the block runs, by wrapping the two launch wrappers of ops.qmatmul."""
+    from llama_cpp_test_tpu_torch.ops import qmatmul
+
+    tally = {}
+    names = {"_qmm_planes_cuda": "K1", "_qmm_cache_cuda": "K5"}
+    orig = {n: getattr(qmatmul, n) for n in names}
+
+    def wrap(n):
+        def launch(x2, qt):
+            key = f"{names[n]} {qt.kind}"
+            tally[key] = tally.get(key, 0) + 1
+            return orig[n](x2, qt)
+        return launch
+
+    for n in names:
+        setattr(qmatmul, n, wrap(n))
+    try:
+        yield tally
+    finally:
+        for n, f in orig.items():
+            setattr(qmatmul, n, f)
+
+
+def _label(kv, variant) -> str:
+    return kv if variant is None else f"{kv}/{variant}"
+
+
+def _kernels_vs_plain(model, prompt, contexts) -> tuple[dict, list]:
     """Logits at every position of one prefill and of four decode steps on
     the same tokens, through the kernels and through the plain path, per
-    KV type. Where a MoE router's top-2 probabilities are near-tied, the
-    kernels' rounding can send a row to another expert pair than the plain
-    path does: that row is then another computation, not a kernel error.
-    So the routing of every row is compared, and the gate holds the rows
-    whose experts agree in every layer (and fails if fewer than half of a
-    prefill's rows do). The plain path's q8_0 prefill against its bf16 one
-    is recorded beside, as the witness of what int8 K/V alone moves.
-    Returns the readings and the steps outside the gate."""
+    Context (KV type, qmm variant). Where a MoE router's top-2
+    probabilities are near-tied, the kernels' rounding can send a row to
+    another expert pair than the plain path does: that row is then another
+    computation, not a kernel error. So the routing of every row is
+    compared, and the gate holds the rows whose experts agree in every
+    layer (and fails if fewer than half of a prefill's rows do). The plain
+    path's q8_0 prefill against its bf16 one is recorded beside, as the
+    witness of what int8 K/V alone moves. Returns the readings and the
+    steps outside the gate."""
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     out, plain, bad = {}, {}, []
-    for kv in kv_types:
+    for kv, variant in contexts:
+        label = _label(kv, variant)
         ctx = lambda **kw: Context(model, n_ctx=1024, n_seq_max=2,
                                    block_size=16, kv_type=kv, **kw)
-        steps_k, toks = _trace(ctx(), prompt)
+        with _qmm_variant(variant):
+            steps_k, toks = _trace(ctx(), prompt)
         steps_p, _ = _trace(ctx(plain=True), prompt, toks)
         check(all(np.isfinite(lg).all() for lg, _ in steps_k),
-              f"{kv}: kernel logits not finite")
-        plain[kv] = steps_p
-        out[kv] = _compare(steps_p, steps_k)
-        for step, r in out[kv].items():
+              f"{label}: kernel logits not finite")
+        plain[label] = steps_p
+        out[label] = _compare(steps_p, steps_k)
+        for step, r in out[label].items():
             v = r["nmse_same_routing"]
             if (v is not None and not v < LOGITS_GATE) or (
                     step == "prefill" and 2 * r["routing_changed_rows"]
                     > r["rows"]):
-                bad.append((kv, step, v, r["routing_changed_rows"]))
+                bad.append((label, step, v, r["routing_changed_rows"]))
     if "q8_0" in plain and "bf16" in plain:
         out["plain_q8_0_vs_bf16"] = _compare(plain["bf16"][:1],
                                              plain["q8_0"][:1])["prefill"]
     return out, bad
 
 
-def _serve(torch, name, hp, seed, kv_types, batch, path_kernels, profile):
+def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
+           ftype="Q4_K", kinds=(), rows=None):
     """Synthesize the GGUF, load it with Model(path) on cuda, serve every
-    KV type's Context with the launch counts zeroed just before and read
-    just after, then hold the kernels against the plain path."""
+    Context (KV type, qmm variant) with the launch counts zeroed just
+    before and read just after, then hold the kernels against the plain
+    path. path_kernels must launch over the phase; a "cache" Context must
+    launch K5; every plane kind in `kinds` must reach K1. rows(model), if
+    given, runs after the checks (kernel rows on the loaded planes)."""
     from llama_cpp_test_tpu_torch.ops import _cuda
     from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        path = os.path.join(tmp, f"{name}.gguf")
+        path = os.path.join(tmp, name.replace("/", "_") + ".gguf")
         t0 = time.time()
-        write_llama_gguf(path, hp, seed=seed)
+        write_llama_gguf(path, hp, seed=seed, ftype=ftype)
         write_s = time.time() - t0
         model = Model(path, device="cuda")
         os.remove(path)
         rng = np.random.default_rng(11)
         prompts = [rng.integers(3, hp["n_vocab"], size=n).tolist()
                    for n in (16, 130, 512)]
-        torch.cuda.synchronize()
-        _cuda.reset_launches()
-        requests = {}
-        for kv in kv_types:
-            ctx = Context(model, n_ctx=1024, n_seq_max=batch, block_size=16,
-                          kv_type=kv)
-            requests[kv] = _serve_requests(torch, ctx, prompts, hp["n_vocab"],
-                                           batch)
-            del ctx
-        torch.cuda.synchronize()
-        launches = dict(_cuda.LAUNCHES)
+        requests, by_ctx, kind_launches = {}, {}, {}
+        for kv, variant in contexts:
+            label = _label(kv, variant)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            with _qmm_variant(variant), _record_kinds() as tally:
+                ctx = Context(model, n_ctx=1024, n_seq_max=batch,
+                              block_size=16, kv_type=kv)
+                requests[label] = _serve_requests(torch, ctx, prompts,
+                                                  hp["n_vocab"], batch)
+                del ctx
+                torch.cuda.synchronize()
+            by_ctx[label] = dict(_cuda.LAUNCHES)
+            kind_launches[label] = tally
+            cache = by_ctx[label]["qmm_cache"]
+            check(cache > 0 if variant == "cache" else cache == 0,
+                  f"{name}/{label}: qmm_cache launched {cache} times")
+        launches = {k: sum(c[k] for c in by_ctx.values())
+                    for k in _cuda.LAUNCHES}
         missing = [k for k in path_kernels if launches[k] <= 0]
         check(not missing, f"{name}: kernels not launched on the path: "
                            f"{missing} ({launches})")
-        checks, bad = _kernels_vs_plain(model, prompts[1], kv_types)
+        reached = {key.split()[1] for t in kind_launches.values()
+                   for key in t if key.startswith("K1")}
+        check(set(kinds) <= reached, f"{name}: plane kinds {sorted(kinds)} "
+                                     f"should reach K1; reached {reached}")
+        checks, bad = _kernels_vs_plain(model, prompts[1], contexts)
         plane_bytes = _decode_plane_bytes(model.weights, model.hp)
-        out = {"phase": name, "n_layer": hp["n_layer"], "write_gguf_s": write_s,
-               "load_s": model.load_seconds,
+        out = {"phase": name, "n_layer": hp["n_layer"], "ftype": ftype,
+               "write_gguf_s": write_s, "load_s": model.load_seconds,
                "decode_weight_bytes": plane_bytes,
                "decode_bound_tok_s": PEAK_BYTES / plane_bytes,
                "requests": requests, "launches": launches,
+               "launches_by_context": by_ctx,
+               "kind_launches": kind_launches,
                "plain_vs_kernel_nmse": checks, "gate": LOGITS_GATE}
         emit(out)
         check(not bad, f"logits outside the gate: {bad}")
         if profile:
-            for kv in kv_types:
-                phase_profile(torch, model, hp["n_vocab"], f"{name}/{kv}", kv)
+            for kv, variant in contexts:
+                phase_profile(torch, model, hp["n_vocab"],
+                              f"{name}/{_label(kv, variant)}", kv, variant)
+        if rows is not None:
+            out["rows"] = rows(model)
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_serve(torch, profile: bool = False) -> dict:
-    return _serve(torch, "serve", TINYLLAMA, 7, ("bf16",), 2, DENSE_PATH,
-                  profile)
+    return _serve(torch, "serve", TINYLLAMA, 7, [("bf16", None)], 2,
+                  DENSE_PATH, profile)
 
 
 def phase_serve_moe(torch, profile: bool = False) -> dict:
-    return _serve(torch, "serve_moe", MIXTRAL, 8, ("bf16", "q8_0"), 8,
-                  MOE_PATH, profile)
+    return _serve(torch, "serve_moe", MIXTRAL, 8,
+                  [("bf16", None), ("q8_0", None)], 8, MOE_PATH, profile)
 
 
-_PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "flash_prefill_kernel",
-                 "paged_decode_kernel", "gmm_gemv_kernel", "gmm_gemm_kernel")
+def _projections(model):
+    """(label, planes) of layer 0's projections and of the lm head."""
+    lw, w = model.weights.layers[0], model.weights
+    cand = (("wqkv", lw.wqkv), ("wq", lw.wq), ("wv", lw.wv), ("wo", lw.wo),
+            ("gate|up", lw.w_gateup), ("down", lw.w_down),
+            ("lm_head", w.output))
+    return [(label, qt) for label, qt in cand if qt is not None]
 
 
-def phase_profile(torch, model, n_vocab, label, kv_type) -> dict:
+def _model_rows(kc, model, prefix, k5=()):
+    """K1 rows at M = 1, 8 and 512 on each projection of the served planes
+    whose kind this slice brought to K1 (u2, u4lut, u2lut), and on the
+    projections labelled in k5 a K5 row at M = 512 beside K1's GEMM."""
+    rows = {}
+    for label, qt in _projections(model):
+        kind = f"{qt.ggml_type.name}/{qt.kind}" + ("+min" if qt.min_ is not
+                                                    None else "")
+        new_kind = qt.kind in ("u2", "u4lut", "u2lut")
+        for m in (1, 8, 512) if new_kind else (512,) if label in k5 else ():
+            rows[f"{label} M={m}"] = kc.qmm(f"{prefix} {label}", kind, qt, m)
+        if label in k5:
+            rows[f"{label} K5"] = kc.qmm(f"{prefix} {label}", kind, qt, 512,
+                                         cache=True)
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    return rows
+
+
+def phase_serve_iq4xs(torch, kc, profile: bool = False) -> dict:
+    return _serve(torch, "serve_iq4xs", LLAMA3_70B, 9, [("bf16", None)], 8,
+                  DENSE_PATH, profile, ftype="IQ4_XS", kinds=("u4lut",),
+                  rows=lambda model: _model_rows(kc, model, "70B"))
+
+
+def phase_serve_lowbit(torch, kc, profile: bool = False) -> dict:
+    """The Q2_K and IQ1_S files, each served at the default variant and at
+    "cache"; launches are summed over both files."""
+    contexts = [("bf16", None), ("bf16", "cache")]
+    k5 = ("wqkv", "wq", "gate|up", "lm_head")
+    files = {
+        ftype: _serve(torch, f"serve_lowbit/{ftype}", LLAMA3_8B_LOWBIT, seed,
+                      contexts, 8, DENSE_PATH + ("qmm_cache",), profile,
+                      ftype=ftype, kinds=kinds,
+                      rows=lambda model, f=ftype: _model_rows(
+                          kc, model, f"8B {f}", k5=k5))
+        for ftype, seed, kinds in (("Q2_K", 10, ("u2",)),
+                                   ("IQ1_S", 12, ("u2lut", "u4lut")))}
+    launches = {k: sum(f["launches"][k] for f in files.values())
+                for k in files["Q2_K"]["launches"]}
+    return {"launches": launches, "files": files}
+
+
+_PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
+                 "flash_prefill_kernel", "paged_decode_kernel",
+                 "gmm_gemv_kernel", "gmm_gemm_kernel")
+
+
+def phase_profile(torch, model, n_vocab, label, kv_type,
+                  variant=None) -> dict:
     """torch.profiler over 8 decode steps (after a 130-token prefill) and
-    over one 512-token prefill: wall time, device busy time, idle share,
-    the port's kernels' share and the top device kernels."""
+    over one 512-token prefill, at the Context's qmm variant: wall time,
+    device busy time, idle share, the port's kernels' share and the top
+    device kernels."""
+    with _qmm_variant(variant):
+        return _profile_runs(torch, model, n_vocab, label, kv_type)
+
+
+def _profile_runs(torch, model, n_vocab, label, kv_type) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -882,17 +1086,23 @@ def main() -> int:
         phase_build()
         timer = Timer(torch)
         rep = phase_kernels(torch, timer)
+        kc = KernelChecks(torch, timer, np.random.default_rng(4321))
         serves = {"serve": phase_serve(torch, args.profile),
-                  "serve_moe": phase_serve_moe(torch, args.profile)}
+                  "serve_moe": phase_serve_moe(torch, args.profile),
+                  "serve_iq4xs": phase_serve_iq4xs(torch, kc, args.profile),
+                  "serve_lowbit": phase_serve_lowbit(torch, kc, args.profile)}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
+    rep["qmm_cache"] = serves["serve_lowbit"]["files"]["Q2_K"]["rows"][
+        "gate|up K5"]
     kernels = []
     for name, (src, replaces) in TPU_KERNELS.items():
         r = rep[name]
         # launches: the path of the slice that ported the kernel (dense for
-        # K1-K3, MoE for K4 and K3-q8); launches_by_path: every path
-        own = "serve" if name in DENSE_PATH else "serve_moe"
+        # K1-K3, MoE for K4 and K3-q8, the low-bit cache Contexts for K5);
+        # launches_by_path: every path
+        own = OWN_PATH.get(name, "serve")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "shape": r["shape"],
                         "launches": serves[own]["launches"][name],

@@ -74,21 +74,21 @@ gmm_gemv_kernel(const __nv_bfloat16* __restrict__ xs, int K,
   out += (size_t)t * GEMV_TILE * PACK * npk;
   __shared__ float red[gemv_red_floats<KIND, GEMV_TILE>()];
   if (rows == 1)
-    qmm_gemv_tile<KIND, 1, HAS_MIN>(xs, 1, K, qs, npk, scale, minp, group,
-                                    out, rows_per_warp, red, bx, by,
-                                    gridDim.z);
+    qmm_gemv_tile<KIND, 1, HAS_MIN>(xs, 1, K, qs, npk, scale, minp,
+                                    nullptr, group, out, rows_per_warp, red,
+                                    bx, by, gridDim.z);
   else if (rows <= 2)
-    qmm_gemv_tile<KIND, 2, HAS_MIN>(xs, rows, K, qs, npk, scale, minp, group,
-                                    out, rows_per_warp, red, bx, by,
-                                    gridDim.z);
+    qmm_gemv_tile<KIND, 2, HAS_MIN>(xs, rows, K, qs, npk, scale, minp,
+                                    nullptr, group, out, rows_per_warp, red,
+                                    bx, by, gridDim.z);
   else if (rows <= 4)
-    qmm_gemv_tile<KIND, 4, HAS_MIN>(xs, rows, K, qs, npk, scale, minp, group,
-                                    out, rows_per_warp, red, bx, by,
-                                    gridDim.z);
+    qmm_gemv_tile<KIND, 4, HAS_MIN>(xs, rows, K, qs, npk, scale, minp,
+                                    nullptr, group, out, rows_per_warp, red,
+                                    bx, by, gridDim.z);
   else
-    qmm_gemv_tile<KIND, 8, HAS_MIN>(xs, rows, K, qs, npk, scale, minp, group,
-                                    out, rows_per_warp, red, bx, by,
-                                    gridDim.z);
+    qmm_gemv_tile<KIND, 8, HAS_MIN>(xs, rows, K, qs, npk, scale, minp,
+                                    nullptr, group, out, rows_per_warp, red,
+                                    bx, by, gridDim.z);
 }
 
 // ---------------------------------------------------------------------------

@@ -140,7 +140,7 @@ def _planes_cuda(xs: torch.Tensor, qt: QTensor, routing: Routing,
                  tile_m: int) -> torch.Tensor:
     """K4 launch: [Rp, K] bf16 -> [Rp, pack, NPK] f32."""
     kind = qt.kind
-    if kind not in _KIND_ID:
+    if kind not in ("int8", "u4"):
         raise NotImplementedError(
             f"gmm kind {kind!r} on CUDA: the port's kernel covers int8 and "
             "u4 planes (u2/u4lut/u2lut are listed in ROADMAP.md)")

@@ -1,16 +1,20 @@
 """Repack GGUF packed blocks into flat weight planes.
 
-Counterpart of llama_cpp_test_tpu/quant/repack.py, numpy path only, for the
-block types of Q8_0 and Q4_K_M files (Q8_0, Q4_0, Q4_K, Q6_K) plus dense
-F32/F16/BF16. The plane layouts are the reference's, so planes compare
-equal array for array:
+Counterpart of llama_cpp_test_tpu/quant/repack.py, numpy path only, for
+every block type the reference repacks: the legacy formats, the K-quants,
+IQ4_NL/IQ4_XS, the codebook i-quants and TQ1_0/TQ2_0 (quant/iq_repack.py),
+plus dense F32/F16/BF16. The plane layouts are the reference's, so planes
+compare equal array for array:
 
 layout "t" (matmul weights): K-major planes.
-  qs     int8 [K, N], or nibbles packed along N: uint8 [K, N/2] with
-         byte b[k, j] = q[k, j] | q[k, j + N/2] << 4. Output column
+  qs     int8 [K, N], or packed along N: uint8 [K, N/pack] with sub-value
+         h of byte b[k, j] in bits [h*bits, (h+1)*bits), holding
+         q[k, h*N/pack + j] (nibbles: pack 2, crumbs: pack 4). Output column
          h*NPK + j of the packed product is sub-value h of plane column j.
   scale  bf16 [pack, K/group, N/pack] per-group effective scale.
   min_   optional, same layout: w = scale * q - min_.
+  lut    optional float32 codebook (16 entries for 'u4lut', 4 for
+         'u2lut'): w = scale * lut[q].
 layout "rows" (embedding tables): qs [N/pack, K], f32 scales.
 
 bf16 planes are kept on the host as numpy uint16 bit patterns
@@ -26,7 +30,9 @@ import numpy as np
 
 from ..gguf.constants import GGML_BLOCK_SIZES, GGMLType
 from . import codecs
-from .codecs import _k4_unpack_scale_min, _read_f16
+from .codecs import (KVALUES_IQ4NL, _k4_unpack_scale_min, _q3k_unpack_scales,
+                     _read_f16, _unpack_qh32)
+from .iq_repack import IQ_DECOMPOSERS
 
 PACK = {"dense": 1, "int8": 1, "u4": 2, "u2": 4, "u4lut": 2, "u2lut": 4}
 BITS = {"u4": 4, "u2": 2, "u4lut": 4, "u2lut": 2}
@@ -91,10 +97,65 @@ def _d_q4_0(b, n, k):
     return q.reshape(n, k), s, 8.0 * s, 32
 
 
+def _d_q4_1(b, n, k):
+    d = _read_f16(b[:, 0:2])
+    m = _read_f16(b[:, 2:4])
+    qs = b[:, 4:20]
+    q = np.concatenate([qs & 0xF, qs >> 4], axis=1)
+    return q.reshape(n, k), d.reshape(n, k // 32), -m.reshape(n, k // 32), 32
+
+
+def _d_q5_0(b, n, k):
+    d = _read_f16(b[:, 0:2])
+    qh = _unpack_qh32(b[:, 2:6])
+    qs = b[:, 6:22]
+    lo = np.concatenate([qs & 0xF, qs >> 4], axis=1)
+    q = lo | (qh << 4)
+    s = d.reshape(n, k // 32)
+    return q.reshape(n, k), s, 16.0 * s, 32
+
+
+def _d_q5_1(b, n, k):
+    d = _read_f16(b[:, 0:2])
+    m = _read_f16(b[:, 2:4])
+    qh = _unpack_qh32(b[:, 4:8])
+    qs = b[:, 8:24]
+    q = np.concatenate([qs & 0xF, qs >> 4], axis=1) | (qh << 4)
+    return q.reshape(n, k), d.reshape(n, k // 32), -m.reshape(n, k // 32), 32
+
+
 def _d_q8_0(b, n, k):
     d = _read_f16(b[:, 0:2])
     q = b[:, 2:34].view(np.int8)
     return q.reshape(n, k), d.reshape(n, k // 32), None, 32
+
+
+def _d_q2_k(b, n, k):
+    nb = b.shape[0]
+    scales = b[:, 0:16]
+    qs = b[:, 16:80].reshape(nb, 2, 1, 32)
+    d = _read_f16(b[:, 80:82])[:, None]
+    dmin = _read_f16(b[:, 82:84])[:, None]
+    shifts = np.arange(4, dtype=np.uint8).reshape(1, 1, 4, 1) * 2
+    q = ((qs >> shifts) & 3).reshape(nb, 256)
+    s = (d * (scales & 0xF)).astype(np.float32)
+    m = (dmin * (scales >> 4)).astype(np.float32)
+    return q.reshape(n, k), s.reshape(n, k // 16), m.reshape(n, k // 16), 16
+
+
+def _d_q3_k(b, n, k):
+    nb = b.shape[0]
+    hm = b[:, 0:32]
+    qs = b[:, 32:96].reshape(nb, 2, 1, 32)
+    s6 = _q3k_unpack_scales(b[:, 96:108]).astype(np.int32) - 32
+    d = _read_f16(b[:, 108:110])[:, None]
+    shifts = np.arange(4, dtype=np.uint8).reshape(1, 1, 4, 1) * 2
+    q2 = ((qs >> shifts) & 3).astype(np.int8)
+    bit = np.arange(8, dtype=np.uint8).reshape(1, 2, 4, 1)
+    hbit = ((hm[:, None, None, :] >> bit) & 1).astype(np.int8)
+    q = (q2 + 4 * hbit - 4).reshape(nb, 256)  # signed [-4, 3]
+    s = (d * s6.astype(np.float32)).astype(np.float32)
+    return q.reshape(n, k), s.reshape(n, k // 16), None, 16
 
 
 def _d_q4_k(b, n, k):
@@ -104,6 +165,22 @@ def _d_q4_k(b, n, k):
     sc, m = _k4_unpack_scale_min(b[:, 4:16])
     qs = b[:, 16:144].reshape(nb, 4, 32)
     q = np.stack([qs & 0xF, qs >> 4], axis=2).reshape(nb, 256)
+    s = (d * sc).astype(np.float32)
+    mm = (dmin * m).astype(np.float32)
+    return q.reshape(n, k), s.reshape(n, k // 32), mm.reshape(n, k // 32), 32
+
+
+def _d_q5_k(b, n, k):
+    nb = b.shape[0]
+    d = _read_f16(b[:, 0:2])[:, None]
+    dmin = _read_f16(b[:, 2:4])[:, None]
+    sc, m = _k4_unpack_scale_min(b[:, 4:16])
+    qh = b[:, 16:48]
+    qs = b[:, 48:176].reshape(nb, 4, 32)
+    lo = np.stack([qs & 0xF, qs >> 4], axis=2).reshape(nb, 8, 32)
+    gbit = np.arange(8, dtype=np.uint8).reshape(1, 8, 1)
+    hi = ((qh[:, None, :] >> gbit) & 1).astype(np.uint8)
+    q = (lo | (hi << 4)).reshape(nb, 256)
     s = (d * sc).astype(np.float32)
     mm = (dmin * m).astype(np.float32)
     return q.reshape(n, k), s.reshape(n, k // 32), mm.reshape(n, k // 32), 32
@@ -124,13 +201,42 @@ def _d_q6_k(b, n, k):
     return q.reshape(n, k).astype(np.int8), s.reshape(n, k // 16), None, 16
 
 
+def _d_iq4_nl(b, n, k):
+    d = _read_f16(b[:, 0:2])
+    qs = b[:, 2:18]
+    q = np.concatenate([qs & 0xF, qs >> 4], axis=1)
+    return q.reshape(n, k), d.reshape(n, k // 32), None, 32
+
+
+def _d_iq4_xs(b, n, k):
+    nb = b.shape[0]
+    d = _read_f16(b[:, 0:2])
+    sh = b[:, 2:4].copy().view(np.uint16)
+    sl = b[:, 4:8]
+    gi = np.arange(8)
+    lo = (sl[:, gi // 2] >> (4 * (gi % 2))[None, :].astype(np.uint8)) & 0xF
+    hi = (sh >> (2 * gi)[None, :].astype(np.uint16)) & 3
+    ls = (lo.astype(np.int32) | (hi.astype(np.int32) << 4)) - 32
+    qs = b[:, 8:136].reshape(nb, 8, 16)
+    q = np.concatenate([qs & 0xF, qs >> 4], axis=2).reshape(nb, 256)
+    s = (d[:, None] * ls).astype(np.float32)
+    return q.reshape(n, k), s.reshape(n, k // 32), None, 32
+
+
 _DECOMPOSERS = {
     GGMLType.Q4_0: ("u4", _d_q4_0),
+    GGMLType.Q4_1: ("u4", _d_q4_1),
+    GGMLType.Q5_0: ("int8", _d_q5_0),
+    GGMLType.Q5_1: ("int8", _d_q5_1),
     GGMLType.Q8_0: ("int8", _d_q8_0),
+    GGMLType.Q2_K: ("u2", _d_q2_k),
+    GGMLType.Q3_K: ("int8", _d_q3_k),
     GGMLType.Q4_K: ("u4", _d_q4_k),
+    GGMLType.Q5_K: ("int8", _d_q5_k),
     GGMLType.Q6_K: ("int8", _d_q6_k),
+    GGMLType.IQ4_NL: ("u4lut", _d_iq4_nl),
+    GGMLType.IQ4_XS: ("u4lut", _d_iq4_xs),
 }
-
 
 def _pack_n(q: np.ndarray, pack: int, bits: int) -> np.ndarray:
     """(N, K) unsigned ints -> (N/pack, K) bytes, value j in bits [j*bits, ...)."""
@@ -204,14 +310,23 @@ def repack(raw: np.ndarray, ggml_type: GGMLType, n: int, k: int,
             w = f32_to_bf16_bits(np.ascontiguousarray(w.T))  # [K, N]
         return QTensor("dense", (n + n_pad, k), n, k, w,
                        ggml_type=ggml_type, layout=layout)
+    if ggml_type in IQ_DECOMPOSERS:
+        # exact decomposition of the codebook i-quants and TQ into
+        # u4lut / u2lut planes plus their LUT (quant/iq_repack.py)
+        b = _blocks(raw, ggml_type, n, k)
+        kind, q, s, m, g, lut = IQ_DECOMPOSERS[ggml_type](b, n, k)
+        return _assemble(kind, q, s, m, g, n, k, tile_n, layout, lut,
+                         ggml_type)
     if ggml_type not in _DECOMPOSERS:
         raise NotImplementedError(
-            f"repack of {ggml_type.name}: this port takes the block types "
-            "of Q8_0 and Q4_K_M files (Q8_0, Q4_0, Q4_K, Q6_K)")
+            f"repack of {ggml_type.name}: this port takes F32/F16/BF16 and "
+            "the block types " + ", ".join(
+                t.name for t in sorted({*_DECOMPOSERS, *IQ_DECOMPOSERS}, key=int)))
     kind, fn = _DECOMPOSERS[ggml_type]
     b = _blocks(raw, ggml_type, n, k)
     q, s, m, g = fn(b, n, k)
-    return _assemble(kind, q, s, m, g, n, k, tile_n, layout, None, ggml_type)
+    lut = KVALUES_IQ4NL.copy() if kind == "u4lut" else None
+    return _assemble(kind, q, s, m, g, n, k, tile_n, layout, lut, ggml_type)
 
 
 def fuse_qtensors(parts: list[QTensor]) -> QTensor | None:

@@ -1,7 +1,7 @@
 """Import boundary and device rules of the port (llama_cpp_test_tpu_torch):
 it loads no JAX, nothing of the JAX package and no ml_dtypes, on the dense
-path and on the MoE + q8_0-KV path, and asking for CUDA where there is none
-raises instead of running on the CPU."""
+path, on the MoE + q8_0-KV path and on an IQ4_XS file, and asking for CUDA
+where there is none raises instead of running on the CPU."""
 import json
 import os
 import subprocess
@@ -64,6 +64,20 @@ def test_moe_q8_path_imports_no_jax_reference_or_ml_dtypes(tmp_path):
     res = _run_port(tmp_path, path, moe)
     assert res["bad"] == []
     assert res["finite"] and res["shape"] == [288 + 256]
+
+
+def test_iq4xs_path_imports_no_jax_reference_or_ml_dtypes(tmp_path):
+    """The same after loading and prefilling an IQ4_XS file (u4lut planes,
+    the i-quant codecs and their grid tables)."""
+    from llama_cpp_test_tpu.gguf.constants import GGMLType
+    from llama_cpp_test_tpu.quant.quantize_model import quantize_model
+
+    src, path = str(tmp_path / "f32.gguf"), str(tmp_path / "iq4xs.gguf")
+    _tiny_gguf(src, qtype=GGMLType.F32)
+    quantize_model(src, path, "IQ4_XS")
+    res = _run_port(tmp_path, path)
+    assert res["bad"] == []
+    assert res["finite"] and res["shape"] == [256]
 
 
 def test_cuda_device_raises_without_gpu(tmp_path):

@@ -7,7 +7,8 @@ without JAX, run from the repository root:
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 
 Covers kernel paths that the serving path of chip_smoke.py does not reach:
-all four GGML types of K1 at several row counts, K2 with a sliding window,
+all four GGML types of K1 at several row counts, K1 on the u2, u4lut and
+u2lut kinds (groups 16, 32 and 256) and K5 on every kind, K2 with a sliding window,
 softcap, G = 1 and a cached prefix, K3 (bf16 and q8 pages) at G in
 {1, 4, 8} and D in {64, 128} with softcap and very short caches, K4 on all
 four GGML types with ragged expert loads, one-expert batches, dead tiles
@@ -50,12 +51,21 @@ def nmse(a, b):
     return float(((a - b) ** 2).mean() / ((a * a).mean() + 1e-30))
 
 
+# the low-bit kinds: Q2_K u2 with a min (group 16), IQ4_XS u4lut (32),
+# IQ2_XS u4lut (16), IQ1_S u2lut (32), TQ2_0 u2lut (256)
+_LOWBIT = {GGMLType.Q2_K: [(80, 1e-3, 3e-3), (82, 1e-3, 3e-3)],
+           GGMLType.IQ4_XS: [(0, 1e-4, 3e-4)],
+           GGMLType.IQ2_XS: [(0, 1e-3, 3e-3)],
+           GGMLType.IQ1_S: [(0, 1e-3, 3e-3)],
+           GGMLType.TQ2_0: [(64, 1e-3, 3e-3)]}
+
+
 def random_qtensor(ggml_type, n, k, seed):
     rng = np.random.default_rng(seed)
     blk, nbytes = GGML_BLOCK_SIZES[ggml_type]
     nb = n * k // blk
     raw = rng.integers(0, 256, size=(nb, nbytes), dtype=np.uint8)
-    for off, lo, hi in _SCALES[ggml_type]:
+    for off, lo, hi in {**_SCALES, **_LOWBIT}[ggml_type]:
         d = rng.uniform(lo, hi, nb).astype(np.float16)
         raw[:, off:off + 2] = d.view(np.uint8).reshape(nb, 2)
     return repack.repack(raw.reshape(-1), ggml_type, n, k)
@@ -73,6 +83,60 @@ def test_qmm_kernel_matches_golden(cuda, ggml_type, m):
     got = qmatmul.qmm(xb, qtensor_to_torch(qt, cuda)).cpu().numpy()
     assert got.shape == (m, n)
     assert nmse(golden, got) < 5e-5, nmse(golden, got)
+
+
+def _golden_case(ggml_type, n, k, m, seed, cuda):
+    qt = random_qtensor(ggml_type, n, k, seed=seed)
+    x = np.random.default_rng(seed + 1).standard_normal((m, k)).astype(np.float32)
+    xb = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    golden = xb.float().cpu().numpy() @ repack.dequantize_qtensor_np(qt).T
+    return qt, xb, golden
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 17, 512])
+@pytest.mark.parametrize("ggml_type", list(_LOWBIT), ids=lambda t: t.name)
+def test_qmm_lowbit_kinds_match_golden(cuda, ggml_type, m):
+    n, k = 768, 1024
+    qt, xb, golden = _golden_case(ggml_type, n, k, m, m, cuda)
+    assert qt.kind in ("u2", "u4lut", "u2lut")
+    name = "qmm_gemv" if m <= 8 else "qmm_gemm"
+    before = _cuda.LAUNCHES[name]
+    got = qmatmul.qmm(xb, qtensor_to_torch(qt, cuda)).cpu().numpy()
+    assert _cuda.LAUNCHES[name] == before + 1
+    assert got.shape == (m, n)
+    assert nmse(golden, got) < 5e-5, nmse(golden, got)
+
+
+@pytest.mark.parametrize("m", [130, 512])
+@pytest.mark.parametrize("ggml_type", [GGMLType.Q4_K, GGMLType.Q8_0,
+                                       GGMLType.Q6_K, *_LOWBIT],
+                         ids=lambda t: t.name)
+def test_qmm_cache_kernel_matches_plain(cuda, ggml_type, m):
+    """K5 (variant "cache") on every plane kind at K = 4096: against the
+    float golden, the plain version and K1's GEMM on the same inputs."""
+    n, k = 768, 4096
+    qt, xb, golden = _golden_case(ggml_type, n, k, m, 40 + m, cuda)
+    tq = qtensor_to_torch(qt, cuda)
+    assert qmatmul.cache_route(m, k, qt.group, qt.min_ is not None)
+    before = dict(_cuda.LAUNCHES)
+    got = qmatmul.qmm(xb, tq, variant="cache").cpu().numpy()
+    assert _cuda.LAUNCHES["qmm_cache"] == before["qmm_cache"] + 1
+    assert _cuda.LAUNCHES["qmm_gemm"] == before["qmm_gemm"]
+    assert got.shape == (m, n) and np.isfinite(got).all()
+    assert nmse(golden, got) < 5e-5, nmse(golden, got)
+    plain = qmatmul.qmm_plain(xb, tq).cpu().numpy()
+    assert nmse(plain, got) < 5e-5, nmse(plain, got)
+    k1 = qmatmul.qmm(xb, tq, variant="f32").cpu().numpy()
+    assert nmse(k1, got) < 1e-8, nmse(k1, got)
+
+
+def test_qmm_cache_route_falls_to_k1(cuda):
+    """Shapes outside the reference's cache conditions take K1's GEMM."""
+    qt, xb, _ = _golden_case(GGMLType.Q4_K, 768, 2048, 512, 9, cuda)
+    before = dict(_cuda.LAUNCHES)
+    qmatmul.qmm(xb, qtensor_to_torch(qt, cuda), variant="cache")
+    assert _cuda.LAUNCHES["qmm_cache"] == before["qmm_cache"]
+    assert _cuda.LAUNCHES["qmm_gemm"] == before["qmm_gemm"] + 1
 
 
 def test_qmm_split_kernel_column_order(cuda):

@@ -131,9 +131,16 @@ def test_qgather_rows_layout(qtype):
 
 
 def test_cuda_only_kinds_raise():
-    """u2/LUT planes have no kernel in the port: the CUDA path must raise,
-    never fall back (checked without a card through the plane-kind guard)."""
-    qt = prepack.QTensor("u2", (256, 512), 256, 16,
-                         np.zeros((512, 64), np.uint8))
-    with pytest.raises(NotImplementedError):
-        pqmm._qmm_planes_cuda(torch.zeros((1, 512), dtype=torch.bfloat16), qt)
+    """K1 and K5 take every plane kind now; K4 still covers int8 and u4
+    expert planes only, so its CUDA path must raise for u2/LUT planes, never
+    fall back (checked without a card through the plane-kind guard)."""
+    from llama_cpp_test_tpu_torch.ops import gmm as pgmm
+
+    rt = pgmm.Routing(*(torch.zeros(1, dtype=torch.int32) for _ in range(4)))
+    for kind in ("u2", "u4lut", "u2lut"):
+        pack = prepack.PACK[kind]
+        qt = prepack.QTensor(kind, (256, 512), 256, 32,
+                             np.zeros((2, 512, 256 // pack), np.uint8))
+        with pytest.raises(NotImplementedError):
+            pgmm._planes_cuda(torch.zeros((8, 512), dtype=torch.bfloat16),
+                              qt, rt, pgmm.TILE_GEMV)
