@@ -34,12 +34,26 @@ non-zero before the final line:
            each served by a Context at the default qmm variant and one at
            "cache", whose prefills must launch K5 (qmm_cache); then K1 rows
            on each file's loaded planes and K5 rows at M = 512
+  serve_moe_lowbit the same for three Mixtral-8x7B-geometry files (full
+           width): Q2_K (4 layers; u2 expert stacks with a min), IQ1_S (4
+           layers; IQ1_S gate/up stacks as u2lut, IQ2_XXS down as u4lut)
+           and BF16 (2 layers; dense expert stacks), F32 router, one bf16
+           Context each; K4 (gmm_gemv and gmm_gemm) must launch on u2,
+           u2lut, u4lut and dense; then K4 rows on each file's layer-0
+           gate and down stacks at M = 1, 8 and 512
+  probes   the five kernels of the port's tools (kbench F, G, H and the
+           byte stream E; pairprobe's pairs GEMV) against their plain
+           versions at the probes' own shapes, then both entry points
+           (python -m llama_cpp_test_tpu_torch.tools.kbench / .pairprobe)
+           run once in this process
 
 Before the last line it prints the kernels summary and the card's
 nvidia-smi name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Times are medians of per-launch CUDA-event timings with the 50 MB L2
-flushed before each launch (the main path finds weights and pages cold).
+flushed before each launch (the main path finds weights and pages cold)
+and a spin kernel queued ahead, so the events time the card, not the
+host's launch work (llama_cpp_test_tpu_torch.tools.L2FlushedTimer).
 """
 from __future__ import annotations
 
@@ -62,6 +76,7 @@ QMM_GATE = 5e-5          # NMSE gate of the qmm suite (tests/test_qmatmul.py)
 ATTN_GATE = 2e-4         # NMSE gate of the attention suites
 GMM_GATE = 2e-4          # NMSE gate of the gmm suite (tests/test_gmm.py:73)
 LOGITS_GATE = 2e-3       # NMSE gate of the engine suite (tests/test_engine.py)
+PROBE_GATE = 1e-5        # NMSE gate of tests/test_torch_probes.py
 
 # TinyLlama-1.1B (BASELINE.json config #1) published widths
 TINYLLAMA = dict(n_vocab=32000, n_embd=2048, n_head=32, n_head_kv=4,
@@ -82,6 +97,13 @@ LLAMA3_70B = dict(n_vocab=128256, n_embd=8192, n_head=64, n_head_kv=8,
                   head_dim=128, n_layer=4, n_ff=28672, rope_base=500000.0)
 # Llama-3-8B widths for the low-bit files, depth cut from 32 to 8 layers
 LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=8, rope_base=500000.0)
+# Mixtral-8x7B widths for the low-bit MoE files, depth cut from 32 to 4
+# layers (a layer's 1.4G expert weights are 0.56-0.7 GB of planes, but
+# repacking 4 layers already takes 9 s (Q2_K) and 21 s (IQ1_S) on the 8
+# host cores of an H100 machine), and to 2 for the BF16 file (3.1 GB a
+# layer: ~6.3 GB, about serve_moe's 8-layer file)
+MIXTRAL_LOWBIT = dict(MIXTRAL, n_layer=4)
+MIXTRAL_BF16 = dict(MIXTRAL, n_layer=2)
 
 TPU_KERNELS = {
     "qmm_gemv": ("llama_cpp_test_tpu_torch/csrc/qmm.cu",
@@ -100,13 +122,31 @@ TPU_KERNELS = {
                  "llama_cpp_test_tpu/ops/gmm.py:118"),
     "gmm_gemm": ("llama_cpp_test_tpu_torch/csrc/gmm.cu",
                  "llama_cpp_test_tpu/ops/gmm.py:118"),
+    "kbench_f": ("llama_cpp_test_tpu_torch/csrc/kbench.cu",
+                 "tools/kbench.py:98"),
+    "kbench_g": ("llama_cpp_test_tpu_torch/csrc/kbench.cu",
+                 "tools/kbench.py:155"),
+    "kbench_h": ("llama_cpp_test_tpu_torch/csrc/kbench.cu",
+                 "tools/kbench.py:203"),
+    "kbench_e": ("llama_cpp_test_tpu_torch/csrc/kbench.cu",
+                 "tools/kbench.py:265"),
+    "pairs_qmm": ("llama_cpp_test_tpu_torch/csrc/pairprobe.cu",
+                  "tools/pairprobe.py:42"),
 }
 # the kernels each serving path must launch
 DENSE_PATH = ("qmm_gemv", "qmm_gemm", "flash_prefill", "paged_decode")
-MOE_PATH = DENSE_PATH + ("paged_decode_q8", "gmm_gemv", "gmm_gemm")
+MOE_BF16_PATH = DENSE_PATH + ("gmm_gemv", "gmm_gemm")   # bf16 KV only
+MOE_PATH = MOE_BF16_PATH + ("paged_decode_q8",)
+# a BF16 file's dense projections are plain products (no K1), as the JAX
+# package leaves them to XLA; its expert stacks still run K4
+MOE_DENSE_FILE_PATH = ("flash_prefill", "paged_decode", "gmm_gemv", "gmm_gemm")
 # the slice whose serve path each kernel's `launches` is read from
+PROBES = ("kbench_f", "kbench_g", "kbench_h", "kbench_e", "pairs_qmm")
 OWN_PATH = {"paged_decode_q8": "serve_moe", "gmm_gemv": "serve_moe",
-            "gmm_gemm": "serve_moe", "qmm_cache": "serve_lowbit"}
+            "gmm_gemm": "serve_moe", "qmm_cache": "serve_lowbit",
+            **dict.fromkeys(PROBES, "probes")}
+# the expert plane kinds serve_moe_lowbit's three files must bring to K4
+MOE_LOWBIT_KINDS = ("u2", "u2lut", "u4lut", "dense")
 
 
 def emit(obj) -> None:
@@ -129,32 +169,7 @@ def nmse(a, b) -> float:
 
 
 # ---------------------------------------------------------------------------
-# timing
-
-
-class Timer:
-    """Median per-launch time in ms from CUDA events, with the L2 flushed
-    (a 64 MiB write) before every launch."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn, iters: int = 15, warmup: int = 2) -> float:
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(iters):
-            self.flush_buf.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            times.append((s, e))
-        torch.cuda.synchronize()
-        return float(np.median([s.elapsed_time(e) for s, e in times]))
+# bounds
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -219,6 +234,13 @@ def random_blocks(rng, ggml_type, n: int, k: int) -> np.ndarray:
     elif ggml_type == GGMLType.IQ2_XXS:
         # std 53 d (grid magnitudes 8, 25, 43 times (0.5 + s) / 4)
         _f16_field(raw, 0, d(2.2e-4, 3.4e-4))
+    elif ggml_type == GGMLType.BF16:
+        # random sign and mantissa, exponent field 120 or 121: |w| in
+        # [2^-7, 2^-5), std ~0.019 (drawing normals for 2.8G weights would
+        # take half a minute)
+        bits = raw.view(np.uint16)
+        bits &= 0x80FF
+        bits |= 60 << 8
     else:
         raise ValueError(ggml_type)
     return raw.reshape(-1)
@@ -231,27 +253,40 @@ _ROLES = ("token_embd", "output", "attn_q", "attn_k", "attn_v",
 def file_types(ftype: str) -> dict:
     """Tensor role -> GGML type of a file of type ftype, by the JAX
     package's per-tensor rules (quant/quantize_model.tensor_target_type):
-    an IQ4_XS file is IQ4_XS throughout; a Q2_K file keeps a Q6_K head; an
-    IQ1_S file bumps attn_v to Q4_K and ffn_down to IQ2_XXS, keeps a Q5_K
-    head and a Q2_K token embedding."""
+    an IQ4_XS or BF16 file is that type throughout; a Q2_K file keeps a
+    Q6_K head; an IQ1_S file bumps attn_v to Q4_K and ffn_down to IQ2_XXS,
+    keeps a Q5_K head and a Q2_K token embedding."""
     from llama_cpp_test_tpu_torch.gguf.constants import GGMLType as T
 
     base = dict.fromkeys(_ROLES, T[ftype])
     return {"Q4_K": base,
             "IQ4_XS": base,
+            "BF16": base,
             "Q2_K": {**base, "output": T.Q6_K},
             "IQ1_S": {**base, "attn_v": T.Q4_K, "ffn_down": T.IQ2_XXS,
                       "output": T.Q5_K, "token_embd": T.Q2_K}}[ftype]
+
+
+def expert_types(ftype: str, layer: int) -> tuple:
+    """GGML types of a layer's gate, up and down expert stacks: in a Q4_K
+    file Q4_K, with ffn_down_exps Q6_K on even layers and Q4_K on odd ones,
+    as a Q4_K_M file mixes them; in the others file_types' ffn_gate,
+    ffn_up and ffn_down (the JAX rules match ".ffn_down" in the stacks'
+    names too)."""
+    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType as T
+
+    if ftype == "Q4_K":
+        return T.Q4_K, T.Q4_K, T.Q6_K if layer % 2 == 0 else T.Q4_K
+    types = file_types(ftype)
+    return types["ffn_gate"], types["ffn_up"], types["ffn_down"]
 
 
 def write_llama_gguf(path: str, hp: dict, seed: int,
                      ftype: str = "Q4_K") -> None:
     """A llama-arch GGUF of geometry hp from seeded random block bytes:
     matmul tensors by file_types(ftype) and F32 norms; with
-    hp["n_expert"], Mixtral's layout as llama.cpp writes it (F32 router,
-    Q4_K gate/up expert stacks, ffn_down_exps Q6_K on even layers and Q4_K
-    on odd ones, as a Q4_K_M file mixes them)."""
-    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
+    hp["n_expert"], Mixtral's layout as llama.cpp writes it: an F32 router
+    and expert stacks of expert_types(ftype, layer)."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -298,10 +333,10 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             # router logits of std ~3 over the experts
             w.add_tensor(p + "ffn_gate_inp.weight", 0.05 * rng.standard_normal(
                 (n_exp, c)).astype(np.float32))
-            quant(p + "ffn_gate_exps.weight", ff, c, n_exp, GGMLType.Q4_K)
-            quant(p + "ffn_up_exps.weight", ff, c, n_exp, GGMLType.Q4_K)
-            quant(p + "ffn_down_exps.weight", c, ff, n_exp,
-                  GGMLType.Q6_K if i % 2 == 0 else GGMLType.Q4_K)
+            gt_gate, gt_up, gt_down = expert_types(ftype, i)
+            quant(p + "ffn_gate_exps.weight", ff, c, n_exp, gt_gate)
+            quant(p + "ffn_up_exps.weight", ff, c, n_exp, gt_up)
+            quant(p + "ffn_down_exps.weight", c, ff, n_exp, gt_down)
         else:
             quant(p + "ffn_gate.weight", ff, c)
             quant(p + "ffn_up.weight", ff, c)
@@ -444,9 +479,11 @@ class KernelChecks:
         routed = torch.unique(topi).numel()
         plane_bytes = sum(t.numel() * t.element_size() for t in
                           (qt.qs, qt.scale, qt.min_) if t is not None)
-        w_all = torch.stack([qmatmul._dequant_t(
-            qt.qs[i], qt.scale[i], None if qt.min_ is None else qt.min_[i],
-            None, kind=qt.kind, group=qt.group) for i in range(e)])
+        w_all = qt.qs if qt.kind == "dense" else torch.stack([
+            qmatmul._dequant_t(qt.qs[i], qt.scale[i],
+                               None if qt.min_ is None else qt.min_[i],
+                               qt.lut, kind=qt.kind, group=qt.group)
+            for i in range(e)])
         fn_lib, lib_name = _grouped_yardstick(torch, x, topi, w_all)
         row = self._row(
             "gmm_gemv" if tile_m == gmm.TILE_GEMV else "gmm_gemm",
@@ -789,28 +826,38 @@ def _qmm_variant(variant):
 
 @contextlib.contextmanager
 def _record_kinds():
-    """Count the K1 and K5 launches per plane kind ("K1 u2": n, ...) while
-    the block runs, by wrapping the two launch wrappers of ops.qmatmul."""
-    from llama_cpp_test_tpu_torch.ops import qmatmul
+    """Count the K1, K5 and K4 launches per plane kind ("K1 u2": n, ...,
+    "K4 gemv dense": n) while the block runs, by wrapping the launch
+    wrappers of ops.qmatmul and ops.gmm."""
+    from llama_cpp_test_tpu_torch.ops import gmm, qmatmul
 
     tally = {}
-    names = {"_qmm_planes_cuda": "K1", "_qmm_cache_cuda": "K5"}
-    orig = {n: getattr(qmatmul, n) for n in names}
+    count = lambda key: tally.__setitem__(key, tally.get(key, 0) + 1)
+    wrapped = {(qmatmul, "_qmm_planes_cuda"): "K1",
+               (qmatmul, "_qmm_cache_cuda"): "K5",
+               (gmm, "_planes_cuda"): "K4"}
+    orig = {key: getattr(*key) for key in wrapped}
 
-    def wrap(n):
-        def launch(x2, qt):
-            key = f"{names[n]} {qt.kind}"
-            tally[key] = tally.get(key, 0) + 1
-            return orig[n](x2, qt)
+    def wrap(key):
+        f, label = orig[key], wrapped[key]
+        if label == "K4":
+            def launch(xs, qt, routing, tile_m):
+                count(f"K4 {'gemv' if tile_m == gmm.TILE_GEMV else 'gemm'} "
+                      f"{qt.kind}")
+                return f(xs, qt, routing, tile_m)
+        else:
+            def launch(x2, qt):
+                count(f"{label} {qt.kind}")
+                return f(x2, qt)
         return launch
 
-    for n in names:
-        setattr(qmatmul, n, wrap(n))
+    for key in wrapped:
+        setattr(*key, wrap(key))
     try:
         yield tally
     finally:
-        for n, f in orig.items():
-            setattr(qmatmul, n, f)
+        for (mod, name), f in orig.items():
+            setattr(mod, name, f)
 
 
 def _label(kv, variant) -> str:
@@ -987,9 +1034,148 @@ def phase_serve_lowbit(torch, kc, profile: bool = False) -> dict:
     return {"launches": launches, "files": files}
 
 
+def _moe_rows(kc, model, prefix):
+    """K4 rows at M = 1, 8 and 512 on layer 0's gate and down expert
+    stacks as the file loaded them (up has gate's shape and kind)."""
+    lw = model.weights.layers[0]
+    rows = {}
+    for label, qt in (("gate", lw.gate_exps), ("down", lw.down_exps)):
+        kind = f"{qt.ggml_type.name}/{qt.kind}" + ("+min" if qt.min_ is not
+                                                    None else "")
+        for m in (1, 8, 512):
+            rows[f"{label} M={m}"] = kc.gmm(f"{prefix} {label}", kind, qt, m)
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    return rows
+
+
+def phase_serve_moe_lowbit(torch, kc, profile: bool = False) -> dict:
+    """The Mixtral Q2_K, IQ1_S and BF16 files, one bf16 Context each;
+    launches are summed over the files, and K4's GEMV and GEMM must each
+    have run on every kind of MOE_LOWBIT_KINDS."""
+    files = {
+        ftype: _serve(torch, f"serve_moe_lowbit/{ftype}", hp, seed,
+                      [("bf16", None)], 8, path, profile, ftype=ftype,
+                      rows=lambda model, f=ftype: _moe_rows(
+                          kc, model, f"Mixtral {f}"))
+        for ftype, hp, seed, path in (
+            ("Q2_K", MIXTRAL_LOWBIT, 13, MOE_BF16_PATH),
+            ("IQ1_S", MIXTRAL_LOWBIT, 14, MOE_BF16_PATH),
+            ("BF16", MIXTRAL_BF16, 15, MOE_DENSE_FILE_PATH))}
+    reached = {key for f in files.values()
+               for t in f["kind_launches"].values() for key in t
+               if key.startswith("K4")}
+    missing = [f"K4 {v} {k}" for v in ("gemv", "gemm")
+               for k in MOE_LOWBIT_KINDS if f"K4 {v} {k}" not in reached]
+    check(not missing, f"serve_moe_lowbit: {missing} never launched "
+                       f"(reached {sorted(reached)})")
+    launches = {k: sum(f["launches"][k] for f in files.values())
+                for k in files["Q2_K"]["launches"]}
+    return {"launches": launches, "files": files}
+
+
+def _probe_rows(torch, kc) -> dict:
+    """Each probe kernel against its plain version at its entry point's
+    shapes (kbench: M=8 K=2048 N=11264 and the 12672 x 1024 byte stream;
+    pairprobe: M=8 K=4096 N=16384, 128-column blocks)."""
+    from llama_cpp_test_tpu_torch.tools import kbench, pairprobe
+
+    rows = {}
+    x, q, s = kbench.make_data()
+    for fmt in "FGH":
+        xb, qs, sc = kbench.device_tensors(fmt, x, q, s, "cuda")
+        fn_k = lambda: kbench.probe_gemv(fmt, xb, qs, sc)
+        fn_p = lambda: kbench.probe_gemv_plain(fmt, xb, qs, sc)
+        w = torch.from_numpy(((q.astype(np.float32) - (8 if fmt == "G" else 0))
+                              * np.repeat(s, kbench.GROUP, 0))).to("cuda") \
+            .to(torch.bfloat16)
+        m, k, n = kbench.M, kbench.K, kbench.N
+        rows[f"kbench_{fmt.lower()}"] = kc._row(
+            f"kbench_{fmt.lower()}", f"{fmt} M={m} K={k} N={n} group 32",
+            fn_k(), fn_p(), PROBE_GATE, fn_k, fn_p,
+            lambda: torch.matmul(xb, w),
+            xb.numel() * 2 + qs.numel() + sc.numel() * 2 + m * n * 4,
+            2.0 * m * k * n, library="torch.matmul (pre-dequantized bf16)")
+        del w
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    a = torch.randint(0, 256, kbench.STREAM_SHAPE, generator=g,
+                      dtype=torch.uint8, device="cuda")
+    x0 = torch.from_numpy(kc.rng.standard_normal((1, 128)).astype(
+        np.float32)).to("cuda")
+    used = kbench.stream_rows(a.shape[0])
+    fn_k = lambda: kbench.stream_colsum(x0, a)
+    fn_p = lambda: kbench.stream_colsum_plain(x0, a)
+    rows["kbench_e"] = kc._row(
+        "kbench_e", f"E u8 [{a.shape[0]}, {a.shape[1]}], {used} rows read",
+        fn_k(), fn_p(), PROBE_GATE, fn_k, fn_p,
+        lambda: torch.sum(a[:used], dim=0, dtype=torch.float32),
+        used * a.shape[1] + 128 * 4 * 2, float(used * a.shape[1]),
+        library="torch.sum over rows")
+    rng = np.random.default_rng(3)
+    c, n = pairprobe.C, pairprobe.N
+    xp = torch_bf16(torch, rng.standard_normal((pairprobe.M, c)))
+    qp, sp, fp_ = pairprobe.make_data(rng, "cuda")
+    q32 = qp.to(torch.int32)
+    qk = torch.stack([q32 & 0xF, q32 >> 4], dim=1).reshape(c, n)
+    w_eff = ((128 + qk).float() * torch.repeat_interleave(sp.float(), 32, 0)
+             - torch.repeat_interleave(fp_, 32, 0)).to(torch.bfloat16)
+    del q32, qk
+    fn_k = lambda: pairprobe.pairs_qmm(xp, qp, sp, fp_)
+    fn_p = lambda: pairprobe.pairs_qmm_plain(xp, qp, sp, fp_)
+    rows["pairs_qmm"] = kc._row(
+        "pairs_qmm", f"pairs M=8 K={c} N={n} block 128 columns",
+        fn_k(), fn_p(), PROBE_GATE, fn_k, fn_p,
+        lambda: torch.matmul(xp, w_eff),
+        xp.numel() * 2 + qp.numel() + sp.numel() * 2 + fp_.numel() * 4
+        + pairprobe.M * n * 4, 2.0 * pairprobe.M * c * n,
+        library="torch.matmul (pre-dequantized bf16)")
+    del w_eff
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    return rows
+
+
+def phase_probes(torch, kc) -> dict:
+    """The probe kernels' rows, then both probe entry points, each run as
+    `python -m` runs it, with the launch counts zeroed just before and
+    read just after."""
+    import io
+    import runpy
+    import warnings
+
+    from llama_cpp_test_tpu_torch.ops import _cuda
+
+    rows = _probe_rows(torch, kc)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    printed = {}
+    for mod in ("kbench", "pairprobe"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+            # _probe_rows imported the module already; run_module reruns it
+            # as __main__, as `python -m` would
+            warnings.filterwarnings("ignore", ".*found in sys.modules",
+                                    RuntimeWarning)
+            try:
+                runpy.run_module(f"llama_cpp_test_tpu_torch.tools.{mod}",
+                                 run_name="__main__")
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        printed[mod] = buf.getvalue().splitlines()
+        check(code == 0, f"probes: {mod} exited {code}: {printed[mod][-3:]}")
+    torch.cuda.synchronize()
+    launches = {k: _cuda.LAUNCHES[k] for k in PROBES}
+    check(all(v > 0 for v in launches.values()),
+          f"probes: kernels not launched by the entry points: {launches}")
+    out = {"phase": "probes", "launches": launches, "printed": printed}
+    emit(out)
+    return {**out, "rows": rows}
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
-                 "gmm_gemv_kernel", "gmm_gemm_kernel")
+                 "gmm_gemv_kernel", "gmm_gemm_kernel", "probe_gemv_kernel",
+                 "stream_colsum_kernel")
 
 
 def phase_profile(torch, model, n_vocab, label, kv_type,
@@ -1084,29 +1270,36 @@ def main() -> int:
     try:
         dev = phase_device(torch)
         phase_build()
-        timer = Timer(torch)
+        from llama_cpp_test_tpu_torch.tools import L2FlushedTimer
+
+        timer = L2FlushedTimer()
         rep = phase_kernels(torch, timer)
         kc = KernelChecks(torch, timer, np.random.default_rng(4321))
         serves = {"serve": phase_serve(torch, args.profile),
                   "serve_moe": phase_serve_moe(torch, args.profile),
                   "serve_iq4xs": phase_serve_iq4xs(torch, kc, args.profile),
-                  "serve_lowbit": phase_serve_lowbit(torch, kc, args.profile)}
+                  "serve_lowbit": phase_serve_lowbit(torch, kc, args.profile),
+                  "serve_moe_lowbit": phase_serve_moe_lowbit(torch, kc,
+                                                             args.profile),
+                  "probes": phase_probes(torch, kc)}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     rep["qmm_cache"] = serves["serve_lowbit"]["files"]["Q2_K"]["rows"][
         "gate|up K5"]
+    rep.update(serves["probes"]["rows"])
     kernels = []
     for name, (src, replaces) in TPU_KERNELS.items():
         r = rep[name]
         # launches: the path of the slice that ported the kernel (dense for
-        # K1-K3, MoE for K4 and K3-q8, the low-bit cache Contexts for K5);
-        # launches_by_path: every path
+        # K1-K3, MoE for K4 and K3-q8, the low-bit cache Contexts for K5,
+        # the probe entry points for the probes); launches_by_path: every
+        # path
         own = OWN_PATH.get(name, "serve")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "shape": r["shape"],
                         "launches": serves[own]["launches"][name],
-                        "launches_by_path": {p: v["launches"][name]
+                        "launches_by_path": {p: v["launches"].get(name, 0)
                                              for p, v in serves.items()},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

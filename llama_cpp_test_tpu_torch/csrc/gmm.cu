@@ -5,29 +5,37 @@
 // (token, expert) rows into a scratch batch xs [Rp, K] whose row tile t
 // (tile_m rows) belongs to one expert, tile_expert[t]; tile_rows[t] counts
 // the tile's live rows (0 for the dead tail tiles). Computes
-//   out[Rp, pack, npk] f32 = xs . dequant(W[tile_expert[t]]) per tile,
+//   out[Rp, pack, npk] f32 = xs . W[tile_expert[t]] per tile,
 // with zeros in the rows that carry no assignment, over the stacked planes
-//   qs    [E, K, npk]          int8 (kind 0) or u4 nibbles (kind 1)
-//   scale [E, pack, K/group, npk] bf16, min (or null) the same: w = s*q - m.
+//   qs    [E, K, npk]  a plane of kind 0 int8, 1 u4, 2 u2, 3 u4lut, 4 u2lut
+//                      (qmm_gemv.cuh's kinds), or kind 5: dense bf16 [E, K, N]
+//   scale [E, pack, K/group, npk] bf16, min (or null) the same: w = s*q - m,
+//                      or w = s*lut[q] for the LUT kinds (lut: 16 or 4 f32);
+//                      a dense stack has neither.
 // Each block reads its tile's expert id from device memory and offsets the
 // plane pointers by it, so nothing goes back to the host and a decode step
 // reads only the routed experts' planes.
 //
 // What bounds it on an H100. Decode (tile_m 8, R = B * top_k rows, most
 // tiles hold one or two): bytes. A token reads top_k of E experts'
-// planes, about 0.56 B per weight for Q4_K; gmm_gemv runs K1's GEMV body
-// (qmm_gemv.cuh) on each live tile at the tile's own row count (1, 2, 4
-// or 8 rows of FMAs, chosen per block from tile_rows), and a dead tile's
-// blocks exit at once. Tiles of one expert read the same planes; K is
-// split across blocks as in K1, so tiles of one expert run side by side
-// and the second read of a plane mostly hits L2. Prefill (tile_m 64):
-// operations. gmm_gemm dequantizes a 32 x 128 weight tile per k-step to
-// bf16(s*q - m) in shared memory (no per-group min fold: that fold made
-// K1's u4 GEMM 8x slower than its int8 one) and multiplies on the tensor
-// cores with wmma (mma.sync 16x16x16 bf16, f32 accumulate); the next
-// k-step's x, plane, scale and min loads are issued into registers before
-// the current product, so the global latency overlaps the MMAs. No
-// cp.async/TMA ring, no wgmma: later work.
+// planes (0.56 B a weight for Q4_K, 0.5 for Q2_K, ~0.3 for IQ1_S, 2 for a
+// bf16 stack); gmm_gemv runs K1's GEMV body (qmm_gemv.cuh) on each live
+// tile at the tile's own row count (1, 2, 4 or 8 rows of FMAs, chosen per
+// block from tile_rows), and a dead tile's blocks exit at once. A dense
+// stack takes the same shape of GEMV over 4 bf16 columns a lane. Tiles of
+// one expert read the same planes; K is split across blocks as in K1, so
+// tiles of one expert run side by side and the second read of a plane
+// mostly hits L2. Prefill (tile_m 64): operations. gmm_gemm dequantizes a
+// 32 x 128 weight tile per k-step into shared memory as the plain version
+// rounds it, bf16(s*q - m) or bf16(s*lut[q]) (no per-group min fold: that
+// fold made K1's u4 GEMM 8x slower than its int8 one), or copies a dense
+// tile unchanged, and multiplies on the tensor cores with wmma (mma.sync
+// 16x16x16 bf16, f32 accumulate); the next k-step's x, plane, scale and
+// min loads are issued into registers before the current product, so the
+// global latency overlaps the MMAs. Every kind keeps the same thread
+// roles: 8 threads a k-row, each with 128 / pack / 8 packed columns (16
+// bytes of int8, 8 of nibbles, 4 of crumbs, 32 of bf16). No cp.async/TMA
+// ring, no wgmma: later work.
 #include <mma.h>
 
 #include "qmm_gemv.cuh"
@@ -36,82 +44,180 @@ using namespace nvcuda;
 
 namespace {
 
+constexpr int KIND_DENSE = 5;   // a bf16 [E, K, N] stack (no scale, no min)
 constexpr int GEMV_TILE = 8;    // tile_m of the decode variant
 constexpr int GM_BM = 64;       // tile_m of the prefill variant
 constexpr int GM_BN = 128;      // logical output columns per block
 constexpr int GM_BK = 32;
 constexpr int GM_THREADS = 256;
+constexpr int DENSE_CPL = 4;    // bf16 columns a lane of the dense GEMV takes
+
+__host__ __device__ constexpr int gmm_pack(int kind) {
+  return kind == KIND_DENSE ? 1 : kind_pack(kind);
+}
 
 template <int KIND>
 __device__ __forceinline__ size_t plane_elems(int K, int group, int npk) {
-  return (size_t)(KIND == 1 ? 2 : 1) * (K / group) * npk;
+  return (size_t)kind_pack(KIND) * (K / group) * npk;
+}
+
+// NW 32-bit words from global memory (16-byte loads where NW allows)
+template <int NW>
+__device__ __forceinline__ void ldg_words(const void* p, uint32_t* r) {
+  if constexpr (NW % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < NW / 4; ++i) {
+      const uint4 v = __ldg(static_cast<const uint4*>(p) + i);
+      r[4 * i] = v.x; r[4 * i + 1] = v.y; r[4 * i + 2] = v.z; r[4 * i + 3] = v.w;
+    }
+  } else if constexpr (NW == 2) {
+    const uint2 v = __ldg(static_cast<const uint2*>(p));
+    r[0] = v.x; r[1] = v.y;
+  } else {
+    static_assert(NW == 1, "words per load");
+    r[0] = __ldg(static_cast<const uint32_t*>(p));
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void st_words(void* p, const uint32_t* r) {
+  if constexpr (NW % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < NW / 4; ++i)
+      static_cast<uint4*>(p)[i] =
+          make_uint4(r[4 * i], r[4 * i + 1], r[4 * i + 2], r[4 * i + 3]);
+  } else {
+    static_assert(NW == 2, "words per store");
+    *static_cast<uint2*>(p) = make_uint2(r[0], r[1]);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // decode: tile_m 8, K1's GEMV body per live tile
 
+// x [M, K] bf16 (M <= MT), w [K, n] bf16; out [M, n] f32. Lanes take
+// DENSE_CPL columns each, warps and blocks split K as in qmm_gemv_tile.
+template <int MT>
+__device__ __forceinline__ void dense_gemv_tile(
+    const __nv_bfloat16* __restrict__ x, int M, int K,
+    const __nv_bfloat16* __restrict__ w, int n, float* __restrict__ out,
+    int rows_per_warp, float* red, int bx, int by, int ny) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = (bx * 32 + lane) * DENSE_CPL;
+  const int k_begin = (by * GEMV_WARPS + warp) * rows_per_warp;
+  const int k_end = min(K, k_begin + rows_per_warp);
+  const __nv_bfloat16* xr[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) xr[m] = x + (size_t)min(m, M - 1) * K;
+  float acc[MT][DENSE_CPL];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < DENSE_CPL; ++c) acc[m][c] = 0.f;
+#pragma unroll 4
+  for (int k = k_begin; k < k_end; ++k) {
+    float wv[DENSE_CPL];
+    load_bf16<DENSE_CPL>(w + (size_t)k * n + j0, wv);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float xv = bf2f(xr[m][k]);
+#pragma unroll
+      for (int c = 0; c < DENSE_CPL; ++c) acc[m][c] = fmaf(xv, wv[c], acc[m][c]);
+    }
+  }
+  gemv_reduce_store<MT, DENSE_CPL>(
+      acc, red, M, out, (size_t)n,
+      [&](int c, int l) { return (size_t)(bx * 32 + l) * DENSE_CPL + c; }, ny);
+}
+
 template <int KIND, bool HAS_MIN>
 __global__ void __launch_bounds__(32 * GEMV_WARPS)
 gmm_gemv_kernel(const __nv_bfloat16* __restrict__ xs, int K,
-                const uint8_t* __restrict__ qs, int npk,
+                const void* __restrict__ qs_v, int npk,
                 const __nv_bfloat16* __restrict__ scale,
-                const __nv_bfloat16* __restrict__ minp, int group,
+                const __nv_bfloat16* __restrict__ minp,
+                const float* __restrict__ lut, int group,
                 const int* __restrict__ tile_expert,
                 const int* __restrict__ tile_rows, int n_expert,
                 float* __restrict__ out, int rows_per_warp) {
-  constexpr int PACK = KIND == 1 ? 2 : 1;
+  constexpr int PACK = gmm_pack(KIND);
   // tiles vary fastest: the blocks of consecutive tiles of one expert on
   // one column block and K slice run side by side and share its planes
   const int t = blockIdx.x, bx = blockIdx.y, by = blockIdx.z;
   const int rows = min(tile_rows[t], GEMV_TILE);
   if (rows <= 0) return;  // dead tile: the launcher zeroed its rows
   const int e = min(max(tile_expert[t], 0), n_expert - 1);
-  const size_t pe = plane_elems<KIND>(K, group, npk);
-  qs += (size_t)e * K * npk;
-  scale += e * pe;
-  if constexpr (HAS_MIN) minp += e * pe;
   xs += (size_t)t * GEMV_TILE * K;
   out += (size_t)t * GEMV_TILE * PACK * npk;
-  __shared__ float red[gemv_red_floats<KIND, GEMV_TILE>()];
-  if (rows == 1)
-    qmm_gemv_tile<KIND, 1, HAS_MIN>(xs, 1, K, qs, npk, scale, minp,
-                                    nullptr, group, out, rows_per_warp, red,
-                                    bx, by, gridDim.z);
-  else if (rows <= 2)
-    qmm_gemv_tile<KIND, 2, HAS_MIN>(xs, rows, K, qs, npk, scale, minp,
-                                    nullptr, group, out, rows_per_warp, red,
-                                    bx, by, gridDim.z);
-  else if (rows <= 4)
-    qmm_gemv_tile<KIND, 4, HAS_MIN>(xs, rows, K, qs, npk, scale, minp,
-                                    nullptr, group, out, rows_per_warp, red,
-                                    bx, by, gridDim.z);
-  else
-    qmm_gemv_tile<KIND, 8, HAS_MIN>(xs, rows, K, qs, npk, scale, minp,
-                                    nullptr, group, out, rows_per_warp, red,
-                                    bx, by, gridDim.z);
+  if constexpr (KIND == KIND_DENSE) {
+    const __nv_bfloat16* w =
+        static_cast<const __nv_bfloat16*>(qs_v) + (size_t)e * K * npk;
+    __shared__ float red[GEMV_WARPS * GEMV_TILE * DENSE_CPL * 32];
+    if (rows == 1)
+      dense_gemv_tile<1>(xs, 1, K, w, npk, out, rows_per_warp, red, bx, by,
+                         gridDim.z);
+    else if (rows <= 2)
+      dense_gemv_tile<2>(xs, rows, K, w, npk, out, rows_per_warp, red, bx, by,
+                         gridDim.z);
+    else if (rows <= 4)
+      dense_gemv_tile<4>(xs, rows, K, w, npk, out, rows_per_warp, red, bx, by,
+                         gridDim.z);
+    else
+      dense_gemv_tile<8>(xs, rows, K, w, npk, out, rows_per_warp, red, bx, by,
+                         gridDim.z);
+  } else {
+    const size_t pe = plane_elems<KIND>(K, group, npk);
+    const uint8_t* qs = static_cast<const uint8_t*>(qs_v) + (size_t)e * K * npk;
+    scale += e * pe;
+    if constexpr (HAS_MIN) minp += e * pe;
+    __shared__ float red[gemv_red_floats<KIND, GEMV_TILE>()];
+    __shared__ float lut_s[16];
+    load_lut<KIND>(lut_s, lut);
+    if (rows == 1)
+      qmm_gemv_tile<KIND, 1, HAS_MIN>(xs, 1, K, qs, npk, scale, minp, lut_s,
+                                      group, out, rows_per_warp, red, bx, by,
+                                      gridDim.z);
+    else if (rows <= 2)
+      qmm_gemv_tile<KIND, 2, HAS_MIN>(xs, rows, K, qs, npk, scale, minp, lut_s,
+                                      group, out, rows_per_warp, red, bx, by,
+                                      gridDim.z);
+    else if (rows <= 4)
+      qmm_gemv_tile<KIND, 4, HAS_MIN>(xs, rows, K, qs, npk, scale, minp, lut_s,
+                                      group, out, rows_per_warp, red, bx, by,
+                                      gridDim.z);
+    else
+      qmm_gemv_tile<KIND, 8, HAS_MIN>(xs, rows, K, qs, npk, scale, minp, lut_s,
+                                      group, out, rows_per_warp, red, bx, by,
+                                      gridDim.z);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// prefill: tile_m 64, wmma over a bf16(s*q - m) shared-memory tile
+// prefill: tile_m 64, wmma over a dequantized bf16 shared-memory tile
 
 template <int KIND, bool HAS_MIN>
 __global__ void __launch_bounds__(GM_THREADS)
 gmm_gemm_kernel(const __nv_bfloat16* __restrict__ xs, int K,
-                const uint8_t* __restrict__ qs, int npk,
+                const void* __restrict__ qs_v, int npk,
                 const __nv_bfloat16* __restrict__ scale,
-                const __nv_bfloat16* __restrict__ minp, int group,
+                const __nv_bfloat16* __restrict__ minp,
+                const float* __restrict__ lut, int group,
                 const int* __restrict__ tile_expert,
                 const int* __restrict__ tile_rows, int n_expert,
                 float* __restrict__ out) {
-  constexpr int PACK = KIND == 1 ? 2 : 1;
+  constexpr bool DENSE = KIND == KIND_DENSE;
+  constexpr int PACK = gmm_pack(KIND);
   constexpr int BNP = GM_BN / PACK;                // packed columns per block
-  constexpr int BPT = BNP * GM_BK / GM_THREADS;    // plane bytes per thread
-  constexpr int SV = BPT / 8;                      // uint4 of scales per h
+  constexpr int CPT = BNP * GM_BK / GM_THREADS;    // packed columns per thread
+  constexpr int QW = CPT * (DENSE ? 2 : 1) / 4;    // plane words per thread
+  constexpr int SW = CPT / 2;                      // scale words per h
   constexpr int LDA = GM_BK + 8;                   // bf16 elements
   constexpr int LDB = GM_BN + 8;
-  static_assert(BPT == 8 || BPT == 16, "plane bytes per thread");
+  static_assert(CPT == 4 || CPT == 8 || CPT == 16, "packed columns a thread");
+  static_assert(BNP / CPT == 8, "8 threads a k-row");
   __shared__ __align__(128) __nv_bfloat16 As[GM_BM * LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[GM_BK * LDB];
+  __shared__ float lut_s[16];
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int t = blockIdx.y, jb = blockIdx.x * BNP;
@@ -124,74 +230,68 @@ gmm_gemm_kernel(const __nv_bfloat16* __restrict__ xs, int K,
     }
     return;
   }
+  if constexpr (!DENSE) load_lut<KIND>(lut_s, lut);
   const int e = min(max(tile_expert[t], 0), n_expert - 1);
-  const size_t pe = plane_elems<KIND>(K, group, npk);
-  qs += (size_t)e * K * npk;
-  scale += e * pe;
-  if constexpr (HAS_MIN) minp += e * pe;
+  const char* qs = static_cast<const char*>(qs_v) +
+                   (size_t)e * K * npk * (DENSE ? 2 : 1);
+  if constexpr (!DENSE) {
+    const size_t pe = plane_elems<KIND>(K, group, npk);
+    scale += e * pe;
+    if constexpr (HAS_MIN) minp += e * pe;
+  }
   xs += (size_t)t * GM_BM * K;
   const int G = K / group;
 
   // fixed per-thread roles: x chunk (row xr, 8 columns at xc) and plane
-  // chunk (k-row wr, BPT packed columns at wc)
+  // chunk (k-row wr, CPT packed columns at wc)
   const int xr = tid >> 2, xc = (tid & 3) * 8;
-  const int wr = tid >> 3, wc = (tid & 7) * BPT;
+  const int wr = tid >> 3, wc = (tid & 7) * CPT;
 
   uint4 x_reg;
-  uint32_t q_reg[BPT / 4];
-  uint4 s_reg[PACK * SV], m_reg[HAS_MIN ? PACK * SV : 1];
+  uint32_t q_reg[QW];
+  uint32_t s_reg[DENSE ? 1 : PACK * SW], m_reg[HAS_MIN ? PACK * SW : 1];
 
   auto load = [&](int k0) {
     x_reg = make_uint4(0, 0, 0, 0);
     if (xr < rows)
       x_reg = *reinterpret_cast<const uint4*>(xs + (size_t)xr * K + k0 + xc);
-    const int k = k0 + wr, g = k / group;
-    const uint8_t* qp = qs + (size_t)k * npk + jb + wc;
-    if constexpr (BPT == 8) {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(qp));
-      q_reg[0] = v.x; q_reg[1] = v.y;
-    } else {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(qp));
-      q_reg[0] = v.x; q_reg[1] = v.y; q_reg[2] = v.z; q_reg[3] = v.w;
-    }
+    const int k = k0 + wr;
+    ldg_words<QW>(qs + ((size_t)k * npk + jb + wc) * (DENSE ? 2 : 1), q_reg);
+    if constexpr (!DENSE) {
+      const int g = k / group;
 #pragma unroll
-    for (int h = 0; h < PACK; ++h) {
-      const size_t off = ((size_t)h * G + g) * npk + jb + wc;
-#pragma unroll
-      for (int v = 0; v < SV; ++v) {
-        s_reg[h * SV + v] = __ldg(reinterpret_cast<const uint4*>(scale + off) + v);
-        if constexpr (HAS_MIN)
-          m_reg[h * SV + v] = __ldg(reinterpret_cast<const uint4*>(minp + off) + v);
+      for (int h = 0; h < PACK; ++h) {
+        const size_t off = ((size_t)h * G + g) * npk + jb + wc;
+        ldg_words<SW>(scale + off, s_reg + h * SW);
+        if constexpr (HAS_MIN) ldg_words<SW>(minp + off, m_reg + h * SW);
       }
     }
   };
 
   auto store = [&]() {
     *reinterpret_cast<uint4*>(As + xr * LDA + xc) = x_reg;
+    if constexpr (DENSE) {
+      st_words<QW>(Bs + wr * LDB + wc, q_reg);
+    } else {
 #pragma unroll
-    for (int h = 0; h < PACK; ++h) {
-      const __nv_bfloat16* sb =
-          reinterpret_cast<const __nv_bfloat16*>(&s_reg[h * SV]);
-      const __nv_bfloat16* mb =
-          reinterpret_cast<const __nv_bfloat16*>(&m_reg[HAS_MIN ? h * SV : 0]);
-      __align__(16) __nv_bfloat16 wv[BPT];
+      for (int h = 0; h < PACK; ++h) {
+        const __nv_bfloat16* sb =
+            reinterpret_cast<const __nv_bfloat16*>(s_reg + h * SW);
+        const __nv_bfloat16* mb =
+            reinterpret_cast<const __nv_bfloat16*>(m_reg + (HAS_MIN ? h * SW : 0));
+        __align__(16) __nv_bfloat16 wv[CPT];
 #pragma unroll
-      for (int c = 0; c < BPT; ++c) {
-        const uint32_t byte = (q_reg[c >> 2] >> (8 * (c & 3))) & 0xffu;
-        float q;
-        if constexpr (KIND == 0)
-          q = (float)(int8_t)byte;
-        else
-          q = (float)(h == 0 ? (byte & 0xfu) : (byte >> 4));
-        // the plain version's rounding: bf16(s*q - m), two f32 roundings
-        float w = __fmul_rn(q, bf2f(sb[c]));
-        if constexpr (HAS_MIN) w = __fsub_rn(w, bf2f(mb[c]));
-        wv[c] = __float2bfloat16_rn(w);
+        for (int c = 0; c < CPT; ++c) {
+          const uint32_t byte = (q_reg[c >> 2] >> (8 * (c & 3))) & 0xffu;
+          // the plain version's rounding: bf16(s*q - m), two f32 roundings,
+          // or bf16(s*lut[q])
+          float w = __fmul_rn(plane_value<KIND>(byte, h, lut_s), bf2f(sb[c]));
+          if constexpr (HAS_MIN) w = __fsub_rn(w, bf2f(mb[c]));
+          wv[c] = __float2bfloat16_rn(w);
+        }
+        st_words<CPT / 2>(Bs + wr * LDB + h * BNP + wc,
+                          reinterpret_cast<const uint32_t*>(wv));
       }
-      uint4* dst = reinterpret_cast<uint4*>(Bs + wr * LDB + h * BNP + wc);
-#pragma unroll
-      for (int v = 0; v < BPT / 8; ++v)
-        dst[v] = reinterpret_cast<const uint4*>(wv)[v];
     }
   };
 
@@ -219,7 +319,8 @@ gmm_gemm_kernel(const __nv_bfloat16* __restrict__ xs, int K,
     __syncthreads();
   }
 
-  // rows past `rows` had zero x, so every stored row is finite
+  // rows past `rows` had zero x, so every stored row is finite; a 16-column
+  // fragment never straddles two sub-value planes (BNP >= 32)
 #pragma unroll
   for (int f = 0; f < 4; ++f) {
     const int n0 = wn * 64 + f * 16;
@@ -228,18 +329,9 @@ gmm_gemm_kernel(const __nv_bfloat16* __restrict__ xs, int K,
   }
 }
 
-template <template <int, bool> class L, typename... A>
-void dispatch(int kind, bool has_min, A... args) {
-  if (kind == 0) {
-    if (has_min) L<0, true>::run(args...); else L<0, false>::run(args...);
-  } else {
-    if (has_min) L<1, true>::run(args...); else L<1, false>::run(args...);
-  }
-}
-
 struct Args {
-  const __nv_bfloat16* xs; int T, K; const uint8_t* qs; int npk;
-  const __nv_bfloat16 *scale, *minp; int group;
+  const __nv_bfloat16* xs; int T, K; const void* qs; int npk;
+  const __nv_bfloat16 *scale, *minp; const float* lut; int group;
   const int *tile_expert, *tile_rows; int n_expert; float* out;
   cudaStream_t st;
 };
@@ -247,72 +339,102 @@ struct Args {
 template <int KIND, bool HAS_MIN>
 struct GemvLaunch {
   static void run(const Args& a) {
-    const int nbx = a.npk / 128;
+    const int cols = KIND == KIND_DENSE ? 32 * DENSE_CPL : gemv_block_cols<KIND>();
+    const int nbx = a.npk / cols;
     int rpw = 0;
-    const int ky = gemv_k_split(a.K, a.group, nbx, num_sms(), &rpw);
+    // a dense stack splits K at 32-row granules (it has no groups)
+    const int ky = gemv_k_split(a.K, KIND == KIND_DENSE ? 32 : a.group, nbx,
+                                num_sms(), &rpw);
     dim3 grid(a.T, nbx, ky);
     gmm_gemv_kernel<KIND, HAS_MIN><<<grid, 32 * GEMV_WARPS, 0, a.st>>>(
-        a.xs, a.K, a.qs, a.npk, a.scale, a.minp, a.group, a.tile_expert,
-        a.tile_rows, a.n_expert, a.out, rpw);
+        a.xs, a.K, a.qs, a.npk, a.scale, a.minp, a.lut, a.group,
+        a.tile_expert, a.tile_rows, a.n_expert, a.out, rpw);
   }
 };
 
 template <int KIND, bool HAS_MIN>
 struct GemmLaunch {
   static void run(const Args& a) {
-    constexpr int BNP = GM_BN / (KIND == 1 ? 2 : 1);
-    dim3 grid(a.npk / BNP, a.T);
+    dim3 grid(a.npk / (GM_BN / gmm_pack(KIND)), a.T);
     gmm_gemm_kernel<KIND, HAS_MIN><<<grid, GM_THREADS, 0, a.st>>>(
-        a.xs, a.K, a.qs, a.npk, a.scale, a.minp, a.group, a.tile_expert,
-        a.tile_rows, a.n_expert, a.out);
+        a.xs, a.K, a.qs, a.npk, a.scale, a.minp, a.lut, a.group,
+        a.tile_expert, a.tile_rows, a.n_expert, a.out);
   }
 };
 
+// The LUT kinds and dense stacks carry no min (no GGML type gives them
+// one), so they are instantiated without it.
+template <template <int, bool> class L>
+int dispatch(int kind, const Args& a) {
+  const bool mn = a.minp != nullptr;
+  switch (kind) {
+    case 0: mn ? L<0, true>::run(a) : L<0, false>::run(a); break;
+    case 1: mn ? L<1, true>::run(a) : L<1, false>::run(a); break;
+    case 2: mn ? L<2, true>::run(a) : L<2, false>::run(a); break;
+    case 3: L<3, false>::run(a); break;
+    case 4: L<4, false>::run(a); break;
+    case KIND_DENSE: L<KIND_DENSE, false>::run(a); break;
+  }
+  return launch_status();
+}
+
+// operands both entry points take; false if the kernels do not take them
+bool valid(int T, int K, int kind, const void* scale, const void* minp,
+           const void* lut, int group, int n_expert) {
+  if (T < 1 || n_expert < 1 || kind < 0 || kind > KIND_DENSE || group <= 0 ||
+      K % group || K % GM_BK)
+    return false;
+  if (kind == KIND_DENSE)
+    return scale == nullptr && minp == nullptr && lut == nullptr;
+  return scale != nullptr && (lut != nullptr) == kind_lut(kind) &&
+         !(kind_lut(kind) && minp != nullptr);
+}
+
 Args make_args(const void* xs, int T, int K, const void* qs, int npk,
-               const void* scale, const void* minp, int group,
+               const void* scale, const void* minp, const void* lut, int group,
                const void* tile_expert, const void* tile_rows, int n_expert,
                void* out, void* stream) {
-  return Args{(const __nv_bfloat16*)xs, T, K, (const uint8_t*)qs, npk,
-              (const __nv_bfloat16*)scale, (const __nv_bfloat16*)minp, group,
-              (const int*)tile_expert, (const int*)tile_rows, n_expert,
-              (float*)out, (cudaStream_t)stream};
+  return Args{(const __nv_bfloat16*)xs, T, K, qs, npk,
+              (const __nv_bfloat16*)scale, (const __nv_bfloat16*)minp,
+              (const float*)lut, group, (const int*)tile_expert,
+              (const int*)tile_rows, n_expert, (float*)out,
+              (cudaStream_t)stream};
 }
 
 }  // namespace
 
-// xs [T*8, K] bf16; qs [E, K, npk]; scale/min [E, pack, K/group, npk] bf16
-// (min may be null); tile_expert/tile_rows [T] int32 on the device;
-// out [T*8, pack, npk] float32. kind 0 = int8, 1 = u4.
+// xs [T*8, K] bf16; qs [E, K, npk] (kinds 0-4; kind 5: bf16 [E, K, npk]);
+// scale/min [E, pack, K/group, npk] bf16 (min may be null; both null for
+// kind 5); lut [16] or [4] f32 for kinds 3/4, else null; tile_expert /
+// tile_rows [T] int32 on the device; out [T*8, pack, npk] float32.
+// K a multiple of 32 and of group; npk a multiple of 128.
 PORT_API int gmm_gemv(const void* xs, int T, int K, const void* qs, int npk,
                       int kind, const void* scale, const void* minp,
-                      int group, const void* tile_expert,
+                      const void* lut, int group, const void* tile_expert,
                       const void* tile_rows, int n_expert, void* out,
                       void* stream) {
-  if (T < 1 || n_expert < 1 || (kind != 0 && kind != 1) || group <= 0 ||
-      K % group || npk % 128)
+  if (!valid(T, K, kind, scale, minp, lut, group, n_expert) || npk % 128)
     return (int)cudaErrorInvalidValue;
-  const Args a = make_args(xs, T, K, qs, npk, scale, minp, group, tile_expert,
-                           tile_rows, n_expert, out, stream);
-  const int pack = kind == 1 ? 2 : 1;
+  const Args a = make_args(xs, T, K, qs, npk, scale, minp, lut, group,
+                           tile_expert, tile_rows, n_expert, out, stream);
   // pad rows and dead tiles stay zero; K-split blocks atomicAdd into it
-  cudaMemsetAsync(out, 0, (size_t)T * GEMV_TILE * pack * npk * sizeof(float),
+  cudaMemsetAsync(out, 0,
+                  (size_t)T * GEMV_TILE * gmm_pack(kind) * npk * sizeof(float),
                   a.st);
-  dispatch<GemvLaunch>(kind, minp != nullptr, a);
-  return launch_status();
+  return dispatch<GemvLaunch>(kind, a);
 }
 
 // Same operands with 64-row tiles: xs [T*64, K], out [T*64, pack, npk].
-// K a multiple of 32, group dividing 32, npk a multiple of 128 / pack.
+// K a multiple of 32 and of group; npk a multiple of 128 / pack.
 PORT_API int gmm_gemm(const void* xs, int T, int K, const void* qs, int npk,
                       int kind, const void* scale, const void* minp,
-                      int group, const void* tile_expert,
+                      const void* lut, int group, const void* tile_expert,
                       const void* tile_rows, int n_expert, void* out,
                       void* stream) {
-  if (T < 1 || n_expert < 1 || (kind != 0 && kind != 1) || group <= 0 ||
-      GM_BK % group || K % GM_BK || npk % (GM_BN / (kind == 1 ? 2 : 1)))
+  if (!valid(T, K, kind, scale, minp, lut, group, n_expert) ||
+      npk % (GM_BN / gmm_pack(kind)))
     return (int)cudaErrorInvalidValue;
-  const Args a = make_args(xs, T, K, qs, npk, scale, minp, group, tile_expert,
-                           tile_rows, n_expert, out, stream);
-  dispatch<GemmLaunch>(kind, minp != nullptr, a);
-  return launch_status();
+  const Args a = make_args(xs, T, K, qs, npk, scale, minp, lut, group,
+                           tile_expert, tile_rows, n_expert, out, stream);
+  return dispatch<GemmLaunch>(kind, a);
 }

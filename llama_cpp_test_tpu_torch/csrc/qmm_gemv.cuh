@@ -98,6 +98,37 @@ static __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p,
   }
 }
 
+// Sum the GEMV_WARPS warps' partial sums acc[MT][NO] (each warp walked its
+// own K slice) through shared memory red (GEMV_WARPS * MT * NO * 32
+// floats), then one store per output, or one atomicAdd when K is split
+// across blocks (ny > 1: the caller zeroed `out`). Output o of lane l, row
+// m < M, lands at out + m * row_stride + col(o, l).
+template <int MT, int NO, class Col>
+static __device__ __forceinline__ void gemv_reduce_store(
+    const float (&acc)[MT][NO], float* red, int M, float* __restrict__ out,
+    size_t row_stride, Col col, int ny) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int o = 0; o < NO; ++o)
+      red[((warp * MT + m) * NO + o) * 32 + lane] = acc[m][o];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < MT * NO * 32; idx += 32 * GEMV_WARPS) {
+    const int mo = idx >> 5, l = idx & 31;
+    const int m = mo / NO, o = mo % NO;
+    if (m >= M) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < GEMV_WARPS; ++w) s += red[(w * MT * NO + mo) * 32 + l];
+    float* dst = out + m * row_stride + col(o, l);
+    if (ny == 1)
+      *dst = s;
+    else
+      atomicAdd(dst, s);
+  }
+}
+
 // x [M, K] bf16 (M <= MT rows), qs [K, npk] plane of kind KIND,
 // scale/min [pack, K/group, npk] bf16, lut the kind's LUT in shared memory
 // (LUT kinds only); out [M, pack, npk] f32.
@@ -174,28 +205,12 @@ static __device__ __forceinline__ void qmm_gemv_tile(
       }
   }
 
-  // reduce the warps' partial sums, then one add (or atomicAdd when K is
-  // split across blocks) per output
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int o = 0; o < NO; ++o)
-      red[((warp * MT + m) * NO + o) * 32 + lane] = acc[m][o];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < MT * NO * 32; idx += 32 * GEMV_WARPS) {
-    const int mo = idx >> 5, l = idx & 31;
-    const int m = mo / NO, o = mo % NO;
-    if (m >= M) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < GEMV_WARPS; ++w) s += red[(w * MT * NO + mo) * 32 + l];
-    const int h = o / CPL, c = o % CPL;
-    float* dst = out + ((size_t)m * PACK + h) * npk + (bx * 32 + l) * CPL + c;
-    if (ny == 1)
-      *dst = s;
-    else
-      atomicAdd(dst, s);
-  }
+  gemv_reduce_store<MT, NO>(acc, red, M, out, (size_t)PACK * npk,
+                            [&](int o, int l) {
+                              return (size_t)(o / CPL) * npk +
+                                     (bx * 32 + l) * CPL + o % CPL;
+                            },
+                            ny);
 }
 
 // Split K so that about twice as many blocks as the card has SMs run; each

@@ -95,13 +95,15 @@ def _repack_2d(reader: GGUFReader, name: str,
 
 def _repack_3d(reader: GGUFReader, name: str) -> QTensor:
     """Expert-stacked tensor, ggml ne = (K, N, E) -> one QTensor whose
-    planes are stacked on a leading E axis."""
+    planes are stacked on a leading E axis. The experts repack in parallel
+    (numpy releases the GIL): a Mixtral layer holds 24 of them."""
     info = reader.tensors[name]
     k, n, e = info.shape
     raw = reader.tensor_bytes(name)
     per = raw.size // e
-    qts = [repack(raw[i * per:(i + 1) * per], info.ggml_type, n, k)
-           for i in range(e)]
+    with ThreadPoolExecutor(max_workers=min(e, os.cpu_count() or 1)) as ex:
+        qts = list(ex.map(lambda i: repack(raw[i * per:(i + 1) * per],
+                                           info.ggml_type, n, k), range(e)))
     q0 = qts[0]
     stack = lambda xs: None if xs[0] is None else np.stack(xs)
     return QTensor(q0.kind, q0.shape, q0.n_orig, q0.group,

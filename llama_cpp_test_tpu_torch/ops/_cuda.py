@@ -24,14 +24,17 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("qmm", "qmm_cache", "flash_prefill", "paged_attention", "gmm")
+SOURCES = ("qmm", "qmm_cache", "flash_prefill", "paged_attention", "gmm",
+           "kbench", "pairprobe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 
 LAUNCHES: dict[str, int] = {
     "qmm_gemv": 0, "qmm_gemm": 0, "qmm_cache": 0, "flash_prefill": 0,
-    "paged_decode": 0, "paged_decode_q8": 0, "gmm_gemv": 0, "gmm_gemm": 0}
+    "paged_decode": 0, "paged_decode_q8": 0, "gmm_gemv": 0, "gmm_gemm": 0,
+    "kbench_f": 0, "kbench_g": 0, "kbench_h": 0, "kbench_e": 0,
+    "pairs_qmm": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

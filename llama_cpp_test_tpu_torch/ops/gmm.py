@@ -11,11 +11,13 @@ Counterpart of llama_cpp_test_tpu/ops/gmm.py:
      is read back to the host.
   2. `gmm_apply` / `gmm_apply_split`: on a CUDA tensor, kernel K4
      (csrc/gmm.cu): `gmm_gemv` for tile_m 8 (decode), `gmm_gemm` for
-     tile_m 64 (prefill). Each block reads its tile's expert id on the
-     device and offsets the stacked planes by it, so a decode step reads
-     only the routed experts. On a CPU tensor, or with plain=True, the
-     plain version: dequantize each routed expert once and multiply its
-     rows.
+     tile_m 64 (prefill), over every plane kind (int8, u4, u2, u4lut,
+     u2lut) and over dense bf16 stacks (F16/BF16/F32 files), whose
+     product the reference also computes inside its kernel. Each block
+     reads its tile's expert id on the device and offsets the stacked
+     planes by it, so a decode step reads only the routed experts. On a
+     CPU tensor, or with plain=True, the plain version: dequantize each
+     routed expert once and multiply its rows.
   3. `combine` (torch ops): weighted index_add_ of scratch rows back to
      their tokens (padding rows carry weight 0).
 
@@ -31,7 +33,8 @@ import torch
 
 from ..quant.repack import QTensor
 from . import _cuda
-from .qmatmul import _KIND_ID, _dequant_t, _matmul_f32, _split
+from .qmatmul import (_KIND_ID, _dequant_t, _matmul_f32, _split, check_lut,
+                      lut_ptr)
 
 TILE_GEMV = 8    # tile_m of the decode regime (R = M * top_k <= 256)
 TILE_GEMM = 64   # tile_m of the prefill regime
@@ -136,53 +139,58 @@ def _planes_plain(xs: torch.Tensor, qt: QTensor, routing: Routing,
     return y.reshape(rp, qt.pack, qt.npk)
 
 
+# K4's plane kinds: K1's five (qmm_gemv.cuh) and 5, a dense bf16 stack
+_GMM_KIND = {**_KIND_ID, "dense": 5}
+
+
 def _planes_cuda(xs: torch.Tensor, qt: QTensor, routing: Routing,
                  tile_m: int) -> torch.Tensor:
-    """K4 launch: [Rp, K] bf16 -> [Rp, pack, NPK] f32."""
+    """K4 launch: [Rp, K] bf16 -> [Rp, pack, NPK] f32, for every plane kind
+    (int8, u4, u2, u4lut, u2lut) and dense bf16 stacks. Raises on operands
+    the kernel does not take."""
     kind = qt.kind
-    if kind not in ("int8", "u4"):
-        raise NotImplementedError(
-            f"gmm kind {kind!r} on CUDA: the port's kernel covers int8 and "
-            "u4 planes (u2/u4lut/u2lut are listed in ROADMAP.md)")
     req = _cuda.require
+    req(kind in _GMM_KIND, f"gmm: plane kind {kind!r} has no kernel")
     req(tile_m in (TILE_GEMV, TILE_GEMM),
         f"gmm: tile_m {tile_m} (the kernel takes {TILE_GEMV} or {TILE_GEMM})")
     rp, k = xs.shape
     t = rp // tile_m
     e, npk = qt.qs.shape[0], qt.npk
+    dense = kind == "dense"
     req(xs.is_cuda and xs.dtype == torch.bfloat16 and xs.is_contiguous()
         and rp == t * tile_m, "gmm: xs must be contiguous CUDA bf16 [T*tile_m, K]")
+    qdtype = {"int8": torch.int8, "dense": torch.bfloat16}.get(kind,
+                                                               torch.uint8)
     req(qt.qs.device == xs.device and tuple(qt.qs.shape) == (e, k, npk)
-        and qt.qs.dtype == (torch.int8 if kind == "int8" else torch.uint8)
-        and qt.qs.is_contiguous(),
-        f"gmm: bad qs planes {tuple(qt.qs.shape)} {qt.qs.dtype}")
+        and qt.qs.dtype == qdtype and qt.qs.is_contiguous(),
+        f"gmm: bad {kind} qs planes {tuple(qt.qs.shape)} {qt.qs.dtype}")
+    req((qt.scale is None) == dense and not (dense and qt.min_ is not None),
+        f"gmm: {kind} planes with scale {qt.scale is not None}, min "
+        f"{qt.min_ is not None} (a dense stack has neither)")
     for name, p in (("scale", qt.scale), ("min", qt.min_)):
         if p is not None:
             req(p.device == xs.device and p.dtype == torch.bfloat16
                 and tuple(p.shape) == (e, qt.pack, k // qt.group, npk)
                 and p.is_contiguous(),
                 f"gmm: bad {name} planes {tuple(p.shape)} {p.dtype}")
+    check_lut(qt, xs.device, "gmm")
     for name, a in (("tile_expert", routing.tile_expert),
                     ("tile_rows", routing.tile_rows)):
         req(a.device == xs.device and a.dtype == torch.int32
             and a.is_contiguous() and tuple(a.shape) == (t,),
             f"gmm: {name} must be contiguous int32 [{t}] on the device")
-    if tile_m == TILE_GEMV:
-        req(k % qt.group == 0 and npk % 128 == 0,
-            f"gmm_gemv: unsupported K={k} NPK={npk} group={qt.group}")
-        name = "gmm_gemv"
-    else:
-        req(k % 32 == 0 and 32 % qt.group == 0
-            and npk % (128 // qt.pack) == 0,
-            f"gmm_gemm: unsupported K={k} NPK={npk} group={qt.group}")
-        name = "gmm_gemm"
+    name = "gmm_gemv" if tile_m == TILE_GEMV else "gmm_gemm"
+    req(k % 32 == 0 and k % qt.group == 0
+        and npk % (128 if tile_m == TILE_GEMV else 128 // qt.pack) == 0,
+        f"{name}: unsupported K={k} NPK={npk} group={qt.group}")
     out = torch.empty((rp, qt.pack, npk), dtype=torch.float32, device=xs.device)
-    fn = _cuda.bind("gmm", name, "piipiippippipp")
-    rc = fn(xs.data_ptr(), t, k, qt.qs.data_ptr(), npk, _KIND_ID[kind],
-            qt.scale.data_ptr(), 0 if qt.min_ is None else qt.min_.data_ptr(),
+    fn = _cuda.bind("gmm", name, "piipiipppippipp")
+    rc = fn(xs.data_ptr(), t, k, qt.qs.data_ptr(), npk, _GMM_KIND[kind],
+            0 if dense else qt.scale.data_ptr(),
+            0 if qt.min_ is None else qt.min_.data_ptr(), lut_ptr(qt),
             qt.group, routing.tile_expert.data_ptr(),
-            routing.tile_rows.data_ptr(), e, out.data_ptr(),
-            _cuda.stream_ptr(xs.device))
+            routing.tile_rows.data_ptr(), e,
+            out.data_ptr(), _cuda.stream_ptr(xs.device))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return out

@@ -124,18 +124,26 @@ def _check_operands(x2: torch.Tensor, qt: QTensor, name: str) -> None:
                 and tuple(p.shape) == (qt.pack, k // qt.group, npk)
                 and p.is_contiguous(),
                 f"{name}: bad {label} plane {tuple(p.shape)} {p.dtype}")
-    if kind in ("u4lut", "u2lut"):
-        lut = qt.lut
-        req(lut is not None and lut.device == x2.device
-            and lut.dtype == torch.float32 and lut.is_contiguous()
-            and tuple(lut.shape) == (1 << BITS[kind],),
-            f"{name}: {kind} needs its f32 LUT on the device")
-        req(qt.min_ is None, f"{name}: {kind} planes carry no min")
+    check_lut(qt, x2.device, name)
     req(k % qt.group == 0 and npk % 128 == 0 and k % 32 == 0,
         f"{name}: unsupported shape K={k} NPK={npk} group={qt.group}")
 
 
-def _lut_ptr(qt: QTensor) -> int:
+def check_lut(qt: QTensor, device: torch.device, name: str) -> None:
+    """Raise unless a LUT kind's planes carry their f32 LUT on device and
+    no min (kernels K1, K4 and K5 take it so)."""
+    if qt.kind in ("u4lut", "u2lut"):
+        lut = qt.lut
+        _cuda.require(lut is not None and lut.device == device
+                      and lut.dtype == torch.float32 and lut.is_contiguous()
+                      and tuple(lut.shape) == (1 << BITS[qt.kind],),
+                      f"{name}: {qt.kind} needs its f32 LUT on the device")
+        _cuda.require(qt.min_ is None,
+                      f"{name}: {qt.kind} planes carry no min")
+
+
+def lut_ptr(qt: QTensor) -> int:
+    """The LUT's device pointer for a LUT kind, else 0 (null)."""
     return qt.lut.data_ptr() if qt.kind in ("u4lut", "u2lut") else 0
 
 
@@ -153,7 +161,7 @@ def _qmm_planes_cuda(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
     fn = _cuda.bind("qmm", name, "piipiipppipp")
     _cuda.check(fn(x2.data_ptr(), m, k, qt.qs.data_ptr(), qt.npk,
                    _KIND_ID[qt.kind], qt.scale.data_ptr(),
-                   0 if qt.min_ is None else qt.min_.data_ptr(), _lut_ptr(qt),
+                   0 if qt.min_ is None else qt.min_.data_ptr(), lut_ptr(qt),
                    qt.group, out.data_ptr(), _cuda.stream_ptr(x2.device)),
                 name)
     _cuda.LAUNCHES[name] += 1
@@ -177,7 +185,7 @@ def _qmm_cache_cuda(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
     fn = _cuda.bind("qmm_cache", "qmm_cache", "piipiipppippp")
     _cuda.check(fn(x2.data_ptr(), m, k, qt.qs.data_ptr(), qt.npk,
                    _KIND_ID[qt.kind], qt.scale.data_ptr(),
-                   0 if qt.min_ is None else qt.min_.data_ptr(), _lut_ptr(qt),
+                   0 if qt.min_ is None else qt.min_.data_ptr(), lut_ptr(qt),
                    qt.group, 0 if xsum is None else xsum.data_ptr(),
                    out.data_ptr(), _cuda.stream_ptr(x2.device)), "qmm_cache")
     _cuda.LAUNCHES["qmm_cache"] += 1

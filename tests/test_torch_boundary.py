@@ -1,7 +1,8 @@
 """Import boundary and device rules of the port (llama_cpp_test_tpu_torch):
 it loads no JAX, nothing of the JAX package and no ml_dtypes, on the dense
-path, on the MoE + q8_0-KV path and on an IQ4_XS file, and asking for CUDA
-where there is none raises instead of running on the CPU."""
+path, on the MoE + q8_0-KV path, on an IQ4_XS file and in its kernel
+probes (which load nothing of the JAX package's tools/ either), and asking
+for CUDA where there is none raises instead of running on the CPU."""
 import json
 import os
 import subprocess
@@ -78,6 +79,39 @@ def test_iq4xs_path_imports_no_jax_reference_or_ml_dtypes(tmp_path):
     res = _run_port(tmp_path, path)
     assert res["bad"] == []
     assert res["finite"] and res["shape"] == [256]
+
+
+_PROBES = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from llama_cpp_test_tpu_torch.tools import kbench, pairprobe
+x, q, s = kbench.make_data(k=256, n=256)
+outs = [kbench.probe_gemv(f, torch.from_numpy(x), *(torch.from_numpy(a)
+        for a in kbench.pack(f, q, s))) for f in "FGH"]
+a = torch.randint(0, 256, (1024, 1024), dtype=torch.uint8)
+outs.append(kbench.stream_colsum(torch.zeros(1, 128), a))
+ok = pairprobe.correctness_check("cpu")
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "llama_cpp_test_tpu", "tools", "ml_dtypes")
+             or k.startswith(("jax.", "jaxlib", "ml_dtypes.",
+                              "llama_cpp_test_tpu.", "tools.")))
+print(json.dumps({"finite": ok and all(bool(torch.isfinite(o).all())
+                                       for o in outs), "bad": bad}))
+"""
+
+
+def test_probe_tools_import_no_jax_reference_or_tools(tmp_path):
+    """The probes' plain versions and the pairs correctness check run on
+    the CPU without JAX, the JAX package or its tools/ package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBES, ROOT], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"finite": True, "bad": []}
 
 
 def test_cuda_device_raises_without_gpu(tmp_path):

@@ -10,11 +10,17 @@ Covers kernel paths that the serving path of chip_smoke.py does not reach:
 all four GGML types of K1 at several row counts, K1 on the u2, u4lut and
 u2lut kinds (groups 16, 32 and 256) and K5 on every kind, K2 with a sliding window,
 softcap, G = 1 and a cached prefix, K3 (bf16 and q8 pages) at G in
-{1, 4, 8} and D in {64, 128} with softcap and very short caches, K4 on all
-four GGML types with ragged expert loads, one-expert batches, dead tiles
-and K not a multiple of 2048. Gates are the JAX suites': qmm NMSE < 5e-5
-against the float golden, attention and gmm NMSE < 2e-4.
+{1, 4, 8} and D in {64, 128} with softcap and very short caches, K4 on
+every plane kind (the four GGML types above, Q2_K u2 with a min, IQ4_XS
+and IQ2_XS u4lut, IQ1_S u2lut, TQ2_0 u2lut at group 256, and dense BF16
+stacks) with ragged expert loads, one-expert batches, dead tiles and K not
+a multiple of 2048, and the five probe kernels of the port's tools.
+Gates are the JAX suites': qmm NMSE < 5e-5 against the float golden,
+attention and gmm NMSE < 2e-4, the probes NMSE < 1e-5 against their plain
+versions.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +33,7 @@ from llama_cpp_test_tpu_torch.ops import paged_attention as pa
 from llama_cpp_test_tpu_torch.ops import qmatmul
 from llama_cpp_test_tpu_torch.quant import repack
 from llama_cpp_test_tpu_torch.runtime import kv_cache
+from llama_cpp_test_tpu_torch.tools import kbench, pairprobe
 from llama_cpp_test_tpu_torch.weights import qtensor_to_torch
 
 pytestmark = pytest.mark.cuda
@@ -62,6 +69,10 @@ _LOWBIT = {GGMLType.Q2_K: [(80, 1e-3, 3e-3), (82, 1e-3, 3e-3)],
 
 def random_qtensor(ggml_type, n, k, seed):
     rng = np.random.default_rng(seed)
+    if ggml_type == GGMLType.BF16:       # dense planes from normal weights
+        w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
+        raw = repack.f32_to_bf16_bits(w).view(np.uint8)
+        return repack.repack(raw.reshape(-1), ggml_type, n, k)
     blk, nbytes = GGML_BLOCK_SIZES[ggml_type]
     nb = n * k // blk
     raw = rng.integers(0, 256, size=(nb, nbytes), dtype=np.uint8)
@@ -239,7 +250,7 @@ def expert_stack(ggml_type, e, n, k, seed):
     st = lambda xs: None if xs[0] is None else np.stack(xs)
     return repack.QTensor(q0.kind, q0.shape, q0.n_orig, q0.group,
                           st([q.qs for q in qts]), st([q.scale for q in qts]),
-                          st([q.min_ for q in qts]), None, q0.ggml_type)
+                          st([q.min_ for q in qts]), q0.lut, q0.ggml_type)
 
 
 def routing_case(pattern, m, e, rng):
@@ -257,10 +268,13 @@ def routing_case(pattern, m, e, rng):
 
 @pytest.mark.parametrize("pattern", ["ragged", "one"])
 @pytest.mark.parametrize("m", [1, 3, 8, 130, 300])
-@pytest.mark.parametrize("ggml_type", list(_SCALES), ids=lambda t: t.name)
+@pytest.mark.parametrize("ggml_type", [*_SCALES, *_LOWBIT, GGMLType.BF16],
+                         ids=lambda t: t.name)
 def test_gmm_kernel_matches_plain(cuda, ggml_type, m, pattern):
     """K = 2304 (not a multiple of 2048); dead tail tiles come out finite
-    and rows without an assignment come out zero."""
+    and rows without an assignment come out zero. Every plane kind: int8,
+    u4 (with and without a min), u2 with a min, u4lut, u2lut (TQ2_0 at
+    group 256) and dense bf16 stacks."""
     e, n, k = 8, 768, 2304
     rng = np.random.default_rng(m)
     qt = qtensor_to_torch(expert_stack(ggml_type, e, n, k, seed=m), cuda)
@@ -304,3 +318,53 @@ def test_gmm_split_kernel_column_order(cuda):
         one = gmm.gmm_apply(xs, qtensor_to_torch(qt, cuda), rt, gmm.TILE_GEMV)
         assert y.shape == one.shape
         assert nmse(one.cpu(), y.cpu()) < 1e-12
+
+
+def test_gmm_raises_on_operands_it_does_not_take(cuda):
+    """A LUT kind without its LUT, or a row tile the kernel has no variant
+    for, raises: K4 never falls back to the plain version."""
+    qt = qtensor_to_torch(expert_stack(GGMLType.IQ4_XS, 2, 256, 256, 1), cuda)
+    rt = gmm.route_tokens(torch.zeros((1, 1), dtype=torch.int64, device=cuda),
+                          torch.ones((1, 1), device=cuda), n_expert_local=2,
+                          tile_m=gmm.TILE_GEMV)
+    xs = _bf16(np.ones((rt.tok_idx.shape[0], 256)), cuda)
+    with pytest.raises(ValueError, match="LUT"):
+        gmm.gmm_apply(xs, dataclasses.replace(qt, lut=None), rt, gmm.TILE_GEMV)
+    with pytest.raises(ValueError, match="tile_m"):
+        gmm.gmm_apply(xs, qt, rt, 16)
+
+
+@pytest.mark.parametrize("fmt", ["F", "G", "H"])
+@pytest.mark.parametrize("k,n", [(512, 1024), (kbench.K, kbench.N)])
+def test_kbench_gemv_matches_plain(cuda, fmt, k, n):
+    x, q, s = kbench.make_data(seed=k, k=k, n=n)
+    xb, qs, sc = kbench.device_tensors(fmt, x, q, s, cuda)
+    before = _cuda.LAUNCHES["kbench_" + fmt.lower()]
+    got = kbench.probe_gemv(fmt, xb, qs, sc)
+    assert _cuda.LAUNCHES["kbench_" + fmt.lower()] == before + 1
+    ref = kbench.probe_gemv_plain(fmt, xb, qs, sc)
+    assert got.shape == ref.shape
+    assert nmse(ref.cpu(), got.cpu()) < 1e-5, nmse(ref.cpu(), got.cpu())
+
+
+@pytest.mark.parametrize("rows", [511, 1100, 12672])
+def test_kbench_stream_matches_plain(cuda, rows):
+    a = torch.randint(0, 256, (rows, 1024), dtype=torch.uint8, device=cuda)
+    x = torch.full((1, 128), 0.375, device=cuda)
+    got = kbench.stream_colsum(x, a)
+    ref = kbench.stream_colsum_plain(x, a)
+    assert got.shape == ref.shape == (1, 128)
+    assert torch.equal(got, ref) if rows < 512 else \
+        nmse(ref.cpu(), got.cpu()) < 1e-12
+
+
+@pytest.mark.parametrize("cpl", pairprobe.BLOCK_CPL)
+def test_pairs_gemv_matches_plain(cuda, cpl):
+    rng = np.random.default_rng(cpl)
+    k, n = 1024, 2048
+    x = _bf16(rng.standard_normal((8, k)), cuda)
+    qs, sc, fold = pairprobe.make_data(rng, cuda, k, n)
+    got = pairprobe.pairs_qmm(x, qs, sc, fold, cpl=cpl)
+    ref = pairprobe.pairs_qmm_plain(x, qs, sc, fold)
+    assert nmse(ref.cpu(), got.cpu()) < 1e-5, nmse(ref.cpu(), got.cpu())
+    assert pairprobe.correctness_check(cuda)

@@ -100,11 +100,15 @@ def test_route_tokens_plan_invariants(m, tile_m, offset, e_loc):
 
 
 @pytest.mark.parametrize("m,tile_m", [(16, 8), (130, 64)])
-@pytest.mark.parametrize("gt", [GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K,
-                                GGMLType.Q4_0], ids=lambda t: t.name)
+@pytest.mark.parametrize("gt", [
+    GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q4_0,
+    GGMLType.Q2_K, GGMLType.IQ4_XS, GGMLType.IQ2_XXS, GGMLType.IQ1_S,
+    GGMLType.TQ2_0, GGMLType.F16, GGMLType.BF16], ids=lambda t: t.name)
 def test_gmm_plain_matches_reference(gt, m, tile_m):
     """gmm_plain and the CPU gmm (its plain version) against JAX gmm in
-    interpret mode and gmm_xla."""
+    interpret mode and gmm_xla, on every plane kind: int8, u4 (with and
+    without a min), u2 with a min (Q2_K), u4lut (IQ4_XS, IQ2_XXS), u2lut
+    (IQ1_S; TQ2_0 at group 256) and dense bf16 stacks (F16, BF16)."""
     e, k, n = 4, 256, 256
     rng = np.random.default_rng(int(gt) + m)
     jqt = stacked_qtensor(e, n, k, gt, rng)

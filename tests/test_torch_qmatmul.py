@@ -7,6 +7,8 @@ port's repack and qmm on CPU tensors (the plain version of kernel K1).
 Gates are the JAX suite's: NMSE < 5e-5 against the float golden
 (tests/test_qmatmul.py:66,86).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -131,16 +133,22 @@ def test_qgather_rows_layout(qtype):
 
 
 def test_cuda_only_kinds_raise():
-    """K1 and K5 take every plane kind now; K4 still covers int8 and u4
-    expert planes only, so its CUDA path must raise for u2/LUT planes, never
-    fall back (checked without a card through the plane-kind guard)."""
+    """K4's CUDA path takes every plane kind since the grouped matmul
+    covers them all, and still never falls back: handed CPU tensors of any
+    kind it raises instead of computing plainly, and a kind it has no
+    kernel for raises too (checked without a card)."""
     from llama_cpp_test_tpu_torch.ops import gmm as pgmm
 
     rt = pgmm.Routing(*(torch.zeros(1, dtype=torch.int32) for _ in range(4)))
-    for kind in ("u2", "u4lut", "u2lut"):
+    xs = torch.zeros((8, 512), dtype=torch.bfloat16)
+    for kind in ("int8", "u4", "u2", "u4lut", "u2lut", "dense"):
         pack = prepack.PACK[kind]
         qt = prepack.QTensor(kind, (256, 512), 256, 32,
                              np.zeros((2, 512, 256 // pack), np.uint8))
-        with pytest.raises(NotImplementedError):
-            pgmm._planes_cuda(torch.zeros((8, 512), dtype=torch.bfloat16),
-                              qt, rt, pgmm.TILE_GEMV)
+        with pytest.raises(ValueError, match="CUDA"):
+            pgmm._planes_cuda(xs, qt, rt, pgmm.TILE_GEMV)
+    qt = prepack.QTensor("u4", (256, 512), 256, 32,
+                         np.zeros((2, 512, 128), np.uint8))
+    with pytest.raises(ValueError, match="no kernel"):
+        pgmm._planes_cuda(xs, dataclasses.replace(qt, kind="u3"), rt,
+                          pgmm.TILE_GEMV)
