@@ -9,7 +9,9 @@ Phases, each printing one JSON line as it finishes; any failure exits
 non-zero before the final line:
 
   device   nvidia-smi name/power limit, torch and CUDA versions
-  build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc
+  build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc;
+           registers and spill bytes of every qmm_gemm instantiation from
+           ptxas -v (a spill fails the phase)
   kernels  each kernel against its plain PyTorch version at the main
            paths' shapes: TinyLlama-1.1B and Mixtral-8x7B, plus the widest
            Llama-3-8B ones (error, gate, kernel/plain/library times,
@@ -27,13 +29,14 @@ non-zero before the final line:
            the plain path's, and the rows whose routing differs are counted
   serve_iq4xs  the same for a Llama-3-70B-geometry IQ4_XS GGUF (full width,
            4 layers; u4lut planes), one bf16 Context, then K1 rows on the
-           loaded planes of layer 0 and the lm head at M = 1, 8 and 512
+           loaded planes of layer 0 and the lm head at M = 1, 8, 128, 512
   serve_lowbit the same for two Llama-3-8B-geometry files (full width, 8
            layers): Q2_K (u2 planes with a min) and IQ1_S (u2lut, with
            Q4_K attn_v, IQ2_XXS ffn_down, Q5_K output, Q2_K token_embd),
            each served by a Context at the default qmm variant and one at
            "cache", whose prefills must launch K5 (qmm_cache); then K1 rows
-           on each file's loaded planes and K5 rows at M = 512
+           on each file's loaded planes (the int8 lm heads among them) and
+           K5 rows at M = 512
   serve_moe_lowbit the same for three Mixtral-8x7B-geometry files (full
            width): Q2_K (4 layers; u2 expert stacks with a min), IQ1_S (4
            layers; IQ1_S gate/up stacks as u2lut, IQ2_XXS down as u4lut)
@@ -61,6 +64,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -364,6 +368,44 @@ def phase_device(torch) -> dict:
     return info
 
 
+_GEMM_ARGS = re.compile(r"qmm_gemm_kernelILi(\d)ELb([01])ELi(\d)E")
+_KIND_NAMES = ("int8", "u4", "u2", "u4lut", "u2lut")
+
+
+def ptxas_functions(text: str) -> dict:
+    """Per compiled kernel of an `nvcc -Xptxas -v` report: registers and
+    spill bytes (stores + loads), keyed by mangled name."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {"registers": 0, "spill_bytes": 0})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def gemm_instantiations(text: str) -> dict:
+    """K1's qmm_gemm_kernel<KIND, HAS_MIN, WG> instantiations of the qmm
+    build report: "u2+min wg2" -> {"registers", "spill_bytes"}."""
+    out = {}
+    for fn, info in ptxas_functions(text).items():
+        m = _GEMM_ARGS.search(fn)
+        if m:
+            kind, has_min, wg = int(m.group(1)), m.group(2) == "1", m.group(3)
+            out[f"{_KIND_NAMES[kind]}{'+min' if has_min else ''} wg{wg}"] = info
+    return out
+
+
 def phase_build() -> None:
     from llama_cpp_test_tpu_torch.ops import _cuda
 
@@ -373,16 +415,21 @@ def phase_build() -> None:
     secs = time.time() - t0
     summary = {}
     for name, text in reports.items():
-        regs = [int(tok) for line in text.splitlines() if "registers" in line
-                for tok in [line.split("Used ")[1].split(" registers")[0]]]
-        spills = [line.strip() for line in text.splitlines()
-                  if "spill" in line and not line.strip().endswith(
-                      "0 bytes spill stores, 0 bytes spill loads")]
-        summary[name] = {"functions": len(regs), "max_registers": max(regs or [0]),
-                         "spill_lines": spills[:4]}
+        fns = ptxas_functions(text)
+        summary[name] = {
+            "functions": len(fns),
+            "max_registers": max((f["registers"] for f in fns.values()),
+                                 default=0),
+            "spill_functions": sum(f["spill_bytes"] > 0 for f in fns.values())}
+    gemm = gemm_instantiations(reports.get("qmm", ""))
     for name in _cuda.SOURCES:
         _cuda.lib(name)
-    emit({"phase": "build", "seconds": round(secs, 3), "kernels": summary})
+    emit({"phase": "build", "seconds": round(secs, 3), "kernels": summary,
+          "qmm_gemm": gemm})
+    check(len(gemm) == 16, f"build: expected 16 qmm_gemm instantiations in "
+                           f"the ptxas report, found {sorted(gemm)}")
+    spilled = {k: v for k, v in gemm.items() if v["spill_bytes"]}
+    check(not spilled, f"build: qmm_gemm spills: {spilled}")
 
 
 def _qmm_planes(rng, hp: dict, ggml_type, labels) -> dict:
@@ -646,8 +693,9 @@ def _sdpa_kv(fp, kpool, vpool, table, g):
 
 def phase_kernels(torch, timer) -> dict:
     """TinyLlama-1.1B: the five projections as Q4_K (u4 planes with a min)
-    and Q8_0 (int8) at M in {1, 512}, decode attention at B in {1, 8},
-    prefill attention at T = 512 and for a chunk after a cached prefix.
+    and Q8_0 (int8) at M in {1, 512} (gate|up also at 128), decode
+    attention at B in {1, 8}, prefill attention at T = 512 and for a chunk
+    after a cached prefix.
     Llama-3-8B (config #2): the widest projections and both attentions at
     D = 128, G = 4. Mixtral-8x7B (config #4): K4 on both expert
     projections, u4+min and int8, and K3 over q8_0 pages."""
@@ -662,10 +710,12 @@ def phase_kernels(torch, timer) -> dict:
         for label, qt in _qmm_planes(rng, TINYLLAMA, gt, labels).items():
             qt = qtensor_to_torch(qt, "cuda")
             # M = 3 and 8: the GEMV's 4- and 8-row variants (batched
-            # decode); M = 40: a partial GEMM row tile (short prompts)
-            for m in (1, 512) + ((3, 8, 40) if label == "wo" else ()):
+            # decode); M = 40: a partial GEMM row tile (short prompts);
+            # M = 128: the GEMM at a middle bucket
+            for m in (1, 512) + ((3, 8, 40) if label == "wo" else ()) + (
+                    (128,) if label == "gate|up" else ()):
                 row = kc.qmm(label, kind, qt, m)
-                if label == "gate|up" and kind == "u4+min":
+                if label == "gate|up" and kind == "u4+min" and m != 128:
                     rep[row["kernel"]] = row
     for b in (1, 8):
         rep["paged_decode"] = kc.paged_decode(TINYLLAMA, b)
@@ -993,15 +1043,21 @@ def _projections(model):
 
 
 def _model_rows(kc, model, prefix, k5=()):
-    """K1 rows at M = 1, 8 and 512 on each projection of the served planes
-    whose kind this slice brought to K1 (u2, u4lut, u2lut), and on the
-    projections labelled in k5 a K5 row at M = 512 beside K1's GEMM."""
+    """K1 rows at M = 1, 8, 128 and 512 on each projection of the served
+    planes of a low-bit kind (u2, u4lut, u2lut), at M = 128 and 512 on an
+    int8 lm head (Q6_K; Q5_K with a min), and on the projections labelled
+    in k5 a K5 row at M = 512 beside K1's GEMM."""
     rows = {}
     for label, qt in _projections(model):
         kind = f"{qt.ggml_type.name}/{qt.kind}" + ("+min" if qt.min_ is not
                                                     None else "")
-        new_kind = qt.kind in ("u2", "u4lut", "u2lut")
-        for m in (1, 8, 512) if new_kind else (512,) if label in k5 else ():
+        if qt.kind in ("u2", "u4lut", "u2lut"):
+            ms = (1, 8, 128, 512)
+        elif qt.kind == "int8" and label == "lm_head":
+            ms = (128, 512)
+        else:
+            ms = (512,) if label in k5 else ()
+        for m in ms:
             rows[f"{label} M={m}"] = kc.qmm(f"{prefix} {label}", kind, qt, m)
         if label in k5:
             rows[f"{label} K5"] = kc.qmm(f"{prefix} {label}", kind, qt, 512,

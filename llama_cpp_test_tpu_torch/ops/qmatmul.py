@@ -4,10 +4,9 @@ Counterpart of llama_cpp_test_tpu/ops/qmatmul.py. Weights stay in their
 packed layout-'t' planes (quant/repack.py) of any kind: int8, u4 nibbles,
 u2 crumbs, or 4-/2-bit codes into a LUT (u4lut, u2lut). On a CUDA tensor,
 `qmm` / `qmm_split` launch kernel K1 (csrc/qmm.cu): a GEMV for M <= 8
-(decode) and a tiled tensor-core GEMM above (prefill). Both read the packed
-planes directly, expand the bf16 group scales in registers, and fold the
-affine min as (per-group x-sums) @ min, as the TPU kernel _qmm_t_kernel
-does. With the "cache" variant, a prefill whose shape the reference's
+(decode) and a pipelined wgmma GEMM above (prefill). Both read the packed
+planes directly and fold the affine min as (per-group x-sums) @ min, as
+the TPU kernel _qmm_t_kernel does (the GEMM on the tensor cores). With the "cache" variant, a prefill whose shape the reference's
 strip-cached kernel takes runs kernel K5 (csrc/qmm_cache.cu) instead:
 each full-K weight strip is dequantized once and reused by every row tile.
 On a CPU tensor they take the plain version, `qmm_plain`, which follows the
@@ -151,8 +150,10 @@ def _qmm_planes_cuda(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """K1 launch: [M, K] bf16 x planes -> [M, pack, NPK] float32."""
     _check_operands(x2, qt, "qmm")
     m, k = x2.shape
-    _cuda.require(qt.min_ is None or 32 % qt.group == 0 or m <= 8,
-                  f"qmm_gemm: a min with group {qt.group} (it takes 16, 32)")
+    _cuda.require(m <= 8 or (qt.group % 8 == 0 and (
+        qt.min_ is None or 64 % qt.group == 0)),
+                  f"qmm_gemm: group {qt.group} (it takes a multiple of 8; "
+                  "with a min 8, 16, 32 or 64)")
     out = torch.empty((m, qt.pack, qt.npk), dtype=torch.float32,
                       device=x2.device)
     if m == 0:

@@ -8,7 +8,9 @@ without JAX, run from the repository root:
 
 Covers kernel paths that the serving path of chip_smoke.py does not reach:
 all four GGML types of K1 at several row counts, K1 on the u2, u4lut and
-u2lut kinds (groups 16, 32 and 256) and K5 on every kind, K2 with a sliding window,
+u2lut kinds (groups 16, 32 and 256), K1's GEMM at M 9-512 (its one- and
+two-warpgroup tiles, ragged rows) and K up to 14336 with npk 640/pack
+(a ragged 256-column tile for int8), its refusals, and K5 on every kind, K2 with a sliding window,
 softcap, G = 1 and a cached prefix, K3 (bf16 and q8 pages) at G in
 {1, 4, 8} and D in {64, 128} with softcap and very short caches, K4 on
 every plane kind (the four GGML types above, Q2_K u2 with a min, IQ4_XS
@@ -82,16 +84,32 @@ def random_qtensor(ggml_type, n, k, seed):
     return repack.repack(raw.reshape(-1), ggml_type, n, k)
 
 
-@pytest.mark.parametrize("m", [1, 2, 5, 8, 9, 64, 100])
+# K1 row counts: the GEMV's 1-8 rows, then the GEMM's one-warpgroup tiles
+# (9-64 rows; 9 and 16 ragged), its two-warpgroup tiles (100-512 rows;
+# 130 and 300 ragged), at K = 1024 (16 pipeline steps, N = 768)
+_K1_M = (9, 16, 64, 100, 130, 300, 512)
+# deeper K at a 640-column output (npk 640/pack: an odd number of 128-wide
+# plane blocks): K = 5632 (TinyLlama's ffn_down) and 14336 (Llama-3-8B's)
+_K1_DEEP = ((300, 5632, 640), (512, 14336, 640))
+
+
+def _k1_name(m):
+    return "qmm_gemv" if m <= 8 else "qmm_gemm"
+
+
+@pytest.mark.parametrize("m,k,n", [(m, 1024, 768) for m in (1, 2, 5, 8)]
+                         + [(m, 1024, 768) for m in _K1_M] + list(_K1_DEEP),
+                         ids=lambda v: str(v))
 @pytest.mark.parametrize("ggml_type", list(_SCALES), ids=lambda t: t.name)
-def test_qmm_kernel_matches_golden(cuda, ggml_type, m):
-    n, k = 768, 1024
+def test_qmm_kernel_matches_golden(cuda, ggml_type, m, k, n):
     qt = random_qtensor(ggml_type, n, k, seed=m)
     golden_w = repack.dequantize_qtensor_np(qt)            # [n, k] float32
     x = np.random.default_rng(7).standard_normal((m, k)).astype(np.float32)
     xb = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
     golden = xb.float().cpu().numpy() @ golden_w.T
+    before = _cuda.LAUNCHES[_k1_name(m)]
     got = qmatmul.qmm(xb, qtensor_to_torch(qt, cuda)).cpu().numpy()
+    assert _cuda.LAUNCHES[_k1_name(m)] == before + 1
     assert got.shape == (m, n)
     assert nmse(golden, got) < 5e-5, nmse(golden, got)
 
@@ -104,13 +122,15 @@ def _golden_case(ggml_type, n, k, m, seed, cuda):
     return qt, xb, golden
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 17, 512])
+@pytest.mark.parametrize("m,k,n", [(m, 1024, 768) for m in (1, 3, 8, 17)]
+                         + [(m, 1024, 768) for m in _K1_M if m != 512]
+                         + [(512, 1024, 768)] + list(_K1_DEEP),
+                         ids=lambda v: str(v))
 @pytest.mark.parametrize("ggml_type", list(_LOWBIT), ids=lambda t: t.name)
-def test_qmm_lowbit_kinds_match_golden(cuda, ggml_type, m):
-    n, k = 768, 1024
+def test_qmm_lowbit_kinds_match_golden(cuda, ggml_type, m, k, n):
     qt, xb, golden = _golden_case(ggml_type, n, k, m, m, cuda)
     assert qt.kind in ("u2", "u4lut", "u2lut")
-    name = "qmm_gemv" if m <= 8 else "qmm_gemm"
+    name = _k1_name(m)
     before = _cuda.LAUNCHES[name]
     got = qmatmul.qmm(xb, qtensor_to_torch(qt, cuda)).cpu().numpy()
     assert _cuda.LAUNCHES[name] == before + 1
@@ -150,19 +170,52 @@ def test_qmm_cache_route_falls_to_k1(cuda):
     assert _cuda.LAUNCHES["qmm_gemm"] == before["qmm_gemm"] + 1
 
 
-def test_qmm_split_kernel_column_order(cuda):
+@pytest.mark.parametrize("m", [3, 512])
+def test_qmm_split_kernel_column_order(cuda, m):
     parts = [random_qtensor(GGMLType.Q4_K, n_i, 1024, seed=i)
              for i, n_i in enumerate((512, 256, 256))]
     fused = qtensor_to_torch(repack.fuse_qtensors(parts), cuda)
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        (3, 1024)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+        (m, 1024)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    before = _cuda.LAUNCHES[_k1_name(m)]
     outs = qmatmul.qmm_split(x, fused)
+    assert _cuda.LAUNCHES[_k1_name(m)] == before + 1
     plain = qmatmul.qmm_split_plain(x, fused)
     for qt, y, yp in zip(parts, outs, plain):
         one = qmatmul.qmm(x, qtensor_to_torch(qt, cuda))
-        assert y.shape == one.shape == (3, qt.n_orig)
+        assert y.shape == one.shape == (m, qt.n_orig)
         assert nmse(one.cpu(), y.cpu()) < 1e-12
         assert nmse(yp.cpu(), y.cpu()) < 5e-5
+
+
+def test_qmm_gemm_raises_on_operands_it_does_not_take(cuda):
+    """K1's GEMM refuses what it has no tile for, in the wrapper and in the
+    C entry point, and never falls back: a min at group 128 (the fold takes
+    whole groups of one 64-deep K step), a LUT kind without its LUT, and in
+    the C entry point group 4 (not a multiple of 8) and K = 500 (not a
+    multiple of 32)."""
+    qt = qtensor_to_torch(random_qtensor(GGMLType.Q4_K, 256, 512, 1), cuda)
+    x = _bf16(np.ones((16, 512)), cuda)
+    before = _cuda.LAUNCHES["qmm_gemm"]
+    g128 = dataclasses.replace(qt, group=128,
+                               scale=qt.scale[:, ::4].contiguous(),
+                               min_=qt.min_[:, ::4].contiguous())
+    with pytest.raises(ValueError, match="group 128"):
+        qmatmul.qmm(x, g128)
+    iq = qtensor_to_torch(random_qtensor(GGMLType.IQ4_XS, 256, 512, 2), cuda)
+    with pytest.raises(ValueError, match="LUT"):
+        qmatmul.qmm(x, dataclasses.replace(iq, lut=None))
+    assert _cuda.LAUNCHES["qmm_gemm"] == before
+    out = torch.empty((16, 2, qt.npk), dtype=torch.float32, device=cuda)
+    fn = _cuda.bind("qmm", "qmm_gemm", "piipiipppipp")
+    scale_g4 = torch.zeros((2, 512 // 4, qt.npk), dtype=torch.bfloat16,
+                          device=cuda)
+    for group, scale in ((4, scale_g4), (qt.group, qt.scale)):
+        rc = fn(x.data_ptr(), 16, 512 if group == 4 else 500,
+                qt.qs.data_ptr(), qt.npk, 1, scale.data_ptr(), 0, 0, group,
+                out.data_ptr(), _cuda.stream_ptr(cuda))
+        assert rc != 0, (group, rc)
+    torch.cuda.synchronize()
 
 
 def _bf16(a, dev):
