@@ -10,8 +10,9 @@ non-zero before the final line:
 
   device   nvidia-smi name/power limit, torch and CUDA versions
   build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc;
-           registers and spill bytes of every qmm_gemm instantiation from
-           ptxas -v (a spill fails the phase)
+           registers and spill bytes of every qmm_gemm, qmm_cache and
+           flash_prefill instantiation from ptxas -v (a spill fails the
+           phase)
   kernels  each kernel against its plain PyTorch version at the main
            paths' shapes: TinyLlama-1.1B and Mixtral-8x7B, plus the widest
            Llama-3-8B ones (error, gate, kernel/plain/library times,
@@ -21,7 +22,8 @@ non-zero before the final line:
            three generate() requests plus one batched decode; the launch
            count of every kernel of that path must be > 0, and the logits
            at every row of a prefill and of the next decode steps are held
-           against the plain path
+           against the plain path, its min rounded as the TPU kernels round
+           it (the XLA path's joint rounding is recorded beside)
   serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 8
            layers), served by two Contexts, bf16 and q8_0 KV, each with
            three generate() requests and one batched decode of 8 sequences;
@@ -36,7 +38,7 @@ non-zero before the final line:
            each served by a Context at the default qmm variant and one at
            "cache", whose prefills must launch K5 (qmm_cache); then K1 rows
            on each file's loaded planes (the int8 lm heads among them) and
-           K5 rows at M = 512
+           K5 rows at M = 130 and 512
   serve_moe_lowbit the same for three Mixtral-8x7B-geometry files (full
            width): Q2_K (4 layers; u2 expert stacks with a min), IQ1_S (4
            layers; IQ1_S gate/up stacks as u2lut, IQ2_XXS down as u4lut)
@@ -80,6 +82,8 @@ QMM_GATE = 5e-5          # NMSE gate of the qmm suite (tests/test_qmatmul.py)
 ATTN_GATE = 2e-4         # NMSE gate of the attention suites
 GMM_GATE = 2e-4          # NMSE gate of the gmm suite (tests/test_gmm.py:73)
 LOGITS_GATE = 2e-3       # NMSE gate of the engine suite (tests/test_engine.py)
+FOLD_GATE = 1e-8         # a GEMM with a min against the plain fold (the
+                         # card tests' K4-vs-K1 and K5-vs-K1 gate)
 PROBE_GATE = 1e-5        # NMSE gate of tests/test_torch_probes.py
 
 # TinyLlama-1.1B (BASELINE.json config #1) published widths
@@ -368,8 +372,24 @@ def phase_device(torch) -> dict:
     return info
 
 
-_GEMM_ARGS = re.compile(r"qmm_gemm_kernelILi(\d)ELb([01])ELi(\d)E")
 _KIND_NAMES = ("int8", "u4", "u2", "u4lut", "u2lut")
+
+
+def _kind_label(m) -> str:
+    return _KIND_NAMES[int(m.group(1))] + ("+min" if m.group(2) == "1" else "")
+
+
+# checked kernel -> (its source, its mangled template arguments, how many
+# instantiations the build must report, the label of one)
+_INSTANTIATIONS = {
+    "qmm_gemm": ("qmm", re.compile(r"qmm_gemm_kernelILi(\d)ELb([01])ELi(\d)E"),
+                 16, lambda m: f"{_kind_label(m)} wg{m.group(3)}"),
+    "qmm_cache": ("qmm_cache", re.compile(r"qmm_cache_kernelILi(\d)ELb([01])E"),
+                  8, _kind_label),
+    "flash_prefill": ("flash_prefill",
+                      re.compile(r"flash_prefill_kernelILi(\d+)E"), 2,
+                      lambda m: f"D={m.group(1)}"),
+}
 
 
 def ptxas_functions(text: str) -> dict:
@@ -394,15 +414,17 @@ def ptxas_functions(text: str) -> dict:
     return out
 
 
-def gemm_instantiations(text: str) -> dict:
-    """K1's qmm_gemm_kernel<KIND, HAS_MIN, WG> instantiations of the qmm
-    build report: "u2+min wg2" -> {"registers", "spill_bytes"}."""
+def instantiations(reports: dict) -> dict:
+    """The checked kernels' instantiations in the build reports (K1's
+    qmm_gemm_kernel<KIND, HAS_MIN, WG>, K5's qmm_cache_kernel<KIND,
+    HAS_MIN>, K2's flash_prefill_kernel<D>): "qmm_gemm u2+min wg2" ->
+    {"registers", "spill_bytes"}."""
     out = {}
-    for fn, info in ptxas_functions(text).items():
-        m = _GEMM_ARGS.search(fn)
-        if m:
-            kind, has_min, wg = int(m.group(1)), m.group(2) == "1", m.group(3)
-            out[f"{_KIND_NAMES[kind]}{'+min' if has_min else ''} wg{wg}"] = info
+    for kernel, (src, pattern, _, label) in _INSTANTIATIONS.items():
+        for fn, info in ptxas_functions(reports.get(src, "")).items():
+            m = pattern.search(fn)
+            if m:
+                out[f"{kernel} {label(m)}"] = info
     return out
 
 
@@ -421,15 +443,18 @@ def phase_build() -> None:
             "max_registers": max((f["registers"] for f in fns.values()),
                                  default=0),
             "spill_functions": sum(f["spill_bytes"] > 0 for f in fns.values())}
-    gemm = gemm_instantiations(reports.get("qmm", ""))
+    inst = instantiations(reports)
     for name in _cuda.SOURCES:
         _cuda.lib(name)
     emit({"phase": "build", "seconds": round(secs, 3), "kernels": summary,
-          "qmm_gemm": gemm})
-    check(len(gemm) == 16, f"build: expected 16 qmm_gemm instantiations in "
-                           f"the ptxas report, found {sorted(gemm)}")
-    spilled = {k: v for k, v in gemm.items() if v["spill_bytes"]}
-    check(not spilled, f"build: qmm_gemm spills: {spilled}")
+          "instantiations": inst})
+    for kernel, (_, _, count, _) in _INSTANTIATIONS.items():
+        found = sorted(k for k in inst if k.split()[0] == kernel)
+        check(len(found) == count, f"build: expected {count} {kernel} "
+                                   f"instantiations in the ptxas report, "
+                                   f"found {found}")
+    spilled = {k: v for k, v in inst.items() if v["spill_bytes"]}
+    check(not spilled, f"build: spills: {spilled}")
 
 
 def _qmm_planes(rng, hp: dict, ggml_type, labels) -> dict:
@@ -459,7 +484,12 @@ class KernelChecks:
         self.failures = []
 
     def _row(self, kernel, shape, out_k, out_p, gate, fn_k, fn_p, fn_lib,
-             nbytes, flops, library=None):
+             nbytes, flops, library=None, out_fold=None):
+        """out_fold: for a GEMM (K1's, K5, K4's) on planes with a min, the
+        plain version rounded as the GEMM and the TPU kernels round it
+        (bf16(s*q), then x-sums . min in f32), held at FOLD_GATE beside the
+        plain version's gate. The GEMVs apply each group's scale in f32
+        and round no weight, so they have no such twin."""
         torch = self.torch
         a = out_k.float().reshape(out_p.shape)
         b = out_p.float()
@@ -471,10 +501,14 @@ class KernelChecks:
                "ms": self.timer(fn_k), "plain_ms": self.timer(fn_p, iters=5),
                "library_ms": self.timer(fn_lib), "bound_ms": b_ms,
                "bound_by": b_by}
+        if out_fold is not None:
+            row["nmse_fold"] = nmse(out_fold.float().reshape(out_p.shape)
+                                    .cpu(), a.cpu())
+            row["fold_gate"] = FOLD_GATE
         if library:
             row["library"] = library
         emit({"phase": "kernels", **row})
-        if not err < gate:
+        if not err < gate or not row.get("nmse_fold", 0.0) < FOLD_GATE:
             self.failures.append(shape)
         return row
 
@@ -496,11 +530,13 @@ class KernelChecks:
         plane_bytes = sum(t.numel() * t.element_size()
                           for t in (qt.qs, qt.scale, qt.min_, qt.lut)
                           if t is not None)
+        fold = (None if qt.min_ is None or name == "qmm_gemv"
+                else qmatmul.plain_planes(x, qt, rounding="fold"))
         row = self._row(name, f"{label} {kind} M={m} K={k} N={n_full}",
                         fn_k(), fn_p(), QMM_GATE, fn_k, fn_p,
                         lambda: torch.matmul(x, w_lib),
                         x.numel() * 2 + plane_bytes + m * n_full * 4,
-                        2.0 * m * k * n_full)
+                        2.0 * m * k * n_full, out_fold=fold)
         del w_lib
         return row
 
@@ -532,13 +568,16 @@ class KernelChecks:
                                qt.lut, kind=qt.kind, group=qt.group)
             for i in range(e)])
         fn_lib, lib_name = _grouped_yardstick(torch, x, topi, w_all)
+        fold = (None if qt.min_ is None or tile_m == gmm.TILE_GEMV else
+                gmm._planes_plain(xs, qt, rt, tile_m, rounding="fold"))
         row = self._row(
             "gmm_gemv" if tile_m == gmm.TILE_GEMV else "gmm_gemm",
             f"{label} {kind} M={m} top{top_k}/{e} K={k} N={qt.shape[0]} "
             f"tile_m={tile_m} routed={routed}",
             fn_k(), fn_p(), GMM_GATE, fn_k, fn_p, fn_lib,
             m * k * 2 + plane_bytes * routed // e + m * top_k * qt.shape[0] * 4,
-            2.0 * m * top_k * k * qt.shape[0], library=lib_name)
+            2.0 * m * top_k * k * qt.shape[0], library=lib_name,
+            out_fold=fold)
         del w_all
         return row
 
@@ -875,6 +914,19 @@ def _qmm_variant(variant):
 
 
 @contextlib.contextmanager
+def _plain_min(rounding):
+    """ops.qmatmul.PLAIN_MIN set to rounding while the block runs."""
+    from llama_cpp_test_tpu_torch.ops import qmatmul
+
+    orig = qmatmul.PLAIN_MIN
+    qmatmul.PLAIN_MIN = rounding
+    try:
+        yield
+    finally:
+        qmatmul.PLAIN_MIN = orig
+
+
+@contextlib.contextmanager
 def _record_kinds():
     """Count the K1, K5 and K4 launches per plane kind ("K1 u2": n, ...,
     "K4 gemv dense": n) while the block runs, by wrapping the launch
@@ -917,15 +969,18 @@ def _label(kv, variant) -> str:
 def _kernels_vs_plain(model, prompt, contexts) -> tuple[dict, list]:
     """Logits at every position of one prefill and of four decode steps on
     the same tokens, through the kernels and through the plain path, per
-    Context (KV type, qmm variant). Where a MoE router's top-2
-    probabilities are near-tied, the kernels' rounding can send a row to
-    another expert pair than the plain path does: that row is then another
-    computation, not a kernel error. So the routing of every row is
-    compared, and the gate holds the rows whose experts agree in every
-    layer (and fails if fewer than half of a prefill's rows do). The plain
-    path's q8_0 prefill against its bf16 one is recorded beside, as the
-    witness of what int8 K/V alone moves. Returns the readings and the
-    steps outside the gate."""
+    Context (KV type, qmm variant). The gated plain path rounds a weight
+    with a min as the TPU kernels and K1, K4 and K5 do (PLAIN_MIN "fold");
+    the plain path at the XLA path's joint rounding is recorded beside
+    ("<context> joint min"), as the witness of what that rounding alone
+    moves. Where a MoE router's top-2 probabilities are near-tied, the
+    kernels' rounding can send a row to another expert pair than the
+    plain path does: that row is then another computation, not a kernel
+    error. So the routing of every row is compared, and the gate holds the
+    rows whose experts agree in every layer (and fails if fewer than half
+    of a prefill's rows do). The plain path's q8_0 prefill against its
+    bf16 one is recorded too, as the witness of what int8 K/V alone moves.
+    Returns the readings and the steps outside the gate."""
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     out, plain, bad = {}, {}, []
@@ -935,11 +990,15 @@ def _kernels_vs_plain(model, prompt, contexts) -> tuple[dict, list]:
                                    block_size=16, kv_type=kv, **kw)
         with _qmm_variant(variant):
             steps_k, toks = _trace(ctx(), prompt)
-        steps_p, _ = _trace(ctx(plain=True), prompt, toks)
+        with _plain_min("fold"):
+            steps_p, _ = _trace(ctx(plain=True), prompt, toks)
+        with _plain_min("joint"):
+            steps_j, _ = _trace(ctx(plain=True), prompt, toks)
         check(all(np.isfinite(lg).all() for lg, _ in steps_k),
               f"{label}: kernel logits not finite")
         plain[label] = steps_p
         out[label] = _compare(steps_p, steps_k)
+        out[f"{label} joint min"] = _compare(steps_j, steps_k)
         for step, r in out[label].items():
             v = r["nmse_same_routing"]
             if (v is not None and not v < LOGITS_GATE) or (
@@ -1046,7 +1105,8 @@ def _model_rows(kc, model, prefix, k5=()):
     """K1 rows at M = 1, 8, 128 and 512 on each projection of the served
     planes of a low-bit kind (u2, u4lut, u2lut), at M = 128 and 512 on an
     int8 lm head (Q6_K; Q5_K with a min), and on the projections labelled
-    in k5 a K5 row at M = 512 beside K1's GEMM."""
+    in k5 K5 rows at M = 130 (the 130-token prompt's prefill routes there
+    under "cache") and 512 beside K1's GEMM."""
     rows = {}
     for label, qt in _projections(model):
         kind = f"{qt.ggml_type.name}/{qt.kind}" + ("+min" if qt.min_ is not
@@ -1060,8 +1120,9 @@ def _model_rows(kc, model, prefix, k5=()):
         for m in ms:
             rows[f"{label} M={m}"] = kc.qmm(f"{prefix} {label}", kind, qt, m)
         if label in k5:
-            rows[f"{label} K5"] = kc.qmm(f"{prefix} {label}", kind, qt, 512,
-                                         cache=True)
+            for m in (130, 512):
+                rows[f"{label} K5 M={m}"] = kc.qmm(f"{prefix} {label}", kind,
+                                                   qt, m, cache=True)
     check(not kc.failures, f"kernels outside their gate: {kc.failures}")
     return rows
 
@@ -1342,7 +1403,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     rep["qmm_cache"] = serves["serve_lowbit"]["files"]["Q2_K"]["rows"][
-        "gate|up K5"]
+        "gate|up K5 M=512"]
     rep.update(serves["probes"]["rows"])
     kernels = []
     for name, (src, replaces) in TPU_KERNELS.items():

@@ -4,33 +4,123 @@
 // launched by flash_prefill). The TPU grid walks pages as its innermost,
 // sequential grid axis and carries the online-softmax state (m, l, acc) in
 // scratch between steps; blocks on Hopper run in no order, so here one
-// block per (sequence, kv head, tile of query tokens) carries that state in
-// registers through a loop over the sequence's pages, reading each page id
+// block per (sequence, kv head, tile of 64 query rows) carries that state
+// in registers through a loop over 64-key tiles, reading each key's page id
 // from the block table itself. Semantics are the TPU kernel's: token t
 // attends cache index s iff s <= pos[t], s < kv_len and (window == 0 or
 // s > pos[t] - window); optional tanh softcap; masked logits are -1e30 and
-// the final denominator is clamped at 1e-30. Pages past kv_len or past the
-// tile's largest position are skipped. T need not be a multiple of 128.
+// the final denominator is clamped at 1e-30. T need not be a multiple of
+// 128.
 //
 // Layout: q/out [B, T, H, D] bf16 (q pre-scaled), pages [KV, NB, BS, D]
 // bf16, positions [B, T] int32, kv_len [B] int32, page table [B, NBmax].
 //
-// What bounds it on an H100: per query row it reads the K/V pages of its
-// causal prefix, so at T = 512 the arithmetic (4*T*T/2*H*D flops) dominates
-// the page bytes, which each block stages once per page in shared memory;
-// the kernel is bound by operations. It runs them as FP32 FMAs (each thread
-// owns 32 of D dimensions of one query row; a row's D/32 lanes sum their
-// partial dot products with shuffles), not on the tensor cores: a simple,
-// exact first kernel, with the tensor-core (wgmma) version left to later work.
+// What bounds it on an H100: a TinyLlama 512-token prefill is ~1.1 GFLOP
+// of products over 2 MB of pages, far too little work to reach the
+// tensor-core rate or the memory rate; its time is latency and occupancy.
+// Design, as FlashAttention-2 on mma.sync:
+//   - rows: the G query heads of a kv head are packed into rows
+//     r = t * G + g, as the TPU kernel packs them; a block of 4 warps takes
+//     64 rows, each warp 16, so the block reads each K/V tile once for all
+//     its heads;
+//   - products: mma.sync m16n8k16 bf16 with f32 accumulators. S = Q.K^T
+//     stays in registers (exact products of bf16 q and k, f32 sums, as the
+//     TPU kernel's f32 dot of bf16-valued inputs); P is rounded to bf16 in
+//     registers into the A operand of P.V (V through ldmatrix.trans). That
+//     bf16 P is the one rounding the TPU kernel does not make;
+//   - key tiles: 64 keys (64 / BS pages; any BS) copied by cp.async 16-byte
+//     copies into a ring of 3 stages at D = 64 (2 at D = 128, where 3 would
+//     leave one block an SM), later tiles in flight while this one is
+//     multiplied; shared-memory rows are padded by 16 bytes, so ldmatrix's
+//     8 rows fall in distinct banks; keys past kv_len arrive as zeros. The
+//     sequence's page ids are staged in shared memory once, beside the
+//     copy of Q, so no tile's copy waits on a read of the block table;
+//   - skipping: only tiles between the block's first attended key (its
+//     lowest position less the window) and its last (its highest position,
+//     below kv_len) are loaded; only tiles that cross the diagonal, the
+//     window's edge or kv_len are masked;
+//   - order: the grid's slow axis runs from the last query tile to the
+//     first, so the heaviest tiles (late positions) start first.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int KCH = 8;  // keys per online-softmax update
+constexpr int FP_ROWS = 64;      // query rows a block: 4 warps x 16
+constexpr int FP_KEYS = 64;      // keys a tile
+constexpr int FP_THREADS = 128;
+constexpr int FP_PAGES = 1024;   // page ids staged in shared memory
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+struct FpPlan {
+  static constexpr int LD = D + 8;             // bf16 a padded smem row
+  static constexpr int TILE = FP_KEYS * LD;    // one K or V tile
+  static constexpr int Q = FP_ROWS * LD;
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  // Q, the ring of K and V tiles, the page ids
+  static constexpr int BYTES = (Q + 2 * STAGES * TILE) * 2 + FP_PAGES * 4;
+  // blocks an SM's 227 KB of shared memory holds (3 at D = 64, 2 at 128);
+  // the launch bounds let ptxas take the registers that many leave
+  static constexpr int BLOCKS = 232448 / (BYTES + 1024);
+};
+
+static __device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !full
+static __device__ __forceinline__ void cp_async16(const void* dst,
+                                                  const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i..8i+7 address the rows of matrix i
+static __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                               const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+static __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
+                                                 const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate
+static __device__ __forceinline__ void mma16816(float (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+static __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A thread's S and O fragments cover rows lane / 4 (h = 0) and lane / 4 + 8
+// (h = 1) of its warp's 16, element e of an 8-column fragment at row
+// h = e / 2, column 2 * (lane % 4) + e % 2.
+template <int D>
+__global__ void __launch_bounds__(FP_THREADS, FpPlan<D>::BLOCKS)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ kp,
                      const __nv_bfloat16* __restrict__ vp,
@@ -38,113 +128,239 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const int* __restrict__ kv_len,
                      const int* __restrict__ pages,
                      __nv_bfloat16* __restrict__ out, int T, int H, int KV,
-                     int NB, int BS, int nbmax, int G, int window,
-                     float soft_cap) {
-  constexpr int TPR = D / 32;        // lanes per query row
-  constexpr int ROWS = THREADS / TPR;
-  __shared__ __align__(16) __nv_bfloat16 Ks[64 * D];
-  __shared__ __align__(16) __nv_bfloat16 Vs[64 * D];
-  __shared__ int s_maxpos;
+                     int NB, int BS, int nbmax, int G, int n_tiles,
+                     int window, float soft_cap) {
+  using P = FpPlan<D>;
+  constexpr int LD = P::LD, DC = D / 8, STAGES = P::STAGES;
+  extern __shared__ __align__(128) unsigned char fp_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fp_smem);
+  __nv_bfloat16* Ks = Qs + P::Q;                // [STAGES][FP_KEYS][LD]
+  __nv_bfloat16* Vs = Ks + STAGES * P::TILE;    // [STAGES][FP_KEYS][LD]
+  int* pg_s = reinterpret_cast<int*>(Vs + STAGES * P::TILE);  // [FP_PAGES]
+  __shared__ int s_lo, s_hi;                    // the block's token positions
 
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, part = tid % TPR;
-  const int tq = ROWS / G;           // query tokens per block
-  const int tl = r / G, gi = r % G;
-  const int t = blockIdx.x * tq + tl;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const bool active = t < T;
-  const int h = kvh * G + gi;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kvh = blockIdx.x % KV, b = blockIdx.x / KV;
+  const int r0 = (n_tiles - 1 - (int)blockIdx.y) * FP_ROWS;
+  const int rows = T * G, len = kv_len[b];
+  const int* pos_b = positions + (size_t)b * T;
+  auto q_row = [&](int gr) {  // row gr = t * G + g of q or out
+    return ((size_t)b * T + gr / G) * H + kvh * G + gr % G;
+  };
 
-  float qv[32];
-  int pos = -1;
-  if (active) {
-    const __nv_bfloat16* qp = q + (((size_t)b * T + t) * H + h) * D + part * 32;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) qv[i] = bf2f(qp[i]);
-    pos = positions[(size_t)b * T + t];
-  } else {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) qv[i] = 0.f;
+  if (tid == 0) {
+    s_lo = 0x7fffffff;
+    s_hi = -1;
   }
-  if (tid == 0) s_maxpos = -1;
   __syncthreads();
-  if (active && part == 0) atomicMax(&s_maxpos, pos);
-  __syncthreads();
-  const int maxpos = s_maxpos;
-  const int len = kv_len[b];
-
-  float m = -1e30f, l = 0.f, acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-
-  for (int c = 0; c < nbmax; ++c) {
-    const int lo = c * BS;
-    if (lo >= len || lo > maxpos) break;  // pages are in position order
-    const int page = pages[(size_t)b * nbmax + c];
-    const size_t base = ((size_t)kvh * NB + page) * BS * D;
-    const uint4* ksrc = reinterpret_cast<const uint4*>(kp + base);
-    const uint4* vsrc = reinterpret_cast<const uint4*>(vp + base);
-    for (int i = tid; i < BS * D / 8; i += THREADS) {
-      reinterpret_cast<uint4*>(Ks)[i] = ksrc[i];
-      reinterpret_cast<uint4*>(Vs)[i] = vsrc[i];
-    }
-    __syncthreads();
-    for (int s0 = 0; s0 < BS; s0 += KCH) {
-      float sv[KCH];
-      bool ok[KCH];
-      float mx = m;
-#pragma unroll
-      for (int j = 0; j < KCH; ++j) {
-        const int s = s0 + j;
-        float dot = row_sum<TPR>(dot32(qv, Ks + s * D + part * 32));
-        if (soft_cap > 0.f) dot = tanhf(dot / soft_cap) * soft_cap;
-        const int sidx = lo + s;
-        ok[j] = sidx <= pos && sidx < len && (window == 0 || sidx > pos - window);
-        sv[j] = ok[j] ? dot : -1e30f;
-        mx = fmaxf(mx, sv[j]);
-      }
-      const float alpha = expf(m - mx);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < KCH; ++j) {
-        const float p = ok[j] ? expf(sv[j] - mx) : 0.f;
-        l += p;
-        axpy32(acc, p, Vs + (s0 + j) * D + part * 32);
-      }
-      m = mx;
-    }
-    __syncthreads();
+  const int t_first = r0 / G, t_last = (min(r0 + FP_ROWS, rows) - 1) / G;
+  for (int t = t_first + tid; t <= t_last; t += FP_THREADS) {
+    atomicMin(&s_lo, pos_b[t]);
+    atomicMax(&s_hi, pos_b[t]);
   }
-  if (active) {
+  for (int i = tid; i < FP_ROWS * DC; i += FP_THREADS) {
+    const int r = i / DC, c = i % DC, gr = r0 + r;
+    cp_async16(Qs + r * LD + c * 8,
+               gr < rows ? q + q_row(gr) * D + c * 8 : q, gr < rows);
+  }
+  const int* pg_b = pages + (size_t)b * nbmax;
+  for (int i = tid; i < min(nbmax, FP_PAGES); i += FP_THREADS) pg_s[i] = pg_b[i];
+  __syncthreads();
+  const int lo_pos = s_lo, hi_pos = s_hi;
+  // keys some token of the block attends: [first, last]
+  const int first = window > 0 ? max(0, lo_pos - window + 1) : 0;
+  const int last = min(hi_pos, len - 1);
+  const int tile0 = first / FP_KEYS;
+  const int n = last < first ? 0 : last / FP_KEYS + 1 - tile0;
+
+  // keys of tile kt of the sequence -> its ring slot (zeros past kv_len)
+  auto load_tile = [&](int kt) {
+    __nv_bfloat16* kd = Ks + (kt % STAGES) * P::TILE;
+    __nv_bfloat16* vd = Vs + (kt % STAGES) * P::TILE;
+    for (int i = tid; i < FP_KEYS * DC; i += FP_THREADS) {
+      const int r = i / DC, c = i % DC, s = kt * FP_KEYS + r, pg = s / BS;
+      const bool ok = s < len && pg < nbmax;
+      size_t off = 0;
+      if (ok)
+        off = (((size_t)kvh * NB + (pg < FP_PAGES ? pg_s[pg] : pg_b[pg])) *
+                   BS + s % BS) * D + c * 8;
+      cp_async16(kd + r * LD + c * 8, kp + off, ok);
+      cp_async16(vd + r * LD + c * 8, vp + off, ok);
+    }
+  };
+
+  // this thread's two rows: position (-1 past the last row: all masked)
+  int prow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = r0 + warp * 16 + (lane >> 2) + 8 * h;
+    prow[h] = gr < rows ? pos_b[gr / G] : -1;
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};
+  uint32_t qf[D / 16][4];
+
+  // commit groups: Q with tile 0, then one a tile (empty past the last),
+  // so group it is complete when at most STAGES - 1 are pending
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < n) load_tile(tile0 + j);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n; ++it) {
+    const int s0 = (tile0 + it) * FP_KEYS;
+    if (it + STAGES - 1 < n) load_tile(tile0 + it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                            (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* kt = Ks + ((tile0 + it) % STAGES) * P::TILE;
+    const __nv_bfloat16* vt = Vs + ((tile0 + it) % STAGES) * P::TILE;
+
+    // S = Q . K^T: 16 rows x 64 keys a warp
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t kb[4];
+        ldsm_x4(kb, kt + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                        (2 * kk + ((lane >> 3) & 1)) * 8);
+        mma16816(sc[j], qf[kk], kb[0], kb[1]);
+        mma16816(sc[j + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    // the mask, only on tiles that cross the diagonal, the window's edge
+    // or kv_len (the same for the whole block)
+    const bool masked = !(s0 + FP_KEYS - 1 <= lo_pos &&
+                          s0 + FP_KEYS - 1 < len &&
+                          (window == 0 || s0 > hi_pos - window));
+    auto attends = [&](int j, int e) {
+      const int s = s0 + 8 * j + 2 * (lane & 3) + (e & 1), p = prow[e >> 1];
+      return s <= p && s < len && (window == 0 || s > p - window);
+    };
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = sc[j][e];
+        if (soft_cap > 0.f) v = tanhf(v / soft_cap) * soft_cap;
+        if (masked && !attends(j, e)) v = -1e30f;
+        sc[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    // exp(v - m) as exp2(v log2 e - m log2 e): one fma and one ex2
+    constexpr float L2E = 1.4426950408889634f;
+    float alpha[2], mb[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2f((m_r[h] - mx[h]) * L2E);
+      m_r[h] = mx[h];
+      mb[h] = -mx[h] * L2E;
+      l_r[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = masked && !attends(j, e)
+                            ? 0.f : exp2f(fmaf(sc[j][e], L2E, mb[e >> 1]));
+        l_r[e >> 1] += p;
+        sc[j][e] = p;
+      }
+
+    // O += P . V: P's accumulator fragments are the A fragments of P . V
+#pragma unroll
+    for (int kk = 0; kk < FP_KEYS / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < D / 8; j += 2) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vt + (16 * kk + (lane & 15)) * LD + (j + (lane >> 4)) * 8);
+        mma16816(o[j], pa, vb[0], vb[1]);
+        mma16816(o[j + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // the slot is refilled by a later iteration's load
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    __nv_bfloat16* op = out + (((size_t)b * T + t) * H + h) * D + part * 32;
+    const int gr = r0 + warp * 16 + (lane >> 2) + 8 * h;
+    if (gr >= rows) continue;
+    __nv_bfloat16* op = out + q_row(gr) * D + 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) op[i] = __float2bfloat16_rn(acc[i] * inv);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+          o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
   }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* positions,
+           const void* kv_len, const void* pages, void* out, int B, int T,
+           int H, int KV, int NB, int BS, int nbmax, int window,
+           float soft_cap, cudaStream_t st) {
+  const int G = H / KV, n_tiles = (T * G + FP_ROWS - 1) / FP_ROWS;
+  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
+  auto kern = flash_prefill_kernel<D>;
+  // a refused attribute leaves the launch to fail, and launch_status() to
+  // report it
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, FpPlan<D>::BYTES);
+  (void)attr;
+  const dim3 grid(KV * B, n_tiles);
+  kern<<<grid, FP_THREADS, FpPlan<D>::BYTES, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const int*)positions, (const int*)kv_len,
+      (const int*)pages, (__nv_bfloat16*)out, T, H, KV, NB, BS, nbmax, G,
+      n_tiles, window, soft_cap);
+  return launch_status();
 }
 
 }  // namespace
 
+// D in {64, 128}; BS a multiple of 8, at most 64; any T and any G = H / KV.
 PORT_API int flash_prefill(const void* q, const void* k, const void* v,
                            const void* positions, const void* kv_len,
                            const void* pages, void* out, int B, int T, int H,
                            int KV, int NB, int BS, int D, int nbmax,
                            int window, float soft_cap, void* stream) {
-  if (KV <= 0 || H % KV || BS % KCH || BS > 64 || (D != 64 && D != 128))
+  if (B < 1 || T < 1 || KV <= 0 || H % KV || BS % 8 || BS > 64 ||
+      (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  const int rows = THREADS / (D / 32);
-  if (rows % G) return (int)cudaErrorInvalidValue;
-  const int tq = rows / G;
-  dim3 grid((T + tq - 1) / tq, KV, B);
-  cudaStream_t st = (cudaStream_t)stream;
-  auto kernel = D == 64 ? flash_prefill_kernel<64> : flash_prefill_kernel<128>;
-  kernel<<<grid, THREADS, 0, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)positions, (const int*)kv_len,
-      (const int*)pages, (__nv_bfloat16*)out, T, H, KV, NB, BS, nbmax, G,
-      window, soft_cap);
-  return launch_status();
+  auto st = (cudaStream_t)stream;
+  return D == 64 ? launch<64>(q, k, v, positions, kv_len, pages, out, B, T, H,
+                              KV, NB, BS, nbmax, window, soft_cap, st)
+                 : launch<128>(q, k, v, positions, kv_len, pages, out, B, T,
+                               H, KV, NB, BS, nbmax, window, soft_cap, st);
 }

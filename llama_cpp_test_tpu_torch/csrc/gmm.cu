@@ -26,16 +26,22 @@
 // one expert read the same planes; K is split across blocks as in K1, so
 // tiles of one expert run side by side and the second read of a plane
 // mostly hits L2. Prefill (tile_m 64): operations. gmm_gemm dequantizes a
-// 32 x 128 weight tile per k-step into shared memory as the plain version
-// rounds it, bf16(s*q - m) or bf16(s*lut[q]) (no per-group min fold: that
-// fold made K1's u4 GEMM 8x slower than its int8 one), or copies a dense
-// tile unchanged, and multiplies on the tensor cores with wmma (mma.sync
-// 16x16x16 bf16, f32 accumulate); the next k-step's x, plane, scale and
-// min loads are issued into registers before the current product, so the
-// global latency overlaps the MMAs. Every kind keeps the same thread
-// roles: 8 threads a k-row, each with 128 / pack / 8 packed columns (16
-// bytes of int8, 8 of nibbles, 4 of crumbs, 32 of bf16). No cp.async/TMA
-// ring, no wgmma: later work.
+// 32 x 128 weight tile per k-step into shared memory as the TPU kernel
+// rounds it, bf16(s*q) or bf16(s*lut[q]), or copies a dense tile
+// unchanged, and multiplies on the tensor cores with wmma (mma.sync
+// 16x16x16 bf16, f32 accumulate). The min folds exactly, as _gmm_kernel
+// folds it (xsum . min in f32, never expanded per element): each group's
+// sums of the x rows (f32, from the x chunks the threads stage) split into
+// bf16 hi + lo in two K slots of a fold tile, against -min (exact in bf16)
+// in two rows of a fold B tile; once 8 groups fill the 16 slots, one more
+// k16 product adds -(hi + lo) . min (about 2^-16 relative error on the
+// min term, as K1's GEMM): 2 / group more products than the main loop
+// (a fold every step cost 1.7x the time at group 32).
+// The next k-step's x, plane, scale and min loads are issued into
+// registers before the current product, so the global latency overlaps
+// the MMAs. Every kind keeps the same thread roles: 8 threads a k-row,
+// each with 128 / pack / 8 packed columns (16 bytes of int8, 8 of nibbles,
+// 4 of crumbs, 32 of bf16). No cp.async/TMA ring, no wgmma: later work.
 #include <mma.h>
 
 #include "qmm_gemv.cuh"
@@ -49,6 +55,7 @@ constexpr int GEMV_TILE = 8;    // tile_m of the decode variant
 constexpr int GM_BM = 64;       // tile_m of the prefill variant
 constexpr int GM_BN = 128;      // logical output columns per block
 constexpr int GM_BK = 32;
+constexpr int GM_FOLD = 16;     // K slots of the min fold (8 groups)
 constexpr int GM_THREADS = 256;
 constexpr int DENSE_CPL = 4;    // bf16 columns a lane of the dense GEMV takes
 
@@ -213,10 +220,15 @@ gmm_gemm_kernel(const __nv_bfloat16* __restrict__ xs, int K,
   constexpr int SW = CPT / 2;                      // scale words per h
   constexpr int LDA = GM_BK + 8;                   // bf16 elements
   constexpr int LDB = GM_BN + 8;
+  constexpr int LDF = GM_FOLD + 8;
   static_assert(CPT == 4 || CPT == 8 || CPT == 16, "packed columns a thread");
   static_assert(BNP / CPT == 8, "8 threads a k-row");
   __shared__ __align__(128) __nv_bfloat16 As[GM_BM * LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[GM_BK * LDB];
+  // the min fold: x-sum hi/lo per (row, K slot) and -min per (K slot,
+  // column); slots 2 (g % 8) and 2 (g % 8) + 1 hold group g
+  __shared__ __align__(128) __nv_bfloat16 Af[HAS_MIN ? GM_BM * LDF : 8];
+  __shared__ __align__(128) __nv_bfloat16 Bf[HAS_MIN ? GM_FOLD * LDB : 8];
   __shared__ float lut_s[16];
 
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -246,6 +258,18 @@ gmm_gemm_kernel(const __nv_bfloat16* __restrict__ xs, int K,
   // chunk (k-row wr, CPT packed columns at wc)
   const int xr = tid >> 2, xc = (tid & 3) * 8;
   const int wr = tid >> 3, wc = (tid & 7) * CPT;
+  if constexpr (HAS_MIN) {
+    // the fold's unused K slots stay zero in Af and Bf
+    for (int i = tid; i < GM_BM * LDF; i += GM_THREADS)
+      Af[i] = __float2bfloat16_rn(0.f);
+    for (int i = tid; i < GM_FOLD * LDB; i += GM_THREADS)
+      Bf[i] = __float2bfloat16_rn(0.f);
+    __syncthreads();
+  }
+  float xrun = 0.f;  // x-sum of a group longer than one step, so far
+  // with a min the group is a power of two (fold_group): shifts, not
+  // divisions, on the step's critical path
+  [[maybe_unused]] const int lg = 31 - __clz(group), gtail = G & 7;
 
   uint4 x_reg;
   uint32_t q_reg[QW];
@@ -268,7 +292,9 @@ gmm_gemm_kernel(const __nv_bfloat16* __restrict__ xs, int K,
     }
   };
 
-  auto store = [&]() {
+  // stage step k0: the x chunk, the dequantized tile and, with a min, the
+  // fold's x-sums and -min rows; true if the fold is due after it
+  auto store = [&](int k0) {
     *reinterpret_cast<uint4*>(As + xr * LDA + xc) = x_reg;
     if constexpr (DENSE) {
       st_words<QW>(Bs + wr * LDB + wc, q_reg);
@@ -277,21 +303,70 @@ gmm_gemm_kernel(const __nv_bfloat16* __restrict__ xs, int K,
       for (int h = 0; h < PACK; ++h) {
         const __nv_bfloat16* sb =
             reinterpret_cast<const __nv_bfloat16*>(s_reg + h * SW);
-        const __nv_bfloat16* mb =
-            reinterpret_cast<const __nv_bfloat16*>(m_reg + (HAS_MIN ? h * SW : 0));
         __align__(16) __nv_bfloat16 wv[CPT];
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           const uint32_t byte = (q_reg[c >> 2] >> (8 * (c & 3))) & 0xffu;
-          // the plain version's rounding: bf16(s*q - m), two f32 roundings,
-          // or bf16(s*lut[q])
-          float w = __fmul_rn(plane_value<KIND>(byte, h, lut_s), bf2f(sb[c]));
-          if constexpr (HAS_MIN) w = __fsub_rn(w, bf2f(mb[c]));
-          wv[c] = __float2bfloat16_rn(w);
+          // the TPU kernel's rounding: bf16(s*q) or bf16(s*lut[q]), once
+          wv[c] = __float2bfloat16_rn(
+              __fmul_rn(plane_value<KIND>(byte, h, lut_s), bf2f(sb[c])));
         }
         st_words<CPT / 2>(Bs + wr * LDB + h * BNP + wc,
                           reinterpret_cast<const uint32_t*>(wv));
       }
+    }
+    if constexpr (!HAS_MIN) {
+      return false;
+    } else {
+      // a window of 8 groups fills the fold's 16 K slots: group g's -min
+      // in fold rows 2 (g % 8) and 2 (g % 8) + 1, written by the threads
+      // of the group's first k-row in this step
+      const int gs = min(group, GM_BK);  // k-rows of one group in a step
+      if ((wr & (gs - 1)) == 0) {
+        const int slot = 2 * (((k0 + wr) >> lg) & 7);
+#pragma unroll
+        for (int h = 0; h < PACK; ++h) {
+          uint32_t neg[SW];
+#pragma unroll
+          for (int i = 0; i < SW; ++i) neg[i] = m_reg[h * SW + i] ^ 0x80008000u;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            st_words<SW>(Bf + (slot + j) * LDB + h * BNP + wc, neg);
+        }
+      }
+      // the x-sum of the thread's 8 staged x values, summed over the lanes
+      // of one group (lanes 4i..4i+3 hold one row's 32 columns) and, for a
+      // group longer than a step, over its steps
+      const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&x_reg);
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(xv[i]);
+        part += f.x + f.y;
+      }
+      const int lanes = gs / 8;  // 1, 2 or 4
+      if (lanes > 1) part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if (lanes > 2) part += __shfl_xor_sync(0xffffffffu, part, 2);
+      const bool ends = ((k0 + GM_BK) & (group - 1)) == 0;  // a group ends
+      if (group > GM_BK) {
+        xrun += part;
+        part = xrun;
+        if (ends) xrun = 0.f;
+      }
+      if (ends && (tid & (lanes - 1)) == 0) {
+        const int slot = 2 * (((k0 + xc) >> lg) & 7);
+        const __nv_bfloat16 hi = __float2bfloat16_rn(part);
+        *reinterpret_cast<__nv_bfloat162*>(Af + xr * LDF + slot) =
+            __halves2bfloat162(hi, __float2bfloat16_rn(part - bf2f(hi)));
+      }
+      // the last window holds G % 8 groups: its other slots, written by
+      // the window before, must add nothing
+      const bool last = k0 + GM_BK >= K;
+      if (last && gtail != 0 && (tid & 3) == 0)
+        for (int c = 2 * gtail; c < GM_FOLD; ++c)
+          Af[xr * LDF + c] = __float2bfloat16_rn(0.f);
+      // fold when a window's 8 groups are complete, or at the end of K
+      return ends && ((((k0 + GM_BK) >> lg) & 7) == 0 || last);
     }
   };
 
@@ -300,21 +375,32 @@ gmm_gemm_kernel(const __nv_bfloat16* __restrict__ xs, int K,
 #pragma unroll
   for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.f);
 
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                               wmma::row_major>;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                               wmma::row_major>;
+  // acc += A[16 rows, 16 K at a, lda] . B[16 K at b, 64 columns, LDB]
+  auto mma16 = [&](const __nv_bfloat16* a_p, int lda, const __nv_bfloat16* b_p) {
+    FragA a;
+    wmma::load_matrix_sync(a, a_p, lda);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      FragB b;
+      wmma::load_matrix_sync(b, b_p + f * 16, LDB);
+      wmma::mma_sync(acc[f], a, b, acc[f]);
+    }
+  };
+
   load(0);
   for (int k0 = 0; k0 < K; k0 += GM_BK) {
-    store();
+    [[maybe_unused]] const bool fold = store(k0);
     __syncthreads();
     if (k0 + GM_BK < K) load(k0 + GM_BK);
 #pragma unroll
-    for (int kk = 0; kk < GM_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, As + (16 * wm) * LDA + kk, LDA);
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, Bs + kk * LDB + wn * 64 + f * 16, LDB);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
+    for (int kk = 0; kk < GM_BK; kk += 16)
+      mma16(As + (16 * wm) * LDA + kk, LDA, Bs + kk * LDB + wn * 64);
+    if constexpr (HAS_MIN) {
+      if (fold) mma16(Af + (16 * wm) * LDF, LDF, Bf + wn * 64);
     }
     __syncthreads();
   }
@@ -390,6 +476,12 @@ bool valid(int T, int K, int kind, const void* scale, const void* minp,
          !(kind_lut(kind) && minp != nullptr);
 }
 
+// groups gmm_gemm folds a min over: powers of two from 8 (whole 8-column
+// chunks, and whole groups in a 32-deep step or whole steps in a group)
+bool fold_group(int group) {
+  return group >= 8 && (group & (group - 1)) == 0;
+}
+
 Args make_args(const void* xs, int T, int K, const void* qs, int npk,
                const void* scale, const void* minp, const void* lut, int group,
                const void* tile_expert, const void* tile_rows, int n_expert,
@@ -425,14 +517,15 @@ PORT_API int gmm_gemv(const void* xs, int T, int K, const void* qs, int npk,
 }
 
 // Same operands with 64-row tiles: xs [T*64, K], out [T*64, pack, npk].
-// K a multiple of 32 and of group; npk a multiple of 128 / pack.
+// K a multiple of 32 and of group; npk a multiple of 128 / pack; with a
+// min, group a power of two from 8.
 PORT_API int gmm_gemm(const void* xs, int T, int K, const void* qs, int npk,
                       int kind, const void* scale, const void* minp,
                       const void* lut, int group, const void* tile_expert,
                       const void* tile_rows, int n_expert, void* out,
                       void* stream) {
   if (!valid(T, K, kind, scale, minp, lut, group, n_expert) ||
-      npk % (GM_BN / gmm_pack(kind)))
+      npk % (GM_BN / gmm_pack(kind)) || (minp && !fold_group(group)))
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(xs, T, K, qs, npk, scale, minp, lut, group,
                            tile_expert, tile_rows, n_expert, out, stream);

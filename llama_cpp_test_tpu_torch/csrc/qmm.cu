@@ -26,34 +26,13 @@
 // bound is the work beside the products: every weight rebuilt as bf16 once
 // per row tile, x re-read from L2 once per column tile (with the planes,
 // 0.7 GB of L2 reads for a Llama-3-8B gate|up at M = 512 and 128 x 256
-// tiles), the per-group x-sums of the min, and the barriers between them. The GEMM kernel is built for Hopper:
-//   - products on the tensor cores with wgmma (bf16 in, f32 out), 64 rows
-//     per warpgroup: one warpgroup and 128 logical columns (m64n128k16)
-//     for few rows (M <= 64, or too few 128 x 256 tiles to fill half the
-//     SMs), else two warpgroups and 256 columns (m64n256k16). A is the x
-//     tile (K-major), B the dequantized tile (N contiguous: trans-b), both
-//     128B-swizzled in shared memory; a tile of PACK sub-planes of
-//     BN / PACK packed columns is written back to columns h * NPK + j;
-//   - a ring of 3-4 stages filled by TMA (one thread, an mbarrier per
-//     stage), each holding one 64-deep K step's x tile, plane bytes, scale
-//     rows and min rows, so loads run 2-3 steps ahead; each step's B tile
-//     is dequantized while the wgmma of the step before runs (two B
-//     tiles), then fenced to the async proxy (fence.proxy.async);
-//   - dequantization per 8-column unit: one 16-byte scale load per (group,
-//     8 columns) and 8 plane bytes a unit, each weight rounded once as
-//     bf16(scale*q) (u4/u2: one bf16x2 fma over a 128 + q exponent trick)
-//     or bf16(scale*lut[q]) (LUT in shared memory), as the TPU kernel;
-//   - the min on the tensor cores: each step's per-group x-sums come from a
-//     product of the staged x tile with a 0/1 group-membership tile
-//     (m64n8k16, f32), as the TPU kernel's dot; each splits into bf16 hi +
-//     lo, two extra K slots of A against -min (exact in bf16) in two extra
-//     rows of B, so one more k16 product a step folds (hi + lo) . min into
-//     the accumulators (+25% of the products, about 2^-16 relative error
-//     on the min term).
-// Rows past M, K past its end and columns past NPK arrive as zeros from the
-// TMA. The LUT of a LUT kind sits in shared memory.
+// tiles), the per-group x-sums of the min, and the barriers between them.
+// The GEMM is the Hopper main loop of qmm_tile.cuh (TMA ring, dequantized
+// 128B-swizzled tiles, wgmma, the min folded on the tensor cores), here at
+// 64 x 128 tiles of one warpgroup for few rows (M <= 64, or too few 128 x
+// 256 tiles to fill half the SMs), else 128 x 256 tiles of two.
 #include "qmm_gemv.cuh"
-#include "sm90.cuh"
+#include "qmm_tile.cuh"
 
 namespace {
 
@@ -77,106 +56,8 @@ qmm_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM (prefill, M > 8): TMA ring, dequantized bf16 tiles, wgmma, min
-// folded on the tensor cores
-
-namespace gemm {
-
-constexpr int BK = 64;       // K rows per pipeline step
-constexpr int FOLD = 16;     // K slots of the min fold per step (one k16)
-constexpr int SR = 8;        // scale (and min) rows staged per step
-constexpr int SMEM_MAX = 232448;  // shared memory one block may hold
-
-// Shared-memory plan of one block of WG warpgroups (64 * WG rows, 128 * WG
-// logical columns): a ring of STAGES steps (x tile, plane bytes, scale
-// rows, min rows), two dequantized B tiles and, with a min, two A tiles of
-// the fold's x-sum columns. Every swizzled tile starts 1024-byte aligned.
-template <int KIND, bool HAS_MIN, int WG>
-struct Plan {
-  static constexpr int PACK = kind_pack(KIND);
-  static constexpr int BM = 64 * WG;            // rows per block
-  static constexpr int BN = 128 * WG;           // logical columns per block
-  static constexpr int BNP = BN / PACK;         // packed columns per block
-  static constexpr int T = 128 * WG;            // threads
-  static constexpr int KB = BK + (HAS_MIN ? FOLD : 0);  // B tile rows
-  static constexpr int X = BM * BK * 2;         // x tile, 128B-swizzled
-  static constexpr int Q = BK * BNP;            // plane bytes, row-major
-  static constexpr int S = PACK * SR * BNP * 2; // [pack][SR][BNP] bf16
-  static constexpr int STAGE = X + Q + S * (HAS_MIN ? 2 : 1);
-  static constexpr int B = KB * BN * 2;         // BN / 64 swizzled atoms
-  static constexpr int F = HAS_MIN ? BM * FOLD * 2 : 0;  // interleaved
-  static constexpr int MEMB = HAS_MIN ? 1024 : 0;  // group membership tile
-  static constexpr int FIXED = 2 * B + 2 * F + MEMB + 128 + 1024;
-  // 4 stages where they fit (every kind but int8 with a min), else 3
-  static constexpr int STAGES = 4 * STAGE + FIXED <= SMEM_MAX ? 4 : 3;
-  static constexpr int LUT = STAGES * STAGE + 2 * B + 2 * F + MEMB;
-  static constexpr int BYTES = LUT + 128 + 1024;  // + alignment slack
-  static_assert(X % 1024 == 0 && Q % 1024 == 0 && S % 1024 == 0 &&
-                B % 1024 == 0 && BYTES <= SMEM_MAX, "shared-memory plan");
-};
-
-// Four floats as four bf16 (round to nearest even), in order.
-static __device__ __forceinline__ uint2 pack_bf16x4(const float (&v)[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  return make_uint2(*reinterpret_cast<const uint32_t*>(&a),
-                    *reinterpret_cast<const uint32_t*>(&b));
-}
-
-// Four sub-values h of the plane word w (bytes e = 0..3, one column each)
-// times their scales, rounded once to bf16 as the TPU kernel rounds them:
-// bf16(s * q) or bf16(s * lut[q]). s2 holds the four scales as two bf16
-// pairs, ns2 their products with -128, s their f32 values.
-template <int KIND>
-static __device__ __forceinline__ uint2 dequant4(uint32_t w, int h,
-                                                 const __nv_bfloat162* s2,
-                                                 const __nv_bfloat162* ns2,
-                                                 const float* s,
-                                                 const float* lut) {
-  uint2 r;
-  if constexpr (KIND == 0) {
-    // int8: q + 128 as the low byte of 2^23's mantissa, exact in f32
-    const uint32_t u = w ^ 0x80808080u;
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      v[e] = (__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) -
-              8388736.f) * s[e];
-    r = pack_bf16x4(v);
-  } else {
-    constexpr int BITS = 8 / kind_pack(KIND);
-    constexpr uint32_t MASK = BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u;
-    const uint32_t u = (w >> (BITS * h)) & MASK;
-    if constexpr (kind_lut(KIND)) {
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = lut[(u >> (8 * e)) & 0xFFu] * s[e];
-      r = pack_bf16x4(v);
-    } else {
-      // bf16 128 + q (q < 16) is exact; one fma per pair gives
-      // bf16((128 + q) * s - 128 * s) = bf16(q * s), rounded once
-      const uint32_t m01 = __byte_perm(u, 0x43u, 0x4140);
-      const uint32_t m23 = __byte_perm(u, 0x43u, 0x4342);
-      const __nv_bfloat162 a =
-          __hfma2(*reinterpret_cast<const __nv_bfloat162*>(&m01), s2[0],
-                  ns2[0]);
-      const __nv_bfloat162 b =
-          __hfma2(*reinterpret_cast<const __nv_bfloat162*>(&m23), s2[1],
-                  ns2[1]);
-      r.x = *reinterpret_cast<const uint32_t*>(&a);
-      r.y = *reinterpret_cast<const uint32_t*>(&b);
-    }
-  }
-  return r;
-}
-
-// Byte offset of K slot col (0..15) of row r in the fold's A tile: 8-row x
-// 16-byte core matrices, the two K halves 128 bytes apart, 8-row groups
-// 256 bytes apart (wgmma's unswizzled K-major layout).
-static __device__ __forceinline__ uint32_t fold_a(int r, int col) {
-  return (uint32_t)(r >> 3) * 256u + (uint32_t)(col >> 3) * 128u +
-         (uint32_t)(r & 7) * 16u + (uint32_t)(col & 7) * 2u;
-}
+// GEMM (prefill, M > 8): qmm_tile.cuh's main loop at 64 x 128 (WG = 1) or
+// 128 x 256 (WG = 2) tiles
 
 template <int KIND, bool HAS_MIN, int WG>
 __global__ void __launch_bounds__(128 * WG, 1)
@@ -184,266 +65,12 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
                 const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_s,
                 const __grid_constant__ CUtensorMap tm_m, int M, int K,
-                int npk, const float* __restrict__ lut, int group, int rb,
-                float* __restrict__ out) {
-  using P = Plan<KIND, HAS_MIN, WG>;
-  constexpr int PACK = P::PACK, BNP = P::BNP, BM = P::BM, BN = P::BN;
-  constexpr int T = P::T, KB = P::KB, STAGES = P::STAGES;
-  constexpr int OPR = BNP / 8;             // 8-column units per plane row
-  constexpr int UPT = BK * OPR / T;        // plane rows per thread per step
-  static_assert(UPT >= 1 && UPT <= 8 && 8 % UPT == 0, "thread roles");
-
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw_s = smem_u32(smem_raw);
-  const uint32_t base_s = (raw_s + 1023u) & ~1023u;
-  unsigned char* base = smem_raw + (base_s - raw_s);
-  auto stage_at = [&](int step) { return (step % STAGES) * P::STAGE; };
-  const int b_off = STAGES * P::STAGE, f_off = b_off + 2 * P::B;
-  const int m_off = f_off + 2 * P::F;
-  float* lut_s = reinterpret_cast<float*>(base + P::LUT);
-  const uint32_t bar_s = base_s + P::LUT + 64;  // STAGES mbarriers (8 B)
-
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const int m0 = blockIdx.x * BM, jb = blockIdx.y * BNP;
-  const int G = K / group, nk = (K + BK - 1) / BK;
-
-  if (kind_lut(KIND) && tid < kind_nlut(KIND)) lut_s[tid] = lut[tid];
-  if (tid == 0) {
-    for (int i = 0; i < STAGES; ++i) mbar_init(bar_s + 8 * i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  if constexpr (HAS_MIN) {
-    // the fold's unused K slots stay zero in A and in B
-    const uint4 z = make_uint4(0, 0, 0, 0);
-    for (int i = tid; i < 2 * P::F / 16; i += T)
-      reinterpret_cast<uint4*>(base + f_off)[i] = z;
-    for (int i = tid; i < 2 * FOLD * BN / 8; i += T) {
-      const int buf = i / (FOLD * BN / 8), rem = i % (FOLD * BN / 8);
-      const int a = rem / (FOLD * 8), row = BK + (rem / 8) % FOLD;
-      *reinterpret_cast<uint4*>(base + b_off + buf * P::B + a * KB * 128 +
-                                swz128(row, rem % 8)) = z;
-    }
-    // membership tile [8 groups x 64 K] (K-major, swizzled): 1 where K
-    // slot k of a step lies in its group gg (group % 8 == 0: whole chunks)
-    if (tid < 64) {
-      const int gg = tid >> 3, c = tid & 7;
-      const uint32_t one = gg < BK / group && c * 8 / group == gg
-                               ? 0x3F803F80u : 0u;
-      *reinterpret_cast<uint4*>(base + m_off + swz128(gg, c)) =
-          make_uint4(one, one, one, one);
-    }
-  }
-
-  // one thread loads a step into its ring slot with TMA (x tile, plane
-  // rows, the rb scale and min rows from the step's first group); rows past
-  // M or K and columns past npk arrive as zeros
-  const uint32_t s_bytes = PACK * rb * BNP * 2;
-  const CUtensorMap *px = &tm_x, *pq = &tm_q, *ps = &tm_s, *pm = &tm_m;
-  auto load = [&](int step) {
-    if (tid == 0 && step < nk) {
-      const uint32_t st = base_s + stage_at(step), bar = bar_s + 8 * (step % STAGES);
-      const int k0 = step * BK, g_lo = k0 / group;
-      mbar_expect_tx(bar, P::X + P::Q + s_bytes * (HAS_MIN ? 2 : 1));
-      tma_load_2d(st, px, bar, k0, m0);
-      tma_load_2d(st + P::X, pq, bar, jb, k0);
-      tma_load_3d(st + P::X + P::Q, ps, bar, jb, g_lo, 0);
-      if constexpr (HAS_MIN)
-        tma_load_3d(st + P::X + P::Q + P::S, pm, bar, jb, g_lo, 0);
-    }
-  };
-  auto wait_loaded = [&](int step) {
-    mbar_wait(bar_s + 8 * (step % STAGES), (step / STAGES) & 1);
-  };
-
-  // plane bytes and scales of one step -> the bf16 B tile (and the fold's
-  // -min rows)
-  auto dequant = [&](int step, int buf) {
-    const unsigned char* st = base + stage_at(step);
-    unsigned char* bt = base + b_off + buf * P::B;
-    const int k0 = step * BK, g_lo = k0 / group;
-    const int o = tid % OPR, kr0 = (tid / OPR) * UPT;
-    // UPT divides 8 and group % 8 == 0: the thread's rows share one group
-    const int sr = (k0 + kr0) / group - g_lo;
-    if (k0 + kr0 < K) {
-      __nv_bfloat162 s2[PACK][4], ns2[PACK][4];
-      float sf[PACK][8];
-#pragma unroll
-      for (int h = 0; h < PACK; ++h) {
-        const uint4 sv = *reinterpret_cast<const uint4*>(
-            st + P::X + P::Q + ((h * rb + sr) * BNP + o * 8) * 2);
-        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&sv);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s2[h][e] = p[e];
-          ns2[h][e] = __hmul2(p[e], __floats2bfloat162_rn(-128.f, -128.f));
-          const float2 f = __bfloat1622float2(p[e]);
-          sf[h][2 * e] = f.x;
-          sf[h][2 * e + 1] = f.y;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < UPT; ++i) {
-        const int k = kr0 + i;
-        const uint2 w = *reinterpret_cast<const uint2*>(st + P::X + k * BNP + o * 8);
-#pragma unroll
-        for (int h = 0; h < PACK; ++h) {
-          const uint2 lo = dequant4<KIND>(w.x, h, &s2[h][0], &ns2[h][0],
-                                          &sf[h][0], lut_s);
-          const uint2 hi = dequant4<KIND>(w.y, h, &s2[h][2], &ns2[h][2],
-                                          &sf[h][4], lut_s);
-          const int n8 = h * OPR + o;
-          *reinterpret_cast<uint4*>(bt + (n8 >> 3) * KB * 128 +
-                                    swz128(k, n8 & 7)) =
-              make_uint4(lo.x, lo.y, hi.x, hi.y);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < UPT; ++i)
-#pragma unroll
-        for (int h = 0; h < PACK; ++h) {
-          const int n8 = h * OPR + o;
-          *reinterpret_cast<uint4*>(bt + (n8 >> 3) * KB * 128 +
-                                    swz128(kr0 + i, n8 & 7)) =
-              make_uint4(0, 0, 0, 0);
-        }
-    }
-    if constexpr (HAS_MIN) {
-      // -min (exact in bf16) for the step's groups gg, in rows 2 gg and
-      // 2 gg + 1 of B's fold, against the x-sums' hi and lo halves in K
-      // slots 2 gg and 2 gg + 1 of A's (store_xsums)
-      const int ng = BK / group;
-      for (int i = tid; i < ng * (BN / 8); i += T) {
-        const int gg = i / (BN / 8), n8 = i % (BN / 8);
-        const int h = n8 / OPR, c = n8 % OPR;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (g_lo + gg < G) {
-          v = *reinterpret_cast<const uint4*>(
-              st + P::X + P::Q + P::S + ((h * rb + gg) * BNP + c * 8) * 2);
-          v.x ^= 0x80008000u; v.y ^= 0x80008000u;
-          v.z ^= 0x80008000u; v.w ^= 0x80008000u;
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          *reinterpret_cast<uint4*>(bt + (n8 >> 3) * KB * 128 +
-                                    swz128(BK + 2 * gg + j, n8 & 7)) = v;
-      }
-    }
-  };
-
-  // The min, exactly, on the tensor cores: this warpgroup's per-group
-  // x-sums of a step (f32, as a product with the membership tile, the TPU
-  // kernel's dot with a 0/1 matrix) split into bf16 hi + lo, stored in K
-  // slots 2 gg and 2 gg + 1 of the fold's A tile; against -min in B's
-  // fold rows, one more k16 product adds -(hi + lo) . min.
-  float xs[4];
-  const int warp = (tid >> 5) & 3, lane = tid & 31;
-  auto issue_xsums = [&](int step) {
-    const uint32_t a_s = base_s + stage_at(step) + wg * 64 * 128;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_n8_kmajor(xs, wgmma_desc(a_s + kk * 32, 16, 1024),
-                      wgmma_desc(base_s + m_off + kk * 32, 16, 1024), kk > 0);
-  };
-  auto store_xsums = [&](int buf) {
-    unsigned char* ft = base + f_off + buf * P::F;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * (i >> 1);
-      const int gg = 2 * (lane & 3) + (i & 1);
-      const __nv_bfloat16 hi = __float2bfloat16_rn(xs[i]);
-      *reinterpret_cast<__nv_bfloat162*>(ft + fold_a(r, 2 * gg)) =
-          __halves2bfloat162(hi, __float2bfloat16_rn(xs[i] - bf2f(hi)));
-    }
-  };
-
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-
-  __syncthreads();  // barriers initialised, fold tiles zeroed
-  for (int s = 0; s < STAGES - 1; ++s) load(s);
-  wait_loaded(0);
-  if constexpr (HAS_MIN) {
-    fence_proxy_async();  // the membership tile
-    __syncthreads();
-    wgmma_fence();
-    issue_xsums(0);
-    wgmma_commit();
-  }
-  dequant(0, 0);
-  if constexpr (HAS_MIN) {
-    wgmma_wait<0>();
-    wgmma_fence_acc(xs);
-    store_xsums(0);
-  }
-  fence_proxy_async();
-  __syncthreads();
-
-  for (int s = 0; s < nk; ++s) {
-    load(s + STAGES - 1);
-    // this warpgroup's 64 rows of step s: four k16 products and the fold
-    const uint32_t a_s = base_s + stage_at(s) + wg * 64 * 128;
-    const uint32_t b_s = base_s + b_off + (s & 1) * P::B;
-    wgmma_fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_bf16(acc, wgmma_desc(a_s + kk * 32, 16, 1024),
-                 wgmma_desc(b_s + kk * 2048, KB * 128, 1024));
-    if constexpr (HAS_MIN)
-      wgmma_bf16(acc,
-                 wgmma_desc(base_s + f_off + (s & 1) * P::F + fold_a(wg * 64, 0),
-                            128, 256, false),
-                 wgmma_desc(b_s + BK / 8 * 1024, KB * 128, 1024));
-    wgmma_commit();
-    wgmma_fence_acc(acc);
-    // while the tensor cores run step s, dequantize step s + 1 (and sum
-    // its x rows on them)
-    if (s + 1 < nk) {
-      wait_loaded(s + 1);
-      if constexpr (HAS_MIN) {
-        wgmma_fence_acc(xs);
-        issue_xsums(s + 1);
-        wgmma_commit();
-        wgmma_fence_acc(xs);
-      }
-      dequant(s + 1, (s + 1) & 1);
-    }
-    wgmma_wait<0>();
-    wgmma_fence_acc(acc);
-    if constexpr (HAS_MIN) {
-      wgmma_fence_acc(xs);
-      if (s + 1 < nk) store_xsums((s + 1) & 1);
-    }
-    fence_proxy_async();
-    __syncthreads();
-  }
-
-  // epilogue: tile column n = h * BNP + jj is output column h * npk + jb + jj
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int n = 8 * j + 2 * (lane & 3);
-    const int h = n / BNP, jj = n % BNP;
-    if (jb + jj >= npk) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * half;
-      if (m < M)
-        *reinterpret_cast<float2*>(out + ((size_t)m * PACK + h) * npk + jb +
-                                   jj) =
-            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-    }
-  }
+                int npk, const float* lut, int group, int rb, float* out) {
+  gemm::tile<KIND, HAS_MIN, WG, 1, 128 * WG>(&tm_x, &tm_q, &tm_s, &tm_m, M, K,
+                                             npk, lut, group, rb, out);
 }
 
-}  // namespace gemm
-
-struct Args {
-  const __nv_bfloat16* x; int M, K; const uint8_t* qs; int npk;
-  const __nv_bfloat16 *scale, *minp; const float* lut; int group;
-  float* out; cudaStream_t st;
-};
+using gemm::Args;
 
 template <int KIND, int MT, bool HAS_MIN>
 void launch_gemv_mt(const Args& a, dim3 grid, int rpw) {
@@ -474,131 +101,21 @@ struct GemvLaunch {
   }
 };
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, from the driver the runtime already loaded (so
-// the library links no libcuda of its own)
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) != cudaSuccess ||
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &q) != cudaSuccess ||
-#endif
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A TMA map of a row-major tensor: dims innermost first (elements),
-// strides in bytes of dims 1.., box in elements. False if refused.
-bool tensor_map(CUtensorMap* m, CUtensorMapDataType type, int rank,
-                const void* ptr, const cuuint64_t* dims,
-                const cuuint64_t* strides, const cuuint32_t* box,
-                CUtensorMapSwizzle swz) {
-  const EncodeTiled enc = encoder();
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc != nullptr &&
-         enc(m, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Scale rows one K step reaches: 64 / group where the group divides 64, one
-// where 64 divides the group, else at most 64 / group + 2.
-int step_rows(int group) {
-  return gemm::BK % group == 0 ? gemm::BK / group
-         : group % gemm::BK == 0 ? 1
-                                 : gemm::BK / group + 2;
-}
-
-template <int KIND, bool HAS_MIN, int WG>
-int launch_gemm(const Args& a) {
-  using P = gemm::Plan<KIND, HAS_MIN, WG>;
-  constexpr int PACK = P::PACK;
-  const int G = a.K / a.group, rb = step_rows(a.group);
-  CUtensorMap mx, mq, ms, mm;
-  const cuuint64_t dx[2] = {(cuuint64_t)a.K, (cuuint64_t)a.M};
-  const cuuint64_t sx[1] = {(cuuint64_t)a.K * 2};
-  const cuuint32_t bx[2] = {gemm::BK, P::BM};
-  const cuuint64_t dq[2] = {(cuuint64_t)a.npk, (cuuint64_t)a.K};
-  const cuuint64_t sq[1] = {(cuuint64_t)a.npk};
-  const cuuint32_t bq[2] = {P::BNP, gemm::BK};
-  const cuuint64_t ds[3] = {(cuuint64_t)a.npk, (cuuint64_t)G, PACK};
-  const cuuint64_t ss[2] = {(cuuint64_t)a.npk * 2, (cuuint64_t)G * a.npk * 2};
-  const cuuint32_t bs[3] = {P::BNP, (cuuint32_t)rb, PACK};
-  if (!tensor_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, dx, sx, bx,
-                  CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, a.qs, dq, sq, bq,
-                  CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tensor_map(&ms, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.scale, ds, ss,
-                  bs, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tensor_map(&mm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                  HAS_MIN ? a.minp : a.scale, ds, ss, bs,
-                  CU_TENSOR_MAP_SWIZZLE_NONE))
-    return (int)cudaErrorInvalidValue;
-  auto kern = gemm::qmm_gemm_kernel<KIND, HAS_MIN, WG>;
-  // a refused attribute leaves the launch to fail, and launch_status() to
-  // report it
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
-  (void)attr;
-  const dim3 grid((a.M + P::BM - 1) / P::BM, (a.npk + P::BNP - 1) / P::BNP);
-  kern<<<grid, P::T, P::BYTES, a.st>>>(mx, mq, ms, mm, a.M, a.K, a.npk, a.lut,
-                                       a.group, rb, a.out);
-  return 0;
-}
-
 // One warpgroup (64 x 128 tiles) up to M = 64, and where two-warpgroup
 // tiles (128 x 256) would give fewer than half as many blocks as the card
 // has SMs; two above.
 template <int KIND, bool HAS_MIN>
 struct GemmLaunch {
   static int run(const Args& a) {
-    const int bnp2 = gemm::Plan<KIND, HAS_MIN, 2>::BNP;
+    const int bnp2 = gemm::Plan<KIND, HAS_MIN, 2, 1, 256>::BNP;
     const int tiles2 = (a.M + 127) / 128 * ((a.npk + bnp2 - 1) / bnp2);
     if (a.M <= 64 || 2 * tiles2 < num_sms())
-      return launch_gemm<KIND, HAS_MIN, 1>(a);
-    return launch_gemm<KIND, HAS_MIN, 2>(a);
+      return gemm::launch<gemm::Plan<KIND, HAS_MIN, 1, 1, 128>>(
+          qmm_gemm_kernel<KIND, HAS_MIN, 1>, a);
+    return gemm::launch<gemm::Plan<KIND, HAS_MIN, 2, 1, 256>>(
+        qmm_gemm_kernel<KIND, HAS_MIN, 2>, a);
   }
 };
-
-// The LUT kinds carry no min (no GGML type gives them one), so they are
-// instantiated without it.
-template <template <int, bool> class L>
-int dispatch(int kind, const Args& a) {
-  const bool mn = a.minp != nullptr;
-  int rc = 0;
-  switch (kind) {
-    case 0: rc = mn ? L<0, true>::run(a) : L<0, false>::run(a); break;
-    case 1: rc = mn ? L<1, true>::run(a) : L<1, false>::run(a); break;
-    case 2: rc = mn ? L<2, true>::run(a) : L<2, false>::run(a); break;
-    case 3: rc = L<3, false>::run(a); break;
-    case 4: rc = L<4, false>::run(a); break;
-  }
-  return rc ? rc : launch_status();
-}
-
-// operands shared by both entry points; false if the kernels do not take
-// them
-bool valid(int M, int K, int kind, const void* minp, const void* lut,
-           int group) {
-  return M >= 1 && kind >= 0 && kind <= 4 && group > 0 && K % group == 0 &&
-         (lut != nullptr) == kind_lut(kind) &&
-         !(kind_lut(kind) && minp != nullptr);
-}
 
 }  // namespace
 
@@ -608,12 +125,11 @@ bool valid(int M, int K, int kind, const void* minp, const void* lut,
 PORT_API int qmm_gemv(const void* x, int M, int K, const void* qs, int npk,
                       int kind, const void* scale, const void* minp,
                       const void* lut, int group, void* out, void* stream) {
-  if (!valid(M, K, kind, minp, lut, group) || M > 8 || npk % 128)
+  if (!gemm::valid(M, K, kind, minp, lut, group) || M > 8 || npk % 128)
     return (int)cudaErrorInvalidValue;
-  const Args a{(const __nv_bfloat16*)x, M, K, (const uint8_t*)qs, npk,
-               (const __nv_bfloat16*)scale, (const __nv_bfloat16*)minp,
-               (const float*)lut, group, (float*)out, (cudaStream_t)stream};
-  return dispatch<GemvLaunch>(kind, a);
+  return gemm::dispatch<GemvLaunch>(
+      kind, gemm::make_args(x, M, K, qs, npk, scale, minp, lut, group, out,
+                            stream));
 }
 
 // Same operands as qmm_gemv, any M; K a multiple of 32; group a multiple
@@ -622,11 +138,9 @@ PORT_API int qmm_gemv(const void* x, int M, int K, const void* qs, int npk,
 PORT_API int qmm_gemm(const void* x, int M, int K, const void* qs, int npk,
                       int kind, const void* scale, const void* minp,
                       const void* lut, int group, void* out, void* stream) {
-  if (!valid(M, K, kind, minp, lut, group) || K % 32 || group % 8 ||
-      (minp && gemm::BK % group) || npk % 128)
+  if (!gemm::valid_tiles(M, K, npk, kind, minp, lut, group))
     return (int)cudaErrorInvalidValue;
-  const Args a{(const __nv_bfloat16*)x, M, K, (const uint8_t*)qs, npk,
-               (const __nv_bfloat16*)scale, (const __nv_bfloat16*)minp,
-               (const float*)lut, group, (float*)out, (cudaStream_t)stream};
-  return dispatch<GemmLaunch>(kind, a);
+  return gemm::dispatch<GemmLaunch>(
+      kind, gemm::make_args(x, M, K, qs, npk, scale, minp, lut, group, out,
+                            stream));
 }

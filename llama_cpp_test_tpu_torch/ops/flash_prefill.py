@@ -2,9 +2,10 @@
 
 Counterpart of llama_cpp_test_tpu/ops/flash_prefill.py. On a CUDA tensor,
 `flash_prefill` launches kernel K2 (csrc/flash_prefill.cu): one block per
-(sequence, kv head, tile of query tokens) walks the sequence's pages in
-order with an online softmax, reading page ids from the block table. On a
-CPU tensor it takes `flash_prefill_plain` (full gather + masked softmax).
+(sequence, kv head, 64 query rows t * G + g) walks the 64-key tiles its
+tokens attend with an online softmax on the tensor cores (P rounded to
+bf16 for P . V), reading page ids from the block table. On a CPU tensor
+it takes `flash_prefill_plain` (full gather + masked softmax).
 
 Semantics match the reference kernel: token (b, t) attends cache index s
 iff s <= positions[b, t], s < kv_len[b], and (window == 0 or

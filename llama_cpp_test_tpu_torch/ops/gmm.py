@@ -13,7 +13,11 @@ Counterpart of llama_cpp_test_tpu/ops/gmm.py:
      (csrc/gmm.cu): `gmm_gemv` for tile_m 8 (decode), `gmm_gemm` for
      tile_m 64 (prefill), over every plane kind (int8, u4, u2, u4lut,
      u2lut) and over dense bf16 stacks (F16/BF16/F32 files), whose
-     product the reference also computes inside its kernel. Each block
+     product the reference also computes inside its kernel. Both fold an
+     affine min exactly (bf16(s*q), then x-sums . min in f32), as
+     _gmm_kernel does; the plain version rounds as qmatmul.PLAIN_MIN says:
+     bf16(s*q - m) jointly by default, as the reference's gmm_xla does, or
+     folded as _gmm_kernel does. Each block
      reads its tile's expert id on the device and offsets the stacked
      planes by it, so a decode step reads only the routed experts. On a
      CPU tensor, or with plain=True, the plain version: dequantize each
@@ -33,8 +37,7 @@ import torch
 
 from ..quant.repack import QTensor
 from . import _cuda
-from .qmatmul import (_KIND_ID, _dequant_t, _matmul_f32, _split, check_lut,
-                      lut_ptr)
+from .qmatmul import _KIND_ID, _plain_product, _split, check_lut, lut_ptr
 
 TILE_GEMV = 8    # tile_m of the decode regime (R = M * top_k <= 256)
 TILE_GEMM = 64   # tile_m of the prefill regime
@@ -118,10 +121,11 @@ def _expert(a, e: int):
 
 
 def _planes_plain(xs: torch.Tensor, qt: QTensor, routing: Routing,
-                  tile_m: int) -> torch.Tensor:
+                  tile_m: int, rounding: str | None = None) -> torch.Tensor:
     """Plain version of K4: [Rp, K] -> [Rp, pack, NPK] f32. Each routed
     expert is dequantized once (per expert, never per row) and multiplies
-    its live rows; rows without an assignment stay zero."""
+    its live rows; rows without an assignment stay zero. A min rounds as
+    `rounding` says (qmatmul._plain_product)."""
     rp = xs.shape[0]
     y = torch.zeros((rp, qt.pack * qt.npk), dtype=torch.float32,
                     device=xs.device)
@@ -133,9 +137,9 @@ def _planes_plain(xs: torch.Tensor, qt: QTensor, routing: Routing,
                 torch.arange(t * tile_m, t * tile_m + n, device=xs.device))
     for e, idx in rows_of.items():
         idx = torch.cat(idx)
-        w = _dequant_t(qt.qs[e], _expert(qt.scale, e), _expert(qt.min_, e),
-                       qt.lut, kind=qt.kind, group=qt.group)
-        y[idx] = _matmul_f32(xs[idx], w)
+        y[idx] = _plain_product(xs[idx], qt.qs[e], _expert(qt.scale, e),
+                                _expert(qt.min_, e), qt.lut, kind=qt.kind,
+                                group=qt.group, rounding=rounding)
     return y.reshape(rp, qt.pack, qt.npk)
 
 
@@ -183,6 +187,12 @@ def _planes_cuda(xs: torch.Tensor, qt: QTensor, routing: Routing,
     req(k % 32 == 0 and k % qt.group == 0
         and npk % (128 if tile_m == TILE_GEMV else 128 // qt.pack) == 0,
         f"{name}: unsupported K={k} NPK={npk} group={qt.group}")
+    # the GEMM folds a min over power-of-two groups from 8 (every GGUF
+    # type with a min has one)
+    req(tile_m == TILE_GEMV or qt.min_ is None or (
+        qt.group >= 8 and qt.group & (qt.group - 1) == 0),
+        f"gmm_gemm: group {qt.group} with a min (it takes a power of two "
+        "from 8)")
     out = torch.empty((rp, qt.pack, npk), dtype=torch.float32, device=xs.device)
     fn = _cuda.bind("gmm", name, "piipiipppippipp")
     rc = fn(xs.data_ptr(), t, k, qt.qs.data_ptr(), npk, _GMM_KIND[kind],

@@ -6,12 +6,18 @@ u2 crumbs, or 4-/2-bit codes into a LUT (u4lut, u2lut). On a CUDA tensor,
 `qmm` / `qmm_split` launch kernel K1 (csrc/qmm.cu): a GEMV for M <= 8
 (decode) and a pipelined wgmma GEMM above (prefill). Both read the packed
 planes directly and fold the affine min as (per-group x-sums) @ min, as
-the TPU kernel _qmm_t_kernel does (the GEMM on the tensor cores). With the "cache" variant, a prefill whose shape the reference's
-strip-cached kernel takes runs kernel K5 (csrc/qmm_cache.cu) instead:
-each full-K weight strip is dequantized once and reused by every row tile.
+the TPU kernel _qmm_t_kernel does (the GEMM on the tensor cores). With
+the "cache" variant, a prefill whose shape the reference's strip-cached
+kernel takes runs kernel K5 (csrc/qmm_cache.cu) instead: the same Hopper
+main loop at 256-row tiles, so each dequantized weight tile serves 256
+rows (all of them up to M = 256), as the reference's strip serves every
+row tile.
 On a CPU tensor they take the plain version, `qmm_plain`, which follows the
 reference's XLA path (_dequant_t + _qmm_xla_t): dequantize to bf16, then a
-float32-accumulated product.
+float32-accumulated product. PLAIN_MIN says how the plain versions round a
+weight with a min: jointly, bf16(s*q - m), as that XLA path does
+("joint", the default), or as the TPU kernels and K1, K4 and K5 do
+("fold": bf16(s*q), then the per-group x-sums . min subtracted in f32).
 
 The variant comes from LLAMA_TPU_QMM_VARIANT, as in the reference, or from
 `variant=`. "f32", "bf16" and "pipe" are TPU instruction schedules of one
@@ -34,6 +40,8 @@ from . import _cuda
 _KIND_ID = {"int8": 0, "u4": 1, "u2": 2, "u4lut": 3, "u2lut": 4}
 VARIANTS = ("f32", "bf16", "pipe", "cache")
 QMM_VARIANT = os.environ.get("LLAMA_TPU_QMM_VARIANT", "f32")
+PLAIN_MINS = ("joint", "fold")
+PLAIN_MIN = "joint"
 
 
 def _variant(variant: str | None) -> str:
@@ -96,11 +104,37 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.bfloat16).float(), w.float())
 
 
+def _plain_product(x, qs, scale, min_, lut, *, kind: str, group: int,
+                   rounding: str | None = None) -> torch.Tensor:
+    """x [..., K] @ dequant(planes) in float32 (columns h-major), a min
+    rounded as `rounding` says (None reads PLAIN_MIN)."""
+    rounding = rounding or PLAIN_MIN
+    if rounding not in PLAIN_MINS:
+        raise ValueError(f"plain min rounding {rounding!r}: expected one of "
+                         f"{PLAIN_MINS}")
+    fold = min_ is not None and rounding == "fold"
+    w = _dequant_t(qs, scale, None if fold else min_, lut, kind=kind,
+                   group=group)
+    y = _matmul_f32(x, w)
+    if fold:
+        xb = x.to(torch.bfloat16).float()
+        xsum = xb.reshape(*xb.shape[:-1], -1, group).sum(-1)   # [..., K/group]
+        y = y - xsum @ torch.cat(list(min_), dim=-1).float()
+    return y
+
+
+def plain_planes(x: torch.Tensor, qt: QTensor,
+                 rounding: str | None = None) -> torch.Tensor:
+    """Plain x [..., K] @ dequant(qt) -> [..., pack * NPK] float32."""
+    assert qt.layout == "t", "plain_planes expects layout 't'"
+    return _plain_product(x, qt.qs, qt.scale, qt.min_, qt.lut, kind=qt.kind,
+                          group=qt.group, rounding=rounding)
+
+
 def qmm_plain(x: torch.Tensor, qt: QTensor,
               out_dtype=torch.float32) -> torch.Tensor:
     """Plain version of K1: x [..., K] -> [..., n_orig]."""
-    y = _matmul_f32(x, dequantize(qt))
-    return y[..., : qt.n_orig].to(out_dtype)
+    return plain_planes(x, qt)[..., : qt.n_orig].to(out_dtype)
 
 
 def _check_operands(x2: torch.Tensor, qt: QTensor, name: str) -> None:
@@ -146,14 +180,21 @@ def lut_ptr(qt: QTensor) -> int:
     return qt.lut.data_ptr() if qt.kind in ("u4lut", "u2lut") else 0
 
 
+def _check_tile_group(qt: QTensor, name: str) -> None:
+    """Raise unless the prefill main loop (K1's GEMM, K5) takes the group:
+    a multiple of 8, and with a min 8, 16, 32 or 64."""
+    _cuda.require(qt.group % 8 == 0 and (
+        qt.min_ is None or 64 % qt.group == 0),
+                  f"{name}: group {qt.group} (it takes a multiple of 8; "
+                  "with a min 8, 16, 32 or 64)")
+
+
 def _qmm_planes_cuda(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """K1 launch: [M, K] bf16 x planes -> [M, pack, NPK] float32."""
     _check_operands(x2, qt, "qmm")
     m, k = x2.shape
-    _cuda.require(m <= 8 or (qt.group % 8 == 0 and (
-        qt.min_ is None or 64 % qt.group == 0)),
-                  f"qmm_gemm: group {qt.group} (it takes a multiple of 8; "
-                  "with a min 8, 16, 32 or 64)")
+    if m > 8:
+        _check_tile_group(qt, "qmm_gemm")
     out = torch.empty((m, qt.pack, qt.npk), dtype=torch.float32,
                       device=x2.device)
     if m == 0:
@@ -171,24 +212,21 @@ def _qmm_planes_cuda(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 def _qmm_cache_cuda(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """K5 launch: [M, K] bf16 x planes -> [M, pack, NPK] float32. The
-    per-group x-sums the min folds with are a torch op here, as the
-    reference computes them in XLA."""
+    kernel sums x's groups for the min itself."""
     _check_operands(x2, qt, "qmm_cache")
     m, k = x2.shape
     _cuda.require(0 < m and k <= 4096 and k % 128 == 0,
                   f"qmm_cache: unsupported M={m} K={k} (K <= 4096, K % 128 "
                   "== 0)")
-    xsum = None
-    if qt.min_ is not None:
-        xsum = x2.float().reshape(m, k // qt.group, qt.group).sum(-1)
+    _check_tile_group(qt, "qmm_cache")
     out = torch.empty((m, qt.pack, qt.npk), dtype=torch.float32,
                       device=x2.device)
-    fn = _cuda.bind("qmm_cache", "qmm_cache", "piipiipppippp")
+    fn = _cuda.bind("qmm_cache", "qmm_cache", "piipiipppipp")
     _cuda.check(fn(x2.data_ptr(), m, k, qt.qs.data_ptr(), qt.npk,
                    _KIND_ID[qt.kind], qt.scale.data_ptr(),
                    0 if qt.min_ is None else qt.min_.data_ptr(), lut_ptr(qt),
-                   qt.group, 0 if xsum is None else xsum.data_ptr(),
-                   out.data_ptr(), _cuda.stream_ptr(x2.device)), "qmm_cache")
+                   qt.group, out.data_ptr(), _cuda.stream_ptr(x2.device)),
+                "qmm_cache")
     _cuda.LAUNCHES["qmm_cache"] += 1
     return out
 
@@ -199,8 +237,7 @@ def _planes(x2: torch.Tensor, qt: QTensor,
     on CUDA; plainly on the CPU."""
     variant = _variant(variant)
     if x2.device.type == "cpu":
-        y = _matmul_f32(x2, dequantize(qt))
-        return y.reshape(x2.shape[0], qt.pack, qt.npk)
+        return plain_planes(x2, qt).reshape(x2.shape[0], qt.pack, qt.npk)
     x2 = x2.to(torch.bfloat16).contiguous()
     m, k = x2.shape
     if variant == "cache" and cache_route(m, k, qt.group, qt.min_ is not None):
@@ -251,7 +288,7 @@ def qmm_split_plain(x: torch.Tensor, qt: QTensor,
     """Plain version of qmm_split, on any device."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    y = _matmul_f32(x2, dequantize(qt))
+    y = plain_planes(x2, qt)
     return _split(y.reshape(x2.shape[0], qt.pack, qt.npk), qt, lead, out_dtype)
 
 

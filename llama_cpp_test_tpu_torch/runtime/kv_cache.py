@@ -15,8 +15,9 @@ step). Slot id = block * block_size + offset; the engine drops padding
 tokens on the host before the scatter (write_kv takes only kept rows).
 
 Attention dispatch: on CUDA, prefill goes to kernel K2 and decode to
-kernel K3 (its q8 variant over q8_0 pools); on the CPU, or when the caller
-asks for the plain path, both take the full-gather reference
+kernel K3 (its q8 variant over q8_0 pools), a sliding-window decode to the
+gather path as in the reference; on the CPU, or when the caller asks for
+the plain path, both take the full-gather reference
 (attend_prefill_plain / attend_decode_plain; gather_kv_q8 +
 attend_gathered for q8_0). Prefill over q8_0 pools is the dequantizing
 gather on every device, as in the reference, which has no kernel there.
@@ -158,14 +159,13 @@ def attend_decode_plain(q, k_pool, v_pool, block_table, kv_len, scale: float,
 def attend_decode(q, k_pool, v_pool, block_table, kv_len, scale: float,
                   window: int = 0, soft_cap: float = 0.0,
                   plain: bool = False) -> torch.Tensor:
-    """Decode attention: q [B, 1, H, D] -> [B, 1, H, D]. Every bf16,
-    window-0 decode on CUDA goes to kernel K3."""
-    if plain or q.device.type == "cpu":
+    """Decode attention: q [B, 1, H, D] -> [B, 1, H, D]. A bf16 decode
+    without a window goes to kernel K3 on CUDA; a sliding window takes the
+    gather path on every device, as the reference sends any window to its
+    gather (kv_cache.attend_decode there)."""
+    if plain or window > 0 or q.device.type == "cpu":
         return attend_decode_plain(q, k_pool, v_pool, block_table, kv_len,
                                    scale, window, soft_cap)
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window decode on CUDA is not ported yet (ROADMAP.md)")
     qs = (q[:, 0].float() * scale).to(q.dtype).contiguous()
     out = paged_attention_decode(qs, k_pool, v_pool, kv_len, block_table,
                                  soft_cap=soft_cap if soft_cap > 0 else None)
@@ -178,15 +178,13 @@ def attend_decode_q8(q, k_pool, k_scale, v_pool, v_scale, block_table, kv_len,
     """Decode attention over q8_0 pools: q [B, 1, H, D] -> [B, 1, H, D].
     On CUDA, kernel K3's q8 variant dequantizes the int8 pages in registers
     (half the bytes of bf16 pages); the plain version is the dequantizing
-    gather + masked softmax."""
-    if plain or q.device.type == "cpu":
+    gather + masked softmax, which a sliding window takes on every device,
+    as in the reference."""
+    if plain or window > 0 or q.device.type == "cpu":
         k = gather_kv_q8(k_pool, k_scale, block_table)
         v = gather_kv_q8(v_pool, v_scale, block_table)
         return attend_gathered(q, k, v, (kv_len - 1)[:, None], kv_len, scale,
                                window, soft_cap)
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window decode on CUDA is not ported yet (ROADMAP.md)")
     qs = (q[:, 0].float() * scale).to(torch.bfloat16).contiguous()
     out = paged_attention_decode(qs, k_pool, v_pool, kv_len, block_table,
                                  soft_cap=soft_cap if soft_cap > 0 else None,

@@ -55,11 +55,14 @@ def prefill_case(seed=0, b=2, t=16, h=8, kv=2, d=64, nb=12, bs=8, lens=None,
     return q, kp, vp, np.maximum(pos, 0), kv_len, bt
 
 
-@pytest.mark.parametrize("h,kv", [(8, 2), (4, 4)], ids=["G4", "G1"])
+@pytest.mark.parametrize("h,kv,d", [(8, 2, 64), (4, 4, 64), (32, 4, 64),
+                                    (8, 2, 128)],
+                         ids=["G4", "G1", "G8", "G4-D128"])
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (5, 0.0), (0, 30.0)])
-def test_flash_prefill_matches_pallas(window, cap, h, kv):
-    """Mixed lengths per sequence, GQA G in {1, 4}, window and softcap."""
-    q, kp, vp, pos, kl, bt = prefill_case(h=h, kv=kv)
+def test_flash_prefill_matches_pallas(window, cap, h, kv, d):
+    """Mixed lengths per sequence, GQA G in {1, 4, 8} (8: TinyLlama's
+    layout), D in {64, 128}, window and softcap."""
+    q, kp, vp, pos, kl, bt = prefill_case(h=h, kv=kv, d=d)
     scale = 0.125
     (jq, tq), (jk, tk), (jv, tv) = both(q * scale), both(kp), both(vp)
     ints = [both(a, "i32") for a in (pos, kl, bt)]

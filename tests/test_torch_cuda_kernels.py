@@ -10,13 +10,16 @@ Covers kernel paths that the serving path of chip_smoke.py does not reach:
 all four GGML types of K1 at several row counts, K1 on the u2, u4lut and
 u2lut kinds (groups 16, 32 and 256), K1's GEMM at M 9-512 (its one- and
 two-warpgroup tiles, ragged rows) and K up to 14336 with npk 640/pack
-(a ragged 256-column tile for int8), its refusals, and K5 on every kind, K2 with a sliding window,
-softcap, G = 1 and a cached prefix, K3 (bf16 and q8 pages) at G in
+(a ragged 256-column tile for int8), its refusals, K5 on every kind (and
+against K1 at M 130-512, K 512 and 4096), K2 at G in {1, 4, 8}, D in
+{64, 128} and BS in {8, 16, 64} with a sliding window, softcap and a
+cached prefix, windowed decode on the gather path, K3 (bf16 and q8 pages) at G in
 {1, 4, 8} and D in {64, 128} with softcap and very short caches, K4 on
 every plane kind (the four GGML types above, Q2_K u2 with a min, IQ4_XS
 and IQ2_XS u4lut, IQ1_S u2lut, TQ2_0 u2lut at group 256, and dense BF16
 stacks) with ragged expert loads, one-expert batches, dead tiles and K not
-a multiple of 2048, and the five probe kernels of the port's tools.
+a multiple of 2048, K4's GEMM against K1's on one expert (its exact
+min fold), and the five probe kernels of the port's tools.
 Gates are the JAX suites': qmm NMSE < 5e-5 against the float golden,
 attention and gmm NMSE < 2e-4, the probes NMSE < 1e-5 against their plain
 versions.
@@ -69,6 +72,11 @@ _LOWBIT = {GGMLType.Q2_K: [(80, 1e-3, 3e-3), (82, 1e-3, 3e-3)],
            GGMLType.TQ2_0: [(64, 1e-3, 3e-3)]}
 
 
+# Q4_1: u4 with a min at group 32, so K need not make K / group a
+# multiple of 8 (K-quant blocks always do)
+_LEGACY_MIN = {GGMLType.Q4_1: [(0, 1e-3, 3e-3), (2, 1e-3, 3e-3)]}
+
+
 def random_qtensor(ggml_type, n, k, seed):
     rng = np.random.default_rng(seed)
     if ggml_type == GGMLType.BF16:       # dense planes from normal weights
@@ -78,7 +86,7 @@ def random_qtensor(ggml_type, n, k, seed):
     blk, nbytes = GGML_BLOCK_SIZES[ggml_type]
     nb = n * k // blk
     raw = rng.integers(0, 256, size=(nb, nbytes), dtype=np.uint8)
-    for off, lo, hi in {**_SCALES, **_LOWBIT}[ggml_type]:
+    for off, lo, hi in {**_SCALES, **_LOWBIT, **_LEGACY_MIN}[ggml_type]:
         d = rng.uniform(lo, hi, nb).astype(np.float16)
         raw[:, off:off + 2] = d.view(np.uint8).reshape(nb, 2)
     return repack.repack(raw.reshape(-1), ggml_type, n, k)
@@ -161,6 +169,47 @@ def test_qmm_cache_kernel_matches_plain(cuda, ggml_type, m):
     assert nmse(k1, got) < 1e-8, nmse(k1, got)
 
 
+@pytest.mark.parametrize("k", [512, 4096])
+@pytest.mark.parametrize("m", [130, 256, 512])
+@pytest.mark.parametrize("ggml_type", [GGMLType.Q4_K, GGMLType.Q2_K,
+                                       GGMLType.IQ4_XS, GGMLType.IQ1_S],
+                         ids=lambda t: t.name)
+def test_qmm_cache_kernel_matches_k1(cuda, ggml_type, m, k):
+    """K5 launched directly (the cache route takes K = 512 only without a
+    min) on the kinds with a min (u4, u2) and both LUT kinds, at M where
+    one 256-row tile holds every row and where two do: against the float
+    golden and against K1's GEMM on the same inputs."""
+    qt, xb, golden = _golden_case(ggml_type, 768, k, m, 60 + m + k, cuda)
+    tq = qtensor_to_torch(qt, cuda)
+    before = _cuda.LAUNCHES["qmm_cache"]
+    got = qmatmul._qmm_cache_cuda(xb, tq).reshape(m, -1)[:, :768]
+    assert _cuda.LAUNCHES["qmm_cache"] == before + 1
+    got = got.cpu().numpy()
+    assert np.isfinite(got).all()
+    assert nmse(golden, got) < 5e-5, nmse(golden, got)
+    k1 = qmatmul.qmm(xb, tq, variant="f32").cpu().numpy()
+    assert nmse(k1, got) < 1e-8, nmse(k1, got)
+
+
+def test_qmm_cache_raises_on_operands_it_does_not_take(cuda):
+    """K5 refuses K > 4096 and K not a multiple of 128, in the wrapper and
+    in the C entry point, and never falls back."""
+    qt = qtensor_to_torch(random_qtensor(GGMLType.Q4_K, 256, 8192, 1), cuda)
+    x = _bf16(np.ones((300, 8192)), cuda)
+    before = _cuda.LAUNCHES["qmm_cache"]
+    with pytest.raises(ValueError, match="K <= 4096"):
+        qmatmul._qmm_cache_cuda(x, qt)
+    assert _cuda.LAUNCHES["qmm_cache"] == before
+    out = torch.empty((300, 2, qt.npk), dtype=torch.float32, device=cuda)
+    fn = _cuda.bind("qmm_cache", "qmm_cache", "piipiipppipp")
+    for k in (8192, 4064):
+        rc = fn(x.data_ptr(), 300, k, qt.qs.data_ptr(), qt.npk, 1,
+                qt.scale.data_ptr(), qt.min_.data_ptr(), 0, qt.group,
+                out.data_ptr(), _cuda.stream_ptr(cuda))
+        assert rc != 0, (k, rc)
+    torch.cuda.synchronize()
+
+
 def test_qmm_cache_route_falls_to_k1(cuda):
     """Shapes outside the reference's cache conditions take K1's GEMM."""
     qt, xb, _ = _golden_case(GGMLType.Q4_K, 768, 2048, 512, 9, cuda)
@@ -226,13 +275,16 @@ def _i32(a, dev):
     return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("h,kv,d", [(8, 2, 64), (4, 4, 64), (32, 8, 128)],
-                         ids=["G4", "G1", "G4-D128"])
+@pytest.mark.parametrize("bs", [8, 16, 64])
+@pytest.mark.parametrize("h,kv,d", [(8, 2, 64), (4, 4, 64), (32, 4, 64),
+                                    (32, 8, 128)],
+                         ids=["G4", "G1", "G8", "G4-D128"])
 @pytest.mark.parametrize("window,cap,start", [(0, 0.0, 0), (5, 0.0, 0),
                                               (0, 30.0, 0), (7, 50.0, 40)])
-def test_flash_prefill_kernel_matches_plain(cuda, h, kv, d, window, cap, start):
+def test_flash_prefill_kernel_matches_plain(cuda, h, kv, d, window, cap, start,
+                                            bs):
     rng = np.random.default_rng(h + d + window)
-    b, t, bs = 2, 37, 16
+    b, t = 2, 37
     lens = [start + t, start + t - 5]
     nbmax = -(-max(lens) // bs)
     nb = 2 * nbmax + 3
@@ -242,11 +294,66 @@ def test_flash_prefill_kernel_matches_plain(cuda, h, kv, d, window, cap, start):
     table = _i32(rng.permutation(nb)[: b * nbmax].reshape(b, nbmax), cuda)
     pos = _i32(np.stack([np.maximum(np.arange(l - t, l), 0) for l in lens]), cuda)
     kvl = _i32(lens, cuda)
+    before = _cuda.LAUNCHES["flash_prefill"]
     got = fp.flash_prefill(q, kp, vp, pos, kvl, table, window=window,
                            soft_cap=cap)
+    assert _cuda.LAUNCHES["flash_prefill"] == before + 1
     ref = fp.flash_prefill_plain(q, kp, vp, pos, kvl, table, window=window,
                                  soft_cap=cap)
     assert nmse(ref.float().cpu(), got.float().cpu()) < 2e-4
+
+
+@pytest.mark.parametrize("t,start", [(512, 0), (100, 300)])
+def test_flash_prefill_kernel_tinyllama(cuda, t, start):
+    """TinyLlama's layout (H 32, KV 4, D 64: G = 8) at the smoke's shapes:
+    a 512-token prefill (8 key tiles, every diagonal tile masked) and a
+    100-token chunk after 300 cached tokens, pages in random order."""
+    rng = np.random.default_rng(t)
+    h, kv, d, bs = 32, 4, 64, 16
+    n = start + t
+    nbmax = -(-n // bs)
+    nb = nbmax + 4
+    q = _bf16(rng.standard_normal((1, t, h, d)) / 8, cuda)
+    kp = _bf16(rng.standard_normal((kv, nb, bs, d)) * 0.5, cuda)
+    vp = _bf16(rng.standard_normal((kv, nb, bs, d)) * 0.5, cuda)
+    table = _i32(rng.permutation(nb)[:nbmax].reshape(1, nbmax), cuda)
+    pos = _i32(np.arange(start, n)[None], cuda)
+    kvl = _i32([n], cuda)
+    got = fp.flash_prefill(q, kp, vp, pos, kvl, table)
+    ref = fp.flash_prefill_plain(q, kp, vp, pos, kvl, table)
+    assert nmse(ref.float().cpu(), got.float().cpu()) < 2e-4
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+def test_windowed_decode_takes_the_gather_path(cuda, q8):
+    """A sliding-window decode on CUDA returns the gather path's result, as
+    the reference sends any window to its gather: the same as the CPU plain
+    path on the same pools, with no K3 launch."""
+    rng = np.random.default_rng(21)
+    b, kv, g, d, bs, nbmax = 3, 2, 4, 64, 16, 6
+    nb = b * nbmax + 2
+    qn = rng.standard_normal((b, 1, kv * g, d)) * 0.3
+    kn = rng.standard_normal((kv, nb, bs, d))
+    vn = rng.standard_normal((kv, nb, bs, d))
+    table = rng.permutation(nb)[: b * nbmax].reshape(b, nbmax)
+    lens = [70, 9, 96]
+    outs = []
+    for dev in ("cpu", cuda):
+        q, kp, vp = _bf16(qn, dev), _bf16(kn, dev), _bf16(vn, dev)
+        tab, kvl = _i32(table, dev), _i32(lens, dev)
+        before = dict(_cuda.LAUNCHES)
+        if q8:
+            (kq, ks), (vq, vs) = kv_cache.quantize_q8(kp), kv_cache.quantize_q8(vp)
+            out = kv_cache.attend_decode_q8(q, kq, ks, vq, vs, tab, kvl, 0.125,
+                                            window=20)
+        else:
+            out = kv_cache.attend_decode(q, kp, vp, tab, kvl, 0.125, window=20)
+        assert _cuda.LAUNCHES == before
+        assert out.shape == (b, 1, kv * g, d)
+        outs.append(out.float().cpu())
+    # float32 attention on both devices; only the order of sums and the
+    # bf16 output rounding differ
+    assert nmse(outs[0], outs[1]) < 1e-6, nmse(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("g,kv,d", [(1, 4, 64), (4, 2, 64), (8, 4, 64),
@@ -352,6 +459,36 @@ def test_gmm_kernel_matches_plain(cuda, ggml_type, m, pattern):
     comb = gmm.gmm(x, qt, rt, tile_m=tile_m)
     comb_ref = gmm.gmm_plain(x, qt, rt, tile_m=tile_m)
     assert nmse(comb_ref.cpu(), comb.cpu()) < 2e-4
+
+
+@pytest.mark.parametrize("ggml_type,k", [(GGMLType.Q4_K, 2304),
+                                         (GGMLType.Q2_K, 2304),
+                                         (GGMLType.Q4_1, 2336)],
+                         ids=["Q4_K", "Q2_K", "Q4_1-G73"])
+def test_gmm_gemm_folds_min_as_k1(cuda, ggml_type, k):
+    """K4's GEMM rounds bf16(s*q) and folds the min in f32, as the TPU
+    kernel and K1 do: rows that all route to one expert give K1's GEMM
+    result on that expert's planes taken as one QTensor. Q4_1 at K = 2336
+    has 73 groups, so the fold's last window holds one group."""
+    e, n, m = 4, 768, 200
+    st = expert_stack(ggml_type, e, n, k, seed=5)
+    qt = qtensor_to_torch(st, cuda)
+    rt = gmm.route_tokens(torch.full((m, 1), 2, dtype=torch.int64, device=cuda),
+                          torch.ones((m, 1), device=cuda), n_expert_local=e,
+                          tile_m=gmm.TILE_GEMM)
+    x = _bf16(np.random.default_rng(6).standard_normal((m, k)), cuda)
+    before = _cuda.LAUNCHES["gmm_gemm"]
+    got = gmm.gmm(x, qt, rt, tile_m=gmm.TILE_GEMM)
+    assert _cuda.LAUNCHES["gmm_gemm"] == before + 1
+    one = repack.QTensor(st.kind, st.shape, st.n_orig, st.group, st.qs[2],
+                         st.scale[2], st.min_[2], st.lut, st.ggml_type)
+    k1 = qmatmul.qmm(x, qtensor_to_torch(one, cuda))
+    assert nmse(k1.cpu(), got.cpu()) < 1e-8, nmse(k1.cpu(), got.cpu())
+    # and the plain version at the same rounding, independent of K1
+    xs = x[rt.tok_idx.long()]
+    fold = gmm._planes_plain(xs, qt, rt, gmm.TILE_GEMM, rounding="fold")
+    fold = gmm.combine(fold.reshape(xs.shape[0], -1)[:, :n], rt, m)
+    assert nmse(fold.cpu(), got.cpu()) < 1e-8, nmse(fold.cpu(), got.cpu())
 
 
 def test_gmm_split_kernel_column_order(cuda):

@@ -128,6 +128,33 @@ def test_gmm_plain_matches_reference(gt, m, tile_m):
         pgmm.gmm(xt, pqt, pr, tile_m=tile_m).numpy(), got)
 
 
+@pytest.mark.parametrize("m,tile_m", [(16, 8), (130, 64)])
+@pytest.mark.parametrize("gt", [GGMLType.Q4_K, GGMLType.Q2_K],
+                         ids=lambda t: t.name)
+def test_gmm_plain_fold_rounds_as_pallas(gt, m, tile_m):
+    """With the min folded (rounding "fold") the plain version rounds as
+    _gmm_kernel and K4 do: bf16(s*q), then the x-sums . min in f32. It
+    meets JAX gmm in interpret mode to float32 summation order, far closer
+    than the default joint rounding (gmm_xla's) does."""
+    e, k, n = 4, 256, 256
+    rng = np.random.default_rng(int(gt) + m)
+    jqt = stacked_qtensor(e, n, k, gt, rng)
+    pqt = qtensor_to_torch(port_qtensor(jqt), "cpu")
+    assert pqt.min_ is not None
+    x = (rng.standard_normal((m, k)) * 0.3).astype(np.float32)
+    topi, topv = routing_inputs(m, e, 2, seed=m)
+    jr, pr = both_routings(topi, topv, e, 0, tile_m)
+    ref = np.asarray(jgmm.gmm(jnp.asarray(x), jqt, jr, tile_m=tile_m,
+                              interpret=True))
+    xt = torch.from_numpy(x)
+    xs = xt[pr.tok_idx.long()]
+    y3 = pgmm._planes_plain(xs, pqt, pr, tile_m, rounding="fold")
+    fold = pgmm.combine(y3.reshape(xs.shape[0], -1)[:, :n], pr, m).numpy()
+    joint = pgmm.gmm_plain(xt, pqt, pr, tile_m=tile_m).numpy()
+    assert nmse(ref, fold) < 1e-10, nmse(ref, fold)
+    assert nmse(ref, fold) < nmse(ref, joint) / 100
+
+
 @pytest.mark.parametrize("tile_m,m", [(8, 6), (64, 100)])
 def test_gmm_apply_split_matches_reference(tile_m, m):
     """fuse_expert_qtensors + gmm_apply_split: the port's fused planes equal

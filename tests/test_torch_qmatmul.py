@@ -93,6 +93,31 @@ def test_qmm_matches_golden_and_pallas(qtype, m):
     assert nmse(y_xla, y_port) < 1e-9, nmse(y_xla, y_port)
 
 
+@pytest.mark.parametrize("m", [1, 64])
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q2_K],
+                         ids=lambda t: t.name)
+def test_qmm_plain_fold_rounds_as_pallas(qtype, m):
+    """With PLAIN_MIN "fold" the plain version rounds a min as the Pallas
+    kernel (and K1) do: bf16(s*q), then the x-sums . min in f32. It meets
+    the kernel in interpret mode to float32 summation order, far closer
+    than the default joint rounding bf16(s*q - m) does."""
+    jqt, pqt, _ = make(qtype)
+    assert pqt.min_ is not None
+    x = np.random.default_rng(3).standard_normal((m, K), dtype=np.float32)
+    y_pallas = np.asarray(qmatmul.qmm(jnp.asarray(x), jqt, interpret=True))
+    tqt = qtensor_to_torch(pqt, "cpu")
+    joint = pqmm.qmm_plain(torch.from_numpy(x), tqt).numpy()
+    try:
+        pqmm.PLAIN_MIN = "fold"
+        fold = pqmm.qmm_plain(torch.from_numpy(x), tqt).numpy()
+    finally:
+        pqmm.PLAIN_MIN = "joint"
+    assert nmse(y_pallas, fold) < 1e-10, nmse(y_pallas, fold)
+    assert nmse(y_pallas, fold) < nmse(y_pallas, joint) / 100
+    with pytest.raises(ValueError, match="plain min rounding"):
+        pqmm.plain_planes(torch.from_numpy(x), tqt, rounding="xla")
+
+
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0],
                          ids=lambda t: t.name)
 def test_fused_split_column_order(qtype):
