@@ -10,13 +10,13 @@ non-zero before the final line:
 
   device   nvidia-smi name/power limit, torch and CUDA versions
   build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc;
-           registers and spill bytes of every qmm_gemm, qmm_cache and
-           flash_prefill instantiation from ptxas -v (a spill fails the
-           phase)
+           registers and spill bytes of every qmm_gemm, qmm_cache,
+           flash_prefill, gmm_gemm and paged_decode instantiation (and of
+           paged_decode's merge) from ptxas -v (a spill fails the phase)
   kernels  each kernel against its plain PyTorch version at the main
            paths' shapes: TinyLlama-1.1B and Mixtral-8x7B, plus the widest
-           Llama-3-8B ones (error, gate, kernel/plain/library times,
-           roofline bound)
+           Llama-3-8B ones and decode attention over ~4000 cached tokens
+           (error, gate, kernel/plain/library times, roofline bound)
   serve    a TinyLlama-1.1B-geometry Q4_K GGUF synthesized from seeded
            random block bytes is loaded with Model(path) on cuda and serves
            three generate() requests plus one batched decode; the launch
@@ -372,7 +372,7 @@ def phase_device(torch) -> dict:
     return info
 
 
-_KIND_NAMES = ("int8", "u4", "u2", "u4lut", "u2lut")
+_KIND_NAMES = ("int8", "u4", "u2", "u4lut", "u2lut", "dense")
 
 
 def _kind_label(m) -> str:
@@ -389,6 +389,15 @@ _INSTANTIATIONS = {
     "flash_prefill": ("flash_prefill",
                       re.compile(r"flash_prefill_kernelILi(\d+)E"), 2,
                       lambda m: f"D={m.group(1)}"),
+    "gmm_gemm": ("gmm", re.compile(r"gmm_gemm_kernelILi(\d)ELb([01])E"), 9,
+                 _kind_label),
+    "paged_decode": ("paged_attention",
+                     re.compile(r"paged_decode_kernelILi(\d+)E(13__nv_bfloat16|a)E"),
+                     4, lambda m: f"D={m.group(1)} "
+                                  f"{'q8' if m.group(2) == 'a' else 'bf16'}"),
+    "paged_decode_merge": ("paged_attention",
+                           re.compile(r"paged_decode_merge_kernel"), 1,
+                           lambda m: "f32"),
 }
 
 
@@ -417,8 +426,9 @@ def ptxas_functions(text: str) -> dict:
 def instantiations(reports: dict) -> dict:
     """The checked kernels' instantiations in the build reports (K1's
     qmm_gemm_kernel<KIND, HAS_MIN, WG>, K5's qmm_cache_kernel<KIND,
-    HAS_MIN>, K2's flash_prefill_kernel<D>): "qmm_gemm u2+min wg2" ->
-    {"registers", "spill_bytes"}."""
+    HAS_MIN>, K2's flash_prefill_kernel<D>, K4's gmm_gemm_kernel<KIND,
+    HAS_MIN>, K3's paged_decode_kernel<D, T> and its merge): "qmm_gemm
+    u2+min wg2" -> {"registers", "spill_bytes"}."""
     out = {}
     for kernel, (src, pattern, _, label) in _INSTANTIATIONS.items():
         for fn, info in ptxas_functions(reports.get(src, "")).items():
@@ -584,15 +594,17 @@ class KernelChecks:
     def _pool(self, kvh, nb, bs, d):
         return torch_bf16(self.torch, self.rng.standard_normal((kvh, nb, bs, d)) * 0.5)
 
-    def paged_decode(self, hp, b, bs=16, nbmax=32, q8=False):
+    def paged_decode(self, hp, b, bs=16, nbmax=32, q8=False, lens=None):
         """K3 over bf16 pages, or over q8_0 pages (int8 + f32 slot
-        scales) with q8=True."""
+        scales) with q8=True; lengths drawn from 200-500, or `lens`."""
         from llama_cpp_test_tpu_torch.ops import flash_prefill as fp
         from llama_cpp_test_tpu_torch.ops import paged_attention as pa
         from llama_cpp_test_tpu_torch.runtime import kv_cache
 
         torch, rng = self.torch, self.rng
         h, kvh, d = hp["n_head"], hp["n_head_kv"], hp["head_dim"]
+        if lens is not None:
+            nbmax = max(nbmax, -(-max(lens) // bs))
         nb = b * nbmax + 4
         kpool, vpool = self._pool(kvh, nb, bs, d), self._pool(kvh, nb, bs, d)
         scales = {}
@@ -603,7 +615,8 @@ class KernelChecks:
             kpool, vpool = kq, vq
         table = torch.from_numpy(rng.permutation(nb)[: b * nbmax]
                                  .reshape(b, nbmax).astype(np.int32)).to("cuda")
-        lens_np = rng.integers(200, 500, size=b).astype(np.int32)
+        lens_np = (np.asarray(lens, np.int32) if lens is not None else
+                   rng.integers(200, 500, size=b).astype(np.int32))
         lens = torch.from_numpy(lens_np).to("cuda")
         q = torch_bf16(torch, rng.standard_normal((b, h, d)) / 8)
         fn_k = lambda: pa.paged_attention_decode(q, kpool, vpool, lens, table,
@@ -756,8 +769,12 @@ def phase_kernels(torch, timer) -> dict:
                 row = kc.qmm(label, kind, qt, m)
                 if label == "gate|up" and kind == "u4+min" and m != 128:
                     rep[row["kernel"]] = row
+    rows = {"paged_decode": [], "paged_decode_q8": [], "gmm_gemm": []}
     for b in (1, 8):
         rep["paged_decode"] = kc.paged_decode(TINYLLAMA, b)
+        rows["paged_decode"].append(rep["paged_decode"])
+    # one sequence over ~4000 cached tokens: the split across blocks
+    rows["paged_decode"].append(kc.paged_decode(TINYLLAMA, 1, lens=[4000]))
     kc.flash_prefill(TINYLLAMA, t=100, start=300)
     rep["flash_prefill"] = kc.flash_prefill(TINYLLAMA)
     for label, qt in _qmm_planes(rng, LLAMA3_8B, GGMLType.Q4_K,
@@ -765,7 +782,8 @@ def phase_kernels(torch, timer) -> dict:
         qt = qtensor_to_torch(qt, "cuda")
         for m in (1, 512):
             kc.qmm("8B " + label, "u4+min", qt, m)
-    kc.paged_decode(LLAMA3_8B, 8)
+    rows["paged_decode"] += [kc.paged_decode(LLAMA3_8B, 8),
+                             kc.paged_decode(LLAMA3_8B, 1, lens=[4000])]
     kc.flash_prefill(LLAMA3_8B)
     # Mixtral-8x7B: K4 on the expert stacks of gate/up (K=4096, N=14336)
     # and down (K=14336, N=4096) at M = 1 and 8 (decode, tile_m 8) and 512
@@ -778,11 +796,16 @@ def phase_kernels(torch, timer) -> dict:
                 row = kc.gmm("Mixtral " + label, kind, qt, m)
                 if label == "gate/up" and kind == "u4+min" and m != 8:
                     rep[row["kernel"]] = row
+                if m == 512:
+                    rows["gmm_gemm"].append(row)
             del qt
     rep["paged_decode_q8"] = kc.paged_decode(MIXTRAL, 8, q8=True)
-    kc.paged_decode(MIXTRAL, 1, q8=True)
+    rows["paged_decode_q8"] += [rep["paged_decode_q8"],
+                                kc.paged_decode(MIXTRAL, 1, q8=True),
+                                kc.paged_decode(MIXTRAL, 1, q8=True,
+                                                lens=[4000])]
     check(not kc.failures, f"kernels outside their gate: {kc.failures}")
-    return rep
+    return rep, rows
 
 
 def _decode_plane_bytes(w, hp) -> int:
@@ -1291,6 +1314,7 @@ def phase_probes(torch, kc) -> dict:
 
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
+                 "paged_decode_merge_kernel",
                  "gmm_gemv_kernel", "gmm_gemm_kernel", "probe_gemv_kernel",
                  "stream_colsum_kernel")
 
@@ -1390,7 +1414,7 @@ def main() -> int:
         from llama_cpp_test_tpu_torch.tools import L2FlushedTimer
 
         timer = L2FlushedTimer()
-        rep = phase_kernels(torch, timer)
+        rep, shape_rows = phase_kernels(torch, timer)
         kc = KernelChecks(torch, timer, np.random.default_rng(4321))
         serves = {"serve": phase_serve(torch, args.profile),
                   "serve_moe": phase_serve_moe(torch, args.profile),
@@ -1405,6 +1429,11 @@ def main() -> int:
     rep["qmm_cache"] = serves["serve_lowbit"]["files"]["Q2_K"]["rows"][
         "gate|up K5 M=512"]
     rep.update(serves["probes"]["rows"])
+    # every shape of the kernels this slice redesigned, K4's GEMM also on
+    # the low-bit and BF16 files' gate and down stacks
+    for f in serves["serve_moe_lowbit"]["files"].values():
+        shape_rows["gmm_gemm"] += [r for r in f["rows"].values()
+                                   if r["kernel"] == "gmm_gemm"]
     kernels = []
     for name, (src, replaces) in TPU_KERNELS.items():
         r = rep[name]
@@ -1421,6 +1450,11 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name in shape_rows:
+            kernels[-1]["rows"] = [
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "library_ms", "max_abs_err")}
+                for r in shape_rows[name]]
     emit({"kernels": kernels})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -59,3 +59,32 @@ static __device__ __forceinline__ void axpy32(float* acc, float p,
 }
 
 static inline int launch_status() { return (int)cudaGetLastError(); }
+
+static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !full
+static __device__ __forceinline__ void cp_async16(const void* dst,
+                                                  const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronously; zeros where !full
+static __device__ __forceinline__ void cp_async4(const void* dst,
+                                                 const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}

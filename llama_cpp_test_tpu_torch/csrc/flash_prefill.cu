@@ -63,33 +63,13 @@ struct FpPlan {
   static constexpr int BLOCKS = 232448 / (BYTES + 1024);
 };
 
-static __device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !full
-static __device__ __forceinline__ void cp_async16(const void* dst,
-                                                  const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-static __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-static __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // four 8 x 8 bf16 matrices; lanes 8i..8i+7 address the rows of matrix i
 static __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
                                                const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(smem_u32(p)));
 }
 static __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
                                                  const void* p) {
@@ -97,7 +77,7 @@ static __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(smem_u32(p)));
 }
 
 // d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate

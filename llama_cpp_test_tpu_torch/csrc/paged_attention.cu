@@ -3,37 +3,70 @@
 //
 // Replaces the TPU kernel _pa_kernel (llama_cpp_test_tpu/ops/paged_attention.py:50,
 // launched by paged_attention_decode), both its bf16 branch and its
-// quantized=True branch. The TPU kernel walks a sequence's
-// pages P at a time along a sequential grid axis, all kv heads per step,
-// carrying (m, l, acc) in scratch. Here one block per (sequence, kv head)
-// holds the G query heads of that kv head; its 128 threads split into key
-// groups that take pages round-robin, each with its own online softmax, and
-// the key groups merge their (m, l, acc) through shared memory at the end
-// (flash-decoding within the block). Page ids come from the block table;
-// only pages below the sequence length are read. Masked logits are -1e30
-// and the final denominator is clamped at 1e-30, as on the TPU.
+// quantized=True branch. The TPU kernel walks a sequence's pages P at a
+// time along a sequential grid axis, all kv heads per step, carrying
+// (m, l, acc) in scratch. Blocks on Hopper run in parallel and in no
+// order, so here the walk is split across blocks (flash-decoding): block
+// (kv head, sequence, split) takes a contiguous range of split_pages of
+// the sequence's pages for the G query heads of that kv head, and leaves
+// its partial (m, l, acc[G, D]) in f32 in a workspace; a second kernel
+// merges a sequence's partials. The host picks the split count from the
+// block table's width, B * KV and the SM count; no length is read back: a
+// split that starts past its sequence's length writes l = 0 and exits.
+// With one split the first kernel writes the output itself. Page ids come
+// from the block table; only keys below the sequence length are read.
+// Masked logits are -1e30 (softcap first) and the final denominator is
+// clamped at 1e-30, as on the TPU.
 //
 // Layout: q/out [B, H, D] bf16 (q pre-scaled), pages [KV, NB, BS, D] bf16,
 // or int8 with f32 per-slot scales [KV, NB, BS] (a key or value row is
-// q * scale, dequantized in registers after the load, as the TPU kernel
-// dequantizes its in-flight tile), lengths [B] int32, page table
-// [B, NBmax] int32.
+// q * scale: the dot product runs on the int8 values and takes the slot
+// scale once, as the TPU kernel dequantizes its in-flight tile), lengths
+// [B] int32, page table [B, NBmax] int32.
 //
 // What bounds it on an H100: 2 bytes (bf16) or 1 byte + a 4-byte scale per
 // row (q8) per K/V element for ~2 flops per element per query head, so it
-// is bound by bytes; the q8 pages halve them. Each thread owns 32 of D
-// dimensions of one query head and reads its slice of each key/value row
-// with 16-byte loads; the G heads that share a kv head read the same bytes,
-// which the L1 serves. A q8 row's dot product runs on the raw int8 values
-// and takes the slot scale once. With one block per (sequence, kv head), a
-// batch of one TinyLlama sequence fills only 4 SMs: splitting the pages
-// across blocks with a second reduction pass is later work.
+// is bound by bytes; the q8 pages halve them. A decode step reads a few
+// MB, so what keeps it from that bound is latency and how many SMs it
+// fills: one block per (sequence, kv head) filled 4 of 132 SMs for one
+// TinyLlama sequence. The split fills the card (about two blocks an SM,
+// at least 64 keys a split). Inside a block, the split's page ids are
+// staged in shared memory first, then tiles of 32 keys and their values
+// are copied into shared memory by cp.async, three tiles in flight, so
+// each row is read from HBM once for all G heads; each thread holds 32
+// dims of one query head and runs the dot products and the online softmax
+// with FMAs over the staged rows, its key group (the G * D / 32 threads
+// of one key) taking every nkg-th key of a tile; the key groups merge
+// through shared memory at the end. The merge kernel takes one block per
+// query head, a thread per dim, its loads over the splits independent: a
+// merge whose threads walked the splits one load at a time took ~50 us at
+// 64 splits (H100).
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int KCH = 8;  // keys per online-softmax update
+constexpr int TK = 32;          // keys a staged tile
+constexpr int NST = 3;          // tiles in flight
+constexpr int KCH = 4;          // keys a thread takes per softmax update
+constexpr int MAX_SPLITS = 64;  // splits a sequence (ops/paged_attention)
+constexpr int MAX_SPLIT_PAGES = 1024;  // page ids a split stages
+
+// Shared memory of a block: a ring of NST stages, each TK key rows and TK
+// value rows (padded by 16 bytes, so neighbouring rows start on other
+// banks) and, for q8 pages, the TK key and TK value slot scales; after the
+// loop the same bytes hold the key groups' (acc, m, l) for their merge
+// (each thread's 32 acc values in a row padded to 33 floats, so a warp
+// reading one value of 32 rows hits 32 banks).
+template <int D, typename T>
+struct Smem {
+  static constexpr int ROW = D * (int)sizeof(T) + 16;
+  static constexpr int TILE = TK * ROW;
+  static constexpr int SCALES = sizeof(T) == 1 ? TK * 4 : 0;
+  static constexpr int STAGE = 2 * (TILE + SCALES);
+  static constexpr int MERGE = (33 + 2) * THREADS * 4;
+  static constexpr int BYTES = NST * STAGE > MERGE ? NST * STAGE : MERGE;
+};
 
 // Dot product of 32 float query values with 32 int8 values at p (16-byte
 // aligned).
@@ -66,6 +99,13 @@ __device__ __forceinline__ void axpy32_i8(float* acc, float p,
   }
 }
 
+// The workspace of S > 1 splits: acc [B, KV, S, G, D] f32, then (m, l)
+// [B, KV, S, G, 2] f32.
+__device__ __forceinline__ size_t ml_offset(int B, int KV, int S, int G,
+                                            int D) {
+  return (size_t)B * KV * S * G * D;
+}
+
 // T is __nv_bfloat16 (bf16 pages, scales null) or int8_t (q8 pages).
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -75,57 +115,126 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ vs,
                     const int* __restrict__ lengths,
                     const int* __restrict__ pages,
-                    __nv_bfloat16* __restrict__ out, int H, int KV, int NB,
-                    int BS, int nbmax, int G, float soft_cap) {
-  constexpr int TPR = D / 32;        // lanes per query head
-  __shared__ float s_acc[32 * THREADS];
-  __shared__ float s_m[THREADS], s_l[THREADS];
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+                    int H, int KV, int NB, int BS, int nbmax, int G,
+                    int split_keys, float soft_cap) {
+  using SM = Smem<D, T>;
+  constexpr bool Q8 = sizeof(T) == 1;
+  constexpr int TPR = D / 32;                    // threads a query head
+  constexpr int CPR = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_page[MAX_SPLIT_PAGES];  // the split's page ids
 
   const int tid = threadIdx.x;
-  const int rt = G * TPR;            // threads per key group
-  const int nkg = THREADS / rt;      // key groups
+  const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int B = gridDim.y, S = gridDim.z;
+  const int rt = G * TPR;                 // threads a key group
+  const int nkg = THREADS / rt;           // key groups
   const int kg = tid / rt, within = tid % rt;
   const int gi = within / TPR, part = within % TPR;
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int h = kvh * G + gi;
+  const bool active = kg < nkg;           // the rest idle (THREADS % rt)
+
+  // the split's page ids (its whole range of the table row, loaded beside
+  // the length), so no copy below waits on the block table
+  const int k_lo = sp * split_keys, pg0 = k_lo / BS;
+  for (int i = tid; i < min(split_keys / BS, nbmax - pg0); i += THREADS)
+    s_page[i] = pages[(size_t)b * nbmax + pg0 + i];
+  const int len = min(lengths[b], nbmax * BS);
+  const int k_hi = min(len, k_lo + split_keys);
+  const size_t rec0 = (((size_t)b * KV + kvh) * S + sp) * G;  // head 0
+  float* ml = ws + ml_offset(B, KV, S, G, D) + rec0 * 2;
+  if (S > 1 && k_lo >= k_hi) {  // past the sequence's length: no keys
+    for (int g = tid; g < G; g += THREADS) {
+      ml[2 * g] = -1e30f;
+      ml[2 * g + 1] = 0.f;
+    }
+    return;
+  }
 
   float qv[32];
-  const __nv_bfloat16* qp = q + ((size_t)b * H + h) * D + part * 32;
+  const uint4* qp = reinterpret_cast<const uint4*>(
+      q + ((size_t)b * H + kvh * G + gi) * D + part * 32);
 #pragma unroll
-  for (int i = 0; i < 32; ++i) qv[i] = bf2f(qp[i]);
-  const int len = lengths[b];
-  const int npages = min(nbmax, (len + BS - 1) / BS);
+  for (int v = 0; v < 4; ++v) {
+    const uint4 u = qp[v];
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h2[e]);
+      qv[8 * v + 2 * e] = f.x;
+      qv[8 * v + 2 * e + 1] = f.y;
+    }
+  }
+  __syncthreads();
 
-  constexpr bool Q8 = sizeof(T) == 1;
+  // tile t of the split into ring stage t % NST: key and value rows (and
+  // q8 slot scales) by 16- and 4-byte cp.async; keys past the split's end
+  // arrive as zeros and are masked
+  auto slot = [&](int key) {  // the pool slot of key (< k_hi)
+    return ((size_t)kvh * NB + s_page[(key - k_lo) / BS]) * BS + key % BS;
+  };
+  auto issue = [&](int t) {
+    unsigned char* st = smem + (t % NST) * SM::STAGE;
+    const int k0 = k_lo + t * TK;
+    for (int i = tid; i < 2 * TK * CPR; i += THREADS) {
+      const int v = i / (TK * CPR), r = (i / CPR) % TK, c = i % CPR;
+      const int key = k0 + r;
+      const bool ok = key < k_hi;
+      const T* src = v ? vp : kp;
+      if (ok) src += slot(key) * D + c * (16 / (int)sizeof(T));
+      cp_async16(st + v * SM::TILE + r * SM::ROW + c * 16, src, ok);
+    }
+    if constexpr (Q8) {
+      for (int i = tid; i < 2 * TK; i += THREADS) {
+        const int v = i / TK, r = i % TK, key = k0 + r;
+        const bool ok = key < k_hi;
+        const float* src = v ? vs : ks;
+        if (ok) src += slot(key);
+        cp_async4(st + 2 * SM::TILE + (v * TK + r) * 4, src, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
   float m = -1e30f, l = 0.f, acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
-  // all lanes of a warp run the same trip count (key groups of one warp
-  // differ only when rt < 32), so the row_sum shuffles stay converged
-  const int warp_kg0 = (tid & ~31) / rt;
-  for (int c0 = warp_kg0; c0 < npages; c0 += nkg) {
-    const int c = c0 + (kg - warp_kg0);
-    const bool live = c < npages;
-    const int page = live ? pages[(size_t)b * nbmax + c] : 0;
-    const int lo = c * BS;
-    const size_t slot0 = ((size_t)kvh * NB + page) * BS;
-    const size_t base = slot0 * D + part * 32;
-    for (int s0 = 0; s0 < BS; s0 += KCH) {
+  const int nt = (k_hi - k_lo + TK - 1) / TK;
+  const int J = (TK + nkg - 1) / nkg;  // keys of a tile a key group takes
+  for (int t = 0; t < NST - 1; ++t) {
+    if (t < nt) issue(t);
+    else cp_async_commit();
+  }
+  // every thread runs the same trip counts (inactive keys are masked), so
+  // the row_sum shuffles stay converged
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // tile t landed; stage (t - 1) % NST is free
+    if (t + NST - 1 < nt) issue(t + NST - 1);
+    else cp_async_commit();
+    const unsigned char* st = smem + (t % NST) * SM::STAGE;
+    const float* ks_s = reinterpret_cast<const float*>(st + 2 * SM::TILE);
+    const float* vs_s = ks_s + TK;
+    const int k0 = k_lo + t * TK;
+    for (int j0 = 0; j0 < J; j0 += KCH) {
       float sv[KCH];
+      int row[KCH];
       bool ok[KCH];
       float mx = m;
 #pragma unroll
       for (int j = 0; j < KCH; ++j) {
-        const int s = s0 + j;
+        const int r = (j0 + j) * nkg + kg;
+        ok[j] = active && j0 + j < J && r < TK && k0 + r < k_hi;
+        row[j] = ok[j] ? r : 0;
+        const unsigned char* kr = st + row[j] * SM::ROW + part * 32 * sizeof(T);
         float dot;
         if constexpr (Q8)
-          dot = row_sum<TPR>(dot32_i8(qv, kp + base + (size_t)s * D)) *
-                ks[slot0 + s];
+          dot = row_sum<TPR>(dot32_i8(qv, reinterpret_cast<const int8_t*>(kr))) *
+                ks_s[row[j]];
         else
-          dot = row_sum<TPR>(dot32(qv, kp + base + (size_t)s * D));
+          dot = row_sum<TPR>(dot32(qv, reinterpret_cast<const __nv_bfloat16*>(kr)));
         if (soft_cap > 0.f) dot = tanhf(dot / soft_cap) * soft_cap;
-        ok[j] = live && lo + s < len;
         sv[j] = ok[j] ? dot : -1e30f;
         mx = fmaxf(mx, sv[j]);
       }
@@ -138,77 +247,170 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         const float p = ok[j] ? expf(sv[j] - mx) : 0.f;
         l += p;
         if (ok[j]) {
+          const unsigned char* vr =
+              st + SM::TILE + row[j] * SM::ROW + part * 32 * sizeof(T);
           if constexpr (Q8)
-            axpy32_i8(acc, p * vs[slot0 + s0 + j], vp + base + (size_t)(s0 + j) * D);
+            axpy32_i8(acc, p * vs_s[row[j]], reinterpret_cast<const int8_t*>(vr));
           else
-            axpy32(acc, p, vp + base + (size_t)(s0 + j) * D);
+            axpy32(acc, p, reinterpret_cast<const __nv_bfloat16*>(vr));
         }
       }
       m = mx;
     }
   }
 
+  // the key groups' states merge through the ring's bytes: element
+  // (w, i) of the rt x 32 values is dim part * 32 + i of head gi
+  cp_async_wait<0>();
+  __syncthreads();
+  float* s_acc = reinterpret_cast<float*>(smem);  // [THREADS][33]
+  float* s_m = s_acc + 33 * THREADS;
+  float* s_l = s_m + THREADS;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s_acc[i * THREADS + tid] = acc[i];
+  for (int i = 0; i < 32; ++i) s_acc[tid * 33 + i] = acc[i];
   s_m[tid] = m;
   s_l[tid] = l;
   __syncthreads();
-  if (kg == 0) {
+  for (int e = tid; e < rt * 32; e += THREADS) {
+    const int w = e >> 5, i = e & 31;
     float mm = -1e30f;
-    for (int k = 0; k < nkg; ++k) mm = fmaxf(mm, s_m[k * rt + within]);
-    float ll = 0.f, a[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) a[i] = 0.f;
+    for (int k = 0; k < nkg; ++k) mm = fmaxf(mm, s_m[k * rt + w]);
+    float ll = 0.f, a = 0.f;
     for (int k = 0; k < nkg; ++k) {
-      const int src = k * rt + within;
-      const float w = expf(s_m[src] - mm);
-      ll += s_l[src] * w;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) a[i] = fmaf(s_acc[i * THREADS + src], w, a[i]);
+      const int src = k * rt + w;
+      const float wt = expf(s_m[src] - mm);
+      ll += s_l[src] * wt;
+      a = fmaf(s_acc[src * 33 + i], wt, a);
     }
-    const float inv = 1.f / fmaxf(ll, 1e-30f);
-    __nv_bfloat16* op = out + ((size_t)b * H + h) * D + part * 32;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) op[i] = __float2bfloat16_rn(a[i] * inv);
+    const int g = w / TPR, d = (w % TPR) * 32 + i;
+    if (S == 1) {
+      out[((size_t)b * H + kvh * G + g) * D + d] =
+          __float2bfloat16_rn(a / fmaxf(ll, 1e-30f));
+    } else {
+      ws[(rec0 + g) * D + d] = a;
+      if (d == 0) {
+        ml[2 * g] = mm;
+        ml[2 * g + 1] = ll;
+      }
+    }
   }
+}
+
+// Block (query head of a kv head, kv head, sequence), D threads, thread d
+// dim d: the S partials weighed by exp(m_s - max m) and divided by the
+// weighed sum of their l (clamped at 1e-30); empty splits (l = 0) weigh
+// nothing.
+__global__ void __launch_bounds__(128)
+paged_decode_merge_kernel(const float* __restrict__ ws,
+                          __nv_bfloat16* __restrict__ out, int H, int KV,
+                          int G, int D, int S) {
+  __shared__ float s_m[MAX_SPLITS], s_l[MAX_SPLITS], s_w[MAX_SPLITS];
+  __shared__ float s_inv;
+  const int gi = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, B = gridDim.z;
+  const int d = threadIdx.x;
+  const size_t rec0 = ((size_t)b * KV + kvh) * S * G + gi;  // split 0
+  const float* ml = ws + ml_offset(B, KV, S, G, D);
+  if (d < S) {
+    s_m[d] = ml[(rec0 + (size_t)d * G) * 2];
+    s_l[d] = ml[(rec0 + (size_t)d * G) * 2 + 1];
+  }
+  __syncthreads();
+  if (d < 32) {
+    float mm = -1e30f, ll = 0.f;
+    for (int s = d; s < S; s += 32) mm = fmaxf(mm, s_m[s]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, o));
+    for (int s = d; s < S; s += 32) {
+      const float w = s_l[s] > 0.f ? expf(s_m[s] - mm) : 0.f;
+      s_w[s] = w;
+      ll += s_l[s] * w;
+    }
+    ll = row_sum<32>(ll);
+    if (d == 0) s_inv = 1.f / fmaxf(ll, 1e-30f);
+  }
+  __syncthreads();
+  float a = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < S; ++s) {
+    const float w = s_w[s];
+    const float v = ws[(rec0 + (size_t)s * G) * D + d];
+    a = fmaf(w != 0.f ? v : 0.f, w, a);  // unwritten partials weigh 0
+  }
+  out[((size_t)b * H + kvh * G + gi) * D + d] = __float2bfloat16_rn(a * s_inv);
+}
+
+template <int D, typename T>
+void launch_d(dim3 grid, const void* q, const void* k, const void* v,
+             const void* ks, const void* vs, const void* lengths,
+             const void* pages, void* out, void* ws, int H, int KV, int NB,
+             int BS, int nbmax, int G, int split_keys, float soft_cap,
+             cudaStream_t st) {
+  constexpr int BYTES = Smem<D, T>::BYTES;
+  // a refused attribute leaves the launch to fail, and launch_status() to
+  // report it
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_decode_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BYTES);
+  (void)attr;
+  paged_decode_kernel<D, T><<<grid, THREADS, BYTES, st>>>(
+      (const __nv_bfloat16*)q, (const T*)k, (const T*)v, (const float*)ks,
+      (const float*)vs, (const int*)lengths, (const int*)pages,
+      (__nv_bfloat16*)out, (float*)ws, H, KV, NB, BS, nbmax, G, split_keys,
+      soft_cap);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* lengths, const void* pages, void* out,
-           int B, int H, int KV, int NB, int BS, int D, int nbmax,
-           float soft_cap, void* stream) {
-  if (KV <= 0 || H % KV || BS % KCH || (D != 64 && D != 128))
+           void* ws, int B, int H, int KV, int NB, int BS, int D, int nbmax,
+           int splits, int split_pages, float soft_cap, void* stream) {
+  if (B < 1 || KV <= 0 || H % KV || BS < 1 || (D != 64 && D != 128) ||
+      splits < 1 || splits > MAX_SPLITS || split_pages < 1 ||
+      split_pages > MAX_SPLIT_PAGES ||
+      (long long)splits * split_pages < nbmax ||
+      (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  const int rt = G * (D / 32);
-  if (rt > THREADS || THREADS % rt) return (int)cudaErrorInvalidValue;
-  dim3 grid(KV, B);
+  if (G * (D / 32) > THREADS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto kernel = D == 64 ? paged_decode_kernel<64, T> : paged_decode_kernel<128, T>;
-  kernel<<<grid, THREADS, 0, st>>>(
-      (const __nv_bfloat16*)q, (const T*)k, (const T*)v, (const float*)ks,
-      (const float*)vs, (const int*)lengths, (const int*)pages,
-      (__nv_bfloat16*)out, H, KV, NB, BS, nbmax, G, soft_cap);
+  const dim3 grid(KV, B, splits);
+  const int split_keys = split_pages * BS;
+  if (D == 64)
+    launch_d<64, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV, NB,
+                    BS, nbmax, G, split_keys, soft_cap, st);
+  else
+    launch_d<128, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
+                     NB, BS, nbmax, G, split_keys, soft_cap, st);
+  if (splits > 1)
+    paged_decode_merge_kernel<<<dim3(G, KV, B), D, 0, st>>>(
+        (const float*)ws, (__nv_bfloat16*)out, H, KV, G, D, splits);
   return launch_status();
 }
 
 }  // namespace
 
+// q/out [B, H, D] bf16; k/v [KV, NB, BS, D] bf16; lengths [B], pages
+// [B, nbmax] int32. The sequence's pages split into `splits` ranges of
+// split_pages (splits * split_pages >= nbmax, splits <= 64); with more than
+// one, ws holds B * KV * splits * (H / KV) * (D + 2) f32.
 PORT_API int paged_decode(const void* q, const void* k, const void* v,
                           const void* lengths, const void* pages, void* out,
-                          int B, int H, int KV, int NB, int BS, int D,
-                          int nbmax, float soft_cap, void* stream) {
+                          void* ws, int B, int H, int KV, int NB, int BS,
+                          int D, int nbmax, int splits, int split_pages,
+                          float soft_cap, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, nullptr, nullptr, lengths, pages, out,
-                               B, H, KV, NB, BS, D, nbmax, soft_cap, stream);
+                               ws, B, H, KV, NB, BS, D, nbmax, splits,
+                               split_pages, soft_cap, stream);
 }
 
 // int8 pages k/v [KV, NB, BS, D] with f32 slot scales ks/vs [KV, NB, BS].
 PORT_API int paged_decode_q8(const void* q, const void* k, const void* v,
                              const void* ks, const void* vs,
                              const void* lengths, const void* pages, void* out,
-                             int B, int H, int KV, int NB, int BS, int D,
-                             int nbmax, float soft_cap, void* stream) {
-  return launch<int8_t>(q, k, v, ks, vs, lengths, pages, out, B, H, KV, NB,
-                        BS, D, nbmax, soft_cap, stream);
+                             void* ws, int B, int H, int KV, int NB, int BS,
+                             int D, int nbmax, int splits, int split_pages,
+                             float soft_cap, void* stream) {
+  return launch<int8_t>(q, k, v, ks, vs, lengths, pages, out, ws, B, H, KV, NB,
+                        BS, D, nbmax, splits, split_pages, soft_cap, stream);
 }

@@ -65,9 +65,10 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
                 const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_s,
                 const __grid_constant__ CUtensorMap tm_m, int M, int K,
-                int npk, const float* lut, int group, int rb, float* out) {
+                int npk, const float* lut, int group, int rb,
+                gemm::Routing rt, float* out) {
   gemm::tile<KIND, HAS_MIN, WG, 1, 128 * WG>(&tm_x, &tm_q, &tm_s, &tm_m, M, K,
-                                             npk, lut, group, rb, out);
+                                             npk, lut, group, rb, rt, out);
 }
 
 using gemm::Args;

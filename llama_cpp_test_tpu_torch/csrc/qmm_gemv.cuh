@@ -20,11 +20,17 @@ constexpr int GEMV_WARPS = 4;
 // Plane kinds (ops/qmatmul._KIND_ID): 0 int8, 1 u4 (nibbles), 2 u2
 // (crumbs), 3 u4lut (nibble codes into a 16-entry LUT), 4 u2lut (crumb
 // codes into a 4-entry LUT). Sub-value h of byte b is bits
-// [h*bits, (h+1)*bits) and belongs to output column h*NPK + j.
+// [h*bits, (h+1)*bits) and belongs to output column h*NPK + j. K4 adds
+// KIND_DENSE: a bf16 [K, N] weight, with no scale, min or LUT.
+constexpr int KIND_DENSE = 5;
 __host__ __device__ constexpr int kind_pack(int kind) {
-  return kind == 0 ? 1 : (kind == 1 || kind == 3) ? 2 : 4;
+  return kind == 0 || kind == KIND_DENSE ? 1
+         : (kind == 1 || kind == 3)      ? 2
+                                         : 4;
 }
-__host__ __device__ constexpr bool kind_lut(int kind) { return kind >= 3; }
+__host__ __device__ constexpr bool kind_lut(int kind) {
+  return kind == 3 || kind == 4;
+}
 __host__ __device__ constexpr int kind_nlut(int kind) {
   return kind_lut(kind) ? 1 << (8 / kind_pack(kind)) : 0;
 }

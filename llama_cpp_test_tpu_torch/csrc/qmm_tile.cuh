@@ -1,6 +1,6 @@
-// The prefill main loop shared by K1's GEMM (qmm.cu) and K5 (qmm_cache.cu):
-// y[M, pack, NPK] = x[M, K] . dequant(W) over packed layout-'t' planes
-// (qmm_gemv.cuh's kinds), f32 out, on Hopper:
+// The prefill main loop shared by K1's GEMM (qmm.cu), K5 (qmm_cache.cu) and
+// K4's GEMM (gmm.cu): y[M, pack, NPK] = x[M, K] . dequant(W) over packed
+// layout-'t' planes (qmm_gemv.cuh's kinds), f32 out, on Hopper:
 //   - products on the tensor cores with wgmma (bf16 in, f32 out). A block
 //     of WG warpgroups covers BM = 64 * WG * RH rows and BN logical
 //     columns: warpgroup w takes rows [64 (w RH + r), +64) for r < RH, each
@@ -27,6 +27,16 @@
 //     on the min term).
 // Rows past M, K past its end and columns past NPK arrive as zeros from the
 // TMA. Groups are a multiple of 8; with a min 8, 16, 32 or 64.
+// Planes are expert-stacked: qs [E, K, NPK], scale/min [E, pack, K/group,
+// NPK] (E = 1 for K1 and K5), read through 3-D and 4-D tensor maps whose
+// outer coordinate is the block's expert. K4 passes its routing (row tiles
+// of 64, tile t of expert tile_expert[t] with tile_rows[t] live rows, read
+// on the device): a block takes BM / 64 consecutive tiles of one expert
+// (routed_rows), so they share every dequantized B tile, and writes zeros
+// past their live rows (a block of dead tiles writes zeros and loads
+// nothing). K4's dense bf16 stacks (KIND_DENSE) skip dequantization: TMA
+// lands each 64-column box of the weight 128B-swizzled in its ring stage,
+// where wgmma reads it as B.
 #pragma once
 
 #include "qmm_gemv.cuh"
@@ -46,6 +56,7 @@ constexpr int SMEM_MAX = 232448;  // shared memory one block may hold
 // starts 1024-byte aligned.
 template <int KIND, bool HAS_MIN, int WG, int RH, int BN_>
 struct Plan {
+  static constexpr bool DENSE = KIND == KIND_DENSE;  // B tile as loaded
   static constexpr int PACK = kind_pack(KIND);
   static constexpr int BM = 64 * WG * RH;       // rows per block
   static constexpr int BN = BN_;                // logical columns per block
@@ -53,10 +64,12 @@ struct Plan {
   static constexpr int T = 128 * WG;            // threads
   static constexpr int KB = BK + (HAS_MIN ? FOLD : 0);  // B tile rows
   static constexpr int X = BM * BK * 2;         // x tile, 128B-swizzled
-  static constexpr int Q = BK * BNP;            // plane bytes, row-major
-  static constexpr int S = PACK * SR * BNP * 2; // [pack][SR][BNP] bf16
+  // plane bytes, row-major; dense: the bf16 B tile, BN / 64 swizzled atoms
+  static constexpr int Q = BK * BNP * (DENSE ? 2 : 1);
+  static constexpr int S = DENSE ? 0 : PACK * SR * BNP * 2;  // [pack][SR][BNP]
   static constexpr int STAGE = X + Q + S * (HAS_MIN ? 2 : 1);
-  static constexpr int B = KB * BN * 2;         // BN / 64 swizzled atoms
+  // the dequantized B tiles, BN / 64 swizzled atoms (dense: in the stage)
+  static constexpr int B = DENSE ? 0 : KB * BN * 2;
   static constexpr int F = HAS_MIN ? BM * FOLD * 2 : 0;  // interleaved
   static constexpr int MEMB = HAS_MIN ? 1024 : 0;  // group membership tile
   static constexpr int FIXED = 2 * B + 2 * F + MEMB + 128 + 1024;
@@ -65,6 +78,7 @@ struct Plan {
   static constexpr int LUT = STAGES * STAGE + 2 * B + 2 * F + MEMB;
   static constexpr int BYTES = LUT + 128 + 1024;  // + alignment slack
   static_assert(BN == 128 || BN == 256, "wgmma width");
+  static_assert(!(DENSE && HAS_MIN), "a dense stack has no min");
   static_assert(RH * BN / 2 <= 128, "accumulators a thread");
   static_assert(X % 1024 == 0 && Q % 1024 == 0 && S % 1024 == 0 &&
                 B % 1024 == 0 && BYTES <= SMEM_MAX, "shared-memory plan");
@@ -133,16 +147,94 @@ static __device__ __forceinline__ uint32_t fold_a(int r, int col) {
          (uint32_t)(r & 7) * 16u + (uint32_t)(col & 7) * 2u;
 }
 
-// The block body: one BM x BN output tile at row tile blockIdx.x, column
-// tile blockIdx.y. The four tensor maps are the caller's __grid_constant__
-// kernel parameters.
+// K4's routing (ops/gmm.route_tokens): row tile t (64 rows) of the
+// routed batch belongs to expert tile_expert[t] and holds tile_rows[t]
+// live rows. Live tiles come first, each expert's in one run, every tile
+// but a run's last full; dead tiles (0 rows) fill the tail. K1 and K5 pass
+// none (tile_rows null).
+struct Routing {
+  const int* tile_expert;
+  const int* tile_rows;
+  int n_expert;
+};
+
+// Blocks of G routing tiles over T tiles and E experts: each expert's run
+// of n live tiles takes ceil(n / G) blocks, then the dead tail G tiles a
+// block; at most (T + (G - 1) (min(E, T) + 1)) / G of them.
+static inline int routed_blocks(int T, int E, int G) {
+  return (T + (G - 1) * (min(E, T) + 1) + G - 1) / G;
+}
+
+// The tiles block p takes, G consecutive routing tiles at a time within
+// one expert's run (so they share its planes), found by warp 0 walking
+// the routing 32 tiles a step: a group starts at each live tile whose
+// distance from its run's first tile is a multiple of G; block p takes the
+// p-th group, and blocks past the last group take G dead tiles each.
+// Returns (first tile, tiles, expert, live rows) to every thread.
+template <int G>
+static __device__ __forceinline__ int4 routed_rows(const Routing& rt, int T,
+                                                   int p) {
+  __shared__ int4 s_rows;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int seg = 0, groups = 0, nlive = 0, prev_e = -1;
+    int4 r = make_int4(-1, 0, 0, 0);
+    for (int t0 = 0; t0 < T && r.x < 0; t0 += 32) {
+      const int t = t0 + lane;
+      const int rows = t < T ? rt.tile_rows[t] : 0;
+      const int e = t < T ? rt.tile_expert[t] : -1;
+      const int e_up = __shfl_up_sync(0xffffffffu, e, 1);
+      const bool live = rows > 0;
+      const bool run0 = live && e != (lane == 0 ? prev_e : e_up);
+      const unsigned runs = __ballot_sync(0xffffffffu, run0);
+      const unsigned upto = runs & (0xffffffffu >> (31 - lane));
+      const int first = upto ? t0 + 31 - __clz(upto) : seg;
+      const bool start = live && (t - first) % G == 0;
+      const unsigned starts = __ballot_sync(0xffffffffu, start);
+      const int rank = groups + __popc(starts & ((1u << lane) - 1u));
+      const unsigned hit = __ballot_sync(0xffffffffu, start && rank == p);
+      if (start && rank == p) {
+        int n = 1, last = rows;
+        for (; n < G && t + n < T; ++n) {
+          const int rn = rt.tile_rows[t + n];
+          if (rn <= 0 || rt.tile_expert[t + n] != e) break;
+          last = rn;
+        }
+        r = make_int4(t, n, min(max(e, 0), rt.n_expert - 1),
+                      64 * (n - 1) + min(last, 64));
+      }
+      if (hit) {
+        const int src = __ffs(hit) - 1;
+        r = make_int4(__shfl_sync(0xffffffffu, r.x, src),
+                      __shfl_sync(0xffffffffu, r.y, src),
+                      __shfl_sync(0xffffffffu, r.z, src),
+                      __shfl_sync(0xffffffffu, r.w, src));
+      }
+      if (runs) seg = t0 + 31 - __clz(runs);
+      prev_e = __shfl_sync(0xffffffffu, e, 31);
+      groups += __popc(starts);
+      nlive += __popc(__ballot_sync(0xffffffffu, live));
+    }
+    if (r.x < 0) {  // past the last group: G dead tiles (or none)
+      const int first = nlive + G * (p - groups);
+      r = make_int4(first, max(0, min(G, T - first)), 0, 0);
+    }
+    if (lane == 0) s_rows = r;
+  }
+  __syncthreads();
+  return s_rows;
+}
+
+// The block body: one BM x BN output tile at row tile blockIdx.x (K4: the
+// routed tiles of routed_rows), column tile blockIdx.y. The four tensor
+// maps are the caller's __grid_constant__ kernel parameters.
 template <int KIND, bool HAS_MIN, int WG, int RH, int BN_>
 __device__ __forceinline__ void tile(const CUtensorMap* px,
                                      const CUtensorMap* pq,
                                      const CUtensorMap* ps,
                                      const CUtensorMap* pm, int M, int K,
                                      int npk, const float* __restrict__ lut,
-                                     int group, int rb,
+                                     int group, int rb, Routing rt,
                                      float* __restrict__ out) {
   using P = Plan<KIND, HAS_MIN, WG, RH, BN_>;
   constexpr int PACK = P::PACK, BNP = P::BNP, BM = P::BM, BN = P::BN;
@@ -162,8 +254,31 @@ __device__ __forceinline__ void tile(const CUtensorMap* px,
   const uint32_t bar_s = base_s + P::LUT + 64;  // STAGES mbarriers (8 B)
 
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int m0 = blockIdx.x * BM, jb = blockIdx.y * BNP;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int jb = blockIdx.y * BNP;
   const int G = K / group, nk = (K + BK - 1) / BK;
+  auto slice = [&](int r) { return (wg * RH + r) * 64; };  // first row
+
+  // the block's first row, expert, the rows it computes (live) and the
+  // rows it writes (stored): K1 and K5 rows m0.. of x up to M; K4 the
+  // routed tiles of routed_rows, zeros past their live rows
+  int m0 = blockIdx.x * BM, expert = 0, live = M - m0, stored = M - m0;
+  if (rt.tile_rows != nullptr) {
+    static_assert(BM % 64 == 0, "whole routing tiles");
+    const int4 r = routed_rows<BM / 64>(rt, M / 64, blockIdx.x);
+    m0 = 64 * r.x;
+    stored = 64 * r.y;
+    expert = r.z;
+    live = r.w;
+  }
+  if (live <= 0) {  // a dead tile: zeros over its rows, and no load
+    for (int i = tid; i < BM * BN; i += T) {
+      const int row = i / BN, h = (i % BN) / BNP, jj = i % BNP;
+      if (row < stored && jb + jj < npk)
+        out[((size_t)(m0 + row) * PACK + h) * npk + jb + jj] = 0.f;
+    }
+    return;
+  }
 
   if (kind_lut(KIND) && tid < kind_nlut(KIND)) lut_s[tid] = lut[tid];
   if (tid == 0) {
@@ -192,20 +307,29 @@ __device__ __forceinline__ void tile(const CUtensorMap* px,
     }
   }
 
-  // one thread loads a step into its ring slot with TMA (x tile, plane
-  // rows, the rb scale and min rows from the step's first group); rows past
-  // M or K and columns past npk arrive as zeros
-  const uint32_t s_bytes = PACK * rb * BNP * 2;
+  // one thread loads a step into its ring slot with TMA (x tile, the
+  // expert's plane rows, the rb scale and min rows from the step's first
+  // group; dense: the B tile's 64-column boxes); rows past M or K and
+  // columns past npk arrive as zeros
+  const uint32_t s_bytes = P::DENSE ? 0 : PACK * rb * BNP * 2;
   auto load = [&](int step) {
     if (tid == 0 && step < nk) {
       const uint32_t st = base_s + stage_at(step), bar = bar_s + 8 * (step % STAGES);
       const int k0 = step * BK, g_lo = k0 / group;
       mbar_expect_tx(bar, P::X + P::Q + s_bytes * (HAS_MIN ? 2 : 1));
       tma_load_2d(st, px, bar, k0, m0);
-      tma_load_2d(st + P::X, pq, bar, jb, k0);
-      tma_load_3d(st + P::X + P::Q, ps, bar, jb, g_lo, 0);
-      if constexpr (HAS_MIN)
-        tma_load_3d(st + P::X + P::Q + P::S, pm, bar, jb, g_lo, 0);
+      if constexpr (P::DENSE) {
+#pragma unroll
+        for (int a = 0; a < BN / 64; ++a)
+          tma_load_3d(st + P::X + a * BK * 128, pq, bar, jb + 64 * a, k0,
+                      expert);
+      } else {
+        tma_load_3d(st + P::X, pq, bar, jb, k0, expert);
+        tma_load_4d(st + P::X + P::Q, ps, bar, jb, g_lo, 0, expert);
+        if constexpr (HAS_MIN)
+          tma_load_4d(st + P::X + P::Q + P::S, pm, bar, jb, g_lo, 0,
+                      expert);
+      }
     }
   };
   auto wait_loaded = [&](int step) {
@@ -294,8 +418,6 @@ __device__ __forceinline__ void tile(const CUtensorMap* px,
   // slots 2 gg and 2 gg + 1 of the fold's A tile; against -min in B's
   // fold rows, one more k16 product adds -(hi + lo) . min.
   float xs[RH][4];
-  const int warp = (tid >> 5) & 3, lane = tid & 31;
-  auto slice = [&](int r) { return (wg * RH + r) * 64; };  // first row
   auto issue_xsums = [&](int step) {
 #pragma unroll
     for (int r = 0; r < RH; ++r) {
@@ -344,7 +466,7 @@ __device__ __forceinline__ void tile(const CUtensorMap* px,
     issue_xsums(0);
     wgmma_commit();
   }
-  dequant(0, 0);
+  if constexpr (!P::DENSE) dequant(0, 0);
   if constexpr (HAS_MIN) {
     wgmma_wait<0>();
     fence_xsums();
@@ -357,7 +479,8 @@ __device__ __forceinline__ void tile(const CUtensorMap* px,
     load(s + STAGES - 1);
     // this warpgroup's RH slices of step s: four k16 products each and
     // the fold
-    const uint32_t b_s = base_s + b_off + (s & 1) * P::B;
+    const uint32_t b_s = P::DENSE ? base_s + stage_at(s) + P::X
+                                  : base_s + b_off + (s & 1) * P::B;
     fence_acc();
     wgmma_fence();
 #pragma unroll
@@ -386,7 +509,7 @@ __device__ __forceinline__ void tile(const CUtensorMap* px,
         wgmma_commit();
         fence_xsums();
       }
-      dequant(s + 1, (s + 1) & 1);
+      if constexpr (!P::DENSE) dequant(s + 1, (s + 1) & 1);
     }
     wgmma_wait<0>();
     fence_acc();
@@ -398,7 +521,8 @@ __device__ __forceinline__ void tile(const CUtensorMap* px,
     __syncthreads();
   }
 
-  // epilogue: tile column n = h * BNP + jj is output column h * npk + jb + jj
+  // epilogue: tile column n = h * BNP + jj is output column h * npk + jb +
+  // jj; rows from `live` to `stored` are written as zeros
 #pragma unroll
   for (int r = 0; r < RH; ++r)
 #pragma unroll
@@ -408,11 +532,13 @@ __device__ __forceinline__ void tile(const CUtensorMap* px,
       if (jb + jj >= npk) continue;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int m = m0 + slice(r) + warp * 16 + (lane >> 2) + 8 * half;
-        if (m < M)
-          *reinterpret_cast<float2*>(out + ((size_t)m * PACK + h) * npk + jb +
-                                     jj) =
-              make_float2(acc[r][4 * j + 2 * half], acc[r][4 * j + 2 * half + 1]);
+        const int row = slice(r) + warp * 16 + (lane >> 2) + 8 * half;
+        if (row >= stored) continue;
+        const bool ok = row < live;
+        *reinterpret_cast<float2*>(
+            out + ((size_t)(m0 + row) * PACK + h) * npk + jb + jj) =
+            make_float2(ok ? acc[r][4 * j + 2 * half] : 0.f,
+                        ok ? acc[r][4 * j + 2 * half + 1] : 0.f);
       }
     }
 }
@@ -420,10 +546,15 @@ __device__ __forceinline__ void tile(const CUtensorMap* px,
 // ---------------------------------------------------------------------------
 // host side: tensor maps and the launch
 
+// qs is a byte plane, or bf16 for KIND_DENSE; the planes hold n_expert
+// stacked experts; tile_expert and tile_rows are K4's routing (else null)
 struct Args {
   const __nv_bfloat16* x; int M, K; const uint8_t* qs; int npk;
   const __nv_bfloat16 *scale, *minp; const float* lut; int group;
   float* out; cudaStream_t st;
+  int n_expert = 1;
+  const int* tile_expert = nullptr;
+  const int* tile_rows = nullptr;
 };
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -460,7 +591,7 @@ static bool tensor_map(CUtensorMap* m, CUtensorMapDataType type, int rank,
                        const cuuint64_t* strides, const cuuint32_t* box,
                        CUtensorMapSwizzle swz) {
   const EncodeTiled enc = encoder();
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return enc != nullptr &&
          enc(m, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
@@ -475,48 +606,67 @@ static int step_rows(int group) {
 }
 
 using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
-                        int, int, int, const float*, int, int, float*);
+                        int, int, int, const float*, int, int, Routing,
+                        float*);
 
-// Encode the four maps of plan P and launch kern (a __global__ wrapper of
-// tile<...> with that plan) over every row and column tile.
+// Encode the maps of plan P (x [M, K]; the planes [E, K, npk] and the
+// scales and mins [E, pack, K/group, npk], expert outermost; a dense stack
+// has no scale or min) and launch kern (a __global__ wrapper of tile<...>
+// with that plan) over every row and column tile. Static: each library
+// keeps its own copy and its own attribute flag (a template's local static
+// with external linkage is one object across every library the process
+// loads, so K4 would find the flag K1 set for its own kernel); within a
+// source, one kernel a plan.
 template <class P>
-int launch(Kernel kern, const Args& a) {
+static int launch(Kernel kern, const Args& a) {
   const int G = a.K / a.group, rb = step_rows(a.group);
-  CUtensorMap mx, mq, ms, mm;
-  const cuuint64_t dx[2] = {(cuuint64_t)a.K, (cuuint64_t)a.M};
-  const cuuint64_t sx[1] = {(cuuint64_t)a.K * 2};
+  const cuuint64_t E = a.n_expert, npk = a.npk, K = a.K;
+  constexpr int EB = P::DENSE ? 2 : 1;  // bytes a plane element
+  CUtensorMap mx, mq, ms{}, mm{};
+  const cuuint64_t dx[2] = {K, (cuuint64_t)a.M};
+  const cuuint64_t sx[1] = {K * 2};
   const cuuint32_t bx[2] = {BK, P::BM};
-  const cuuint64_t dq[2] = {(cuuint64_t)a.npk, (cuuint64_t)a.K};
-  const cuuint64_t sq[1] = {(cuuint64_t)a.npk};
-  const cuuint32_t bq[2] = {P::BNP, BK};
-  const cuuint64_t ds[3] = {(cuuint64_t)a.npk, (cuuint64_t)G, P::PACK};
-  const cuuint64_t ss[2] = {(cuuint64_t)a.npk * 2, (cuuint64_t)G * a.npk * 2};
-  const cuuint32_t bs[3] = {P::BNP, (cuuint32_t)rb, P::PACK};
-  if (!tensor_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, dx, sx, bx,
-                  CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, a.qs, dq, sq, bq,
-                  CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tensor_map(&ms, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.scale, ds, ss,
-                  bs, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tensor_map(&mm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                  a.minp ? a.minp : a.scale, ds, ss, bs,
-                  CU_TENSOR_MAP_SWIZZLE_NONE))
-    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dq[3] = {npk, K, E};
+  const cuuint64_t sq[2] = {npk * EB, K * npk * EB};
+  const cuuint32_t bq[3] = {P::DENSE ? 64u : (cuuint32_t)P::BNP, BK, 1};
+  const cuuint64_t ds[4] = {npk, (cuuint64_t)G, P::PACK, E};
+  const cuuint64_t ss[3] = {npk * 2, G * npk * 2, P::PACK * G * npk * 2};
+  const cuuint32_t bs[4] = {P::BNP, (cuuint32_t)rb, P::PACK, 1};
+  bool ok = tensor_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, dx, sx,
+                       bx, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            tensor_map(&mq,
+                       P::DENSE ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                       3, a.qs, dq, sq, bq,
+                       P::DENSE ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if constexpr (!P::DENSE)
+    ok = ok &&
+         tensor_map(&ms, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.scale, ds, ss,
+                    bs, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         tensor_map(&mm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                    a.minp ? a.minp : a.scale, ds, ss, bs,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return (int)cudaErrorInvalidValue;
   // a refused attribute leaves the launch to fail, and launch_status() to
   // report it
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
   (void)attr;
-  const dim3 grid((a.M + P::BM - 1) / P::BM, (a.npk + P::BNP - 1) / P::BNP);
-  kern<<<grid, P::T, P::BYTES, a.st>>>(mx, mq, ms, mm, a.M, a.K, a.npk, a.lut,
-                                       a.group, rb, a.out);
+  const int row_blocks =
+      a.tile_rows ? routed_blocks(a.M / 64, a.n_expert, P::BM / 64)
+                  : (a.M + P::BM - 1) / P::BM;
+  const dim3 grid(row_blocks, (a.npk + P::BNP - 1) / P::BNP);
+  kern<<<grid, P::T, P::BYTES, a.st>>>(
+      mx, mq, ms, mm, a.M, a.K, a.npk, a.lut, a.group, rb,
+      Routing{a.tile_expert, a.tile_rows, a.n_expert}, a.out);
   return 0;
 }
 
 // The LUT kinds carry no min (no GGML type gives them one), so they are
 // instantiated without it. L<KIND, HAS_MIN>::run(a) launches.
 template <template <int, bool> class L>
-int dispatch(int kind, const Args& a) {
+static int dispatch(int kind, const Args& a) {
   const bool mn = a.minp != nullptr;
   int rc = 0;
   switch (kind) {

@@ -11,10 +11,6 @@
 
 #include "common.cuh"
 
-static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Byte offset of 16-byte chunk c of row r in a 128B-swizzled tile.
 static __device__ __forceinline__ uint32_t swz128(int r, int c) {
   return (uint32_t)r * 128u + ((uint32_t)(c ^ (r & 7)) << 4);
@@ -52,7 +48,7 @@ static __device__ __forceinline__ void mbar_wait(uint32_t bar,
   } while (!done);
 }
 
-// TMA: one box of a 2- or 3-D tensor map into shared memory (dst 128-byte
+// TMA: one box of a 2-, 3- or 4-D tensor map into shared memory (dst 128-byte
 // aligned, 1024 for a 128B-swizzled map); completion counts bytes on bar.
 // Elements outside the tensor arrive as zeros.
 static __device__ __forceinline__ void tma_load_2d(uint32_t dst,
@@ -74,6 +70,18 @@ static __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+static __device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                                   const CUtensorMap* map,
+                                                   uint32_t bar, int c0,
+                                                   int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 

@@ -11,15 +11,16 @@ Counterpart of llama_cpp_test_tpu/ops/gmm.py:
      is read back to the host.
   2. `gmm_apply` / `gmm_apply_split`: on a CUDA tensor, kernel K4
      (csrc/gmm.cu): `gmm_gemv` for tile_m 8 (decode), `gmm_gemm` for
-     tile_m 64 (prefill), over every plane kind (int8, u4, u2, u4lut,
-     u2lut) and over dense bf16 stacks (F16/BF16/F32 files), whose
-     product the reference also computes inside its kernel. Both fold an
-     affine min exactly (bf16(s*q), then x-sums . min in f32), as
-     _gmm_kernel does; the plain version rounds as qmatmul.PLAIN_MIN says:
-     bf16(s*q - m) jointly by default, as the reference's gmm_xla does, or
-     folded as _gmm_kernel does. Each block
-     reads its tile's expert id on the device and offsets the stacked
-     planes by it, so a decode step reads only the routed experts. On a
+     tile_m 64 (prefill: K1's Hopper main loop, csrc/qmm_tile.cuh, a
+     block over two row tiles of one expert and 256 columns), over every
+     plane kind (int8, u4, u2, u4lut, u2lut) and over dense bf16 stacks
+     (F16/BF16/F32 files), whose product the reference also computes
+     inside its kernel. Both fold an affine min exactly (bf16(s*q), then
+     x-sums . min in f32), as _gmm_kernel does; the plain version rounds
+     as qmatmul.PLAIN_MIN says: bf16(s*q - m) jointly by default, as the
+     reference's gmm_xla does, or folded as _gmm_kernel does. Each block
+     reads its tiles' expert id on the device and takes the stacked
+     planes of it, so a decode step reads only the routed experts. On a
      CPU tensor, or with plain=True, the plain version: dequantize each
      routed expert once and multiply its rows.
   3. `combine` (torch ops): weighted index_add_ of scratch rows back to
@@ -187,12 +188,14 @@ def _planes_cuda(xs: torch.Tensor, qt: QTensor, routing: Routing,
     req(k % 32 == 0 and k % qt.group == 0
         and npk % (128 if tile_m == TILE_GEMV else 128 // qt.pack) == 0,
         f"{name}: unsupported K={k} NPK={npk} group={qt.group}")
-    # the GEMM folds a min over power-of-two groups from 8 (every GGUF
-    # type with a min has one)
-    req(tile_m == TILE_GEMV or qt.min_ is None or (
-        qt.group >= 8 and qt.group & (qt.group - 1) == 0),
-        f"gmm_gemm: group {qt.group} with a min (it takes a power of two "
-        "from 8)")
+    # the GEMM's main loop (K1's) takes groups that are a multiple of 8
+    # and, with a min, the groups one 64-deep K step holds whole: 8, 16,
+    # 32 or 64 (every GGUF type with a min has 16 or 32)
+    req(tile_m == TILE_GEMV or dense or (qt.group % 8 == 0 and (
+        qt.min_ is None or qt.group in (8, 16, 32, 64))),
+        f"gmm_gemm: group {qt.group}" + (" with a min (it takes 8, 16, 32 "
+                                         "or 64)" if qt.min_ is not None
+                                         else " (a multiple of 8)"))
     out = torch.empty((rp, qt.pack, npk), dtype=torch.float32, device=xs.device)
     fn = _cuda.bind("gmm", name, "piipiipppippipp")
     rc = fn(xs.data_ptr(), t, k, qt.qs.data_ptr(), npk, _GMM_KIND[kind],

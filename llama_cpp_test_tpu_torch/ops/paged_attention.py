@@ -3,11 +3,12 @@
 Counterpart of llama_cpp_test_tpu/ops/paged_attention.py, over bf16 pages
 and over q8_0 pages (int8 with per-slot f32 scales). On a CUDA tensor,
 `paged_attention_decode` launches kernel K3 (csrc/paged_attention.cu),
-`paged_decode` or, given scales, `paged_decode_q8`: one block per
-(sequence, kv head) walks the sequence's pages with an online softmax over
-the G query heads of that kv head, its warps splitting the pages and
-merging at the end. On a CPU tensor it takes
-`paged_attention_decode_plain`.
+`paged_decode` or, given scales, `paged_decode_q8`: flash-decoding split
+across blocks. `split_plan` cuts each sequence's block table into ranges
+of pages; one block per (kv head, sequence, range) runs an online softmax
+over the G query heads of that kv head and leaves a partial (m, l, acc)
+in an f32 workspace, and a second kernel merges the partials. On a CPU
+tensor it takes `paged_attention_decode_plain`.
 
 Layouts:
   q:            [B, H, D] bf16, pre-scaled by 1/sqrt(D) upstream
@@ -18,9 +19,33 @@ Layouts:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _cuda
+
+MAX_SPLITS = 64         # ranges a sequence's pages split into (kernel's cap)
+MAX_SPLIT_PAGES = 1024  # pages a range holds at most (the kernel stages ids)
+MIN_SPLIT_KEYS = 64     # keys a range holds at least (two 32-key tiles)
+
+
+def split_plan(b: int, kv: int, nbmax: int, bs: int, sms: int) -> tuple[int, int]:
+    """(splits, pages a split) of K3 for B sequences, KV kv heads and block
+    tables of nbmax pages of bs slots on a card of `sms` SMs: about two
+    blocks an SM over B * KV * splits, each range at least MIN_SPLIT_KEYS
+    keys and at most MAX_SPLIT_PAGES pages, at most MAX_SPLITS ranges. From
+    shapes alone: the lengths stay on the device, and a range past a
+    sequence's length costs one empty partial."""
+    want = min(MAX_SPLITS, max(1, -(-2 * sms // (b * kv)),
+                               -(-nbmax // MAX_SPLIT_PAGES)))
+    pages = max(-(-nbmax // want), -(-MIN_SPLIT_KEYS // bs), 1)
+    return -(-nbmax // pages), pages
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _gather(pages, scale, idx):
@@ -96,19 +121,29 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices,
     out = torch.empty_like(q)
     cap = float(soft_cap or 0.0)
     stream = _cuda.stream_ptr(q.device)
-    dims = (b, h, kv, nb, bs, d, nbmax)
+    splits, pages = split_plan(b, kv, nbmax, bs, _sm_count(q.device.index or 0))
+    req(pages <= MAX_SPLIT_PAGES,
+        f"paged_attention_decode: block tables of {nbmax} pages (at most "
+        f"{MAX_SPLITS * MAX_SPLIT_PAGES})")
+    # the split partials: acc [B, KV, splits, G, D], then (m, l)
+    ws = torch.empty(b * kv * splits * g * (d + 2) if splits > 1 else 0,
+                     dtype=torch.float32, device=q.device)
+    dims = (b, h, kv, nb, bs, d, nbmax, splits, pages)
+    ptrs = (out.data_ptr(), ws.data_ptr() if splits > 1 else 0)
     if q8:
         name = "paged_decode_q8"
-        fn = _cuda.bind("paged_attention", name, "ppppppp" "p" "iiiiiii" "f" "p")
+        fn = _cuda.bind("paged_attention", name,
+                        "ppppppp" "pp" "iiiiiiiii" "f" "p")
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
-                page_indices.data_ptr(), out.data_ptr(), *dims, cap, stream)
+                page_indices.data_ptr(), *ptrs, *dims, cap, stream)
     else:
         name = "paged_decode"
-        fn = _cuda.bind("paged_attention", name, "ppppp" "p" "iiiiiii" "f" "p")
+        fn = _cuda.bind("paged_attention", name,
+                        "ppppp" "pp" "iiiiiiiii" "f" "p")
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-                *dims, cap, stream)
+                lengths.data_ptr(), page_indices.data_ptr(), *ptrs, *dims,
+                cap, stream)
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return out

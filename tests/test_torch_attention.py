@@ -122,6 +122,45 @@ def test_paged_decode_matches_pallas(g, lengths, cap):
     assert nmse(f32(xla), f32(got)) < 1e-6
 
 
+@pytest.mark.parametrize("lengths", [[37 * 16 + 5], [1, 16, 37 * 16 + 5]],
+                         ids=["B1", "B3-1-BS-37BS+5"])
+@pytest.mark.parametrize("g,kv,d", [(8, 4, 64), (4, 2, 128)],
+                         ids=["G8", "G4-D128"])
+def test_paged_decode_long_and_short_match_pallas(lengths, g, kv, d):
+    """The plain version K3 is held against, at B = 1 and at B = 3 with
+    lengths 1, BS and 37 BS + 5 (one sequence spanning many of K3's page
+    ranges beside two shorter than one), against the Pallas kernel in
+    interpret mode; gate 2e-4 as above."""
+    b, bs, nbmax = len(lengths), 16, 40
+    q, kp, vp, _, pages = decode_case(b=b, kv=kv, g=g, d=d, nb=b * nbmax + 2,
+                                      bs=bs, nbmax=nbmax, seed=len(lengths) + d)
+    lens = np.asarray(lengths, np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = both(q), both(kp), both(vp)
+    (jl, tl), (jp, tp) = both(lens, "i32"), both(pages, "i32")
+    ref = pa.paged_attention_decode(jq, jk, jv, jl, jp, interpret=True)
+    got = ppa.paged_attention_decode_plain(tq, tk, tv, tl, tp)
+    assert got.shape == tuple(ref.shape)
+    assert nmse(f32(ref), f32(got)) < GATE, nmse(f32(ref), f32(got))
+
+
+@pytest.mark.parametrize("b,kv,nbmax,bs", [
+    (1, 4, 64, 16), (8, 4, 32, 16), (1, 8, 256, 16), (3, 2, 40, 16),
+    (8, 8, 64, 16), (64, 8, 64, 16), (1, 1, 1, 8), (2, 4, 100, 64),
+    (64, 8, 8192, 16)])
+def test_split_plan_covers_every_page(b, kv, nbmax, bs):
+    """K3's page ranges cover the block table, hold at least 64 keys (or
+    the whole table) and at most 1024 pages, number at most 64 and aim at
+    two blocks an SM."""
+    sms = 132
+    splits, pages = ppa.split_plan(b, kv, nbmax, bs, sms)
+    assert 1 <= splits <= ppa.MAX_SPLITS
+    assert splits * pages >= nbmax > (splits - 1) * pages
+    assert pages * bs >= ppa.MIN_SPLIT_KEYS or splits == 1
+    assert pages <= ppa.MAX_SPLIT_PAGES
+    assert b * kv * splits <= max(2 * sms + b * kv, b * kv) or \
+        pages == -(-nbmax // splits)
+
+
 def test_attend_decode_matches_reference():
     """The decode dispatcher (q [B, 1, H, D], logits scaled) against the
     reference's XLA decode path."""

@@ -14,12 +14,16 @@ two-warpgroup tiles, ragged rows) and K up to 14336 with npk 640/pack
 against K1 at M 130-512, K 512 and 4096), K2 at G in {1, 4, 8}, D in
 {64, 128} and BS in {8, 16, 64} with a sliding window, softcap and a
 cached prefix, windowed decode on the gather path, K3 (bf16 and q8 pages) at G in
-{1, 4, 8} and D in {64, 128} with softcap and very short caches, K4 on
+{1, 4, 8} and D in {64, 128} with softcap and very short caches, and with
+a sequence's pages split across blocks (~4000 cached tokens at B = 1,
+one long sequence beside ones shorter than a split), K4 on
 every plane kind (the four GGML types above, Q2_K u2 with a min, IQ4_XS
 and IQ2_XS u4lut, IQ1_S u2lut, TQ2_0 u2lut at group 256, and dense BF16
 stacks) with ragged expert loads, one-expert batches, dead tiles and K not
-a multiple of 2048, K4's GEMM against K1's on one expert (its exact
-min fold), and the five probe kernels of the port's tools.
+a multiple of 2048, K4's GEMM against K1's on one expert and against the
+plain fold (its exact min fold), its zeros past a tile's live rows over
+an output full of NaN, its refusal of a min at group 128, and the five
+probe kernels of the port's tools.
 Gates are the JAX suites': qmm NMSE < 5e-5 against the float golden,
 attention and gmm NMSE < 2e-4, the probes NMSE < 1e-5 against their plain
 versions.
@@ -402,6 +406,53 @@ def test_paged_decode_q8_kernel_matches_plain(cuda, g, kv, d, cap, short):
     assert nmse(ref.float().cpu(), got.float().cpu()) < 2e-4
 
 
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("b,lens,h,kv,d,nbmax", [
+    (1, [4000], 32, 8, 128, 256), (1, [4000], 32, 4, 64, 256),
+    (1, [70], 32, 4, 64, 64), (3, [1, 16, 37 * 16 + 5], 8, 2, 64, 40),
+    (4, [37 * 16 + 5, 3, 16, 200], 32, 8, 128, 40)],
+    ids=["8B-B1-4000", "TinyLlama-B1-4000", "B1-short", "B3-1-BS-37BS+5",
+         "B4-mixed-D128"])
+def test_paged_decode_kernel_splits_across_blocks(cuda, q8, b, lens, h, kv, d,
+                                                  nbmax):
+    """K3 and K3-q8 with each sequence's pages split across blocks: one
+    sequence whose length spans many splits beside sequences shorter than
+    one split (their later splits hold no key), and a single sequence of
+    about 4000 tokens at 8B and TinyLlama geometry, against the plain
+    version."""
+    rng = np.random.default_rng(b * 100 + d + int(q8))
+    bs = 16
+    splits, pages = pa.split_plan(b, kv, nbmax, bs, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert splits > 1 and splits * pages >= nbmax
+    assert pages * bs < max(lens)          # the longest spans several
+    nb = b * nbmax + 3
+    q = _bf16(rng.standard_normal((b, h, d)) * 0.3, cuda)
+    kp = _bf16(rng.standard_normal((kv, nb, bs, d)) * 0.5, cuda)
+    vp = _bf16(rng.standard_normal((kv, nb, bs, d)) * 0.5, cuda)
+    scales = {}
+    if q8:
+        (kp, ks), (vp, vs) = kv_cache.quantize_q8(kp), kv_cache.quantize_q8(vp)
+        scales = {"k_scale": ks, "v_scale": vs}
+    table = _i32(rng.permutation(nb)[: b * nbmax].reshape(b, nbmax), cuda)
+    lens_t = _i32(lens, cuda)
+    name = "paged_decode_q8" if q8 else "paged_decode"
+    before = _cuda.LAUNCHES[name]
+    got = pa.paged_attention_decode(q, kp, vp, lens_t, table, **scales)
+    assert _cuda.LAUNCHES[name] == before + 1
+    ref = pa.paged_attention_decode_plain(q, kp, vp, lens_t, table, **scales)
+    assert torch.isfinite(got.float()).all()
+    assert nmse(ref.float().cpu(), got.float().cpu()) < 2e-4
+    # every sequence on its own, as a batch of one, gives the same rows
+    for i in range(b):
+        one = pa.paged_attention_decode(q[i:i + 1], kp, vp, lens_t[i:i + 1],
+                                        table[i:i + 1], **scales)
+        r1 = pa.paged_attention_decode_plain(q[i:i + 1], kp, vp,
+                                             lens_t[i:i + 1], table[i:i + 1],
+                                             **scales)
+        assert nmse(r1.float().cpu(), one.float().cpu()) < 2e-4
+
+
 def expert_stack(ggml_type, e, n, k, seed):
     """E random experts of one GGML type, planes stacked on a leading axis
     (the loader's _repack_3d layout)."""
@@ -456,6 +507,12 @@ def test_gmm_kernel_matches_plain(cuda, ggml_type, m, pattern):
     live = np.concatenate([np.arange(tile_m) < r for r in rows])
     assert (got[torch.from_numpy(~live).to(cuda)] == 0).all()
     assert nmse(ref.cpu(), got.cpu()) < 2e-4, nmse(ref.cpu(), got.cpu())
+    if tile_m == gmm.TILE_GEMM and qt.min_ is not None:
+        # the GEMM rounds bf16(s*q) and folds the min in f32, as the plain
+        # fold does: only the order of f32 sums differs
+        fold = gmm._planes_plain(xs, qt, rt, tile_m, rounding="fold")
+        fold = fold.reshape(xs.shape[0], -1)[:, :n]
+        assert nmse(fold.cpu(), got.cpu()) < 1e-8, nmse(fold.cpu(), got.cpu())
     comb = gmm.gmm(x, qt, rt, tile_m=tile_m)
     comb_ref = gmm.gmm_plain(x, qt, rt, tile_m=tile_m)
     assert nmse(comb_ref.cpu(), comb.cpu()) < 2e-4
@@ -489,6 +546,120 @@ def test_gmm_gemm_folds_min_as_k1(cuda, ggml_type, k):
     fold = gmm._planes_plain(xs, qt, rt, gmm.TILE_GEMM, rounding="fold")
     fold = gmm.combine(fold.reshape(xs.shape[0], -1)[:, :n], rt, m)
     assert nmse(fold.cpu(), got.cpu()) < 1e-8, nmse(fold.cpu(), got.cpu())
+
+
+_GMM_SIG = "piipiipppippipp"
+
+
+@pytest.mark.parametrize("ggml_type", [GGMLType.Q4_K, GGMLType.Q2_K,
+                                       GGMLType.IQ1_S, GGMLType.BF16],
+                         ids=lambda t: t.name)
+def test_gmm_gemm_writes_zeros_past_live_rows(cuda, ggml_type):
+    """K4's GEMM on an output buffer full of NaN: rows past a tile's live
+    count and every row of a dead tile come out 0, live rows as through
+    gmm_apply. Top-1 routing of 70 rows to expert 1 and 1 row to expert 3:
+    a full tile, a 6-row tile, a 1-row tile, and dead tail tiles."""
+    e, n, k = 4, 768, 1024
+    qt = qtensor_to_torch(expert_stack(ggml_type, e, n, k, seed=3), cuda)
+    topi = torch.tensor([1] * 70 + [3], device=cuda)[:, None]
+    rt = gmm.route_tokens(topi, torch.ones((71, 1), device=cuda),
+                          n_expert_local=e, tile_m=gmm.TILE_GEMM)
+    rows = rt.tile_rows.cpu().numpy()
+    assert rows.tolist()[:3] == [64, 6, 1] and (rows[3:] == 0).all()
+    xs = _bf16(np.random.default_rng(4).standard_normal((71, k)), cuda)[
+        rt.tok_idx.long()]
+    t = rows.shape[0]
+    out = torch.full((t * gmm.TILE_GEMM, qt.pack, qt.npk), float("nan"),
+                     device=cuda)
+    fn = _cuda.bind("gmm", "gmm_gemm", _GMM_SIG)
+    dense = qt.kind == "dense"
+    rc = fn(xs.data_ptr(), t, k, qt.qs.data_ptr(), qt.npk,
+            gmm._GMM_KIND[qt.kind], 0 if dense else qt.scale.data_ptr(),
+            0 if qt.min_ is None else qt.min_.data_ptr(), qmatmul.lut_ptr(qt),
+            qt.group, rt.tile_expert.data_ptr(), rt.tile_rows.data_ptr(), e,
+            out.data_ptr(), _cuda.stream_ptr(cuda))
+    assert rc == 0
+    live = torch.from_numpy(np.concatenate(
+        [np.arange(gmm.TILE_GEMM) < r for r in rows])).to(cuda)
+    assert (out[~live] == 0).all()
+    want = gmm._planes_cuda(xs, qt, rt, gmm.TILE_GEMM)
+    assert torch.equal(out[live], want[live])
+    ref = gmm._planes_plain(xs, qt, rt, gmm.TILE_GEMM)
+    assert nmse(ref[live].cpu(), out[live].cpu()) < 2e-4
+
+
+@pytest.mark.parametrize("ggml_type", [GGMLType.Q4_K, GGMLType.BF16],
+                         ids=lambda t: t.name)
+@pytest.mark.parametrize("m", [1300, 2500])
+def test_gmm_gemm_pairs_tiles_over_many_tiles(cuda, ggml_type, m):
+    """K4's GEMM pairs consecutive routing tiles of one expert's run into a
+    block; the pairing walks the routing 32 tiles at a time. 16 experts,
+    top-2 of a skewed distribution with empty experts, 57 and 95 tiles (two
+    and three steps of the walk, runs of odd and even length crossing
+    them): against the plain version (and the plain fold at 1e-8 with a
+    min), zeros in every row without an assignment."""
+    e, n, k = 16, 256, 512
+    rng = np.random.default_rng(m)
+    qt = qtensor_to_torch(expert_stack(ggml_type, e, n, k, seed=7), cuda)
+    p = rng.dirichlet(np.full(e, 0.3))
+    p[[3, 9]] = 0
+    p /= p.sum()
+    topi = np.stack([rng.choice(e, size=2, replace=False, p=p)
+                     for _ in range(m)])
+    topv = rng.dirichlet([1.0, 1.0], size=m).astype(np.float32)
+    rt = gmm.route_tokens(torch.from_numpy(topi).to(cuda),
+                          torch.from_numpy(topv).to(cuda),
+                          n_expert_local=e, tile_m=gmm.TILE_GEMM)
+    rows = rt.tile_rows.cpu().numpy()
+    assert rows.shape[0] > 32 * (1 + (m > 2000)) and (rows == 0).any()
+    xs = _bf16(rng.standard_normal((m, k)), cuda)[rt.tok_idx.long()]
+    got = gmm.gmm_apply(xs, qt, rt, gmm.TILE_GEMM)
+    ref = gmm.gmm_apply(xs, qt, rt, gmm.TILE_GEMM, plain=True)
+    live = torch.from_numpy(np.concatenate(
+        [np.arange(gmm.TILE_GEMM) < r for r in rows])).to(cuda)
+    assert (got[~live] == 0).all()
+    assert nmse(ref.cpu(), got.cpu()) < 2e-4, nmse(ref.cpu(), got.cpu())
+    if qt.min_ is not None:
+        fold = gmm._planes_plain(xs, qt, rt, gmm.TILE_GEMM, rounding="fold")
+        fold = fold.reshape(xs.shape[0], -1)[:, :n]
+        assert nmse(fold.cpu(), got.cpu()) < 1e-8, nmse(fold.cpu(), got.cpu())
+
+
+def test_gmm_gemm_raises_on_a_min_group_it_does_not_fold(cuda):
+    """With a min, K4's GEMM folds groups of 8, 16, 32 or 64 (one 64-deep
+    K step holds them whole); a min at group 128 raises in the wrapper
+    and is refused by the C entry point, with no launch and no fallback.
+    The decode GEMV takes it."""
+    e, k = 2, 512
+    qt = qtensor_to_torch(expert_stack(GGMLType.Q4_K, e, 256, k, 1), cuda)
+    g128 = dataclasses.replace(qt, group=128,
+                               scale=qt.scale[:, :, ::4].contiguous(),
+                               min_=qt.min_[:, :, ::4].contiguous())
+    rt = gmm.route_tokens(torch.zeros((100, 1), dtype=torch.int64,
+                                      device=cuda),
+                          torch.ones((100, 1), device=cuda), n_expert_local=e,
+                          tile_m=gmm.TILE_GEMM)
+    xs = _bf16(np.ones((rt.tok_idx.shape[0], k)), cuda)
+    before = _cuda.LAUNCHES["gmm_gemm"]
+    with pytest.raises(ValueError, match="group 128 with a min"):
+        gmm.gmm_apply(xs, g128, rt, gmm.TILE_GEMM)
+    assert _cuda.LAUNCHES["gmm_gemm"] == before
+    t = rt.tile_rows.shape[0]
+    out = torch.empty((t * gmm.TILE_GEMM, 2, qt.npk), device=cuda)
+    fn = _cuda.bind("gmm", "gmm_gemm", _GMM_SIG)
+    rc = fn(xs.data_ptr(), t, k, g128.qs.data_ptr(), g128.npk, 1,
+            g128.scale.data_ptr(), g128.min_.data_ptr(), 0, 128,
+            rt.tile_expert.data_ptr(), rt.tile_rows.data_ptr(), e,
+            out.data_ptr(), _cuda.stream_ptr(cuda))
+    assert rc != 0
+    torch.cuda.synchronize()
+    rt8 = gmm.route_tokens(torch.zeros((3, 1), dtype=torch.int64, device=cuda),
+                           torch.ones((3, 1), device=cuda), n_expert_local=e,
+                           tile_m=gmm.TILE_GEMV)
+    xs8 = _bf16(np.ones((rt8.tok_idx.shape[0], k)), cuda)
+    got = gmm.gmm_apply(xs8, g128, rt8, gmm.TILE_GEMV)
+    ref = gmm.gmm_apply(xs8, g128, rt8, gmm.TILE_GEMV, plain=True)
+    assert nmse(ref.cpu(), got.cpu()) < 2e-4
 
 
 def test_gmm_split_kernel_column_order(cuda):

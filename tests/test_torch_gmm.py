@@ -155,6 +155,66 @@ def test_gmm_plain_fold_rounds_as_pallas(gt, m, tile_m):
     assert nmse(ref, fold) < nmse(ref, joint) / 100
 
 
+def _block_routing(case, rng):
+    """(topi, topv, m) of the routings K4's GEMM maps one block per row
+    tile onto: every row to one expert (>= 16 tiles of 64), experts with
+    no rows, a tail tile of one row, and a spread top-2 routing."""
+    if case == "one-expert-16-tiles":
+        m = 1024
+        return np.full((m, 1), 2, np.int32), np.ones((m, 1), np.float32), m
+    if case == "one-row-tail":   # 65 rows to expert 1: tiles of 64 and 1
+        m = 66
+        topi = np.asarray([1] * 65 + [3], np.int32)[:, None]
+        return topi, np.ones((m, 1), np.float32), m
+    m = 130
+    topi, topv = routing_inputs(m, 2 if case == "empty-experts" else 4, 2,
+                                seed=int(rng.integers(1 << 16)))
+    return topi, topv, m
+
+
+@pytest.mark.parametrize("case,gt,n", [
+    ("one-expert-16-tiles", GGMLType.Q4_K, 256),
+    ("empty-experts", GGMLType.Q4_K, 256),
+    ("one-row-tail", GGMLType.Q2_K, 256),
+    ("pack4-npk192", GGMLType.Q2_K, 768),
+    ("one-row-tail", GGMLType.BF16, 256)])
+def test_gmm_plain_matches_reference_on_block_mappings(case, gt, n):
+    """The plain K4 path (gmm_plain, and its fold rounding) against JAX gmm
+    in interpret mode at tile_m 64 on the routings the GEMM's one block
+    per row tile depends on; 'pack4-npk192' is u2 (Q2_K, pack 4) at
+    N = 768 repacked in 64-column tiles, so npk = 192 (six of the GEMM's
+    32-byte plane boxes). Gates: NMSE < 2e-4 with the joint min rounding
+    (gmm_xla's), < 1e-10 with the min folded as _gmm_kernel folds it."""
+    e, k = 4, 256
+    rng = np.random.default_rng(sum(map(ord, case)) + int(gt))
+    jqt = stacked_qtensor(e, n, k, gt, rng,
+                          tile_n=64 if case == "pack4-npk192" else 128)
+    pqt = qtensor_to_torch(port_qtensor(jqt), "cpu")
+    if case == "pack4-npk192":
+        assert (pqt.pack, pqt.npk) == (4, 192)
+    topi, topv, m = _block_routing(case, rng)
+    x = (rng.standard_normal((m, k)) * 0.3).astype(np.float32)
+    jr, pr = both_routings(topi, topv, e, 0, 64)
+    rows = pr.tile_rows.numpy()
+    if case == "one-expert-16-tiles":
+        assert (rows == 64).sum() >= 16
+    if case == "one-row-tail":
+        assert 1 in rows.tolist()
+    if case == "empty-experts":
+        assert set(pr.tile_expert.numpy()[rows > 0].tolist()) == {0, 1}
+    ref = np.asarray(jgmm.gmm(jnp.asarray(x), jqt, jr, tile_m=64,
+                              interpret=True))
+    xt = torch.from_numpy(x)
+    got = pgmm.gmm_plain(xt, pqt, pr, tile_m=64).numpy()
+    assert got.shape == ref.shape == (m, n)
+    assert nmse(ref, got) < GATE, nmse(ref, got)
+    if pqt.min_ is not None:
+        xs = xt[pr.tok_idx.long()]
+        y3 = pgmm._planes_plain(xs, pqt, pr, 64, rounding="fold")
+        fold = pgmm.combine(y3.reshape(xs.shape[0], -1)[:, :n], pr, m).numpy()
+        assert nmse(ref, fold) < 1e-10, nmse(ref, fold)
+
+
 @pytest.mark.parametrize("tile_m,m", [(8, 6), (64, 100)])
 def test_gmm_apply_split_matches_reference(tile_m, m):
     """fuse_expert_qtensors + gmm_apply_split: the port's fused planes equal

@@ -97,6 +97,36 @@ def test_paged_decode_q8_matches_pallas(lengths, cap):
     assert nmse(r, got.float().numpy()) < 2e-4, nmse(r, got.float().numpy())
 
 
+@pytest.mark.parametrize("lengths", [[37 * 16 + 5], [1, 16, 37 * 16 + 5]],
+                         ids=["B1", "B3-1-BS-37BS+5"])
+def test_paged_decode_q8_long_and_short_match_pallas(lengths):
+    """The q8 plain version at B = 1 and at B = 3 with lengths 1, BS and
+    37 BS + 5 (one sequence spanning many of K3-q8's page ranges beside
+    two shorter than one) against the JAX q8 Pallas kernel in interpret
+    mode; gate 2e-4 as above."""
+    rng = np.random.default_rng(len(lengths))
+    b, kv, g, d, bs, nbmax = len(lengths), 2, 4, 64, 16, 40
+    nb = b * nbmax + 2
+    kf = rng.standard_normal((kv, nb, bs, d)).astype(np.float32) * 0.3
+    vf = rng.standard_normal((kv, nb, bs, d)).astype(np.float32) * 0.3
+    q = (rng.standard_normal((b, kv * g, d)) * 0.3).astype(np.float32)
+    pages = np.stack([rng.permutation(nb)[:nbmax] for _ in range(b)]) \
+        .astype(np.int32)
+    lens = np.asarray(lengths, np.int32)
+    kq, ks = jkv.quantize_q8(jnp.asarray(kf))
+    vq, vs = jkv.quantize_q8(jnp.asarray(vf))
+    ref = pa.paged_attention_decode(
+        jnp.asarray(q, jnp.bfloat16), kq, vq, jnp.asarray(lens),
+        jnp.asarray(pages), interpret=True, k_scale=ks, v_scale=vs)
+    t = lambda a: torch.from_numpy(np.array(a))
+    got = ppa.paged_attention_decode_plain(
+        torch.from_numpy(q).to(torch.bfloat16), t(kq), t(vq), t(lens),
+        t(pages), k_scale=t(ks), v_scale=t(vs))
+    assert got.shape == tuple(ref.shape)
+    r = np.asarray(ref.astype(jnp.float32))
+    assert nmse(r, got.float().numpy()) < 2e-4, nmse(r, got.float().numpy())
+
+
 def test_attend_decode_q8_matches_reference():
     """The q8 decode dispatcher (q [B, 1, H, D], logits scaled) against the
     reference's, which on CPU is the same gather + masked softmax."""
