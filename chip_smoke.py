@@ -494,7 +494,7 @@ class KernelChecks:
         self.failures = []
 
     def _row(self, kernel, shape, out_k, out_p, gate, fn_k, fn_p, fn_lib,
-             nbytes, flops, library=None, out_fold=None):
+             nbytes, flops, library=None, out_fold=None, extra=None):
         """out_fold: for a GEMM (K1's, K5, K4's) on planes with a min, the
         plain version rounded as the GEMM and the TPU kernels round it
         (bf16(s*q), then x-sums . min in f32), held at FOLD_GATE beside the
@@ -517,6 +517,7 @@ class KernelChecks:
             row["fold_gate"] = FOLD_GATE
         if library:
             row["library"] = library
+        row.update(extra or {})
         emit({"phase": "kernels", **row})
         if not err < gate or not row.get("nmse_fold", 0.0) < FOLD_GATE:
             self.failures.append(shape)
@@ -594,9 +595,14 @@ class KernelChecks:
     def _pool(self, kvh, nb, bs, d):
         return torch_bf16(self.torch, self.rng.standard_normal((kvh, nb, bs, d)) * 0.5)
 
-    def paged_decode(self, hp, b, bs=16, nbmax=32, q8=False, lens=None):
+    def paged_decode(self, hp, b, bs=16, nbmax=64, q8=False, lens=None):
         """K3 over bf16 pages, or over q8_0 pages (int8 + f32 slot
-        scales) with q8=True; lengths drawn from 200-500, or `lens`."""
+        scales) with q8=True; lengths drawn from 200-500, or `lens`. The
+        block tables are nbmax pages wide: 64 is the engine's width in
+        every serve phase (n_ctx 1024 over pages of 16), and K3's split
+        count follows it. Beside the kernel's time, `one_split_ms` times
+        the same call with the split plan forced to one range (one kernel,
+        no merge)."""
         from llama_cpp_test_tpu_torch.ops import flash_prefill as fp
         from llama_cpp_test_tpu_torch.ops import paged_attention as pa
         from llama_cpp_test_tpu_torch.runtime import kv_cache
@@ -637,13 +643,22 @@ class KernelChecks:
         n_keys = int(lens_np.sum())
         # bytes per key or value row: D elements, plus its f32 scale (q8)
         row_bytes = d + 4 if q8 else 2 * d
+        plan = pa.split_plan
+        try:
+            pa.split_plan = lambda *a: (1, nbmax)
+            one = {"one_split_ms": self.timer(fn_k)}
+        finally:
+            pa.split_plan = plan
+        one["splits"] = plan(b, kvh, nbmax, bs, torch.cuda.get_device_properties(
+            0).multi_processor_count)
         return self._row(
             "paged_decode_q8" if q8 else "paged_decode",
-            f"B={b} H={h} KV={kvh} D={d} BS={bs} lens={lens_np.tolist()}",
+            f"B={b} H={h} KV={kvh} D={d} BS={bs} nbmax={nbmax} "
+            f"lens={lens_np.tolist()}",
             fn_k(), fn_p(), ATTN_GATE, fn_k, fn_p,
             lambda: sdpa(lq, lk, lv, attn_mask=mask, scale=1.0),
             2 * q.numel() * 2 + n_keys * kvh * row_bytes * 2,
-            4.0 * d * h * n_keys)
+            4.0 * d * h * n_keys, extra=one)
 
     def flash_prefill(self, hp, t=512, start=0, bs=16):
         """A chunk of t tokens at positions start.. over a cache that holds
@@ -770,9 +785,18 @@ def phase_kernels(torch, timer) -> dict:
                 if label == "gate|up" and kind == "u4+min" and m != 128:
                     rep[row["kernel"]] = row
     rows = {"paged_decode": [], "paged_decode_q8": [], "gmm_gemm": []}
+    # the floor this timer reads for one and for two dependent kernels
+    # that do nothing (K3 with more than one range is two: the split
+    # kernel and its merge)
+    empty = lambda n: lambda: [torch.cuda._sleep(0) for _ in range(n)]
+    emit({"phase": "kernels", "kernel": "timer floor",
+          "one_empty_kernel_ms": timer(empty(1)),
+          "two_empty_kernels_ms": timer(empty(2))})
     for b in (1, 8):
         rep["paged_decode"] = kc.paged_decode(TINYLLAMA, b)
         rows["paged_decode"].append(rep["paged_decode"])
+    # tables of 32 pages, as the kernel rows before the engine's width
+    rows["paged_decode"].append(kc.paged_decode(TINYLLAMA, 8, nbmax=32))
     # one sequence over ~4000 cached tokens: the split across blocks
     rows["paged_decode"].append(kc.paged_decode(TINYLLAMA, 1, lens=[4000]))
     kc.flash_prefill(TINYLLAMA, t=100, start=300)
@@ -801,6 +825,7 @@ def phase_kernels(torch, timer) -> dict:
             del qt
     rep["paged_decode_q8"] = kc.paged_decode(MIXTRAL, 8, q8=True)
     rows["paged_decode_q8"] += [rep["paged_decode_q8"],
+                                kc.paged_decode(MIXTRAL, 8, nbmax=32, q8=True),
                                 kc.paged_decode(MIXTRAL, 1, q8=True),
                                 kc.paged_decode(MIXTRAL, 1, q8=True,
                                                 lens=[4000])]

@@ -7,96 +7,117 @@
 // time along a sequential grid axis, all kv heads per step, carrying
 // (m, l, acc) in scratch. Blocks on Hopper run in parallel and in no
 // order, so here the walk is split across blocks (flash-decoding): block
-// (kv head, sequence, split) takes a contiguous range of split_pages of
-// the sequence's pages for the G query heads of that kv head, and leaves
-// its partial (m, l, acc[G, D]) in f32 in a workspace; a second kernel
-// merges a sequence's partials. The host picks the split count from the
-// block table's width, B * KV and the SM count; no length is read back: a
-// split that starts past its sequence's length writes l = 0 and exits.
-// With one split the first kernel writes the output itself. Page ids come
-// from the block table; only keys below the sequence length are read.
-// Masked logits are -1e30 (softcap first) and the final denominator is
-// clamped at 1e-30, as on the TPU.
+// (row group of a kv head, sequence, split) takes a contiguous range of
+// split_pages of the sequence's pages for up to 16 of the G query heads of
+// that kv head, and leaves its partial (m, l, acc[G, D]) in f32 in a
+// workspace; a second kernel merges a sequence's partials. The host picks
+// the split count from the block table's width, B * KV and the SM count;
+// no length is read back: a split that starts past its sequence's length
+// writes l = 0 and exits. With one split the first kernel writes the
+// output itself. Page ids come from the block table; only keys below the
+// sequence length are read. Masked logits are -1e30 (softcap first) and
+// the final denominator is clamped at 1e-30, as on the TPU.
 //
 // Layout: q/out [B, H, D] bf16 (q pre-scaled), pages [KV, NB, BS, D] bf16,
 // or int8 with f32 per-slot scales [KV, NB, BS] (a key or value row is
-// q * scale: the dot product runs on the int8 values and takes the slot
-// scale once, as the TPU kernel dequantizes its in-flight tile), lengths
-// [B] int32, page table [B, NBmax] int32.
+// bf16(q * scale), as gather_kv_q8 and the TPU kernel's in-flight tile
+// dequantize it), lengths [B] int32, page table [B, NBmax] int32.
 //
 // What bounds it on an H100: 2 bytes (bf16) or 1 byte + a 4-byte scale per
 // row (q8) per K/V element for ~2 flops per element per query head, so it
 // is bound by bytes; the q8 pages halve them. A decode step reads a few
 // MB, so what keeps it from that bound is latency and how many SMs it
 // fills: one block per (sequence, kv head) filled 4 of 132 SMs for one
-// TinyLlama sequence. The split fills the card (about two blocks an SM,
-// at least 64 keys a split). Inside a block, the split's page ids are
-// staged in shared memory first, then tiles of 32 keys and their values
-// are copied into shared memory by cp.async, three tiles in flight, so
-// each row is read from HBM once for all G heads; each thread holds 32
-// dims of one query head and runs the dot products and the online softmax
-// with FMAs over the staged rows, its key group (the G * D / 32 threads
-// of one key) taking every nkg-th key of a tile; the key groups merge
-// through shared memory at the end. The merge kernel takes one block per
-// query head, a thread per dim, its loads over the splits independent: a
-// merge whose threads walked the splits one load at a time took ~50 us at
-// 64 splits (H100).
+// TinyLlama sequence. The split fills the card (at least two blocks an SM)
+// and keeps each block's walk short (ranges of one or two 64-key tiles,
+// both in flight at once, where 64 ranges allow). Inside a block, as K2
+// (flash_prefill.cu) on mma.sync:
+//   - rows: the block's query heads are the 16 rows of an m16n8k16 A
+//     operand, rows past G zero; a kv head with G > 16 takes more row
+//     groups (grid x), each reading the keys again;
+//   - tiles: the split's page ids are staged in shared memory first, then
+//     tiles of 64 keys and their values are copied into a ring of two
+//     stages by cp.async, the next tile in flight while this one is
+//     multiplied, so each row is read from HBM once for all the block's
+//     heads; q8 tiles (and their slot scales) land as int8 and are
+//     dequantized into one bf16 K and V tile before the products;
+//   - products: warp w takes keys 16w..16w+15 of every tile, its own
+//     online softmax over them: S = Q.K^T on mma.sync with f32
+//     accumulators (exact products of bf16 values, f32 sums), P rounded to
+//     bf16 into the A operand of P.V (V through ldmatrix.trans), the one
+//     rounding the TPU kernel does not make;
+//   - the four warps' states merge through shared memory at the end.
+// The merge kernel takes one block per query head, a thread per dim, its
+// loads over the splits independent: a merge whose threads walked the
+// splits one load at a time took ~50 us at 64 splits (H100). It is a
+// programmatic dependent launch of the split kernel, so its launch
+// overlaps the split's last blocks (0.5-1.7 us less a call on an H100);
+// a merge in the last block of each group instead (an atomic counter,
+// one launch) was slower on every shape timed: the whole merge then runs
+// in one block after the others.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int TK = 32;          // keys a staged tile
-constexpr int NST = 3;          // tiles in flight
-constexpr int KCH = 4;          // keys a thread takes per softmax update
-constexpr int MAX_SPLITS = 64;  // splits a sequence (ops/paged_attention)
-constexpr int MAX_SPLIT_PAGES = 1024;  // page ids a split stages
+constexpr int THREADS = 128;  // 4 warps
+constexpr int ROWS = 16;      // query heads a block (mma rows)
+constexpr int TK = 64;        // keys a tile: 16 a warp
+constexpr int NST = 2;        // ring stages
 
-// Shared memory of a block: a ring of NST stages, each TK key rows and TK
-// value rows (padded by 16 bytes, so neighbouring rows start on other
-// banks) and, for q8 pages, the TK key and TK value slot scales; after the
-// loop the same bytes hold the key groups' (acc, m, l) for their merge
-// (each thread's 32 acc values in a row padded to 33 floats, so a warp
-// reading one value of 32 rows hits 32 banks).
+// Dynamic shared memory of a block: the block's Q rows (bf16, rows padded
+// by 16 bytes, so ldmatrix's 8 rows fall in distinct banks); a ring of NST
+// stages, each a TK-row key tile and value tile as they arrive (rows padded
+// by 16 bytes) and, for q8 pages, the TK key and TK value slot scales; for
+// q8, the dequantized bf16 key and value tiles; then the split's page ids.
+// After the loop the ring's bytes hold the warps' (o, m, l) for their
+// merge.
 template <int D, typename T>
-struct Smem {
-  static constexpr int ROW = D * (int)sizeof(T) + 16;
+struct Plan {
+  static constexpr bool Q8 = sizeof(T) == 1;
+  static constexpr int LD = D + 8;                    // bf16 an mma tile row
+  static constexpr int ROW = D * (int)sizeof(T) + 16; // bytes a staged row
   static constexpr int TILE = TK * ROW;
-  static constexpr int SCALES = sizeof(T) == 1 ? TK * 4 : 0;
-  static constexpr int STAGE = 2 * (TILE + SCALES);
-  static constexpr int MERGE = (33 + 2) * THREADS * 4;
-  static constexpr int BYTES = NST * STAGE > MERGE ? NST * STAGE : MERGE;
+  static constexpr int SCALES = Q8 ? 2 * TK * 4 : 0;
+  static constexpr int STAGE = 2 * TILE + SCALES;
+  static constexpr int DEQ = Q8 ? 2 * TK * LD * 2 : 0;
+  static constexpr int QBYTES = ROWS * LD * 2;
+  static constexpr int OLD = D + 4;                   // f32 a merge row
+  static constexpr int MERGE = (4 * ROWS * OLD + 2 * 4 * ROWS) * 4;
+  static constexpr int BODY = NST * STAGE + DEQ > MERGE ? NST * STAGE + DEQ
+                                                        : MERGE;
+  static constexpr int PAGES_AT = QBYTES + BODY;      // then the page ids
 };
 
-// Dot product of 32 float query values with 32 int8 values at p (16-byte
-// aligned).
-__device__ __forceinline__ float dot32_i8(const float* q, const int8_t* p) {
-  float s = 0.f;
-  const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int v = 0; v < 2; ++v) {
-    const uint4 u = p4[v];
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int e = 0; e < 16; ++e)
-      s = fmaf(q[v * 16 + e], (float)(int8_t)((w[e >> 2] >> (8 * (e & 3))) & 0xffu), s);
-  }
-  return s;
+static __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                               const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+static __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
+                                                 const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
-// acc[0..31] += p * (32 int8 values at ptr, 16-byte aligned).
-__device__ __forceinline__ void axpy32_i8(float* acc, float p,
-                                          const int8_t* ptr) {
-  const uint4* p4 = reinterpret_cast<const uint4*>(ptr);
-#pragma unroll
-  for (int v = 0; v < 2; ++v) {
-    const uint4 u = p4[v];
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int e = 0; e < 16; ++e)
-      acc[v * 16 + e] = fmaf(
-          p, (float)(int8_t)((w[e >> 2] >> (8 * (e & 3))) & 0xffu), acc[v * 16 + e]);
-  }
+// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate
+static __device__ __forceinline__ void mma16816(float (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+static __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The workspace of S > 1 splits: acc [B, KV, S, G, D] f32, then (m, l)
@@ -106,7 +127,10 @@ __device__ __forceinline__ size_t ml_offset(int B, int KV, int S, int G,
   return (size_t)B * KV * S * G * D;
 }
 
-// T is __nv_bfloat16 (bf16 pages, scales null) or int8_t (q8 pages).
+// T is __nv_bfloat16 (bf16 pages, scales null) or int8_t (q8 pages). A
+// thread's S and O fragments cover rows lane / 4 (h = 0) and lane / 4 + 8
+// (h = 1) of the block's 16, element e of an 8-column fragment at row
+// h = e / 2, column 2 * (lane % 4) + e % 2.
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
@@ -117,55 +141,52 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ pages,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
                     int H, int KV, int NB, int BS, int nbmax, int G,
-                    int split_keys, float soft_cap) {
-  using SM = Smem<D, T>;
-  constexpr bool Q8 = sizeof(T) == 1;
-  constexpr int TPR = D / 32;                    // threads a query head
-  constexpr int CPR = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_page[MAX_SPLIT_PAGES];  // the split's page ids
+                    int split_pages, float soft_cap) {
+  using P = Plan<D, T>;
+  constexpr int LD = P::LD;
+  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte chunks a row
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ring = smem + P::QBYTES;
+  __nv_bfloat16* deq = reinterpret_cast<__nv_bfloat16*>(ring + NST * P::STAGE);
+  int* s_page = reinterpret_cast<int*>(smem + P::PAGES_AT);
 
-  const int tid = threadIdx.x;
-  const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the merge kernel may be scheduled now; it waits for this grid's
+  // partials (griddepcontrol.wait) before it reads them
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int n_rg = (G + ROWS - 1) / ROWS;
+  const int kvh = blockIdx.x / n_rg, g0 = (blockIdx.x % n_rg) * ROWS;
+  const int b = blockIdx.y, sp = blockIdx.z;
   const int B = gridDim.y, S = gridDim.z;
-  const int rt = G * TPR;                 // threads a key group
-  const int nkg = THREADS / rt;           // key groups
-  const int kg = tid / rt, within = tid % rt;
-  const int gi = within / TPR, part = within % TPR;
-  const bool active = kg < nkg;           // the rest idle (THREADS % rt)
+  const int rows = min(ROWS, G - g0);  // live heads of the block
 
   // the split's page ids (its whole range of the table row, loaded beside
   // the length), so no copy below waits on the block table
-  const int k_lo = sp * split_keys, pg0 = k_lo / BS;
-  for (int i = tid; i < min(split_keys / BS, nbmax - pg0); i += THREADS)
+  const int split_keys = split_pages * BS;
+  const int k_lo = sp * split_keys, pg0 = sp * split_pages;
+  for (int i = tid; i < min(split_pages, nbmax - pg0); i += THREADS)
     s_page[i] = pages[(size_t)b * nbmax + pg0 + i];
   const int len = min(lengths[b], nbmax * BS);
   const int k_hi = min(len, k_lo + split_keys);
-  const size_t rec0 = (((size_t)b * KV + kvh) * S + sp) * G;  // head 0
+  const size_t rec0 = (((size_t)b * KV + kvh) * S + sp) * G + g0;  // head g0
   float* ml = ws + ml_offset(B, KV, S, G, D) + rec0 * 2;
   if (S > 1 && k_lo >= k_hi) {  // past the sequence's length: no keys
-    for (int g = tid; g < G; g += THREADS) {
-      ml[2 * g] = -1e30f;
-      ml[2 * g + 1] = 0.f;
+    for (int r = tid; r < rows; r += THREADS) {
+      ml[2 * r] = -1e30f;
+      ml[2 * r + 1] = 0.f;
     }
     return;
   }
 
-  float qv[32];
-  const uint4* qp = reinterpret_cast<const uint4*>(
-      q + ((size_t)b * H + kvh * G + gi) * D + part * 32);
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    const uint4 u = qp[v];
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h2[e]);
-      qv[8 * v + 2 * e] = f.x;
-      qv[8 * v + 2 * e + 1] = f.y;
-    }
+  // Q rows: heads g0.. of kv head kvh, zeros past the live ones
+  const __nv_bfloat16* qb = q + ((size_t)b * H + kvh * G + g0) * D;
+  for (int i = tid; i < ROWS * (D / 8); i += THREADS) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    cp_async16(Qs + r * LD + c * 8, r < rows ? qb + r * D + c * 8 : qb,
+               r < rows);
   }
-  __syncthreads();
+  __syncthreads();  // the page ids
 
   // tile t of the split into ring stage t % NST: key and value rows (and
   // q8 slot scales) by 16- and 4-byte cp.async; keys past the split's end
@@ -174,7 +195,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     return ((size_t)kvh * NB + s_page[(key - k_lo) / BS]) * BS + key % BS;
   };
   auto issue = [&](int t) {
-    unsigned char* st = smem + (t % NST) * SM::STAGE;
+    unsigned char* st = ring + (t % NST) * P::STAGE;
     const int k0 = k_lo + t * TK;
     for (int i = tid; i < 2 * TK * CPR; i += THREADS) {
       const int v = i / (TK * CPR), r = (i / CPR) % TK, c = i % CPR;
@@ -182,115 +203,183 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const bool ok = key < k_hi;
       const T* src = v ? vp : kp;
       if (ok) src += slot(key) * D + c * (16 / (int)sizeof(T));
-      cp_async16(st + v * SM::TILE + r * SM::ROW + c * 16, src, ok);
+      cp_async16(st + v * P::TILE + r * P::ROW + c * 16, src, ok);
     }
-    if constexpr (Q8) {
+    if constexpr (P::Q8) {
       for (int i = tid; i < 2 * TK; i += THREADS) {
         const int v = i / TK, r = i % TK, key = k0 + r;
         const bool ok = key < k_hi;
         const float* src = v ? vs : ks;
         if (ok) src += slot(key);
-        cp_async4(st + 2 * SM::TILE + (v * TK + r) * 4, src, ok);
+        cp_async4(st + 2 * P::TILE + (v * TK + r) * 4, src, ok);
       }
     }
-    cp_async_commit();
   };
 
-  float m = -1e30f, l = 0.f, acc[32];
+  float o[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};
+  uint32_t qf[D / 16][4];
+  const int kw = 16 * warp;  // the warp's keys of a tile
 
+  // commit groups: Q with tile 0, then one a tile (empty past the last),
+  // so group t is complete when at most NST - 1 are pending
   const int nt = (k_hi - k_lo + TK - 1) / TK;
-  const int J = (TK + nkg - 1) / nkg;  // keys of a tile a key group takes
+#pragma unroll
   for (int t = 0; t < NST - 1; ++t) {
     if (t < nt) issue(t);
-    else cp_async_commit();
+    cp_async_commit();
   }
-  // every thread runs the same trip counts (inactive keys are masked), so
-  // the row_sum shuffles stay converged
   for (int t = 0; t < nt; ++t) {
-    cp_async_wait<NST - 2>();
-    __syncthreads();  // tile t landed; stage (t - 1) % NST is free
     if (t + NST - 1 < nt) issue(t + NST - 1);
-    else cp_async_commit();
-    const unsigned char* st = smem + (t % NST) * SM::STAGE;
-    const float* ks_s = reinterpret_cast<const float*>(st + 2 * SM::TILE);
-    const float* vs_s = ks_s + TK;
-    const int k0 = k_lo + t * TK;
-    for (int j0 = 0; j0 < J; j0 += KCH) {
-      float sv[KCH];
-      int row[KCH];
-      bool ok[KCH];
-      float mx = m;
+    cp_async_commit();
+    cp_async_wait<NST - 1>();
+    __syncthreads();  // tile t landed
+    if (t == 0) {
 #pragma unroll
-      for (int j = 0; j < KCH; ++j) {
-        const int r = (j0 + j) * nkg + kg;
-        ok[j] = active && j0 + j < J && r < TK && k0 + r < k_hi;
-        row[j] = ok[j] ? r : 0;
-        const unsigned char* kr = st + row[j] * SM::ROW + part * 32 * sizeof(T);
-        float dot;
-        if constexpr (Q8)
-          dot = row_sum<TPR>(dot32_i8(qv, reinterpret_cast<const int8_t*>(kr))) *
-                ks_s[row[j]];
-        else
-          dot = row_sum<TPR>(dot32(qv, reinterpret_cast<const __nv_bfloat16*>(kr)));
-        if (soft_cap > 0.f) dot = tanhf(dot / soft_cap) * soft_cap;
-        sv[j] = ok[j] ? dot : -1e30f;
-        mx = fmaxf(mx, sv[j]);
-      }
-      const float alpha = expf(m - mx);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < KCH; ++j) {
-        const float p = ok[j] ? expf(sv[j] - mx) : 0.f;
-        l += p;
-        if (ok[j]) {
-          const unsigned char* vr =
-              st + SM::TILE + row[j] * SM::ROW + part * 32 * sizeof(T);
-          if constexpr (Q8)
-            axpy32_i8(acc, p * vs_s[row[j]], reinterpret_cast<const int8_t*>(vr));
-          else
-            axpy32(acc, p, reinterpret_cast<const __nv_bfloat16*>(vr));
-        }
-      }
-      m = mx;
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qf[kk], Qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
     }
-  }
+    const unsigned char* st = ring + (t % NST) * P::STAGE;
+    const __nv_bfloat16* kt;
+    const __nv_bfloat16* vt;
+    if constexpr (P::Q8) {
+      // dequantize the int8 tiles: bf16(q * slot scale), 16 values a step
+      const float* sc_s = reinterpret_cast<const float*>(st + 2 * P::TILE);
+      for (int i = tid; i < 2 * TK * CPR; i += THREADS) {
+        const int v = i / (TK * CPR), r = (i / CPR) % TK, c = i % CPR;
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            st + v * P::TILE + r * P::ROW + c * 16);
+        const float s = sc_s[v * TK + r];
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+        uint32_t h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const uint32_t x = w[e >> 1] >> (16 * (e & 1));
+          h[e] = pack_bf16x2((float)(int8_t)(x & 0xffu) * s,
+                             (float)(int8_t)((x >> 8) & 0xffu) * s);
+        }
+        uint4* dst = reinterpret_cast<uint4*>(deq + (v * TK + r) * LD + c * 16);
+        dst[0] = make_uint4(h[0], h[1], h[2], h[3]);
+        dst[1] = make_uint4(h[4], h[5], h[6], h[7]);
+      }
+      __syncthreads();
+      kt = deq;
+      vt = deq + TK * LD;
+    } else {
+      kt = reinterpret_cast<const __nv_bfloat16*>(st);
+      vt = reinterpret_cast<const __nv_bfloat16*>(st + P::TILE);
+    }
 
-  // the key groups' states merge through the ring's bytes: element
-  // (w, i) of the rt x 32 values is dim part * 32 + i of head gi
+    // S = Q . K^T: 16 rows x the warp's 16 keys
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t kb[4];
+      ldsm_x4(kb, kt + (kw + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                      (2 * kk + ((lane >> 3) & 1)) * 8);
+      mma16816(sc[0], qf[kk], kb[0], kb[1]);
+      mma16816(sc[1], qf[kk], kb[2], kb[3]);
+    }
+    const int kb0 = k_lo + t * TK + kw + 2 * (lane & 3);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = sc[j][e];
+        if (soft_cap > 0.f) v = tanhf(v / soft_cap) * soft_cap;
+        if (kb0 + 8 * j + (e & 1) >= k_hi) v = -1e30f;
+        sc[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    // exp(v - m) as exp2(v log2 e - m log2 e): one fma and one ex2
+    constexpr float L2E = 1.4426950408889634f;
+    float alpha[2], mb[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2f((m_r[h] - mx[h]) * L2E);
+      m_r[h] = mx[h];
+      mb[h] = -mx[h] * L2E;
+      l_r[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = kb0 + 8 * j + (e & 1) >= k_hi
+                            ? 0.f : exp2f(fmaf(sc[j][e], L2E, mb[e >> 1]));
+        l_r[e >> 1] += p;
+        sc[j][e] = p;
+      }
+
+    // O += P . V: P's accumulator fragments are the A fragment of P . V
+    const uint32_t pa[4] = {pack_bf16x2(sc[0][0], sc[0][1]),
+                            pack_bf16x2(sc[0][2], sc[0][3]),
+                            pack_bf16x2(sc[1][0], sc[1][1]),
+                            pack_bf16x2(sc[1][2], sc[1][3])};
+#pragma unroll
+    for (int j = 0; j < D / 8; j += 2) {
+      uint32_t vb[4];
+      ldsm_x4_t(vb, vt + (kw + (lane & 15)) * LD + (j + (lane >> 4)) * 8);
+      mma16816(o[j], pa, vb[0], vb[1]);
+      mma16816(o[j + 1], pa, vb[2], vb[3]);
+    }
+    __syncthreads();  // the stage (and q8's tiles) are refilled next
+  }
   cp_async_wait<0>();
   __syncthreads();
-  float* s_acc = reinterpret_cast<float*>(smem);  // [THREADS][33]
-  float* s_m = s_acc + 33 * THREADS;
-  float* s_l = s_m + THREADS;
+
+  // the warps' states merge through the ring's bytes: s_o [4][16][OLD],
+  // s_m and s_l [4][16]
+  float* s_o = reinterpret_cast<float*>(ring);
+  float* s_m = s_o + 4 * ROWS * P::OLD;
+  float* s_l = s_m + 4 * ROWS;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s_acc[tid * 33 + i] = acc[i];
-  s_m[tid] = m;
-  s_l[tid] = l;
-  __syncthreads();
-  for (int e = tid; e < rt * 32; e += THREADS) {
-    const int w = e >> 5, i = e & 31;
-    float mm = -1e30f;
-    for (int k = 0; k < nkg; ++k) mm = fmaxf(mm, s_m[k * rt + w]);
-    float ll = 0.f, a = 0.f;
-    for (int k = 0; k < nkg; ++k) {
-      const int src = k * rt + w;
-      const float wt = expf(s_m[src] - mm);
-      ll += s_l[src] * wt;
-      a = fmaf(s_acc[src * 33 + i], wt, a);
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = warp * ROWS + (lane >> 2) + 8 * h;
+    if ((lane & 3) == 0) {
+      s_m[r] = m_r[h];
+      s_l[r] = l;
     }
-    const int g = w / TPR, d = (w % TPR) * 32 + i;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(s_o + r * P::OLD + 8 * j + 2 * (lane & 3)) =
+          make_float2(o[j][2 * h], o[j][2 * h + 1]);
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * D; e += THREADS) {
+    const int r = e / D, d = e % D;
+    float mm = -1e30f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, s_m[w * ROWS + r]);
+    float ll = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float wt = expf(s_m[w * ROWS + r] - mm);
+      ll += s_l[w * ROWS + r] * wt;
+      a = fmaf(s_o[(w * ROWS + r) * P::OLD + d], wt, a);
+    }
     if (S == 1) {
-      out[((size_t)b * H + kvh * G + g) * D + d] =
+      out[((size_t)b * H + kvh * G + g0 + r) * D + d] =
           __float2bfloat16_rn(a / fmaxf(ll, 1e-30f));
     } else {
-      ws[(rec0 + g) * D + d] = a;
+      ws[(rec0 + r) * D + d] = a;
       if (d == 0) {
-        ml[2 * g] = mm;
-        ml[2 * g + 1] = ll;
+        ml[2 * r] = mm;
+        ml[2 * r + 1] = ll;
       }
     }
   }
@@ -299,20 +388,26 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 // Block (query head of a kv head, kv head, sequence), D threads, thread d
 // dim d: the S partials weighed by exp(m_s - max m) and divided by the
 // weighed sum of their l (clamped at 1e-30); empty splits (l = 0) weigh
-// nothing.
+// nothing. Dynamic shared memory: m, l and the weight of each split.
 __global__ void __launch_bounds__(128)
 paged_decode_merge_kernel(const float* __restrict__ ws,
                           __nv_bfloat16* __restrict__ out, int H, int KV,
                           int G, int D, int S) {
-  __shared__ float s_m[MAX_SPLITS], s_l[MAX_SPLITS], s_w[MAX_SPLITS];
+  extern __shared__ float mg_smem[];
+  float* s_m = mg_smem;
+  float* s_l = s_m + S;
+  float* s_w = s_l + S;
   __shared__ float s_inv;
   const int gi = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, B = gridDim.z;
   const int d = threadIdx.x;
+  // launched before the split kernel ends (programmatic dependent
+  // launch): wait until its partials are written and visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t rec0 = ((size_t)b * KV + kvh) * S * G + gi;  // split 0
   const float* ml = ws + ml_offset(B, KV, S, G, D);
-  if (d < S) {
-    s_m[d] = ml[(rec0 + (size_t)d * G) * 2];
-    s_l[d] = ml[(rec0 + (size_t)d * G) * 2 + 1];
+  for (int s = d; s < S; s += D) {
+    s_m[s] = ml[(rec0 + (size_t)s * G) * 2];
+    s_l[s] = ml[(rec0 + (size_t)s * G) * 2 + 1];
   }
   __syncthreads();
   if (d < 32) {
@@ -342,21 +437,28 @@ paged_decode_merge_kernel(const float* __restrict__ ws,
 
 template <int D, typename T>
 void launch_d(dim3 grid, const void* q, const void* k, const void* v,
-             const void* ks, const void* vs, const void* lengths,
-             const void* pages, void* out, void* ws, int H, int KV, int NB,
-             int BS, int nbmax, int G, int split_keys, float soft_cap,
-             cudaStream_t st) {
-  constexpr int BYTES = Smem<D, T>::BYTES;
-  // a refused attribute leaves the launch to fail, and launch_status() to
-  // report it
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      BYTES);
+              const void* ks, const void* vs, const void* lengths,
+              const void* pages, void* out, void* ws, int H, int KV, int NB,
+              int BS, int nbmax, int G, int split_pages, float soft_cap,
+              cudaStream_t st) {
+  auto kern = paged_decode_kernel<D, T>;
+  // the page ids make the bytes depend on split_pages: allow the card's
+  // most, once; a refused attribute or a range of pages past it leaves the
+  // launch to fail, and launch_status() to report it
+  static const cudaError_t attr = [&] {
+    int dev = 0, most = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    return cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  }();
   (void)attr;
-  paged_decode_kernel<D, T><<<grid, THREADS, BYTES, st>>>(
+  const size_t bytes = Plan<D, T>::PAGES_AT + (size_t)split_pages * 4;
+  kern<<<grid, THREADS, bytes, st>>>(
       (const __nv_bfloat16*)q, (const T*)k, (const T*)v, (const float*)ks,
       (const float*)vs, (const int*)lengths, (const int*)pages,
-      (__nv_bfloat16*)out, (float*)ws, H, KV, NB, BS, nbmax, G, split_keys,
+      (__nv_bfloat16*)out, (float*)ws, H, KV, NB, BS, nbmax, G, split_pages,
       soft_cap);
 }
 
@@ -366,25 +468,37 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            void* ws, int B, int H, int KV, int NB, int BS, int D, int nbmax,
            int splits, int split_pages, float soft_cap, void* stream) {
   if (B < 1 || KV <= 0 || H % KV || BS < 1 || (D != 64 && D != 128) ||
-      splits < 1 || splits > MAX_SPLITS || split_pages < 1 ||
-      split_pages > MAX_SPLIT_PAGES ||
+      splits < 1 || split_pages < 1 ||
       (long long)splits * split_pages < nbmax ||
       (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  if (G * (D / 32) > THREADS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(KV, B, splits);
-  const int split_keys = split_pages * BS;
+  const dim3 grid(KV * ((G + ROWS - 1) / ROWS), B, splits);
   if (D == 64)
     launch_d<64, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV, NB,
-                    BS, nbmax, G, split_keys, soft_cap, st);
+                    BS, nbmax, G, split_pages, soft_cap, st);
   else
     launch_d<128, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
-                     NB, BS, nbmax, G, split_keys, soft_cap, st);
-  if (splits > 1)
-    paged_decode_merge_kernel<<<dim3(G, KV, B), D, 0, st>>>(
-        (const float*)ws, (__nv_bfloat16*)out, H, KV, G, D, splits);
+                     NB, BS, nbmax, G, split_pages, soft_cap, st);
+  if (splits > 1) {
+    // programmatic dependent launch: the merge's launch and scheduling
+    // overlap the split kernel's last blocks instead of following them
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    at[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(G, KV, B);
+    cfg.blockDim = dim3(D);
+    cfg.dynamicSmemBytes = 3 * splits * 4;
+    cfg.stream = st;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    const cudaError_t rc = cudaLaunchKernelEx(
+        &cfg, paged_decode_merge_kernel, (const float*)ws,
+        (__nv_bfloat16*)out, H, KV, G, D, splits);
+    if (rc != cudaSuccess) return (int)rc;
+  }
   return launch_status();
 }
 
@@ -392,8 +506,9 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 // q/out [B, H, D] bf16; k/v [KV, NB, BS, D] bf16; lengths [B], pages
 // [B, nbmax] int32. The sequence's pages split into `splits` ranges of
-// split_pages (splits * split_pages >= nbmax, splits <= 64); with more than
-// one, ws holds B * KV * splits * (H / KV) * (D + 2) f32.
+// split_pages (splits * split_pages >= nbmax; ops/paged_attention.split_plan
+// picks them); with more than one, ws holds B * KV * splits * (H / KV) *
+// (D + 2) f32.
 PORT_API int paged_decode(const void* q, const void* k, const void* v,
                           const void* lengths, const void* pages, void* out,
                           void* ws, int B, int H, int KV, int NB, int BS,

@@ -612,11 +612,7 @@ using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
 // Encode the maps of plan P (x [M, K]; the planes [E, K, npk] and the
 // scales and mins [E, pack, K/group, npk], expert outermost; a dense stack
 // has no scale or min) and launch kern (a __global__ wrapper of tile<...>
-// with that plan) over every row and column tile. Static: each library
-// keeps its own copy and its own attribute flag (a template's local static
-// with external linkage is one object across every library the process
-// loads, so K4 would find the flag K1 set for its own kernel); within a
-// source, one kernel a plan.
+// with that plan) over every row and column tile.
 template <class P>
 static int launch(Kernel kern, const Args& a) {
   const int G = a.K / a.group, rb = step_rows(a.group);
@@ -648,11 +644,13 @@ static int launch(Kernel kern, const Args& a) {
                     a.minp ? a.minp : a.scale, ds, ss, bs,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!ok) return (int)cudaErrorInvalidValue;
-  // a refused attribute leaves the launch to fail, and launch_status() to
-  // report it
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
-  (void)attr;
+  // set on every launch (microseconds of host time), so no flag can stand
+  // for another kernel: a set-once static here was shared by every kernel
+  // of a plan and, with external linkage, by every library the process
+  // loads, and K4's quantized GEMMs once launched without it. A refused
+  // attribute leaves the launch to fail, and launch_status() to report it
+  (void)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             P::BYTES);
   const int row_blocks =
       a.tile_rows ? routed_blocks(a.M / 64, a.n_expert, P::BM / 64)
                   : (a.M + P::BM - 1) / P::BM;

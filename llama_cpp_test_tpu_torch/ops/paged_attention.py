@@ -5,10 +5,10 @@ and over q8_0 pages (int8 with per-slot f32 scales). On a CUDA tensor,
 `paged_attention_decode` launches kernel K3 (csrc/paged_attention.cu),
 `paged_decode` or, given scales, `paged_decode_q8`: flash-decoding split
 across blocks. `split_plan` cuts each sequence's block table into ranges
-of pages; one block per (kv head, sequence, range) runs an online softmax
-over the G query heads of that kv head and leaves a partial (m, l, acc)
-in an f32 workspace, and a second kernel merges the partials. On a CPU
-tensor it takes `paged_attention_decode_plain`.
+of pages; one block per (16 query heads of a kv head, sequence, range)
+runs an online softmax on mma.sync over those heads and leaves a partial
+(m, l, acc) in an f32 workspace, and a second kernel merges the partials.
+On a CPU tensor it takes `paged_attention_decode_plain`.
 
 Layouts:
   q:            [B, H, D] bf16, pre-scaled by 1/sqrt(D) upstream
@@ -25,20 +25,26 @@ import torch
 
 from . import _cuda
 
-MAX_SPLITS = 64         # ranges a sequence's pages split into (kernel's cap)
-MAX_SPLIT_PAGES = 1024  # pages a range holds at most (the kernel stages ids)
-MIN_SPLIT_KEYS = 64     # keys a range holds at least (two 32-key tiles)
+# The plan's caps live here only: the kernel takes any split it is given
+# (it stages a range's page ids in shared memory, 4 bytes each, and its
+# merge holds three floats a range).
+MAX_SPLITS = 64        # ranges a sequence's pages split into
+MIN_SPLIT_KEYS = 64    # keys a range holds at least (one 64-key tile)
+MAX_SPLIT_KEYS = 128   # keys a range holds at most, within MAX_SPLITS
 
 
 def split_plan(b: int, kv: int, nbmax: int, bs: int, sms: int) -> tuple[int, int]:
     """(splits, pages a split) of K3 for B sequences, KV kv heads and block
-    tables of nbmax pages of bs slots on a card of `sms` SMs: about two
-    blocks an SM over B * KV * splits, each range at least MIN_SPLIT_KEYS
-    keys and at most MAX_SPLIT_PAGES pages, at most MAX_SPLITS ranges. From
+    tables of nbmax pages of bs slots on a card of `sms` SMs: at least two
+    blocks an SM over B * KV * splits, and ranges of at most MAX_SPLIT_KEYS
+    keys (both 64-key tiles of a range in flight at once) unless that takes
+    more than MAX_SPLITS ranges, each at least MIN_SPLIT_KEYS keys. From
     shapes alone: the lengths stay on the device, and a range past a
-    sequence's length costs one empty partial."""
-    want = min(MAX_SPLITS, max(1, -(-2 * sms // (b * kv)),
-                               -(-nbmax // MAX_SPLIT_PAGES)))
+    sequence's length costs one empty partial. On an H100, ranges of at
+    most two tiles beat about two blocks an SM of any length by up to 1.5x
+    at B = 8 and tables of 64 pages, where half the ranges are empty."""
+    most = max(1, MAX_SPLIT_KEYS // bs)
+    want = min(MAX_SPLITS, max(1, -(-2 * sms // (b * kv)), -(-nbmax // most)))
     pages = max(-(-nbmax // want), -(-MIN_SPLIT_KEYS // bs), 1)
     return -(-nbmax // pages), pages
 
@@ -116,15 +122,12 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices,
             and a.is_contiguous() and tuple(a.shape) == shape,
             f"paged_attention_decode: {name} must be contiguous int32 {shape}")
     g = h // kv
-    req(h % kv == 0 and d in (64, 128) and g * d // 32 <= 128,
+    req(h % kv == 0 and d in (64, 128),
         f"paged_attention_decode: unsupported H={h} KV={kv} D={d}")
     out = torch.empty_like(q)
     cap = float(soft_cap or 0.0)
     stream = _cuda.stream_ptr(q.device)
     splits, pages = split_plan(b, kv, nbmax, bs, _sm_count(q.device.index or 0))
-    req(pages <= MAX_SPLIT_PAGES,
-        f"paged_attention_decode: block tables of {nbmax} pages (at most "
-        f"{MAX_SPLITS * MAX_SPLIT_PAGES})")
     # the split partials: acc [B, KV, splits, G, D], then (m, l)
     ws = torch.empty(b * kv * splits * g * (d + 2) if splits > 1 else 0,
                      dtype=torch.float32, device=q.device)

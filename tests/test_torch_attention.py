@@ -149,16 +149,24 @@ def test_paged_decode_long_and_short_match_pallas(lengths, g, kv, d):
     (64, 8, 8192, 16)])
 def test_split_plan_covers_every_page(b, kv, nbmax, bs):
     """K3's page ranges cover the block table, hold at least 64 keys (or
-    the whole table) and at most 1024 pages, number at most 64 and aim at
-    two blocks an SM."""
+    the whole table) and number at most 64; they hold at most 128 keys
+    unless 64 ranges would not cover the table; and they give at least one
+    block an SM where the key floor and the range cap allow two, and more
+    than two an SM (plus one a sequence and kv head) only to keep ranges
+    at most 128 keys."""
     sms = 132
     splits, pages = ppa.split_plan(b, kv, nbmax, bs, sms)
     assert 1 <= splits <= ppa.MAX_SPLITS
     assert splits * pages >= nbmax > (splits - 1) * pages
     assert pages * bs >= ppa.MIN_SPLIT_KEYS or splits == 1
-    assert pages <= ppa.MAX_SPLIT_PAGES
-    assert b * kv * splits <= max(2 * sms + b * kv, b * kv) or \
-        pages == -(-nbmax // splits)
+    assert pages <= max(1, ppa.MAX_SPLIT_KEYS // bs) or splits == ppa.MAX_SPLITS
+    blocks = b * kv * splits
+    # the most ranges the 64-key floor and the 64-range cap allow
+    most = min(ppa.MAX_SPLITS, -(-nbmax // -(-ppa.MIN_SPLIT_KEYS // bs)))
+    assert 2 * blocks >= min(2 * sms, b * kv * most)
+    # past two an SM, one range fewer would hold more than 128 keys
+    assert blocks <= 2 * sms + b * kv or \
+        -(-nbmax // (splits - 1)) * bs > ppa.MAX_SPLIT_KEYS
 
 
 def test_attend_decode_matches_reference():

@@ -361,7 +361,8 @@ def test_windowed_decode_takes_the_gather_path(cuda, q8):
 
 
 @pytest.mark.parametrize("g,kv,d", [(1, 4, 64), (4, 2, 64), (8, 4, 64),
-                                    (4, 8, 128), (8, 2, 128)])
+                                    (4, 8, 128), (8, 2, 128), (16, 2, 64),
+                                    (20, 2, 64), (40, 1, 128)])
 @pytest.mark.parametrize("cap,short", [(None, False), (30.0, False),
                                        (None, True)], ids=["plain", "softcap",
                                                            "short"])
@@ -382,7 +383,8 @@ def test_paged_decode_kernel_matches_plain(cuda, g, kv, d, cap, short):
     assert nmse(ref.float().cpu(), got.float().cpu()) < 2e-4
 
 
-@pytest.mark.parametrize("g,kv,d", [(1, 4, 64), (4, 2, 64), (4, 8, 128)])
+@pytest.mark.parametrize("g,kv,d", [(1, 4, 64), (4, 2, 64), (4, 8, 128),
+                                    (20, 1, 128)])
 @pytest.mark.parametrize("cap,short", [(None, False), (30.0, False),
                                        (None, True)], ids=["plain", "softcap",
                                                            "short"])
@@ -451,6 +453,29 @@ def test_paged_decode_kernel_splits_across_blocks(cuda, q8, b, lens, h, kv, d,
                                              lens_t[i:i + 1], table[i:i + 1],
                                              **scales)
         assert nmse(r1.float().cpu(), one.float().cpu()) < 2e-4
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8_0"])
+@pytest.mark.parametrize("bs", [1, 5, 8, 32, 64])
+def test_paged_decode_kernel_any_page_size(cuda, q8, bs):
+    """K3's 64-key tiles cross pages of any size (a tile of one-slot pages
+    reads 64 page ids; a 5-slot page straddles tiles), split or not."""
+    rng = np.random.default_rng(bs + 7 * int(q8))
+    b, h, kv, d = 3, 8, 2, 64
+    nbmax = -(-700 // bs)
+    nb = b * nbmax + 2
+    q = _bf16(rng.standard_normal((b, h, d)) * 0.3, cuda)
+    kp = _bf16(rng.standard_normal((kv, nb, bs, d)) * 0.5, cuda)
+    vp = _bf16(rng.standard_normal((kv, nb, bs, d)) * 0.5, cuda)
+    scales = {}
+    if q8:
+        (kp, ks), (vp, vs) = kv_cache.quantize_q8(kp), kv_cache.quantize_q8(vp)
+        scales = {"k_scale": ks, "v_scale": vs}
+    table = _i32(rng.permutation(nb)[: b * nbmax].reshape(b, nbmax), cuda)
+    lens_t = _i32([700, 63, 129], cuda)
+    got = pa.paged_attention_decode(q, kp, vp, lens_t, table, **scales)
+    ref = pa.paged_attention_decode_plain(q, kp, vp, lens_t, table, **scales)
+    assert nmse(ref.float().cpu(), got.float().cpu()) < 2e-4
 
 
 def expert_stack(ggml_type, e, n, k, seed):
