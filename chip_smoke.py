@@ -10,13 +10,17 @@ non-zero before the final line:
 
   device   nvidia-smi name/power limit, torch and CUDA versions
   build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc;
-           registers and spill bytes of every qmm_gemm, qmm_cache,
-           flash_prefill, gmm_gemm and paged_decode instantiation (and of
-           paged_decode's merge) from ptxas -v (a spill fails the phase)
+           registers and spill bytes of every qmm_gemv, qmm_gemm,
+           qmm_cache, flash_prefill, gmm_gemv, gmm_gemm and paged_decode
+           instantiation (and of paged_decode's merge) from ptxas -v (a
+           spill fails the phase), and the atomic instructions in the GEMV
+           kernels' SASS by cuobjdump (one fails the phase)
   kernels  each kernel against its plain PyTorch version at the main
            paths' shapes: TinyLlama-1.1B and Mixtral-8x7B, plus the widest
            Llama-3-8B ones and decode attention over ~4000 cached tokens
-           (error, gate, kernel/plain/library times, roofline bound)
+           (error, gate, kernel/plain/library times, roofline bound); one
+           K1 and one K4 GEMV call under torch.profiler must each run one
+           kernel and no memset, and give the same bits twice
   serve    a TinyLlama-1.1B-geometry Q4_K GGUF synthesized from seeded
            random block bytes is loaded with Model(path) on cuda and serves
            three generate() requests plus one batched decode; the launch
@@ -37,8 +41,8 @@ non-zero before the final line:
            Q4_K attn_v, IQ2_XXS ffn_down, Q5_K output, Q2_K token_embd),
            each served by a Context at the default qmm variant and one at
            "cache", whose prefills must launch K5 (qmm_cache); then K1 rows
-           on each file's loaded planes (the int8 lm heads among them) and
-           K5 rows at M = 130 and 512
+           on each file's loaded planes (the int8 lm heads among them, at
+           M = 1, 8, 128 and 512) and K5 rows at M = 130 and 512
   serve_moe_lowbit the same for three Mixtral-8x7B-geometry files (full
            width): Q2_K (4 layers; u2 expert stacks with a min), IQ1_S (4
            layers; IQ1_S gate/up stacks as u2lut, IQ2_XXS down as u4lut)
@@ -384,6 +388,11 @@ def _kind_label(m) -> str:
 _INSTANTIATIONS = {
     "qmm_gemm": ("qmm", re.compile(r"qmm_gemm_kernelILi(\d)ELb([01])ELi(\d)E"),
                  16, lambda m: f"{_kind_label(m)} wg{m.group(3)}"),
+    "qmm_gemv": ("qmm", re.compile(r"qmm_gemv_kernelILi(\d)ELi(\d)ELb([01])E"),
+                 32, lambda m: _KIND_NAMES[int(m.group(1))]
+                 + ("+min" if m.group(3) == "1" else "") + f" MT={m.group(2)}"),
+    "gmm_gemv": ("gmm", re.compile(r"gmm_gemv_kernelILi(\d)ELb([01])ELi(\d)E"),
+                 18, lambda m: f"{_kind_label(m)} MT<={m.group(3)}"),
     "qmm_cache": ("qmm_cache", re.compile(r"qmm_cache_kernelILi(\d)ELb([01])E"),
                   8, _kind_label),
     "flash_prefill": ("flash_prefill",
@@ -438,6 +447,28 @@ def instantiations(reports: dict) -> dict:
     return out
 
 
+def gemv_atomics(lib_path: str) -> dict | None:
+    """Atomic instructions (ATOM, ATOMG, ATOMS, RED) in the SASS of every
+    GEMV kernel (qmm_gemv_kernel, gmm_gemv_kernel) of a built library, by
+    cuobjdump; None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "gemv_kernel" in m.group(1) else None
+            if fn:
+                out[fn] = 0
+        elif fn and re.search(r"\b(ATOMG?|ATOMS|RED)\.", line):
+            out[fn] += 1
+    return out
+
+
 def phase_build() -> None:
     from llama_cpp_test_tpu_torch.ops import _cuda
 
@@ -456,8 +487,13 @@ def phase_build() -> None:
     inst = instantiations(reports)
     for name in _cuda.SOURCES:
         _cuda.lib(name)
+    atomics = {name: gemv_atomics(_cuda._lib_path(name))
+               for name in ("qmm", "gmm")}
     emit({"phase": "build", "seconds": round(secs, 3), "kernels": summary,
-          "instantiations": inst})
+          "instantiations": inst, "gemv_atomics": atomics})
+    for name, found in atomics.items():
+        check(found is None or (found and not any(found.values())),
+              f"build: atomics in the {name} GEMV kernels: {found}")
     for kernel, (_, _, count, _) in _INSTANTIATIONS.items():
         found = sorted(k for k in inst if k.split()[0] == kernel)
         check(len(found) == count, f"build: expected {count} {kernel} "
@@ -758,6 +794,53 @@ def _sdpa_kv(fp, kpool, vpool, table, g):
             vv.repeat_interleave(g, dim=1).contiguous())
 
 
+def gemv_launches(torch, qt, stack) -> dict:
+    """One K1 GEMV call (x [1, K] against planes qt) and one K4 GEMV call
+    (one token routed top-2 of the stacked experts), each under
+    torch.profiler: the device must run one kernel a call and no memset;
+    and a second call on the same inputs must give the same bits (the K
+    split meets in distributed shared memory, with no atomics)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_cpp_test_tpu_torch.ops import gmm, qmatmul
+
+    rng = np.random.default_rng(99)
+    x = torch_bf16(torch, rng.standard_normal((1, qt.shape[1])))
+    e = stack.qs.shape[0]
+    topv, topi = torch.topk(torch.softmax(torch.from_numpy(
+        rng.standard_normal((1, e)).astype(np.float32)).to("cuda"), -1), 2)
+    rt = gmm.route_tokens(topi, topv, n_expert_local=e, tile_m=gmm.TILE_GEMV)
+    xs = torch_bf16(torch, rng.standard_normal((rt.tok_idx.shape[0],
+                                                 stack.qs.shape[1])))
+    calls = {"qmm_gemv": lambda: qmatmul._qmm_planes_cuda(x, qt),
+             "gmm_gemv": lambda: gmm._planes_cuda(xs, stack, rt,
+                                                  gmm.TILE_GEMV)}
+    out = {"phase": "kernels", "kernel": "gemv launches"}
+    for name, fn in calls.items():
+        first = fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            second = fn()
+            torch.cuda.synchronize()
+        dev = [(ev.key, int(ev.count)) for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+        memsets = sum(c for k, c in dev if "memset" in k.lower())
+        kernels = sum(c for k, c in dev if "memset" not in k.lower()
+                      and "memcpy" not in k.lower())
+        out[name] = {"device_events": dev, "kernels": kernels,
+                     "memsets": memsets,
+                     "bit_equal": bool(torch.equal(first, second))}
+    emit(out)
+    for name in calls:
+        r = out[name]
+        check(r["kernels"] == 1 and r["memsets"] == 0,
+              f"{name}: one call ran {r['device_events']} on the device "
+              "(one kernel and no memset expected)")
+        check(r["bit_equal"], f"{name}: two calls on the same inputs differ")
+    return out
+
+
 def phase_kernels(torch, timer) -> dict:
     """TinyLlama-1.1B: the five projections as Q4_K (u4 planes with a min)
     and Q8_0 (int8) at M in {1, 512} (gate|up also at 128), decode
@@ -772,6 +855,8 @@ def phase_kernels(torch, timer) -> dict:
     rng = np.random.default_rng(1234)
     kc = KernelChecks(torch, timer, rng)
     rep = {}
+    rows = {"paged_decode": [], "paged_decode_q8": [], "gmm_gemm": [],
+            "qmm_gemv": [], "gmm_gemv": []}
     labels = ("wqkv", "wo", "gate|up", "down", "lm_head")
     for gt, kind in ((GGMLType.Q4_K, "u4+min"), (GGMLType.Q8_0, "int8")):
         for label, qt in _qmm_planes(rng, TINYLLAMA, gt, labels).items():
@@ -780,11 +865,14 @@ def phase_kernels(torch, timer) -> dict:
             # decode); M = 40: a partial GEMM row tile (short prompts);
             # M = 128: the GEMM at a middle bucket
             for m in (1, 512) + ((3, 8, 40) if label == "wo" else ()) + (
-                    (128,) if label == "gate|up" else ()):
+                    (8, 128) if label == "gate|up" else ()):
                 row = kc.qmm(label, kind, qt, m)
-                if label == "gate|up" and kind == "u4+min" and m != 128:
+                if label == "gate|up" and kind == "u4+min" and m in (1, 512):
                     rep[row["kernel"]] = row
-    rows = {"paged_decode": [], "paged_decode_q8": [], "gmm_gemm": []}
+                if m <= 8:
+                    rows["qmm_gemv"].append(row)
+            if label == "gate|up" and kind == "u4+min":
+                gemv_qt = qt
     # the floor this timer reads for one and for two dependent kernels
     # that do nothing (K3 with more than one range is two: the split
     # kernel and its merge)
@@ -820,8 +908,9 @@ def phase_kernels(torch, timer) -> dict:
                 row = kc.gmm("Mixtral " + label, kind, qt, m)
                 if label == "gate/up" and kind == "u4+min" and m != 8:
                     rep[row["kernel"]] = row
-                if m == 512:
-                    rows["gmm_gemm"].append(row)
+                rows["gmm_gemm" if m == 512 else "gmm_gemv"].append(row)
+            if label == "gate/up" and kind == "u4+min":
+                gemv_launches(torch, gemv_qt, qt)
             del qt
     rep["paged_decode_q8"] = kc.paged_decode(MIXTRAL, 8, q8=True)
     rows["paged_decode_q8"] += [rep["paged_decode_q8"],
@@ -1151,8 +1240,8 @@ def _projections(model):
 
 def _model_rows(kc, model, prefix, k5=()):
     """K1 rows at M = 1, 8, 128 and 512 on each projection of the served
-    planes of a low-bit kind (u2, u4lut, u2lut), at M = 128 and 512 on an
-    int8 lm head (Q6_K; Q5_K with a min), and on the projections labelled
+    planes of a low-bit kind (u2, u4lut, u2lut) and on an int8 lm head
+    (Q6_K; Q5_K with a min), and on the projections labelled
     in k5 K5 rows at M = 130 (the 130-token prompt's prefill routes there
     under "cache") and 512 beside K1's GEMM."""
     rows = {}
@@ -1162,7 +1251,7 @@ def _model_rows(kc, model, prefix, k5=()):
         if qt.kind in ("u2", "u4lut", "u2lut"):
             ms = (1, 8, 128, 512)
         elif qt.kind == "int8" and label == "lm_head":
-            ms = (128, 512)
+            ms = (1, 8, 128, 512)
         else:
             ms = (512,) if label in k5 else ()
         for m in ms:
@@ -1400,6 +1489,12 @@ def _profile_runs(torch, model, n_vocab, label, kv_type) -> dict:
         out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                      "idle_share": 1.0 - busy_ms / wall_ms,
                      "port_kernels_ms": port_ms,
+                     "memset_launches": sum(c for k, c, _ in dev
+                                            if "memset" in k.lower()),
+                     "gemv_ms": {k: sum(us for n, _, us in dev if k in n) / 1e3
+                                 for k in ("qmm_gemv_kernel",
+                                           "gmm_gemv_kernel",
+                                           "paged_decode")},
                      "device_kernel_launches": sum(c for _, c, _ in dev),
                      "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
                              for k, c, us in dev[:8]]}
@@ -1459,6 +1554,13 @@ def main() -> int:
     for f in serves["serve_moe_lowbit"]["files"].values():
         shape_rows["gmm_gemm"] += [r for r in f["rows"].values()
                                    if r["kernel"] == "gmm_gemm"]
+    # and every GEMV row, K1's on the served low-bit planes too
+    served = [serves["serve_iq4xs"]["rows"]] + [
+        f["rows"] for f in serves["serve_lowbit"]["files"].values()] + [
+        f["rows"] for f in serves["serve_moe_lowbit"]["files"].values()]
+    for name in ("qmm_gemv", "gmm_gemv"):
+        shape_rows[name] += [r for rs in served for r in rs.values()
+                             if r["kernel"] == name]
     kernels = []
     for name, (src, replaces) in TPU_KERNELS.items():
         r = rep[name]

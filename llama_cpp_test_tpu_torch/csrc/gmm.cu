@@ -19,12 +19,13 @@
 // What bounds it on an H100. Decode (tile_m 8, R = B * top_k rows, most
 // tiles hold one or two): bytes. A token reads top_k of E experts'
 // planes (0.56 B a weight for Q4_K, 0.5 for Q2_K, ~0.3 for IQ1_S, 2 for a
-// bf16 stack); gmm_gemv runs K1's GEMV body (qmm_gemv.cuh) on each live
-// tile at the tile's own row count (1, 2, 4 or 8 rows of FMAs, chosen per
-// block from tile_rows), and a dead tile's blocks exit at once. A dense
-// stack takes the same shape of GEMV over 4 bf16 columns a lane. Tiles of
-// one expert read the same planes; K is split across blocks as in K1, so
-// tiles of one expert run side by side and the second read of a plane
+// bf16 stack); gmm_gemv runs qmm_gemv.cuh's body (K1's) on each live tile
+// at the tile's own row count (1, 2, 4 or 8 rows, chosen per block from
+// tile_rows), dense stacks included; a dead tile's CTAs write its zeros
+// and exit, and a live tile's pad rows are stored as zeros, so the output
+// needs no memset. Tiles of one expert read the same planes; K splits
+// across a cluster of CTAs as in K1, so tiles of one expert run side by
+// side and the second read of a plane
 // mostly hits L2. Prefill (tile_m 64): operations (2 * R * K * N flops at
 // 989 TFLOP/s bf16). gmm_gemm is K1's Hopper main loop (qmm_tile.cuh) at
 // K1's 128 x 256 tiles of two warpgroups, each 64-row half one routing
@@ -54,110 +55,54 @@ namespace {
 
 constexpr int GEMV_TILE = 8;    // tile_m of the decode variant
 constexpr int GEMM_TILE = 64;   // tile_m of the prefill variant
-constexpr int DENSE_CPL = 4;    // bf16 columns a lane of the dense GEMV takes
-
-template <int KIND>
-__device__ __forceinline__ size_t plane_elems(int K, int group, int npk) {
-  return (size_t)kind_pack(KIND) * (K / group) * npk;
-}
 
 // ---------------------------------------------------------------------------
-// decode: tile_m 8, K1's GEMV body per live tile
+// decode: tile_m 8, qmm_gemv.cuh's body per live tile at the tile's own row
+// count; grid (splits, column blocks, tiles), clusters of `splits` CTAs
 
-// x [M, K] bf16 (M <= MT), w [K, n] bf16; out [M, n] f32. Lanes take
-// DENSE_CPL columns each, warps and blocks split K as in qmm_gemv_tile.
-template <int MT>
-__device__ __forceinline__ void dense_gemv_tile(
-    const __nv_bfloat16* __restrict__ x, int M, int K,
-    const __nv_bfloat16* __restrict__ w, int n, float* __restrict__ out,
-    int rows_per_warp, float* red, int bx, int by, int ny) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int j0 = (bx * 32 + lane) * DENSE_CPL;
-  const int k_begin = (by * GEMV_WARPS + warp) * rows_per_warp;
-  const int k_end = min(K, k_begin + rows_per_warp);
-  const __nv_bfloat16* xr[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) xr[m] = x + (size_t)min(m, M - 1) * K;
-  float acc[MT][DENSE_CPL];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < DENSE_CPL; ++c) acc[m][c] = 0.f;
-#pragma unroll 4
-  for (int k = k_begin; k < k_end; ++k) {
-    float wv[DENSE_CPL];
-    load_bf16<DENSE_CPL>(w + (size_t)k * n + j0, wv);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const float xv = bf2f(xr[m][k]);
-#pragma unroll
-      for (int c = 0; c < DENSE_CPL; ++c) acc[m][c] = fmaf(xv, wv[c], acc[m][c]);
-    }
-  }
-  gemv_reduce_store<MT, DENSE_CPL>(
-      acc, red, M, out, (size_t)n,
-      [&](int c, int l) { return (size_t)(bx * 32 + l) * DENSE_CPL + c; }, ny);
-}
-
-template <int KIND, bool HAS_MIN>
-__global__ void __launch_bounds__(32 * GEMV_WARPS)
-gmm_gemv_kernel(const __nv_bfloat16* __restrict__ xs, int K,
-                const void* __restrict__ qs_v, int npk,
-                const __nv_bfloat16* __restrict__ scale,
-                const __nv_bfloat16* __restrict__ minp,
-                const float* __restrict__ lut, int group,
-                const int* __restrict__ tile_expert,
-                const int* __restrict__ tile_rows, int n_expert,
-                float* __restrict__ out, int rows_per_warp) {
+// MT_MAX: the most rows a live tile holds (2: the few-row variant, whose
+// bodies are the FMA pipe's only; 8: every body)
+template <int KIND, bool HAS_MIN, int MT_MAX>
+__global__ void __launch_bounds__(GEMV_THREADS, 1)
+gmm_gemv_kernel(const __grid_constant__ GemvMaps maps, const GemvArgs a,
+                const GemvPlan p) {
+  extern __shared__ __align__(128) uint8_t smem[];
   constexpr int PACK = kind_pack(KIND);
-  // tiles vary fastest: the blocks of consecutive tiles of one expert on
-  // one column block and K slice run side by side and share its planes
-  const int t = blockIdx.x, bx = blockIdx.y, by = blockIdx.z;
-  const int rows = min(tile_rows[t], GEMV_TILE);
-  if (rows <= 0) return;  // dead tile: the launcher zeroed its rows
-  const int e = min(max(tile_expert[t], 0), n_expert - 1);
-  xs += (size_t)t * GEMV_TILE * K;
-  out += (size_t)t * GEMV_TILE * PACK * npk;
-  if constexpr (KIND == KIND_DENSE) {
-    const __nv_bfloat16* w =
-        static_cast<const __nv_bfloat16*>(qs_v) + (size_t)e * K * npk;
-    __shared__ float red[GEMV_WARPS * GEMV_TILE * DENSE_CPL * 32];
-    if (rows == 1)
-      dense_gemv_tile<1>(xs, 1, K, w, npk, out, rows_per_warp, red, bx, by,
-                         gridDim.z);
-    else if (rows <= 2)
-      dense_gemv_tile<2>(xs, rows, K, w, npk, out, rows_per_warp, red, bx, by,
-                         gridDim.z);
-    else if (rows <= 4)
-      dense_gemv_tile<4>(xs, rows, K, w, npk, out, rows_per_warp, red, bx, by,
-                         gridDim.z);
+  // the CTAs of a cluster share a tile, a column block and the plan, so
+  // they all leave here or all reach the cluster barriers together
+  const int split = blockIdx.x, bx = blockIdx.y, t = blockIdx.z;
+  constexpr int NO = gemv_no(MT_MAX);
+  const int K = a.K, npk = a.npk;
+  const int rows = a.tile_rows[t];
+  if (rows > MT_MAX) __trap();  // the launcher was told fewer rows a tile
+  float* out = a.out + (size_t)t * GEMV_TILE * PACK * npk;
+  if (rows <= 0) {  // a dead tile: this CTA's slice of its zeros, no load
+    const int cols = GEMV_CONSUMERS / p.row_groups * gemv_lane_cols(KIND, NO);
+    const int j0 = bx * cols, ncols = min(cols, npk - j0);
+    const int total = GEMV_TILE * PACK * ncols;
+    for (int i = total * split / p.splits + threadIdx.x;
+         i < total * (split + 1) / p.splits; i += GEMV_THREADS) {
+      const int m = i / (PACK * ncols), h = (i / ncols) % PACK;
+      out[((size_t)m * PACK + h) * npk + j0 + i % ncols] = 0.f;
+    }
+    return;
+  }
+  const int e = min(max(a.tile_expert[t], 0), a.n_expert - 1);
+  const __nv_bfloat16* xs = a.x + (size_t)t * GEMV_TILE * K;
+  auto body = [&](auto mt) {  // the tile's own row count, MT <= MT_MAX
+    gemv_block<KIND, decltype(mt)::value, HAS_MIN, NO>(
+        maps, xs, rows, K, e, npk, a.lut, a.group, out, GEMV_TILE, p, smem,
+        split, bx);
+  };
+  if (rows == 1)
+    body(std::integral_constant<int, 1>{});
+  else if (MT_MAX <= 2 || rows <= 2)
+    body(std::integral_constant<int, 2>{});
+  else if constexpr (MT_MAX > 2) {
+    if (rows <= 4)
+      body(std::integral_constant<int, 4>{});
     else
-      dense_gemv_tile<8>(xs, rows, K, w, npk, out, rows_per_warp, red, bx, by,
-                         gridDim.z);
-  } else {
-    const size_t pe = plane_elems<KIND>(K, group, npk);
-    const uint8_t* qs = static_cast<const uint8_t*>(qs_v) + (size_t)e * K * npk;
-    scale += e * pe;
-    if constexpr (HAS_MIN) minp += e * pe;
-    __shared__ float red[gemv_red_floats<KIND, GEMV_TILE>()];
-    __shared__ float lut_s[16];
-    load_lut<KIND>(lut_s, lut);
-    if (rows == 1)
-      qmm_gemv_tile<KIND, 1, HAS_MIN>(xs, 1, K, qs, npk, scale, minp, lut_s,
-                                      group, out, rows_per_warp, red, bx, by,
-                                      gridDim.z);
-    else if (rows <= 2)
-      qmm_gemv_tile<KIND, 2, HAS_MIN>(xs, rows, K, qs, npk, scale, minp, lut_s,
-                                      group, out, rows_per_warp, red, bx, by,
-                                      gridDim.z);
-    else if (rows <= 4)
-      qmm_gemv_tile<KIND, 4, HAS_MIN>(xs, rows, K, qs, npk, scale, minp, lut_s,
-                                      group, out, rows_per_warp, red, bx, by,
-                                      gridDim.z);
-    else
-      qmm_gemv_tile<KIND, 8, HAS_MIN>(xs, rows, K, qs, npk, scale, minp, lut_s,
-                                      group, out, rows_per_warp, red, bx, by,
-                                      gridDim.z);
+      body(std::integral_constant<int, 8>{});
   }
 }
 
@@ -183,21 +128,19 @@ gmm_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
 using gemm::Args;
 
 template <int KIND, bool HAS_MIN>
-struct GemvLaunch {
-  static int run(const Args& a) {
-    const int cols = KIND == KIND_DENSE ? 32 * DENSE_CPL : gemv_block_cols<KIND>();
-    const int nbx = a.npk / cols;
-    int rpw = 0;
-    // a dense stack splits K at 32-row granules (it has no groups)
-    const int ky = gemv_k_split(a.K, KIND == KIND_DENSE ? 32 : a.group, nbx,
-                                num_sms(), &rpw);
-    dim3 grid(a.M / GEMV_TILE, nbx, ky);
-    gmm_gemv_kernel<KIND, HAS_MIN><<<grid, 32 * GEMV_WARPS, 0, a.st>>>(
-        a.x, a.K, a.qs, a.npk, a.scale, a.minp, a.lut, a.group,
-        a.tile_expert, a.tile_rows, a.n_expert, a.out, rpw);
-    return 0;
-  }
-};
+int gemv_run(const GemvArgs& g, const GemvPlan& p, int T, int max_rows,
+             cudaStream_t st) {
+  if (max_rows <= 2)
+    return gemv_launch(gmm_gemv_kernel<KIND, HAS_MIN, 2>, KIND, gemv_no(2), g,
+                       p, g.n_expert, T,
+                       gemv_smem(KIND, HAS_MIN, 2, gemv_no(2), p, g.group)
+                           .total,
+                       st);
+  return gemv_launch(gmm_gemv_kernel<KIND, HAS_MIN, 8>, KIND, gemv_no(8), g, p,
+                     g.n_expert, T,
+                     gemv_smem(KIND, HAS_MIN, 8, gemv_no(8), p, g.group).total,
+                     st);
+}
 
 template <int KIND, bool HAS_MIN>
 struct GemmLaunch {
@@ -252,24 +195,44 @@ Args make_args(const void* xs, int rows, int K, const void* qs, int npk,
 
 // xs [T*8, K] bf16; qs [E, K, npk] (kinds 0-4; KIND_DENSE: bf16 [E, K,
 // npk]); scale/min [E, pack, K/group, npk] bf16 (min may be null; both null
-// for a dense stack); lut [16] or [4] f32 for kinds 3/4, else null;
-// tile_expert / tile_rows [T] int32 on the device; out [T*8, pack, npk]
-// float32. K a multiple of 32 and of group; npk a multiple of 128.
+// for a dense stack, whose `group` only cuts K into split granules);
+// lut [16] or [4] f32 for kinds 3/4, else null; tile_expert / tile_rows
+// [T] int32 on the device; out [T*8, pack, npk] float32, every row written
+// (zeros for dead tiles and pad rows). K a multiple of 32 and of group;
+// npk a multiple of 128; the launch plan of ops/qmatmul.gemv_plan, which
+// gemv_plan_ok must accept; max_rows the most rows a live tile holds (up
+// to 2: the few-row kernel; a tile past it traps). One launch: no memset,
+// no atomics.
 PORT_API int gmm_gemv(const void* xs, int T, int K, const void* qs, int npk,
                       int kind, const void* scale, const void* minp,
                       const void* lut, int group, const void* tile_expert,
                       const void* tile_rows, int n_expert, void* out,
-                      void* stream) {
-  if (!valid(T, K, kind, scale, minp, lut, group, n_expert) || npk % 128)
+                      void* stream, int col_blocks, int splits,
+                      int rows_per_split, int row_groups, int stage_rows,
+                      int stages, int x_rows, int mma, int max_rows) {
+  const GemvPlan p{col_blocks, splits, rows_per_split, row_groups,
+                   stage_rows, stages, x_rows, mma};
+  if (!valid(T, K, kind, scale, minp, lut, group, n_expert) || npk % 128 ||
+      max_rows < 1 || max_rows > GEMV_TILE ||
+      !gemv_plan_ok(kind, gemv_no(max_rows <= 2 ? 2 : 8), K, group, npk, p))
     return (int)cudaErrorInvalidValue;
-  const Args a = make_args(xs, T * GEMV_TILE, K, qs, npk, scale, minp, lut,
-                           group, tile_expert, tile_rows, n_expert, out,
-                           stream);
-  // pad rows and dead tiles stay zero; K-split blocks atomicAdd into it
-  cudaMemsetAsync(out, 0,
-                  (size_t)T * GEMV_TILE * kind_pack(kind) * npk * sizeof(float),
-                  a.st);
-  return dispatch_kinds<GemvLaunch>(kind, a);
+  const GemvArgs g{(const __nv_bfloat16*)xs, T * GEMV_TILE, K, qs, npk,
+                   (const __nv_bfloat16*)scale, (const __nv_bfloat16*)minp,
+                   (const float*)lut, group, (float*)out,
+                   (const int*)tile_expert, (const int*)tile_rows, n_expert};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool mn = minp != nullptr;
+  switch (kind) {
+    case 0: return mn ? gemv_run<0, true>(g, p, T, max_rows, st)
+                      : gemv_run<0, false>(g, p, T, max_rows, st);
+    case 1: return mn ? gemv_run<1, true>(g, p, T, max_rows, st)
+                      : gemv_run<1, false>(g, p, T, max_rows, st);
+    case 2: return mn ? gemv_run<2, true>(g, p, T, max_rows, st)
+                      : gemv_run<2, false>(g, p, T, max_rows, st);
+    case 3: return gemv_run<3, false>(g, p, T, max_rows, st);
+    case 4: return gemv_run<4, false>(g, p, T, max_rows, st);
+    default: return gemv_run<KIND_DENSE, false>(g, p, T, max_rows, st);
+  }
 }
 
 // Same operands with 64-row tiles: xs [T*64, K], out [T*64, pack, npk].

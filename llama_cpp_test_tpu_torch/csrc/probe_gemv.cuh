@@ -19,7 +19,7 @@
 // contiguous bytes; it loads a whole 32-row group (16 byte rows for the
 // pairs) before using any of it, which keeps 16-32 loads in flight a lane.
 // The four warps of a block split its K slice and blocks split K further
-// (qmm_gemv.cuh's gemv_k_split aimed at four blocks an SM, atomicAdd into
+// (gemv_k_split below, aimed at four blocks an SM, atomicAdd into
 // a zeroed output), so even 44 column blocks fill all 132 SMs. The
 // rounding of w is per element, as the TPU kernels round it, so the scale
 // cannot be folded out of the group sum: each weight costs a multiply and
@@ -27,7 +27,65 @@
 // staging of x, no tensor cores.
 #pragma once
 
-#include "qmm_gemv.cuh"
+#include "common.cuh"
+
+// The probes' split of K and their reduction (the GEMV design K1 and K4
+// shared before they moved to qmm_gemv.cuh's staged body): GEMV_WARPS
+// warps a block, K split across warps and blocks, atomicAdd into a zeroed
+// output where blocks split K.
+constexpr int GEMV_WARPS = 4;
+
+template <int N>
+static __device__ __forceinline__ uint32_t load_bytes(const uint8_t* p) {
+  if constexpr (N == 4)
+    return __ldg(reinterpret_cast<const uint32_t*>(p));
+  else
+    return __ldg(reinterpret_cast<const uint16_t*>(p));
+}
+
+// Sum the GEMV_WARPS warps' partial sums acc[MT][NO] (each warp walked its
+// own K slice) through shared memory red (GEMV_WARPS * MT * NO * 32
+// floats), then one store per output, or one atomicAdd when K is split
+// across blocks (ny > 1: the caller zeroed `out`). Output o of lane l, row
+// m < M, lands at out + m * row_stride + col(o, l).
+template <int MT, int NO, class Col>
+static __device__ __forceinline__ void gemv_reduce_store(
+    const float (&acc)[MT][NO], float* red, int M, float* __restrict__ out,
+    size_t row_stride, Col col, int ny) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int o = 0; o < NO; ++o)
+      red[((warp * MT + m) * NO + o) * 32 + lane] = acc[m][o];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < MT * NO * 32; idx += 32 * GEMV_WARPS) {
+    const int mo = idx >> 5, l = idx & 31;
+    const int m = mo / NO, o = mo % NO;
+    if (m >= M) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < GEMV_WARPS; ++w) s += red[(w * MT * NO + mo) * 32 + l];
+    float* dst = out + m * row_stride + col(o, l);
+    if (ny == 1)
+      *dst = s;
+    else
+      atomicAdd(dst, s);
+  }
+}
+
+// Split K so that about twice as many blocks as the card has SMs run; each
+// warp takes a whole number of groups. Returns gridDim.y; *rows_per_warp
+// is the K rows each warp walks.
+static inline int gemv_k_split(int K, int group, int nbx, int sms,
+                               int* rows_per_warp) {
+  const int groups = K / group;
+  int ky = (2 * sms + nbx - 1) / nbx;
+  ky = max(1, min(ky, (groups + GEMV_WARPS - 1) / GEMV_WARPS));
+  const int gpw = (groups + GEMV_WARPS * ky - 1) / (GEMV_WARPS * ky);
+  *rows_per_warp = gpw * group;
+  return (groups + GEMV_WARPS * gpw - 1) / (GEMV_WARPS * gpw);
+}
 
 constexpr int FMT_F = 0, FMT_G = 1, FMT_H = 2, FMT_PAIRS = 3;
 constexpr int PROBE_M = 8, PROBE_GROUP = 32;

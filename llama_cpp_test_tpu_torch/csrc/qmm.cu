@@ -17,10 +17,10 @@
 // and does ~2 flops per weight per row, far below the 295 flop/byte the
 // card needs to be compute-bound, so it is bound by bytes (0.56 B per
 // weight for Q4_K and IQ4_XS planes, 0.5 for Q2_K, ~0.3 for IQ1_S). The
-// GEMV kernel streams the planes with coalesced loads, keeps the per-group
-// partial sums in registers and applies scale and min once per group; K is
-// split across the four warps of a block and across blocks (atomicAdd into
-// a zeroed output) so a narrow projection still spreads over all 132 SMs.
+// GEMV is qmm_gemv.cuh's body: a producer warp keeps a ring of plane tiles
+// (with their scale and min rows) in flight by bulk copies, x is staged in
+// shared memory once per block, and K splits across a cluster of at most 8
+// CTAs that sum through distributed shared memory (no memset, no atomics).
 // Prefill (M > 8) is bound by operations at a few hundred rows (2*M*K*N
 // flops at 989 TFLOP/s bf16). What keeps a dequantizing GEMM from that
 // bound is the work beside the products: every weight rebuilt as bf16 once
@@ -37,22 +37,16 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// GEMV (decode, M <= 8): the body lives in qmm_gemv.cuh (K4 shares it)
+// GEMV (decode, M <= 8): the body lives in qmm_gemv.cuh (K4 shares it); grid
+// (splits, column blocks), clusters of `splits` CTAs along K
 
 template <int KIND, int MT, bool HAS_MIN>
-__global__ void __launch_bounds__(32 * GEMV_WARPS)
-qmm_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
-                const uint8_t* __restrict__ qs, int npk,
-                const __nv_bfloat16* __restrict__ scale,
-                const __nv_bfloat16* __restrict__ minp,
-                const float* __restrict__ lut, int group,
-                float* __restrict__ out, int rows_per_warp) {
-  __shared__ float red[gemv_red_floats<KIND, MT>()];
-  __shared__ float lut_s[16];
-  load_lut<KIND>(lut_s, lut);
-  qmm_gemv_tile<KIND, MT, HAS_MIN>(x, M, K, qs, npk, scale, minp, lut_s,
-                                   group, out, rows_per_warp, red, blockIdx.x,
-                                   blockIdx.y, gridDim.y);
+__global__ void __launch_bounds__(GEMV_THREADS, 1)
+qmm_gemv_kernel(const __grid_constant__ GemvMaps maps, const GemvArgs a,
+                const GemvPlan p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  gemv_block<KIND, MT, HAS_MIN>(maps, a.x, a.M, a.K, 0, a.npk, a.lut, a.group,
+                                a.out, a.M, p, smem, blockIdx.x, blockIdx.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -73,32 +67,20 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
 
 using gemm::Args;
 
-template <int KIND, int MT, bool HAS_MIN>
-void launch_gemv_mt(const Args& a, dim3 grid, int rpw) {
-  qmm_gemv_kernel<KIND, MT, HAS_MIN><<<grid, 32 * GEMV_WARPS, 0, a.st>>>(
-      a.x, a.M, a.K, a.qs, a.npk, a.scale, a.minp, a.lut, a.group, a.out, rpw);
-}
-
 template <int KIND, bool HAS_MIN>
 struct GemvLaunch {
-  static int run(const Args& a) {
-    const int nbx = a.npk / gemv_block_cols<KIND>();
-    int rpw = 0;
-    const int ky = gemv_k_split(a.K, a.group, nbx, num_sms(), &rpw);
-    if (ky > 1)
-      cudaMemsetAsync(a.out, 0,
-                      (size_t)a.M * kind_pack(KIND) * a.npk * sizeof(float),
-                      a.st);
-    dim3 grid(nbx, ky);
-    if (a.M <= 1)
-      launch_gemv_mt<KIND, 1, HAS_MIN>(a, grid, rpw);
-    else if (a.M <= 2)
-      launch_gemv_mt<KIND, 2, HAS_MIN>(a, grid, rpw);
-    else if (a.M <= 4)
-      launch_gemv_mt<KIND, 4, HAS_MIN>(a, grid, rpw);
-    else
-      launch_gemv_mt<KIND, 8, HAS_MIN>(a, grid, rpw);
-    return 0;
+  template <int MT>
+  static int go(const GemvArgs& g, const GemvPlan& p, cudaStream_t st) {
+    constexpr int NO = gemv_no(MT);
+    return gemv_launch(qmm_gemv_kernel<KIND, MT, HAS_MIN>, KIND, NO, g, p, 1,
+                       1, gemv_smem(KIND, HAS_MIN, MT, NO, p, g.group).total,
+                       st);
+  }
+  static int run(const GemvArgs& g, const GemvPlan& p, cudaStream_t st) {
+    if (g.M <= 1) return go<1>(g, p, st);
+    if (g.M <= 2) return go<2>(g, p, st);
+    if (g.M <= 4) return go<4>(g, p, st);
+    return go<8>(g, p, st);
   }
 };
 
@@ -122,15 +104,36 @@ struct GemmLaunch {
 
 // x [M, K] bf16; qs [K, npk]; scale/min [pack, K/group, npk] bf16 (min may
 // be null); lut [16] or [4] f32 for kinds 3/4, else null; out
-// [M, pack, npk] float32. M <= 8; npk a multiple of 128.
+// [M, pack, npk] float32. M <= 8; npk a multiple of 128; the launch plan
+// of ops/qmatmul.gemv_plan (col_blocks ... x_rows), which gemv_plan_ok must
+// accept. One launch: no memset, no atomics.
 PORT_API int qmm_gemv(const void* x, int M, int K, const void* qs, int npk,
                       int kind, const void* scale, const void* minp,
-                      const void* lut, int group, void* out, void* stream) {
-  if (!gemm::valid(M, K, kind, minp, lut, group) || M > 8 || npk % 128)
+                      const void* lut, int group, void* out, void* stream,
+                      int col_blocks, int splits, int rows_per_split,
+                      int row_groups, int stage_rows, int stages,
+                      int x_rows, int mma) {
+  const GemvPlan p{col_blocks, splits, rows_per_split, row_groups,
+                   stage_rows, stages, x_rows, mma};
+  const int mt = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8;
+  if (!gemm::valid(M, K, kind, minp, lut, group) || M > 8 || npk % 128 ||
+      !gemv_plan_ok(kind, gemv_no(mt), K, group, npk, p))
     return (int)cudaErrorInvalidValue;
-  return gemm::dispatch<GemvLaunch>(
-      kind, gemm::make_args(x, M, K, qs, npk, scale, minp, lut, group, out,
-                            stream));
+  const GemvArgs g{(const __nv_bfloat16*)x, M, K, qs, npk,
+                   (const __nv_bfloat16*)scale, (const __nv_bfloat16*)minp,
+                   (const float*)lut, group, (float*)out, nullptr, nullptr, 1};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool mn = minp != nullptr;
+  switch (kind) {
+    case 0: return mn ? GemvLaunch<0, true>::run(g, p, st)
+                      : GemvLaunch<0, false>::run(g, p, st);
+    case 1: return mn ? GemvLaunch<1, true>::run(g, p, st)
+                      : GemvLaunch<1, false>::run(g, p, st);
+    case 2: return mn ? GemvLaunch<2, true>::run(g, p, st)
+                      : GemvLaunch<2, false>::run(g, p, st);
+    case 3: return GemvLaunch<3, false>::run(g, p, st);
+    default: return GemvLaunch<4, false>::run(g, p, st);
+  }
 }
 
 // Same operands as qmm_gemv, any M; K a multiple of 32; group a multiple

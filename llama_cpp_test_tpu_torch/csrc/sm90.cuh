@@ -85,6 +85,48 @@ static __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver the runtime already loaded (so
+// the library links no libcuda of its own)
+static EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess ||
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) != cudaSuccess ||
+#endif
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A TMA map of a row-major tensor: dims innermost first (elements),
+// strides in bytes of dims 1.., box in elements. False if refused.
+static bool tensor_map(CUtensorMap* m, CUtensorMapDataType type, int rank,
+                       const void* ptr, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swz) {
+  const EncodeTiled enc = encoder();
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return enc != nullptr &&
+         enc(m, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Make this thread's generic-proxy shared-memory writes (plain stores)
 // visible to the async proxy that wgmma reads through; then a barrier
 // hands them to the warpgroups.

@@ -13,6 +13,7 @@ raises when the launcher returns a nonzero cudaGetLastError().
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -121,6 +122,17 @@ def bind(name: str, fn: str, sig: str):
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def check(rc: int, what: str) -> None:

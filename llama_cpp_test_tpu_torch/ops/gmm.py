@@ -38,7 +38,8 @@ import torch
 
 from ..quant.repack import QTensor
 from . import _cuda
-from .qmatmul import _KIND_ID, _plain_product, _split, check_lut, lut_ptr
+from .qmatmul import (GEMV_DENSE_GROUP, _KIND_ID, _plain_product, _split,
+                      check_lut, gemv_plan, lut_ptr)
 
 TILE_GEMV = 8    # tile_m of the decode regime (R = M * top_k <= 256)
 TILE_GEMM = 64   # tile_m of the prefill regime
@@ -50,6 +51,9 @@ class Routing(NamedTuple):
     weight: torch.Tensor       # [Rp] f32 combine weight (pad rows: 0)
     tile_expert: torch.Tensor  # [T] int32 local expert id per row tile
     tile_rows: torch.Tensor    # [T] int32 live rows per tile (dead tiles: 0)
+    max_rows: int = 0          # the most live rows a tile can hold (an
+                               # expert takes a token once: min(tile_m, M));
+                               # 0: tile_m
 
 
 def num_tiles(m: int, top_k: int, n_expert_local: int, tile_m: int) -> int:
@@ -107,7 +111,8 @@ def route_tokens(topi: torch.Tensor, topv: torch.Tensor, *,
     te = torch.where(live, te.clamp(max=e_loc - 1), te[last])
     rows = (seg_start[te] + counts[te] - tile_start).clamp(0, tile_m)
     rows = torch.where(live, rows, torch.zeros_like(rows))
-    return Routing(tok_idx, weight, te.to(torch.int32), rows.to(torch.int32))
+    return Routing(tok_idx, weight, te.to(torch.int32), rows.to(torch.int32),
+                   min(tile_m, m))
 
 
 def combine(y: torch.Tensor, routing: Routing, m: int) -> torch.Tensor:
@@ -197,13 +202,26 @@ def _planes_cuda(xs: torch.Tensor, qt: QTensor, routing: Routing,
                                          "or 64)" if qt.min_ is not None
                                          else " (a multiple of 8)"))
     out = torch.empty((rp, qt.pack, npk), dtype=torch.float32, device=xs.device)
-    fn = _cuda.bind("gmm", name, "piipiipppippipp")
-    rc = fn(xs.data_ptr(), t, k, qt.qs.data_ptr(), npk, _GMM_KIND[kind],
+    gemv = tile_m == TILE_GEMV
+    # a dense stack's group (its K) only cuts K into the GEMV's splits
+    group = GEMV_DENSE_GROUP if gemv and dense else qt.group
+    args = (xs.data_ptr(), t, k, qt.qs.data_ptr(), npk, _GMM_KIND[kind],
             0 if dense else qt.scale.data_ptr(),
             0 if qt.min_ is None else qt.min_.data_ptr(), lut_ptr(qt),
-            qt.group, routing.tile_expert.data_ptr(),
-            routing.tile_rows.data_ptr(), e,
-            out.data_ptr(), _cuda.stream_ptr(xs.device))
+            group, routing.tile_expert.data_ptr(),
+            routing.tile_rows.data_ptr(), e, out.data_ptr(),
+            _cuda.stream_ptr(xs.device))
+    if gemv:
+        # the row tiles the plan spreads over: all T of them, at most one
+        # an expert (counting the dead ones gives fewer, longer splits,
+        # which measured faster than the live count on Mixtral's gate)
+        max_rows = routing.max_rows or tile_m
+        args += gemv_plan(k, group, npk, kind, max_rows,
+                          _cuda.sm_count(xs.device), tiles=min(t, e),
+                          has_min=qt.min_ is not None).args() + (max_rows,)
+    fn = _cuda.bind("gmm", name, "piipiipppippipp" + ("iiiiiiiii" if gemv
+                                                       else ""))
+    rc = fn(*args)
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return out

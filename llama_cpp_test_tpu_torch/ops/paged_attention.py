@@ -19,8 +19,6 @@ Layouts:
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _cuda
@@ -47,11 +45,6 @@ def split_plan(b: int, kv: int, nbmax: int, bs: int, sms: int) -> tuple[int, int
     want = min(MAX_SPLITS, max(1, -(-2 * sms // (b * kv)), -(-nbmax // most)))
     pages = max(-(-nbmax // want), -(-MIN_SPLIT_KEYS // bs), 1)
     return -(-nbmax // pages), pages
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _gather(pages, scale, idx):
@@ -127,7 +120,7 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices,
     out = torch.empty_like(q)
     cap = float(soft_cap or 0.0)
     stream = _cuda.stream_ptr(q.device)
-    splits, pages = split_plan(b, kv, nbmax, bs, _sm_count(q.device.index or 0))
+    splits, pages = split_plan(b, kv, nbmax, bs, _cuda.sm_count(q.device))
     # the split partials: acc [B, KV, splits, G, D], then (m, l)
     ws = torch.empty(b * kv * splits * g * (d + 2) if splits > 1 else 0,
                      dtype=torch.float32, device=q.device)

@@ -31,10 +31,11 @@ constituent out of the packed axis before the reshape.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
-from ..quant.repack import BITS, QTensor
+from ..quant.repack import BITS, PACK, QTensor
 from . import _cuda
 
 _KIND_ID = {"int8": 0, "u4": 1, "u2": 2, "u4lut": 3, "u2lut": 4}
@@ -42,6 +43,123 @@ VARIANTS = ("f32", "bf16", "pipe", "cache")
 QMM_VARIANT = os.environ.get("LLAMA_TPU_QMM_VARIANT", "f32")
 PLAIN_MINS = ("joint", "fold")
 PLAIN_MIN = "joint"
+
+
+# The GEMV's launch plan (qmm_gemv.cuh). The kernel's consumer threads and
+# the outputs each holds a row are fixed in C (GEMV_CONSUMERS, gemv_no:
+# 8 in the kernels built for at most 2 rows, 4 above); everything else is
+# chosen here, and the C entry points check what they are given
+# (gemv_plan_ok) and take any plan that passes.
+GEMV_CONSUMERS = 128
+GEMV_MAX_SPLITS = 8          # CTAs of a cluster (the portable maximum)
+GEMV_BLOCKS_PER_SM = 3       # blocks the plan aims at, per SM
+GEMV_RING_BYTES = 48 << 10   # plane bytes a block keeps in flight
+GEMV_X_BYTES = 32 << 10      # staged x a block holds at once
+GEMV_DENSE_GROUP = 8         # a dense stack's split granule, in K rows
+GEMV_MAX_STAGE_ROWS = 256    # rows of a stage's TMA box
+GEMV_MMA_MIN_ROWS = 4        # rows from which the tensor-core path runs
+                             # (3 or more: the kernels build it for blocks
+                             # of 4 and 8 rows)
+
+
+class GemvPlan(NamedTuple):
+    col_blocks: int      # column tiles of npk
+    splits: int          # K ranges, one CTA each, one cluster
+    cluster: int         # CTAs a cluster (= splits)
+    rows_per_split: int  # K rows a split, whole groups
+    row_groups: int      # consumer groups a block, each its own stages
+    stage_rows: int      # K rows a ring stage: a multiple or a divisor of
+                         # the group
+    stages: int          # ring stages a block
+    x_rows: int          # x rows staged at once (whole stages)
+    mma: int             # rows (of a block) from which the products run
+                         # on mma.sync, 16-row K steps within a group (0:
+                         # always on the FMA pipe)
+
+    def args(self) -> tuple:
+        """The plan as the C entry points take it (after the stream)."""
+        return (self.col_blocks, self.splits, self.rows_per_split,
+                self.row_groups, self.stage_rows, self.stages, self.x_rows,
+                self.mma)
+
+
+def _gemv_mt(m: int) -> int:
+    """The GEMV's row instantiation for m rows: 1, 2, 4 or 8."""
+    return 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
+
+
+def gemv_lane(kind: str, m: int) -> tuple[int, int]:
+    """(packed columns, plane bytes) a GEMV consumer thread takes a K row
+    in the kernel built for m rows (qmm_gemv.cuh gemv_lane_cols and
+    gemv_lane_bytes)."""
+    no = 8 if _gemv_mt(m) <= 2 else 4
+    if kind == "dense":
+        return no, 2 * no
+    return no // PACK[kind], no // PACK[kind]
+
+
+def gemv_plan(k: int, group: int, npk: int, kind: str, m: int, sms: int,
+              tiles: int = 1, has_min: bool = False) -> GemvPlan:
+    """Launch plan of the GEMV (K1's qmm_gemv, K4's gmm_gemv) for x [m, K]
+    against planes [K, npk] of `kind` at `group` on a card of `sms` SMs;
+    `tiles`: the row tiles that run side by side (K4's live tiles);
+    `has_min`: the planes carry a min (its rows ride in the ring too).
+
+    Of the column tiles (row_groups 1, 2, 4: 128, 64 or 32 threads across
+    the tile), the one that reaches GEMV_BLOCKS_PER_SM blocks an SM with
+    the fewest splits of K (at most GEMV_MAX_SPLITS), else the most blocks. Splits hold whole
+    groups and none is empty. A stage holds about GEMV_RING_BYTES / 4 of
+    plane, scale and min bytes (/ 8 at row_groups 4, whose four consumer
+    groups each want two stages in flight), in rows that are a multiple of
+    the group or a divisor of it, so a stage holds whole groups or a whole
+    share of one. A dense stack
+    splits at GEMV_DENSE_GROUP-row granules."""
+    if kind == "dense":
+        group = GEMV_DENSE_GROUP
+    lane_cols, lane = gemv_lane(kind, m)
+    groups = k // group
+    want = GEMV_BLOCKS_PER_SM * sms
+    options = []
+    for rg in (1, 2, 4):
+        ct = GEMV_CONSUMERS // rg
+        nbx = -(-npk // (ct * lane_cols))
+        splits = max(1, min(GEMV_MAX_SPLITS, groups,
+                            -(-want // (nbx * tiles))))
+        blocks = nbx * splits * tiles
+        # reaching `want` first, then the fewest splits (each split is one
+        # more CTA staging x and summing in the cluster), then the widest
+        # tile; short of `want`, the most blocks
+        key = (blocks < want, splits if blocks >= want else -blocks, rg)
+        options.append((key, rg, ct, nbx, splits))
+    _, rg, ct, nbx, splits = min(options)
+    per = -(-groups // splits)
+    splits = -(-groups // per)
+    rows = per * group
+    row_bytes = ct * lane
+    # bytes a K row brings: its plane row, and its share of the group's
+    # scale (and min) rows
+    sc_row = 0 if kind == "dense" else \
+        PACK[kind] * ct * lane_cols * 2 * (2 if has_min else 1)
+    want = max(4, 2 * rg)
+    target = max(8, GEMV_RING_BYTES * group // (want * (row_bytes * group
+                                                      + sc_row)))
+    target = min(target, GEMV_MAX_STAGE_ROWS)
+    if group <= target:
+        kt = group * (target // group)
+    elif group <= min(4 * target, GEMV_MAX_STAGE_ROWS):
+        kt = group
+    else:
+        kt = max(d for d in range(1, target + 1) if group % d == 0)
+    kt = min(kt, rows)
+    stage = kt * row_bytes + max(1, kt // group) * sc_row
+    # two stages a row group where 1.5 rings allow it
+    stages = max(2, min(8, max(2 * rg, GEMV_RING_BYTES // stage),
+                        3 * GEMV_RING_BYTES // 2 // stage))
+    chunk = max(kt, GEMV_X_BYTES // (2 * _gemv_mt(m)) // kt * kt)
+    x_rows = min(-(-rows // kt) * kt, chunk)
+    mma = GEMV_MMA_MIN_ROWS if (kind != "dense" and min(group, kt) % 16 == 0
+                                and kt % 16 == 0) else 0
+    return GemvPlan(nbx, splits, splits, rows, rg, kt, stages, x_rows, mma)
 
 
 def _variant(variant: str | None) -> str:
@@ -199,13 +317,19 @@ def _qmm_planes_cuda(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
                       device=x2.device)
     if m == 0:
         return out
-    name = "qmm_gemv" if m <= 8 else "qmm_gemm"
-    fn = _cuda.bind("qmm", name, "piipiipppipp")
-    _cuda.check(fn(x2.data_ptr(), m, k, qt.qs.data_ptr(), qt.npk,
-                   _KIND_ID[qt.kind], qt.scale.data_ptr(),
-                   0 if qt.min_ is None else qt.min_.data_ptr(), lut_ptr(qt),
-                   qt.group, out.data_ptr(), _cuda.stream_ptr(x2.device)),
-                name)
+    args = (x2.data_ptr(), m, k, qt.qs.data_ptr(), qt.npk, _KIND_ID[qt.kind],
+            qt.scale.data_ptr(),
+            0 if qt.min_ is None else qt.min_.data_ptr(), lut_ptr(qt),
+            qt.group, out.data_ptr(), _cuda.stream_ptr(x2.device))
+    if m <= 8:
+        name, fn = "qmm_gemv", _cuda.bind("qmm", "qmm_gemv", "piipiipppipp"
+                                          "iiiiiiii")
+        args += gemv_plan(k, qt.group, qt.npk, qt.kind, m,
+                          _cuda.sm_count(x2.device),
+                          has_min=qt.min_ is not None).args()
+    else:
+        name, fn = "qmm_gemm", _cuda.bind("qmm", "qmm_gemm", "piipiipppipp")
+    _cuda.check(fn(*args), name)
     _cuda.LAUNCHES[name] += 1
     return out
 

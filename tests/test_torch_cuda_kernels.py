@@ -22,8 +22,12 @@ and IQ2_XS u4lut, IQ1_S u2lut, TQ2_0 u2lut at group 256, and dense BF16
 stacks) with ragged expert loads, one-expert batches, dead tiles and K not
 a multiple of 2048, K4's GEMM against K1's on one expert and against the
 plain fold (its exact min fold), its zeros past a tile's live rows over
-an output full of NaN, its refusal of a min at group 128, and the five
-probe kernels of the port's tools.
+an output full of NaN, its refusal of a min at group 128, the decode GEMV
+of K1 and K4 (qmm_gemv.cuh) at K 5632 and 14336 for every row count 1-8
+and plane kind, at groups its tensor-core path does not take (8, 24,
+40), bit-equal on a second call, and K4's GEMV writing the zeros of dead
+tiles and pad rows into an output full of NaN, and the five probe kernels
+of the port's tools.
 Gates are the JAX suites': qmm NMSE < 5e-5 against the float golden,
 attention and gmm NMSE < 2e-4, the probes NMSE < 1e-5 against their plain
 versions.
@@ -754,3 +758,142 @@ def test_pairs_gemv_matches_plain(cuda, cpl):
     ref = pairprobe.pairs_qmm_plain(x, qs, sc, fold)
     assert nmse(ref.cpu(), got.cpu()) < 1e-5, nmse(ref.cpu(), got.cpu())
     assert pairprobe.correctness_check(cuda)
+
+
+# ---------------------------------------------------------------------------
+# The decode GEMV shared by K1 (qmm_gemv) and K4 (gmm_gemv), qmm_gemv.cuh:
+# a TMA ring of plane tiles, x staged once a block, the FMA pipe for up to
+# 2 rows and mma.sync above on groups of 16 rows or more, K split across a
+# cluster that sums in distributed shared memory
+
+# deep K (TinyLlama's ffn_down 5632, Llama-3-8B's 14336) at N = 2048, one
+# GGML type of each plane kind
+_GEMV_DEEP = [(GGMLType.Q8_0, 5632), (GGMLType.Q6_K, 14336),
+              (GGMLType.Q4_0, 5632), (GGMLType.Q4_K, 14336),
+              (GGMLType.Q2_K, 14336), (GGMLType.IQ4_XS, 5632),
+              (GGMLType.IQ1_S, 14336), (GGMLType.TQ2_0, 5632)]
+
+
+@pytest.mark.parametrize("ggml_type,k", _GEMV_DEEP,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_gemv_deep_k_every_row_count(cuda, ggml_type, k):
+    """K1's GEMV at every row count 1-8 (the FMA pipe at 1-2 rows, the
+    tensor-core path at 3-8) against the float golden."""
+    n = 2048
+    qt_np = random_qtensor(ggml_type, n, k, seed=k % 97)
+    golden_w = repack.dequantize_qtensor_np(qt_np)
+    qt = qtensor_to_torch(qt_np, cuda)
+    x = np.random.default_rng(11).standard_normal((8, k)).astype(np.float32)
+    xb = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    golden = xb.float().cpu().numpy() @ golden_w.T
+    for m in range(1, 9):
+        before = _cuda.LAUNCHES["qmm_gemv"]
+        got = qmatmul.qmm(xb[:m], qt).cpu().numpy()
+        assert _cuda.LAUNCHES["qmm_gemv"] == before + 1
+        assert got.shape == (m, n)
+        err = nmse(golden[:m], got)
+        assert err < 5e-5, (m, err)
+
+
+def _random_planes(kind, k, n, group, has_min, cuda, seed, e=None):
+    """Planes of `kind` at any group, drawn on the card (the GGUF types do
+    not make groups such as 8, 24 or 40)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    lead = () if e is None else (e,)
+    pack = repack.PACK[kind]
+    npk = n // pack
+    if kind == "int8":
+        qs = torch.randint(-128, 128, lead + (k, npk), generator=g,
+                           device=cuda, dtype=torch.int8)
+    else:
+        qs = torch.randint(0, 256, lead + (k, npk), generator=g,
+                           device=cuda, dtype=torch.uint8)
+    shape = lead + (pack, k // group, npk)
+    scale = ((torch.rand(shape, generator=g, device=cuda) + 0.5) * 1e-2) \
+        .to(torch.bfloat16)
+    min_ = ((torch.rand(shape, generator=g, device=cuda) + 0.5) * 1e-2) \
+        .to(torch.bfloat16) if has_min else None
+    return repack.QTensor(kind, (n, k), n, group, qs, scale, min_)
+
+
+@pytest.mark.parametrize("kind,group,has_min", [("u4", 24, True),
+                                                ("int8", 8, False),
+                                                ("u2", 40, True)])
+def test_gemv_groups_the_tensor_core_path_does_not_take(cuda, kind, group,
+                                                        has_min):
+    """Groups that are not a multiple of 16 run on the FMA pipe at every
+    row count (the plan says so), against the plain fold."""
+    k, n = 2400, 1024
+    qt = _random_planes(kind, k, n, group, has_min, cuda, seed=group)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert qmatmul.gemv_plan(k, group, qt.npk, kind, 8, sms,
+                             has_min=has_min).mma == 0
+    x = _bf16(np.random.default_rng(group).standard_normal((8, k)), cuda)
+    for m in range(1, 9):
+        got = qmatmul._qmm_planes_cuda(x[:m].contiguous(), qt)
+        ref = qmatmul.plain_planes(x[:m], qt, rounding="fold")
+        err = nmse(ref.reshape(got.shape).cpu(), got.cpu())
+        assert err < 5e-5, (m, err)
+
+
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+def test_gemv_two_calls_are_bit_equal(cuda, m):
+    """The K split meets in distributed shared memory in a fixed order (no
+    atomics): the same inputs give the same bits, for K1 and K4."""
+    k, n, e = 14336, 2048, 8
+    qt = _random_planes("u4", k, n, 32, True, cuda, seed=m)
+    x = _bf16(np.random.default_rng(m).standard_normal((m, k)), cuda)
+    a = qmatmul._qmm_planes_cuda(x, qt)
+    b = qmatmul._qmm_planes_cuda(x, qt)
+    assert torch.equal(a, b)
+    stack = _random_planes("u2", k, n, 16, True, cuda, seed=m, e=e)
+    topi, topv = routing_case("ragged", m, e, np.random.default_rng(m))
+    rt = gmm.route_tokens(torch.from_numpy(topi).to(cuda),
+                          torch.from_numpy(topv).to(cuda),
+                          n_expert_local=e, tile_m=gmm.TILE_GEMV)
+    xs = x[rt.tok_idx.long()].contiguous()
+    assert torch.equal(gmm._planes_cuda(xs, stack, rt, gmm.TILE_GEMV),
+                       gmm._planes_cuda(xs, stack, rt, gmm.TILE_GEMV))
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("ggml_type", [GGMLType.Q4_K, GGMLType.Q2_K,
+                                       GGMLType.IQ1_S, GGMLType.BF16],
+                         ids=lambda t: t.name)
+def test_gmm_gemv_writes_zeros_for_dead_tiles_and_pad_rows(cuda, ggml_type, m):
+    """K4's GEMV on an output buffer full of NaN, ragged routing: every row
+    of a dead tile and every row past a live tile's count come out 0 (no
+    memset: the kernel writes them), live rows as through gmm_apply."""
+    e, n, k = 8, 768, 2304
+    qt = qtensor_to_torch(expert_stack(ggml_type, e, n, k, seed=m), cuda)
+    rng = np.random.default_rng(m + 40)
+    topi, topv = routing_case("ragged", m, e, rng)
+    rt = gmm.route_tokens(torch.from_numpy(topi).to(cuda),
+                          torch.from_numpy(topv).to(cuda),
+                          n_expert_local=e, tile_m=gmm.TILE_GEMV)
+    rows = rt.tile_rows.cpu().numpy()
+    t = rows.shape[0]
+    assert (rows == 0).any() and (rows[rows > 0] < gmm.TILE_GEMV).any()
+    xs = _bf16(rng.standard_normal((m, k)), cuda)[rt.tok_idx.long()]
+    out = torch.full((t * gmm.TILE_GEMV, qt.pack, qt.npk), float("nan"),
+                     device=cuda)
+    dense = qt.kind == "dense"
+    group = qmatmul.GEMV_DENSE_GROUP if dense else qt.group
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = qmatmul.gemv_plan(k, group, qt.npk, qt.kind, rt.max_rows, sms,
+                             tiles=min(t, e), has_min=qt.min_ is not None)
+    fn = _cuda.bind("gmm", "gmm_gemv", _GMM_SIG + "iiiiiiiii")
+    rc = fn(xs.data_ptr(), t, k, qt.qs.data_ptr(), qt.npk,
+            gmm._GMM_KIND[qt.kind], 0 if dense else qt.scale.data_ptr(),
+            0 if qt.min_ is None else qt.min_.data_ptr(), qmatmul.lut_ptr(qt),
+            group, rt.tile_expert.data_ptr(), rt.tile_rows.data_ptr(), e,
+            out.data_ptr(), _cuda.stream_ptr(cuda), *plan.args(), rt.max_rows)
+    assert rc == 0
+    live = torch.from_numpy(np.concatenate(
+        [np.arange(gmm.TILE_GEMV) < r for r in rows])).to(cuda)
+    assert (out[~live] == 0).all()
+    want = gmm._planes_cuda(xs, qt, rt, gmm.TILE_GEMV)
+    assert torch.equal(out[live], want[live])
+    ref = gmm._planes_plain(xs, qt, rt, gmm.TILE_GEMV)
+    assert nmse(ref[live].cpu(), out[live].cpu()) < 2e-4
