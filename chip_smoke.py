@@ -12,9 +12,11 @@ non-zero before the final line:
   build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc;
            registers and spill bytes of every qmm_gemv, qmm_gemm,
            qmm_cache, flash_prefill, gmm_gemv, gmm_gemm and paged_decode
-           instantiation (and of paged_decode's merge) from ptxas -v (a
-           spill fails the phase), and the atomic instructions in the GEMV
-           kernels' SASS by cuobjdump (one fails the phase)
+           instantiation (and of paged_decode's merge), and of the probe
+           GEMV (kbench_gemv, pairs_gemv) and the byte stream, from ptxas -v
+           (a spill fails the phase), and the atomic instructions in the
+           SASS of the GEMV kernels (K1's, K4's, the probes') and the byte
+           stream by cuobjdump (one fails the phase)
   kernels  each kernel against its plain PyTorch version at the main
            paths' shapes: TinyLlama-1.1B and Mixtral-8x7B, plus the widest
            Llama-3-8B ones and decode attention over ~4000 cached tokens
@@ -52,7 +54,10 @@ non-zero before the final line:
            gate and down stacks at M = 1, 8 and 512
   probes   the five kernels of the port's tools (kbench F, G, H and the
            byte stream E; pairprobe's pairs GEMV) against their plain
-           versions at the probes' own shapes, then both entry points
+           versions at the probes' own shapes, with the timer's floor for
+           one empty kernel beside them (one call of each, under
+           torch.profiler after the kernels phase, must run one kernel and
+           no memset and give the same bits twice); then both entry points
            (python -m llama_cpp_test_tpu_torch.tools.kbench / .pairprobe)
            run once in this process
 
@@ -407,6 +412,13 @@ _INSTANTIATIONS = {
     "paged_decode_merge": ("paged_attention",
                            re.compile(r"paged_decode_merge_kernel"), 1,
                            lambda m: "f32"),
+    "kbench_gemv": ("kbench", re.compile(r"probe_gemv_kernelILi(\d)ELi(\d+)E"),
+                    3, lambda m: f"{'FGH'[int(m.group(1))]} LB={m.group(2)}"),
+    "pairs_gemv": ("pairprobe",
+                   re.compile(r"probe_gemv_kernelILi(\d)ELi(\d+)E"), 2,
+                   lambda m: f"LB={m.group(2)}"),
+    "kbench_stream": ("kbench", re.compile(r"stream_colsum_kernel"), 1,
+                      lambda m: "u8"),
 }
 
 
@@ -449,7 +461,8 @@ def instantiations(reports: dict) -> dict:
 
 def gemv_atomics(lib_path: str) -> dict | None:
     """Atomic instructions (ATOM, ATOMG, ATOMS, RED) in the SASS of every
-    GEMV kernel (qmm_gemv_kernel, gmm_gemv_kernel) of a built library, by
+    GEMV kernel (qmm_gemv_kernel, gmm_gemv_kernel, probe_gemv_kernel) and
+    of the byte stream (stream_colsum_kernel) of a built library, by
     cuobjdump; None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -461,7 +474,9 @@ def gemv_atomics(lib_path: str) -> dict | None:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "gemv_kernel" in m.group(1) else None
+            fn = m.group(1) if ("gemv_kernel" in m.group(1)
+                                or "stream_colsum_kernel" in m.group(1)) \
+                else None
             if fn:
                 out[fn] = 0
         elif fn and re.search(r"\b(ATOMG?|ATOMS|RED)\.", line):
@@ -488,12 +503,12 @@ def phase_build() -> None:
     for name in _cuda.SOURCES:
         _cuda.lib(name)
     atomics = {name: gemv_atomics(_cuda._lib_path(name))
-               for name in ("qmm", "gmm")}
+               for name in ("qmm", "gmm", "kbench", "pairprobe")}
     emit({"phase": "build", "seconds": round(secs, 3), "kernels": summary,
           "instantiations": inst, "gemv_atomics": atomics})
     for name, found in atomics.items():
         check(found is None or (found and not any(found.values())),
-              f"build: atomics in the {name} GEMV kernels: {found}")
+              f"build: atomics in the {name} GEMV or stream kernels: {found}")
     for kernel, (_, _, count, _) in _INSTANTIATIONS.items():
         found = sorted(k for k in inst if k.split()[0] == kernel)
         check(len(found) == count, f"build: expected {count} {kernel} "
@@ -794,15 +809,15 @@ def _sdpa_kv(fp, kpool, vpool, table, g):
             vv.repeat_interleave(g, dim=1).contiguous())
 
 
+PROFILER_TRIES = 3
+
+
 def gemv_launches(torch, qt, stack) -> dict:
     """One K1 GEMV call (x [1, K] against planes qt) and one K4 GEMV call
     (one token routed top-2 of the stacked experts), each under
     torch.profiler: the device must run one kernel a call and no memset;
     and a second call on the same inputs must give the same bits (the K
     split meets in distributed shared memory, with no atomics)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from llama_cpp_test_tpu_torch.ops import gmm, qmatmul
 
     rng = np.random.default_rng(99)
@@ -816,20 +831,36 @@ def gemv_launches(torch, qt, stack) -> dict:
     calls = {"qmm_gemv": lambda: qmatmul._qmm_planes_cuda(x, qt),
              "gmm_gemv": lambda: gmm._planes_cuda(xs, stack, rt,
                                                   gmm.TILE_GEMV)}
-    out = {"phase": "kernels", "kernel": "gemv launches"}
+    return one_launch_each(torch, calls, "kernels", "gemv launches")
+
+
+def one_launch_each(torch, calls: dict, phase: str, label: str) -> dict:
+    """Each call of `calls` (name -> fn) twice, the second under
+    torch.profiler: it must run one kernel and no memset on the device, and
+    give the same bits as the first. A session in which the profiler
+    recorded no device activity at all (it happens now and then on an
+    H100, PERF.md §7) proves nothing either way and is run again, up to
+    PROFILER_TRIES sessions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"phase": phase, "kernel": label}
     for name, fn in calls.items():
         first = fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            second = fn()
-            torch.cuda.synchronize()
-        dev = [(ev.key, int(ev.count)) for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA]
+        for tries in range(1, PROFILER_TRIES + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                second = fn()
+                torch.cuda.synchronize()
+            dev = [(ev.key, int(ev.count)) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA]
+            if dev:
+                break
         memsets = sum(c for k, c in dev if "memset" in k.lower())
         kernels = sum(c for k, c in dev if "memset" not in k.lower()
                       and "memcpy" not in k.lower())
         out[name] = {"device_events": dev, "kernels": kernels,
-                     "memsets": memsets,
+                     "memsets": memsets, "profiler_sessions": tries,
                      "bit_equal": bool(torch.equal(first, second))}
     emit(out)
     for name in calls:
@@ -1388,10 +1419,25 @@ def _probe_rows(torch, kc) -> dict:
     return rows
 
 
-def phase_probes(torch, kc) -> dict:
-    """The probe kernels' rows, then both probe entry points, each run as
-    `python -m` runs it, with the launch counts zeroed just before and
-    read just after."""
+def _probe_calls() -> dict:
+    """One call of each probe kernel at its entry point's shapes (fresh
+    seeded inputs), for the one-launch check."""
+    from llama_cpp_test_tpu_torch import tools
+
+    names = {"kbench_f": "F", "kbench_g": "G", "kbench_h": "H",
+             "kbench_e": "E", "pairs_qmm": "pairs4"}
+    return {k: tools.probe_case(v, *tools.probe_shape(v), "cuda", seed=5)[0]
+            for k, v in names.items()}
+
+
+def phase_probes(torch, kc, one_launch: dict) -> dict:
+    """The probe kernels' rows with the timer's floor beside them, then
+    both probe entry points, each run as `python -m` runs it, with the
+    launch counts zeroed just before and read just after. `one_launch`:
+    one_launch_each's check of the probe calls, made before the serve
+    phases: on an H100, once a process has run a prefill (or some 20000
+    cuBLAS matmuls), torch.profiler drops the device records of short
+    sessions, whatever memory is held (PERF.md §7)."""
     import io
     import runpy
     import warnings
@@ -1399,6 +1445,9 @@ def phase_probes(torch, kc) -> dict:
     from llama_cpp_test_tpu_torch.ops import _cuda
 
     rows = _probe_rows(torch, kc)
+    floor = kc.timer(lambda: torch.cuda._sleep(0))
+    emit({"phase": "probes", "kernel": "timer floor",
+          "one_empty_kernel_ms": floor})
     torch.cuda.synchronize()
     _cuda.reset_launches()
     printed = {}
@@ -1423,7 +1472,9 @@ def phase_probes(torch, kc) -> dict:
           f"probes: kernels not launched by the entry points: {launches}")
     out = {"phase": "probes", "launches": launches, "printed": printed}
     emit(out)
-    return {**out, "rows": rows}
+    return {**out, "rows": rows, "one_empty_kernel_ms": floor,
+            "one_launch": {k: v for k, v in one_launch.items()
+                           if k in PROBES}}
 
 
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
@@ -1447,6 +1498,8 @@ def _profile_runs(torch, model, n_vocab, label, kv_type) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from llama_cpp_test_tpu_torch.ops import _cuda
+
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     ctx = Context(model, n_ctx=1024, n_seq_max=2, block_size=16,
@@ -1468,12 +1521,14 @@ def _profile_runs(torch, model, n_vocab, label, kv_type) -> dict:
     out = {"phase": "profile", "path": label}
     for name, fn in runs.items():
         torch.cuda.synchronize()
+        before = dict(_cuda.LAUNCHES)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3
+        launched = sum(_cuda.LAUNCHES[k] - before[k] for k in before)
         dev = []   # device-side events only (kernels, memsets, copies)
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
@@ -1496,6 +1551,14 @@ def _profile_runs(torch, model, n_vocab, label, kv_type) -> dict:
                                            "gmm_gemv_kernel",
                                            "paged_decode")},
                      "device_kernel_launches": sum(c for _, c, _ in dev),
+                     # the port's launches, and how many of its kernels
+                     # the profiler recorded (K3 adds a merge kernel to a
+                     # split launch): fewer recorded than launched means
+                     # the profiler dropped device records (PERF.md §7)
+                     "port_launches": launched,
+                     "port_kernels_recorded": sum(
+                         c for k, c, _ in dev
+                         if any(p in k for p in _PORT_KERNELS)),
                      "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
                              for k, c, us in dev[:8]]}
     check(out["decode_8_steps"]["device_busy_ms"] > 0,
@@ -1535,6 +1598,8 @@ def main() -> int:
 
         timer = L2FlushedTimer()
         rep, shape_rows = phase_kernels(torch, timer)
+        probe_launches = one_launch_each(torch, _probe_calls(),
+                                         "kernels", "probe launches")
         kc = KernelChecks(torch, timer, np.random.default_rng(4321))
         serves = {"serve": phase_serve(torch, args.profile),
                   "serve_moe": phase_serve_moe(torch, args.profile),
@@ -1542,7 +1607,7 @@ def main() -> int:
                   "serve_lowbit": phase_serve_lowbit(torch, kc, args.profile),
                   "serve_moe_lowbit": phase_serve_moe_lowbit(torch, kc,
                                                              args.profile),
-                  "probes": phase_probes(torch, kc)}
+                  "probes": phase_probes(torch, kc, probe_launches)}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

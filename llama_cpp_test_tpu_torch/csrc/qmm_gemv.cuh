@@ -25,7 +25,11 @@
 //     x-sums the min needs, in shared memory. The inner loop reads no
 //     global memory.
 //   - Warps 0-3 consume: `row_groups` groups of 128 / row_groups threads,
-//     group r taking the stages r, r + row_groups, .... Up to 2 rows, each
+//     group r taking the stages r, r + row_groups, ... (`stages` a
+//     multiple of row_groups, so a ring slot serves one row group only:
+//     a slot's mbarrier waited by parity would pass two phases early if
+//     the slot's previous stage were another group's and not yet landed).
+//     Up to 2 rows, each
 //     thread holds 8 outputs a row and multiplies on the FMA pipe (codes
 //     to floats by a byte permute against 2^23, no int-to-float
 //     conversion). Blocks of 3-8 rows (the MT 4 and 8 kernels, 4 outputs a
@@ -141,7 +145,8 @@ __host__ __device__ inline GemvSmem gemv_smem(int kind, bool has_min, int mt,
 
 // Whether the kernel takes plan p for these operands: whole groups a split,
 // splits covering K with none empty, stage rows a multiple or a divisor of
-// the group, x chunks of whole stages, column blocks covering npk.
+// the group, stages a multiple of the row groups, x chunks of whole
+// stages, column blocks covering npk.
 __host__ inline bool gemv_plan_ok(int kind, int no, int K, int group,
                                   int npk, const GemvPlan& p) {
   const int rg = p.row_groups, kt = p.stage_rows;
@@ -151,7 +156,8 @@ __host__ inline bool gemv_plan_ok(int kind, int no, int K, int group,
       (long)(p.splits - 1) * p.rows_per_split >= K)
     return false;
   if (kt <= 0 || kt > 256 || (kt % group && group % kt)) return false;
-  if (p.stages < 2 || p.stages > 16 || p.x_rows < kt || p.x_rows % kt)
+  if (p.stages < 2 || p.stages > 16 || p.stages % rg || p.x_rows < kt ||
+      p.x_rows % kt)
     return false;
   // the tensor-core path: blocks of 3 rows or more (MT >= 4), 16 K rows
   // a step within one group, no dense stack

@@ -112,7 +112,7 @@ def gemv_plan(k: int, group: int, npk: int, kind: str, m: int, sms: int,
     plane, scale and min bytes (/ 8 at row_groups 4, whose four consumer
     groups each want two stages in flight), in rows that are a multiple of
     the group or a divisor of it, so a stage holds whole groups or a whole
-    share of one. A dense stack
+    share of one; stages a multiple of the row groups. A dense stack
     splits at GEMV_DENSE_GROUP-row granules."""
     if kind == "dense":
         group = GEMV_DENSE_GROUP
@@ -152,9 +152,14 @@ def gemv_plan(k: int, group: int, npk: int, kind: str, m: int, sms: int,
         kt = max(d for d in range(1, target + 1) if group % d == 0)
     kt = min(kt, rows)
     stage = kt * row_bytes + max(1, kt // group) * sc_row
-    # two stages a row group where 1.5 rings allow it
-    stages = max(2, min(8, max(2 * rg, GEMV_RING_BYTES // stage),
-                        3 * GEMV_RING_BYTES // 2 // stage))
+    # two stages a row group where 1.5 rings allow it; a multiple of the
+    # row groups (a slot serves one row group: its mbarrier's parity
+    # wait cannot tell a phase two ahead), up to the next where 1.5 rings
+    # allow it, else down, and at least one a row group
+    cap = min(8, 3 * GEMV_RING_BYTES // 2 // stage)
+    stages = max(2, min(cap, max(2 * rg, GEMV_RING_BYTES // stage)))
+    stages = -(-stages // rg) * rg if -(-stages // rg) * rg <= cap \
+        else max(rg, stages // rg * rg)
     chunk = max(kt, GEMV_X_BYTES // (2 * _gemv_mt(m)) // kt * kt)
     x_rows = min(-(-rows // kt) * kt, chunk)
     mma = GEMV_MMA_MIN_ROWS if (kind != "dense" and min(group, kt) % 16 == 0

@@ -1,8 +1,8 @@
-"""K1's and K4's decode GEMV timed on one GPU, at the shapes of the rows
-PERF.md keeps for them.
+"""K1's and K4's decode GEMV, or the five probe kernels, timed on one GPU,
+at the shapes of the rows PERF.md keeps for them.
 
     python llama_cpp_test_tpu_torch/tools/gemv_rows.py [--tree DIR] [--m M ...]
-        [--set NAME=INT ...]
+        [--set NAME=INT ...] [--probes]
 
 K1 (`qmm_gemv`): TinyLlama's four projections as Q4_K, Llama-3-8B gate|up
 Q2_K and IQ1_S,
@@ -15,12 +15,19 @@ reads are those of the loaded model; each row goes through chip_smoke.py's
 KernelChecks (NMSE against the plain version, the kernel's time, the
 plain version's, one PyTorch call's, and the byte bound).
 
+With --probes the rows are instead the probes' (chip_smoke.py's probe
+rows: kbench's F, G, H GEMVs and byte stream E, pairprobe's pairs GEMV at
+cpl 4, each against its plain version), each also timed by torch.profiler
+(the device time of the call's own kernels and memsets over 15 calls, each
+after the L2 flush, whose own kernel and memset are left out), the pairs
+also at cpl 2 and 8.
+
 With --tree DIR the rows run on the package and chip_smoke.py of another
-checkout (for example `git archive` of an earlier commit), so two versions
-of the GEMV can be timed one after the other in one call to the card;
---set overrides constants of the launch plan (ops.qmatmul.gemv_plan).
-Prints one JSON object a row, the timer's floor for one empty kernel, and
-the card's name and power limit.
+checkout (for example `git archive` of an earlier commit), so two
+versions can be timed one after the other in one call to the card; --set overrides
+constants of a launch plan (ops.qmatmul.gemv_plan, or with --probes
+tools.probe_plan). Prints one JSON object a row, the timer's floor for one
+empty kernel, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -86,6 +93,73 @@ def planes(torch, QTensor, gen, kind, k, n, group, has_min, e=None):
     return QTensor(kind, (n, k), n, group, qs, scale, min_, lut)
 
 
+def device_ms(torch, timer, fn, iters: int = 15) -> float:
+    """Device time a call of fn by torch.profiler, each call after the
+    timer's L2 flush, averaged over iters calls: every device event but the
+    flush's reduction kernel and the one memset each flush runs (so a
+    parent's own memset counts). A session that records no device activity
+    at all is run again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                timer.flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA]
+        if events:
+            break
+    us = 0.0
+    for ev in events:
+        t = getattr(ev, "self_device_time_total", 0.0)
+        if "reduce" in ev.key:
+            continue
+        if "memset" in ev.key.lower():
+            t *= (ev.count - iters) / ev.count
+        us += t
+    return us / iters / 1e3
+
+
+def _own_tools():
+    """This checkout's tools module, loaded from its file: its probe_case
+    builds the same calls, on the same inputs, for any --tree (the kbench
+    and pairprobe modules it calls are the tree's)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_gemv_rows_tools", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "__init__.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def probe_rows(torch, cs, kc, timer) -> None:
+    """The probe rows of chip_smoke.py's probes phase, then each probe's
+    device time (tools.probe_case at its entry point's shape; the pairs at
+    every block width)."""
+    from llama_cpp_test_tpu_torch.tools import kbench
+
+    tools = _own_tools()
+
+    for name, r in cs._probe_rows(torch, kc).items():
+        print(json.dumps({"k": name, **r}), flush=True)
+    rows, cols = kbench.STREAM_SHAPE
+    e_bytes = kbench.stream_rows(rows) * cols
+    for name in tools.PROBES:
+        fn, _ = tools.probe_case(name, *tools.probe_shape(name), "cuda")
+        dev = device_ms(torch, timer, fn)
+        row = {"k": name, "device_ms": dev, "ms": timer(fn)}
+        if name == "E":
+            row["device_tb_s"] = e_bytes / dev / 1e9
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.join(os.path.dirname(
@@ -96,7 +170,10 @@ def main() -> int:
     ap.add_argument("--set", nargs="*", default=[], metavar="NAME=INT",
                     help="plan constants of ops.qmatmul to override "
                          "(GEMV_RING_BYTES, GEMV_BLOCKS_PER_SM, "
-                         "GEMV_MMA_MIN_ROWS, ...)")
+                         "GEMV_MMA_MIN_ROWS, ...), or with --probes of "
+                         "tools (PROBE_BLOCKS_PER_SM, PROBE_STAGE_BYTES)")
+    ap.add_argument("--probes", action="store_true",
+                    help="time the five probe kernels instead of the GEMVs")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -111,11 +188,14 @@ def main() -> int:
         print("gemv_rows: needs a CUDA device", file=sys.stderr)
         return 1
     if args.set:
-        from llama_cpp_test_tpu_torch.ops import qmatmul
+        if args.probes:
+            from llama_cpp_test_tpu_torch import tools as consts
+        else:
+            from llama_cpp_test_tpu_torch.ops import qmatmul as consts
         for kv in args.set:
             name, value = kv.split("=")
-            getattr(qmatmul, name)  # an unknown name raises
-            setattr(qmatmul, name, int(value))
+            getattr(consts, name)  # an unknown name raises
+            setattr(consts, name, int(value))
     timer = L2FlushedTimer()
     print(json.dumps({"tree": tree, "card": card(), "set": args.set,
                       "one_empty_kernel_ms": timer(lambda: torch.cuda._sleep(0))}),
@@ -123,6 +203,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     kc = cs.KernelChecks(torch, timer, np.random.default_rng(1234))
+    if args.probes:
+        probe_rows(torch, cs, kc, timer)
+        return 0
     for label, kind, k, n, group, has_min in K1_ROWS:
         qt = planes(torch, QTensor, gen, kind, k, n, group, has_min)
         for m in args.m:

@@ -4,12 +4,20 @@ Times M = 8 dequant-matmuls over a Q4_K-like weight, y[8, N] = x[8, K] .
 w[K, N] with w = s[k // 32, n] * q[k, n], against the card's HBM roofline:
 
   E  a raw byte stream (kernel csrc/kbench.cu kbench_stream; kbench's kern):
-     column sums of a u8 [rows, 1024] array, the achievable read rate
+     column sums of a u8 [rows, 1024] array. One launch: a cluster of 8
+     row slabs a 64-byte column group, fed by 2-D TMA boxes, integer sums,
+     one store a column. At 12.6 MB it reads at about 1 TB/s on an H100,
+     below what torch.matmul reaches over its 46 MB (the launch and the
+     first bytes' latency weigh on a small read), so no row is reported as
+     a share of it: every row is a share of the roofline
   C  torch.matmul on the weight dequantized to bf16 (2 bytes a weight)
   repo qmm u4+min / u4 no-min: the port's K1 (ops/qmatmul) on Q4_K- and
      Q4_0-shaped planes
   F  N-paired nibbles (kbench's kernel_f), G signed int4 (kernel_g), H int8
-     (kernel_h): one templated GEMV (csrc/kbench.cu kbench_gemv)
+     (kernel_h): one GEMV body (csrc/probe_gemv.cuh, entry kbench_gemv): a
+     producer warp's TMA ring, x staged in shared memory, mma.sync with the
+     weight rounded inside the A operand, K split across a cluster summed
+     in distributed shared memory; launch plan tools.probe_plan
 
 Weight layouts (K rows, N columns, q in [0, 16), group 32 along K):
 
@@ -24,14 +32,15 @@ Weight layouts (K rows, N columns, q in [0, 16), group 32 along K):
   H  q as int8 [K, N]; scales [K/32, N]; output [8, N]
 
 Each kernel rounds w = bf16(bf16(q) * s) per element, as the TPU kernels
-do, and accumulates in float32. Every kernel has its plain PyTorch version
-here; a CPU tensor takes it, a CUDA tensor launches the kernel.
+do, and accumulates in float32; one launch a call, no memset, no atomics.
+Every kernel has its plain PyTorch version here; a CPU tensor takes it, a
+CUDA tensor launches the kernel.
 
 Times are medians of single launches (tools.L2FlushedTimer: the 50 MB L2
 flushed before each, since the 13-25 MB weights would otherwise be read
-from L2). The roofline is the card's HBM rate (H100 SXM data sheet:
-3.35 TB/s); E's achieved rate is printed beside it. Run on a machine with
-a GPU:
+from L2), printed beside the timer's floor (one empty kernel). The
+roofline is the card's HBM rate (H100 SXM data sheet: 3.35 TB/s). Run on
+a machine with a GPU:
 
     python -m llama_cpp_test_tpu_torch.tools.kbench
 """
@@ -43,7 +52,7 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
-from . import HBM_BW, L2FlushedTimer, card
+from . import HBM_BW, L2FlushedTimer, card, probe_plan
 
 M, K, N = 8, 2048, 11264   # fused gate+up of TinyLlama-1.1B
 GROUP = 32
@@ -125,14 +134,15 @@ def probe_gemv(fmt: str, x: torch.Tensor, qs: torch.Tensor,
     req(sc.device == x.device and sc.dtype == torch.bfloat16
         and sc.is_contiguous() and tuple(sc.shape) == sshape,
         f"kbench_gemv {fmt}: scales must be bf16 {sshape}")
-    req(k % GROUP == 0 and nbc % 128 == 0,
+    req(k > 0 and k % GROUP == 0 and nbc > 0 and nbc % 128 == 0,
         f"kbench_gemv: unsupported K={k} byte columns={nbc}")
     out = torch.empty((M, 2, nbc) if fmt == "F" else (M, n),
                       dtype=torch.float32, device=x.device)
-    fn = _cuda.bind("kbench", "kbench_gemv", "ipipippp")
+    plan = probe_plan(fmt, k, nbc, _cuda.sm_count(x.device))
+    fn = _cuda.bind("kbench", "kbench_gemv", "ipipippp" "iiiiii")
     _cuda.check(fn(FORMATS[fmt], x.data_ptr(), k, qs.data_ptr(), nbc,
-                   sc.data_ptr(), out.data_ptr(), _cuda.stream_ptr(x.device)),
-                "kbench_gemv")
+                   sc.data_ptr(), out.data_ptr(), _cuda.stream_ptr(x.device),
+                   *plan.args()), "kbench_gemv")
     _cuda.LAUNCHES["kbench_" + fmt.lower()] += 1
     return out
 
@@ -158,9 +168,10 @@ def stream_colsum(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         return stream_colsum_plain(x, a)
     rows, cols = a.shape
     _cuda.require(a.is_cuda and a.dtype == torch.uint8 and a.is_contiguous()
-                  and cols > 0 and cols % 128 == 0,
-                  f"kbench_stream: a must be contiguous CUDA u8 [rows, cols] "
-                  f"with cols a multiple of 128, got {tuple(a.shape)}")
+                  and cols > 0 and cols % 128 == 0 and a.data_ptr() % 16 == 0,
+                  f"kbench_stream: a must be contiguous 16-byte aligned CUDA "
+                  f"u8 [rows, cols] with cols a multiple of 128, got "
+                  f"{tuple(a.shape)}")
     _cuda.require(x.device == a.device and x.dtype == torch.float32
                   and x.is_contiguous(), "kbench_stream: x must be f32 on the "
                                          "card")
@@ -176,16 +187,12 @@ def stream_colsum(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 # timing and the entry point
 
 
-def report(name: str, ms: float, nbytes: int,
-           stream_bw: float | None) -> None:
-    """One row: time, achieved rate, share of the roofline and of E's."""
+def report(name: str, ms: float, nbytes: int) -> None:
+    """One row: time, achieved rate and its share of the roofline."""
     dt = ms / 1e3
     gbs = nbytes / dt / 1e9
-    beside = (f"  {100 * nbytes / dt / stream_bw:5.1f}% of E"
-              if stream_bw else "")
     print(f"{name:44s} {dt * 1e6:9.1f} us  {gbs:7.1f} GB/s  "
-          f"({100 * gbs * 1e9 / HBM_BW:5.1f}% of roofline){beside}",
-          flush=True)
+          f"({100 * gbs * 1e9 / HBM_BW:5.1f}% of roofline)", flush=True)
 
 
 def device_tensors(fmt, x, q, s, dev):
@@ -219,6 +226,8 @@ def main() -> int:
     print(f"shape: M={M} K={K} N={N} group={GROUP}  (median of single "
           f"launches, L2 flushed; roofline {HBM_BW / 1e12:.2f} TB/s)")
     timer = L2FlushedTimer(dev)
+    print(f"timer floor (one empty kernel): "
+          f"{timer(lambda: torch.cuda._sleep(0)) * 1e3:.1f} us", flush=True)
     x, q, s = make_data()
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -226,26 +235,24 @@ def main() -> int:
                       device=dev)
     x0 = torch.zeros((1, STREAM_COLS), dtype=torch.float32, device=dev)
     e_bytes = stream_rows(a.shape[0]) * a.shape[1]
-    ms = timer(lambda: stream_colsum(x0, a))
-    report("E: raw HBM stream (upper bound)", ms, e_bytes, None)
-    stream_bw = e_bytes / ms * 1e3
+    report("E: raw HBM stream (kbench_stream)",
+           timer(lambda: stream_colsum(x0, a)), e_bytes)
 
     xt = torch.from_numpy(x).to(dev).to(torch.bfloat16)
     w = torch.from_numpy(q.astype(np.float32)).to(dev).to(torch.bfloat16)
     report("C: dense bf16 matvec (torch.matmul)",
-           timer(lambda: torch.matmul(xt, w)), w.numel() * 2, stream_bw)
+           timer(lambda: torch.matmul(xt, w)), w.numel() * 2)
     del w
     for name, with_min in (("repo: qmm u4+min (Q4_K planes)", True),
                            ("repo: qmm u4 no-min (Q4_0 planes)", False)):
         fn, nbytes = _repo_qmm(x, q, s, dev, with_min)
-        report(name, timer(fn), nbytes, stream_bw)
+        report(name, timer(fn), nbytes)
     for fmt, name in (("F", "F: N-paired nibbles (kernel_f)"),
                       ("G", "G: signed int4, two a byte (kernel_g)"),
                       ("H", "H: int8 plane (kernel_h)")):
         xb, qs, sc = device_tensors(fmt, x, q, s, dev)
         nbytes = qs.numel() + sc.numel() * 2
-        report(name, timer(lambda: probe_gemv(fmt, xb, qs, sc)), nbytes,
-               stream_bw)
+        report(name, timer(lambda: probe_gemv(fmt, xb, qs, sc)), nbytes)
     return 0
 
 

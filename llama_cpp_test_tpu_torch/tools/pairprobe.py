@@ -11,8 +11,12 @@ affine min into one f32 term per group:
     y    = x . w - xsum . fold                      fold [K/32, N] f32,
          xsum[m, g] = sum of x[m, k] over group g
 
-On a CUDA tensor `pairs_qmm` launches csrc/pairprobe.cu (pairs_gemv, an
-M = 8 GEMV); on a CPU tensor it runs the plain version. The entry point
+On a CUDA tensor `pairs_qmm` launches csrc/pairprobe.cu (pairs_gemv: the
+M = 8 GEMV body of csrc/probe_gemv.cuh, a producer warp's TMA ring of
+plane, scale and fold rows, mma.sync with the byte's two nibbles as the K
+pair of one A register times (s, s), the fold subtracted per group in f32,
+K split across a cluster; launch plan tools.probe_plan at a column tile of
+32 * cpl); on a CPU tensor it runs the plain version. The entry point
 checks the kernel against the float golden (`correctness_check`, as the
 JAX probe does), then times the port's K1 on a Q4_K-like [4096 -> 16384]
 weight against the pairs kernel at three block widths, with the 50 MB L2
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
-from . import HBM_BW, L2FlushedTimer, card
+from . import HBM_BW, L2FlushedTimer, card, probe_plan
 
 C, N = 4096, 16384
 GROUP = 32
@@ -69,13 +73,14 @@ def pairs_qmm(x: torch.Tensor, qs: torch.Tensor, sc: torch.Tensor,
         req(t.device == x.device and t.dtype == dt and t.is_contiguous()
             and tuple(t.shape) == (k // GROUP, n),
             f"pairs_gemv: {name} must be {dt} [{k // GROUP}, {n}]")
-    req(k % GROUP == 0 and n % (32 * cpl) == 0,
+    req(k > 0 and k % GROUP == 0 and n > 0 and n % (32 * cpl) == 0,
         f"pairs_gemv: unsupported K={k} N={n} cpl={cpl}")
     out = torch.empty((M, n), dtype=torch.float32, device=x.device)
-    fn = _cuda.bind("pairprobe", "pairs_gemv", "pipippipp")
+    plan = probe_plan("PAIRS", k, n, _cuda.sm_count(x.device), tile=32 * cpl)
+    fn = _cuda.bind("pairprobe", "pairs_gemv", "pipippipp" "iiiiii")
     _cuda.check(fn(x.data_ptr(), k, qs.data_ptr(), n, sc.data_ptr(),
                    fold.data_ptr(), cpl, out.data_ptr(),
-                   _cuda.stream_ptr(x.device)), "pairs_gemv")
+                   _cuda.stream_ptr(x.device), *plan.args()), "pairs_gemv")
     _cuda.LAUNCHES["pairs_qmm"] += 1
     return out
 

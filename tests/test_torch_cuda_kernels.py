@@ -27,7 +27,11 @@ of K1 and K4 (qmm_gemv.cuh) at K 5632 and 14336 for every row count 1-8
 and plane kind, at groups its tensor-core path does not take (8, 24,
 40), bit-equal on a second call, and K4's GEMV writing the zeros of dead
 tiles and pad rows into an output full of NaN, and the five probe kernels
-of the port's tools.
+of the port's tools (the probe GEMV of csrc/probe_gemv.cuh in every format
+and at each pairs block width, at the probes' shapes, at a K that is not a
+multiple of the stage rows and at the smallest N each wrapper takes;
+bit-equal on a second call; one kernel and no memset a call; the byte
+stream integer-exact).
 Gates are the JAX suites': qmm NMSE < 5e-5 against the float golden,
 attention and gmm NMSE < 2e-4, the probes NMSE < 1e-5 against their plain
 versions.
@@ -46,6 +50,7 @@ from llama_cpp_test_tpu_torch.ops import paged_attention as pa
 from llama_cpp_test_tpu_torch.ops import qmatmul
 from llama_cpp_test_tpu_torch.quant import repack
 from llama_cpp_test_tpu_torch.runtime import kv_cache
+from llama_cpp_test_tpu_torch import tools
 from llama_cpp_test_tpu_torch.tools import kbench, pairprobe
 from llama_cpp_test_tpu_torch.weights import qtensor_to_torch
 
@@ -744,8 +749,7 @@ def test_kbench_stream_matches_plain(cuda, rows):
     got = kbench.stream_colsum(x, a)
     ref = kbench.stream_colsum_plain(x, a)
     assert got.shape == ref.shape == (1, 128)
-    assert torch.equal(got, ref) if rows < 512 else \
-        nmse(ref.cpu(), got.cpu()) < 1e-12
+    assert torch.equal(got, ref)  # integer sums, exact in f32
 
 
 @pytest.mark.parametrize("cpl", pairprobe.BLOCK_CPL)
@@ -758,6 +762,82 @@ def test_pairs_gemv_matches_plain(cuda, cpl):
     ref = pairprobe.pairs_qmm_plain(x, qs, sc, fold)
     assert nmse(ref.cpu(), got.cpu()) < 1e-5, nmse(ref.cpu(), got.cpu())
     assert pairprobe.correctness_check(cuda)
+
+
+_PROBES = ["F", "G", "H", "pairs2", "pairs4", "pairs8"]
+
+
+@pytest.mark.parametrize("name", [*_PROBES, "E"])
+def test_probe_kernels_two_calls_are_bit_equal(cuda, name):
+    """The K split (the stream's slabs) meets in distributed shared memory
+    in a fixed order, with no atomics: the same inputs give the same bits."""
+    fn, _ = tools.probe_case(name, *tools.probe_shape(name), cuda, seed=7)
+    assert torch.equal(fn(), fn())
+
+
+@pytest.mark.parametrize("name", [*_PROBES, "E"])
+def test_probe_kernels_launch_once_without_memset(cuda, name):
+    """One call runs one kernel on the device and no memset."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn, _ = tools.probe_case(name, *tools.probe_shape(name), cuda)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [(ev.key, ev.count) for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA]
+    assert not any("memset" in k.lower() for k, _ in dev), dev
+    assert sum(c for k, c in dev if "memcpy" not in k.lower()) == 1, dev
+
+
+@pytest.mark.parametrize("name", _PROBES)
+@pytest.mark.parametrize("k", [2080, 2144])
+def test_probe_gemv_k_not_a_multiple_of_the_stage_rows(cuda, name, k):
+    """A split's last stage holds fewer rows than the TMA box brings."""
+    n = 1024 if name != "pairs8" else 2048
+    nbc = n // 2 if name in "FG" else n
+    fmt = "PAIRS" if name.startswith("pairs") else name
+    tile = 32 * int(name[5:]) if fmt == "PAIRS" else None
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tools.probe_plan(fmt, k, nbc, sms, tile=tile)
+    assert k % plan.stage_rows or k % plan.rows_per_split
+    fn, plain = tools.probe_case(name, k, n, cuda, seed=k)
+    got, ref = fn(), plain()
+    assert got.shape == ref.shape
+    assert nmse(ref.cpu(), got.cpu()) < 1e-5, nmse(ref.cpu(), got.cpu())
+
+
+@pytest.mark.parametrize("name,n", [("F", 256), ("G", 256), ("H", 128),
+                                    *[(f"pairs{c}", 32 * c)
+                                      for c in pairprobe.BLOCK_CPL]])
+def test_probe_gemv_smallest_n(cuda, name, n):
+    """The narrowest weight each wrapper takes: 128 byte columns for
+    kbench_gemv, one block of 32 * cpl columns for pairs_gemv."""
+    fn, plain = tools.probe_case(name, 512, n, cuda, seed=n)
+    got, ref = fn(), plain()
+    assert got.shape == ref.shape
+    assert nmse(ref.cpu(), got.cpu()) < 1e-5, nmse(ref.cpu(), got.cpu())
+
+
+@pytest.mark.parametrize("sms", [132, 16])
+def test_probe_smem_matches_the_kernel(cuda, sms):
+    """tools.probe_smem (which sizes the plan's ring) gives the bytes the C
+    launcher asks for, on every plan the CPU plan tests cover, and the C
+    entry refuses a plan whose splits leave one empty."""
+    import test_torch_probe_plan as tp
+
+    fn = _cuda.bind("kbench", "probe_smem_bytes", "iii" "iiiiii")
+    fmt_id = {"F": 0, "G": 1, "H": 2, "PAIRS": 3}
+    for fmt, k, nbc, tile in tp._CASES:
+        plan = tools.probe_plan(fmt, k, nbc, sms, tile=tile)
+        assert fn(fmt_id[fmt], k, nbc, *plan.args()) == \
+            tools.probe_smem(fmt, plan), (fmt, k, nbc, plan)
+    plan = tools.probe_plan("F", 2048, 512, sms)
+    bad = plan._replace(splits=plan.splits + 1)
+    assert fn(0, 2048, 512, *bad.args()) == -1
 
 
 # ---------------------------------------------------------------------------
@@ -835,6 +915,33 @@ def test_gemv_groups_the_tensor_core_path_does_not_take(cuda, kind, group,
         ref = qmatmul.plain_planes(x[:m], qt, rounding="fold")
         err = nmse(ref.reshape(got.shape).cpu(), got.cpu())
         assert err < 5e-5, (m, err)
+
+
+@pytest.mark.parametrize("m", [3, 8])
+def test_gemv_ring_slots_serve_one_row_group(cuda, m):
+    """An 8B lm head (int8, group 16) at 3-8 rows runs two row groups: the
+    plan's ring is a multiple of them, the kernel matches the plain version
+    on it, and the C entry refuses the same plan with one stage fewer (a
+    slot two row groups share, whose parity wait could pass early)."""
+    k, n, group = 4096, 129024, 16
+    qt = _random_planes("int8", k, n, group, False, cuda, seed=m)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = qmatmul.gemv_plan(k, group, qt.npk, "int8", m, sms)
+    assert plan.row_groups == 2 and plan.stages % 2 == 0, plan
+    x = _bf16(np.random.default_rng(m).standard_normal((m, k)), cuda)
+    got = qmatmul._qmm_planes_cuda(x, qt)
+    ref = qmatmul.plain_planes(x, qt)
+    assert nmse(ref.reshape(got.shape).cpu(), got.cpu()) < 5e-5
+    out = torch.empty_like(got)
+    fn = _cuda.bind("qmm", "qmm_gemv", "piipiipppipp" "iiiiiiii")
+    args = (x.data_ptr(), m, k, qt.qs.data_ptr(), qt.npk,
+            qmatmul._KIND_ID["int8"], qt.scale.data_ptr(), 0, 0, group,
+            out.data_ptr(), _cuda.stream_ptr(cuda))
+    assert fn(*args, *plan.args()) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    odd = plan._replace(stages=plan.stages - 1)
+    assert fn(*args, *odd.args()) != 0
 
 
 @pytest.mark.parametrize("m", [1, 2, 5, 8])

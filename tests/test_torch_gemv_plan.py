@@ -6,8 +6,8 @@ The plan is the only place the GEMV's launch is decided (the kernels check
 it with gemv_plan_ok and take any plan that passes), so these tests hold
 it to what the kernel needs at every projection the port serves: every K
 group walked by exactly one split, splits of whole groups, at most 8 CTAs
-a cluster, stage rows that hold whole groups or a whole share of one, and
-at least one block an SM wherever the columns and groups allow it.
+a cluster, stage rows that hold whole groups or a whole share of one, ring
+slots that each serve one row group, and at least one block an SM wherever the columns and groups allow it.
 """
 import numpy as np
 import pytest
@@ -93,6 +93,7 @@ def test_gemv_plan_covers_every_group(label, k, n, kind, group, has_min, m):
     assert kt % g == 0 or g % kt == 0
     assert plan.x_rows % kt == 0 and plan.x_rows >= kt
     assert 2 <= plan.stages <= 16 and plan.row_groups in (1, 2, 4)
+    assert plan.stages % plan.row_groups == 0
     assert kt <= qmatmul.GEMV_MAX_STAGE_ROWS
     # the tensor-core path: 16-row K steps within one group
     if plan.mma:
@@ -111,6 +112,29 @@ def test_gemv_plan_covers_every_group(label, k, n, kind, group, has_min, m):
     assert _smem_bytes(plan, kind, has_min, mt, g) <= SMEM_OPT_IN // 2
 
 
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("label,k,n,kind,group,has_min", _SERVED,
+                         ids=[s[0] for s in _SERVED])
+def test_gemv_plan_ring_slot_serves_one_row_group(label, k, n, kind, group,
+                                                  has_min, m):
+    """Row group r takes stages r, r + row_groups, ... and waits on its
+    slot's mbarrier by parity: where the slot's previous stage belonged to
+    another group and had not landed, the wait would pass two phases
+    early. So the ring's stages are a multiple of the row groups, at every
+    row count (the 8B lm heads at 3-8 rows had 5 stages over 2 groups),
+    and the ring still fits two blocks an SM."""
+    pack = repack.PACK[kind]
+    npk = -(-n // (256 * pack)) * 256
+    tiles = 2 if label.startswith("Mixtral") else 1
+    plan = qmatmul.gemv_plan(k, group, npk, kind, m, SMS, tiles=tiles,
+                             has_min=has_min)
+    assert plan.stages % plan.row_groups == 0, plan
+    assert plan.stages >= max(2, plan.row_groups)
+    g = qmatmul.GEMV_DENSE_GROUP if kind == "dense" else group
+    assert _smem_bytes(plan, kind, has_min, qmatmul._gemv_mt(m), g) \
+        <= SMEM_OPT_IN // 2
+
+
 @pytest.mark.parametrize("group", [1, 9, 24, 48, 96, 128, 768, 2304])
 def test_gemv_plan_takes_any_group_dividing_k(group):
     """Groups no GGUF type has (K4 and K1 took any group dividing K)."""
@@ -122,6 +146,7 @@ def test_gemv_plan_takes_any_group_dividing_k(group):
         assert (plan.splits - 1) * plan.rows_per_split < k
         kt = plan.stage_rows
         assert kt % group == 0 or group % kt == 0
+        assert plan.stages % plan.row_groups == 0
         assert _smem_bytes(plan, "u4", True, qmatmul._gemv_mt(m), group) \
             <= SMEM_OPT_IN
 
