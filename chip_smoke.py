@@ -60,6 +60,28 @@ non-zero before the final line:
            no memset and give the same bits twice); then both entry points
            (python -m llama_cpp_test_tpu_torch.tools.kbench / .pairprobe)
            run once in this process
+  cli      llama_cpp_test_tpu_torch.cli.main -m <TinyLlama file> -p <text>
+           -n 32 --temp 0, in this process on the serve phase's file (full
+           width and depth, its synthesized SPM vocabulary): the printed
+           text must equal the pieces of generate()'s greedy tokens, and K1,
+           K2 and K3 must launch
+  sched    the Scheduler on the TinyLlama file (bf16, then q8_0 KV) and on
+           serve_lowbit's Llama-3-8B Q2_K file (its synthesized Llama-3 BPE
+           vocabulary; the segmented candidate selector): eight requests of
+           16-512 prompt tokens and 64 new ones, four greedy and four seeded
+           (temp 0.8, top-k 40, top-p 0.95, min-p 0.05, repeat penalty 1.1),
+           windows of 16; every greedy token must equal a per-token decode()
+           replay at the same batches, a rerun must repeat every row, two
+           chained windows must run with no host sync (torch.cuda sync
+           debug mode "error") and no memset (torch.profiler); on TinyLlama
+           bf16 a request past n_ctx must finish through shift_context, a
+           shared prefix must be reused and a stop string must stop; prints
+           Scheduler.metrics() and the decode wall per token of windows
+           against per-token decode() at B = 1 and 8 beside the card
+
+Every file the serve phases write carries a synthesized tokenizer
+(write_llama_gguf's vocab: SPM for 32000 tokens, Llama-3's BPE layout for
+128256); nothing is downloaded.
 
 Before the last line it prints the kernels summary and the card's
 nvidia-smi name and power limit; the last line is
@@ -298,12 +320,128 @@ def expert_types(ftype: str, layer: int) -> tuple:
     return types["ffn_gate"], types["ffn_up"], types["ffn_down"]
 
 
+# common English words: the synthesized vocabularies hold them whole, so
+# text prompts tokenize into word pieces as well as into characters
+_WORDS = tuple("""the of and to in is that it for was on are with as his they
+be at one have this from or had by word but what some we can out other were
+all there when up use your how said an each she which do their time if will
+way about many then them write would like so these her long make thing see
+him two has look more day could go come did number sound no most people my
+over know water than call first who may down side been now find any new
+work part take get place made live where after back little only round man
+year came show every good me give our under name very through just form
+sentence great think say help low line differ turn cause much mean before
+move right boy old too same tell does set three want air well also play
+small end put home read hand port large spell add even land here must big
+high such follow act why ask men change went light kind off need house
+picture try us again animal point mother world near build self earth
+father""".split())
+# letter frequencies of English text (a..z), for the random pieces
+_LETTERS = "abcdefghijklmnopqrstuvwxyz"
+_LETTER_P = np.array([8.2, 1.5, 2.8, 4.3, 12.7, 2.2, 2.0, 6.1, 7.0, 0.15,
+                      0.77, 4.0, 2.4, 6.7, 7.5, 1.9, 0.095, 6.0, 6.3, 9.1,
+                      2.8, 0.98, 2.4, 0.15, 2.0, 0.074])
+
+
+def spm_vocab(n_vocab: int, seed: int) -> dict:
+    """Tokenizer metadata of an SPM vocab (tokenizer.ggml.model "llama",
+    TinyLlama's and Mixtral's kind) of n_vocab tokens: <unk>, <s>, </s>,
+    the 256 <0xNN> byte tokens, then pieces with descending scores: the
+    words of _WORDS with and without the '\u2581' space mark, printable
+    ASCII, then seeded letter strings of 2-8 letters by English letter
+    frequency."""
+    rng = np.random.default_rng(seed)
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [2, 3, 3] + [6] * 256
+    want = n_vocab - len(tokens)
+    pieces = dict.fromkeys(["\u2581" + w for w in _WORDS] + list(_WORDS) +
+                           ["\u2581"] + [chr(c) for c in range(33, 127)])
+    letters = np.array(list(_LETTERS))
+    while len(pieces) < want:
+        lens = rng.integers(2, 9, size=4096)
+        chars = rng.choice(letters, size=(4096, 8), p=_LETTER_P / _LETTER_P.sum())
+        marks = rng.random(4096) < 0.5
+        for n, row, mark in zip(lens, chars, marks):
+            pieces.setdefault(("\u2581" if mark else "") + "".join(row[:n]))
+    tokens += list(pieces)[:want]
+    scores = [0.0] * len(types) + [-float(i + 1) for i in range(want)]
+    types += [1] * want
+    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.scores": np.asarray(scores, np.float32),
+            "tokenizer.ggml.token_type": np.asarray(types, np.int32),
+            "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+            "tokenizer.ggml.unknown_token_id": 0,
+            "tokenizer.ggml.add_bos_token": True}
+
+
+def llama3_specials(n: int) -> list[str]:
+    """The n control tokens that follow Llama-3's regular vocabulary, in
+    its order."""
+    named = {0: "<|begin_of_text|>", 1: "<|end_of_text|>",
+             6: "<|start_header_id|>", 7: "<|end_header_id|>",
+             9: "<|eot_id|>"}
+    out, reserved = [], 0
+    for i in range(n):
+        if i in named:
+            out.append(named[i])
+        else:
+            out.append(f"<|reserved_special_token_{reserved}|>")
+            reserved += 1
+    return out
+
+
+def bpe_vocab(n_vocab: int, seed: int, n_special: int = 256) -> dict:
+    """Tokenizer metadata of a byte-level BPE vocab laid out as Llama-3's
+    (tokenizer.ggml.model "gpt2", pre "llama-bpe"): the 256 characters of
+    the GPT-2 byte alphabet, tokens made by seeded merges up to
+    n_vocab - n_special (first the merges that spell each word of _WORDS,
+    with and without the 'G-dot' space mark, then random ones: a token of
+    up to 11 characters and one byte character), then the n_special
+    control tokens; BOS and EOS are the first two of them."""
+    from llama_cpp_test_tpu_torch.tokenizer.bpe import bytes_to_unicode
+
+    rng = np.random.default_rng(seed)
+    b2u = bytes_to_unicode()
+    tokens = [b2u[b] for b in range(256)]
+    have = set(tokens)
+    merges = []
+    n_normal = n_vocab - n_special
+
+    def add(a, b):
+        if a + b not in have and len(tokens) < n_normal:
+            have.add(a + b)
+            tokens.append(a + b)
+            merges.append(f"{a} {b}")
+
+    for w in _WORDS:
+        for word in (w, b2u[32] + w):
+            for i in range(1, len(word)):
+                add(word[:i], word[i])
+    while len(tokens) < n_normal:
+        left = rng.integers(0, len(tokens), size=4096)
+        right = rng.integers(0, 256, size=4096)
+        for i, j in zip(left, right):
+            if len(tokens[i]) < 12:
+                add(tokens[i], tokens[j])
+    types = [1] * n_normal + [3] * n_special
+    return {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+            "tokenizer.ggml.tokens": tokens + llama3_specials(n_special),
+            "tokenizer.ggml.token_type": np.asarray(types, np.int32),
+            "tokenizer.ggml.merges": merges,
+            "tokenizer.ggml.bos_token_id": n_normal,
+            "tokenizer.ggml.eos_token_id": n_normal + 1,
+            "tokenizer.ggml.add_bos_token": True}
+
+
 def write_llama_gguf(path: str, hp: dict, seed: int,
-                     ftype: str = "Q4_K") -> None:
+                     ftype: str = "Q4_K", vocab: str | None = "auto") -> None:
     """A llama-arch GGUF of geometry hp from seeded random block bytes:
     matmul tensors by file_types(ftype) and F32 norms; with
     hp["n_expert"], Mixtral's layout as llama.cpp writes it: an F32 router
-    and expert stacks of expert_types(ftype, layer)."""
+    and expert stacks of expert_types(ftype, layer). vocab: the tokenizer
+    written beside them, "spm" (spm_vocab) or "bpe" (bpe_vocab); "auto"
+    takes "bpe" for Llama-3's 128256 tokens and "spm" for any other size;
+    None writes none."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -323,6 +461,10 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     if n_exp:
         meta.update({"llama.expert_count": n_exp,
                      "llama.expert_used_count": hp["n_expert_used"]})
+    if vocab == "auto":
+        vocab = "bpe" if v == 128256 else "spm"
+    if vocab is not None:
+        meta.update({"spm": spm_vocab, "bpe": bpe_vocab}[vocab](v, seed))
     for key, val in meta.items():
         w.add_kv(key, val)
 
@@ -1179,25 +1321,43 @@ def _kernels_vs_plain(model, prompt, contexts) -> tuple[dict, list]:
     return out, bad
 
 
+class Kept:
+    """Files the serve phases keep for the cli and sched phases: name ->
+    path, in a directory main makes and removes."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_kept_")
+        self.files: dict[str, str] = {}
+
+    def remove(self) -> None:
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
-           ftype="Q4_K", kinds=(), rows=None):
+           ftype="Q4_K", kinds=(), rows=None, keep=None):
     """Synthesize the GGUF, load it with Model(path) on cuda, serve every
     Context (KV type, qmm variant) with the launch counts zeroed just
     before and read just after, then hold the kernels against the plain
     path. path_kernels must launch over the phase; a "cache" Context must
     launch K5; every plane kind in `kinds` must reach K1. rows(model), if
-    given, runs after the checks (kernel rows on the loaded planes)."""
+    given, runs after the checks (kernel rows on the loaded planes). keep:
+    (Kept, name) to keep the file under (else it is removed once
+    loaded)."""
     from llama_cpp_test_tpu_torch.ops import _cuda
     from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        path = os.path.join(tmp, name.replace("/", "_") + ".gguf")
+        path = os.path.join(keep[0].dir if keep else tmp,
+                            name.replace("/", "_") + ".gguf")
         t0 = time.time()
         write_llama_gguf(path, hp, seed=seed, ftype=ftype)
         write_s = time.time() - t0
         model = Model(path, device="cuda")
-        os.remove(path)
+        if keep:
+            keep[0].files[keep[1]] = path
+        else:
+            os.remove(path)
         rng = np.random.default_rng(11)
         prompts = [rng.integers(3, hp["n_vocab"], size=n).tolist()
                    for n in (16, 130, 512)]
@@ -1250,9 +1410,9 @@ def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_serve(torch, profile: bool = False) -> dict:
+def phase_serve(torch, kept: Kept, profile: bool = False) -> dict:
     return _serve(torch, "serve", TINYLLAMA, 7, [("bf16", None)], 2,
-                  DENSE_PATH, profile)
+                  DENSE_PATH, profile, keep=(kept, "tinyllama"))
 
 
 def phase_serve_moe(torch, profile: bool = False) -> dict:
@@ -1301,7 +1461,7 @@ def phase_serve_iq4xs(torch, kc, profile: bool = False) -> dict:
                   rows=lambda model: _model_rows(kc, model, "70B"))
 
 
-def phase_serve_lowbit(torch, kc, profile: bool = False) -> dict:
+def phase_serve_lowbit(torch, kc, kept: Kept, profile: bool = False) -> dict:
     """The Q2_K and IQ1_S files, each served at the default variant and at
     "cache"; launches are summed over both files."""
     contexts = [("bf16", None), ("bf16", "cache")]
@@ -1311,7 +1471,8 @@ def phase_serve_lowbit(torch, kc, profile: bool = False) -> dict:
                       contexts, 8, DENSE_PATH + ("qmm_cache",), profile,
                       ftype=ftype, kinds=kinds,
                       rows=lambda model, f=ftype: _model_rows(
-                          kc, model, f"8B {f}", k5=k5))
+                          kc, model, f"8B {f}", k5=k5),
+                      keep=(kept, "8b_q2k") if ftype == "Q2_K" else None)
         for ftype, seed, kinds in (("Q2_K", 10, ("u2",)),
                                    ("IQ1_S", 12, ("u2lut", "u4lut")))}
     launches = {k: sum(f["launches"][k] for f in files.values())
@@ -1477,6 +1638,420 @@ def phase_probes(torch, kc, one_launch: dict) -> dict:
                            if k in PROBES}}
 
 
+# ---------------------------------------------------------------------------
+# serving through the CLI and the scheduler
+
+
+CLI_TEXT = ("The people of the world could find water in the little house, "
+            "and they said that the first man came back.")
+
+
+def phase_cli(torch, kept: Kept) -> dict:
+    """llama_cpp_test_tpu_torch.cli.main, run in this process on the kept
+    TinyLlama file (full width and depth) as a user runs it, greedy: its
+    standard output must be the prompt and then the pieces of the greedy
+    tokens of generate() on the same file (stopping where the CLI stops,
+    at an end-of-generation token, and without the last token's piece
+    when it stops by length, as the JAX CLI prints), and K1, K2 and K3
+    must launch."""
+    import io
+
+    from llama_cpp_test_tpu_torch.cli import main as cli
+    from llama_cpp_test_tpu_torch.ops import _cuda
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, Model, generate
+
+    path = kept.files["tinyllama"]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-m", path, "-p", CLI_TEXT, "-n", "32", "--temp", "0"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    model = Model(path, device="cuda")
+    tok = model.tokenizer
+    ids = tok.encode(CLI_TEXT, add_special=True, parse_special=True)
+    eog = {t for t in range(model.hp.n_vocab) if tok.vocab.is_eog(t)}
+    ctx = Context(model, n_ctx=2048, n_seq_max=1)
+    toks = list(generate(ctx, ids, 32, eos_ids=eog))
+    # as the JAX CLI: a request that ends by length does not print the
+    # piece of its last token (on_token prints while finished is None)
+    shown = toks[:-1] if len(toks) == 32 else toks
+    want = CLI_TEXT + "".join(tok.token_to_piece(t) for t in shown)
+    got = buf.getvalue()
+    out = {"phase": "cli", "rc": rc, "wall_s": wall, "prompt_tokens": len(ids),
+           "generated": len(toks), "stdout": got, "same_as_generate": got == want,
+           "launches": launches}
+    emit(out)
+    check(rc == 0, f"cli.main returned {rc}")
+    check(got == want, f"the CLI printed {got!r}, generate() gives {want!r}")
+    missing = [k for k in DENSE_PATH if launches[k] <= 0]
+    check(not missing, f"cli: kernels not launched: {missing} ({launches})")
+    return out
+
+
+SCHED_LENS = (16, 40, 64, 100, 128, 200, 300, 512)   # prompt tokens
+SCHED_NEW = 64                                      # tokens a request
+
+
+def _sched_prompts(tok, seed: int) -> list:
+    """Eight prompts of SCHED_LENS tokens: seeded word salad over _WORDS,
+    encoded by the model's tokenizer and cut."""
+    rng = np.random.default_rng(seed)
+    text = " ".join(rng.choice(_WORDS, 1200))
+    ids = tok.encode(text, add_special=True, parse_special=True)
+    check(len(ids) >= max(SCHED_LENS), f"word salad gave {len(ids)} tokens")
+    return [ids[:n] for n in SCHED_LENS]
+
+
+def _sched_params():
+    """Four greedy rows, then four seeded stochastic rows of the common
+    chain (device sampling takes every one of them)."""
+    from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
+
+    return [SamplerParams(temp=0.0)] * 4 + [
+        SamplerParams(temp=0.8, top_k=40, top_p=0.95, min_p=0.05,
+                      penalty_repeat=1.1, seed=100 + i) for i in range(4)]
+
+
+class _Recorder:
+    """Logs the engine calls a Scheduler makes on a Context (new_seq,
+    prefill, decode, the windows, truncate_seq), to replay them per token
+    at the same batches (_replay)."""
+
+    def __init__(self, ctx):
+        self.log = []
+        orig = {n: getattr(ctx, n) for n in (
+            "new_seq", "prefill", "decode", "decode_window_async",
+            "truncate_seq")}
+
+        def new_seq():
+            seq = orig["new_seq"]()
+            self.log.append(("new", seq.seq_id))
+            return seq
+
+        def prefill(seq, tokens, all_logits=False, top_k=0):
+            res = orig["prefill"](seq, tokens, all_logits, top_k)
+            first = int(res[1][0]) if top_k else None
+            self.log.append(("prefill", seq.seq_id, list(tokens), first))
+            return res
+
+        def decode(seqs, tokens, top_k=0):
+            res = orig["decode"](seqs, tokens, top_k)
+            nxt = res[1][:, 0] if top_k else res.argmax(-1)
+            self.log.append(("decode", [q.seq_id for q in seqs],
+                             [int(t) for t in tokens], nxt.tolist()))
+            return res
+
+        def window(seqs, tokens=None, samplers=None, n_steps=16, seed=0,
+                   histories=None, carry=None):
+            h = orig["decode_window_async"](seqs, tokens, samplers, n_steps,
+                                            seed, histories, carry)
+            fed = None if tokens is None else [int(t) for t in tokens]
+            self.log.append(("window", [q.seq_id for q in seqs], fed, carry,
+                             h))
+            return h
+
+        def truncate_seq(seq, n):
+            self.log.append(("truncate", seq.seq_id, n))
+            return orig["truncate_seq"](seq, n)
+
+        for n, f in (("new_seq", new_seq), ("prefill", prefill),
+                     ("decode", decode), ("decode_window_async", window),
+                     ("truncate_seq", truncate_seq)):
+            setattr(ctx, n, f)
+
+
+def _replay(ctx, log, greedy: set) -> dict:
+    """Replay a _Recorder log on a fresh Context with per-token decode()
+    steps over the same sequences in the same order (so the same padded
+    batches), feeding the tokens the scheduler fed; at every step a
+    greedy row's argmax must equal the token the scheduler took there.
+    A chained window the scheduler abandoned (never fetched) is skipped."""
+    seqs, out = {}, {"window_tokens": 0, "step_tokens": 0, "mismatches": []}
+
+    def compare(kind, sid, got, want):
+        if sid in greedy:
+            out["window_tokens" if kind == "window" else "step_tokens"] += 1
+            if got != want:
+                out["mismatches"].append((kind, sid, got, want))
+
+    for ev in log:
+        if ev[0] == "new":
+            seqs[ev[1]] = ctx.new_seq()
+        elif ev[0] == "prefill":
+            lg = ctx.prefill(seqs[ev[1]], ev[2])
+            if ev[3] is not None:
+                compare("prefill", ev[1], int(np.argmax(lg)), ev[3])
+        elif ev[0] == "decode":
+            lg = ctx.decode([seqs[i] for i in ev[1]], ev[2])
+            for i, sid in enumerate(ev[1]):
+                compare("decode", sid, int(np.argmax(lg[i])), ev[3][i])
+        elif ev[0] == "window":
+            _, sids, fed, carry, h = ev
+            if h._result is None:
+                continue
+            toks = h._result[:, h.rowmap]
+            cur = fed if fed is not None else \
+                carry._result[-1, carry.rowmap].tolist()
+            for j in range(toks.shape[0]):
+                lg = ctx.decode([seqs[i] for i in sids], cur)
+                for i, sid in enumerate(sids):
+                    compare("window", sid, int(np.argmax(lg[i])),
+                            int(toks[j, i]))
+                cur = toks[j].tolist()
+        else:
+            ctx.truncate_seq(seqs[ev[1]], ev[2])
+    return out
+
+
+def _drain(sched, max_steps: int = 5000) -> None:
+    """Scheduler.run with a bound: a request that can never be admitted
+    fails the phase instead of looping."""
+    for _ in range(max_steps):
+        if not sched.has_work():
+            return
+        sched.step()
+    raise SmokeFailure(f"the scheduler still had work after {max_steps} "
+                       f"steps: {sched.metrics()}")
+
+
+def _run_sched(model, kv, prompts, params, record=False):
+    """The eight requests through a fresh Context and Scheduler (8 slots,
+    windows of 16). Returns (scheduler, requests, recorder)."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+    from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, Scheduler
+
+    ctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16, kv_type=kv)
+    rec = _Recorder(ctx) if record else None
+    sched = Scheduler(ctx, n_slots=8, decode_window=16)
+    reqs = [sched.submit(GenRequest(prompt_tokens=p, max_tokens=SCHED_NEW,
+                                    sampling=sp, ignore_eos=True))
+            for p, sp in zip(prompts, params)]
+    _drain(sched)
+    return sched, reqs, rec
+
+
+def _window_clean(torch, model, kv, prompts, params) -> dict:
+    """Two chained decode_window_async calls of 16 steps over eight
+    prefilled sequences, dispatched with torch.cuda's sync debug mode set
+    to "error" (any synchronizing call raises) and under torch.profiler:
+    no host sync and no memset may occur, and the profiler must have seen
+    K1 and K3 run (a session that saw no device activity is run again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    ctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16, kv_type=kv)
+    for tries in range(1, PROFILER_TRIES + 1):
+        seqs = [ctx.new_seq() for _ in prompts]
+        first = [int(np.argmax(ctx.prefill(q, p)))
+                 for q, p in zip(seqs, prompts)]
+        torch.cuda.synchronize()
+        err = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                h = ctx.decode_window_async(seqs, first, params, 16)
+                h2 = ctx.decode_window_async(seqs, n_steps=16, carry=h)
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            err = str(e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(err is None, f"{kv}: a window synchronized with the host: {err}")
+        h.fetch()
+        h2.fetch()
+        for q in seqs:
+            ctx.free_seq(q)
+        dev = [(ev.key, int(ev.count)) for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    count = lambda key: sum(c for k, c in dev if key in k.lower())
+    out = {"host_syncs": 0, "memsets": count("memset"),
+           "qmm_gemv_kernels": count("qmm_gemv_kernel"),
+           "paged_decode_kernels": count("paged_decode_kernel"),
+           "device_kernels": sum(c for k, c in dev if "mem" not in k.lower()),
+           "profiler_sessions": tries}
+    check(out["memsets"] == 0, f"{kv}: memsets inside a window: {dev}")
+    check(out["qmm_gemv_kernels"] > 0 and out["paged_decode_kernels"] > 0,
+          f"{kv}: the profiler saw no K1/K3 in the windows: {dev}")
+    return out
+
+
+def _window_vs_per_token(torch, model, kv, prompts) -> dict:
+    """Decode wall per token at B = 1 and 8: 32 per-token decode() steps
+    (greedy on the host) against two chained decode_window(16) windows
+    (greedy on the device), each after the same prefills."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+    from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
+
+    out = {}
+    for b in (1, 8):
+        ctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16,
+                      kv_type=kv)
+        row = {}
+        for mode in ("per_token", "window"):
+            seqs = [ctx.new_seq() for _ in range(b)]
+            cur = [int(np.argmax(ctx.prefill(q, p)))
+                   for q, p in zip(seqs, prompts)]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            if mode == "per_token":
+                for _ in range(32):
+                    cur = [int(t) for t in ctx.decode(seqs, cur).argmax(-1)]
+            else:
+                h = ctx.decode_window_async(
+                    seqs, cur, [SamplerParams(temp=0.0)] * b, 16)
+                h2 = ctx.decode_window_async(seqs, n_steps=16, carry=h)
+                h.fetch()
+                h2.fetch()
+            torch.cuda.synchronize()
+            row[f"{mode}_ms_per_token"] = (time.time() - t0) * 1e3 / 32
+            for q in seqs:
+                ctx.free_seq(q)
+        out[f"B={b}"] = row
+    return out
+
+
+def _sched_edges(model, prompts) -> dict:
+    """One slot: a request that passes n_ctx (256) finishes through
+    shift_context; a second request sharing a 250-token prefix with the
+    first prefills fewer tokens; a stop string taken from a greedy run's
+    text ends the rerun early."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+    from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
+    from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, Scheduler
+
+    greedy = SamplerParams(temp=0.0)
+    ctx = Context(model, n_ctx=256, n_seq_max=2, block_size=16)
+    shifts = []
+    orig = ctx.shift_context
+    ctx.shift_context = lambda *a: (shifts.append(a), orig(*a))
+    sched = Scheduler(ctx, n_slots=1, decode_window=16)
+    long = sched.submit(GenRequest(prompt_tokens=prompts[6][:200],
+                                   max_tokens=96, sampling=_sched_params()[4],
+                                   ignore_eos=True))
+    _drain(sched)
+    out = {"shift": {"calls": [list(a[1:]) for a in shifts],
+                     "finish": long.finish_reason,
+                     "tokens": len(long.output_tokens)}}
+    check(shifts and long.finish_reason == "length" and
+          len(long.output_tokens) == 96,
+          f"a request past n_ctx: {out['shift']}")
+    ctx = Context(model, n_ctx=1024, n_seq_max=1, block_size=16)
+    sched = Scheduler(ctx, n_slots=1, decode_window=16)
+    base = prompts[6]
+    first = sched.submit(GenRequest(prompt_tokens=base, max_tokens=8,
+                                    sampling=greedy, ignore_eos=True))
+    _drain(sched)
+    n0 = sched.n_prompt_tokens
+    second = sched.submit(GenRequest(prompt_tokens=base[:250] + prompts[2],
+                                     max_tokens=8, sampling=greedy,
+                                     ignore_eos=True))
+    _drain(sched)
+    out["prefix"] = {"first_prefilled": n0,
+                     "second_prompt": len(second.prompt_tokens),
+                     "second_prefilled": sched.n_prompt_tokens - n0}
+    check(out["prefix"]["second_prefilled"] ==
+          len(second.prompt_tokens) - 250, f"prefix reuse: {out['prefix']}")
+    pieces = []
+    run = lambda stops: sched.submit(GenRequest(
+        prompt_tokens=prompts[3], max_tokens=24, sampling=greedy,
+        ignore_eos=True, stop_strings=stops,
+        on_token=lambda t, piece, fin: pieces.append(piece or "")))
+    free = run([])
+    _drain(sched)
+    stop = next((p for p in pieces[8:20] if p.strip()
+                 and "\ufffd" not in p), None)
+    check(stop is not None, f"no piece to stop on in {pieces}")
+    stopped = run([stop])
+    _drain(sched)
+    out["stop"] = {"string": stop, "free_tokens": len(free.output_tokens),
+                   "stopped_tokens": len(stopped.output_tokens),
+                   "finish": stopped.finish_reason}
+    check(stopped.finish_reason == "stop" and
+          len(stopped.output_tokens) < len(free.output_tokens),
+          f"stop string: {out['stop']}")
+    return out
+
+
+SCHED_RUNS = (("tinyllama", "bf16"), ("tinyllama", "q8_0"), ("8b_q2k", "bf16"))
+
+
+def phase_sched(torch, kept: Kept, nvidia_smi: str) -> dict:
+    """The Scheduler over the kept files: TinyLlama (bf16, then q8_0 KV)
+    and Llama-3-8B Q2_K (8 layers: its 128256-token vocab takes the
+    segmented candidate selector and the BPE tokenizer). Eight requests
+    of 16-512 prompt tokens and 64 new ones, four greedy and four seeded
+    stochastic, 8 slots, windows of 16. Checks: every greedy token equals
+    the per-token decode() replay at the same batches; a rerun gives every
+    row the same tokens; windows make no host sync and no memset; the
+    path's kernels launch. On TinyLlama bf16 also the shift, prefix-reuse
+    and stop-string requests (_sched_edges). Prints Scheduler.metrics()
+    and the window-versus-per-token decode reading with the card."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
+
+    models, runs, launches = {}, {}, dict.fromkeys(_cuda.LAUNCHES, 0)
+    for name, kv in SCHED_RUNS:
+        if name not in models:
+            models = {name: Model(kept.files[name], device="cuda")}
+        model = models[name]
+        prompts = _sched_prompts(model.tokenizer, 21)
+        params = _sched_params()
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.time()
+        sched, reqs, rec = _run_sched(model, kv, prompts, params, record=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        run_launches = dict(_cuda.LAUNCHES)
+        for k, v in run_launches.items():
+            launches[k] += v
+        first = [list(r.output_tokens) for r in reqs]
+        _, again, _ = _run_sched(model, kv, prompts, params)
+        rerun_same = [list(r.output_tokens) for r in again] == first
+        greedy = {ev[1] for ev in rec.log if ev[0] == "new"}
+        greedy = set(sorted(greedy)[:4])
+        rctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16,
+                       kv_type=kv)
+        replay = _replay(rctx, rec.log, greedy)
+        label = f"{name}/{kv}"
+        r = {"wall_s": wall, "metrics": sched.metrics(),
+             "finish": [q.finish_reason for q in reqs],
+             "tokens": [len(q.output_tokens) for q in reqs],
+             "rerun_same": rerun_same, "replay": replay,
+             "launches": run_launches,
+             "window": _window_clean(torch, model, kv, prompts, params),
+             "window_vs_per_token": _window_vs_per_token(
+                 torch, model, kv, prompts),
+             "card": nvidia_smi}
+        if label == "tinyllama/bf16":
+            r["edges"] = _sched_edges(model, prompts)
+        runs[label] = r
+        emit({"phase": "sched", "run": label, **r})
+        check(all(n == SCHED_NEW for n in r["tokens"]),
+              f"{label}: request lengths {r['tokens']}")
+        check(rerun_same, f"{label}: a rerun gave other tokens")
+        check(not replay["mismatches"] and replay["window_tokens"] > 0,
+              f"{label}: greedy tokens differ from the per-token replay: "
+              f"{replay}")
+        check(r["metrics"]["gen_tokens_fast_path"] > 0,
+              f"{label}: no token went through a window: {r['metrics']}")
+        # a prefill over q8_0 pools is the dequantizing gather (no K2),
+        # as in the reference
+        path = (("qmm_gemv", "qmm_gemm", "paged_decode_q8") if kv == "q8_0"
+                else DENSE_PATH)
+        missing = [k for k in path if run_launches[k] <= 0]
+        check(not missing, f"{label}: kernels not launched: {missing}")
+    return {"launches": launches, "runs": runs}
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
                  "paged_decode_merge_kernel",
@@ -1591,6 +2166,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    kept = Kept()
     try:
         dev = phase_device(torch)
         phase_build()
@@ -1601,16 +2177,21 @@ def main() -> int:
         probe_launches = one_launch_each(torch, _probe_calls(),
                                          "kernels", "probe launches")
         kc = KernelChecks(torch, timer, np.random.default_rng(4321))
-        serves = {"serve": phase_serve(torch, args.profile),
+        serves = {"serve": phase_serve(torch, kept, args.profile),
                   "serve_moe": phase_serve_moe(torch, args.profile),
                   "serve_iq4xs": phase_serve_iq4xs(torch, kc, args.profile),
-                  "serve_lowbit": phase_serve_lowbit(torch, kc, args.profile),
+                  "serve_lowbit": phase_serve_lowbit(torch, kc, kept,
+                                                     args.profile),
                   "serve_moe_lowbit": phase_serve_moe_lowbit(torch, kc,
                                                              args.profile),
                   "probes": phase_probes(torch, kc, probe_launches)}
+        serves["cli"] = phase_cli(torch, kept)
+        serves["sched"] = phase_sched(torch, kept, dev["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
+    finally:
+        kept.remove()
     rep["qmm_cache"] = serves["serve_lowbit"]["files"]["Q2_K"]["rows"][
         "gate|up K5 M=512"]
     rep.update(serves["probes"]["rows"])

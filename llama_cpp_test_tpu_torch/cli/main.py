@@ -1,0 +1,162 @@
+"""llama-cli analogue (reference examples/main/main.cpp): one-shot and
+interactive generation from a GGUF model, with the full sampler chain.
+
+Counterpart of llama_cpp_test_tpu/cli/main.py, the llama branch: the
+model runs on the CUDA device (main(argv, device=...) lets a caller pick
+another). The recurrent and encoder-decoder families, adapters, session
+files and tensor parallelism raise NotImplementedError until the port
+carries them (ROADMAP items 6, 9 and 13).
+
+Usage:
+  python -m llama_cpp_test_tpu_torch.cli.main -m model.gguf -p "prompt" -n 64
+  python -m llama_cpp_test_tpu_torch.cli.main -m model.gguf -i   # chat
+"""
+from __future__ import annotations
+
+import sys
+import time
+
+
+def build_parser():
+    """Flags come from the declarative registry (common/args.py) with env
+    mirrors; only llama-cli-specific extras are declared here."""
+    from ..common.args import Arg, build_parser as registry_parser
+
+    extras = [
+        Arg(("-p", "--prompt"), "prompt", str, "", "prompt text",
+            examples=("main",)),
+        Arg(("-f", "--file"), "file", str, None, "prompt from file",
+            examples=("main",)),
+        Arg(("-i", "--interactive"), "interactive", "store_true", False,
+            "interactive chat mode", examples=("main",)),
+        Arg(("--no-display-prompt",), "no_display_prompt", "store_true",
+            False, "", examples=("main",)),
+        Arg(("--verbose-prompt",), "verbose_prompt", "store_true", False,
+            "", examples=("main",)),
+        Arg(("-r", "--reverse-prompt"), "reverse_prompt", str, None,
+            "stop generation when this string appears (repeatable; "
+            "interactive mode returns control)", action="append",
+            examples=("main",)),
+        Arg(("--prompt-cache",), "prompt_cache", str, None,
+            "session file: restore the prompt's KV from it and update it "
+            "after the run (main.cpp:237-255)", examples=("main",)),
+        Arg(("--prompt-cache-all",), "prompt_cache_all", "store_true",
+            False, "also cache generated tokens in the session file",
+            examples=("main",)),
+        Arg(("--prompt-cache-ro",), "prompt_cache_ro", "store_true",
+            False, "use the session file but never update it",
+            examples=("main",)),
+    ]
+    return registry_parser("llama-cli (cuda)",
+                           examples=("main", "sampling"), extra=extras)
+
+
+# what the port does not carry yet, by ROADMAP item
+_FAMILIES = {"mamba": 9, "rwkv6": 9, "rwkv6qwen2": 9, "rwkv7": 9,
+             "arwkv7": 9, "t5": 9, "t5encoder": 9}
+
+
+def _refuse_unported(args, arch: str) -> None:
+    if arch in _FAMILIES:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported yet (ROADMAP item "
+            f"{_FAMILIES[arch]})")
+    if args.lora or args.lora_scaled:
+        raise NotImplementedError("--lora is not ported yet (ROADMAP item 6)")
+    if args.control_vector or args.control_vector_scaled:
+        raise NotImplementedError(
+            "--control-vector is not ported yet (ROADMAP item 6)")
+    if args.prompt_cache:
+        raise NotImplementedError(
+            "--prompt-cache (runtime/state.py) is not ported yet "
+            "(ROADMAP item 6)")
+    if args.tensor_parallel > 1:
+        raise NotImplementedError(
+            "-tp > 1 is not ported yet (ROADMAP item 13)")
+
+
+def main(argv=None, device=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from ..common.args import (parse_kv_overrides, rope_kv_overrides,
+                               sampler_params_from_args)
+    from ..gguf.reader import open_gguf
+    from ..runtime.engine import Context, Model
+    from ..runtime.scheduler import GenRequest, Scheduler
+
+    _refuse_unported(args, open_gguf(args.model).metadata.get(
+        "general.architecture"))
+    t0 = time.time()
+    overrides = parse_kv_overrides(getattr(args, "override_kv", None))
+    overrides.update(rope_kv_overrides(args))
+    model = Model(args.model, device=device, kv_overrides=overrides)
+    print(f"# model loaded in {time.time()-t0:.1f}s "
+          f"(arch={model.hp.arch}, n_layer={model.hp.n_layer}, "
+          f"n_vocab={model.hp.n_vocab}, device={model.device})",
+          file=sys.stderr)
+    if model.tokenizer is None:
+        print("error: model has no tokenizer", file=sys.stderr)
+        return 1
+
+    ctx = Context(model, n_ctx=args.ctx_size, n_seq_max=1,
+                  kv_type=args.cache_type_kv)
+    sched = Scheduler(ctx, n_slots=1, chunk_size=args.batch_size,
+                      ctx_shift=not args.no_context_shift)
+    # every 'sampling'-domain flag the parser accepts (incl. --grammar and
+    # --json-schema) reaches the chain through the shared helper
+    sp = sampler_params_from_args(args)
+
+    prompt = args.prompt
+    if args.file:
+        with open(args.file, encoding="utf-8") as f:
+            prompt = f.read()
+
+    def run_once(text: str) -> None:
+        toks = model.tokenizer.encode(text, add_special=True,
+                                      parse_special=True)
+        if args.verbose_prompt:
+            for t in toks:
+                print(f"{t:7d} -> {model.tokenizer.token_to_piece(t)!r}",
+                      file=sys.stderr)
+        t_start = time.time()
+
+        def on_token(tok, piece, finished):
+            if finished is None and piece:
+                sys.stdout.write(piece)
+                sys.stdout.flush()
+
+        req = GenRequest(prompt_tokens=toks, max_tokens=args.n_predict,
+                         sampling=sp, on_token=on_token,
+                         ignore_eos=args.ignore_eos, n_keep=args.keep,
+                         stop_strings=list(args.reverse_prompt or ()))
+        if not args.no_display_prompt:
+            sys.stdout.write(text)
+        sched.submit(req)
+        sched.run()
+        dt = time.time() - t_start
+        m = sched.metrics()
+        print(f"\n# {len(toks)} prompt + {len(req.output_tokens)} generated "
+              f"in {dt:.2f}s | prefill {m['prompt_tok_per_s']} t/s | "
+              f"decode {m['gen_tok_per_s']} t/s", file=sys.stderr)
+
+    if args.interactive:
+        print("== interactive mode; empty line or /exit quits ==",
+              file=sys.stderr)
+        while True:
+            try:
+                line = input("> ")
+            except (EOFError, KeyboardInterrupt):
+                break
+            if not line.strip() or line.strip() == "/exit":
+                break
+            run_once(line)
+    else:
+        if not prompt:
+            print("error: empty prompt (use -p or -f or -i)", file=sys.stderr)
+            return 1
+        run_once(prompt)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

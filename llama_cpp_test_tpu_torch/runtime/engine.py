@@ -2,33 +2,37 @@
 
 Counterpart of llama_cpp_test_tpu/runtime/engine.py (single device):
 
-  Model     — weights + hparams on a device (llama_model analogue)
+  Model     — weights + hparams + tokenizer on a device (llama_model)
   Context   — KV pools + block manager + per-sequence state (llama_context)
-  generate()— llama-cli style greedy/sampled loop
+  generate()— llama-cli style greedy/sampled loop with context shift
 
 PyTorch runs eagerly, so the reference's jitted step functions become the
-plain function `_forward`. Token counts are still padded to TOKEN_BUCKETS
-and decode batches to powers of two, as the reference does; these are the
-shapes a later CUDA-graph capture will use.
+plain function `_forward`, and its lax.scan decode windows a Python loop
+over device tensors that reaches the host only at WindowHandle.fetch().
+Token counts are still padded to TOKEN_BUCKETS and decode batches to
+powers of two, as the reference does; these are the shapes a later
+CUDA-graph capture will use.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Iterator, Sequence as Seq
+from typing import Any, Callable, Iterator, Sequence as Seq
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, upload
 from ..gguf.reader import open_gguf
 from ..models import hparams as hparams_mod
 from ..models import llama as llama_mod
 from ..models.hparams import HParams
 from ..models.llama import LlamaWeights, load_weights
+from ..tokenizer import load_tokenizer
 from ..weights import to_device
+from . import device_sampling as ds
 from . import kv_cache
-from .block_manager import BlockManager, SequenceBlockTable
+from .block_manager import BlockManager, HostSwapStore, SequenceBlockTable
 from .kv_cache import KVPools
 
 
@@ -44,11 +48,17 @@ TOKEN_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 
 def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
              rows, slots, kv_len, *, hp: HParams, decode: bool,
-             plain: bool = False) -> torch.Tensor:
+             plain: bool = False, rope_delta=None) -> torch.Tensor:
     """Embed, run all layers (writing KV in place), no final norm (lm_head
     applies it). rows/slots: flat token rows of the batch whose KV is kept
-    and their global slot ids. Returns hidden [B, T, C]."""
+    and their global slot ids. Returns hidden [B, T, C].
+
+    positions are cache-index positions (mask order); rope_delta [B] is an
+    optional per-row offset added for the RoPE rotation only, nonzero after
+    Self-Extend (SeqState.pos_offset)."""
     x = llama_mod.embed(w, tokens)
+    rope_pos = positions if rope_delta is None else \
+        positions + rope_delta[:, None]
     scale = hparams_mod.attn_scale_of(hp)
     cap = hp.attn_softcap
     for li, lw in enumerate(w.layers):
@@ -79,31 +89,51 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
                 q, pools.k[_li], pools.v[_li], block_table, positions, kv_len,
                 scale, _window, cap, plain=plain)
 
-        x = llama_mod.forward_layer(x, lw, hp, positions, w.rope_inv_freq,
+        x = llama_mod.forward_layer(x, lw, hp, rope_pos, w.rope_inv_freq,
                                     w.rope_mscale, attend, plain=plain)
     return x
 
 
 class Model:
-    """Loaded weights on a device (llama_model analogue). The tokenizer is
-    not ported yet: `tokenizer` is None and callers pass token ids."""
+    """Loaded weights + tokenizer on a device (llama_model analogue).
+
+    kv_overrides: metadata overrides applied before the hparams are read
+    (--override-kv); '*.' keys resolve to the model's arch."""
 
     def __init__(self, path: str, hp: HParams | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 kv_overrides: dict | None = None):
+        from ..common import log
+
         self.device = resolve_device(device)
         self.path = path
         t0 = time.time()
         self.reader = open_gguf(path)
+        if kv_overrides:
+            arch = self.reader.metadata.get("general.architecture", "llama")
+            for k, v in kv_overrides.items():
+                if k.startswith("*."):
+                    k = f"{arch}{k[1:]}"
+                log.info("kv override: %s = %r", k, v)
+                self.reader.metadata[k] = v
         self.hp, w = load_weights(self.reader, hp)
         self.weights = to_device(w, self.device)
         self.load_seconds = time.time() - t0
-        self.tokenizer = None
+        log.info("model %s: arch=%s n_layer=%d n_vocab=%d (load %.1fs)",
+                 path.rsplit("/", 1)[-1], self.hp.arch, self.hp.n_layer,
+                 self.hp.n_vocab, self.load_seconds)
+        # as the reference: a file whose tokenizer cannot be built serves
+        # token ids only (the CLI then refuses it)
+        try:
+            self.tokenizer = load_tokenizer(self.reader)
+        except Exception:
+            self.tokenizer = None
 
     @classmethod
     def from_weights(cls, hp: HParams, w: LlamaWeights,
                      device: str | torch.device | None = None) -> "Model":
         """A Model over host planes loaded elsewhere (weights.py converts
-        them), with no file behind it."""
+        them), with no file and no tokenizer behind it."""
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.path = None
@@ -125,6 +155,52 @@ class SeqState:
     tokens: list[int]
     table: SequenceBlockTable
     n_cached: int = 0  # tokens whose KV is in the pools
+    # RoPE position of the next token minus n_cached: 0 while positions are
+    # contiguous; Self-Extend makes it negative (llama_kv_cell.delta)
+    pos_offset: int = 0
+
+
+@dataclasses.dataclass
+class WindowHandle:
+    """An in-flight windowed decode (Context.decode_window_async).
+
+    Host sequence state (SeqState.tokens / n_cached) is applied at fetch()
+    time, not dispatch time: a CHAINED window's sampled tokens exist only on
+    the device until its predecessor is fetched. Fetch in chain order."""
+    seqs: list
+    n_steps: int
+    rowmap: np.ndarray              # caller order -> batch row
+    bsz: int
+    params: Any                     # DeviceSamplerParams (reused by chains)
+    keep: torch.Tensor              # [n_valid] valid batch rows, device
+    key: tuple[int, int]            # key_data of the window seed
+    pos0: np.ndarray                # [bsz] first decoded position
+    fed: list[int] | None = None    # fed token per seq (first window only)
+    prev: "WindowHandle | None" = None
+    toks_dev: Any = None            # [n_steps, bsz] device
+    hist_dev: Any = None            # [bsz, HIST_LEN] device
+    _result: np.ndarray | None = None
+
+    def fetch(self) -> np.ndarray:
+        """Sync this window's tokens to the host and apply sequence state.
+        Returns [n_steps, B] int32 in caller order."""
+        if self._result is None:
+            toks = self.toks_dev.cpu().numpy().astype(np.int32)
+            fed = self.fed
+            if fed is None:
+                if self.prev is None or self.prev._result is None:
+                    raise RuntimeError(
+                        "fetch a chained window only after its predecessor")
+                fed = [int(self.prev._result[-1, self.rowmap[i]])
+                       for i in range(len(self.seqs))]
+            for i, s in enumerate(self.seqs):
+                row = self.rowmap[i]
+                s.tokens.append(fed[i])
+                s.tokens.extend(int(t) for t in toks[:-1, row])
+                s.n_cached += self.n_steps
+            self._result = toks
+            self.prev = None  # release the chain
+        return self._result[:, self.rowmap]
 
 
 class Context:
@@ -139,18 +215,48 @@ class Context:
         self.model = model
         self.device = model.device
         self.w = model.weights
+        self.kv_type = kv_type
         self.n_ctx = n_ctx
         self.block_size = block_size
         self.plain = plain
+        # block-table width: enough blocks for n_ctx tokens (the reference
+        # floors n_ctx / block_size, which drops a sequence's last block
+        # from attention when block_size does not divide n_ctx; ROADMAP §3)
+        self.nbmax = -(-n_ctx // block_size)
         if num_blocks is None:
-            num_blocks = max(n_seq_max * (n_ctx // block_size), 8)
+            num_blocks = max(n_seq_max * self.nbmax, 8)
         self.num_blocks = num_blocks
-        self.mgr = BlockManager(num_blocks)
+        # host swap backing (swapBlocks): over-committed blocks move to the
+        # host instead of corrupting live sequences
+        store = HostSwapStore(self._read_block, self._write_block)
+        self.mgrs = [BlockManager(num_blocks, swap_store=store)]
         self.pools = kv_cache.new_kv_pools(model.hp, num_blocks, block_size,
                                            device=self.device, kv_type=kv_type)
         self.seqs: dict[int, SeqState] = {}
         self._next_id = 0
-        self.nbmax = n_ctx // block_size
+        # abort callback (ggml_abort_callback analogue): checked at every
+        # engine entry; a True return raises DecodeAborted (code 2)
+        self.abort_callback = None
+
+    def _check_abort(self) -> None:
+        if self.abort_callback is not None and self.abort_callback():
+            from .errors import DecodeAborted
+
+            raise DecodeAborted("decode aborted by callback")
+
+    @property
+    def mgr(self) -> BlockManager:
+        return self.mgrs[0]
+
+    # -- host swap data plane (HostSwapStore callbacks) -----------------------
+
+    def _read_block(self, blk: int) -> tuple:
+        """Device -> host copy of one physical block across all layers."""
+        return tuple(t.cpu() for t in kv_cache.gather_block(self.pools, blk))
+
+    def _write_block(self, data: tuple, blk: int) -> None:
+        """Host -> device restore of a swapped block."""
+        kv_cache.scatter_block(self.pools, data, blk)
 
     # -- sequence management ------------------------------------------------
 
@@ -165,6 +271,132 @@ class Context:
         s.table.release()
         self.seqs.pop(s.seq_id, None)
 
+    def fork_seq(self, s: SeqState) -> SeqState:
+        """COW fork (seq_cp analogue): the child shares s's blocks until
+        either writes to one, and keeps s's Self-Extend pos_offset (the
+        reference's fork leaves it at 0)."""
+        child = SeqState(self._next_id, list(s.tokens), s.table.fork(),
+                         s.n_cached, pos_offset=s.pos_offset)
+        self._next_id += 1
+        self.seqs[child.seq_id] = child
+        return child
+
+    # -- position edits on the live cache (K-shift) --------------------------
+
+    def _seq_slot(self, s: SeqState, i: int) -> int:
+        return s.table.blocks[i // self.block_size] * self.block_size + \
+            i % self.block_size
+
+    def _apply_shift(self, s: SeqState, src: list[int], dst: list[int],
+                     delta: list[int]) -> None:
+        s.table.ensure_resident()
+        # un-share any COW blocks first: the shift mutates pool data in place
+        for bi in range(len(s.table.blocks)):
+            s.table._ensure_writable(bi)
+        self._drain_copies([s])
+        with torch.inference_mode():
+            kv_cache.apply_shift(self.pools, self._to_dev(np.asarray(src)),
+                                 self._to_dev(np.asarray(dst)),
+                                 self._to_dev(np.asarray(delta, np.int32)),
+                                 self.w.rope_inv_freq)
+
+    def shift_context(self, s: SeqState, n_keep: int, n_discard: int) -> None:
+        """Context shift: drop tokens [n_keep, n_keep+n_discard), slide the
+        tail down and re-rotate its K by -n_discard (llama-cli: seq_rm +
+        seq_add(-n_discard) + K-shift)."""
+        n = s.n_cached
+        if n_discard <= 0 or n_keep + n_discard > n:
+            raise ValueError("shift_context: bad n_keep/n_discard")
+        s.table.ensure_resident()
+        src = [self._seq_slot(s, i) for i in range(n_keep + n_discard, n)]
+        dst = [self._seq_slot(s, i) for i in range(n_keep, n - n_discard)]
+        if src:
+            self._apply_shift(s, src, dst, [-n_discard] * len(src))
+        s.tokens = s.tokens[:n_keep] + s.tokens[n_keep + n_discard:]
+        s.n_cached = n - n_discard
+        s.table.truncate(s.n_cached)
+        # moved tokens keep their relative rope spacing, so pos_offset holds
+
+    def compact_reuse(self, s: SeqState, new_tokens: list[int],
+                      n_reuse_min: int, max_keep: int | None = None) -> int:
+        """Chunked prompt-cache reuse (the n_cache_reuse path): keep the
+        longest common prefix in place, K-shift interior cached chunks of >=
+        n_reuse_min matching tokens down to their new positions, discard the
+        rest. On return the cache holds new_tokens[:ret] at contiguous
+        positions; max_keep caps the kept prefix. Returns 0 after
+        self_extend."""
+        if s.pos_offset:
+            return 0
+        old = s.tokens
+        n_old = s.n_cached
+        limit = len(new_tokens) if max_keep is None else min(
+            max_keep, len(new_tokens))
+        lcp = 0
+        while lcp < min(n_old, limit) and old[lcp] == new_tokens[lcp]:
+            lcp += 1
+        head_c, head_p = lcp, lcp
+        src: list[int] = []
+        dst: list[int] = []
+        delta: list[int] = []
+        if n_reuse_min > 0 and head_c < n_old and head_p < limit:
+            s.table.ensure_resident()
+            while head_c < n_old and head_p < limit:
+                n_match = 0
+                while (head_c + n_match < n_old and
+                       head_p + n_match < limit and
+                       old[head_c + n_match] == new_tokens[head_p + n_match]):
+                    n_match += 1
+                if n_match >= n_reuse_min:
+                    if head_c != head_p:
+                        for t in range(n_match):
+                            src.append(self._seq_slot(s, head_c + t))
+                            dst.append(self._seq_slot(s, head_p + t))
+                            delta.append(head_p - head_c)
+                    head_c += n_match
+                    head_p += n_match
+                else:
+                    head_c += 1
+        total = head_p
+        if src:
+            self._apply_shift(s, src, dst, delta)
+        s.tokens = list(new_tokens[:total])
+        s.n_cached = total
+        s.table.truncate(total)
+        return total
+
+    def self_extend(self, s: SeqState, n_keep: int, group: int) -> None:
+        """Self-Extend grouped attention: compress cached rope positions
+        beyond n_keep by `group` (llama_kv_self_seq_add + seq_div). Slots
+        stay put; only K's rotation is re-based, and later tokens continue
+        from the compressed position through SeqState.pos_offset."""
+        n = s.n_cached
+        if group <= 1 or n_keep >= n:
+            return
+        s.table.ensure_resident()
+        off = s.pos_offset
+        src, delta = [], []
+        base = n_keep + off
+        last_new = base - 1
+        for i in range(n_keep, n):
+            old_p = i + off
+            new_p = base + (old_p - base) // group
+            last_new = new_p
+            if new_p != old_p:
+                src.append(self._seq_slot(s, i))
+                delta.append(new_p - old_p)
+        if src:
+            self._apply_shift(s, src, src, delta)
+        s.pos_offset = last_new + 1 - n
+
+    def truncate_seq(self, s: SeqState, n: int) -> None:
+        """Roll the sequence's cache back to n tokens (frees trailing
+        blocks): the windowed decode discards KV written past a stop."""
+        if n > s.n_cached:
+            raise ValueError("truncate_seq: n > n_cached")
+        s.table.truncate(n)
+        s.tokens = s.tokens[:n]
+        s.n_cached = n
+
     # -- steps ----------------------------------------------------------------
 
     def _table_arr(self, seqs: Seq[SeqState]) -> np.ndarray:
@@ -174,10 +406,23 @@ class Context:
             bt[i, : len(blocks)] = blocks
         return bt
 
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _drain_copies(self, seqs: Seq[SeqState]) -> None:
+        """Apply the COW copies the block tables queued, before any write
+        to the pools."""
+        copies = []
+        for s in seqs:
+            copies.extend(s.table.pending_copies)
+            s.table.pending_copies = []
+        if copies:
+            src, dst = np.asarray(copies, np.int64).T
+            with torch.inference_mode():
+                kv_cache.apply_copies(self.pools, self._to_dev(src),
+                                      self._to_dev(dst))
 
-    def _step(self, tok, pos, bt, slot_arr, kv_len, decode: bool):
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return upload(a, self.device)
+
+    def _step(self, tok, pos, bt, slot_arr, kv_len, decode: bool, rd=None):
         """Upload one step's host arrays and run the forward. Padding rows
         (slot -1) are dropped from the KV scatter here, on the host."""
         flat = slot_arr.reshape(-1)
@@ -186,24 +431,35 @@ class Context:
             self.w, self.pools, self._to_dev(tok), self._to_dev(pos),
             self._to_dev(bt), self._to_dev(keep.astype(np.int64)),
             self._to_dev(flat[keep].astype(np.int64)), self._to_dev(kv_len),
-            hp=self.model.hp, decode=decode, plain=self.plain)
+            hp=self.model.hp, decode=decode, plain=self.plain,
+            rope_delta=None if rd is None else self._to_dev(rd))
 
     def _check_room(self, s: SeqState, n: int) -> None:
         if s.n_cached + n > self.n_ctx:
             raise ValueError(
                 f"sequence {s.seq_id}: {s.n_cached} + {n} tokens exceed "
-                f"n_ctx={self.n_ctx} (context shift is not ported yet)")
+                f"n_ctx={self.n_ctx} (shift the context first)")
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return llama_mod.lm_head(self.w, self.model.hp, x, self.plain)
 
     def prefill(self, s: SeqState, tokens: list[int],
-                all_logits: bool = False) -> np.ndarray:
+                all_logits: bool = False, top_k: int = 0):
         """Append tokens to the sequence and run prefill. Returns last-token
-        logits [V] (or [T, V] when all_logits), float32 numpy."""
+        logits [V] (or [T, V] when all_logits), float32 numpy.
+
+        top_k > 0: return (vals [top_k], ids [top_k]) instead, the
+        candidate download that replaces the [V] logits transfer."""
+        self._check_abort()
+        if top_k > 0 and all_logits:
+            raise NotImplementedError("prefill(top_k=...) is last-position only")
         n = len(tokens)
         if n == 0:
             raise ValueError("prefill: empty token list")
         self._check_room(s, n)
         t0 = s.n_cached
         slots = s.table.append_tokens(n)
+        self._drain_copies([s])
         tb = _bucket(n, TOKEN_BUCKETS)
         if n > tb:
             raise ValueError(f"prefill: {n} tokens exceed the largest bucket")
@@ -215,27 +471,38 @@ class Context:
         slot_arr[0, :n] = slots
         bt = self._table_arr([s])
         kv_len = np.asarray([t0 + n], np.int32)
+        rd = np.asarray([s.pos_offset], np.int32) if s.pos_offset else None
+        if all_logits and rd is not None:
+            raise NotImplementedError("all_logits after self_extend")
         s.tokens.extend(tokens)
         s.n_cached += n
         with torch.inference_mode():
-            x = self._step(tok, pos, bt, slot_arr, kv_len, decode=False)
-            hp, plain = self.model.hp, self.plain
+            x = self._step(tok, pos, bt, slot_arr, kv_len, False, rd)
             if all_logits:
-                logits = llama_mod.lm_head(self.w, hp, x, plain)[0, :n]
-            else:
-                logits = llama_mod.lm_head(self.w, hp, x[:, n - 1:n],
-                                           plain)[0, 0]
-            return logits.float().cpu().numpy()
+                return self._logits(x)[0, :n].float().cpu().numpy()
+            logits = self._logits(x[:, n - 1:n])[0, 0].float()
+            if top_k > 0:
+                vals, ids = ds.top_k(logits[None], top_k)
+                return (vals[0].cpu().numpy(),
+                        ids[0].to(torch.int32).cpu().numpy())
+            return logits.cpu().numpy()
 
-    def decode(self, seqs: Seq[SeqState], tokens: Seq[int]) -> np.ndarray:
+    def _rows(self, b: int) -> int:
+        """Decode batch rows for b sequences: the next power of two (the
+        reference's LLAMA_TPU_DECODE_PAD minimum is 1 by default)."""
+        return 1 << (max(b, 1) - 1).bit_length()
+
+    def decode(self, seqs: Seq[SeqState], tokens: Seq[int], top_k: int = 0):
         """One decode step for a batch of sequences. Returns logits [B, V]
-        in the caller's order."""
+        in the caller's order; top_k > 0 returns (vals [B, top_k],
+        ids [B, top_k]) instead (the host chain's candidate download)."""
+        self._check_abort()
         b = len(seqs)
         for s in seqs:
             self._check_room(s, 1)
         slot_list = [s.table.append_tokens(1)[0] for s in seqs]
-        # pad the batch to a power of two, as the reference buckets it
-        bsz = 1 << (max(b, 1) - 1).bit_length()
+        self._drain_copies(seqs)
+        bsz = self._rows(b)
         tok = np.zeros((bsz, 1), np.int32)
         pos = np.zeros((bsz, 1), np.int32)
         slot_arr = np.full((bsz, 1), -1, np.int32)
@@ -247,20 +514,221 @@ class Context:
             pos[i, 0] = s.n_cached
             slot_arr[i, 0] = slot_list[i]
             kv_len[i] = s.n_cached + 1
+        rd = None
+        if any(s.pos_offset for s in seqs):
+            rd = np.zeros((bsz,), np.int32)
+            rd[:b] = [s.pos_offset for s in seqs]
         for s, t in zip(seqs, tokens):
             s.tokens.append(int(t))
             s.n_cached += 1
         with torch.inference_mode():
-            x = self._step(tok, pos, bt, slot_arr, kv_len, decode=True)
-            logits = llama_mod.lm_head(self.w, self.model.hp, x,
-                                       self.plain)[:b, 0]
-            return logits.float().cpu().numpy()
+            x = self._step(tok, pos, bt, slot_arr, kv_len, True, rd)
+            logits = self._logits(x)[:b, 0].float()
+            if top_k > 0:
+                vals, ids = ds.top_k(logits, top_k)
+                return vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy()
+            return logits.cpu().numpy()
+
+    def prefill_batch(self, seqs: Seq[SeqState],
+                      rows: Seq[list[int]]) -> list[np.ndarray]:
+        """Teacher-forced batched prefill returning ALL-position logits
+        [T_i, V] per sequence (ragged rows padded, sliced on return): the
+        batched verification pass of speculative decoding."""
+        self._check_abort()
+        b = len(seqs)
+        if any(s.pos_offset for s in seqs):
+            raise NotImplementedError("prefill_batch after self_extend")
+        lens = [len(r) for r in rows]
+        if min(lens) == 0:
+            raise ValueError("prefill_batch: empty token list")
+        for s, n in zip(seqs, lens):
+            self._check_room(s, n)
+        tb = _bucket(max(lens), TOKEN_BUCKETS)
+        slot_rows = [s.table.append_tokens(n) for s, n in zip(seqs, lens)]
+        self._drain_copies(seqs)
+        bsz = self._rows(b)
+        tok = np.zeros((bsz, tb), np.int32)
+        pos = np.zeros((bsz, tb), np.int32)
+        slot_arr = np.full((bsz, tb), -1, np.int32)
+        bt = np.zeros((bsz, self.nbmax), np.int32)
+        kv_len = np.ones((bsz,), np.int32)
+        bt[:b] = self._table_arr(seqs)
+        for i, s in enumerate(seqs):
+            n = lens[i]
+            tok[i, :n] = rows[i]
+            pos[i, :n] = np.arange(s.n_cached, s.n_cached + n)
+            slot_arr[i, :n] = slot_rows[i]
+            kv_len[i] = s.n_cached + n
+        for s, toks_i in zip(seqs, rows):
+            s.tokens.extend(toks_i)
+            s.n_cached += len(toks_i)
+        with torch.inference_mode():
+            x = self._step(tok, pos, bt, slot_arr, kv_len, False)
+            logits = self._logits(x).float().cpu().numpy()
+        return [logits[i, : lens[i]] for i in range(b)]
+
+    # -- windowed decode -------------------------------------------------------
+
+    def _window_rows(self, seqs: Seq[SeqState], n_steps: int
+                     ) -> tuple[int, np.ndarray]:
+        """Reserve n_steps tokens of blocks for every sequence and apply
+        the COW copies; return (batch rows, block tables [bsz, nbmax])."""
+        for s in seqs:
+            self._check_room(s, n_steps)
+            s.table.append_tokens(n_steps)
+        self._drain_copies(seqs)
+        bsz = self._rows(len(seqs))
+        bt = np.zeros((bsz, self.nbmax), np.int32)
+        bt[: len(seqs)] = self._table_arr(seqs)
+        return bsz, bt
+
+    def _window_loop(self, tok, pos, bt, keep, n_steps: int, pick):
+        """n_steps decode steps on device tensors, with no host sync: tok
+        [bsz] int32 fed tokens, pos [bsz] int32 their positions, bt
+        [bsz, nbmax] int32 block tables, keep [n] int64 the valid rows
+        (the others' KV writes drop). Slots come from the tables on the
+        device, as the reference's window body derives them. pick(logits
+        [bsz, V] f32, tok, pos) -> next tokens [bsz]. Returns the tokens
+        [n_steps, bsz] int64."""
+        bs = self.block_size
+        out = torch.empty((n_steps, tok.shape[0]), dtype=torch.int64,
+                          device=self.device)
+        kpos = None
+        for j in range(n_steps):
+            kpos = pos[keep].long()
+            slots = bt[keep, kpos // bs].long() * bs + kpos % bs
+            x = _forward(self.w, self.pools, tok[:, None], pos[:, None], bt,
+                         keep, slots, pos + 1, hp=self.model.hp, decode=True,
+                         plain=self.plain)
+            nxt = pick(self._logits(x)[:, 0].float(), tok, pos)
+            out[j] = nxt
+            tok, pos = nxt.to(torch.int32), pos + 1
+        return out
+
+    def decode_window_async(self, seqs: Seq[SeqState],
+                            tokens: Seq[int] | None = None,
+                            samplers: Seq[Any] | None = None,
+                            n_steps: int = 16, seed: int = 0,
+                            histories: Seq[list[int]] | None = None,
+                            carry: "WindowHandle | None" = None
+                            ) -> WindowHandle:
+        """Queue n_steps batched decode+sample steps on the device WITHOUT
+        waiting; handle.fetch() syncs and applies host state. Pass the
+        previous (unfetched) handle as `carry` to chain the next window on
+        the device: its fed tokens and penalty history are the previous
+        window's device tensors. A chained window speculates that no
+        sequence stops mid-window; callers roll back with truncate_seq."""
+        self._check_abort()
+        if any(s.pos_offset for s in seqs):
+            raise NotImplementedError("decode_window after self_extend")
+        bsz, bt = self._window_rows(seqs, n_steps)
+        if carry is not None:
+            if carry.seqs is not seqs and list(carry.seqs) != list(seqs):
+                raise ValueError("carry must cover the same sequences")
+            handle = WindowHandle(
+                seqs=list(seqs), n_steps=n_steps, rowmap=carry.rowmap,
+                bsz=carry.bsz, params=carry.params, keep=carry.keep,
+                key=carry.key, pos0=carry.pos0 + carry.n_steps, prev=carry)
+            tok0 = carry.toks_dev[-1].to(torch.int32)
+            hist0 = carry.hist_dev
+        else:
+            b = len(seqs)
+            tok0 = np.zeros((bsz,), np.int32)
+            pos0 = np.zeros((bsz,), np.int32)
+            tok0[:b] = tokens
+            pos0[:b] = [s.n_cached for s in seqs]
+            hist_rows = [list(s.tokens) if histories is None
+                         else list(histories[i]) for i, s in enumerate(seqs)]
+            from .sampling import SamplerParams
+
+            greedy = SamplerParams(temp=0.0)
+            params = ds.DeviceSamplerParams.from_rows(
+                [sp if sp is not None else greedy for sp in samplers], bsz,
+                self.device)
+            handle = WindowHandle(
+                seqs=list(seqs), n_steps=n_steps, rowmap=np.arange(b),
+                bsz=bsz, params=params,
+                keep=self._to_dev(np.arange(b, dtype=np.int64)),
+                key=ds.key_data(seed), pos0=pos0,
+                fed=[int(t) for t in tokens])
+            tok0 = self._to_dev(tok0)
+            hist0 = self._to_dev(ds.make_history(hist_rows, bsz))
+        hist = [hist0]
+
+        def pick(logits, tok, pos):
+            # per-row noise keyed on (key, row seed, position): fixed-seed
+            # requests reproduce regardless of window phase or co-batching
+            hist[0] = ds.push_history(hist[0], tok)
+            return ds.sample_tokens(logits, handle.params, hist[0],
+                                    handle.key, pos)
+
+        with torch.inference_mode():
+            handle.toks_dev = self._window_loop(
+                tok0, self._to_dev(handle.pos0), self._to_dev(bt),
+                handle.keep, n_steps, pick)
+        handle.hist_dev = hist[0]
+        return handle
+
+    def decode_window(self, seqs: Seq[SeqState], tokens: Seq[int],
+                      samplers: Seq[Any], n_steps: int, seed: int = 0,
+                      histories: Seq[list[int]] | None = None) -> np.ndarray:
+        """n_steps batched decode+sample steps with one sync at the end.
+
+        tokens[i] is sequence i's next input token; samplers[i] a
+        SamplerParams that device_sampling.eligible accepts (None: greedy).
+        histories[i] seeds row i's penalty ring (pass the GENERATED tokens
+        only to match the host SamplerChain; default s.tokens). Returns
+        [n_steps, B] int32. All n_steps tokens' KV but the last is cached on
+        return; callers that stop early truncate_seq back."""
+        return self.decode_window_async(
+            seqs, tokens, samplers, n_steps, seed, histories).fetch()
+
+    def draft_window(self, seqs: Seq[SeqState], tokens: Seq[int],
+                     n_steps: int) -> tuple[np.ndarray, np.ndarray]:
+        """Batched greedy proposal loop for speculative drafting: feeds
+        tokens[i] to sequence i and generates n_steps greedy successors with
+        one sync, returning ([n_steps, B] tokens, [n_steps, B] softmax
+        probability of each). All n_steps tokens' KV is cached; callers roll
+        back unaccepted tails with truncate_seq."""
+        self._check_abort()
+        b = len(seqs)
+        bsz, bt = self._window_rows(seqs, n_steps)
+        tok0 = np.zeros((bsz,), np.int32)
+        pos0 = np.zeros((bsz,), np.int32)
+        tok0[:b] = tokens
+        pos0[:b] = [s.n_cached for s in seqs]
+        probs = torch.empty((n_steps, bsz), dtype=torch.float32,
+                            device=self.device)
+        step = [0]
+
+        def pick(logits, tok, pos):
+            nxt = torch.argmax(logits, dim=-1)
+            lse = torch.logsumexp(logits, dim=-1)
+            probs[step[0]] = torch.exp(
+                torch.gather(logits, 1, nxt[:, None])[:, 0] - lse)
+            step[0] += 1
+            return nxt
+
+        with torch.inference_mode():
+            toks = self._window_loop(
+                self._to_dev(tok0), self._to_dev(pos0), self._to_dev(bt),
+                self._to_dev(np.arange(b, dtype=np.int64)), n_steps, pick)
+            toks = toks.cpu().numpy().astype(np.int32)
+            ps = probs.cpu().numpy()
+        for i, s in enumerate(seqs):
+            s.tokens.append(int(tokens[i]))
+            s.tokens.extend(int(t) for t in toks[:-1, i])
+            s.n_cached += n_steps
+        return toks[:, :b], ps[:, :b]
 
 
 def generate(ctx: Context, prompt_tokens: list[int], max_new_tokens: int,
              sampler: Callable[[np.ndarray], int] | None = None,
-             eos_ids: set[int] | None = None) -> Iterator[int]:
-    """llama-cli style generation loop (greedy by default)."""
+             eos_ids: set[int] | None = None,
+             n_keep: int = 0, ctx_shift: bool = True) -> Iterator[int]:
+    """llama-cli style generation loop (greedy by default), with context
+    shift past n_ctx: keep n_keep head tokens, discard half of the rest,
+    K-shift the tail down."""
     if sampler is None:
         sampler = lambda logits: int(np.argmax(logits))
     s = ctx.new_seq()
@@ -271,6 +739,9 @@ def generate(ctx: Context, prompt_tokens: list[int], max_new_tokens: int,
             if eos_ids and tok in eos_ids:
                 break
             yield tok
+            if ctx_shift and s.n_cached + 1 >= ctx.n_ctx:
+                nk = min(n_keep, s.n_cached - 2)
+                ctx.shift_context(s, nk, max((s.n_cached - nk) // 2, 1))
             logits = ctx.decode([s], [tok])[0]
     finally:
         ctx.free_seq(s)

@@ -9,6 +9,11 @@ pools.
   per-slot f32 scales in k_scale / v_scale [n_kv_heads, num_blocks,
   block_size] (absmax/127 per (head, token) slot, as the reference has it).
 
+The cache edits the engine's sequence operations need: COW block copies
+(copy_blocks / apply_copies), one block's bytes out to the host and back
+(gather_block / scatter_block, the host swap) and the K-shift that moves
+cached tokens and re-rotates their K (apply_shift).
+
 Writes scatter into the pools IN PLACE (the reference returns new arrays;
 PyTorch updates the tensors it holds, which saves a copy of every pool per
 step). Slot id = block * block_size + offset; the engine drops padding
@@ -110,6 +115,78 @@ def gather_kv_q8(pool: torch.Tensor, pool_scale: torch.Tensor,
     deq = pool[:, idx].float() * pool_scale[:, idx][..., None]
     b = idx.shape[0]
     return deq.reshape(kv, b, -1, d).permute(1, 2, 0, 3).to(torch.bfloat16)
+
+
+def copy_blocks(pool: torch.Tensor, src: torch.Tensor,
+                dst: torch.Tensor) -> None:
+    """COW resolution, in place: pool[:, dst] = pool[:, src]
+    (copyBlocks analogue). src/dst: [n_copies] block ids."""
+    pool[:, dst] = pool[:, src]
+
+
+def _pool_lists(pools: KVPools) -> list[list[torch.Tensor]]:
+    lists = [pools.k, pools.v]
+    if pools.quantized:
+        lists += [pools.k_scale, pools.v_scale]
+    return lists
+
+
+def apply_copies(pools: KVPools, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """copy_blocks on every layer's K and V pool (and their q8_0 scales)."""
+    for plist in _pool_lists(pools):
+        for p in plist:
+            copy_blocks(p, src, dst)
+
+
+def gather_block(pools: KVPools, blk: int) -> tuple:
+    """One physical block across all layers -> stacked tensors for host
+    swap (swapBlocks swap-out): (k [L, KV, BS, D], v [L, KV, BS, D]
+    [, k_scale [L, KV, BS], v_scale [L, KV, BS]])."""
+    return tuple(torch.stack([p[:, blk] for p in plist])
+                 for plist in _pool_lists(pools))
+
+
+def scatter_block(pools: KVPools, data: tuple, blk: int) -> None:
+    """Swap-in, in place: write a gather_block payload into block blk."""
+    for plist, stacked in zip(_pool_lists(pools), data):
+        for li, p in enumerate(plist):
+            p[:, blk] = stacked[li].to(p.device)
+
+
+def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
+                delta: torch.Tensor, inv_freq: torch.Tensor) -> None:
+    """Move cached tokens between slots, re-rotating K by a per-token
+    position delta, in place (the K-shift of context shift, prompt-cache
+    reuse and Self-Extend; reference kv_cache.apply_shift).
+
+    src/dst/delta: [n] slot ids and rope deltas. RoPE rotations add, so
+    rotating the stored (already roped) K by delta re-bases it to position
+    p + delta. The rotation is unscaled on purpose: stored K already
+    carries mscale from its first rope. V moves without rotation. A q8_0
+    pool is dequantized, rotated and requantized in the reference's op
+    order; every read happens before any write."""
+    kv, nb, bs, d = pools.k[0].shape
+    for li in range(len(pools.k)):
+        kflat = pools.k[li].view(kv, nb * bs, d)
+        vflat = pools.v[li].view(kv, nb * bs, d)
+        kg = kflat[:, src].float()                       # [KV, n, D]
+        if pools.quantized:
+            ksflat = pools.k_scale[li].view(kv, nb * bs)
+            vsflat = pools.v_scale[li].view(kv, nb * bs)
+            kg = kg * ksflat[:, src, None]               # dequantize
+        kg = kg.transpose(0, 1)[None]                    # [1, n, KV, D]
+        kg = layers.apply_rope(kg, delta[None], inv_freq, 1.0)
+        kg = kg[0].transpose(0, 1)
+        vg = vflat[:, src]
+        if pools.quantized:
+            kq, ksc = quantize_q8(kg)                    # requantize K
+            vsc = vsflat[:, src]
+            kflat[:, dst] = kq
+            ksflat[:, dst] = ksc
+            vsflat[:, dst] = vsc
+        else:
+            kflat[:, dst] = kg.to(kflat.dtype)
+        vflat[:, dst] = vg
 
 
 def gather_kv(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:

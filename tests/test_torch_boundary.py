@@ -1,8 +1,10 @@
 """Import boundary and device rules of the port (llama_cpp_test_tpu_torch):
 it loads no JAX, nothing of the JAX package and no ml_dtypes, on the dense
-path, on the MoE + q8_0-KV path, on an IQ4_XS file and in its kernel
-probes (which load nothing of the JAX package's tools/ either), and asking
-for CUDA where there is none raises instead of running on the CPU."""
+path, on the MoE + q8_0-KV path, on an IQ4_XS file, in its kernel probes
+(which load nothing of the JAX package's tools/ either) and through the
+CLI, the scheduler, device sampling and the tokenizers (which load no
+`regex` either), and asking for CUDA where there is none raises instead
+of running on the CPU."""
 import json
 import os
 import subprocess
@@ -129,3 +131,53 @@ def test_cuda_device_raises_without_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+_SERVE = r"""
+import io, json, sys
+from contextlib import redirect_stdout
+sys.path.insert(0, sys.argv[1])
+from llama_cpp_test_tpu_torch.cli.main import main
+from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
+from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
+from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, Scheduler
+from llama_cpp_test_tpu_torch.tokenizer import load_tokenizer
+buf = io.StringIO()
+with redirect_stdout(buf):
+    rc = main(["-m", sys.argv[2], "-p", "hello", "-n", "4", "--temp", "0",
+               "--json-schema", '{"type": "integer"}'], device="cpu")
+m = Model(sys.argv[2], device="cpu")
+sched = Scheduler(Context(m, n_ctx=64, n_seq_max=2, block_size=8), n_slots=2)
+reqs = [sched.submit(GenRequest([3, 17, 42], max_tokens=6, ignore_eos=True,
+                                sampling=SamplerParams(seed=i)))
+        for i in range(2)]
+sched.run()
+bpe = load_tokenizer({"tokenizer.ggml.model": "gpt2",
+                      "tokenizer.ggml.pre": "llama-bpe",
+                      "tokenizer.ggml.tokens": ["a", "b", "ab"],
+                      "tokenizer.ggml.merges": ["a b"]})
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "llama_cpp_test_tpu", "ml_dtypes", "regex")
+             or k.startswith(("jax.", "jaxlib", "ml_dtypes.",
+                              "llama_cpp_test_tpu.", "regex.")))
+print(json.dumps({"rc": rc, "text": buf.getvalue(),
+                  "tokens": [len(r.output_tokens) for r in reqs],
+                  "bpe": bpe.encode("ab", add_special=False), "bad": bad}))
+"""
+
+
+def test_serving_path_imports_no_jax_reference_ml_dtypes_or_regex(tmp_path):
+    """The CLI (with a JSON-schema grammar), the scheduler's windows over
+    device sampling and a BPE tokenizer run without loading JAX, the JAX
+    package, ml_dtypes or regex."""
+    path = str(tmp_path / "tiny.gguf")
+    make_tiny_gguf(path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _SERVE, ROOT, path], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert res["rc"] == 0 and res["text"].startswith("hello")
+    assert res["tokens"] == [6, 6] and res["bpe"] == [2]

@@ -1,0 +1,87 @@
+"""The port's llama-cli (llama_cpp_test_tpu_torch/cli/main.py, the llama
+branch) against the JAX CLI: the same argv on the tiny fixture prints the
+same text, greedy (the JAX engine jitted) and seeded (the JAX engine op
+by op, whose bf16 roundings the port keeps); what the port does not carry
+yet raises NotImplementedError instead of running something else."""
+import contextlib
+import io
+import sys
+
+import jax
+import pytest
+
+from test_engine import make_tiny_gguf
+
+from llama_cpp_test_tpu.cli.main import main as jmain
+from llama_cpp_test_tpu_torch.cli.main import main as pmain
+from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
+
+
+@pytest.fixture(scope="module")
+def model_path(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("cli") / "tiny.gguf")
+    make_tiny_gguf(path)
+    return path
+
+
+def run(main, argv, **kw):
+    old = sys.stdout
+    sys.stdout = io.StringIO()
+    try:
+        rc = main(argv, **kw)
+        return rc, sys.stdout.getvalue()
+    finally:
+        sys.stdout = old
+
+
+@pytest.mark.parametrize("extra,op_by_op", [
+    (["--temp", "0"], False),
+    (["--temp", "0", "-ctk", "q8_0", "-r", "ab"], False),
+    # past n_ctx: the jitted JAX K-shift rounds the re-rotated K otherwise
+    (["--temp", "0", "-c", "32", "--keep", "2", "-n", "24"], True),
+])
+def test_greedy_text_matches_reference(model_path, extra, op_by_op):
+    argv = ["-m", model_path, "-p", "hello world", "-n", "14"] + extra
+    with jax.disable_jit() if op_by_op else contextlib.nullcontext():
+        want = run(jmain, argv)
+    got = run(pmain, argv, device="cpu")
+    assert got == want and got[0] == 0
+    assert got[1].startswith("hello world")
+
+
+def test_seeded_text_matches_reference_op_by_op(model_path):
+    argv = ["-m", model_path, "-p", "the world", "-n", "6", "--temp", "0.8",
+            "--seed", "5", "--repeat-penalty", "1.2"]
+    with jax.disable_jit():
+        want = run(jmain, argv)
+    assert run(pmain, argv, device="cpu") == want
+
+
+def test_empty_prompt_errors(model_path):
+    assert run(pmain, ["-m", model_path, "-n", "4"], device="cpu")[0] == 1
+
+
+@pytest.mark.parametrize("flags", [
+    ["--lora", "a.gguf"], ["--control-vector", "c.gguf"],
+    ["--prompt-cache", "s.bin"], ["-tp", "2"]])
+def test_unported_options_raise(model_path, flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+        run(pmain, ["-m", model_path, "-p", "hi", "-n", "2"] + flags,
+            device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["mamba", "rwkv6", "rwkv7", "t5"])
+def test_other_families_raise(tmp_path, arch):
+    path = str(tmp_path / f"{arch}.gguf")
+    GGUFWriter(path, arch=arch).write()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        run(pmain, ["-m", path, "-p", "hi", "-n", "2"], device="cpu")
+
+
+def test_default_device_is_cuda(model_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(pmain, ["-m", model_path, "-p", "hi", "-n", "2"])
