@@ -78,6 +78,32 @@ non-zero before the final line:
            shared prefix must be reused and a stop string must stop; prints
            Scheduler.metrics() and the decode wall per token of windows
            against per-token decode() at B = 1 and 8 beside the card
+  server   the OpenAI-compatible server (llama_cpp_test_tpu_torch.server
+           .app.LlamaServer) on the TinyLlama file and its zephyr chat
+           template, over HTTP on 127.0.0.1 (aiohttp.test_utils.TestServer;
+           the phase fails without aiohttp), the launch counts zeroed just
+           before each request and read just after it: three greedy
+           /completion requests (16, 130, 512 prompt tokens) equal
+           generate() and their streamed pieces; the sched phase's eight
+           requests streamed at once, a rerun repeating every row and the
+           greedy rows equal to a per-token replay at the same batches; a
+           chat reply equal to
+           generate() on apply_chat_template's prompt; /v1/embeddings at
+           16, 130 and 512 tokens (unit norm, within the logits gate of a
+           plain Context, causal and not, K1's GEMM and K2 launched);
+           /rerank; a request without the API key refused 401; an embed on
+           another thread and a slot erase between two chained windows
+           leaving a request's tokens unchanged; a 512-token slot saved,
+           erased and restored at bf16 and q8_0 KV continuing with the same
+           32 tokens; -md speculative serving with the file as its own
+           draft and with a 4-layer draft of another seed, at one slot and
+           at four, every emitted token the argmax of its verification row,
+           every verification row within the logits gate of the plain
+           server's logits replayed at its batch rows, greedy tokens equal
+           to the plain server's (or a first difference within the two
+           paths' logit difference) and the draft blocks freed. Prints the
+           client's time to first token, tok/s, embed ms, save and restore
+           ms and bytes, accept rates beside the card
 
 Every file the serve phases write carries a synthesized tokenizer
 (write_llama_gguf's vocab: SPM for 32000 tokens, Llama-3's BPE layout for
@@ -172,6 +198,17 @@ TPU_KERNELS = {
     "pairs_qmm": ("llama_cpp_test_tpu_torch/csrc/pairprobe.cu",
                   "tools/pairprobe.py:42"),
 }
+# TinyLlama-1.1B-Chat-v1.0's published (zephyr-style) tokenizer.chat_template
+ZEPHYR = (
+    "{% for message in messages %}\n{% if message['role'] == 'user' %}\n"
+    "{{ '<|user|>\\n' + message['content'] + eos_token }}\n"
+    "{% elif message['role'] == 'system' %}\n"
+    "{{ '<|system|>\\n' + message['content'] + eos_token }}\n"
+    "{% elif message['role'] == 'assistant' %}\n"
+    "{{ '<|assistant|>\\n'  + message['content'] + eos_token }}\n"
+    "{% endif %}\n{% if loop.last and add_generation_prompt %}\n"
+    "{{ '<|assistant|>' }}\n{% endif %}\n{% endfor %}")
+
 # the kernels each serving path must launch
 DENSE_PATH = ("qmm_gemv", "qmm_gemm", "flash_prefill", "paged_decode")
 MOE_BF16_PATH = DENSE_PATH + ("gmm_gemv", "gmm_gemm")   # bf16 KV only
@@ -434,14 +471,17 @@ def bpe_vocab(n_vocab: int, seed: int, n_special: int = 256) -> dict:
 
 
 def write_llama_gguf(path: str, hp: dict, seed: int,
-                     ftype: str = "Q4_K", vocab: str | None = "auto") -> None:
+                     ftype: str = "Q4_K", vocab: str | None = "auto",
+                     vocab_seed: int | None = None,
+                     chat_template: str | None = None) -> None:
     """A llama-arch GGUF of geometry hp from seeded random block bytes:
     matmul tensors by file_types(ftype) and F32 norms; with
     hp["n_expert"], Mixtral's layout as llama.cpp writes it: an F32 router
     and expert stacks of expert_types(ftype, layer). vocab: the tokenizer
-    written beside them, "spm" (spm_vocab) or "bpe" (bpe_vocab); "auto"
-    takes "bpe" for Llama-3's 128256 tokens and "spm" for any other size;
-    None writes none."""
+    written beside them (from vocab_seed, default seed), "spm" (spm_vocab)
+    or "bpe" (bpe_vocab); "auto" takes "bpe" for Llama-3's 128256 tokens
+    and "spm" for any other size; None writes none. chat_template: the
+    tokenizer.chat_template written with it."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -464,7 +504,10 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     if vocab == "auto":
         vocab = "bpe" if v == 128256 else "spm"
     if vocab is not None:
-        meta.update({"spm": spm_vocab, "bpe": bpe_vocab}[vocab](v, seed))
+        meta.update({"spm": spm_vocab, "bpe": bpe_vocab}[vocab](
+            v, seed if vocab_seed is None else vocab_seed))
+    if chat_template is not None:
+        meta["tokenizer.chat_template"] = chat_template
     for key, val in meta.items():
         w.add_kv(key, val)
 
@@ -1334,7 +1377,7 @@ class Kept:
 
 
 def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
-           ftype="Q4_K", kinds=(), rows=None, keep=None):
+           ftype="Q4_K", kinds=(), rows=None, keep=None, chat_template=None):
     """Synthesize the GGUF, load it with Model(path) on cuda, serve every
     Context (KV type, qmm variant) with the launch counts zeroed just
     before and read just after, then hold the kernels against the plain
@@ -1351,7 +1394,8 @@ def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
         path = os.path.join(keep[0].dir if keep else tmp,
                             name.replace("/", "_") + ".gguf")
         t0 = time.time()
-        write_llama_gguf(path, hp, seed=seed, ftype=ftype)
+        write_llama_gguf(path, hp, seed=seed, ftype=ftype,
+                         chat_template=chat_template)
         write_s = time.time() - t0
         model = Model(path, device="cuda")
         if keep:
@@ -1412,7 +1456,8 @@ def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
 
 def phase_serve(torch, kept: Kept, profile: bool = False) -> dict:
     return _serve(torch, "serve", TINYLLAMA, 7, [("bf16", None)], 2,
-                  DENSE_PATH, profile, keep=(kept, "tinyllama"))
+                  DENSE_PATH, profile, keep=(kept, "tinyllama"),
+                  chat_template=ZEPHYR)
 
 
 def phase_serve_moe(torch, profile: bool = False) -> dict:
@@ -1718,14 +1763,15 @@ def _sched_params():
 
 class _Recorder:
     """Logs the engine calls a Scheduler makes on a Context (new_seq,
-    prefill, decode, the windows, truncate_seq), to replay them per token
-    at the same batches (_replay)."""
+    prefill, decode, the windows, truncate_seq, free_seq), to replay them
+    per token at the same batches (_replay)."""
+
+    NAMES = ("new_seq", "prefill", "decode", "decode_window_async",
+             "truncate_seq", "free_seq")
 
     def __init__(self, ctx):
-        self.log = []
-        orig = {n: getattr(ctx, n) for n in (
-            "new_seq", "prefill", "decode", "decode_window_async",
-            "truncate_seq")}
+        self.log, self.ctx = [], ctx
+        orig = {n: getattr(ctx, n) for n in self.NAMES}
 
         def new_seq():
             seq = orig["new_seq"]()
@@ -1758,25 +1804,37 @@ class _Recorder:
             self.log.append(("truncate", seq.seq_id, n))
             return orig["truncate_seq"](seq, n)
 
-        for n, f in (("new_seq", new_seq), ("prefill", prefill),
-                     ("decode", decode), ("decode_window_async", window),
-                     ("truncate_seq", truncate_seq)):
+        def free_seq(seq):
+            self.log.append(("free", seq.seq_id))
+            return orig["free_seq"](seq)
+
+        for n, f in zip(self.NAMES, (new_seq, prefill, decode, window,
+                                     truncate_seq, free_seq)):
             setattr(ctx, n, f)
 
+    def detach(self):
+        """Back to the Context's own methods."""
+        for n in self.NAMES:
+            delattr(self.ctx, n)
 
-def _replay(ctx, log, greedy: set) -> dict:
+
+def _replay(ctx, log, greedy: set, logits: dict | None = None) -> dict:
     """Replay a _Recorder log on a fresh Context with per-token decode()
     steps over the same sequences in the same order (so the same padded
     batches), feeding the tokens the scheduler fed; at every step a
     greedy row's argmax must equal the token the scheduler took there.
-    A chained window the scheduler abandoned (never fetched) is skipped."""
+    A chained window the scheduler abandoned (never fetched) is skipped.
+    With `logits`, each greedy row's decode logits are appended to
+    logits[seq id] in order: entry i produced the row's token i + 1."""
     seqs, out = {}, {"window_tokens": 0, "step_tokens": 0, "mismatches": []}
 
-    def compare(kind, sid, got, want):
+    def compare(kind, sid, got, want, row=None):
         if sid in greedy:
             out["window_tokens" if kind == "window" else "step_tokens"] += 1
             if got != want:
                 out["mismatches"].append((kind, sid, got, want))
+            if logits is not None and row is not None:
+                logits.setdefault(sid, []).append(row)
 
     for ev in log:
         if ev[0] == "new":
@@ -1788,7 +1846,8 @@ def _replay(ctx, log, greedy: set) -> dict:
         elif ev[0] == "decode":
             lg = ctx.decode([seqs[i] for i in ev[1]], ev[2])
             for i, sid in enumerate(ev[1]):
-                compare("decode", sid, int(np.argmax(lg[i])), ev[3][i])
+                compare("decode", sid, int(np.argmax(lg[i])), ev[3][i],
+                        lg[i])
         elif ev[0] == "window":
             _, sids, fed, carry, h = ev
             if h._result is None:
@@ -1800,8 +1859,10 @@ def _replay(ctx, log, greedy: set) -> dict:
                 lg = ctx.decode([seqs[i] for i in sids], cur)
                 for i, sid in enumerate(sids):
                     compare("window", sid, int(np.argmax(lg[i])),
-                            int(toks[j, i]))
+                            int(toks[j, i]), lg[i])
                 cur = toks[j].tolist()
+        elif ev[0] == "free":
+            ctx.free_seq(seqs[ev[1]])
         else:
             ctx.truncate_seq(seqs[ev[1]], ev[2])
     return out
@@ -2052,6 +2113,740 @@ def phase_sched(torch, kept: Kept, nvidia_smi: str) -> dict:
     return {"launches": launches, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# serving through the OpenAI-compatible server
+
+
+SERVER_KEY = "smoke-key"
+SERVER_TIMEOUT = 300       # seconds any one request or batch may take
+SERVER_LENS = (16, 130, 512)
+SERVER_NEW = 32
+
+
+class _Http:
+    """The server's aiohttp app on 127.0.0.1 (aiohttp.test_utils
+    TestServer), driven from this thread through its own event loop. The
+    launch counts are zeroed just before each request (or batch of
+    concurrent requests) and read just after it: `last` holds that
+    request's, and `launches` (the caller's dict) sums them, so work the
+    checks do beside the server is not counted as the server's."""
+
+    def __init__(self, srv, launches: dict):
+        import asyncio
+
+        from aiohttp.test_utils import TestClient, TestServer
+
+        self.loop = asyncio.new_event_loop()
+        self.launches, self.last = launches, {}
+
+        async def make():
+            c = TestClient(TestServer(srv.make_app(), host="127.0.0.1"))
+            await c.start_server()
+            return c
+
+        self.c = self.loop.run_until_complete(make())
+        self.auth = {"Authorization": f"Bearer {srv.api_key}"} \
+            if srv.api_key else {}
+
+    def _run(self, coro):
+        import asyncio
+
+        import torch
+
+        from llama_cpp_test_tpu_torch.ops import _cuda
+
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        try:
+            return self.loop.run_until_complete(
+                asyncio.wait_for(coro, SERVER_TIMEOUT))
+        finally:
+            torch.cuda.synchronize()
+            self.last = dict(_cuda.LAUNCHES)
+            for k, v in self.last.items():
+                self.launches[k] += v
+
+    async def _post(self, url, body, auth=True):
+        r = await self.c.post(url, json=body,
+                              headers=self.auth if auth else {})
+        return r.status, await r.json(content_type=None)
+
+    async def _stream(self, url, body):
+        """SSE chunks of one streamed request, and the perf_counter time
+        its first chunk arrived."""
+        r = await self.c.post(url, json={**body, "stream": True},
+                              headers=self.auth)
+        check(r.status == 200, f"{url} stream: status {r.status}")
+        out, first = [], None
+        async for line in r.content:
+            line = line.decode().strip()
+            if line.startswith("data: ") and line != "data: [DONE]":
+                if first is None:
+                    first = time.perf_counter()
+                out.append(json.loads(line[6:]))
+        return out, first
+
+    def post(self, url, body=None, auth=True):
+        return self._run(self._post(url, body or {}, auth))
+
+    def post_many(self, url, bodies):
+        import asyncio
+
+        async def all_():
+            return await asyncio.gather(*(self._post(url, b) for b in bodies))
+        return self._run(all_())
+
+    def stream(self, url, body) -> list:
+        return self._run(self._stream(url, body))[0]
+
+    def stream_many(self, url, bodies) -> list:
+        """Every body streamed at once. Per request: its chunks and the
+        seconds from just before the POSTs to its first chunk."""
+        import asyncio
+
+        async def all_():
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*(self._stream(url, b)
+                                         for b in bodies))
+            return [(chunks, first - t0) for chunks, first in res]
+        return self._run(all_())
+
+    def close(self):
+        self.loop.run_until_complete(self.c.close())
+        self.loop.close()
+
+
+@contextlib.contextmanager
+def _server(path, launches: dict, **kw):
+    """A LlamaServer on the card with its engine thread running and an
+    HTTP client adding the server's launches to `launches`; stops both on
+    exit."""
+    from llama_cpp_test_tpu_torch.server.app import LlamaServer
+
+    srv = LlamaServer(path, device="cuda", **kw)
+    srv.engine.start()
+    client = None
+    try:
+        client = _Http(srv, launches)
+        yield srv, client
+    finally:
+        if client is not None:
+            client.close()
+        srv.engine.stop()
+        check(not srv.engine.thread.is_alive(),
+              "the server's engine thread did not stop")
+
+
+@contextlib.contextmanager
+def _gate(srv, n: int):
+    """Hold the engine thread until n requests have reached the scheduler,
+    then queue them in order of prompt length: concurrent requests start
+    from the same queue whatever order they arrived in, so a rerun meets
+    the same batches."""
+    lock = srv.engine.ctx_lock
+    lock.acquire()
+    released = False
+
+    def release():
+        nonlocal released
+        t_end = time.time() + SERVER_TIMEOUT
+        while True:
+            with srv.engine._lock:
+                pending = list(srv.engine._pending)
+                if len(pending) + len(srv.sched.queue) >= n:
+                    srv.engine._pending.clear()
+                    break
+            check(time.time() < t_end, "requests did not reach the engine")
+            time.sleep(0.01)
+        for r in pending:
+            srv.sched.submit(r)
+        srv.sched.queue = type(srv.sched.queue)(sorted(
+            srv.sched.queue, key=lambda r: len(r.prompt_tokens)))
+        lock.release()
+        released = True
+
+    import threading
+
+    t = threading.Thread(target=release, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        t.join(timeout=SERVER_TIMEOUT)
+        if not released:
+            lock.release()
+
+
+def _body(sp, n_new: int, prompt) -> dict:
+    """A request body carrying SamplerParams sp, as a client sends it."""
+    b = {"prompt": prompt, "n_predict": n_new, "ignore_eos": True,
+         "temperature": sp.temp}
+    if sp.temp > 0:
+        b.update(top_k=sp.top_k, top_p=sp.top_p, min_p=sp.min_p,
+                 repeat_penalty=sp.penalty_repeat, seed=sp.seed)
+    return b
+
+
+def _text(body) -> str:
+    return body["choices"][0]["text"]
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def _srv_metrics(srv, before=None) -> dict:
+    """Scheduler token counts and seconds since `before` (a _srv_metrics
+    result), with the rates."""
+    s = srv.sched
+    m = {"gen_tokens": s.n_gen_tokens, "gen_s": s.t_gen,
+         "prompt_tokens": s.n_prompt_tokens, "prompt_s": s.t_prompt}
+    if before:
+        m = {k: m[k] - before[k] for k in m}
+    m["gen_tok_s"] = m["gen_tokens"] / m["gen_s"] if m["gen_s"] else 0.0
+    m["prompt_tok_s"] = (m["prompt_tokens"] / m["prompt_s"]
+                         if m["prompt_s"] else 0.0)
+    return m
+
+
+def _erase_all(srv, c) -> None:
+    """Empty every slot (POST /slots/{id}?action=erase), so the next
+    request prefills its whole prompt as generate() does."""
+    for k in range(len(srv.sched.slots)):
+        status, body = c.post(f"/slots/{k}?action=erase")
+        check(status == 200, f"erase slot {k}: {status} {body}")
+
+
+def _server_completions(srv, c, model, ids) -> dict:
+    """Three greedy /completion requests of 16, 130 and 512 prompt tokens,
+    one at a time: each text equals generate()'s on the same file, and the
+    streamed pieces joined equal the text."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, generate
+
+    tok = model.tokenizer
+    ctx = Context(model, n_ctx=1024, n_seq_max=1)
+    out = []
+    for n in SERVER_LENS:
+        prompt = ids[:n]
+        body = {"prompt": prompt, "n_predict": SERVER_NEW,
+                "temperature": 0.0, "ignore_eos": True}
+        _erase_all(srv, c)
+        status, got = c.post("/completion", body)
+        check(status == 200, f"/completion {n}: status {status} {got}")
+        _erase_all(srv, c)
+        chunks = c.stream("/completion", body)
+        want = tok.decode(list(generate(ctx, prompt, SERVER_NEW)))
+        streamed = "".join(ch["choices"][0]["text"] for ch in chunks)
+        out.append({"prompt": n, "same_as_generate": _text(got) == want,
+                    "stream_same": streamed == _text(got),
+                    "timings": got.get("timings")})
+        check(_text(got) == want, f"/completion {n}: {_text(got)!r} but "
+                                  f"generate() gives {want!r}")
+        check(streamed == _text(got), f"/completion {n}: streamed "
+                                      f"{streamed!r}, unstreamed "
+                                      f"{_text(got)!r}")
+    return {"requests": out}
+
+
+def _server_concurrency(torch, srv, c, model) -> dict:
+    """The sched phase's eight requests (4 greedy, 4 seeded) streamed at
+    once, then again after erasing every slot: the rerun repeats every
+    row, and the greedy rows equal a per-token replay at the same batches.
+    Time to first token is the client's: from just before the POSTs to
+    each request's first SSE chunk (_gate queues the eight by length)."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    prompts, params = _sched_prompts(model.tokenizer, 21), _sched_params()
+    bodies = [_body(sp, SCHED_NEW, p) for p, sp in zip(prompts, params)]
+    runs = []
+    for i in range(2):
+        _erase_all(srv, c)
+        rec = _Recorder(srv.sched.ctx) if i == 0 else None
+        before = _srv_metrics(srv)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with _gate(srv, len(bodies)):
+            res = c.stream_many("/completion", bodies)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if rec is not None:
+            rec.detach()
+        runs.append({"wall_s": wall,
+                     "texts": ["".join(ch["choices"][0]["text"]
+                                       for ch in chunks)
+                               for chunks, _ in res],
+                     "finish": [chunks[-1]["choices"][0]["finish_reason"]
+                                for chunks, _ in res],
+                     "ttft_ms": [ttft * 1e3 for _, ttft in res],
+                     "tokens": [len(chunks) for chunks, _ in res],
+                     "metrics": _srv_metrics(srv, before), "rec": rec})
+    first = runs[0]
+    # a greedy row is the sequence whose prefilled tokens are its prompt
+    filled = {}
+    for ev in first["rec"].log:
+        if ev[0] == "prefill":
+            filled.setdefault(ev[1], []).extend(ev[2])
+    greedy = {sid for sid, t in filled.items()
+              if any(t == p for p, sp in zip(prompts, params)
+                     if sp.temp == 0)}
+    rctx = Context(model, n_ctx=srv.sched.ctx.n_ctx,
+                   n_seq_max=len(srv.sched.slots), block_size=16)
+    replay = _replay(rctx, first["rec"].log, greedy)
+    n_gen = sum(first["tokens"])
+    out = {"requests": len(bodies), "greedy_rows": len(greedy),
+           "rerun_same": runs[1]["texts"] == first["texts"],
+           "replay": replay, "wall_s": first["wall_s"],
+           "client_ttft_ms": first["ttft_ms"],
+           "client_ttft_ms_p50": _pct(first["ttft_ms"], 50),
+           "client_ttft_ms_p95": _pct(first["ttft_ms"], 95),
+           "client_gen_tok_s": n_gen / first["wall_s"],
+           "client_prompt_tok_s": sum(map(len, prompts)) / first["wall_s"],
+           "scheduler": first["metrics"], "rerun_scheduler": runs[1]["metrics"]}
+    check(all(n == SCHED_NEW for n in first["tokens"]) and
+          set(first["finish"]) == {"length"},
+          f"concurrent request lengths {first['tokens']} {first['finish']}")
+    check(len(greedy) == 4, f"found {len(greedy)} greedy rows in the log")
+    check(out["rerun_same"], "a rerun of the eight requests gave other text")
+    check(not replay["mismatches"] and replay["window_tokens"] > 0,
+          f"greedy server tokens differ from the per-token replay: {replay}")
+    return out
+
+
+def _server_chat(srv, c, model) -> dict:
+    """/v1/chat/completions on the file's zephyr template: the rendered
+    prompt equals apply_chat_template's (the Jinja path: '</s>' closes each
+    turn) and the reply equals generate() on that prompt."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, generate
+    from llama_cpp_test_tpu_torch.server.chat import (apply_chat_template,
+                                                      parse_assistant_message)
+
+    msgs = [{"role": "system", "content": "You answer in one sentence."},
+            {"role": "user", "content": CLI_TEXT}]
+    want_prompt = apply_chat_template(model.reader.metadata, msgs)
+    status, tpl = c.post("/apply-template", {"messages": msgs})
+    check(status == 200 and tpl["prompt"] == want_prompt,
+          f"/apply-template gave {tpl}, apply_chat_template {want_prompt!r}")
+    check(want_prompt.startswith("<|system|>\n") and "</s>" in want_prompt,
+          f"the zephyr template did not render: {want_prompt!r}")
+    _erase_all(srv, c)
+    status, body = c.post("/v1/chat/completions", {
+        "messages": msgs, "max_tokens": SERVER_NEW, "temperature": 0.0,
+        "ignore_eos": True})
+    check(status == 200, f"/v1/chat/completions: status {status} {body}")
+    tok = model.tokenizer
+    ids = tok.encode(want_prompt, add_special=True, parse_special=True)
+    gen = list(generate(Context(model, n_ctx=1024, n_seq_max=1), ids,
+                        SERVER_NEW))
+    want = parse_assistant_message(tok.decode(gen), "content_only",
+                                   True)["content"]
+    got = body["choices"][0]["message"]["content"]
+    check(got == want, f"chat reply {got!r}, generate() gives {want!r}")
+    return {"prompt_tokens": len(ids), "reply_same_as_generate": True}
+
+
+def _server_embeddings(torch, srv, c, model, ids) -> dict:
+    """/v1/embeddings on 16, 130 and 512 tokens: unit norm, within the
+    logits gate of a plain Context's embed, K1's GEMM and K2 launched;
+    embed(causal=False) held against the plain version too; embed ms."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    plain = Context(model, n_ctx=1024, n_seq_max=1, plain=True)
+    inputs = [ids[:n] for n in SERVER_LENS]
+    status, body = c.post("/v1/embeddings", {"input": inputs})
+    launches = c.last
+    check(status == 200, f"/v1/embeddings: status {status}")
+    rows = []
+    for x, d in zip(inputs, body["data"]):
+        got = np.asarray(d["embedding"], np.float32)
+        ref = plain.embed(x)
+        with srv.engine.ctx_lock:
+            bi = srv.sched.ctx.embed(x, causal=False)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                srv.sched.ctx.embed(x)
+                times.append((time.time() - t0) * 1e3)
+        rows.append({"tokens": len(x), "norm": float(np.linalg.norm(got)),
+                     "nmse": nmse(got, ref),
+                     "nmse_bidirectional": nmse(
+                         bi, plain.embed(x, causal=False)),
+                     "embed_ms": float(np.median(times))})
+    out = {"rows": rows, "launches": launches, "gate": LOGITS_GATE}
+    for r in rows:
+        check(abs(r["norm"] - 1.0) < 1e-3, f"embedding norm {r}")
+        check(r["nmse"] < LOGITS_GATE and r["nmse_bidirectional"] <
+              LOGITS_GATE, f"embedding against the plain path: {r}")
+    check(launches["qmm_gemm"] > 0 and launches["flash_prefill"] > 0,
+          f"/v1/embeddings launched no K1 GEMM or K2: {launches}")
+    return out
+
+
+def _server_rerank(c, model) -> dict:
+    rng = np.random.default_rng(3)
+    docs = [" ".join(rng.choice(_WORDS, 24)) for _ in range(4)]
+    query = docs[2]
+    status, body = c.post("/rerank", {"query": query, "documents": docs})
+    check(status == 200, f"/rerank: status {status}")
+    order = [r["index"] for r in body["results"]]
+    check(order[0] == 2, f"the query's own text ranks {order}")
+    return {"order": order}
+
+
+def _server_slots(path, launches, kv, ids, tmp) -> dict:
+    """A 512-token slot saved, erased and restored through
+    /slots/0?action=: the 32 greedy tokens after the restore equal those
+    after the same prompt without save and restore. Save and restore ms
+    (the server's timings) and bytes."""
+    prompt = ids[:512]
+    body = {"prompt": prompt, "n_predict": SERVER_NEW, "temperature": 0.0,
+            "ignore_eos": True}
+    with _server(path, launches, n_ctx=1024, n_slots=1, kv_type=kv,
+                 slot_save_path=tmp) as (srv, c):
+        status, _ = c.post("/completion", {**body, "n_predict": 1})
+        check(status == 200, f"{kv}: first /completion: {status}")
+        status, saved = c.post("/slots/0?action=save",
+                               {"filename": f"slot_{kv}.npz"})
+        check(status == 200 and saved["n_saved"] == len(prompt),
+              f"{kv}: save: {status} {saved}")
+        status, direct = c.post("/completion", body)
+        fed_direct = list(srv.sched.slots[0].cache_tokens)
+        status_e, erased = c.post("/slots/0?action=erase")
+        status_r, restored = c.post("/slots/0?action=restore",
+                                    {"filename": f"slot_{kv}.npz"})
+        check(status_e == 200 and status_r == 200 and
+              restored["n_restored"] == len(prompt),
+              f"{kv}: erase/restore: {erased} {restored}")
+        status, after = c.post("/completion", body)
+        after_launches = c.last
+        # the slot's fed tokens (prompt and every generated token but the
+        # last) and the text, which holds the last
+        same = (list(srv.sched.slots[0].cache_tokens) == fed_direct and
+                len(fed_direct) == len(prompt) + SERVER_NEW - 1 and
+                _text(after) == _text(direct))
+    out = {"kv": kv, "n_saved": saved["n_saved"],
+           "bytes": saved["n_written"], "save_ms": saved["timings"]["save_ms"],
+           "restore_ms": restored["timings"]["restore_ms"],
+           "same_after_restore": same,
+           "launches_after_restore": after_launches}
+    check(out["same_after_restore"], f"{kv}: after restore {_text(after)!r},"
+                                     f" without {_text(direct)!r}")
+    k3 = "paged_decode_q8" if kv == "q8_0" else "paged_decode"
+    check(after_launches[k3] > 0,
+          f"{kv}: no {k3} after the restore: {after_launches}")
+    return out
+
+
+def _interleaved(model) -> dict:
+    """An embed (on another thread) and a slot erase issued while a chained
+    window is in flight leave a request's tokens as they are without
+    them, and the embed as it is alone."""
+    import threading
+
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+    from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
+    from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, \
+        Scheduler
+
+    greedy = SamplerParams(temp=0.0)
+    probe = list(range(100, 230))
+    alone = Context(model, n_ctx=1024, n_seq_max=1).embed(probe)
+
+    def run(interfere):
+        ctx = Context(model, n_ctx=1024, n_seq_max=4)
+        sched = Scheduler(ctx, n_slots=3, decode_window=16)
+        for p in ([5, 6, 7], [8, 9, 10]):
+            sched.submit(GenRequest(p, max_tokens=3, sampling=greedy,
+                                    ignore_eos=True))
+        _drain(sched)
+        done = []
+
+        def on_token(tok, piece, finished):
+            if not interfere or finished is not None or \
+                    sched.n_windows_chained <= len(done):
+                return
+            if not done:   # a chained window is in flight on the card
+                t = threading.Thread(
+                    target=lambda: done.append(ctx.embed(probe)))
+                t.start()
+                t.join(SERVER_TIMEOUT)
+            elif len(done) == 1:
+                idle = next(s for s in sched.slots
+                            if s.req is None and s.seq is not None)
+                ctx.free_seq(idle.seq)
+                idle.seq, idle.cache_tokens = None, []
+                done.append("erased")
+
+        req = sched.submit(GenRequest(list(range(40, 170)), max_tokens=64,
+                                      sampling=greedy, ignore_eos=True,
+                                      on_token=on_token))
+        _drain(sched)
+        return req.output_tokens, done, sched.n_windows_chained
+
+    want, _, _ = run(False)
+    got, done, chained = run(True)
+    out = {"windows_chained": chained, "interleaved": len(done),
+           "tokens_same": got == want,
+           "embed_same": len(done) > 0 and bool(np.array_equal(done[0],
+                                                               alone))}
+    check(len(done) == 2 and out["tokens_same"] and out["embed_same"],
+          f"work between chained windows changed the result: {out}")
+    return out
+
+
+def _spec_rounds(ctx) -> list:
+    """Log every verification call (Context.prefill_batch) of ctx: target
+    sequence ids, fed rows and the logits of each row."""
+    log, orig = [], ctx.prefill_batch
+
+    def prefill_batch(seqs, rows):
+        res = orig(seqs, rows)
+        log.append(([s.seq_id for s in seqs], [list(r) for r in rows], res))
+        return res
+
+    ctx.prefill_batch = prefill_batch
+    return log
+
+
+def _spec_expected(log, sid) -> list:
+    """The tokens greedy verification emits for target sequence sid: per
+    round the argmax of each row's logits up to the first that differs
+    from the draft (sample-and-accept-n with a greedy chain)."""
+    out = []
+    for sids, rows, res in log:
+        if sid not in sids:
+            continue
+        i = sids.index(sid)
+        draft, logits = rows[i][1:], res[i]
+        for j in range(len(draft) + 1):
+            t = int(np.argmax(logits[j]))
+            out.append((t, logits[j]))
+            if j >= len(draft) or t != draft[j]:
+                break
+    return out
+
+
+def _top2(x) -> list:
+    i = np.argsort(-x)[:2]
+    return [[int(k), float(x[k])] for k in i]
+
+
+def _emissions(sched) -> tuple:
+    """Log the tokens the scheduler emits and the prompt they answer, by
+    target sequence id (the first token comes from the prefill)."""
+    emitted, prompt_of, orig = {}, {}, sched._process_token
+
+    def process_token(slot, tok):
+        sid = slot.seq.seq_id
+        prompt_of.setdefault(sid, tuple(slot.req.prompt_tokens))
+        emitted.setdefault(sid, []).append(int(tok))
+        return orig(slot, tok)
+
+    sched._process_token = process_token
+    return emitted, prompt_of
+
+
+def _spec_run(torch, path, launches, n_slots, draft, bodies) -> dict:
+    """One server (draft: a file or None) serving `bodies`: one at a time
+    with the slot erased between them at one slot, all at once at more.
+    Returns its row of numbers, the tokens each target sequence emitted
+    and their prompts, and the verification log (with a draft) or, for
+    the plain server, each sequence's logits replayed per token at the
+    same batch rows (_replay)."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    kw = {} if draft is None else dict(draft_model_path=draft, n_draft=8,
+                                       p_draft_min=0.0)
+    with _server(path, launches, n_ctx=1024, n_slots=n_slots,
+                 **kw) as (srv, c):
+        log = _spec_rounds(srv.sched.ctx)
+        rec = _Recorder(srv.sched.ctx) if draft is None else None
+        emitted, prompt_of = _emissions(srv.sched)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if n_slots == 1:
+            res = []
+            for b in bodies:
+                res.append(c.post("/completion", b))
+                check(c.post("/slots/0?action=erase")[0] == 200,
+                      "erasing the speculative server's slot failed")
+        else:
+            with _gate(srv, len(bodies)):
+                res = c.post_many("/completion", bodies)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        for status, b in res:
+            check(status == 200, f"speculative /completion: {status} {b}")
+        m = _srv_metrics(srv)
+        row = {"requests": len(bodies), "wall_s": wall,
+               "gen_tok_s": m["gen_tok_s"],
+               "client_gen_tok_s": sum(b["usage"]["completion_tokens"]
+                                       for _, b in res) / wall}
+        run = {"row": row, "emitted": emitted, "prompt_of": prompt_of,
+               "log": log}
+        if draft is not None:
+            drafted = sum(s.n_drafted for s in srv.sched.slots)
+            accepted = sum(s.n_draft_accepted for s in srv.sched.slots)
+            row.update(drafted=drafted, accepted=accepted,
+                       accept_rate=accepted / max(drafted, 1),
+                       target_calls=len(log),
+                       tokens_per_target_call=m["gen_tokens"] /
+                       max(len(log), 1),
+                       draft_blocks_free=srv.sched.draft_ctx.mgr.num_free()
+                       == srv.sched.draft_ctx.num_blocks)
+            # every token after a request's first is the argmax of its
+            # verification row
+            row["argmax_mismatch_seqs"] = [
+                sid for sid, toks in emitted.items()
+                if [t for t, _ in _spec_expected(log, sid)][:len(toks) - 1]
+                != toks[1:]]
+    if rec is not None:
+        rec.detach()
+        run["logits"] = {}
+        rctx = Context(srv.model, n_ctx=1024, n_seq_max=n_slots,
+                       block_size=16)
+        row["replay"] = _replay(rctx, rec.log, set(emitted), run["logits"])
+        check(not row["replay"]["mismatches"],
+              f"plain server at {n_slots} slots: tokens differ from the "
+              f"per-token replay: {row['replay']}")
+    return run
+
+
+def _spec_parity(spec: dict, plain: dict) -> list:
+    """Per request, the speculative server's run against the plain one's
+    (_spec_run results, matched by prompt). Every verification row is held
+    against the plain path's logits for the same tokens, replayed per
+    token at the plain server's batch rows, by NMSE; the rows compared are
+    those up to the first emitted token where the two paths differ, whose
+    contexts are still the same. Where they differ, both paths' top-2
+    logits there, and the plain path's top-2 gap against the largest
+    logit difference between the paths there."""
+    by_prompt = {p: sid for sid, p in plain["prompt_of"].items()}
+    out = []
+    for sid, stoks in spec["emitted"].items():
+        psid = by_prompt[spec["prompt_of"][sid]]
+        ptoks, lp = plain["emitted"][psid], plain["logits"][psid]
+        ls = [x for _, x in _spec_expected(spec["log"], sid)]
+        k = next((i for i, (a, b) in enumerate(zip(stoks, ptoks))
+                  if a != b), None)
+        # verification row j - 1 and replayed row j - 1 both give token j
+        last = len(stoks) - 1 if k is None else k
+        errs = [nmse(ls[j - 1], lp[j - 1]) for j in range(1, last + 1)]
+        r = {"same": k is None, "tokens": len(stoks), "rows_compared":
+             len(errs), "max_nmse": max(errs, default=None)}
+        if k is not None:
+            r["first_diff"] = k
+            if k > 0:   # token 0 comes from the prefill, alike in both
+                top = _top2(lp[k - 1])
+                gap = top[0][1] - top[1][1]
+                diff = float(np.abs(ls[k - 1] - lp[k - 1]).max())
+                r.update(plain_top2=top, spec_top2=_top2(ls[k - 1]),
+                         plain_gap=gap, logit_diff=diff)
+            r["within"] = k > 0 and gap <= diff
+        out.append(r)
+    return out
+
+
+def _server_speculative(torch, path, draft4, launches, model) -> dict:
+    """-md with the same file as its own draft and with a 4-layer file of
+    another seed, at one slot (three requests one at a time) and at four
+    (four at once), beside the server without a draft. Every token a
+    draft server emits after a request's first is the argmax of its
+    verification row; each verification row is within the logits gate of
+    the plain server's row for the same tokens (replayed at its batch
+    rows); greedy tokens equal the plain server's or, where they first
+    differ, the plain path's top-2 gap is within the two paths' logit
+    difference; the draft Context's blocks are all free after the
+    requests."""
+    prompts = [_sched_prompts(model.tokenizer, 31 + i)[i] for i in range(4)]
+    bodies = [{"prompt": p, "n_predict": SCHED_NEW, "temperature": 0.0,
+               "ignore_eos": True} for p in prompts]
+    out = {}
+    for n_slots, n_req in ((1, 3), (4, 4)):
+        plain = None
+        for name, draft in (("none", None), ("self", path),
+                            ("4-layer", draft4)):
+            label = f"slots={n_slots} draft={name}"
+            run = _spec_run(torch, path, launches, n_slots, draft,
+                            bodies[:n_req])
+            row = out[label] = run["row"]
+            if draft is None:
+                plain = run
+                continue
+            check(row["draft_blocks_free"],
+                  f"{label}: draft blocks still held")
+            check(row["drafted"] > 0, f"{label}: nothing was drafted")
+            check(not row["argmax_mismatch_seqs"],
+                  f"{label}: emitted tokens are not the argmax of their "
+                  f"verification rows: {row['argmax_mismatch_seqs']}")
+            row["parity"] = _spec_parity(run, plain)
+            bad = [p for p in row["parity"]
+                   if not p["rows_compared"] or
+                   p["max_nmse"] >= LOGITS_GATE or
+                   not (p["same"] or p["within"])]
+            check(not bad, f"{label}: verification rows off the plain "
+                           f"path's logits, or speculative tokens that "
+                           f"differ from the plain server's past the "
+                           f"logit difference: {bad}")
+    return out
+
+
+def phase_server(torch, kept: Kept, nvidia_smi: str) -> dict:
+    """The OpenAI-compatible server (server/app.py) over HTTP on
+    127.0.0.1 (aiohttp.test_utils) on the kept TinyLlama file (full width
+    and depth, its zephyr chat template). Completions, concurrency, chat,
+    embeddings, rerank, the API key and work between chained windows on a
+    bf16 server, then slots at bf16 and q8_0 KV and speculative decoding
+    on servers of their own. The launch counts are zeroed just before
+    each request and read just after it (_Http), so `launches` is the
+    servers' own work."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+
+    try:
+        import aiohttp
+    except ImportError as e:
+        raise SmokeFailure(f"the server phase needs aiohttp: {e}") from e
+    emit({"phase": "server", "aiohttp": aiohttp.__version__})
+    path = kept.files["tinyllama"]
+    launches = dict.fromkeys(_cuda.LAUNCHES, 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    try:
+        draft4 = os.path.join(tmp, "tinyllama_4layer.gguf")
+        write_llama_gguf(draft4, dict(TINYLLAMA, n_layer=4), seed=17,
+                         vocab_seed=7)
+        out = {"aiohttp": aiohttp.__version__, "card": nvidia_smi}
+        with _server(path, launches, n_ctx=1024, n_slots=8,
+                     api_key=SERVER_KEY) as (srv, c):
+            model = srv.model
+            ids = _sched_prompts(model.tokenizer, 21)[-1]
+            out["completion"] = _server_completions(srv, c, model, ids)
+            out["concurrency"] = _server_concurrency(torch, srv, c, model)
+            out["chat"] = _server_chat(srv, c, model)
+            out["embeddings"] = _server_embeddings(torch, srv, c, model, ids)
+            out["rerank"] = _server_rerank(c, model)
+            status, _ = c.post("/props", auth=False)
+            out["api_key"] = {"status_without_key": status}
+            check(status == 401, f"a request without the key: {status}")
+            out["interleaved"] = _interleaved(model)
+        out["launches_bf16_server"] = dict(launches)
+        missing = [k for k in DENSE_PATH if launches[k] <= 0]
+        check(not missing, f"server: kernels not launched: {missing} "
+                           f"({launches})")
+        emit({"phase": "server", "part": "bf16", **out})
+        out["slots"] = [_server_slots(path, launches, kv, ids, tmp)
+                        for kv in ("bf16", "q8_0")]
+        emit({"phase": "server", "part": "slots", "slots": out["slots"]})
+        out["speculative"] = _server_speculative(torch, path, draft4,
+                                                 launches, model)
+        out["launches"] = launches
+        emit({"phase": "server", "part": "speculative",
+              "speculative": out["speculative"], "launches": launches,
+              "card": nvidia_smi})
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
                  "paged_decode_merge_kernel",
@@ -2187,6 +2982,7 @@ def main() -> int:
                   "probes": phase_probes(torch, kc, probe_launches)}
         serves["cli"] = phase_cli(torch, kept)
         serves["sched"] = phase_sched(torch, kept, dev["nvidia_smi"])
+        serves["server"] = phase_server(torch, kept, dev["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -3,9 +3,9 @@ interactive generation from a GGUF model, with the full sampler chain.
 
 Counterpart of llama_cpp_test_tpu/cli/main.py, the llama branch: the
 model runs on the CUDA device (main(argv, device=...) lets a caller pick
-another). The recurrent and encoder-decoder families, adapters, session
-files and tensor parallelism raise NotImplementedError until the port
-carries them (ROADMAP items 6, 9 and 13).
+another). The recurrent and encoder-decoder families, adapters and tensor
+parallelism raise NotImplementedError until the port carries them
+(ROADMAP items 6, 9 and 13).
 
 Usage:
   python -m llama_cpp_test_tpu_torch.cli.main -m model.gguf -p "prompt" -n 64
@@ -13,6 +13,7 @@ Usage:
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -66,10 +67,6 @@ def _refuse_unported(args, arch: str) -> None:
     if args.control_vector or args.control_vector_scaled:
         raise NotImplementedError(
             "--control-vector is not ported yet (ROADMAP item 6)")
-    if args.prompt_cache:
-        raise NotImplementedError(
-            "--prompt-cache (runtime/state.py) is not ported yet "
-            "(ROADMAP item 6)")
     if args.tensor_parallel > 1:
         raise NotImplementedError(
             "-tp > 1 is not ported yet (ROADMAP item 13)")
@@ -102,6 +99,17 @@ def main(argv=None, device=None) -> int:
                   kv_type=args.cache_type_kv)
     sched = Scheduler(ctx, n_slots=1, chunk_size=args.batch_size,
                       ctx_shift=not args.no_context_shift)
+    # session file (--prompt-cache, main.cpp:237-255): pre-warm slot 0's
+    # sequence from the saved KV; the scheduler's prefix reuse then skips
+    # re-prefilling the shared prefix. Saved back after each run.
+    if args.prompt_cache and os.path.exists(args.prompt_cache):
+        from ..runtime.state import load_seq_state
+
+        sess = load_seq_state(ctx, args.prompt_cache)
+        sched.slots[0].seq = sess
+        sched.slots[0].cache_tokens = list(sess.tokens)
+        print(f"# session restored: {len(sess.tokens)} tokens from "
+              f"{args.prompt_cache}", file=sys.stderr)
     # every 'sampling'-domain flag the parser accepts (incl. --grammar and
     # --json-schema) reaches the chain through the shared helper
     sp = sampler_params_from_args(args)
@@ -138,6 +146,19 @@ def main(argv=None, device=None) -> int:
         print(f"\n# {len(toks)} prompt + {len(req.output_tokens)} generated "
               f"in {dt:.2f}s | prefill {m['prompt_tok_per_s']} t/s | "
               f"decode {m['gen_tok_per_s']} t/s", file=sys.stderr)
+        if args.prompt_cache and not args.prompt_cache_ro and \
+                sched.slots[0].seq is not None:
+            from ..runtime.state import save_seq_state
+
+            sess = sched.slots[0].seq
+            if not args.prompt_cache_all and sess.n_cached > len(toks):
+                # prompt-only caching: drop the generated tail
+                ctx.truncate_seq(sess, len(toks))
+                sched.slots[0].cache_tokens = list(sess.tokens)
+            nb = save_seq_state(ctx, sess, args.prompt_cache)
+            print(f"# session saved: {sess.n_cached} tokens "
+                  f"({nb/1e6:.1f} MB) -> {args.prompt_cache}",
+                  file=sys.stderr)
 
     if args.interactive:
         print("== interactive mode; empty line or /exit quits ==",

@@ -45,6 +45,11 @@ class HParams:
     attn_scale: float = 0.0     # 0 = default 1/sqrt(head_dim)
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
+    # embedding defaults (Context.embed): attention causality (false only
+    # for the bert family, which the loader refuses) and the pooling of
+    # GGUF {arch}.pooling_type (llama.h enum)
+    causal: bool = True
+    pooling: str = "last"
 
 
 def hparams_from_metadata(md: dict) -> HParams:
@@ -93,6 +98,10 @@ def hparams_from_metadata(md: dict) -> HParams:
         sliding_window=g("attention.sliding_window", 0),
         attn_softcap=g("attn_logit_softcapping", 0.0),
         final_softcap=g("final_logit_softcapping", 0.0),
+        causal=arch not in ("bert", "nomic-bert", "jina-bert-v2"),
+        # mean unless the file says otherwise, as the reference reads it
+        pooling={0: "none", 1: "mean", 2: "cls", 3: "last"}.get(
+            int(g("pooling_type", 1)), "mean"),
     )
 
 

@@ -48,17 +48,22 @@ TOKEN_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 
 def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
              rows, slots, kv_len, *, hp: HParams, decode: bool,
-             plain: bool = False, rope_delta=None) -> torch.Tensor:
+             plain: bool = False, rope_delta=None,
+             causal: bool = True) -> torch.Tensor:
     """Embed, run all layers (writing KV in place), no final norm (lm_head
     applies it). rows/slots: flat token rows of the batch whose KV is kept
     and their global slot ids. Returns hidden [B, T, C].
 
     positions are cache-index positions (mask order); rope_delta [B] is an
     optional per-row offset added for the RoPE rotation only, nonzero after
-    Self-Extend (SeqState.pos_offset)."""
+    Self-Extend (SeqState.pos_offset). causal=False (a prefill for embed)
+    lets every token attend the whole chunk: the mask positions become
+    kv_len - 1 on every row, while rope keeps the true positions."""
     x = llama_mod.embed(w, tokens)
     rope_pos = positions if rope_delta is None else \
         positions + rope_delta[:, None]
+    mask_pos = positions if causal else \
+        (kv_len - 1)[:, None].expand(positions.shape).contiguous()
     scale = hparams_mod.attn_scale_of(hp)
     cap = hp.attn_softcap
     for li, lw in enumerate(w.layers):
@@ -78,7 +83,7 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
                 return kv_cache.attend_gathered(
                     q, kv_cache.gather_kv_q8(pools.k[_li], ks, block_table),
                     kv_cache.gather_kv_q8(pools.v[_li], vs, block_table),
-                    positions, kv_len, scale, _window, cap)
+                    mask_pos, kv_len, scale, _window, cap)
             kv_cache.write_kv(pools.k[_li], k_cur, rows, slots)
             kv_cache.write_kv(pools.v[_li], v_cur, rows, slots)
             if decode:
@@ -86,12 +91,29 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
                     q, pools.k[_li], pools.v[_li], block_table, kv_len, scale,
                     _window, cap, plain=plain)
             return kv_cache.attend_prefill(
-                q, pools.k[_li], pools.v[_li], block_table, positions, kv_len,
+                q, pools.k[_li], pools.v[_li], block_table, mask_pos, kv_len,
                 scale, _window, cap, plain=plain)
 
         x = llama_mod.forward_layer(x, lw, hp, rope_pos, w.rope_inv_freq,
                                     w.rope_mscale, attend, plain=plain)
     return x
+
+
+def _pool(x: torch.Tensor, n_valid: int, n_skip: int,
+          pooling: str) -> torch.Tensor:
+    """x [T, C] f32 final-normed hidden states, the first n_valid real ->
+    the L2-normalized pooled embedding [C]: mean over positions in
+    [n_skip, n_valid), the first position (cls) or the last valid one."""
+    if pooling == "mean":
+        t = torch.arange(x.shape[0], device=x.device)
+        valid = ((t < n_valid) & (t >= n_skip))[:, None]
+        denom = valid.float().sum().clamp(min=1.0)
+        emb = torch.where(valid, x, 0.0).sum(dim=0) / denom
+    elif pooling == "cls":
+        emb = x[0]
+    else:  # last
+        emb = x[max(n_valid - 1, 0)]
+    return emb / torch.linalg.vector_norm(emb).clamp(min=1e-12)
 
 
 class Model:
@@ -422,7 +444,8 @@ class Context:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return upload(a, self.device)
 
-    def _step(self, tok, pos, bt, slot_arr, kv_len, decode: bool, rd=None):
+    def _step(self, tok, pos, bt, slot_arr, kv_len, decode: bool, rd=None,
+              causal: bool = True):
         """Upload one step's host arrays and run the forward. Padding rows
         (slot -1) are dropped from the KV scatter here, on the host."""
         flat = slot_arr.reshape(-1)
@@ -432,7 +455,8 @@ class Context:
             self._to_dev(bt), self._to_dev(keep.astype(np.int64)),
             self._to_dev(flat[keep].astype(np.int64)), self._to_dev(kv_len),
             hp=self.model.hp, decode=decode, plain=self.plain,
-            rope_delta=None if rd is None else self._to_dev(rd))
+            rope_delta=None if rd is None else self._to_dev(rd),
+            causal=causal)
 
     def _check_room(self, s: SeqState, n: int) -> None:
         if s.n_cached + n > self.n_ctx:
@@ -566,6 +590,46 @@ class Context:
             x = self._step(tok, pos, bt, slot_arr, kv_len, False)
             logits = self._logits(x).float().cpu().numpy()
         return [logits[i, : lens[i]] for i in range(b)]
+
+    def embed(self, tokens: list[int], pooling: str | None = None,
+              causal: bool | None = None, n_skip: int = 0) -> np.ndarray:
+        """Pooled, L2-normalized embedding of a token sequence [n_embd]
+        (float32 numpy): one prefill of a scratch sequence, the final norm,
+        then mean, cls or last pooling over the positions >= n_skip.
+        causal=False runs bidirectional attention (gritlm's embedding mode).
+        pooling/causal default to the model's hparams (decoders: causal
+        mean)."""
+        self._check_abort()
+        hp = self.model.hp
+        if pooling is None:
+            pooling = hp.pooling if hp.pooling != "none" else "mean"
+        if causal is None:
+            causal = hp.causal
+        n = len(tokens)
+        if n == 0:
+            raise ValueError("embed: empty token list")
+        tb = _bucket(n, TOKEN_BUCKETS)
+        if n > tb:
+            raise ValueError(f"embed: {n} tokens exceed the largest bucket")
+        s = self.new_seq()
+        try:
+            slots = s.table.append_tokens(n)
+            self._drain_copies([s])
+            tok = np.zeros((1, tb), np.int32)
+            tok[0, :n] = tokens
+            pos = np.zeros((1, tb), np.int32)
+            pos[0, :n] = np.arange(n)
+            slot_arr = np.full((1, tb), -1, np.int32)
+            slot_arr[0, :n] = slots
+            with torch.inference_mode():
+                x = self._step(tok, pos, self._table_arr([s]), slot_arr,
+                               np.asarray([n], np.int32), False,
+                               causal=causal)
+                x = llama_mod.final_norm(self.w, hp, x).float()[0]
+                emb = _pool(x, n, n_skip, pooling)
+                return emb.cpu().numpy()
+        finally:
+            self.free_seq(s)
 
     # -- windowed decode -------------------------------------------------------
 

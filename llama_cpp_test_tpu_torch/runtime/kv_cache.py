@@ -153,6 +153,43 @@ def scatter_block(pools: KVPools, data: tuple, blk: int) -> None:
             p[:, blk] = stacked[li].to(p.device)
 
 
+def gather_seq(pools: KVPools, blocks: torch.Tensor, n: int) -> tuple:
+    """The first n cached tokens of a sequence whose block ids are
+    `blocks` [nb], across all layers, as float32 (k, v) [L, KV, n, D]; a
+    q8_0 pool is dequantized (plane * scale), the values its decode
+    attends."""
+    out = []
+    for i, plist in enumerate((pools.k, pools.v)):
+        per_layer = []
+        for li, p in enumerate(plist):
+            kv, _, bs, d = p.shape
+            g = p[:, blocks].float()                      # [KV, nb, BS, D]
+            if pools.quantized:
+                sc = (pools.k_scale, pools.v_scale)[i][li][:, blocks]
+                g = g * sc[..., None]
+            per_layer.append(g.reshape(kv, -1, d)[:, :n])
+        out.append(torch.stack(per_layer))
+    return tuple(out)
+
+
+def scatter_seq(pools: KVPools, k: torch.Tensor, v: torch.Tensor,
+                slots: torch.Tensor) -> None:
+    """Write float (k, v) [L, KV, n, D] to global `slots` [n] of every
+    layer, in place: bf16 pools round, q8_0 pools quantize again
+    (write_kv_q8), so a gather_seq payload restores the planes and scales
+    it was read from."""
+    n = slots.shape[0]
+    rows = torch.arange(n, device=slots.device)
+    for li in range(len(pools.k)):
+        for plist, vals, si in ((pools.k, k, 0), (pools.v, v, 1)):
+            new = vals[li].transpose(0, 1)[None]           # [1, n, KV, D]
+            if pools.quantized:
+                sc = (pools.k_scale, pools.v_scale)[si][li]
+                write_kv_q8(plist[li], sc, new, rows, slots)
+            else:
+                write_kv(plist[li], new, rows, slots)
+
+
 def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
                 delta: torch.Tensor, inv_freq: torch.Tensor) -> None:
     """Move cached tokens between slots, re-rotating K by a per-token

@@ -2,7 +2,7 @@
 (reference examples/server/server.cpp:1220,2794).
 
 Counterpart of llama_cpp_test_tpu/runtime/scheduler.py over the port's
-single-device Context. Speculative decoding (draft_ctx) is not ported yet.
+single-device Context, with server-side speculative decoding (draft_ctx).
 
 Requests queue up; each gets a slot with its own sequence, sampler chain and
 stop conditions. Every `step()`:
@@ -74,6 +74,10 @@ class Slot:
         self.next_token: int | None = None
         self.text_buf = ""
         self.cache_tokens: list[int] = []  # tokens whose KV this slot holds
+        self.draft_seq: SeqState | None = None  # per-slot draft cache (spec)
+        # speculative metrics (server_slot n_draft_total/accepted analogue)
+        self.n_drafted = 0
+        self.n_draft_accepted = 0
 
     def reset(self):
         self.state = SlotState.IDLE
@@ -97,11 +101,17 @@ class Scheduler:
     def __init__(self, ctx: Context, n_slots: int = 8,
                  chunk_size: int = 512, ctx_shift: bool = True,
                  decode_window: int = 16, draft_ctx: Context | None = None,
+                 n_draft: int = 8, p_draft_min: float = 0.75,
                  gen_prefill_chunk: int = 128, cache_reuse: int = 0):
         self.ctx = ctx
-        if draft_ctx is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_ctx) is not ported yet")
+        # server-side speculative decoding: per-slot draft sequences inside
+        # the continuous-batching loop (reference examples/server/
+        # server.cpp:1861-1937,3250). Greedy draft + sample-and-accept-n on
+        # the target's teacher-forced logits keeps output identical to the
+        # non-speculative path for ANY sampler chain.
+        self.draft_ctx = draft_ctx
+        self.n_draft = n_draft
+        self.p_draft_min = p_draft_min
         # context shift keeps long generations alive past n_ctx
         # (server.cpp:2825+)
         self.ctx_shift = ctx_shift
@@ -184,7 +194,13 @@ class Scheduler:
                         other.cache_tokens = []
                         if need <= self._free_blocks():
                             break
-            if need > self._free_blocks():
+            # the slot's own cache counts too: assignment truncates it to
+            # the reused prefix or frees it (the reference counts only the
+            # pool's free blocks, so a slot whose cache holds them waits for
+            # itself forever; ROADMAP §3, fault 7)
+            own = 0 if slot.seq is None else sum(
+                isinstance(b, int) for b in slot.seq.table.blocks)
+            if need > self._free_blocks() + own:
                 return  # admission control: wait for blocks to free up
             self.queue.popleft()
             slot.req = req
@@ -201,6 +217,9 @@ class Scheduler:
                         "request %d: sampler needs host path (%s) — "
                         "windowed device decode disabled while it runs",
                         req.id, ", ".join(reasons))
+            if slot.draft_seq is not None:  # fresh draft cache per request
+                self.draft_ctx.free_seq(slot.draft_seq)
+                slot.draft_seq = None
             grammar_sampler = None
             if req.sampling.grammar and self.tokenizer is not None:
                 from .grammar import GrammarSampler
@@ -265,7 +284,8 @@ class Scheduler:
             # device top-K download instead of the [V] f32 logits transfer
             final = (slot.n_prompt_done + len(chunk) >=
                      len(req.prompt_tokens))
-            use_cand = final and ds.host_candidates_eligible(req.sampling)
+            use_cand = (final and self.draft_ctx is None and
+                        ds.host_candidates_eligible(req.sampling))
             if use_cand:
                 vals, ids = self.ctx.prefill(slot.seq, chunk,
                                              top_k=ds.HOST_CANDIDATES_K)
@@ -276,6 +296,14 @@ class Scheduler:
             self.n_prompt_tokens += len(chunk)
             self.t_prompt += time.time() - t0
             if final:
+                if self.draft_ctx is not None:
+                    # draft model ingests the full prompt (server.cpp:3250
+                    # slot.batch_spec prompt sync)
+                    slot.draft_seq = self.draft_ctx.new_seq()
+                    for i in range(0, len(req.prompt_tokens), self.chunk):
+                        self.draft_ctx.prefill(
+                            slot.draft_seq,
+                            req.prompt_tokens[i:i + self.chunk])
                 slot.state = SlotState.GENERATING
                 if use_cand:
                     tok = slot.sampler.sample_candidates(vals, ids)
@@ -344,6 +372,21 @@ class Scheduler:
                     n_discard = max((s.seq.n_cached - n_keep) // 2, 1)
                     self.ctx.shift_context(s.seq, n_keep, n_discard)
                     del s.cache_tokens[n_keep:n_keep + n_discard]
+                    if s.draft_seq is not None:
+                        # re-sync the draft cache to the shifted history:
+                        # its positions no longer match the target's, and
+                        # an unshifted draft would grow past its block
+                        # table (the reference re-syncs the draft prompt
+                        # per round, server.cpp:3250)
+                        self.draft_ctx.free_seq(s.draft_seq)
+                        s.draft_seq = self.draft_ctx.new_seq()
+                        for i in range(0, len(s.cache_tokens), self.chunk):
+                            self.draft_ctx.prefill(
+                                s.draft_seq,
+                                s.cache_tokens[i:i + self.chunk])
+        if self.draft_ctx is not None:
+            self._decode_spec_round(gen)
+            return
         # partition by device-sampling eligibility: a grammar/exotic-sampler
         # row only slows ITSELF (one host-sampled token per round) while the
         # eligible rows keep the windowed fast path (round-3 behavior
@@ -422,6 +465,86 @@ class Scheduler:
                 tok = s.sampler.sample(lg)
             s.sampler.accept(tok)
             self._process_token(s, tok)
+
+    def _decode_spec_round(self, gen: list[Slot]) -> None:
+        """One speculative round for ALL generating slots: batched greedy
+        draft proposal (one device dispatch, Context.draft_window), batched
+        teacher-forced target verification (one dispatch,
+        Context.prefill_batch), then per-slot sample-and-accept-n with the
+        slot's own sampler chain — so output is identical to non-speculative
+        serving for ANY sampler (the common_sampler_sample_and_accept_n
+        analogue; the reference packs per-slot spec batches into one
+        llama_decode, server.cpp:3250, common/sampling.h:79-82)."""
+        t0 = time.time()
+        # window: bounded by every slot's remaining context (the draft loop
+        # and verify run the same length for the whole batch)
+        k_max = self.n_draft
+        for s in gen:
+            k_max = min(k_max, self.ctx.n_ctx - s.seq.n_cached - 2,
+                        self.draft_ctx.n_ctx - s.draft_seq.n_cached - 1)
+        k_max = max(0, k_max)
+        lasts = [s.next_token for s in gen]
+        drafts: list[list[int]] = [[] for _ in gen]
+        bases_d = [s.draft_seq.n_cached for s in gen]
+        if k_max > 0:
+            dseqs = [s.draft_seq for s in gen]
+            toks, ps = self.draft_ctx.draft_window(dseqs, lasts, k_max)
+            # truncate each row at its first below-threshold confidence
+            for i, s in enumerate(gen):
+                keep = 0
+                while keep < k_max and ps[keep, i] >= self.p_draft_min:
+                    keep += 1
+                drafts[i] = [int(t) for t in toks[:keep, i]]
+                s.n_drafted += keep
+        # batched target verification: row i scores [last_i] + proposal_i;
+        # logits[j] is the distribution after feeding j+1 tokens
+        bases_t = [s.seq.n_cached for s in gen]
+        all_logits = self.ctx.prefill_batch(
+            [s.seq for s in gen],
+            [[lasts[i]] + drafts[i] for i in range(len(gen))])
+        for i, s in enumerate(gen):
+            logits = all_logits[i]
+            draft_toks = drafts[i]
+            last = lasts[i]
+            base = bases_t[i]
+            toks_out: list[int] = []
+            for j in range(len(draft_toks) + 1):
+                t_j = int(s.sampler.sample(logits[j]))
+                s.sampler.accept(t_j)
+                toks_out.append(t_j)
+                if j >= len(draft_toks) or t_j != draft_toks[j]:
+                    break
+            n_acc = len(toks_out) - 1
+            s.n_draft_accepted += n_acc
+            self.n_gen_tokens += len(toks_out)
+            # discard rejected target KV (slot-restorer analogue)
+            self.ctx.truncate_seq(s.seq, base + 1 + n_acc)
+            feeds = [last] + draft_toks[:n_acc]
+            finished_at = None
+            for j, tok in enumerate(toks_out):
+                s.cache_tokens.append(feeds[j])
+                self._process_token(s, tok)
+                if s.req is None:
+                    finished_at = j
+                    break
+            if finished_at is not None and finished_at < n_acc:
+                self.ctx.truncate_seq(s.seq, base + 1 + finished_at)
+                del s.cache_tokens[base + 1 + finished_at:]
+            if s.req is None:
+                continue  # finished: draft cache freed by _process_token
+            # sync the draft cache to the accepted prefix: it must hold
+            # exactly [.., last, accepted...] before the next round
+            dseq = s.draft_seq
+            base_d = bases_d[i]
+            n_keep = finished_at if finished_at is not None else n_acc
+            want_d = base_d + 1 + n_keep
+            if want_d <= dseq.n_cached:
+                self.draft_ctx.truncate_seq(dseq, want_d)
+            else:
+                missing = ([last] + draft_toks)[dseq.n_cached - base_d:
+                                                want_d - base_d]
+                self.draft_ctx.prefill(dseq, missing)
+        self.t_gen += time.time() - t0
 
     def _can_chain(self, gen: list[Slot], w: int) -> bool:
         """True when the NEXT window can be dispatched before this one's
@@ -550,6 +673,9 @@ class Scheduler:
         if req.on_token is not None:
             req.on_token(tok, piece, finished)
         if finished is not None:
+            if slot.draft_seq is not None:  # draft caches are not reused
+                self.draft_ctx.free_seq(slot.draft_seq)
+                slot.draft_seq = None
             slot.reset()  # keep seq + cache_tokens for prefix reuse
         else:
             slot.next_token = tok

@@ -134,10 +134,26 @@ def test_cuda_device_raises_without_gpu(tmp_path):
 
 
 _SERVE = r"""
-import io, json, sys
+import importlib.abc, io, json, sys
 from contextlib import redirect_stdout
 sys.path.insert(0, sys.argv[1])
+
+
+class _Blocked(importlib.abc.MetaPathFinder):
+    # any import of these fails, as on a machine that lacks them
+    NAMES = ("jax", "jaxlib", "llama_cpp_test_tpu", "ml_dtypes", "regex",
+             "aiohttp")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.NAMES:
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
 from llama_cpp_test_tpu_torch.cli.main import main
+from llama_cpp_test_tpu_torch.runtime import speculative, state
+from llama_cpp_test_tpu_torch.server import app, chat
 from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
 from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
 from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, Scheduler
@@ -152,6 +168,21 @@ reqs = [sched.submit(GenRequest([3, 17, 42], max_tokens=6, ignore_eos=True,
                                 sampling=SamplerParams(seed=i)))
         for i in range(2)]
 sched.run()
+ctx = Context(m, n_ctx=64, n_seq_max=4, block_size=8, kv_type="q8_0")
+s = ctx.new_seq()
+ctx.prefill(s, [3, 17, 42, 9])
+state.save_seq_state(ctx, s, "seq.npz")
+restored = state.load_seq_state(ctx, "seq.npz").tokens == s.tokens
+emb = ctx.embed([3, 17, 42], causal=False)
+spec = speculative.SpeculativeDecoder(
+    Context(m, n_ctx=64, n_seq_max=1, block_size=8),
+    Context(m, n_ctx=64, n_seq_max=1, block_size=8),
+    speculative.SpecParams(n_draft=3, p_min=0.0)).generate([3, 17, 42], 6)
+served = {"web": app.web is None, "restored": restored,
+          "emb": list(emb.shape), "spec": len(spec),
+          "chat": chat.apply_chat_template({}, [
+              {"role": "user", "content": "hi"}]).endswith("assistant\n"),
+          "temp": app._sampling_from_body({"temperature": 0.5}).temp}
 bpe = load_tokenizer({"tokenizer.ggml.model": "gpt2",
                       "tokenizer.ggml.pre": "llama-bpe",
                       "tokenizer.ggml.tokens": ["a", "b", "ab"],
@@ -160,7 +191,9 @@ bad = sorted(k for k in sys.modules
              if k in ("jax", "llama_cpp_test_tpu", "ml_dtypes", "regex")
              or k.startswith(("jax.", "jaxlib", "ml_dtypes.",
                               "llama_cpp_test_tpu.", "regex.")))
-print(json.dumps({"rc": rc, "text": buf.getvalue(),
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in _Blocked.NAMES) or bad
+print(json.dumps({"rc": rc, "text": buf.getvalue(), "served": served,
                   "tokens": [len(r.output_tokens) for r in reqs],
                   "bpe": bpe.encode("ab", add_special=False), "bad": bad}))
 """
@@ -168,8 +201,10 @@ print(json.dumps({"rc": rc, "text": buf.getvalue(),
 
 def test_serving_path_imports_no_jax_reference_ml_dtypes_or_regex(tmp_path):
     """The CLI (with a JSON-schema grammar), the scheduler's windows over
-    device sampling and a BPE tokenizer run without loading JAX, the JAX
-    package, ml_dtypes or regex."""
+    device sampling, a BPE tokenizer, the server's modules (server.app
+    without aiohttp), a q8_0 session file, an embedding and speculative
+    decoding run with JAX, the JAX package, ml_dtypes, regex and aiohttp
+    blocked, and load none of them."""
     path = str(tmp_path / "tiny.gguf")
     make_tiny_gguf(path)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -181,3 +216,5 @@ def test_serving_path_imports_no_jax_reference_ml_dtypes_or_regex(tmp_path):
     assert res["bad"] == []
     assert res["rc"] == 0 and res["text"].startswith("hello")
     assert res["tokens"] == [6, 6] and res["bpe"] == [2]
+    assert res["served"] == {"web": True, "restored": True, "emb": [64],
+                             "spec": 6, "chat": True, "temp": 0.5}

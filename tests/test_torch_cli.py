@@ -9,12 +9,26 @@ import sys
 
 import jax
 import pytest
+import torch
 
 from test_engine import make_tiny_gguf
 
 from llama_cpp_test_tpu.cli.main import main as jmain
 from llama_cpp_test_tpu_torch.cli.main import main as pmain
 from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
+from llama_cpp_test_tpu_torch.runtime.engine import Model
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist every
+    worker's OpenMP pool takes all cores, and the small steps these
+    scenarios run by the hundred spin against each other (a 13 s module
+    took minutes beside five other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -57,13 +71,53 @@ def test_seeded_text_matches_reference_op_by_op(model_path):
     assert run(pmain, argv, device="cpu") == want
 
 
+@pytest.mark.parametrize("extra", [[], ["--prompt-cache-all"]])
+def test_prompt_cache_restores_and_prints_the_same(model_path, tmp_path,
+                                                   extra):
+    """--prompt-cache run twice (reference cli/main.py:236-301): the first
+    run saves the session, the second restores it, prefills only what the
+    file does not hold and prints the same text as the JAX CLI; a
+    --prompt-cache-ro run leaves the file as it was."""
+    import numpy as np
+
+    sess = str(tmp_path / "session.npz")
+    argv = ["-m", model_path, "-p", "hello world", "-n", "10", "--temp", "0",
+            "--prompt-cache", sess] + extra
+    want = run(jmain, argv[:-2 - len(extra)])
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        first = run(pmain, argv, device="cpu")
+        saved = json_meta(sess)
+        second = run(pmain, argv, device="cpu")
+        run(pmain, argv + ["--prompt-cache-ro", "-p", "other"], device="cpu")
+    assert first == want and second == want
+    assert err.getvalue().count("session restored") == 2
+    n_prompt = len(Model(model_path, device="cpu").tokenizer.encode(
+        "hello world", add_special=True, parse_special=True))
+    assert saved["n_cached"] == len(saved["tokens"])
+    if extra:
+        assert saved["n_cached"] > n_prompt
+    else:
+        assert saved["n_cached"] == n_prompt
+    assert json_meta(sess) == saved
+    assert np.load(sess)["k0"].shape[1] == saved["n_cached"]
+
+
+def json_meta(path):
+    import json
+
+    import numpy as np
+
+    return json.loads(str(np.load(path)["meta"]))
+
+
 def test_empty_prompt_errors(model_path):
     assert run(pmain, ["-m", model_path, "-n", "4"], device="cpu")[0] == 1
 
 
 @pytest.mark.parametrize("flags", [
     ["--lora", "a.gguf"], ["--control-vector", "c.gguf"],
-    ["--prompt-cache", "s.bin"], ["-tp", "2"]])
+    ["--control-vector-scaled", "c.gguf", "0.5"], ["-tp", "2"]])
 def test_unported_options_raise(model_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         run(pmain, ["-m", model_path, "-p", "hi", "-n", "2"] + flags,

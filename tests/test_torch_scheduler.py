@@ -10,6 +10,7 @@ import types
 
 import jax
 import pytest
+import torch
 
 from test_engine import make_tiny_gguf
 
@@ -21,6 +22,18 @@ from llama_cpp_test_tpu.runtime import scheduler as jscheduler
 from llama_cpp_test_tpu_torch.runtime import engine as pengine
 from llama_cpp_test_tpu_torch.runtime import sampling as psampling
 from llama_cpp_test_tpu_torch.runtime import scheduler as pscheduler
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist every
+    worker's OpenMP pool takes all cores, and the small steps these
+    scenarios run by the hundred spin against each other (a 13 s module
+    took minutes beside five other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -184,8 +197,44 @@ def test_scenario_matches_reference(sides, name):
     assert fn(p) == want
 
 
-def test_draft_ctx_is_not_ported(sides):
+def test_draft_ctx_serves(sides):
+    """A Scheduler with a draft Context serves and drafts
+    (tests/test_torch_speculative.py holds it against the JAX one)."""
     _, p = sides
     ctx = p.eng.Context(p.model, n_ctx=64, n_seq_max=1, block_size=8)
-    with pytest.raises(NotImplementedError):
-        p.sch.Scheduler(ctx, draft_ctx=ctx)
+    draft = p.eng.Context(p.model, n_ctx=64, n_seq_max=1, block_size=8)
+    s = p.sch.Scheduler(ctx, draft_ctx=draft, p_draft_min=0.0)
+    r = s.submit(req(p, [3, 17, 42], 6))
+    s.run()
+    assert r.finish_reason == "length" and len(r.output_tokens) == 6
+    assert s.slots[0].n_drafted > 0
+
+
+def test_one_slot_readmits_what_its_cache_holds(sides):
+    """Reference fault 7: admission counts only the pool's free blocks, so
+    a request needing more blocks than are free waits for ever behind the
+    idle cache of the one slot that would serve it (the JAX scheduler).
+    The port counts that slot's own cache, which assignment truncates to
+    the reused prefix, and serves the request with a fresh scheduler's
+    tokens."""
+    j, p = sides
+    prompt = list(range(3, 43))   # 5 of the pool's 8 blocks
+
+    def run(m, steps, warm=True):
+        ctx = m.eng.Context(m.model, n_ctx=64, n_seq_max=1, block_size=8)
+        s = m.sch.Scheduler(ctx, n_slots=1, chunk_size=64)
+        if warm:
+            s.submit(req(m, prompt, 1))
+            s.run()
+        r = s.submit(req(m, prompt, 8))   # needs 6 blocks, 3 are free
+        for _ in range(steps):
+            if not s.has_work():
+                break
+            s.step()
+        return r
+
+    stuck = run(j, 30)
+    assert stuck.finish_reason is None and not stuck.output_tokens
+    got = run(p, 100)
+    assert out(got) == out(run(p, 100, warm=False))
+    assert got.finish_reason == "length"
