@@ -104,6 +104,27 @@ non-zero before the final line:
            paths' logit difference) and the draft blocks freed. Prints the
            client's time to first token, tok/s, embed ms, save and restore
            ms and bytes, accept rates beside the card
+  adapters on the TinyLlama file: a seeded rank-16 LoRA over all seven
+           projections of every layer; generate() at 16, 130 and 512
+           prompt tokens launches K1's GEMV and GEMM, K2 and K3 as often
+           as without it, its prefill rows and 8 decode steps within the
+           logits gate of the plain path carrying the same adapter and far
+           from the base's, and at scale 0 the base's bits; the Scheduler
+           with the adapter (greedy rows equal a per-token replay, two
+           chained windows with no host sync and no memset, a scale change
+           between two windows leaving the in-flight window at the old
+           scale); the server's POST /lora-adapters between two requests
+           (each equal to generate() at its scale; a bad id answers 400);
+           cli.cvector_generator (one unit direction a layer; attached they
+           move the logits, detached the logits are the base's bits);
+           trace_eval within the gate of the plain path, a live
+           sequence's next decode bit-equal with and without a trace;
+           imatrix over 1024 tokens within the gate of the plain path;
+           cli.lookahead and cli.lookup at -n 64, every token the argmax of
+           its verification row and equal to plain greedy decode up to a
+           first difference within the two paths' logit difference. Prints
+           the decode wall with and without the adapter, imatrix tok/s and
+           the drafters' tokens a pass and tok/s beside the card
 
 Every file the serve phases write carries a synthesized tokenizer
 (write_llama_gguf's vocab: SPM for 32000 tokens, Llama-3's BPE layout for
@@ -1210,16 +1231,16 @@ def _record_routing():
         llama._moe_grouped = orig
 
 
-def _trace(ctx, prompt, tokens=None):
-    """One prefill (logits at every position) and four decode steps, on the
-    given decode tokens or else greedy ones. Returns the logits of each
+def _trace(ctx, prompt, tokens=None, n_decode: int = 4):
+    """One prefill (logits at every position) and n_decode decode steps, on
+    the given decode tokens or else greedy ones. Returns the logits of each
     step [rows, V], its routing [layers, rows, top_k] (None on a dense
     model) and the decode tokens."""
     s = ctx.new_seq()
     steps, toks = [], []
     with _record_routing() as calls:
         logits = ctx.prefill(s, prompt, all_logits=True)
-        for i in range(5):
+        for i in range(n_decode + 1):
             if i:
                 toks.append(tokens[i - 1] if tokens else
                             int(np.argmax(logits[-1])))
@@ -1818,14 +1839,17 @@ class _Recorder:
             delattr(self.ctx, n)
 
 
-def _replay(ctx, log, greedy: set, logits: dict | None = None) -> dict:
+def _replay(ctx, log, greedy: set, logits: dict | None = None,
+            hooks: dict | None = None) -> dict:
     """Replay a _Recorder log on a fresh Context with per-token decode()
     steps over the same sequences in the same order (so the same padded
     batches), feeding the tokens the scheduler fed; at every step a
     greedy row's argmax must equal the token the scheduler took there.
     A chained window the scheduler abandoned (never fetched) is skipped.
     With `logits`, each greedy row's decode logits are appended to
-    logits[seq id] in order: entry i produced the row's token i + 1."""
+    logits[seq id] in order: entry i produced the row's token i + 1.
+    hooks: event kind -> callable(event), for events a caller added to
+    the log (an adapter swap)."""
     seqs, out = {}, {"window_tokens": 0, "step_tokens": 0, "mismatches": []}
 
     def compare(kind, sid, got, want, row=None):
@@ -1863,8 +1887,10 @@ def _replay(ctx, log, greedy: set, logits: dict | None = None) -> dict:
                 cur = toks[j].tolist()
         elif ev[0] == "free":
             ctx.free_seq(seqs[ev[1]])
-        else:
+        elif ev[0] == "truncate":
             ctx.truncate_seq(seqs[ev[1]], ev[2])
+        else:
+            hooks[ev[0]](ev)
     return out
 
 
@@ -1879,8 +1905,9 @@ def _drain(sched, max_steps: int = 5000) -> None:
                        f"steps: {sched.metrics()}")
 
 
-def _run_sched(model, kv, prompts, params, record=False):
-    """The eight requests through a fresh Context and Scheduler (8 slots,
+def _run_sched(model, kv, prompts, params, record=False,
+               max_tokens: int = SCHED_NEW):
+    """The requests through a fresh Context and Scheduler (8 slots,
     windows of 16). Returns (scheduler, requests, recorder)."""
     from llama_cpp_test_tpu_torch.runtime.engine import Context
     from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, Scheduler
@@ -1888,7 +1915,7 @@ def _run_sched(model, kv, prompts, params, record=False):
     ctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16, kv_type=kv)
     rec = _Recorder(ctx) if record else None
     sched = Scheduler(ctx, n_slots=8, decode_window=16)
-    reqs = [sched.submit(GenRequest(prompt_tokens=p, max_tokens=SCHED_NEW,
+    reqs = [sched.submit(GenRequest(prompt_tokens=p, max_tokens=max_tokens,
                                     sampling=sp, ignore_eos=True))
             for p, sp in zip(prompts, params)]
     _drain(sched)
@@ -2847,6 +2874,512 @@ def phase_server(torch, kept: Kept, nvidia_smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# adapters, tracing and the draft-free drafters
+
+
+ADAPTER_RANK = 16
+ADAPTER_LENS = (16, 130, 512)       # prompt tokens of the LoRA checks
+ADAPTER_DECODE = 8                  # decode steps held to the plain path
+DRAFT_NEW = 64                      # tokens the lookahead/lookup CLIs make
+IMATRIX_TOKENS, IMATRIX_CHUNK = 1024, 512
+DRAFT_TEXT = CLI_TEXT + " " + CLI_TEXT
+
+
+def write_lora_gguf(path: str, hp: dict, rank: int, seed: int,
+                    std: float = 0.03) -> None:
+    """A LoRA GGUF over all seven projections of every layer of geometry
+    hp: lora_a [rank, K] and lora_b [N, rank], F32 from seeded normals of
+    std `std`, alpha = rank (scale 1). At std 0.03 a rank-16 update B A
+    has entries of std ~0.0036, about a quarter of the synthesized
+    weights' (~0.015)."""
+    from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    c, ff = hp["n_embd"], hp["n_ff"]
+    q, kv = hp["n_head"] * hp["head_dim"], hp["n_head_kv"] * hp["head_dim"]
+    dims = {"attn_q": (q, c), "attn_k": (kv, c), "attn_v": (kv, c),
+            "attn_output": (c, q), "ffn_gate": (ff, c), "ffn_up": (ff, c),
+            "ffn_down": (c, ff)}
+    w = GGUFWriter(path, arch="llama")
+    w.add_kv("adapter.type", "lora")
+    w.add_kv("adapter.lora.alpha", float(rank))
+    for i in range(hp["n_layer"]):
+        for t, (n, k) in dims.items():
+            base = f"blk.{i}.{t}.weight"
+            w.add_tensor(base + ".lora_a", (std * rng.standard_normal(
+                (rank, k))).astype(np.float32))
+            w.add_tensor(base + ".lora_b", (std * rng.standard_normal(
+                (n, rank))).astype(np.float32))
+    w.write()
+
+
+def _salad_ids(tok, seed: int, n: int) -> list:
+    """n token ids of seeded word salad over _WORDS."""
+    rng = np.random.default_rng(seed)
+    ids = tok.encode(" ".join(rng.choice(_WORDS, 4 * n)), add_special=True,
+                     parse_special=True)
+    check(len(ids) >= n, f"word salad gave {len(ids)} tokens, not {n}")
+    return ids[:n]
+
+
+def _rows(ctx, prompt):
+    """Logits at every position of one prefill of a fresh sequence."""
+    s = ctx.new_seq()
+    try:
+        return ctx.prefill(s, prompt, all_logits=True)
+    finally:
+        ctx.free_seq(s)
+
+
+def _counted(torch, fn):
+    """fn() with the launch counts zeroed just before and read just after:
+    (result, launches)."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, dict(_cuda.LAUNCHES)
+
+
+def _decode_ms(torch, ctx, prompt, n: int = 32) -> float:
+    """Wall ms a token of n greedy per-token decode() steps after a
+    prefill (the host argmax included, as generate() takes it)."""
+    s = ctx.new_seq()
+    tok = int(np.argmax(ctx.prefill(s, prompt)))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        tok = int(np.argmax(ctx.decode([s], [tok])[0]))
+    torch.cuda.synchronize()
+    ctx.free_seq(s)
+    return (time.time() - t0) * 1e3 / n
+
+
+def _adapter_lora(torch, model, adapter, prompts) -> dict:
+    """The adapter attached (scale 1): generate() at each prompt launches
+    K1's GEMV and GEMM, K2 and K3, as many times as without it (no
+    projection leaves its kernel); its prefill rows and ADAPTER_DECODE
+    decode steps are within the logits gate of the plain path carrying the
+    same adapter (min rounded as the kernels round it), and far from the
+    base model's; at scale 0 (attach_loras, and attach_lora's user scale)
+    the logits are the base model's bits. Decode wall a token with the
+    adapter against without."""
+    from llama_cpp_test_tpu_torch.models.lora import attach_lora, attach_loras
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, generate
+
+    w = model.weights
+    ctx = lambda **kw: Context(model, n_ctx=1024, n_seq_max=2,
+                               block_size=16, **kw)
+    gen = lambda: [list(generate(ctx(), p, ADAPTER_DECODE + 1))
+                   for p in prompts]
+    attach_loras(w, [])
+    base_rows = [_rows(ctx(), p) for p in prompts]
+    base_toks, base_launches = _counted(torch, gen)
+    attach_lora(w, adapter)
+    toks, launches = _counted(torch, gen)
+    out = {"launches": launches, "launches_without": base_launches,
+           "tokens_same_as_base": toks == base_toks, "prompts": {}}
+    check(launches == base_launches,
+          f"lora: launches {launches}, without the adapter {base_launches}")
+    missing = [k for k in DENSE_PATH if launches[k] <= 0]
+    check(not missing, f"lora: kernels not launched: {missing}")
+    bad = []
+    for p, base in zip(prompts, base_rows):
+        steps_k, dtoks = _trace(ctx(), p, n_decode=ADAPTER_DECODE)
+        with _plain_min("fold"):
+            steps_p, _ = _trace(ctx(plain=True), p, dtoks,
+                                n_decode=ADAPTER_DECODE)
+        cmp = _compare(steps_p, steps_k)
+        r = {"nmse": {k: v["nmse"] for k, v in cmp.items()},
+             "nmse_vs_base": nmse(base, steps_k[0][0])}
+        out["prompts"][len(p)] = r
+        bad += [(len(p), k, v) for k, v in r["nmse"].items()
+                if not v < LOGITS_GATE]
+        if not r["nmse_vs_base"] > 10 * LOGITS_GATE:
+            bad.append((len(p), "vs base", r["nmse_vs_base"]))
+    check(not bad, f"lora: logits off the plain path or on the base's: {bad}")
+    ref = prompts[1]
+    attach_loras(w, [(adapter, 0.0)])
+    zero = _rows(ctx(), ref)
+    attach_lora(w, adapter, 0.0)
+    zero_scaled = _rows(ctx(), ref)
+    out["scale0_bit_equal"] = bool(np.array_equal(zero, base_rows[1]))
+    out["user_scale0_bit_equal"] = bool(np.array_equal(zero_scaled,
+                                                       base_rows[1]))
+    check(out["scale0_bit_equal"] and out["user_scale0_bit_equal"],
+          "lora: at scale 0 the logits are not the base model's bits")
+    ms = {"with": [], "without": []}
+    for _ in range(2):
+        for label, pairs in (("without", []), ("with", [(adapter, 1.0)])):
+            attach_loras(w, pairs)
+            ms[label].append(_decode_ms(torch, ctx(), ref))
+    out["decode_ms_per_token"] = {k: min(v) for k, v in ms.items()}
+    return out
+
+
+def _adapter_sched(torch, model, adapter) -> dict:
+    """The Scheduler with the adapter attached: four requests (two greedy,
+    two seeded) of 32 tokens through windows of 16, the greedy rows equal
+    to a per-token replay at the same batches; two chained windows with no
+    host sync and no memset (_window_clean). Then one greedy request of 64
+    tokens whose scale drops to 0 between two windows (inside a token
+    callback, while the next chained window is in flight): a per-token
+    replay that keeps scale 1 until that point and 0 after it gives every
+    token, so the in-flight window kept the tensors it was queued with."""
+    from llama_cpp_test_tpu_torch.models.lora import attach_loras
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+    from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
+    from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, \
+        Scheduler
+
+    w = model.weights
+    attach_loras(w, [(adapter, 1.0)])
+    prompts = _sched_prompts(model.tokenizer, 21)[:4]
+    params = _sched_params()[2:6]
+    sched, reqs, rec = _run_sched(model, "bf16", prompts, params,
+                                  record=True, max_tokens=32)
+    greedy = set(sorted(ev[1] for ev in rec.log if ev[0] == "new")[:2])
+    rctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16)
+    out = {"metrics": sched.metrics(),
+           "replay": _replay(rctx, rec.log, greedy),
+           "window": _window_clean(torch, model, "bf16", prompts, params)}
+    check(not out["replay"]["mismatches"] and
+          out["replay"]["window_tokens"] > 0,
+          f"lora sched: greedy tokens off the per-token replay: "
+          f"{out['replay']}")
+
+    def run(swap: bool):
+        attach_loras(w, [(adapter, 1.0)])
+        ctx = Context(model, n_ctx=1024, n_seq_max=2, block_size=16)
+        rec = _Recorder(ctx)
+        sched = Scheduler(ctx, n_slots=1, decode_window=16)
+        at = []
+
+        def on_token(tok, piece, finished):
+            if swap and not at and finished is None and \
+                    sched.n_windows_chained >= 1:
+                attach_loras(w, [(adapter, 0.0)])
+                rec.log.append(("swap", 0.0))
+                at.append(len(req.output_tokens))
+
+        req = sched.submit(GenRequest(prompts[3], max_tokens=64,
+                                      sampling=SamplerParams(temp=0.0),
+                                      ignore_eos=True, on_token=on_token))
+        _drain(sched)
+        rec.detach()
+        return req.output_tokens, rec.log, at
+
+    unswapped, _, _ = run(False)
+    toks, log, at = run(True)
+    attach_loras(w, [(adapter, 1.0)])
+    rctx = Context(model, n_ctx=1024, n_seq_max=2, block_size=16)
+    replay = _replay(rctx, log, {ev[1] for ev in log if ev[0] == "new"},
+                     hooks={"swap": lambda ev: attach_loras(
+                         w, [(adapter, ev[1])])})
+    out["swap"] = {"at_token": at[0] if at else None,
+                   "same_as_unswapped": toks == unswapped,
+                   "first_diff": next((i for i, (a, b) in enumerate(
+                       zip(toks, unswapped)) if a != b), None),
+                   "replay": replay}
+    check(at and not replay["mismatches"] and replay["window_tokens"] > 0,
+          f"lora swap between windows: {out['swap']}")
+    check(toks != unswapped, "lora swap: the scale change changed no token")
+    attach_loras(w, [])
+    return out
+
+
+def _adapter_server(torch, path, adapter_path, launches) -> dict:
+    """LlamaServer(lora=[(adapter, 1.0)]) over HTTP: a greedy /completion
+    equals generate() on the server's own weights with the adapter; after
+    POST /lora-adapters sets the scale to 0, the same request equals the
+    base model's generate(); a body with a bad id answers 400 and leaves
+    the scale at 0."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, generate
+
+    out = {}
+    with _server(path, launches, n_ctx=1024, n_slots=2,
+                 lora=[(adapter_path, 1.0)]) as (srv, c):
+        tok = srv.model.tokenizer
+        prompt = _sched_prompts(tok, 23)[4]
+        body = {"prompt": prompt, "n_predict": SERVER_NEW,
+                "temperature": 0.0, "ignore_eos": True}
+
+        def want():
+            with srv.engine.ctx_lock:
+                ctx = Context(srv.model, n_ctx=1024, n_seq_max=1)
+                return tok.decode(list(generate(ctx, prompt, SERVER_NEW)))
+
+        for scale in (1.0, 0.0):
+            if scale == 0.0:
+                status, listed = c.post("/lora-adapters",
+                                        [{"id": 0, "scale": 0.0}])
+                check(status == 200 and listed[0]["scale"] == 0.0,
+                      f"POST /lora-adapters: {status} {listed}")
+            status, got = c.post("/completion", body)
+            check(status == 200, f"/completion at scale {scale}: {status}")
+            out[f"scale={scale}"] = {"same_as_generate": _text(got) == want(),
+                                     "launches": c.last}
+            check(_text(got) == want(), f"server at lora scale {scale}: "
+                                        f"{_text(got)!r} but generate() "
+                                        f"gives {want()!r}")
+        status, _ = c.post("/lora-adapters", [{"id": 0, "scale": 1.0},
+                                              {"id": 5, "scale": 1.0}])
+        out["bad_id"] = {"status": status,
+                         "scale_after": srv.loras[0]["scale"]}
+        check(status == 400 and srv.loras[0]["scale"] == 0.0,
+              f"a bad adapter id: {out['bad_id']}")
+    return out
+
+
+def _adapter_cvec_trace(torch, model, path, prompts, tmp) -> dict:
+    """cli.cvector_generator on two prompt pairs: one unit-norm direction a
+    layer. Attached at a strength of half the mid layer's hidden-state
+    norm, they move the logits past the gate; detached, the logits are the
+    base's bits. trace_eval through the kernels against the plain path:
+    every tensor within the logits gate; a live sequence's next decode is
+    bit-equal with and without a trace before it."""
+    import io
+
+    from llama_cpp_test_tpu_torch.cli import cvector_generator
+    from llama_cpp_test_tpu_torch.models.cvec import (attach_control_vector,
+                                                      detach_control_vector,
+                                                      load_control_vector)
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+    from llama_cpp_test_tpu_torch.runtime.tracing import trace_eval
+
+    words = np.random.default_rng(5).choice(_WORDS, (4, 12))
+    files = []
+    for name, rows in (("pos", words[:2]), ("neg", words[2:])):
+        files.append(os.path.join(tmp, f"{name}.txt"))
+        with open(files[-1], "w") as f:
+            f.write("\n".join(" ".join(r) for r in rows) + "\n")
+    cv = os.path.join(tmp, "cvec.gguf")
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cvector_generator.main(["-m", path, "--positive-file", files[0],
+                                     "--negative-file", files[1], "-o", cv],
+                                    device="cuda")
+    out = {"cli_rc": rc, "cli_stdout": buf.getvalue().strip(),
+           "cli_s": time.time() - t0}
+    dirs = load_control_vector(cv)
+    norms = [float(np.linalg.norm(dirs[il])) for il in sorted(dirs)]
+    out["directions"] = len(dirs)
+    check(rc == 0 and sorted(dirs) == list(range(1, model.hp.n_layer + 1))
+          and all(abs(n - 1.0) < 1e-4 for n in norms),
+          f"cvector_generator: rc {rc}, layers {sorted(dirs)}, norms {norms}")
+    ctx = lambda **kw: Context(model, n_ctx=1024, n_seq_max=2,
+                               block_size=16, **kw)
+    ref = prompts[1]
+    (traces, launches) = _counted(
+        torch, lambda: trace_eval(ctx(), ref, keep_values=True))
+    with _plain_min("fold"):
+        plain = trace_eval(ctx(plain=True), ref, keep_values=True)
+    out["trace"] = {"tensors": len(traces), "launches": launches,
+                    "max_nmse": max(nmse(p.values, t.values)
+                                    for p, t in zip(plain, traces))}
+    check([t.name for t in traces] == ["inp_embd"] + [
+        f"l_out-{i}" for i in range(model.hp.n_layer)] + ["result_output"],
+        f"trace names {[t.name for t in traces]}")
+    check(out["trace"]["max_nmse"] < LOGITS_GATE and
+          launches["qmm_gemm"] > 0 and launches["flash_prefill"] > 0,
+          f"trace_eval off the plain path or off the kernels: {out['trace']}")
+    mid = traces[1 + model.hp.n_layer // 2]
+    strength = 0.5 * mid.std * np.sqrt(model.hp.n_embd)
+    base = _rows(ctx(), ref)
+    attach_control_vector(model.weights, dirs, strength=strength)
+    steered = _rows(ctx(), ref)
+    detach_control_vector(model.weights)
+    back = _rows(ctx(), ref)
+    out["cvec"] = {"strength": float(strength),
+                   "nmse_steered_vs_base": nmse(base, steered),
+                   "detached_bit_equal": bool(np.array_equal(back, base))}
+    check(out["cvec"]["nmse_steered_vs_base"] > LOGITS_GATE and
+          out["cvec"]["detached_bit_equal"], f"control vector: {out['cvec']}")
+
+    def next_decode(trace: bool):
+        c = ctx()
+        s = c.new_seq()
+        tok = int(np.argmax(c.prefill(s, ref)))
+        if trace:
+            trace_eval(c, prompts[0])
+        return c.decode([s], [tok])
+    out["decode_bit_equal_after_trace"] = bool(np.array_equal(
+        next_decode(False), next_decode(True)))
+    check(out["decode_bit_equal_after_trace"],
+          "a trace between a prefill and a decode changed the decode")
+    return out
+
+
+def _adapter_imatrix(torch, model) -> dict:
+    """IMatrixCollector over IMATRIX_TOKENS tokens in IMATRIX_CHUNK-token
+    chunks: K1's GEMM launches; every tensor's sums within the logits gate
+    (NMSE) of the plain path's (min rounded as the kernels round it). The
+    second of two runs is timed."""
+    from llama_cpp_test_tpu_torch.runtime.imatrix import IMatrixCollector
+
+    ids = _salad_ids(model.tokenizer, 41, IMATRIX_TOKENS)
+
+    def collect(plain=False):
+        coll = IMatrixCollector(model, plain=plain)
+        coll.collect(ids, chunk=IMATRIX_CHUNK)
+        return coll
+
+    _, launches = _counted(torch, collect)
+    t0 = time.time()
+    coll = collect()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    with _plain_min("fold"):
+        plain = collect(plain=True)
+    errs = {n: nmse(plain.sums[n], v) for n, v in coll.sums.items()}
+    out = {"tensors": len(coll.sums), "tok_s": IMATRIX_TOKENS / secs,
+           "seconds": secs, "launches": launches,
+           "max_nmse": max(errs.values()),
+           "counts": sorted(set(coll.counts.values()))}
+    check(set(plain.sums) == set(coll.sums) and out["max_nmse"] < LOGITS_GATE
+          and launches["qmm_gemm"] > 0 and out["counts"] == [IMATRIX_TOKENS],
+          f"imatrix: {out}")
+    return out
+
+
+def _draft_cli(torch, model, cli, decoder, argv) -> dict:
+    """Run a drafter CLI (cli.lookahead or cli.lookup) in this process on
+    the card, logging its prompt prefill and every verification prefill
+    (Context.prefill) and its decoder's tokens. Every emitted token must be
+    the argmax of its own verification row; against plain greedy decode on
+    the same prompt (per-token decode(), K1's GEMV and K3), the rows up to
+    the first token where the two differ are within the logits gate, and
+    at that token the plain path's top-2 gap is within the largest logit
+    difference between the two paths (_spec_parity)."""
+    import io
+
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    calls, ran = [], []
+    orig_prefill, orig_gen = Context.prefill, decoder.generate
+
+    def prefill(self, s, tokens, all_logits=False, top_k=0):
+        res = orig_prefill(self, s, tokens, all_logits, top_k)
+        calls.append((list(tokens), res))
+        return res
+
+    def generate(self, prompt, n, eos_ids=None):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        toks = orig_gen(self, prompt, n, eos_ids)
+        torch.cuda.synchronize()
+        ran.append((self, list(prompt), toks, time.time() - t0, eos_ids))
+        return toks
+
+    buf, err = io.StringIO(), io.StringIO()
+    Context.prefill, decoder.generate = prefill, generate
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = cli.main(argv, device="cuda")
+    finally:
+        Context.prefill, decoder.generate = orig_prefill, orig_gen
+    check(rc == 0 and len(ran) == 1, f"{cli.__name__}: rc {rc}")
+    dec, prompt, toks, secs, eos = ran[0]
+    check(calls[0][0] == prompt, "the first prefill is not the prompt's")
+    log = [([0], [t], [lg]) for t, lg in calls[1:]]
+    verified = [t for t, _ in _spec_expected(log, 0)]
+    argmax_ok = toks[0] == int(np.argmax(calls[0][1])) and \
+        verified[:len(toks) - 1] == toks[1:]
+    # plain greedy decode of the same prompt, its logits kept
+    ctx = Context(model, n_ctx=2048, n_seq_max=1)
+    s = ctx.new_seq()
+    cur = [int(np.argmax(ctx.prefill(s, prompt)))]
+    rows = []
+    while len(cur) < len(toks) and not (eos and cur[-1] in eos):
+        rows.append(ctx.decode([s], cur[-1:])[0])
+        cur.append(int(np.argmax(rows[-1])))
+    parity = _spec_parity(
+        {"emitted": {0: toks}, "prompt_of": {0: 0}, "log": log},
+        {"emitted": {0: cur}, "prompt_of": {0: 0}, "logits": {0: rows}})[0]
+    stats = (vars(dec.stats) if hasattr(dec, "stats") else
+             {"n_drafted": dec.n_drafted, "n_accepted": dec.n_accepted})
+    out = {"rc": rc, "tokens": len(toks), "passes": len(calls),
+           "tokens_per_pass": len(toks) / len(calls),
+           "tok_s": len(toks) / secs,
+           "stats": stats, "stderr_stats": err.getvalue().strip()
+           .splitlines()[-5:], "argmax_of_own_rows": argmax_ok,
+           "parity": parity, "stdout_chars": len(buf.getvalue())}
+    check(argmax_ok, f"{cli.__name__}: a token is not the argmax of its "
+                     f"verification row")
+    check(parity["rows_compared"] and parity["max_nmse"] < LOGITS_GATE and
+          (parity["same"] or parity["within"]),
+          f"{cli.__name__}: verification rows off plain decode, or tokens "
+          f"that differ past the logit difference: {parity}")
+    return out
+
+
+def phase_adapters(torch, kept: Kept, nvidia_smi: str) -> dict:
+    """LoRA, control vectors, eval tracing, imatrix and the draft-free
+    drafters on the kept TinyLlama file (full width and depth): a seeded
+    rank-16 adapter over all seven projections of every layer through
+    generate() (_adapter_lora), the Scheduler (_adapter_sched) and the
+    server (_adapter_server); cvector_generator, control vectors and
+    trace_eval (_adapter_cvec_trace); imatrix (_adapter_imatrix); the
+    lookahead and lookup CLIs at -n 64 (_draft_cli). Prints the decode
+    wall with the adapter against without, imatrix tok/s and the
+    drafters' tokens a pass and tok/s beside the card."""
+    from llama_cpp_test_tpu_torch.cli import lookahead as la_cli
+    from llama_cpp_test_tpu_torch.cli import lookup as lu_cli
+    from llama_cpp_test_tpu_torch.models.lora import attach_loras, load_lora
+    from llama_cpp_test_tpu_torch.ops import _cuda
+    from llama_cpp_test_tpu_torch.runtime.engine import Model
+    from llama_cpp_test_tpu_torch.runtime.lookahead import LookaheadDecoder
+    from llama_cpp_test_tpu_torch.runtime.ngram_cache import LookupDecoder
+
+    path = kept.files["tinyllama"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_adapters_")
+    t_phase = time.time()
+    try:
+        adapter_path = os.path.join(tmp, "lora.gguf")
+        write_lora_gguf(adapter_path, TINYLLAMA, ADAPTER_RANK, seed=29)
+        model = Model(path, device="cuda")
+        adapter = load_lora(adapter_path, model.hp)
+        prompts = [_salad_ids(model.tokenizer, 37, n) for n in ADAPTER_LENS]
+        out = {"card": nvidia_smi, "rank": ADAPTER_RANK}
+        out["lora"] = _adapter_lora(torch, model, adapter, prompts)
+        emit({"phase": "adapters", "part": "lora", **out["lora"]})
+        out["sched"] = _adapter_sched(torch, model, adapter)
+        emit({"phase": "adapters", "part": "sched", **out["sched"]})
+        server_launches = dict.fromkeys(_cuda.LAUNCHES, 0)
+        out["server"] = _adapter_server(torch, path, adapter_path,
+                                        server_launches)
+        emit({"phase": "adapters", "part": "server", **out["server"]})
+        attach_loras(model.weights, [])
+        out["cvec_trace"] = _adapter_cvec_trace(torch, model, path, prompts,
+                                                tmp)
+        emit({"phase": "adapters", "part": "cvec_trace",
+              **out["cvec_trace"]})
+        out["imatrix"] = _adapter_imatrix(torch, model)
+        emit({"phase": "adapters", "part": "imatrix", **out["imatrix"]})
+        for name, cli, dec in (("lookahead", la_cli, LookaheadDecoder),
+                               ("lookup", lu_cli, LookupDecoder)):
+            out[name] = _draft_cli(torch, model, cli, dec, [
+                "-m", path, "-p", DRAFT_TEXT, "-n", str(DRAFT_NEW)])
+            emit({"phase": "adapters", "part": name, **out[name]})
+        out["launches"] = out["lora"]["launches"]
+        out["seconds"] = time.time() - t_phase
+        emit({"phase": "adapters", "part": "summary", "card": nvidia_smi,
+              "seconds": out["seconds"],
+              "decode_ms_per_token": out["lora"]["decode_ms_per_token"],
+              "imatrix_tok_s": out["imatrix"]["tok_s"],
+              "lookahead": {k: out["lookahead"][k] for k in
+                            ("tokens_per_pass", "tok_s")},
+              "lookup": {k: out["lookup"][k] for k in
+                         ("tokens_per_pass", "tok_s")}})
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
                  "paged_decode_merge_kernel",
@@ -2983,6 +3516,7 @@ def main() -> int:
         serves["cli"] = phase_cli(torch, kept)
         serves["sched"] = phase_sched(torch, kept, dev["nvidia_smi"])
         serves["server"] = phase_server(torch, kept, dev["nvidia_smi"])
+        serves["adapters"] = phase_adapters(torch, kept, dev["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

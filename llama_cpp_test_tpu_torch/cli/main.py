@@ -3,9 +3,12 @@ interactive generation from a GGUF model, with the full sampler chain.
 
 Counterpart of llama_cpp_test_tpu/cli/main.py, the llama branch: the
 model runs on the CUDA device (main(argv, device=...) lets a caller pick
-another). The recurrent and encoder-decoder families, adapters and tensor
-parallelism raise NotImplementedError until the port carries them
-(ROADMAP items 6, 9 and 13).
+another). LoRA adapters (--lora, --lora-scaled) and control vectors
+(--control-vector, --control-vector-scaled) attach as the reference
+attaches them, except that several adapters all apply (the reference
+keeps only the last; ROADMAP §3, fault 9). The recurrent and
+encoder-decoder families and tensor parallelism raise
+NotImplementedError until the port carries them (ROADMAP items 9 and 13).
 
 Usage:
   python -m llama_cpp_test_tpu_torch.cli.main -m model.gguf -p "prompt" -n 64
@@ -62,14 +65,39 @@ def _refuse_unported(args, arch: str) -> None:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ROADMAP item "
             f"{_FAMILIES[arch]})")
-    if args.lora or args.lora_scaled:
-        raise NotImplementedError("--lora is not ported yet (ROADMAP item 6)")
-    if args.control_vector or args.control_vector_scaled:
-        raise NotImplementedError(
-            "--control-vector is not ported yet (ROADMAP item 6)")
     if args.tensor_parallel > 1:
         raise NotImplementedError(
             "-tp > 1 is not ported yet (ROADMAP item 13)")
+
+
+def _attach_adapters(args, model) -> None:
+    """--lora/--lora-scaled and --control-vector(-scaled) onto the model's
+    weights. One adapter attaches as the reference attaches it (scale
+    applied after the update); several stack along the rank axis
+    (attach_loras), where the reference's loop kept only the last."""
+    loras = [(p, 1.0) for p in args.lora] + \
+        [(p, float(s)) for p, s in args.lora_scaled]
+    if loras:
+        from ..models.lora import attach_lora, attach_loras, load_lora
+
+        adapters = [(load_lora(p, model.hp), s) for p, s in loras]
+        if len(adapters) == 1:
+            attach_lora(model.weights, *adapters[0])
+        else:
+            attach_loras(model.weights, adapters)
+        for path, scale in loras:
+            print(f"# lora attached: {path} (scale {scale})", file=sys.stderr)
+    cv_specs = [(p, 1.0) for p in args.control_vector] + \
+        [(p, float(s)) for p, s in args.control_vector_scaled]
+    if cv_specs:
+        from ..models.cvec import attach_control_vector, load_control_vector
+
+        combined: dict = {}
+        for path, strength in cv_specs:
+            for il, v in load_control_vector(path).items():
+                combined[il] = combined.get(il, 0) + v * strength
+        attach_control_vector(model.weights, combined)
+        print(f"# control vectors attached: {len(cv_specs)}", file=sys.stderr)
 
 
 def main(argv=None, device=None) -> int:
@@ -94,6 +122,7 @@ def main(argv=None, device=None) -> int:
     if model.tokenizer is None:
         print("error: model has no tokenizer", file=sys.stderr)
         return 1
+    _attach_adapters(args, model)
 
     ctx = Context(model, n_ctx=args.ctx_size, n_seq_max=1,
                   kv_type=args.cache_type_kv)

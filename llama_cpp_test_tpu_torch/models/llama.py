@@ -54,6 +54,13 @@ class LayerWeights:
     gate_exps: QTensor | None = None
     up_exps: QTensor | None = None
     down_exps: QTensor | None = None
+    # LoRA pairs: field name (wq, wk, wv, wo, w_gate, w_up, w_down) ->
+    # (A [r, K], B [N, r], scale), A and B float32 holding bf16 values
+    # (models/lora.py)
+    lora: dict = dataclasses.field(default_factory=dict)
+    # control vector: [n_embd] float32 added to the layer output
+    # (models/cvec.py)
+    cvec: Any = None
 
 
 @dataclasses.dataclass
@@ -242,25 +249,56 @@ def linear(x: torch.Tensor, qt: QTensor, plain: bool = False,
     return (qmm_plain if plain else qmm)(x, qt, out_dtype=out_dtype)
 
 
+def lora_delta(x: torch.Tensor, lora) -> torch.Tensor | None:
+    """scale * (x A^T) B^T, the low-rank update, rounded as the reference
+    rounds it: bf16 operands, products accumulated in float32, the first
+    product rounded to bf16 before the second. A and B hold bf16 values
+    in float32, so both products are float32 matmuls of bf16-rounded
+    operands (with TF32 off, as torch leaves it by default)."""
+    if lora is None:
+        return None
+    a, b, sc = lora
+    u = torch.matmul(x.to(torch.bfloat16).float(), a.t())
+    d = torch.matmul(u.to(torch.bfloat16).float(), b.t())
+    return d * sc
+
+
+def linear_lora(x: torch.Tensor, qt: QTensor, lora, plain: bool = False,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """linear() plus the optional low-rank update."""
+    y = linear(x, qt, plain, out_dtype)
+    d = lora_delta(x, lora)
+    return y if d is None else y + d.to(y.dtype)
+
+
 def embed(w: LlamaWeights, tokens: torch.Tensor) -> torch.Tensor:
     return qgather(tokens, w.tok_embd, dtype=torch.bfloat16)
 
 
 def qkv_proj(cur: torch.Tensor, lw: LayerWeights, plain: bool = False):
-    """Q/K/V projections, via the fused wqkv plane when available."""
+    """Q/K/V projections, via the fused wqkv plane when available, each
+    with its LoRA update when one is attached."""
+    lora = lw.lora
     if lw.wqkv is not None:
         split = qmm_split_plain if plain else qmm_split
-        return split(cur, lw.wqkv)
-    return (linear(cur, lw.wq, plain), linear(cur, lw.wk, plain),
-            linear(cur, lw.wv, plain))
+        outs = split(cur, lw.wqkv)
+        deltas = [lora_delta(cur, lora.get(f)) for f in ("wq", "wk", "wv")]
+        return tuple(o if d is None else o + d for o, d in zip(outs, deltas))
+    return tuple(linear_lora(cur, getattr(lw, f), lora.get(f), plain)
+                 for f in ("wq", "wk", "wv"))
 
 
 def gateup_proj(cur: torch.Tensor, lw: LayerWeights, plain: bool = False):
-    """SwiGLU gate/up projections, fused when available."""
+    """SwiGLU gate/up projections, fused when available, each with its
+    LoRA update when one is attached."""
+    lora = lw.lora
     if lw.w_gateup is not None:
         split = qmm_split_plain if plain else qmm_split
-        return split(cur, lw.w_gateup)
-    return linear(cur, lw.w_gate, plain), linear(cur, lw.w_up, plain)
+        outs = split(cur, lw.w_gateup)
+        deltas = [lora_delta(cur, lora.get(f)) for f in ("w_gate", "w_up")]
+        return tuple(o if d is None else o + d for o, d in zip(outs, deltas))
+    return tuple(linear_lora(cur, getattr(lw, f), lora.get(f), plain)
+                 for f in ("w_gate", "w_up"))
 
 
 def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
@@ -278,7 +316,7 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
     v = v.reshape(b, tdim, kvh, d)
     attn_out = attend(q.to(torch.bfloat16), k.to(torch.bfloat16),
                       v.to(torch.bfloat16)).reshape(b, tdim, h * d)
-    o = linear(attn_out, lw.wo, plain)
+    o = linear_lora(attn_out, lw.wo, lw.lora.get("wo"), plain)
     x = x + o.to(x.dtype)
     return _forward_layer_ffn(x, lw, hp, plain)
 
@@ -321,14 +359,18 @@ def _moe_grouped(xf, lw, hp, topi, topv, plain: bool = False):
 def _forward_layer_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
                        plain: bool = False) -> torch.Tensor:
     """FFN half of the layer: RMSNorm -> gate|up -> SwiGLU -> down, or the
-    routed experts of a MoE layer."""
+    routed experts of a MoE layer; then the control vector, if any."""
     cur = layers.rms_norm(x, lw.ffn_norm, hp.rms_eps)
     if lw.gate_inp is not None:
         ffn = moe_ffn(cur, lw, hp, plain)
     else:
         g, u = gateup_proj(cur, lw, plain)
-        ffn = linear(layers.swiglu(g, u), lw.w_down, plain)
-    return x + ffn.to(x.dtype)
+        ffn = linear_lora(layers.swiglu(g, u), lw.w_down,
+                          lw.lora.get("w_down"), plain)
+    x = x + ffn.to(x.dtype)
+    if lw.cvec is not None:
+        x = x + lw.cvec.to(x.dtype)
+    return x
 
 
 def final_norm(w: LlamaWeights, hp: HParams, x: torch.Tensor) -> torch.Tensor:

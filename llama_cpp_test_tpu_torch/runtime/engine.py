@@ -49,7 +49,7 @@ TOKEN_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
              rows, slots, kv_len, *, hp: HParams, decode: bool,
              plain: bool = False, rope_delta=None,
-             causal: bool = True) -> torch.Tensor:
+             causal: bool = True, tap: list | None = None) -> torch.Tensor:
     """Embed, run all layers (writing KV in place), no final norm (lm_head
     applies it). rows/slots: flat token rows of the batch whose KV is kept
     and their global slot ids. Returns hidden [B, T, C].
@@ -58,8 +58,11 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
     optional per-row offset added for the RoPE rotation only, nonzero after
     Self-Extend (SeqState.pos_offset). causal=False (a prefill for embed)
     lets every token attend the whole chunk: the mask positions become
-    kv_len - 1 on every row, while rope keeps the true positions."""
+    kv_len - 1 on every row, while rope keeps the true positions. tap, a
+    list, receives the embedding and every layer's output (tracing)."""
     x = llama_mod.embed(w, tokens)
+    if tap is not None:
+        tap.append(x)
     rope_pos = positions if rope_delta is None else \
         positions + rope_delta[:, None]
     mask_pos = positions if causal else \
@@ -96,6 +99,8 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
 
         x = llama_mod.forward_layer(x, lw, hp, rope_pos, w.rope_inv_freq,
                                     w.rope_mscale, attend, plain=plain)
+        if tap is not None:
+            tap.append(x)
     return x
 
 
@@ -445,7 +450,7 @@ class Context:
         return upload(a, self.device)
 
     def _step(self, tok, pos, bt, slot_arr, kv_len, decode: bool, rd=None,
-              causal: bool = True):
+              causal: bool = True, tap: list | None = None):
         """Upload one step's host arrays and run the forward. Padding rows
         (slot -1) are dropped from the KV scatter here, on the host."""
         flat = slot_arr.reshape(-1)
@@ -456,7 +461,7 @@ class Context:
             self._to_dev(flat[keep].astype(np.int64)), self._to_dev(kv_len),
             hp=self.model.hp, decode=decode, plain=self.plain,
             rope_delta=None if rd is None else self._to_dev(rd),
-            causal=causal)
+            causal=causal, tap=tap)
 
     def _check_room(self, s: SeqState, n: int) -> None:
         if s.n_cached + n > self.n_ctx:

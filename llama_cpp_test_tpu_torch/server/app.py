@@ -21,9 +21,11 @@ Every thread that touches the Context (the engine thread's scheduler
 steps; embeddings, rerank and slot actions on executor threads) takes
 EngineThread.ctx_lock and issues its work on the device's default stream,
 so a chained decode window still in flight when a step returns runs
-before anything another thread queues. LoRA adapters (ROADMAP item 6),
-the recurrent families (item 9) and multi-device serving (item 13) raise
-NotImplementedError.
+before anything another thread queues. LoRA adapters (lora=, --lora)
+have hot-swappable scales (POST /lora-adapters): the new scales attach
+under ctx_lock, between two scheduler steps, and a window already queued
+keeps the tensors it was queued with. The recurrent families (ROADMAP
+item 9) and multi-device serving (item 13) raise NotImplementedError.
 
 Usage:
   python -m llama_cpp_test_tpu_torch.server.app -m model.gguf --port 8080
@@ -156,9 +158,6 @@ class LlamaServer:
         if followers is not None:
             raise NotImplementedError(
                 "multi-host serving is not ported yet (ROADMAP item 13)")
-        if lora:
-            raise NotImplementedError(
-                "LoRA adapters are not ported yet (ROADMAP item 6)")
         self.model = Model(model_path, device=device,
                            kv_overrides=kv_overrides)
         # --chat-template: force a builtin template name or jinja source
@@ -180,8 +179,34 @@ class LlamaServer:
         self.t_start = time.time()
         self.slot_save_path = slot_save_path
         self.api_key = api_key
-        # LoRA adapters (server /lora-adapters): none until ROADMAP item 6
+        # LoRA adapters with hot-swappable scales (server /lora-adapters)
         self.loras: list[dict] = []
+        if lora:
+            from ..models.lora import load_lora
+
+            for i, (path, scale) in enumerate(lora):
+                self.loras.append({"id": i, "path": path, "scale": scale,
+                                   "adapter": load_lora(path, self.model.hp)})
+            with self.engine.ctx_lock:
+                self._reattach_loras()
+
+    def _reattach_loras(self) -> None:
+        """Stack every adapter at its current scale onto the weights (the
+        caller holds engine.ctx_lock). Each layer's .lora dict is replaced,
+        not edited, so work already queued keeps the tensors it read. The
+        idle slots' cached KV was computed under the old scales: it is
+        dropped, so no later request reuses it as its prefix (the
+        reference keeps it; ROADMAP §3, fault 10)."""
+        from ..models.lora import attach_loras
+        from ..runtime.scheduler import SlotState
+
+        attach_loras(self.model.weights,
+                     [(l["adapter"], l["scale"]) for l in self.loras])
+        for slot in self.sched.slots:
+            if slot.state == SlotState.IDLE and slot.seq is not None:
+                self.sched.ctx.free_seq(slot.seq)
+                slot.seq = None
+                slot.cache_tokens = []
 
     # -- request plumbing ----------------------------------------------------
 
@@ -372,19 +397,36 @@ class LlamaServer:
             for l in self.loras])
 
     async def lora_adapters_post(self, request):
-        """Set per-adapter scales: body [{"id": 0, "scale": 0.5}, ...].
-        No adapter loads until ROADMAP item 6, so a non-empty body is
-        answered 501 Not Implemented."""
+        """Set per-adapter scales: body [{"id": 0, "scale": 0.5}, ...]. The
+        whole body is checked before any scale changes, so a bad id late in
+        the list leaves every scale as it was (answered 400)."""
         body = await request.json()
         if not isinstance(body, list):
             raise web.HTTPBadRequest(
                 text='{"error": "expected a JSON list"}',
                 content_type="application/json")
-        if body:
-            raise web.HTTPNotImplemented(
-                text='{"error": "LoRA adapters are not ported yet '
-                     '(ROADMAP item 6)"}',
-                content_type="application/json")
+        by_id = {l["id"]: l for l in self.loras}
+        staged: dict[int, float] = {}
+        for item in body:
+            try:
+                lid = int(item.get("id", -1))
+                scale = float(item.get("scale", 1.0))
+            except (AttributeError, TypeError, ValueError):
+                lid, scale = -1, 0.0
+            if lid not in by_id:
+                raise web.HTTPBadRequest(
+                    text=json.dumps(
+                        {"error": f"invalid adapter entry {item}"}),
+                    content_type="application/json")
+            staged[lid] = scale
+        if staged:
+            def run():
+                with self.engine.ctx_lock:
+                    for lid, sc in staged.items():
+                        by_id[lid]["scale"] = sc
+                    self._reattach_loras()
+
+            await asyncio.get_running_loop().run_in_executor(None, run)
         return await self.lora_adapters_get(request)
 
     async def tokenize(self, request):

@@ -7,6 +7,8 @@ numpy arrays: the port's own loader output, or port_weights_from_reference
 of the reference's parameters. bf16 bit patterns (uint16) become
 torch.bfloat16, int8/uint8 planes keep their type, float arrays become
 float32. Expert stacks (a leading E axis on every plane) move the same way.
+Attached adapters move too: each LoRA pair (A, B, scale) as float32
+tensors holding A and B rounded to bf16, a control vector as float32.
 """
 from __future__ import annotations
 
@@ -57,11 +59,32 @@ def port_qtensor(jqt) -> QTensor:
                    jqt.layout, jqt.parts)
 
 
+def lora_to_torch(pair, device: torch.device | str) -> tuple:
+    """A LoRA pair (A, B, scale) on device: A and B (float arrays, or bf16
+    bit patterns as uint16) rounded to bf16 and widened back to float32,
+    the operands models.llama.lora_delta takes."""
+    a, b, scale = pair
+    conv = lambda x: (x if isinstance(x, torch.Tensor) else array_to_torch(
+        x, device)).to(device, torch.bfloat16).float()
+    return conv(a), conv(b), float(scale)
+
+
+def _layer_fields(lw, conv, conv_lora) -> LayerWeights:
+    """A LayerWeights with conv applied to every plane and norm field,
+    conv_lora to each LoRA pair; the control vector goes through conv."""
+    out = {f.name: conv(getattr(lw, f.name))
+           for f in dataclasses.fields(LayerWeights) if f.name != "lora"}
+    out["lora"] = {k: conv_lora(v) for k, v in
+                   (lw.lora or {}).items()}
+    return LayerWeights(**out)
+
+
 def port_weights_from_reference(jw) -> LlamaWeights:
     """The reference's loaded parameters (any object with the attributes
     of its LlamaWeights, planes as arrays) as the port's host planes: every
     LayerWeights field by name, the expert stacks and the router
-    included. A reference that fused gate|up expert stacks into one plane
+    included, and the LoRA pairs and control vector attached to it. A
+    reference that fused gate|up expert stacks into one plane
     (its LLAMA_TPU_MOE_FUSE load) is refused: the port keeps them apart."""
     for i, lw in enumerate(jw.layers):
         if getattr(lw, "gate_inp", None) is not None and (
@@ -71,9 +94,8 @@ def port_weights_from_reference(jw) -> LlamaWeights:
                 "separate gate and up stacks")
     conv = lambda x: None if x is None else (
         port_qtensor(x) if hasattr(x, "kind") else np.asarray(x, np.float32))
-    layers = [LayerWeights(**{f.name: conv(getattr(lw, f.name))
-                              for f in dataclasses.fields(LayerWeights)})
-              for lw in jw.layers]
+    conv_lora = lambda p: (host_array(p[0]), host_array(p[1]), float(p[2]))
+    layers = [_layer_fields(lw, conv, conv_lora) for lw in jw.layers]
     return LlamaWeights(
         tok_embd=conv(jw.tok_embd), output_norm=conv(jw.output_norm),
         output=conv(jw.output), layers=layers,
@@ -90,8 +112,7 @@ def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:
             return qtensor_to_torch(x, device)
         return array_to_torch(x, device)
 
-    layers = [LayerWeights(**{f.name: conv(getattr(lw, f.name))
-                              for f in dataclasses.fields(LayerWeights)})
+    layers = [_layer_fields(lw, conv, lambda p: lora_to_torch(p, device))
               for lw in w.layers]
     return LlamaWeights(
         tok_embd=conv(w.tok_embd), output_norm=conv(w.output_norm),

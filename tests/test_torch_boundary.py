@@ -3,8 +3,9 @@ it loads no JAX, nothing of the JAX package and no ml_dtypes, on the dense
 path, on the MoE + q8_0-KV path, on an IQ4_XS file, in its kernel probes
 (which load nothing of the JAX package's tools/ either) and through the
 CLI, the scheduler, device sampling and the tokenizers (which load no
-`regex` either), and asking for CUDA where there is none raises instead
-of running on the CPU."""
+`regex` either), through LoRA, control vectors, tracing, imatrix,
+lookahead, prompt lookup and their CLIs, and asking for CUDA where there
+is none raises instead of running on the CPU."""
 import json
 import os
 import subprocess
@@ -218,3 +219,109 @@ def test_serving_path_imports_no_jax_reference_ml_dtypes_or_regex(tmp_path):
     assert res["tokens"] == [6, 6] and res["bpe"] == [2]
     assert res["served"] == {"web": True, "restored": True, "emb": [64],
                              "spec": 6, "chat": True, "temp": 0.5}
+
+
+_ADAPTERS = r"""
+import importlib.abc, io, json, sys
+from contextlib import redirect_stdout
+sys.path.insert(0, sys.argv[1])
+
+
+class _Blocked(importlib.abc.MetaPathFinder):
+    NAMES = ("jax", "jaxlib", "llama_cpp_test_tpu", "ml_dtypes", "regex")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.NAMES:
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+import numpy as np
+from llama_cpp_test_tpu_torch.cli import (cvector_generator, eval_callback,
+                                          export_lora, lookahead, lookup)
+from llama_cpp_test_tpu_torch.cli.main import main
+from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
+from llama_cpp_test_tpu_torch.models import cvec, lora
+from llama_cpp_test_tpu_torch.runtime import (imatrix, lookahead as la,
+                                              ngram_cache, tracing)
+from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
+path = sys.argv[2]
+rng = np.random.default_rng(0)
+w = GGUFWriter("a.gguf", arch="llama")
+w.add_kv("adapter.lora.alpha", 8.0)
+for t, (n, k) in {"attn_q": (64, 64), "ffn_down": (64, 96)}.items():
+    w.add_tensor(f"blk.0.{t}.weight.lora_a",
+                 rng.standard_normal((4, k)).astype(np.float32) * 0.1)
+    w.add_tensor(f"blk.0.{t}.weight.lora_b",
+                 rng.standard_normal((n, 4)).astype(np.float32) * 0.1)
+w.write()
+m = Model(path, device="cpu")
+lora.attach_lora(m.weights, lora.load_lora("a.gguf", m.hp))
+ctx = Context(m, n_ctx=64, n_seq_max=2, block_size=8)
+traces = tracing.trace_eval(ctx, [3, 17, 42])
+dirs = cvec.generate_control_vector(ctx, ["good day"], ["bad day"], "c.gguf")
+coll = imatrix.IMatrixCollector(m)
+coll.collect([int(t) for t in rng.integers(3, 280, 32)], chunk=32)
+coll.save("im.npz")
+toks = la.LookaheadDecoder(ctx).generate([3, 17, 42], 6)
+toks += ngram_cache.LookupDecoder(ctx).generate([3, 17, 42], 6)
+ngram_cache.NGramCache().save("n.bin")
+buf = io.StringIO()
+with redirect_stdout(buf):
+    rcs = [main(["-m", path, "-p", "hi", "-n", "3", "--temp", "0",
+                 "--lora", "a.gguf", "--control-vector", "c.gguf"],
+                device="cpu"),
+           export_lora.main(["-m", path, "--lora", "a.gguf", "-o", "x.gguf"]),
+           eval_callback.main(["-m", path, "-p", "hi"], device="cpu"),
+           lookup.main(["--merge", "n.bin", "n.bin", "-o", "m.bin"])]
+bad = sorted(k for k in sys.modules if k.split(".")[0] in _Blocked.NAMES)
+print(json.dumps({"rcs": rcs, "names": [t.name for t in traces],
+                  "dirs": sorted(dirs), "sums": len(coll.sums),
+                  "tokens": len(toks), "bad": bad}))
+"""
+
+
+def test_adapter_and_drafter_modules_import_no_jax_or_reference(tmp_path):
+    """LoRA, control vectors, tracing, imatrix, lookahead, prompt lookup
+    and their CLIs run with JAX, the JAX package, ml_dtypes and regex
+    blocked, and load none of them."""
+    path = str(tmp_path / "tiny.gguf")
+    make_tiny_gguf(path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _ADAPTERS, ROOT, path],
+                         env=env, capture_output=True, text=True, timeout=300,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"rcs": [0, 0, 0, 0],
+                   "names": ["inp_embd", "l_out-0", "l_out-1",
+                             "result_output"],
+                   "dirs": [1, 2], "sums": 15, "tokens": 12, "bad": []}
+
+
+@pytest.mark.parametrize("entry", ["cli.lookahead", "cli.lookup",
+                                   "cli.eval_callback",
+                                   "cli.cvector_generator",
+                                   "runtime.imatrix"])
+def test_new_entry_points_default_to_cuda(tmp_path, entry):
+    """Each entry point that runs the model asks for CUDA unless the
+    caller passes device=, and raises where there is none."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU rule is moot")
+    path = str(tmp_path / "tiny.gguf")
+    make_tiny_gguf(path)
+    text = str(tmp_path / "t.txt")
+    with open(text, "w") as f:
+        f.write("hello world\n")
+    argv = {"cli.lookahead": ["-m", path, "-p", "hi"],
+            "cli.lookup": ["-m", path, "-p", "hi"],
+            "cli.eval_callback": ["-m", path],
+            "cli.cvector_generator": ["-m", path, "--positive-file", text,
+                                      "--negative-file", text],
+            "runtime.imatrix": ["-m", path, "-f", text]}[entry]
+    main = importlib.import_module(f"llama_cpp_test_tpu_torch.{entry}").main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)

@@ -1,13 +1,16 @@
 """The port's llama-cli (llama_cpp_test_tpu_torch/cli/main.py, the llama
 branch) against the JAX CLI: the same argv on the tiny fixture prints the
 same text, greedy (the JAX engine jitted) and seeded (the JAX engine op
-by op, whose bf16 roundings the port keeps); what the port does not carry
+by op, whose bf16 roundings the port keeps), and with LoRA adapters and
+control vectors attached (against the JAX engine op by op: jitted XLA
+flips a near tie of the adapted model); what the port does not carry
 yet raises NotImplementedError instead of running something else."""
 import contextlib
 import io
 import sys
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -115,9 +118,54 @@ def test_empty_prompt_errors(model_path):
     assert run(pmain, ["-m", model_path, "-n", "4"], device="cpu")[0] == 1
 
 
+@pytest.fixture(scope="module")
+def adapters(tmp_path_factory):
+    """Two LoRA adapters over the tiny fixture (all seven targets of every
+    layer, and attn_q/ffn_down only) and a control vector for both layers."""
+    from test_torch_lora import TINY_DIMS, write_adapter
+
+    d = tmp_path_factory.mktemp("adapters")
+    cv = str(d / "cv.gguf")
+    w = GGUFWriter(cv, arch="controlvector")
+    rng = np.random.default_rng(9)
+    for il in (1, 2):
+        w.add_tensor(f"direction.{il}",
+                     rng.standard_normal(64).astype(np.float32))
+    w.write()
+    return {"a1": write_adapter(str(d / "a1.gguf"), TINY_DIMS, 2, seed=1),
+            "a2": write_adapter(str(d / "a2.gguf"), TINY_DIMS, 2, rank=2,
+                                seed=2, targets=("attn_q", "ffn_down")),
+            "cv": cv}
+
+
 @pytest.mark.parametrize("flags", [
-    ["--lora", "a.gguf"], ["--control-vector", "c.gguf"],
-    ["--control-vector-scaled", "c.gguf", "0.5"], ["-tp", "2"]])
+    ["--lora", "a1"], ["--lora-scaled", "a1", "0.6"],
+    ["--control-vector", "cv"],
+    ["--control-vector-scaled", "cv", "0.5", "--lora", "a2"]])
+def test_adapter_text_matches_reference(model_path, adapters, flags):
+    flags = [adapters.get(f, f) for f in flags]
+    argv = ["-m", model_path, "-p", "hello world", "-n", "14",
+            "--temp", "0"] + flags
+    with jax.disable_jit():
+        want = run(jmain, argv)
+    got = run(pmain, argv, device="cpu")
+    assert got == want and got[0] == 0
+    assert got != run(pmain, argv[:8], device="cpu")   # the adapter acts
+
+
+def test_several_loras_all_apply(model_path, adapters):
+    """Reference fault 9 (ROADMAP §3): the JAX CLI's --lora loop keeps only
+    the last adapter; the port stacks them all (attach_loras)."""
+    argv = ["-m", model_path, "-p", "hello world", "-n", "14", "--temp", "0"]
+    both = ["--lora", adapters["a1"], "--lora", adapters["a2"]]
+    last = ["--lora-scaled", adapters["a2"], "1.0"]
+    assert run(jmain, argv + both) == run(jmain, argv + last)
+    got = run(pmain, argv + both, device="cpu")
+    assert got[0] == 0
+    assert got != run(pmain, argv + last, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [["-tp", "2"]])
 def test_unported_options_raise(model_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         run(pmain, ["-m", model_path, "-p", "hi", "-n", "2"] + flags,

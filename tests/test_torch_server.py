@@ -306,22 +306,53 @@ def test_slot_save_requires_path(client, server):
                        {"filename": "x.npz"})[0] == 400
 
 
-def test_lora_adapters_endpoint(path, client):
-    """No adapter loads until ROADMAP item 6: --lora raises naming it, the
-    list is empty, and setting a scale answers 501 naming it."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        papp.LlamaServer(path, n_ctx=64, n_slots=1, device="cpu",
-                         lora=[("a.gguf", 1.0)])
+def test_lora_adapters_endpoint(path, client, tmp_path):
+    """LlamaServer(lora=) lists its adapters; POST /lora-adapters changes a
+    scale between two requests (at scale 0 the completion equals the
+    server without an adapter, and no slot reuses KV cached under the
+    old scale); a body with a bad id answers 400 and changes no scale."""
+    from test_torch_lora import TINY_DIMS, write_adapter
 
-    async def go(c):
-        assert await (await c.get("/lora-adapters")).json() == []
-        r = await c.post("/lora-adapters", json=[])
-        assert r.status == 200 and await r.json() == []
-        r = await c.post("/lora-adapters", json=[{"id": 0, "scale": 0.5}])
-        assert r.status == 501 and "ROADMAP item 6" in await r.text()
-        r = await c.post("/lora-adapters", json={"id": 0})
-        assert r.status == 400
-    client.call(go)
+    a1 = write_adapter(str(tmp_path / "a1.gguf"), TINY_DIMS, 2, seed=1)
+    a2 = write_adapter(str(tmp_path / "a2.gguf"), TINY_DIMS, 2, seed=2,
+                       targets=("attn_q", "ffn_down"))
+    body = {"prompt": "hello world", "max_tokens": 8, "temperature": 0.0,
+            "ignore_eos": True}
+    base = client.post("/completion", body)[1]["choices"][0]["text"]
+    srv = papp.LlamaServer(path, n_ctx=64, n_slots=1, device="cpu",
+                           lora=[(a1, 1.0), (a2, 0.5)])
+    srv.engine.start()
+    c = Client(srv)
+    try:
+        listed = [{"id": 0, "path": a1, "scale": 1.0},
+                  {"id": 1, "path": a2, "scale": 0.5}]
+        assert c.call(lambda cl: _get_json(cl, "/lora-adapters")) == listed
+        adapted = c.post("/completion", body)[1]["choices"][0]["text"]
+        assert adapted != base
+        status, out = c.post("/lora-adapters", [{"id": 0, "scale": 0.0},
+                                                {"id": 1, "scale": 0.0}])
+        assert status == 200 and [l["scale"] for l in out] == [0.0, 0.0]
+        assert all(lw.lora == {} for lw in srv.model.weights.layers)
+        assert c.post("/completion", body)[1]["choices"][0]["text"] == base
+        # a bad id anywhere in the body: 400, every scale as it was
+        for bad in ([{"id": 1, "scale": 2.0}, {"id": 7, "scale": 1.0}],
+                    [{"id": "x"}], [3]):
+            status, out = c.post("/lora-adapters", bad)
+            assert status == 400 and "invalid adapter" in out["error"]
+        assert [l["scale"] for l in
+                c.call(lambda cl: _get_json(cl, "/lora-adapters"))] == [0, 0]
+        assert c.post("/lora-adapters", {"id": 0})[0] == 400
+        status, _ = c.post("/lora-adapters", [{"id": 0, "scale": 1.0},
+                                              {"id": 1, "scale": 0.5}])
+        assert status == 200
+        assert c.post("/completion", body)[1]["choices"][0]["text"] == adapted
+    finally:
+        c.close()
+        stop(srv)
+
+
+async def _get_json(cl, url):
+    return await (await cl.get(url)).json()
 
 
 def test_api_key_auth(path):
