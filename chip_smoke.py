@@ -11,8 +11,8 @@ non-zero before the final line:
   device   nvidia-smi name/power limit, torch and CUDA versions
   build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc;
            registers and spill bytes of every qmm_gemv, qmm_gemm,
-           qmm_cache, flash_prefill, gmm_gemv, gmm_gemm and paged_decode
-           instantiation (and of paged_decode's merge), and of the probe
+           qmm_cache, flash_prefill (D = 64, 128, 256), gmm_gemv, gmm_gemm
+           and paged_decode (D = 64, 128, 256; bf16 and q8) instantiation (and of paged_decode's merge), and of the probe
            GEMV (kbench_gemv, pairs_gemv) and the byte stream, from ptxas -v
            (a spill fails the phase), and the atomic instructions in the
            SASS of the GEMV kernels (K1's, K4's, the probes') and the byte
@@ -30,7 +30,7 @@ non-zero before the final line:
            at every row of a prefill and of the next decode steps are held
            against the plain path, its min rounded as the TPU kernels round
            it (the XLA path's joint rounding is recorded beside)
-  serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 8
+  serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 4
            layers), served by two Contexts, bf16 and q8_0 KV, each with
            three generate() requests and one batched decode of 8 sequences;
            the logits gate holds the rows whose expert routing agrees with
@@ -125,10 +125,30 @@ non-zero before the final line:
            first difference within the two paths' logit difference. Prints
            the decode wall with and without the adapter, imatrix tok/s and
            the drafters' tokens a pass and tok/s beside the card
+  quirks   the gemma and qwen archs: Gemma-2-2B (Q4_K) and Gemma-3-1B
+           (Q8_0) at published widths and depth (26 layers, head dim 256,
+           tied heads; Gemma-2's window 4096 on every second layer and
+           softcaps 50/30, Gemma-3's window 512 on five layers of six with
+           a local rope base and QK norms), Qwen2.5-0.5B (biases) and
+           Qwen3-0.6B (QK norms) at published widths, 4 layers, each
+           served as in serve (generate() at 16, 130 and 512 tokens; on
+           the Gemma files at bf16 and q8_0 KV, 8 decode steps held to
+           the plain path); on
+           each Gemma file a prompt past its window (4608 and 1024
+           tokens) in 512-token chunks: K2 launched once a layer a chunk,
+           K3 once a global layer a decode step (13 of 26, 4 of 26; the
+           windowed layers decode on the gather path), K1's GEMV 4 times
+           a layer and once for the head, the logits within the plain
+           path's gate; the same prompt through one Scheduler slot equal
+           to its per-token replay; the sched phase's eight requests at
+           bf16 and q8_0 KV (K3, K3-q8 at B = 8, D = 256) against their
+           replay; K2, K3 and K3-q8 rows at D = 256
+  timings  the seconds of each phase
 
 Every file the serve phases write carries a synthesized tokenizer
-(write_llama_gguf's vocab: SPM for 32000 tokens, Llama-3's BPE layout for
-128256); nothing is downloaded.
+(write_llama_gguf's vocab: SPM for 32000 tokens and for the gemma and
+qwen vocabularies, Llama-3's BPE layout for 128256); nothing is
+downloaded.
 
 Before the last line it prints the kernels summary and the card's
 nvidia-smi name and power limit; the last line is
@@ -171,10 +191,11 @@ TINYLLAMA = dict(n_vocab=32000, n_embd=2048, n_head=32, n_head_kv=4,
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_head=32, n_head_kv=8,
                  head_dim=128, n_layer=32, n_ff=14336)
 # Mixtral-8x7B (BASELINE.json config #4; mistralai/Mixtral-8x7B-v0.1
-# config.json) published widths, depth cut from 32 to 8 layers; weights
-# at the TinyLlama phase's std (~0.015)
+# config.json) published widths, depth cut from 32 to 4 layers (8 until
+# the quirks phase needed the time); weights at the TinyLlama phase's std
+# (~0.015)
 MIXTRAL = dict(n_vocab=32000, n_embd=4096, n_head=32, n_head_kv=8,
-               head_dim=128, n_layer=8, n_ff=14336, n_expert=8,
+               head_dim=128, n_layer=4, n_ff=14336, n_expert=8,
                n_expert_used=2, rope_base=1e6)
 
 # Llama-3-70B (BASELINE.json config #5; meta-llama/Meta-Llama-3-70B
@@ -187,9 +208,35 @@ LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=8, rope_base=500000.0)
 # layers (a layer's 1.4G expert weights are 0.56-0.7 GB of planes, but
 # repacking 4 layers already takes 9 s (Q2_K) and 21 s (IQ1_S) on the 8
 # host cores of an H100 machine), and to 2 for the BF16 file (3.1 GB a
-# layer: ~6.3 GB, about serve_moe's 8-layer file)
+# layer: ~6.3 GB)
 MIXTRAL_LOWBIT = dict(MIXTRAL, n_layer=4)
 MIXTRAL_BF16 = dict(MIXTRAL, n_layer=2)
+# Gemma-2-2B (google/gemma-2-2b config.json) published widths and depth:
+# head dim 256, query_pre_attn_scalar 256, tied head, sliding window 4096
+# on every second layer, attention and final softcaps 50 and 30
+GEMMA2_2B = dict(arch="gemma2", n_vocab=256000, n_embd=2304, n_head=8,
+                 n_head_kv=4, head_dim=256, n_layer=26, n_ff=9216,
+                 rope_base=10000.0, rms_eps=1e-6, sliding_window=4096,
+                 attn_softcap=50.0, final_softcap=30.0, tied=True,
+                 post_norms=True)
+# Gemma-3-1B (google/gemma-3-1b-pt config.json) published widths and
+# depth: sliding window 512 on five layers of every six, rope base 1e6
+# with a local base of 10000, per-head QK norms, no softcaps, tied head
+GEMMA3_1B = dict(arch="gemma3", n_vocab=262144, n_embd=1152, n_head=4,
+                 n_head_kv=1, head_dim=256, n_layer=26, n_ff=6912,
+                 rope_base=1e6, rope_base_swa=10000.0, rms_eps=1e-6,
+                 sliding_window=512, swa_pattern=6, tied=True,
+                 post_norms=True, qk_norm=True)
+# Qwen2.5-0.5B (Qwen/Qwen2.5-0.5B config.json) published widths, depth cut
+# from 24 to 4 layers: Q/K/V biases, NEOX rope, tied head
+QWEN25_05B = dict(arch="qwen2", n_vocab=151936, n_embd=896, n_head=14,
+                  n_head_kv=2, head_dim=64, n_layer=4, n_ff=4864,
+                  rope_base=1e6, rms_eps=1e-6, tied=True, qkv_bias=True)
+# Qwen3-0.6B (Qwen/Qwen3-0.6B config.json) published widths, depth cut
+# from 28 to 4 layers: per-head QK norms, head dim 128, tied head
+QWEN3_06B = dict(arch="qwen3", n_vocab=151936, n_embd=1024, n_head=16,
+                 n_head_kv=8, head_dim=128, n_layer=4, n_ff=3072,
+                 rope_base=1e6, rms_eps=1e-6, tied=True, qk_norm=True)
 
 TPU_KERNELS = {
     "qmm_gemv": ("llama_cpp_test_tpu_torch/csrc/qmm.cu",
@@ -350,13 +397,14 @@ _ROLES = ("token_embd", "output", "attn_q", "attn_k", "attn_v",
 def file_types(ftype: str) -> dict:
     """Tensor role -> GGML type of a file of type ftype, by the JAX
     package's per-tensor rules (quant/quantize_model.tensor_target_type):
-    an IQ4_XS or BF16 file is that type throughout; a Q2_K file keeps a
-    Q6_K head; an IQ1_S file bumps attn_v to Q4_K and ffn_down to IQ2_XXS,
-    keeps a Q5_K head and a Q2_K token embedding."""
+    a Q4_K, Q8_0, IQ4_XS or BF16 file is that type throughout; a Q2_K file
+    keeps a Q6_K head; an IQ1_S file bumps attn_v to Q4_K and ffn_down to
+    IQ2_XXS, keeps a Q5_K head and a Q2_K token embedding."""
     from llama_cpp_test_tpu_torch.gguf.constants import GGMLType as T
 
     base = dict.fromkeys(_ROLES, T[ftype])
     return {"Q4_K": base,
+            "Q8_0": base,
             "IQ4_XS": base,
             "BF16": base,
             "Q2_K": {**base, "output": T.Q6_K},
@@ -495,13 +543,18 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
                      ftype: str = "Q4_K", vocab: str | None = "auto",
                      vocab_seed: int | None = None,
                      chat_template: str | None = None) -> None:
-    """A llama-arch GGUF of geometry hp from seeded random block bytes:
-    matmul tensors by file_types(ftype) and F32 norms; with
-    hp["n_expert"], Mixtral's layout as llama.cpp writes it: an F32 router
-    and expert stacks of expert_types(ftype, layer). vocab: the tokenizer
-    written beside them (from vocab_seed, default seed), "spm" (spm_vocab)
-    or "bpe" (bpe_vocab); "auto" takes "bpe" for Llama-3's 128256 tokens
-    and "spm" for any other size; None writes none. chat_template: the
+    """A GGUF of arch hp.get("arch", "llama") and geometry hp from seeded
+    random block bytes: matmul tensors by file_types(ftype) and F32 norms;
+    with hp["n_expert"], Mixtral's layout as llama.cpp writes it: an F32
+    router and expert stacks of expert_types(ftype, layer). The quirk keys
+    of hp (the gemma and qwen configurations) add: rms_eps,
+    sliding_window, swa_pattern (written for gemma3), rope_base_swa (the
+    local base), attn_softcap and final_softcap, tied (no output.weight),
+    qk_norm (per-head Q/K norms), post_norms (the sandwich norms) and
+    qkv_bias (F32 Q/K/V biases). vocab: the tokenizer written beside them
+    (from vocab_seed, default seed), "spm" (spm_vocab) or "bpe"
+    (bpe_vocab); "auto" takes "bpe" for Llama-3's 128256 tokens and "spm"
+    for any other size; None writes none. chat_template: the
     tokenizer.chat_template written with it."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
@@ -510,18 +563,27 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     c, hq, hkv, d = hp["n_embd"], hp["n_head"], hp["n_head_kv"], hp["head_dim"]
     v, ff, n_layer = hp["n_vocab"], hp["n_ff"], hp["n_layer"]
     n_exp = hp.get("n_expert", 0)
-    w = GGUFWriter(path, arch="llama")
-    meta = {"llama.context_length": 2048, "llama.embedding_length": c,
-            "llama.block_count": n_layer, "llama.attention.head_count": hq,
-            "llama.attention.head_count_kv": hkv,
-            "llama.attention.key_length": d, "llama.attention.value_length": d,
-            "llama.feed_forward_length": ff, "llama.rope.dimension_count": d,
-            "llama.rope.freq_base": hp.get("rope_base", 10000.0),
-            "llama.attention.layer_norm_rms_epsilon": 1e-5,
-            "llama.vocab_size": v}
+    arch = hp.get("arch", "llama")
+    w = GGUFWriter(path, arch=arch)
+    meta = {"context_length": 2048, "embedding_length": c,
+            "block_count": n_layer, "attention.head_count": hq,
+            "attention.head_count_kv": hkv,
+            "attention.key_length": d, "attention.value_length": d,
+            "feed_forward_length": ff, "rope.dimension_count": d,
+            "rope.freq_base": hp.get("rope_base", 10000.0),
+            "attention.layer_norm_rms_epsilon": hp.get("rms_eps", 1e-5),
+            "vocab_size": v}
     if n_exp:
-        meta.update({"llama.expert_count": n_exp,
-                     "llama.expert_used_count": hp["n_expert_used"]})
+        meta.update({"expert_count": n_exp,
+                     "expert_used_count": hp["n_expert_used"]})
+    for key, name in (("sliding_window", "attention.sliding_window"),
+                      ("swa_pattern", "attention.sliding_window_pattern"),
+                      ("rope_base_swa", "rope.local_freq_base"),
+                      ("attn_softcap", "attn_logit_softcapping"),
+                      ("final_softcap", "final_logit_softcapping")):
+        if key in hp:
+            meta[name] = hp[key]
+    meta = {f"{arch}.{k}": val for k, val in meta.items()}
     if vocab == "auto":
         vocab = "bpe" if v == 128256 else "spm"
     if vocab is not None:
@@ -538,12 +600,13 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
         w.add_tensor(name, random_blocks(rng, gt, n * e, k),
                      ggml_type=gt, raw_ggml_shape=shape)
 
-    def norm(name):
-        w.add_tensor(name, 1.0 + 0.05 * rng.standard_normal(c).astype(np.float32))
+    def norm(name, n=c):
+        w.add_tensor(name, 1.0 + 0.05 * rng.standard_normal(n).astype(np.float32))
 
     quant("token_embd.weight", v, c)
     norm("output_norm.weight")
-    quant("output.weight", v, c)
+    if not hp.get("tied"):
+        quant("output.weight", v, c)
     for i in range(n_layer):
         p = f"blk.{i}."
         norm(p + "attn_norm.weight")
@@ -551,6 +614,17 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
         quant(p + "attn_k.weight", hkv * d, c)
         quant(p + "attn_v.weight", hkv * d, c)
         quant(p + "attn_output.weight", c, hq * d)
+        if hp.get("qkv_bias"):
+            for name, n in (("attn_q", hq * d), ("attn_k", hkv * d),
+                            ("attn_v", hkv * d)):
+                w.add_tensor(p + name + ".bias", 0.1 * rng.standard_normal(
+                    n).astype(np.float32))
+        if hp.get("qk_norm"):
+            norm(p + "attn_q_norm.weight", d)
+            norm(p + "attn_k_norm.weight", d)
+        if hp.get("post_norms"):
+            norm(p + "post_attention_norm.weight")
+            norm(p + "post_ffw_norm.weight")
         norm(p + "ffn_norm.weight")
         if n_exp:
             # router logits of std ~3 over the experts
@@ -607,13 +681,13 @@ _INSTANTIATIONS = {
     "qmm_cache": ("qmm_cache", re.compile(r"qmm_cache_kernelILi(\d)ELb([01])E"),
                   8, _kind_label),
     "flash_prefill": ("flash_prefill",
-                      re.compile(r"flash_prefill_kernelILi(\d+)E"), 2,
+                      re.compile(r"flash_prefill_kernelILi(\d+)E"), 3,
                       lambda m: f"D={m.group(1)}"),
     "gmm_gemm": ("gmm", re.compile(r"gmm_gemm_kernelILi(\d)ELb([01])E"), 9,
                  _kind_label),
     "paged_decode": ("paged_attention",
                      re.compile(r"paged_decode_kernelILi(\d+)E(13__nv_bfloat16|a)E"),
-                     4, lambda m: f"D={m.group(1)} "
+                     6, lambda m: f"D={m.group(1)} "
                                   f"{'q8' if m.group(2) == 'a' else 'bf16'}"),
     "paged_decode_merge": ("paged_attention",
                            re.compile(r"paged_decode_merge_kernel"), 1,
@@ -852,14 +926,17 @@ class KernelChecks:
     def _pool(self, kvh, nb, bs, d):
         return torch_bf16(self.torch, self.rng.standard_normal((kvh, nb, bs, d)) * 0.5)
 
-    def paged_decode(self, hp, b, bs=16, nbmax=64, q8=False, lens=None):
+    def paged_decode(self, hp, b, bs=16, nbmax=64, q8=False, lens=None,
+                     soft_cap=None):
         """K3 over bf16 pages, or over q8_0 pages (int8 + f32 slot
-        scales) with q8=True; lengths drawn from 200-500, or `lens`. The
+        scales) with q8=True; lengths drawn from 200-500, or `lens`; the
+        logits soft-capped at soft_cap (Gemma-2's global layers). The
         block tables are nbmax pages wide: 64 is the engine's width in
         every serve phase (n_ctx 1024 over pages of 16), and K3's split
         count follows it. Beside the kernel's time, `one_split_ms` times
         the same call with the split plan forced to one range (one kernel,
-        no merge)."""
+        no merge). SDPA, the library yardstick, takes no softcap: with
+        one, it times the uncapped function on the same inputs."""
         from llama_cpp_test_tpu_torch.ops import flash_prefill as fp
         from llama_cpp_test_tpu_torch.ops import paged_attention as pa
         from llama_cpp_test_tpu_torch.runtime import kv_cache
@@ -883,9 +960,9 @@ class KernelChecks:
         lens = torch.from_numpy(lens_np).to("cuda")
         q = torch_bf16(torch, rng.standard_normal((b, h, d)) / 8)
         fn_k = lambda: pa.paged_attention_decode(q, kpool, vpool, lens, table,
-                                                 **scales)
-        fn_p = lambda: pa.paged_attention_decode_plain(q, kpool, vpool, lens,
-                                                       table, **scales)
+                                                 soft_cap=soft_cap, **scales)
+        fn_p = lambda: pa.paged_attention_decode_plain(
+            q, kpool, vpool, lens, table, soft_cap=soft_cap, **scales)
         s = nbmax * bs
         mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
         if q8:
@@ -908,18 +985,24 @@ class KernelChecks:
             pa.split_plan = plan
         one["splits"] = plan(b, kvh, nbmax, bs, torch.cuda.get_device_properties(
             0).multi_processor_count)
+        cap = f" cap={soft_cap}" if soft_cap else ""
         return self._row(
             "paged_decode_q8" if q8 else "paged_decode",
-            f"B={b} H={h} KV={kvh} D={d} BS={bs} nbmax={nbmax} "
+            f"B={b} H={h} KV={kvh} D={d} BS={bs} nbmax={nbmax}{cap} "
             f"lens={lens_np.tolist()}",
             fn_k(), fn_p(), ATTN_GATE, fn_k, fn_p,
             lambda: sdpa(lq, lk, lv, attn_mask=mask, scale=1.0),
             2 * q.numel() * 2 + n_keys * kvh * row_bytes * 2,
-            4.0 * d * h * n_keys, extra=one)
+            4.0 * d * h * n_keys, extra=one,
+            library="sdpa without the softcap" if soft_cap else None)
 
-    def flash_prefill(self, hp, t=512, start=0, bs=16):
+    def flash_prefill(self, hp, t=512, start=0, bs=16, window=0,
+                      soft_cap=0.0):
         """A chunk of t tokens at positions start.. over a cache that holds
-        start + t tokens (start > 0: a cached prefix)."""
+        start + t tokens (start > 0: a cached prefix), with a sliding
+        window and a softcap if given. The operations count the (query,
+        key) pairs the window leaves; SDPA takes the window in its mask
+        but no softcap (with one, it times the uncapped function)."""
         from llama_cpp_test_tpu_torch.ops import flash_prefill as fp
 
         torch, rng = self.torch, self.rng
@@ -933,19 +1016,25 @@ class KernelChecks:
         pos = torch.arange(start, n, dtype=torch.int32, device="cuda")[None]
         kvl = torch.tensor([n], dtype=torch.int32, device="cuda")
         q = torch_bf16(torch, rng.standard_normal((1, t, h, d)) / 8)
-        fn_k = lambda: fp.flash_prefill(q, kpool, vpool, pos, kvl, table)
-        fn_p = lambda: fp.flash_prefill_plain(q, kpool, vpool, pos, kvl, table)
-        mask = fp.prefill_mask(pos, kvl, nbmax * bs)[:, None]
+        kw = dict(window=window, soft_cap=soft_cap)
+        fn_k = lambda: fp.flash_prefill(q, kpool, vpool, pos, kvl, table, **kw)
+        fn_p = lambda: fp.flash_prefill_plain(q, kpool, vpool, pos, kvl,
+                                              table, **kw)
+        mask = fp.prefill_mask(pos, kvl, nbmax * bs, window)[:, None]
         lk, lv = _sdpa_kv(fp, kpool, vpool, table, h // kvh)
         lq = q.permute(0, 2, 1, 3).contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        pairs = t * start + t * (t + 1) // 2
+        p = np.arange(start, n)
+        pairs = int((np.minimum(p + 1, window) if window else p + 1).sum())
+        quirks = (f" window={window}" if window else "") + (
+            f" cap={soft_cap}" if soft_cap else "")
         return self._row(
             "flash_prefill",
-            f"B=1 T={t} start={start} H={h} KV={kvh} D={d} BS={bs}",
+            f"B=1 T={t} start={start} H={h} KV={kvh} D={d} BS={bs}{quirks}",
             fn_k(), fn_p(), ATTN_GATE, fn_k, fn_p,
             lambda: sdpa(lq, lk, lv, attn_mask=mask, scale=1.0),
-            2 * q.numel() * 2 + n * kvh * d * 2 * 2, 4.0 * d * h * pairs)
+            2 * q.numel() * 2 + n * kvh * d * 2 * 2, 4.0 * d * h * pairs,
+            library="sdpa without the softcap" if soft_cap else None)
 
 
 def _grouped_yardstick(torch, x, topi, w_all):
@@ -1093,7 +1182,7 @@ def phase_kernels(torch, timer) -> dict:
     kc = KernelChecks(torch, timer, rng)
     rep = {}
     rows = {"paged_decode": [], "paged_decode_q8": [], "gmm_gemm": [],
-            "qmm_gemv": [], "gmm_gemv": []}
+            "qmm_gemv": [], "gmm_gemv": [], "flash_prefill": []}
     labels = ("wqkv", "wo", "gate|up", "down", "lm_head")
     for gt, kind in ((GGMLType.Q4_K, "u4+min"), (GGMLType.Q8_0, "int8")):
         for label, qt in _qmm_planes(rng, TINYLLAMA, gt, labels).items():
@@ -1124,8 +1213,10 @@ def phase_kernels(torch, timer) -> dict:
     rows["paged_decode"].append(kc.paged_decode(TINYLLAMA, 8, nbmax=32))
     # one sequence over ~4000 cached tokens: the split across blocks
     rows["paged_decode"].append(kc.paged_decode(TINYLLAMA, 1, lens=[4000]))
-    kc.flash_prefill(TINYLLAMA, t=100, start=300)
+    rows["flash_prefill"].append(kc.flash_prefill(TINYLLAMA, t=100,
+                                                  start=300))
     rep["flash_prefill"] = kc.flash_prefill(TINYLLAMA)
+    rows["flash_prefill"].append(rep["flash_prefill"])
     for label, qt in _qmm_planes(rng, LLAMA3_8B, GGMLType.Q4_K,
                                  ("gate|up", "down")).items():
         qt = qtensor_to_torch(qt, "cuda")
@@ -1133,7 +1224,7 @@ def phase_kernels(torch, timer) -> dict:
             kc.qmm("8B " + label, "u4+min", qt, m)
     rows["paged_decode"] += [kc.paged_decode(LLAMA3_8B, 8),
                              kc.paged_decode(LLAMA3_8B, 1, lens=[4000])]
-    kc.flash_prefill(LLAMA3_8B)
+    rows["flash_prefill"].append(kc.flash_prefill(LLAMA3_8B))
     # Mixtral-8x7B: K4 on the expert stacks of gate/up (K=4096, N=14336)
     # and down (K=14336, N=4096) at M = 1 and 8 (decode, tile_m 8) and 512
     # (prefill, tile_m 64); K3 over q8_0 pages at Mixtral's geometry
@@ -1340,9 +1431,10 @@ def _label(kv, variant) -> str:
     return kv if variant is None else f"{kv}/{variant}"
 
 
-def _kernels_vs_plain(model, prompt, contexts) -> tuple[dict, list]:
-    """Logits at every position of one prefill and of four decode steps on
-    the same tokens, through the kernels and through the plain path, per
+def _kernels_vs_plain(model, prompt, contexts,
+                      n_decode: int = 4) -> tuple[dict, list]:
+    """Logits at every position of one prefill and of n_decode decode
+    steps on the same tokens, through the kernels and through the plain path, per
     Context (KV type, qmm variant). The gated plain path rounds a weight
     with a min as the TPU kernels and K1, K4 and K5 do (PLAIN_MIN "fold");
     the plain path at the XLA path's joint rounding is recorded beside
@@ -1363,11 +1455,11 @@ def _kernels_vs_plain(model, prompt, contexts) -> tuple[dict, list]:
         ctx = lambda **kw: Context(model, n_ctx=1024, n_seq_max=2,
                                    block_size=16, kv_type=kv, **kw)
         with _qmm_variant(variant):
-            steps_k, toks = _trace(ctx(), prompt)
+            steps_k, toks = _trace(ctx(), prompt, n_decode=n_decode)
         with _plain_min("fold"):
-            steps_p, _ = _trace(ctx(plain=True), prompt, toks)
+            steps_p, _ = _trace(ctx(plain=True), prompt, toks, n_decode)
         with _plain_min("joint"):
-            steps_j, _ = _trace(ctx(plain=True), prompt, toks)
+            steps_j, _ = _trace(ctx(plain=True), prompt, toks, n_decode)
         check(all(np.isfinite(lg).all() for lg, _ in steps_k),
               f"{label}: kernel logits not finite")
         plain[label] = steps_p
@@ -1398,15 +1490,18 @@ class Kept:
 
 
 def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
-           ftype="Q4_K", kinds=(), rows=None, keep=None, chat_template=None):
+           ftype="Q4_K", kinds=(), rows=None, keep=None, chat_template=None,
+           n_ctx=1024, n_decode=4):
     """Synthesize the GGUF, load it with Model(path) on cuda, serve every
-    Context (KV type, qmm variant) with the launch counts zeroed just
-    before and read just after, then hold the kernels against the plain
-    path. path_kernels must launch over the phase; a "cache" Context must
-    launch K5; every plane kind in `kinds` must reach K1. rows(model), if
-    given, runs after the checks (kernel rows on the loaded planes). keep:
-    (Kept, name) to keep the file under (else it is removed once
-    loaded)."""
+    Context (KV type, qmm variant; n_ctx tokens) with the launch counts
+    zeroed just before and read just after: generate() at 16, 130 and
+    512 prompt tokens, then a batched decode of `batch` rows. Then hold
+    the kernels against the plain path over the 130-token prompt's
+    prefill and n_decode decode steps. path_kernels must launch over the
+    phase; a "cache" Context must launch K5; every plane kind in `kinds`
+    must reach K1. rows(model), if given, runs after the checks (kernel
+    rows on the loaded planes, further checks). keep: (Kept, name) to keep
+    the file under (else it is removed once loaded)."""
     from llama_cpp_test_tpu_torch.ops import _cuda
     from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
 
@@ -1432,7 +1527,7 @@ def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
             torch.cuda.synchronize()
             _cuda.reset_launches()
             with _qmm_variant(variant), _record_kinds() as tally:
-                ctx = Context(model, n_ctx=1024, n_seq_max=batch,
+                ctx = Context(model, n_ctx=n_ctx, n_seq_max=batch,
                               block_size=16, kv_type=kv)
                 requests[label] = _serve_requests(torch, ctx, prompts,
                                                   hp["n_vocab"], batch)
@@ -1452,9 +1547,11 @@ def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
                    for key in t if key.startswith("K1")}
         check(set(kinds) <= reached, f"{name}: plane kinds {sorted(kinds)} "
                                      f"should reach K1; reached {reached}")
-        checks, bad = _kernels_vs_plain(model, prompts[1], contexts)
+        checks, bad = _kernels_vs_plain(model, prompts[1], contexts,
+                                        n_decode)
         plane_bytes = _decode_plane_bytes(model.weights, model.hp)
-        out = {"phase": name, "n_layer": hp["n_layer"], "ftype": ftype,
+        out = {"phase": name, "arch": model.hp.arch,
+               "n_layer": hp["n_layer"], "ftype": ftype,
                "write_gguf_s": write_s, "load_s": model.load_seconds,
                "decode_weight_bytes": plane_bytes,
                "decode_bound_tok_s": PEAK_BYTES / plane_bytes,
@@ -1906,15 +2003,18 @@ def _drain(sched, max_steps: int = 5000) -> None:
 
 
 def _run_sched(model, kv, prompts, params, record=False,
-               max_tokens: int = SCHED_NEW):
-    """The requests through a fresh Context and Scheduler (8 slots,
-    windows of 16). Returns (scheduler, requests, recorder)."""
+               max_tokens: int = SCHED_NEW, n_ctx: int = 1024,
+               n_slots: int = 8):
+    """The requests through a fresh Context of n_ctx tokens and a
+    Scheduler (n_slots slots, windows of 16). Returns (scheduler,
+    requests, recorder)."""
     from llama_cpp_test_tpu_torch.runtime.engine import Context
     from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, Scheduler
 
-    ctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16, kv_type=kv)
+    ctx = Context(model, n_ctx=n_ctx, n_seq_max=n_slots, block_size=16,
+                  kv_type=kv)
     rec = _Recorder(ctx) if record else None
-    sched = Scheduler(ctx, n_slots=8, decode_window=16)
+    sched = Scheduler(ctx, n_slots=n_slots, decode_window=16)
     reqs = [sched.submit(GenRequest(prompt_tokens=p, max_tokens=max_tokens,
                                     sampling=sp, ignore_eos=True))
             for p, sp in zip(prompts, params)]
@@ -3380,6 +3480,222 @@ def phase_adapters(torch, kept: Kept, nvidia_smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the gemma and qwen quirk axes
+
+
+# (label, geometry, GGUF type, seed, long prompt past the window or None)
+QUIRK_FILES = (("gemma2_2b", GEMMA2_2B, "Q4_K", 31, 4608),
+               ("gemma3_1b", GEMMA3_1B, "Q8_0", 32, 1024),
+               ("qwen25_05b", QWEN25_05B, "Q8_0", 33, None),
+               ("qwen3_06b", QWEN3_06B, "Q8_0", 34, None))
+QUIRK_DECODE = 8            # decode steps held to the plain path
+LONG_CHUNK = 512            # the Scheduler's prefill chunk
+
+
+def _global_layers(hp) -> list:
+    from llama_cpp_test_tpu_torch.models.hparams import layer_window
+
+    return [i for i in range(hp.n_layer) if layer_window(hp, i) == 0]
+
+
+def _launch_counts(torch, ctx, prompt, n_decode: int, tokens=None) -> dict:
+    """Launches of one prefill of `prompt` (LONG_CHUNK-token chunks) on a
+    fresh sequence, then of n_decode decode steps (on `tokens`, else
+    greedy), counted apart; with the logits of the last prefill position
+    and of each decode step and the tokens fed."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+
+    s = ctx.new_seq()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    for i in range(0, len(prompt), LONG_CHUNK):
+        logits = ctx.prefill(s, prompt[i:i + LONG_CHUNK])
+    torch.cuda.synchronize()
+    pre = dict(_cuda.LAUNCHES)
+    _cuda.reset_launches()
+    rows, toks = [logits], []
+    for i in range(n_decode):
+        toks.append(tokens[i] if tokens else int(np.argmax(rows[-1])))
+        rows.append(ctx.decode([s], toks[-1:])[0])
+    torch.cuda.synchronize()
+    dec = dict(_cuda.LAUNCHES)
+    ctx.free_seq(s)
+    return {"prefill": pre, "decode": dec, "rows": rows, "tokens": toks}
+
+
+def _path_prediction(torch, model, prompt, n_ctx: int) -> dict:
+    """The launches a prefill and QUIRK_DECODE decode steps of one
+    sequence must make: K2 once a layer a chunk (every layer, windowed or
+    not), K3 once a global layer a step (a sliding-window layer decodes on
+    the gather path, as the reference sends any window to XLA), K1's GEMV
+    four times a layer a step (fused q|k|v, wo, fused gate|up, down) and
+    once for the head. Then the same tokens through the plain path: the
+    last prompt position's logits and every decode step's within the
+    logits gate."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    hp = model.hp
+    glob = _global_layers(hp)
+    ctx = lambda **kw: Context(model, n_ctx=n_ctx, n_seq_max=1,
+                               block_size=16, **kw)
+    got = _launch_counts(torch, ctx(), prompt, QUIRK_DECODE)
+    with _plain_min("fold"):
+        plain = _launch_counts(torch, ctx(plain=True), prompt, QUIRK_DECODE,
+                               got["tokens"])
+    chunks = -(-len(prompt) // LONG_CHUNK)
+    want = {"prefill": {"flash_prefill": hp.n_layer * chunks,
+                        "paged_decode": 0},
+            "decode": {"flash_prefill": 0,
+                       "paged_decode": len(glob) * QUIRK_DECODE,
+                       "qmm_gemv": (4 * hp.n_layer + 1) * QUIRK_DECODE}}
+    out = {"prompt": len(prompt), "global_layers": glob,
+           "launches": {k: got[k] for k in ("prefill", "decode")},
+           "predicted": want,
+           "nmse": [nmse(a, b) for a, b in zip(plain["rows"], got["rows"])],
+           "gate": LOGITS_GATE}
+    for step, counts in want.items():
+        for k, n in counts.items():
+            check(got[step][k] == n, f"{hp.arch} {len(prompt)} tokens: {k} "
+                                     f"launched {got[step][k]} times in "
+                                     f"{step}, the path predicts {n}")
+    check(max(out["nmse"]) < LOGITS_GATE,
+          f"{hp.arch} {len(prompt)} tokens: logits outside the gate: "
+          f"{out['nmse']}")
+    return out
+
+
+def _long_sched(torch, model, prompt, n_ctx: int) -> dict:
+    """One Scheduler slot on a prompt past the window: LONG_CHUNK-token
+    prefill chunks (K2, the window biting), then 32 greedy tokens through
+    decode windows; every token equals the per-token decode() replay."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+    from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
+
+    t0 = time.time()
+    sched, reqs, rec = _run_sched(model, "bf16", [prompt],
+                                  [SamplerParams(temp=0.0)], record=True,
+                                  max_tokens=32, n_ctx=n_ctx, n_slots=1)
+    wall = time.time() - t0
+    sid = next(ev[1] for ev in rec.log if ev[0] == "new")
+    replay = _replay(Context(model, n_ctx=n_ctx, n_seq_max=1, block_size=16),
+                     rec.log, {sid})
+    out = {"prompt": len(prompt), "tokens": len(reqs[0].output_tokens),
+           "wall_s": wall, "metrics": sched.metrics(), "replay": replay}
+    check(out["tokens"] == 32 and not replay["mismatches"]
+          and replay["window_tokens"] > 0,
+          f"{model.hp.arch}: the long request against its replay: {out}")
+    return out
+
+
+def _quirk_sched(torch, model) -> dict:
+    """The sched phase's eight requests (four greedy, four seeded; 8
+    slots, windows of 16) at bf16 and q8_0 KV: K3 and K3-q8 at B = 8 on
+    the global layers; every greedy token equals the per-token replay."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    prompts = _sched_prompts(model.tokenizer, 21)
+    params = _sched_params()
+    out = {}
+    for kv in ("bf16", "q8_0"):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.time()
+        sched, reqs, rec = _run_sched(model, kv, prompts, params,
+                                      record=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_cuda.LAUNCHES)
+        greedy = set(sorted(ev[1] for ev in rec.log if ev[0] == "new")[:4])
+        replay = _replay(Context(model, n_ctx=1024, n_seq_max=8,
+                                 block_size=16, kv_type=kv), rec.log, greedy)
+        k3 = "paged_decode_q8" if kv == "q8_0" else "paged_decode"
+        out[kv] = {"wall_s": wall, "metrics": sched.metrics(),
+                   "tokens": [len(q.output_tokens) for q in reqs],
+                   "replay": replay, "launches": launches}
+        check(all(n == SCHED_NEW for n in out[kv]["tokens"]),
+              f"{model.hp.arch}/{kv}: request lengths {out[kv]['tokens']}")
+        check(not replay["mismatches"] and replay["window_tokens"] > 0,
+              f"{model.hp.arch}/{kv}: greedy tokens differ from the "
+              f"per-token replay: {replay}")
+        check(launches[k3] > 0 and launches["qmm_gemv"] > 0,
+              f"{model.hp.arch}/{kv}: K1/{k3} not launched: {launches}")
+    return out
+
+
+def _quirk_rows(kc, hp: dict, long: int) -> dict:
+    """K2 on a 512-token chunk, on the long prompt's last chunk (the one
+    the path runs past the window, over its cached prefix) and on the
+    long prompt at once (the local layers' window and the softcap); K3 and
+    K3-q8 at B = 1 (the long context) and 8 (the global layers' softcap),
+    at the file's geometry."""
+    cap = hp.get("attn_softcap", 0.0)
+    win = hp["sliding_window"]
+    last = long - LONG_CHUNK
+    rows = {"K2 T=512": kc.flash_prefill(hp, t=512, window=win, soft_cap=cap),
+            f"K2 T={LONG_CHUNK} start={last}": kc.flash_prefill(
+                hp, t=LONG_CHUNK, start=last, window=win, soft_cap=cap),
+            f"K2 T={long}": kc.flash_prefill(hp, t=long, window=win,
+                                             soft_cap=cap)}
+    for q8 in (False, True):
+        name = "K3-q8" if q8 else "K3"
+        rows[f"{name} B=1"] = kc.paged_decode(hp, 1, q8=q8, lens=[long],
+                                              soft_cap=cap or None)
+        rows[f"{name} B=8"] = kc.paged_decode(hp, 8, q8=q8,
+                                              soft_cap=cap or None)
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    return rows
+
+
+def phase_quirks(torch, kc, nvidia_smi: str, profile: bool = False) -> dict:
+    """The gemma and qwen quirk axes. Gemma-2-2B (Q4_K) and Gemma-3-1B
+    (Q8_0) at published widths and depth, Qwen2.5-0.5B and Qwen3-0.6B
+    (Q8_0) at published widths, 4 layers, each file from seeded random
+    blocks with an SPM vocabulary at the published size, through _serve
+    (bf16 KV, and q8_0 KV on the Gemma files; generate() at 16, 130 and
+    512 tokens; the logits of a 130-token prefill and of QUIRK_DECODE
+    decode steps within the gate of the plain path). On each Gemma file also: a prompt past its window (4608 tokens
+    for the 4096 window of Gemma-2, 1024 for Gemma-3's 512) with the
+    launches the path predicts and its logits within the gate
+    (_path_prediction); the same prompt through one Scheduler slot
+    against its replay (_long_sched); eight Scheduler requests at bf16
+    and q8_0 KV (_quirk_sched); K2, K3 and K3-q8 rows at D = 256."""
+    files, launches = {}, {}
+    for label, hp, ftype, seed, long in QUIRK_FILES:
+        n_ctx = 1024 if long is None else -(-(long + 64) // 1024) * 1024
+
+        def more(model, hp=hp, long=long, n_ctx=n_ctx):
+            prompt = np.random.default_rng(12).integers(
+                3, hp["n_vocab"], size=long).tolist()
+            out = {"path": _path_prediction(torch, model, prompt, n_ctx),
+                   "long_sched": _long_sched(torch, model, prompt, n_ctx),
+                   "sched": _quirk_sched(torch, model),
+                   "rows": _quirk_rows(kc, hp, long), "card": nvidia_smi}
+            emit({"phase": f"quirks/{label}", "checks": {
+                k: v for k, v in out.items() if k != "rows"}})
+            return out
+
+        t0 = time.time()
+        contexts = [("bf16", None)] + ([] if long is None else
+                                       [("q8_0", None)])
+        r = _serve(torch, f"quirks/{label}", hp, seed, contexts, 2,
+                   DENSE_PATH, profile, ftype=ftype, n_ctx=n_ctx, n_decode=QUIRK_DECODE if long else 4,
+                   rows=None if long is None else more)
+        r["seconds"] = time.time() - t0
+        files[label] = r
+        runs = [r["launches"]]
+        if long is not None:
+            runs += [r["rows"]["sched"][kv]["launches"]
+                     for kv in ("bf16", "q8_0")]
+        for counts in runs:
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "files": files,
+            "rows": {f"{label} {k}": row for label, f in files.items()
+                     for k, row in f.get("rows", {}).get("rows", {}).items()}}
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
                  "paged_decode_merge_kernel",
@@ -3495,33 +3811,52 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kept = Kept()
+    seconds, t_start = {}, time.time()
+
+    def timed(name, fn, *a):
+        t0 = time.time()
+        try:
+            return fn(*a)
+        finally:
+            seconds[name] = round(time.time() - t0, 1)
+
     try:
-        dev = phase_device(torch)
-        phase_build()
+        dev = timed("device", phase_device, torch)
+        timed("build", phase_build)
         from llama_cpp_test_tpu_torch.tools import L2FlushedTimer
 
         timer = L2FlushedTimer()
-        rep, shape_rows = phase_kernels(torch, timer)
+        rep, shape_rows = timed("kernels", phase_kernels, torch, timer)
         probe_launches = one_launch_each(torch, _probe_calls(),
                                          "kernels", "probe launches")
         kc = KernelChecks(torch, timer, np.random.default_rng(4321))
-        serves = {"serve": phase_serve(torch, kept, args.profile),
-                  "serve_moe": phase_serve_moe(torch, args.profile),
-                  "serve_iq4xs": phase_serve_iq4xs(torch, kc, args.profile),
-                  "serve_lowbit": phase_serve_lowbit(torch, kc, kept,
-                                                     args.profile),
-                  "serve_moe_lowbit": phase_serve_moe_lowbit(torch, kc,
-                                                             args.profile),
-                  "probes": phase_probes(torch, kc, probe_launches)}
-        serves["cli"] = phase_cli(torch, kept)
-        serves["sched"] = phase_sched(torch, kept, dev["nvidia_smi"])
-        serves["server"] = phase_server(torch, kept, dev["nvidia_smi"])
-        serves["adapters"] = phase_adapters(torch, kept, dev["nvidia_smi"])
+        smi, prof = dev["nvidia_smi"], args.profile
+        serves = {
+            "serve": timed("serve", phase_serve, torch, kept, prof),
+            "serve_moe": timed("serve_moe", phase_serve_moe, torch, prof),
+            "serve_iq4xs": timed("serve_iq4xs", phase_serve_iq4xs, torch, kc,
+                                 prof),
+            "serve_lowbit": timed("serve_lowbit", phase_serve_lowbit, torch,
+                                  kc, kept, prof),
+            "serve_moe_lowbit": timed("serve_moe_lowbit",
+                                      phase_serve_moe_lowbit, torch, kc,
+                                      prof),
+            "probes": timed("probes", phase_probes, torch, kc,
+                            probe_launches)}
+        serves["cli"] = timed("cli", phase_cli, torch, kept)
+        serves["sched"] = timed("sched", phase_sched, torch, kept, smi)
+        serves["server"] = timed("server", phase_server, torch, kept, smi)
+        serves["adapters"] = timed("adapters", phase_adapters, torch, kept,
+                                   smi)
+        serves["quirks"] = timed("quirks", phase_quirks, torch, kc, smi,
+                                 prof)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     finally:
         kept.remove()
+        emit({"phase": "timings", "seconds": seconds,
+              "total_s": round(time.time() - t_start, 1)})
     rep["qmm_cache"] = serves["serve_lowbit"]["files"]["Q2_K"]["rows"][
         "gate|up K5 M=512"]
     rep.update(serves["probes"]["rows"])
@@ -3537,6 +3872,9 @@ def main() -> int:
     for name in ("qmm_gemv", "gmm_gemv"):
         shape_rows[name] += [r for rs in served for r in rs.values()
                              if r["kernel"] == name]
+    # and the attention rows at D = 256 (Gemma's geometry)
+    for row in serves["quirks"]["rows"].values():
+        shape_rows[row["kernel"]].append(row)
     kernels = []
     for name, (src, replaces) in TPU_KERNELS.items():
         r = rep[name]

@@ -55,16 +55,12 @@ def build_parser():
                            examples=("main", "sampling"), extra=extras)
 
 
-# what the port does not carry yet, by ROADMAP item
-_FAMILIES = {"mamba": 9, "rwkv6": 9, "rwkv6qwen2": 9, "rwkv7": 9,
-             "arwkv7": 9, "t5": 9, "t5encoder": 9}
-
-
 def _refuse_unported(args, arch: str) -> None:
-    if arch in _FAMILIES:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ROADMAP item "
-            f"{_FAMILIES[arch]})")
+    """An arch the port does not serve names its ROADMAP item
+    (models/registry); so does -tp > 1."""
+    from ..models.registry import check_arch
+
+    check_arch(arch)
     if args.tensor_parallel > 1:
         raise NotImplementedError(
             "-tp > 1 is not ported yet (ROADMAP item 13)")
@@ -110,7 +106,7 @@ def main(argv=None, device=None) -> int:
     from ..runtime.scheduler import GenRequest, Scheduler
 
     _refuse_unported(args, open_gguf(args.model).metadata.get(
-        "general.architecture"))
+        "general.architecture", "llama"))
     t0 = time.time()
     overrides = parse_kv_overrides(getattr(args, "override_kv", None))
     overrides.update(rope_kv_overrides(args))

@@ -30,7 +30,7 @@
 //     bf16 P is the one rounding the TPU kernel does not make;
 //   - key tiles: 64 keys (64 / BS pages; any BS) copied by cp.async 16-byte
 //     copies into a ring of 3 stages at D = 64 (2 at D = 128, where 3 would
-//     leave one block an SM), later tiles in flight while this one is
+//     leave one block an SM, and at 256), later tiles in flight while this one is
 //     multiplied; shared-memory rows are padded by 16 bytes, so ldmatrix's
 //     8 rows fall in distinct banks; keys past kv_len arrive as zeros. The
 //     sequence's page ids are staged in shared memory once, beside the
@@ -40,7 +40,14 @@
 //     below kv_len) are loaded; only tiles that cross the diagonal, the
 //     window's edge or kv_len are masked;
 //   - order: the grid's slow axis runs from the last query tile to the
-//     first, so the heaviest tiles (late positions) start first.
+//     first, so the heaviest tiles (late positions) start first;
+//   - D = 256 (Gemma): a warp's 16 x 256 slice of O is 128 f32 registers a
+//     thread, beside 32 for S. Q's fragments (64 more) would push the
+//     thread past 255 and spill, so at D = 256 they are not held: each
+//     16-wide k-step of S = Q.K^T reloads its Q fragment from the Q tile,
+//     which stays in shared memory for the whole walk (one ldmatrix a
+//     k-step, beside the two for K). The Q tile and two 64-key stages fill
+//     169 KB: one block an SM.
 #include "common.cuh"
 
 namespace {
@@ -56,9 +63,15 @@ struct FpPlan {
   static constexpr int TILE = FP_KEYS * LD;    // one K or V tile
   static constexpr int Q = FP_ROWS * LD;
   static constexpr int STAGES = D == 64 ? 3 : 2;
+  // Q's fragments held in registers through the walk (D <= 128), or
+  // reloaded from the Q tile at each k-step (D = 256, where holding them
+  // spills). Reloading at D = 64/128 took 1.011-1.018x the held time over
+  // the kernel rows (tools/attn_rows.py, H100 80GB HBM3 at 700 W).
+  static constexpr bool QREG = D <= 128;
   // Q, the ring of K and V tiles, the page ids
   static constexpr int BYTES = (Q + 2 * STAGES * TILE) * 2 + FP_PAGES * 4;
-  // blocks an SM's 227 KB of shared memory holds (3 at D = 64, 2 at 128);
+  // blocks an SM's 227 KB of shared memory holds (3 at D = 64, 2 at 128,
+  // 1 at 256);
   // the launch bounds let ptxas take the registers that many leave
   static constexpr int BLOCKS = 232448 / (BYTES + 1024);
 };
@@ -183,7 +196,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};
-  uint32_t qf[D / 16][4];
+  uint32_t qf[P::QREG ? D / 16 : 1][4];
 
   // commit groups: Q with tile 0, then one a tile (empty past the last),
   // so group it is complete when at most STAGES - 1 are pending
@@ -198,11 +211,13 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncthreads();
-    if (it == 0) {
+    const __nv_bfloat16* q_frag = Qs + (warp * 16 + (lane & 15)) * LD +
+                                  (lane >> 4) * 8;
+    if constexpr (P::QREG) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                            (lane >> 4) * 8);
+        for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], q_frag + kk * 16);
+      }
     }
     const __nv_bfloat16* kt = Ks + ((tile0 + it) % STAGES) * P::TILE;
     const __nv_bfloat16* vt = Vs + ((tile0 + it) % STAGES) * P::TILE;
@@ -214,15 +229,23 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (P::QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldsm_x4(qa, q_frag + kk * 16);
+      }
 #pragma unroll
       for (int j = 0; j < 8; j += 2) {
         uint32_t kb[4];
         ldsm_x4(kb, kt + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * LD +
                         (2 * kk + ((lane >> 3) & 1)) * 8);
-        mma16816(sc[j], qf[kk], kb[0], kb[1]);
-        mma16816(sc[j + 1], qf[kk], kb[2], kb[3]);
+        mma16816(sc[j], qa, kb[0], kb[1]);
+        mma16816(sc[j + 1], qa, kb[2], kb[3]);
       }
+    }
 
     // the mask, only on tiles that cross the diagonal, the window's edge
     // or kv_len (the same for the whole block)
@@ -329,18 +352,27 @@ int launch(const void* q, const void* k, const void* v, const void* positions,
 
 }  // namespace
 
-// D in {64, 128}; BS a multiple of 8, at most 64; any T and any G = H / KV.
+// D in {64, 128, 256}; BS a multiple of 8, at most 64; any T and any
+// G = H / KV.
 PORT_API int flash_prefill(const void* q, const void* k, const void* v,
                            const void* positions, const void* kv_len,
                            const void* pages, void* out, int B, int T, int H,
                            int KV, int NB, int BS, int D, int nbmax,
                            int window, float soft_cap, void* stream) {
-  if (B < 1 || T < 1 || KV <= 0 || H % KV || BS % 8 || BS > 64 ||
-      (D != 64 && D != 128))
+  if (B < 1 || T < 1 || KV <= 0 || H % KV || BS % 8 || BS > 64)
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
-  return D == 64 ? launch<64>(q, k, v, positions, kv_len, pages, out, B, T, H,
-                              KV, NB, BS, nbmax, window, soft_cap, st)
-                 : launch<128>(q, k, v, positions, kv_len, pages, out, B, T,
-                               H, KV, NB, BS, nbmax, window, soft_cap, st);
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
+                        NB, BS, nbmax, window, soft_cap, st);
+    case 128:
+      return launch<128>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
+                         NB, BS, nbmax, window, soft_cap, st);
+    case 256:
+      return launch<256>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
+                         NB, BS, nbmax, window, soft_cap, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

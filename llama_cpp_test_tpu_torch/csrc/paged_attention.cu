@@ -46,7 +46,15 @@
 //     accumulators (exact products of bf16 values, f32 sums), P rounded to
 //     bf16 into the A operand of P.V (V through ldmatrix.trans), the one
 //     rounding the TPU kernel does not make;
-//   - the four warps' states merge through shared memory at the end.
+//   - the four warps' states merge through shared memory at the end;
+//   - Q's fragments are not held in registers but reloaded from the Q
+//     rows, which stay in shared memory, at each 16-wide k-step of
+//     S = Q.K^T: at D = 256 (Gemma) O's 16 x 256 accumulators alone are
+//     128 f32 registers a thread, and at D = 64/128 holding them was no
+//     faster (the reload took 0.97-1.00x the held time over the kernel
+//     rows, tools/attn_rows.py, H100 80GB HBM3 at 700 W). At D = 256 a
+//     bf16 stage is two 33 KB tiles (135 KB for the ring), a q8 ring 69 KB
+//     beside 66 KB of dequantized tiles: one block an SM.
 // The merge kernel takes one block per query head, a thread per dim, its
 // loads over the splits independent: a merge whose threads walked the
 // splits one load at a time took ~50 us at 64 splits (H100). It is a
@@ -222,7 +230,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};
-  uint32_t qf[D / 16][4];
+  const __nv_bfloat16* q_frag = Qs + (lane & 15) * LD + (lane >> 4) * 8;
   const int kw = 16 * warp;  // the warp's keys of a tile
 
   // commit groups: Q with tile 0, then one a tile (empty past the last),
@@ -238,11 +246,6 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<NST - 1>();
     __syncthreads();  // tile t landed
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_x4(qf[kk], Qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-    }
     const unsigned char* st = ring + (t % NST) * P::STAGE;
     const __nv_bfloat16* kt;
     const __nv_bfloat16* vt;
@@ -278,11 +281,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t kb[4];
+      uint32_t qa[4], kb[4];
+      ldsm_x4(qa, q_frag + kk * 16);
       ldsm_x4(kb, kt + (kw + (lane & 7) + ((lane >> 4) << 3)) * LD +
                       (2 * kk + ((lane >> 3) & 1)) * 8);
-      mma16816(sc[0], qf[kk], kb[0], kb[1]);
-      mma16816(sc[1], qf[kk], kb[2], kb[3]);
+      mma16816(sc[0], qa, kb[0], kb[1]);
+      mma16816(sc[1], qa, kb[2], kb[3]);
     }
     const int kb0 = k_lo + t * TK + kw + 2 * (lane & 3);
     float mx[2] = {m_r[0], m_r[1]};
@@ -385,11 +389,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Block (query head of a kv head, kv head, sequence), D threads, thread d
-// dim d: the S partials weighed by exp(m_s - max m) and divided by the
+// Block (query head of a kv head, kv head, sequence), D threads (at most
+// 256), thread d dim d: the S partials weighed by exp(m_s - max m) and divided by the
 // weighed sum of their l (clamped at 1e-30); empty splits (l = 0) weigh
 // nothing. Dynamic shared memory: m, l and the weight of each split.
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256)
 paged_decode_merge_kernel(const float* __restrict__ ws,
                           __nv_bfloat16* __restrict__ out, int H, int KV,
                           int G, int D, int S) {
@@ -467,7 +471,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* lengths, const void* pages, void* out,
            void* ws, int B, int H, int KV, int NB, int BS, int D, int nbmax,
            int splits, int split_pages, float soft_cap, void* stream) {
-  if (B < 1 || KV <= 0 || H % KV || BS < 1 || (D != 64 && D != 128) ||
+  if (B < 1 || KV <= 0 || H % KV || BS < 1 ||
+      (D != 64 && D != 128 && D != 256) ||
       splits < 1 || split_pages < 1 ||
       (long long)splits * split_pages < nbmax ||
       (splits > 1 && ws == nullptr))
@@ -478,8 +483,11 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   if (D == 64)
     launch_d<64, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV, NB,
                     BS, nbmax, G, split_pages, soft_cap, st);
-  else
+  else if (D == 128)
     launch_d<128, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
+                     NB, BS, nbmax, G, split_pages, soft_cap, st);
+  else
+    launch_d<256, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
                      NB, BS, nbmax, G, split_pages, soft_cap, st);
   if (splits > 1) {
     // programmatic dependent launch: the merge's launch and scheduling
@@ -504,7 +512,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// q/out [B, H, D] bf16; k/v [KV, NB, BS, D] bf16; lengths [B], pages
+// q/out [B, H, D] bf16, D in {64, 128, 256}; k/v [KV, NB, BS, D] bf16;
+// lengths [B], pages
 // [B, nbmax] int32. The sequence's pages split into `splits` ranges of
 // split_pages (splits * split_pages >= nbmax; ops/paged_attention.split_plan
 // picks them); with more than one, ws holds B * KV * splits * (H / KV) *

@@ -1,13 +1,16 @@
-"""LLaMA-family model (dense or Mixtral-style MoE): GGUF weight loading +
-forward pass.
+"""LLaMA-family model (dense or Mixtral-style MoE, and the gemma and qwen
+quirk axes): GGUF weight loading + forward pass.
 
-Counterpart of the llama and Mixtral paths of
-llama_cpp_test_tpu/models/llama.py: per layer RMSNorm -> fused QKV -> RoPE
--> paged attention -> residual -> RMSNorm -> FFN -> residual; final norm +
-lm head. The FFN is fused gate|up -> SwiGLU -> down, or, in a MoE layer,
-softmax top-k routing over the experts (moe_ffn) with the grouped expert
-matmul of ops/gmm. Loading is numpy (host planes); weights.py moves them
-to a device.
+Counterpart of the sequential pre-norm body of
+llama_cpp_test_tpu/models/llama.py for the archs of models/registry.PORTED:
+per layer RMSNorm -> fused QKV (+ Q/K/V biases) -> per-head QK RMSNorm ->
+RoPE (the layer's table: sliding-window layers may have their own base)
+-> paged attention (window, softcap) -> post-attention norm -> residual
+-> RMSNorm -> FFN -> post-FFN norm -> residual; final norm + lm head +
+final softcap. The embedding is scaled (gemma), the FFN is fused gate|up
+-> SwiGLU or GeGLU -> down, or, in a MoE layer, softmax top-k routing over
+the experts (moe_ffn) with the grouped expert matmul of ops/gmm. Loading
+is numpy (host planes); weights.py moves them to a device.
 
 Every dense projection goes through ops/qmatmul (kernel K1 on CUDA), every
 expert projection through ops/gmm (kernel K4). `plain=True` selects the
@@ -30,6 +33,7 @@ from ..ops import layers
 from ..ops.qmatmul import qgather, qmm, qmm_plain, qmm_split, qmm_split_plain
 from ..quant.repack import QTensor, fuse_qtensors, repack
 from .hparams import HParams, hparams_from_metadata
+from .registry import check_arch
 
 
 @dataclasses.dataclass
@@ -54,6 +58,17 @@ class LayerWeights:
     gate_exps: QTensor | None = None
     up_exps: QTensor | None = None
     down_exps: QTensor | None = None
+    # Q/K/V biases (qwen2) and per-head Q/K RMSNorm weights [head_dim]
+    # (qwen3, gemma3), float32
+    bq: Any = None
+    bk: Any = None
+    bv: Any = None
+    attn_q_norm: Any = None
+    attn_k_norm: Any = None
+    # sandwich norms on the attention and FFN branch outputs before the
+    # residual adds (gemma2, gemma3)
+    attn_post_norm: Any = None
+    ffn_post_norm: Any = None
     # LoRA pairs: field name (wq, wk, wv, wo, w_gate, w_up, w_down) ->
     # (A [r, K], B [N, r], scale), A and B float32 holding bf16 values
     # (models/lora.py)
@@ -71,6 +86,16 @@ class LlamaWeights:
     layers: list[LayerWeights]
     rope_inv_freq: Any
     rope_mscale: float
+    # the sliding-window layers' table where their base differs (gemma3:
+    # 10000 beside the global 1e6), else None
+    rope_inv_freq_swa: Any = None
+
+    def inv_freq_for(self, window: int):
+        """The rope table of a layer with sliding window `window` (0 =
+        global)."""
+        if window > 0 and self.rope_inv_freq_swa is not None:
+            return self.rope_inv_freq_swa
+        return self.rope_inv_freq
 
 
 # ---------------------------------------------------------------------------
@@ -79,9 +104,18 @@ class LlamaWeights:
 _DENSE_FFN = {"ffn_gate.weight", "ffn_up.weight", "ffn_down.weight"}
 _MOE_FFN = {"ffn_gate_inp.weight", "ffn_gate_exps.weight",
             "ffn_up_exps.weight", "ffn_down_exps.weight"}
+_BIASES = {"attn_q.bias": "bq", "attn_k.bias": "bk", "attn_v.bias": "bv"}
+# the per-head QK norms and the sandwich norms, under both GGUF names
+_QUIRK_NORMS = {"attn_q_norm.weight": "attn_q_norm",
+                "attn_k_norm.weight": "attn_k_norm",
+                "attn_post_norm.weight": "attn_post_norm",
+                "post_attention_norm.weight": "attn_post_norm",
+                "ffn_post_norm.weight": "ffn_post_norm",
+                "post_ffw_norm.weight": "ffn_post_norm"}
 _LAYER_TENSORS = {"attn_norm.weight", "attn_q.weight", "attn_k.weight",
                   "attn_v.weight", "attn_output.weight",
-                  "ffn_norm.weight"} | _DENSE_FFN | _MOE_FFN
+                  "ffn_norm.weight"} | _DENSE_FFN | _MOE_FFN | \
+    set(_BIASES) | set(_QUIRK_NORMS)
 _TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight"}
 
 
@@ -141,10 +175,7 @@ def _f32(reader: GGUFReader, name: str) -> np.ndarray:
 def _check_supported(reader: GGUFReader, hp: HParams) -> None:
     """Refuse what this port does not carry, instead of running another
     model than the file describes."""
-    if hp.arch != "llama":
-        raise NotImplementedError(
-            f"arch {hp.arch!r}: this port carries the llama decoder (dense "
-            "or Mixtral-style MoE)")
+    check_arch(hp.arch)
     if hp.n_expert and (hp.expert_gating != "softmax" or hp.n_expert_shared
                         or not hp.norm_topk):
         raise NotImplementedError(
@@ -154,9 +185,6 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
     if hp.n_expert and not 0 < hp.n_expert_used <= hp.n_expert:
         raise ValueError(f"expert_used_count {hp.n_expert_used} of "
                          f"{hp.n_expert} experts")
-    if hp.sliding_window or hp.attn_softcap or hp.final_softcap:
-        raise NotImplementedError("sliding window / softcap llama variants "
-                                  "are not ported yet")
     unknown = []
     ffn = [set() for _ in range(hp.n_layer)]
     for name in reader.tensors:
@@ -170,7 +198,18 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
         unknown.append(name)
     if unknown:
         raise NotImplementedError(
-            f"tensors outside the llama / Mixtral layout: {sorted(unknown)[:5]}")
+            "tensors outside the llama, Mixtral, gemma and qwen layouts: "
+            f"{sorted(unknown)[:5]}")
+    for name, info in reader.tensors.items():
+        if name.endswith(("attn_q_norm.weight", "attn_k_norm.weight")):
+            if tuple(info.shape) != (hp.head_dim,):
+                raise NotImplementedError(
+                    f"{name} of shape {tuple(info.shape)}: this port carries "
+                    f"per-head QK norms of shape ({hp.head_dim},)")
+            if hp.rope_type == "norm":
+                raise NotImplementedError(
+                    f"{name} in a NORM-rope file: this port carries QK "
+                    "norms on NEOX-rope archs")
     want = _MOE_FFN if hp.n_expert else _DENSE_FFN
     for i, have in enumerate(ffn):
         if have != want:
@@ -186,8 +225,13 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
     if hp is None:
         hp = hparams_from_metadata(reader.metadata)
     _check_supported(reader, hp)
-    q_perm = _unpermute_rows(hp.n_head, hp.head_dim, hp.rope_dim)
-    k_perm = _unpermute_rows(hp.n_head_kv, hp.head_dim, hp.rope_dim)
+    # NORM-rope Q/K rows (and biases) are un-permuted to half-split; NEOX
+    # rows are half-split already
+    q_perm = k_perm = None
+    if hp.rope_type == "norm":
+        q_perm = _unpermute_rows(hp.n_head, hp.head_dim, hp.rope_dim)
+        k_perm = _unpermute_rows(hp.n_head_kv, hp.head_dim, hp.rope_dim)
+    t = reader.tensors
 
     def layer(i: int) -> LayerWeights:
         p = f"blk.{i}."
@@ -199,6 +243,15 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
             wk=_repack_2d(reader, p + "attn_k.weight", k_perm),
             wv=_repack_2d(reader, p + "attn_v.weight"),
         )
+        for name, perm in (("attn_q.bias", q_perm), ("attn_k.bias", k_perm),
+                           ("attn_v.bias", None)):
+            if p + name in t:
+                bias = _f32(reader, p + name)
+                setattr(lw, _BIASES[name],
+                        bias if perm is None else bias[perm])
+        for name, field in _QUIRK_NORMS.items():
+            if p + name in t:
+                setattr(lw, field, _f32(reader, p + name))
         lw.wqkv = fuse_qtensors([lw.wq, lw.wk, lw.wv])
         if lw.wqkv is not None:
             lw.wq = lw.wk = lw.wv = None  # fused plane replaces them
@@ -217,18 +270,27 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
             lw.w_gate = lw.w_up = None
         return lw
 
-    t = reader.tensors
     # layers are independent: repack them in parallel (numpy releases the GIL)
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
         f_embd = ex.submit(_repack_2d, reader, "token_embd.weight", None,
                            "rows")
-        # the lm head pads N to tile_n=1024 multiples, as the reference does
+        # the lm head pads N to tile_n=1024 multiples, as the reference
+        # does; a file without output.weight (gemma) ties it to the
+        # embedding
         head = "output.weight" if "output.weight" in t else "token_embd.weight"
         f_out = ex.submit(_repack_2d, reader, head, None, "t", 1024)
         layer_list = list(ex.map(layer, range(hp.n_layer)))
         tok_embd = f_embd.result()
         output = f_out.result()
     inv_freq, mscale = layers.rope_freqs(hp)
+    inv_freq_swa = None
+    if hp.rope_freq_base_swa > 0 and \
+            hp.rope_freq_base_swa != hp.rope_freq_base:
+        # the sliding-window layers' own base, unscaled (reference
+        # load_weights builds it with rope_scaling "none")
+        inv_freq_swa = np.asarray(layers.rope_freqs(dataclasses.replace(
+            hp, rope_freq_base=hp.rope_freq_base_swa,
+            rope_scaling="none"))[0])
     w = LlamaWeights(
         tok_embd=tok_embd,
         output_norm=_f32(reader, "output_norm.weight"),
@@ -236,6 +298,7 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
         layers=layer_list,
         rope_inv_freq=np.asarray(inv_freq),
         rope_mscale=float(mscale),
+        rope_inv_freq_swa=inv_freq_swa,
     )
     return hp, w
 
@@ -271,8 +334,15 @@ def linear_lora(x: torch.Tensor, qt: QTensor, lora, plain: bool = False,
     return y if d is None else y + d.to(y.dtype)
 
 
-def embed(w: LlamaWeights, tokens: torch.Tensor) -> torch.Tensor:
-    return qgather(tokens, w.tok_embd, dtype=torch.bfloat16)
+def embed(w: LlamaWeights, tokens: torch.Tensor,
+          scale: float = 1.0) -> torch.Tensor:
+    """Embedding rows in bf16; a scale (gemma: sqrt(n_embd), not exact in
+    bf16) multiplies in float32 before the bf16 rounding, as the
+    reference orders it."""
+    e = qgather(tokens, w.tok_embd, dtype=torch.bfloat16)
+    if scale != 1.0:
+        e = (e.float() * scale).to(torch.bfloat16)
+    return e
 
 
 def qkv_proj(cur: torch.Tensor, lw: LayerWeights, plain: bool = False):
@@ -303,22 +373,43 @@ def gateup_proj(cur: torch.Tensor, lw: LayerWeights, plain: bool = False):
 
 def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
                   positions: torch.Tensor, inv_freq: torch.Tensor,
-                  mscale: float, attend, plain: bool = False) -> torch.Tensor:
+                  mscale: float, attend, plain: bool = False,
+                  tap=None) -> torch.Tensor:
     """One decoder layer. x [B, T, C] bf16; attend(q, k, v) writes the KV
-    and returns [B, T, H, D]."""
+    and returns [B, T, H, D]; inv_freq is the layer's rope table. tap, if
+    given, is called as tap(role, activation) with the input of each
+    projection: "attn_in" (q, k, v), "attn_out" (wo), "ffn_in" (gate and
+    up, or the router and experts), "ffn_act" (down)."""
     b, tdim, _ = x.shape
     h, kvh, d = hp.n_head, hp.n_head_kv, hp.head_dim
     cur = layers.rms_norm(x, lw.attn_norm, hp.rms_eps)
+    if tap is not None:
+        tap("attn_in", cur)
     q, k, v = qkv_proj(cur, lw, plain)
-    q = layers.apply_rope(q.reshape(b, tdim, h, d), positions, inv_freq, mscale)
-    k = layers.apply_rope(k.reshape(b, tdim, kvh, d), positions, inv_freq,
-                          mscale)
+    if lw.bq is not None:
+        q = q + lw.bq
+    if lw.bk is not None:
+        k = k + lw.bk
+    if lw.bv is not None:
+        v = v + lw.bv
+    q = q.reshape(b, tdim, h, d)
+    k = k.reshape(b, tdim, kvh, d)
     v = v.reshape(b, tdim, kvh, d)
+    if lw.attn_q_norm is not None:     # per-head QK norms, before rope
+        q = layers.rms_norm(q, lw.attn_q_norm, hp.rms_eps)
+    if lw.attn_k_norm is not None:
+        k = layers.rms_norm(k, lw.attn_k_norm, hp.rms_eps)
+    q = layers.apply_rope(q, positions, inv_freq, mscale)
+    k = layers.apply_rope(k, positions, inv_freq, mscale)
     attn_out = attend(q.to(torch.bfloat16), k.to(torch.bfloat16),
                       v.to(torch.bfloat16)).reshape(b, tdim, h * d)
+    if tap is not None:
+        tap("attn_out", attn_out)
     o = linear_lora(attn_out, lw.wo, lw.lora.get("wo"), plain)
+    if lw.attn_post_norm is not None:  # sandwich norm on the branch
+        o = layers.rms_norm(o, lw.attn_post_norm, hp.rms_eps)
     x = x + o.to(x.dtype)
-    return _forward_layer_ffn(x, lw, hp, plain)
+    return _forward_layer_ffn(x, lw, hp, plain, tap)
 
 
 def moe_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
@@ -357,16 +448,23 @@ def _moe_grouped(xf, lw, hp, topi, topv, plain: bool = False):
 
 
 def _forward_layer_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
-                       plain: bool = False) -> torch.Tensor:
-    """FFN half of the layer: RMSNorm -> gate|up -> SwiGLU -> down, or the
-    routed experts of a MoE layer; then the control vector, if any."""
+                       plain: bool = False, tap=None) -> torch.Tensor:
+    """FFN half of the layer: RMSNorm -> gate|up -> SwiGLU or GeGLU ->
+    down, or the routed experts of a MoE layer; the post-FFN norm, if
+    any; then the control vector, if any."""
     cur = layers.rms_norm(x, lw.ffn_norm, hp.rms_eps)
+    if tap is not None:
+        tap("ffn_in", cur)
     if lw.gate_inp is not None:
         ffn = moe_ffn(cur, lw, hp, plain)
     else:
         g, u = gateup_proj(cur, lw, plain)
-        ffn = linear_lora(layers.swiglu(g, u), lw.w_down,
-                          lw.lora.get("w_down"), plain)
+        act = layers.swiglu(g, u, hp.act_fn)
+        if tap is not None:
+            tap("ffn_act", act)
+        ffn = linear_lora(act, lw.w_down, lw.lora.get("w_down"), plain)
+    if lw.ffn_post_norm is not None:
+        ffn = layers.rms_norm(ffn, lw.ffn_post_norm, hp.rms_eps)
     x = x + ffn.to(x.dtype)
     if lw.cvec is not None:
         x = x + lw.cvec.to(x.dtype)
@@ -379,5 +477,9 @@ def final_norm(w: LlamaWeights, hp: HParams, x: torch.Tensor) -> torch.Tensor:
 
 def lm_head(w: LlamaWeights, hp: HParams, x: torch.Tensor,
             plain: bool = False) -> torch.Tensor:
-    """Final norm + output projection -> float32 logits [..., n_vocab]."""
-    return linear(final_norm(w, hp, x), w.output, plain)
+    """Final norm + output projection (+ the final softcap, gemma2) ->
+    float32 logits [..., n_vocab]."""
+    logits = linear(final_norm(w, hp, x), w.output, plain)
+    if hp.final_softcap > 0:
+        logits = torch.tanh(logits / hp.final_softcap) * hp.final_softcap
+    return logits

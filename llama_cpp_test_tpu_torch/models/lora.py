@@ -8,8 +8,8 @@ scale = alpha / r (models/llama.lora_delta). The base projection stays on
 its kernel (K1 on CUDA); the update is two small torch matmuls beside it.
 
 lora_b rows of attn_q and attn_k are permuted as the loader permutes the
-base rows (NORM-layout GGUF rows -> half-split rope), so the update lands
-in the same space.
+base rows (NORM-layout GGUF rows -> half-split rope; a NEOX arch's rows
+stay as they are), so the update lands in the same space.
 
 merge_lora() bakes an adapter into a dense GGUF (the export-lora tool),
 on the host in numpy.
@@ -54,13 +54,14 @@ class LoraAdapter:
 
 def load_lora(path: str, hp: HParams, permute: bool = True) -> LoraAdapter:
     """Read an adapter's pairs as float32 numpy. permute=True puts the
-    attn_q/attn_k lora_b rows in the loader's half-split layout (what the
-    forward needs); merge_lora passes False to stay in the file's rows."""
+    attn_q/attn_k lora_b rows of a NORM-rope arch in the loader's
+    half-split layout (what the forward needs); merge_lora passes False to
+    stay in the file's rows."""
     with GGUFReader(path) as r:
         alpha = float(r.metadata.get("adapter.lora.alpha", 16.0))
         tensors = {name: r.dequantize(name, np.float32) for name in r.tensors}
     perms = {}
-    if permute:
+    if permute and hp.rope_type == "norm":
         perms = {"attn_q.weight": _unpermute_rows(hp.n_head, hp.head_dim,
                                                   hp.rope_dim),
                  "attn_k.weight": _unpermute_rows(hp.n_head_kv, hp.head_dim,

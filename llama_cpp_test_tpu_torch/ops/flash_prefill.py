@@ -78,7 +78,7 @@ def flash_prefill(q, k_pages, v_pages, positions, kv_len, page_indices,
         req(a.device == q.device and a.dtype == torch.int32
             and a.is_contiguous() and tuple(a.shape) == shape,
             f"flash_prefill: {name} must be contiguous int32 {shape}")
-    req(h % kv == 0 and d in (64, 128) and bs % 8 == 0 and bs <= 64,
+    req(h % kv == 0 and d in (64, 128, 256) and bs % 8 == 0 and bs <= 64,
         f"flash_prefill: unsupported H={h} KV={kv} D={d} BS={bs}")
     out = torch.empty_like(q)
     fn = _cuda.bind("flash_prefill", "flash_prefill",

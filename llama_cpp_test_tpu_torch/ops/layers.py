@@ -1,5 +1,5 @@
 """Transformer building blocks in plain PyTorch: RMSNorm, RoPE (with
-linear/YaRN scaling), SwiGLU, and masked attention over gathered KV.
+linear/YaRN scaling), SwiGLU/GeGLU, and masked attention over gathered KV.
 
 Counterpart of llama_cpp_test_tpu/ops/layers.py. Dtypes follow the
 reference: norms return the input dtype, rope and the activation compute
@@ -70,10 +70,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat(parts, dim=-1).to(x.dtype)
 
 
-def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """silu(gate) * up, computed in float32."""
+def swiglu(gate: torch.Tensor, up: torch.Tensor,
+           act: str = "silu") -> torch.Tensor:
+    """Gated FFN activation act(gate) * up, computed in float32: act
+    "silu" (SwiGLU) or "gelu", the tanh approximation (gemma's GeGLU)."""
     g = gate.float()
-    return (torch.nn.functional.silu(g) * up.float()).to(gate.dtype)
+    a = (torch.nn.functional.gelu(g, approximate="tanh") if act == "gelu"
+         else torch.nn.functional.silu(g))
+    return (a * up.float()).to(gate.dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

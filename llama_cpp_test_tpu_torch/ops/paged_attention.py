@@ -115,7 +115,7 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices,
             and a.is_contiguous() and tuple(a.shape) == shape,
             f"paged_attention_decode: {name} must be contiguous int32 {shape}")
     g = h // kv
-    req(h % kv == 0 and d in (64, 128),
+    req(h % kv == 0 and d in (64, 128, 256),
         f"paged_attention_decode: unsupported H={h} KV={kv} D={d}")
     out = torch.empty_like(q)
     cap = float(soft_cap or 0.0)

@@ -60,7 +60,7 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
     lets every token attend the whole chunk: the mask positions become
     kv_len - 1 on every row, while rope keeps the true positions. tap, a
     list, receives the embedding and every layer's output (tracing)."""
-    x = llama_mod.embed(w, tokens)
+    x = llama_mod.embed(w, tokens, hp.embd_scale)
     if tap is not None:
         tap.append(x)
     rope_pos = positions if rope_delta is None else \
@@ -97,8 +97,9 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
                 q, pools.k[_li], pools.v[_li], block_table, mask_pos, kv_len,
                 scale, _window, cap, plain=plain)
 
-        x = llama_mod.forward_layer(x, lw, hp, rope_pos, w.rope_inv_freq,
-                                    w.rope_mscale, attend, plain=plain)
+        x = llama_mod.forward_layer(x, lw, hp, rope_pos,
+                                    w.inv_freq_for(window), w.rope_mscale,
+                                    attend, plain=plain)
         if tap is not None:
             tap.append(x)
     return x
@@ -325,7 +326,9 @@ class Context:
             kv_cache.apply_shift(self.pools, self._to_dev(np.asarray(src)),
                                  self._to_dev(np.asarray(dst)),
                                  self._to_dev(np.asarray(delta, np.int32)),
-                                 self.w.rope_inv_freq)
+                                 [self.w.inv_freq_for(
+                                     hparams_mod.layer_window(self.model.hp, li))
+                                  for li in range(self.model.hp.n_layer)])
 
     def shift_context(self, s: SeqState, n_keep: int, n_discard: int) -> None:
         """Context shift: drop tokens [n_keep, n_keep+n_discard), slide the

@@ -4,11 +4,17 @@ Counterpart of llama_cpp_test_tpu/runtime/imatrix.py, rewritten in torch.
 For every weight, the per-column sums of squares of the activations that
 feed it, over a calibration text: the RMS-normed attention input (wq, wk,
 wv), the attention output (wo), the RMS-normed FFN input (gate, up; the
-router and expert stacks of a MoE layer), the SwiGLU activation
+router and expert stacks of a MoE layer), the SwiGLU or GeGLU activation
 (ffn_down) and the final-normed hidden state (output). One forward per
-chunk over the model's own projections (K1 on CUDA, K4 for the experts),
-dense causal attention in torch (ops/layers.attention) as the reference
-has it.
+chunk through the model's own layers (models/llama.forward_layer, which
+taps those inputs; K1 on CUDA, K4 for the experts), dense causal
+attention in torch (ops/layers.attention) as the reference has it.
+
+The reference re-implements the layer inline and leaves out the gemma
+and qwen quirk axes (the embedding scale, the biases and QK norms, the
+windows and softcaps, the post norms, GeGLU), so on those archs it
+collects the statistics of another model (ROADMAP §3, fault 11); on the
+llama archs both give the same sums.
 
 Saved as .npz: sum::<tensor> [K] f32 per tensor, __names__ (the names
 joined by newlines) and __counts__. The reference keys each __counts__ row
@@ -27,21 +33,37 @@ import numpy as np
 import torch
 
 from ..models import llama as llama_mod
-from ..models.hparams import HParams, attn_scale_of
-from ..models.llama import LlamaWeights, gateup_proj, linear, qkv_proj
+from ..models.hparams import HParams, attn_scale_of, layer_window
+from ..models.llama import LlamaWeights
 from ..ops import layers
+from ..ops.flash_prefill import prefill_mask
+
+
+# the tensors each activation forward_layer taps feeds
+def _fed_by(role: str, lw) -> tuple:
+    if role == "attn_in":
+        return ("attn_q.weight", "attn_k.weight", "attn_v.weight")
+    if role == "attn_out":
+        return ("attn_output.weight",)
+    if role == "ffn_in":
+        return (("ffn_gate_inp.weight", "ffn_gate_exps.weight",
+                 "ffn_up_exps.weight") if lw.gate_inp is not None
+                else ("ffn_gate.weight", "ffn_up.weight"))
+    return ("ffn_down.weight",)
 
 
 def _imatrix_step(w: LlamaWeights, tokens: torch.Tensor, *, hp: HParams,
                   plain: bool = False) -> dict[str, torch.Tensor]:
     """tokens [1, T] -> name -> per-column sum of squares [K] f32, on the
-    weights' device."""
+    weights' device. The model's own layers (forward_layer) run, and tap
+    the input of each projection; attention is dense and causal, with each
+    layer's window and the softcap."""
     b, t = tokens.shape
     dev = tokens.device
-    x = llama_mod.embed(w, tokens)
+    x = llama_mod.embed(w, tokens, hp.embd_scale)
     pos = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
     scale = attn_scale_of(hp)
-    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))[None]
     stats: dict[str, torch.Tensor] = {}
 
     def record(names, act):
@@ -49,35 +71,19 @@ def _imatrix_step(w: LlamaWeights, tokens: torch.Tensor, *, hp: HParams,
         for name in names:
             stats[name] = v
 
-    h, kvh, d = hp.n_head, hp.n_head_kv, hp.head_dim
     for li, lw in enumerate(w.layers):
-        p = f"blk.{li}."
-        cur = layers.rms_norm(x, lw.attn_norm, hp.rms_eps)
-        record([p + "attn_q.weight", p + "attn_k.weight",
-                p + "attn_v.weight"], cur)
-        q, k, v = qkv_proj(cur, lw, plain)
-        q = layers.apply_rope(q.reshape(b, t, h, d), pos, w.rope_inv_freq,
-                              w.rope_mscale)
-        k = layers.apply_rope(k.reshape(b, t, kvh, d), pos, w.rope_inv_freq,
-                              w.rope_mscale)
-        v = v.reshape(b, t, kvh, d)
-        att = layers.attention(q.to(torch.bfloat16), k.to(torch.bfloat16),
-                               v.to(torch.bfloat16), mask, scale
-                               ).reshape(b, t, h * d)
-        record([p + "attn_output.weight"], att)
-        x = x + linear(att, lw.wo, plain).to(x.dtype)
+        window = layer_window(hp, li)
+        mask = prefill_mask(pos, kv_len, t, window)
 
-        cur = layers.rms_norm(x, lw.ffn_norm, hp.rms_eps)
-        if lw.gate_inp is not None:
-            record([p + "ffn_gate_inp.weight", p + "ffn_gate_exps.weight",
-                    p + "ffn_up_exps.weight"], cur)
-            x = x + llama_mod.moe_ffn(cur, lw, hp, plain).to(x.dtype)
-        else:
-            record([p + "ffn_gate.weight", p + "ffn_up.weight"], cur)
-            g, u = gateup_proj(cur, lw, plain)
-            act = layers.swiglu(g, u)
-            record([p + "ffn_down.weight"], act)
-            x = x + linear(act, lw.w_down, plain).to(x.dtype)
+        def attend(q, k, v, _mask=mask):
+            return layers.attention(q, k, v, _mask, scale,
+                                    softcap=hp.attn_softcap)
+
+        def tap(role, act, _p=f"blk.{li}.", _lw=lw):
+            record([_p + n for n in _fed_by(role, _lw)], act)
+
+        x = llama_mod.forward_layer(x, lw, hp, pos, w.inv_freq_for(window),
+                                    w.rope_mscale, attend, plain, tap)
     record(["output.weight"], llama_mod.final_norm(w, hp, x))
     return stats
 

@@ -191,10 +191,12 @@ def scatter_seq(pools: KVPools, k: torch.Tensor, v: torch.Tensor,
 
 
 def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
-                delta: torch.Tensor, inv_freq: torch.Tensor) -> None:
+                delta: torch.Tensor, inv_freqs: list[torch.Tensor]) -> None:
     """Move cached tokens between slots, re-rotating K by a per-token
     position delta, in place (the K-shift of context shift, prompt-cache
-    reuse and Self-Extend; reference kv_cache.apply_shift).
+    reuse and Self-Extend; reference kv_cache.apply_shift). inv_freqs
+    holds each layer's rope table (LlamaWeights.inv_freq_for), so the
+    sliding-window layers rotate by their own (gemma3's local base).
 
     src/dst/delta: [n] slot ids and rope deltas. RoPE rotations add, so
     rotating the stored (already roped) K by delta re-bases it to position
@@ -212,7 +214,7 @@ def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
             vsflat = pools.v_scale[li].view(kv, nb * bs)
             kg = kg * ksflat[:, src, None]               # dequantize
         kg = kg.transpose(0, 1)[None]                    # [1, n, KV, D]
-        kg = layers.apply_rope(kg, delta[None], inv_freq, 1.0)
+        kg = layers.apply_rope(kg, delta[None], inv_freqs[li], 1.0)
         kg = kg[0].transpose(0, 1)
         vg = vflat[:, src]
         if pools.quantized:

@@ -24,8 +24,9 @@ so a chained decode window still in flight when a step returns runs
 before anything another thread queues. LoRA adapters (lora=, --lora)
 have hot-swappable scales (POST /lora-adapters): the new scales attach
 under ctx_lock, between two scheduler steps, and a window already queued
-keeps the tensors it was queued with. The recurrent families (ROADMAP
-item 9) and multi-device serving (item 13) raise NotImplementedError.
+keeps the tensors it was queued with. An arch the port does not serve
+(models/registry: ROADMAP item 7, 8 or 9) and multi-device serving (item
+13) raise NotImplementedError.
 
 Usage:
   python -m llama_cpp_test_tpu_torch.server.app -m model.gguf --port 8080
@@ -135,9 +136,6 @@ def _sampling_from_body(body: dict) -> SamplerParams:
     return p
 
 
-_RECURRENT = ("mamba", "rwkv6", "rwkv6qwen2", "rwkv7", "arwkv7")
-
-
 class LlamaServer:
     def __init__(self, model_path: str, n_ctx: int = 2048, n_slots: int = 4,
                  model_alias: str | None = None,
@@ -150,11 +148,10 @@ class LlamaServer:
                  chat_template: str | None = None, followers=None,
                  device=None):
         from ..gguf.reader import open_gguf
+        from ..models.registry import check_arch
 
-        arch = open_gguf(model_path).metadata.get("general.architecture")
-        if arch in _RECURRENT:
-            raise NotImplementedError(
-                f"architecture {arch!r} is not ported yet (ROADMAP item 9)")
+        check_arch(open_gguf(model_path).metadata.get("general.architecture",
+                                                      "llama"))
         if followers is not None:
             raise NotImplementedError(
                 "multi-host serving is not ported yet (ROADMAP item 13)")
