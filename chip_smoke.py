@@ -11,8 +11,9 @@ non-zero before the final line:
   device   nvidia-smi name/power limit, torch and CUDA versions
   build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc;
            registers and spill bytes of every qmm_gemv, qmm_gemm,
-           qmm_cache, flash_prefill (D = 64, 128, 256), gmm_gemv, gmm_gemm
-           and paged_decode (D = 64, 128, 256; bf16 and q8) instantiation (and of paged_decode's merge), and of the probe
+           qmm_cache, flash_prefill (D = 64, 80, 96, 128, 256), gmm_gemv,
+           gmm_gemm and paged_decode (D = 64, 80, 96, 128, 256; bf16 and
+           q8) instantiation (and of paged_decode's merge), and of the probe
            GEMV (kbench_gemv, pairs_gemv) and the byte stream, from ptxas -v
            (a spill fails the phase), and the atomic instructions in the
            SASS of the GEMV kernels (K1's, K4's, the probes') and the byte
@@ -23,22 +24,22 @@ non-zero before the final line:
            (error, gate, kernel/plain/library times, roofline bound); one
            K1 and one K4 GEMV call under torch.profiler must each run one
            kernel and no memset, and give the same bits twice
-  serve    a TinyLlama-1.1B-geometry Q4_K GGUF synthesized from seeded
-           random block bytes is loaded with Model(path) on cuda and serves
+  serve    a TinyLlama-1.1B-geometry Q4_K GGUF (full width, 11 of 22
+           layers) synthesized from seeded random block bytes is loaded with Model(path) on cuda and serves
            three generate() requests plus one batched decode; the launch
            count of every kernel of that path must be > 0, and the logits
            at every row of a prefill and of the next decode steps are held
            against the plain path, its min rounded as the TPU kernels round
            it (the XLA path's joint rounding is recorded beside)
-  serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 4
+  serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 2
            layers), served by two Contexts, bf16 and q8_0 KV, each with
            three generate() requests and one batched decode of 8 sequences;
            the logits gate holds the rows whose expert routing agrees with
            the plain path's, and the rows whose routing differs are counted
   serve_iq4xs  the same for a Llama-3-70B-geometry IQ4_XS GGUF (full width,
-           4 layers; u4lut planes), one bf16 Context, then K1 rows on the
+           2 layers; u4lut planes), one bf16 Context, then K1 rows on the
            loaded planes of layer 0 and the lm head at M = 1, 8, 128, 512
-  serve_lowbit the same for two Llama-3-8B-geometry files (full width, 8
+  serve_lowbit the same for two Llama-3-8B-geometry files (full width, 4
            layers): Q2_K (u2 planes with a min) and IQ1_S (u2lut, with
            Q4_K attn_v, IQ2_XXS ffn_down, Q5_K output, Q2_K token_embd),
            each served by a Context at the default qmm variant and one at
@@ -46,7 +47,7 @@ non-zero before the final line:
            on each file's loaded planes (the int8 lm heads among them, at
            M = 1, 8, 128 and 512) and K5 rows at M = 130 and 512
   serve_moe_lowbit the same for three Mixtral-8x7B-geometry files (full
-           width): Q2_K (4 layers; u2 expert stacks with a min), IQ1_S (4
+           width): Q2_K (2 layers; u2 expert stacks with a min), IQ1_S (2
            layers; IQ1_S gate/up stacks as u2lut, IQ2_XXS down as u4lut)
            and BF16 (2 layers; dense expert stacks), F32 router, one bf16
            Context each; K4 (gmm_gemv and gmm_gemm) must launch on u2,
@@ -126,8 +127,8 @@ non-zero before the final line:
            the decode wall with and without the adapter, imatrix tok/s and
            the drafters' tokens a pass and tok/s beside the card
   quirks   the gemma and qwen archs: Gemma-2-2B (Q4_K) and Gemma-3-1B
-           (Q8_0) at published widths and depth (26 layers, head dim 256,
-           tied heads; Gemma-2's window 4096 on every second layer and
+           (Q8_0) at published widths, depth cut to 4 and 6 of 26 layers
+           (head dim 256, tied heads; Gemma-2's window 4096 on every second layer and
            softcaps 50/30, Gemma-3's window 512 on five layers of six with
            a local rope base and QK norms), Qwen2.5-0.5B (biases) and
            Qwen3-0.6B (QK norms) at published widths, 4 layers, each
@@ -136,18 +137,35 @@ non-zero before the final line:
            the plain path); on
            each Gemma file a prompt past its window (4608 and 1024
            tokens) in 512-token chunks: K2 launched once a layer a chunk,
-           K3 once a global layer a decode step (13 of 26, 4 of 26; the
+           K3 once a global layer a decode step (2 of 4, 1 of 6; the
            windowed layers decode on the gather path), K1's GEMV 4 times
            a layer and once for the head, the logits within the plain
            path's gate; the same prompt through one Scheduler slot equal
            to its per-token replay; the sched phase's eight requests at
            bf16 and q8_0 KV (K3, K3-q8 at B = 8, D = 256) against their
            replay; K2, K3 and K3-q8 rows at D = 256
+  quirks_ln the LayerNorm, parallel-residual and partial-rope archs:
+           Phi-3-mini-128k (Q4_K; head dim 96, fused QKV and gate|up, long
+           rope, window 262144) and Phi-2 (Q4_K; head dim 80, partial rope,
+           parallel residual, biases) at published widths and depth, each
+           served as in serve at bf16 and q8_0 KV (8 decode steps held to
+           the plain path), a 600-token prompt at each n_ctx (Phi-3: 8192,
+           the long rope table, and 2048, the short one) with K2 once a
+           layer a chunk, K3 (K3-q8) once a layer a decode step (no window
+           binds) and K1's GEMV four times a layer and once for the head,
+           the logits within the gate; the sched phase's eight requests at
+           bf16 and q8_0 KV against their replay; then nine 2-layer files at
+           published widths (StableLM-2-1.6B, StarCoder2-3B, Pythia-1.4B,
+           Falcon-7B in Q8_0, Command-R v01, Granite-3.0-2B,
+           OLMo-2-1124-7B, Minitron-4B, OLMo-1.7-7B), each with the same
+           logits check at bf16 KV and its launch counts; K2, K3 and K3-q8
+           rows at D = 80 and 96 and K3 at Falcon-7B's G = 71; the ptxas
+           registers and spills of the D = 80 and 96 builds
   timings  the seconds of each phase
 
 Every file the serve phases write carries a synthesized tokenizer
-(write_llama_gguf's vocab: SPM for 32000 tokens and for the gemma and
-qwen vocabularies, Llama-3's BPE layout for 128256); nothing is
+(write_llama_gguf's vocab: SPM for 32000 tokens and for the gemma, qwen,
+phi and other vocabularies, Llama-3's BPE layout for 128256); nothing is
 downloaded.
 
 Before the last line it prints the kernels summary and the card's
@@ -170,6 +188,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor, as_completed
 
 import numpy as np
 
@@ -184,46 +203,54 @@ FOLD_GATE = 1e-8         # a GEMM with a min against the plain fold (the
                          # card tests' K4-vs-K1 and K5-vs-K1 gate)
 PROBE_GATE = 1e-5        # NMSE gate of tests/test_torch_probes.py
 
-# TinyLlama-1.1B (BASELINE.json config #1) published widths
+# TinyLlama-1.1B (BASELINE.json config #1) published widths, depth cut
+# from 22 to 11 layers (full depth until the quirks_ln phase needed the
+# time; the cli, sched, server and adapters phases serve this file)
 TINYLLAMA = dict(n_vocab=32000, n_embd=2048, n_head=32, n_head_kv=4,
-                 head_dim=64, n_layer=22, n_ff=5632)
+                 head_dim=64, n_layer=11, n_ff=5632)
 # Llama-3-8B (BASELINE.json config #2) published widths
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_head=32, n_head_kv=8,
                  head_dim=128, n_layer=32, n_ff=14336)
 # Mixtral-8x7B (BASELINE.json config #4; mistralai/Mixtral-8x7B-v0.1
-# config.json) published widths, depth cut from 32 to 4 layers (8 until
-# the quirks phase needed the time); weights at the TinyLlama phase's std
-# (~0.015)
+# config.json) published widths, depth cut from 32 to 2 layers (8 until
+# the quirks phase, 4 until the quirks_ln phase needed the time); weights
+# at the TinyLlama phase's std (~0.015)
 MIXTRAL = dict(n_vocab=32000, n_embd=4096, n_head=32, n_head_kv=8,
-               head_dim=128, n_layer=4, n_ff=14336, n_expert=8,
+               head_dim=128, n_layer=2, n_ff=14336, n_expert=8,
                n_expert_used=2, rope_base=1e6)
 
 # Llama-3-70B (BASELINE.json config #5; meta-llama/Meta-Llama-3-70B
-# config.json) published widths, depth cut from 80 to 4 layers
+# config.json) published widths, depth cut from 80 to 2 layers (4 until
+# the quirks_ln phase needed the time)
 LLAMA3_70B = dict(n_vocab=128256, n_embd=8192, n_head=64, n_head_kv=8,
-                  head_dim=128, n_layer=4, n_ff=28672, rope_base=500000.0)
-# Llama-3-8B widths for the low-bit files, depth cut from 32 to 8 layers
-LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=8, rope_base=500000.0)
-# Mixtral-8x7B widths for the low-bit MoE files, depth cut from 32 to 4
+                  head_dim=128, n_layer=2, n_ff=28672, rope_base=500000.0)
+# Llama-3-8B widths for the low-bit files, depth cut from 32 to 4 layers
+# (8 until the quirks_ln phase needed the time)
+LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=4, rope_base=500000.0)
+# Mixtral-8x7B widths for the low-bit MoE files, depth cut from 32 to 2
 # layers (a layer's 1.4G expert weights are 0.56-0.7 GB of planes, but
-# repacking 4 layers already takes 9 s (Q2_K) and 21 s (IQ1_S) on the 8
-# host cores of an H100 machine), and to 2 for the BF16 file (3.1 GB a
-# layer: ~6.3 GB)
-MIXTRAL_LOWBIT = dict(MIXTRAL, n_layer=4)
+# repacking 4 layers took 9 s (Q2_K) and 21 s (IQ1_S) on the 8 host cores
+# of an H100 machine; 4 until the quirks_ln phase needed the time), and
+# to 2 for the BF16 file (3.1 GB a layer: ~6.3 GB)
+MIXTRAL_LOWBIT = dict(MIXTRAL, n_layer=2)
 MIXTRAL_BF16 = dict(MIXTRAL, n_layer=2)
-# Gemma-2-2B (google/gemma-2-2b config.json) published widths and depth:
-# head dim 256, query_pre_attn_scalar 256, tied head, sliding window 4096
-# on every second layer, attention and final softcaps 50 and 30
+# Gemma-2-2B (google/gemma-2-2b config.json) published widths, depth cut
+# from 26 to 4 layers (two global, as layers 1 and 3 are; full depth
+# until the quirks_ln phase needed the time): head dim 256,
+# query_pre_attn_scalar 256, tied head, sliding window 4096 on every
+# second layer, attention and final softcaps 50 and 30
 GEMMA2_2B = dict(arch="gemma2", n_vocab=256000, n_embd=2304, n_head=8,
-                 n_head_kv=4, head_dim=256, n_layer=26, n_ff=9216,
+                 n_head_kv=4, head_dim=256, n_layer=4, n_ff=9216,
                  rope_base=10000.0, rms_eps=1e-6, sliding_window=4096,
                  attn_softcap=50.0, final_softcap=30.0, tied=True,
                  post_norms=True)
-# Gemma-3-1B (google/gemma-3-1b-pt config.json) published widths and
-# depth: sliding window 512 on five layers of every six, rope base 1e6
-# with a local base of 10000, per-head QK norms, no softcaps, tied head
+# Gemma-3-1B (google/gemma-3-1b-pt config.json) published widths, depth
+# cut from 26 to 6 layers (layer 5 global; full depth until the quirks_ln
+# phase needed the time): sliding window 512 on five layers of
+# every six, rope base 1e6 with a local base of 10000, per-head QK norms,
+# no softcaps, tied head
 GEMMA3_1B = dict(arch="gemma3", n_vocab=262144, n_embd=1152, n_head=4,
-                 n_head_kv=1, head_dim=256, n_layer=26, n_ff=6912,
+                 n_head_kv=1, head_dim=256, n_layer=6, n_ff=6912,
                  rope_base=1e6, rope_base_swa=10000.0, rms_eps=1e-6,
                  sliding_window=512, swa_pattern=6, tied=True,
                  post_norms=True, qk_norm=True)
@@ -237,6 +264,83 @@ QWEN25_05B = dict(arch="qwen2", n_vocab=151936, n_embd=896, n_head=14,
 QWEN3_06B = dict(arch="qwen3", n_vocab=151936, n_embd=1024, n_head=16,
                  n_head_kv=8, head_dim=128, n_layer=4, n_ff=3072,
                  rope_base=1e6, rms_eps=1e-6, tied=True, qk_norm=True)
+
+# Phi-3-mini-128k-instruct (microsoft/Phi-3-mini-128k-instruct
+# config.json) published widths and depth: head dim 96, MHA, fused
+# qkv_proj and gate_up_proj, NEOX rope, long rope (original context 4096
+# of 131072; 48-entry factor tables, seeded in the published range),
+# sliding window 262144 on every layer, untied head
+PHI3_MINI = dict(arch="phi3", n_vocab=32064, n_embd=3072, n_head=32,
+                 n_head_kv=32, head_dim=96, n_layer=32, n_ff=8192,
+                 rope_base=10000.0, sliding_window=262144,
+                 longrope=(4096, 131072), fused_qkv=True, ffn="fused")
+# Phi-2 (microsoft/phi-2 config.json) published widths and depth: head
+# dim 80, partial rope (32 of 80), one LayerNorm (eps 1e-5) feeding the
+# parallel attention and GELU FFN, biases on every projection and the
+# head
+PHI2 = dict(arch="phi2", n_vocab=51200, n_embd=2560, n_head=32,
+            n_head_kv=32, head_dim=80, rope_dim=32, n_layer=32, n_ff=10240,
+            ln_eps=1e-5, norm_bias=True, ffn_norm=False, fused_qkv=True,
+            qkv_bias=True, bo=True, ffn="up", ffn_bias=True, head_bias=True)
+# The other archs of the slice at published widths, depth cut to 2 layers:
+# StableLM-2-1.6B (stabilityai/stablelm-2-1_6b config.json): partial rope
+# (16 of 64), LayerNorms with biases, Q/K/V biases
+STABLELM2_16B = dict(arch="stablelm", n_vocab=100352, n_embd=2048,
+                     n_head=32, n_head_kv=32, head_dim=64, rope_dim=16,
+                     n_layer=2, n_ff=5632, ln_eps=1e-5, norm_bias=True,
+                     qkv_bias=True)
+# StarCoder2-3B (bigcode/starcoder2-3b config.json): GQA on 2 KV heads,
+# window 4096, biases everywhere, non-gated GELU FFN, tied head
+STARCODER2_3B = dict(arch="starcoder2", n_vocab=49152, n_embd=3072,
+                     n_head=24, n_head_kv=2, head_dim=128, n_layer=2,
+                     n_ff=12288, rope_base=999999.4, ln_eps=1e-5,
+                     norm_bias=True, qkv_bias=True, bo=True, ffn="up",
+                     ffn_bias=True, sliding_window=4096, tied=True)
+# Pythia-1.4B (EleutherAI/pythia-1.4b config.json; gptneox): partial rope
+# (32 of 128), parallel residual with a dedicated ffn_norm, fused QKV
+PYTHIA_14B = dict(arch="gptneox", n_vocab=50304, n_embd=2048, n_head=16,
+                  n_head_kv=16, head_dim=128, rope_dim=32, n_layer=2,
+                  n_ff=8192, ln_eps=1e-5, norm_bias=True, fused_qkv=True,
+                  qkv_bias=True, bo=True, ffn="up", ffn_bias=True)
+# Falcon-7B (tiiuae/falcon-7b config.json): 71 heads on one KV head, one
+# shared LayerNorm, fused QKV, no biases; n_embd 4544 is no multiple of
+# 256, so this file is Q8_0
+FALCON_7B = dict(arch="falcon", n_vocab=65024, n_embd=4544, n_head=71,
+                 n_head_kv=1, head_dim=64, n_layer=2, n_ff=18176,
+                 ln_eps=1e-5, norm_bias=True, ffn_norm=False,
+                 fused_qkv=True, ffn="up")
+# Command-R v01 (CohereForAI/c4ai-command-r-v01 config.json): MHA, weight-
+# only LayerNorms, parallel gated FFN, logit_scale 0.0625, rope base 8e6,
+# tied head of 256000 rows, NORM rope
+COMMAND_R = dict(arch="command-r", n_vocab=256000, n_embd=8192, n_head=64,
+                 n_head_kv=64, head_dim=128, n_layer=2, n_ff=22528,
+                 rope_base=8e6, ln_eps=1e-5, ffn_norm=False, tied=True,
+                 meta={"logit_scale": 0.0625})
+# Granite-3.0-2B (ibm-granite/granite-3.0-2b-base config.json): the mup
+# scales (embedding 12, residual 0.22, attention 0.015625, logits 8)
+GRANITE3_2B = dict(arch="granite", n_vocab=49155, n_embd=2048, n_head=32,
+                   n_head_kv=8, head_dim=64, n_layer=2, n_ff=8192,
+                   tied=True, meta={"embedding_scale": 12.0,
+                                    "residual_scale": 0.22,
+                                    "attention.scale": 0.015625,
+                                    "logit_scale": 8.0})
+# OLMo-2-1124-7B (allenai/OLMo-2-1124-7B config.json): post norms only,
+# RMS norms over the flat q and k
+OLMO2_7B = dict(arch="olmo2", n_vocab=100352, n_embd=4096, n_head=32,
+                n_head_kv=32, head_dim=128, n_layer=2, n_ff=11008,
+                rope_base=500000.0, rms_eps=1e-6, pre_norms=False,
+                post_norms=True, qk_norm="flat")
+# Minitron-4B-Base (nvidia/Minitron-4B-Base config.json; nemotron):
+# partial rope (64 of 128), LayerNorms with biases, squared-ReLU FFN
+MINITRON_4B = dict(arch="nemotron", n_vocab=256000, n_embd=3072, n_head=24,
+                   n_head_kv=8, head_dim=128, rope_dim=64, n_layer=2,
+                   n_ff=9216, ln_eps=1e-5, norm_bias=True, ffn="up")
+# OLMo-1.7-7B (allenai/OLMo-1.7-7B-hf config.json; olmo): weightless
+# LayerNorms (no norm tensors), clip_qkv 8, NORM rope
+OLMO17_7B = dict(arch="olmo", n_vocab=50304, n_embd=4096, n_head=32,
+                 n_head_kv=32, head_dim=128, n_layer=2, n_ff=11008,
+                 ln_eps=1e-5, pre_norms=False, output_norm=False,
+                 meta={"attention.clamp_kqv": 8.0})
 
 TPU_KERNELS = {
     "qmm_gemv": ("llama_cpp_test_tpu_torch/csrc/qmm.cu",
@@ -550,12 +654,21 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     of hp (the gemma and qwen configurations) add: rms_eps,
     sliding_window, swa_pattern (written for gemma3), rope_base_swa (the
     local base), attn_softcap and final_softcap, tied (no output.weight),
-    qk_norm (per-head Q/K norms), post_norms (the sandwich norms) and
-    qkv_bias (F32 Q/K/V biases). vocab: the tokenizer written beside them
-    (from vocab_seed, default seed), "spm" (spm_vocab) or "bpe"
-    (bpe_vocab); "auto" takes "bpe" for Llama-3's 128256 tokens and "spm"
-    for any other size; None writes none. chat_template: the
-    tokenizer.chat_template written with it."""
+    qk_norm (per-head Q/K norms: True or "shared" [D], "head" [H, D],
+    "flat" [H * D]), post_norms (the sandwich norms) and qkv_bias (F32
+    Q/K/V biases). Those of the LayerNorm and parallel archs: ln_eps (a
+    layer_norm_epsilon instead of rms_eps), rope_dim, pre_norms (False:
+    no attn_norm and ffn_norm), ffn_norm (False: no pre-FFN norm, as a
+    parallel layer with one norm has), output_norm (False: none), norm_bias
+    (LayerNorm biases), fused_qkv (one attn_qkv, with a fused bias under
+    qkv_bias), bo, ffn ("gated", "up" non-gated, "fused" [gate|up] in one
+    ffn_up), ffn_bias (up and down biases), head_bias, longrope ((original
+    context, training context): the long-rope keys and seeded factor
+    tables in the published range) and meta (more {arch}.* keys). vocab:
+    the tokenizer written beside them (from vocab_seed, default seed),
+    "spm" (spm_vocab) or "bpe" (bpe_vocab); "auto" takes "bpe" for
+    Llama-3's 128256 tokens and "spm" for any other size; None writes
+    none. chat_template: the tokenizer.chat_template written with it."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -569,9 +682,12 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             "block_count": n_layer, "attention.head_count": hq,
             "attention.head_count_kv": hkv,
             "attention.key_length": d, "attention.value_length": d,
-            "feed_forward_length": ff, "rope.dimension_count": d,
+            "feed_forward_length": ff,
+            "rope.dimension_count": hp.get("rope_dim", d),
             "rope.freq_base": hp.get("rope_base", 10000.0),
-            "attention.layer_norm_rms_epsilon": hp.get("rms_eps", 1e-5),
+            ("attention.layer_norm_epsilon" if "ln_eps" in hp else
+             "attention.layer_norm_rms_epsilon"):
+                hp.get("ln_eps", hp.get("rms_eps", 1e-5)),
             "vocab_size": v}
     if n_exp:
         meta.update({"expert_count": n_exp,
@@ -583,6 +699,14 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
                       ("final_softcap", "final_logit_softcapping")):
         if key in hp:
             meta[name] = hp[key]
+    if "longrope" in hp:
+        orig, train = hp["longrope"]
+        meta.update({"context_length": train,
+                     "rope.scaling.type": "longrope",
+                     "rope.scaling.original_context_length": orig,
+                     "rope.scaling.attn_factor": float(np.sqrt(
+                         1.0 + np.log(train / orig) / np.log(orig)))})
+    meta.update(hp.get("meta", {}))
     meta = {f"{arch}.{k}": val for k, val in meta.items()}
     if vocab == "auto":
         vocab = "bpe" if v == 128256 else "spm"
@@ -600,32 +724,62 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
         w.add_tensor(name, random_blocks(rng, gt, n * e, k),
                      ggml_type=gt, raw_ggml_shape=shape)
 
-    def norm(name, n=c):
-        w.add_tensor(name, 1.0 + 0.05 * rng.standard_normal(n).astype(np.float32))
+    def vec(name, *shape, mean=1.0, std=0.05):
+        w.add_tensor(name, mean + std * rng.standard_normal(shape).astype(
+            np.float32))
 
+    def norm(name, n=c):
+        vec(name, n)
+        if hp.get("norm_bias"):
+            vec(name[:-len("weight")] + "bias", n, mean=0.0)
+
+    bias = lambda name, n: vec(name, n, mean=0.0, std=0.1)
     quant("token_embd.weight", v, c)
-    norm("output_norm.weight")
+    if hp.get("output_norm", True):
+        norm("output_norm.weight")
     if not hp.get("tied"):
         quant("output.weight", v, c)
+    if hp.get("head_bias"):
+        bias("output.bias", v)
     for i in range(n_layer):
         p = f"blk.{i}."
-        norm(p + "attn_norm.weight")
-        quant(p + "attn_q.weight", hq * d, c)
-        quant(p + "attn_k.weight", hkv * d, c)
-        quant(p + "attn_v.weight", hkv * d, c)
+        pre = hp.get("pre_norms", True)
+        if pre:
+            norm(p + "attn_norm.weight")
+        if hp.get("fused_qkv"):
+            # the attn_qkv rows as one tensor of the attn_q type
+            w.add_tensor(p + "attn_qkv.weight", random_blocks(
+                rng, types["attn_q"], (hq + 2 * hkv) * d, c),
+                ggml_type=types["attn_q"],
+                raw_ggml_shape=(c, (hq + 2 * hkv) * d))
+        else:
+            quant(p + "attn_q.weight", hq * d, c)
+            quant(p + "attn_k.weight", hkv * d, c)
+            quant(p + "attn_v.weight", hkv * d, c)
         quant(p + "attn_output.weight", c, hq * d)
-        if hp.get("qkv_bias"):
+        if hp.get("qkv_bias") and hp.get("fused_qkv"):
+            bias(p + "attn_qkv.bias", (hq + 2 * hkv) * d)
+        elif hp.get("qkv_bias"):
             for name, n in (("attn_q", hq * d), ("attn_k", hkv * d),
                             ("attn_v", hkv * d)):
-                w.add_tensor(p + name + ".bias", 0.1 * rng.standard_normal(
-                    n).astype(np.float32))
-        if hp.get("qk_norm"):
-            norm(p + "attn_q_norm.weight", d)
-            norm(p + "attn_k_norm.weight", d)
+                bias(p + name + ".bias", n)
+        if hp.get("bo"):
+            bias(p + "attn_output.bias", c)
+        qk = hp.get("qk_norm")
+        if qk in (True, "shared"):
+            vec(p + "attn_q_norm.weight", d)
+            vec(p + "attn_k_norm.weight", d)
+        elif qk == "head":
+            vec(p + "attn_q_norm.weight", hq, d)
+            vec(p + "attn_k_norm.weight", hkv, d)
+        elif qk == "flat":
+            vec(p + "attn_q_norm.weight", hq * d)
+            vec(p + "attn_k_norm.weight", hkv * d)
         if hp.get("post_norms"):
-            norm(p + "post_attention_norm.weight")
-            norm(p + "post_ffw_norm.weight")
-        norm(p + "ffn_norm.weight")
+            vec(p + "post_attention_norm.weight", c)
+            vec(p + "post_ffw_norm.weight", c)
+        if pre and hp.get("ffn_norm", True):
+            norm(p + "ffn_norm.weight")
         if n_exp:
             # router logits of std ~3 over the experts
             w.add_tensor(p + "ffn_gate_inp.weight", 0.05 * rng.standard_normal(
@@ -634,10 +788,21 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             quant(p + "ffn_gate_exps.weight", ff, c, n_exp, gt_gate)
             quant(p + "ffn_up_exps.weight", ff, c, n_exp, gt_up)
             quant(p + "ffn_down_exps.weight", c, ff, n_exp, gt_down)
-        else:
+            continue
+        ffn = hp.get("ffn", "gated")
+        if ffn == "gated":
             quant(p + "ffn_gate.weight", ff, c)
-            quant(p + "ffn_up.weight", ff, c)
-            quant(p + "ffn_down.weight", c, ff)
+        quant(p + "ffn_up.weight", 2 * ff if ffn == "fused" else ff, c)
+        quant(p + "ffn_down.weight", c, ff)
+        if hp.get("ffn_bias"):
+            bias(p + "ffn_up.bias", ff)
+            bias(p + "ffn_down.bias", c)
+    if "longrope" in hp:
+        half = hp.get("rope_dim", d) // 2
+        for name, hi in (("rope_factors_short.weight", 3.0),
+                         ("rope_factors_long.weight", 64.0)):
+            w.add_tensor(name, np.sort(rng.uniform(1.0, hi, half)).astype(
+                np.float32))
     w.write()
 
 
@@ -681,13 +846,13 @@ _INSTANTIATIONS = {
     "qmm_cache": ("qmm_cache", re.compile(r"qmm_cache_kernelILi(\d)ELb([01])E"),
                   8, _kind_label),
     "flash_prefill": ("flash_prefill",
-                      re.compile(r"flash_prefill_kernelILi(\d+)E"), 3,
+                      re.compile(r"flash_prefill_kernelILi(\d+)E"), 5,
                       lambda m: f"D={m.group(1)}"),
     "gmm_gemm": ("gmm", re.compile(r"gmm_gemm_kernelILi(\d)ELb([01])E"), 9,
                  _kind_label),
     "paged_decode": ("paged_attention",
                      re.compile(r"paged_decode_kernelILi(\d+)E(13__nv_bfloat16|a)E"),
-                     6, lambda m: f"D={m.group(1)} "
+                     10, lambda m: f"D={m.group(1)} "
                                   f"{'q8' if m.group(2) == 'a' else 'bf16'}"),
     "paged_decode_merge": ("paged_attention",
                            re.compile(r"paged_decode_merge_kernel"), 1,
@@ -764,7 +929,7 @@ def gemv_atomics(lib_path: str) -> dict | None:
     return out
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from llama_cpp_test_tpu_torch.ops import _cuda
 
     shutil.rmtree(_cuda.BUILD_DIR, ignore_errors=True)
@@ -796,6 +961,7 @@ def phase_build() -> None:
                                    f"found {found}")
     spilled = {k: v for k, v in inst.items() if v["spill_bytes"]}
     check(not spilled, f"build: spills: {spilled}")
+    return inst
 
 
 def _qmm_planes(rng, hp: dict, ggml_type, labels) -> dict:
@@ -2173,7 +2339,7 @@ SCHED_RUNS = (("tinyllama", "bf16"), ("tinyllama", "q8_0"), ("8b_q2k", "bf16"))
 
 def phase_sched(torch, kept: Kept, nvidia_smi: str) -> dict:
     """The Scheduler over the kept files: TinyLlama (bf16, then q8_0 KV)
-    and Llama-3-8B Q2_K (8 layers: its 128256-token vocab takes the
+    and Llama-3-8B Q2_K (4 layers: its 128256-token vocab takes the
     segmented candidate selector and the BPE tokenizer). Eight requests
     of 16-512 prompt tokens and 64 new ones, four greedy and four seeded
     stochastic, 8 slots, windows of 16. Checks: every greedy token equals
@@ -3493,10 +3659,13 @@ QUIRK_DECODE = 8            # decode steps held to the plain path
 LONG_CHUNK = 512            # the Scheduler's prefill chunk
 
 
-def _global_layers(hp) -> list:
+def _global_layers(hp, n_ctx: int) -> list:
+    """The layers whose decode takes K3 in a Context of n_ctx tokens: no
+    window, or one that cannot bind (>= n_ctx)."""
     from llama_cpp_test_tpu_torch.models.hparams import layer_window
 
-    return [i for i in range(hp.n_layer) if layer_window(hp, i) == 0]
+    return [i for i in range(hp.n_layer)
+            if not 0 < layer_window(hp, i) < n_ctx]
 
 
 def _launch_counts(torch, ctx, prompt, n_decode: int, tokens=None) -> dict:
@@ -3524,32 +3693,36 @@ def _launch_counts(torch, ctx, prompt, n_decode: int, tokens=None) -> dict:
     return {"prefill": pre, "decode": dec, "rows": rows, "tokens": toks}
 
 
-def _path_prediction(torch, model, prompt, n_ctx: int) -> dict:
+def _path_prediction(torch, model, prompt, n_ctx: int,
+                     kv: str = "bf16") -> dict:
     """The launches a prefill and QUIRK_DECODE decode steps of one
     sequence must make: K2 once a layer a chunk (every layer, windowed or
-    not), K3 once a global layer a step (a sliding-window layer decodes on
-    the gather path, as the reference sends any window to XLA), K1's GEMV
-    four times a layer a step (fused q|k|v, wo, fused gate|up, down) and
-    once for the head. Then the same tokens through the plain path: the
-    last prompt position's logits and every decode step's within the
-    logits gate."""
+    not; none over q8_0 pages, which prefill on the dequantizing gather),
+    K3 (K3-q8 at q8_0 KV) once a global layer a step (a sliding-window
+    layer whose window binds at n_ctx decodes on the gather path, as the
+    reference sends any window to XLA), K1's GEMV four times a layer a step
+    (fused q|k|v, wo, fused gate|up or up, down) and once for the head.
+    Then the same tokens through the plain path: the last prompt
+    position's logits and every decode step's within the logits gate."""
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     hp = model.hp
-    glob = _global_layers(hp)
+    glob = _global_layers(hp, n_ctx)
     ctx = lambda **kw: Context(model, n_ctx=n_ctx, n_seq_max=1,
-                               block_size=16, **kw)
+                               block_size=16, kv_type=kv, **kw)
     got = _launch_counts(torch, ctx(), prompt, QUIRK_DECODE)
     with _plain_min("fold"):
         plain = _launch_counts(torch, ctx(plain=True), prompt, QUIRK_DECODE,
                                got["tokens"])
     chunks = -(-len(prompt) // LONG_CHUNK)
-    want = {"prefill": {"flash_prefill": hp.n_layer * chunks,
-                        "paged_decode": 0},
+    k3 = "paged_decode_q8" if kv == "q8_0" else "paged_decode"
+    want = {"prefill": {"flash_prefill": 0 if kv == "q8_0" else
+                        hp.n_layer * chunks, k3: 0},
             "decode": {"flash_prefill": 0,
-                       "paged_decode": len(glob) * QUIRK_DECODE,
+                       k3: len(glob) * QUIRK_DECODE,
                        "qmm_gemv": (4 * hp.n_layer + 1) * QUIRK_DECODE}}
-    out = {"prompt": len(prompt), "global_layers": glob,
+    out = {"prompt": len(prompt), "kv": kv, "n_ctx": n_ctx,
+           "global_layers": glob,
            "launches": {k: got[k] for k in ("prefill", "decode")},
            "predicted": want,
            "nmse": [nmse(a, b) for a, b in zip(plain["rows"], got["rows"])],
@@ -3650,7 +3823,7 @@ def _quirk_rows(kc, hp: dict, long: int) -> dict:
 
 def phase_quirks(torch, kc, nvidia_smi: str, profile: bool = False) -> dict:
     """The gemma and qwen quirk axes. Gemma-2-2B (Q4_K) and Gemma-3-1B
-    (Q8_0) at published widths and depth, Qwen2.5-0.5B and Qwen3-0.6B
+    (Q8_0) at published widths, 4 and 6 layers, Qwen2.5-0.5B and Qwen3-0.6B
     (Q8_0) at published widths, 4 layers, each file from seeded random
     blocks with an SPM vocabulary at the published size, through _serve
     (bf16 KV, and q8_0 KV on the Gemma files; generate() at 16, 130 and
@@ -3694,6 +3867,188 @@ def phase_quirks(torch, kc, nvidia_smi: str, profile: bool = False) -> dict:
     return {"launches": launches, "files": files,
             "rows": {f"{label} {k}": row for label, f in files.items()
                      for k, row in f.get("rows", {}).get("rows", {}).items()}}
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm, parallel-residual and partial-rope archs
+
+
+# (label, geometry, GGUF type, seed, the n_ctx of each path prediction
+# (bf16 KV, then q8_0 at the first))
+QUIRK_LN_FILES = (("phi3_mini", PHI3_MINI, "Q4_K", 51, (8192, 2048)),
+                  ("phi2", PHI2, "Q4_K", 52, (2048,)))
+# (label, geometry, GGUF type, seed): 2 layers each
+QUIRK_LN_SMALL = (("stablelm2_16b", STABLELM2_16B, "Q4_K", 53),
+                  ("starcoder2_3b", STARCODER2_3B, "Q4_K", 54),
+                  ("pythia_14b", PYTHIA_14B, "Q4_K", 55),
+                  ("falcon_7b", FALCON_7B, "Q8_0", 56),
+                  ("command_r", COMMAND_R, "Q4_K", 57),
+                  ("granite3_2b", GRANITE3_2B, "Q4_K", 58),
+                  ("olmo2_7b", OLMO2_7B, "Q4_K", 59),
+                  ("minitron_4b", MINITRON_4B, "Q4_K", 60),
+                  ("olmo17_7b", OLMO17_7B, "Q4_K", 61))
+LN_PROMPT = 600             # two K2 chunks (512 + 88) for the path check
+
+
+def _add_launches(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _rope_tables(model, n_ctxs) -> dict:
+    """Which rope table a Context of each n_ctx serves (phi3's long one iff
+    n_ctx > rope_orig_ctx, as the reference Context picks it)."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    w, out = model.weights, {}
+    for n_ctx in n_ctxs:
+        ctx = Context(model, n_ctx=n_ctx, n_seq_max=1, block_size=16)
+        out[n_ctx] = ("long" if ctx.w.rope_inv_freq is w.rope_inv_freq_long
+                      else "short" if ctx.w.rope_inv_freq
+                      is w.rope_inv_freq else "other")
+        del ctx
+        want = "long" if n_ctx > model.hp.rope_orig_ctx else "short"
+        check(out[n_ctx] == want, f"{model.hp.arch} n_ctx {n_ctx}: the "
+                                  f"{out[n_ctx]} rope table, not the {want}")
+    return out
+
+
+def _ln_rows(kc) -> dict:
+    """K2 at D = 80 (Phi-2) and 96 (Phi-3) on a 512-token chunk, and on a
+    4096-token prompt under the 4k Phi-3's window of 2047 (which binds);
+    K3 and K3-q8 at B = 1 and 8 for both dims; K3 at Falcon-7B's G = 71."""
+    rows = {}
+    for label, hp in (("Phi-2", PHI2), ("Phi-3", PHI3_MINI)):
+        rows[f"{label} K2 T=512"] = kc.flash_prefill(hp, t=512)
+    rows["Phi-3 K2 T=4096 window=2047"] = kc.flash_prefill(
+        PHI3_MINI, t=4096, window=2047)
+    for label, hp in (("Phi-2", PHI2), ("Phi-3", PHI3_MINI)):
+        for q8 in (False, True):
+            name = "K3-q8" if q8 else "K3"
+            for b in (1, 8):
+                rows[f"{label} {name} B={b}"] = kc.paged_decode(hp, b, q8=q8)
+    for b in (1, 8):
+        rows[f"Falcon-7B K3 B={b}"] = kc.paged_decode(FALCON_7B, b)
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    return rows
+
+
+def _ln_load(label, hp, ftype, seed) -> tuple:
+    """A QUIRK_LN_SMALL file written and loaded on the card: (Model,
+    seconds the write took)."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Model
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        path = os.path.join(tmp, f"{label}.gguf")
+        t0 = time.time()
+        write_llama_gguf(path, hp, seed=seed, ftype=ftype)
+        write_s = time.time() - t0
+        return Model(path, device="cuda"), write_s
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _ln_small(torch, label, hp, ftype, model, write_s) -> dict:
+    """A 2-layer file at published widths, loaded: its logits over a
+    130-token prefill (every row) and QUIRK_DECODE decode steps within the
+    gate of the plain path at bf16 KV, and the launches its path predicts
+    over a LN_PROMPT-token prompt."""
+    rng = np.random.default_rng(13)
+    prompt = rng.integers(3, hp["n_vocab"], size=LN_PROMPT).tolist()
+    checks, bad = _kernels_vs_plain(model, prompt[:130], [("bf16", None)],
+                                    QUIRK_DECODE)
+    out = {"phase": f"quirks_ln/{label}", "arch": model.hp.arch,
+           "n_layer": hp["n_layer"], "ftype": ftype,
+           "write_gguf_s": write_s, "load_s": model.load_seconds,
+           "plain_vs_kernel_nmse": checks, "gate": LOGITS_GATE,
+           "path": _path_prediction(torch, model, prompt, 1024)}
+    emit(out)
+    check(not bad, f"{label}: logits outside the gate: {bad}")
+    out["launches"] = {}
+    for step in ("prefill", "decode"):
+        _add_launches(out["launches"], out["path"]["launches"][step])
+    return out
+
+
+def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
+                    profile: bool = False) -> dict:
+    """The LayerNorm, parallel-residual and partial-rope archs.
+    Phi-3-mini-128k (Q4_K, head dim 96, long rope, window 262144) and
+    Phi-2 (Q4_K, head dim 80, parallel residual) at published widths and
+    depth, each through _serve at bf16 and q8_0 KV (generate() at 16, 130
+    and 512 tokens; the logits of a 130-token prefill and QUIRK_DECODE
+    decode steps within the gate of the plain path), then a LN_PROMPT-token
+    prompt at each n_ctx of QUIRK_LN_FILES with the launches the path
+    predicts (K2 once a layer a chunk; K3, or K3-q8 on the q8_0 Context,
+    once a layer a decode step: no window binds; K1's GEMV four times a
+    layer and once for the head) and its logits within the gate; Phi-3's
+    rope table at n_ctx 8192 (long) and 2048 (short); the sched phase's
+    eight requests at bf16 and q8_0 KV against their replay. Then the nine
+    2-layer files of QUIRK_LN_SMALL (_ln_load on three host threads,
+    _ln_small as each load completes), the K2, K3 and K3-q8 rows
+    at D = 80 and 96 and K3 at G = 71 (_ln_rows), and the registers and
+    spills of the D = 80 and 96 builds (a spill fails the build phase)."""
+    files, launches = {}, {}
+    for label, hp, ftype, seed, n_ctxs in QUIRK_LN_FILES:
+
+        def more(model, hp=hp, n_ctxs=n_ctxs):
+            prompt = np.random.default_rng(12).integers(
+                3, hp["n_vocab"], size=LN_PROMPT).tolist()
+            paths = [_path_prediction(torch, model, prompt, n, "bf16")
+                     for n in n_ctxs]
+            paths.append(_path_prediction(torch, model, prompt, n_ctxs[0],
+                                          "q8_0"))
+            out = {"path": paths, "sched": _quirk_sched(torch, model),
+                   "card": nvidia_smi}
+            if model.hp.rope_scaling == "longrope":
+                out["rope_tables"] = _rope_tables(model, n_ctxs)
+            emit({"phase": f"quirks_ln/{label}", "checks": out})
+            return out
+
+        t0 = time.time()
+        r = _serve(torch, f"quirks_ln/{label}", hp, seed,
+                   [("bf16", None), ("q8_0", None)], 2, DENSE_PATH, profile,
+                   ftype=ftype, n_ctx=n_ctxs[0], n_decode=QUIRK_DECODE,
+                   rows=more)
+        r["seconds"] = time.time() - t0
+        files[label] = r
+        _add_launches(launches, r["launches"])
+        for p in r["rows"]["path"]:
+            for step in ("prefill", "decode"):
+                _add_launches(launches, p["launches"][step])
+        for kv in ("bf16", "q8_0"):
+            _add_launches(launches, r["rows"]["sched"][kv]["launches"])
+    # the 2-layer files are written and loaded three at a time on host
+    # threads (their 50k-256k-row vocabularies repack for seconds each)
+    # while the card checks the ones already loaded, in the order they
+    # load; a file's seconds are its checks
+    ex = ThreadPoolExecutor(max_workers=3)
+    try:
+        loads = {ex.submit(_ln_load, *spec): spec for spec in QUIRK_LN_SMALL}
+        for load in as_completed(loads):
+            label, hp, ftype, _ = loads[load]
+            t0 = time.time()
+            files[label] = _ln_small(torch, label, hp, ftype,
+                                     *load.result())
+            files[label]["seconds"] = time.time() - t0
+            _add_launches(launches, files[label]["launches"])
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+    emit({"phase": "quirks_ln", "seconds": {
+        label: round(f["seconds"], 1) for label, f in files.items()}})
+    rows = _ln_rows(kc)
+    new_builds = {k: v for k, v in build.items()
+                  if re.search(r"^(flash_prefill|paged_decode) D=(80|96)\b", k)}
+    emit({"phase": "quirks_ln", "builds": new_builds, "card": nvidia_smi})
+    check(len(new_builds) == 6 and not any(
+        v["spill_bytes"] for v in new_builds.values()),
+          f"quirks_ln: the D = 80 and 96 builds: {new_builds}")
+    missing = [k for k in DENSE_PATH + ("paged_decode_q8",)
+               if launches.get(k, 0) <= 0]
+    check(not missing, f"quirks_ln: kernels not launched: {missing}")
+    return {"launches": launches, "files": files, "rows": rows,
+            "builds": new_builds}
 
 
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
@@ -3822,7 +4177,7 @@ def main() -> int:
 
     try:
         dev = timed("device", phase_device, torch)
-        timed("build", phase_build)
+        build = timed("build", phase_build)
         from llama_cpp_test_tpu_torch.tools import L2FlushedTimer
 
         timer = L2FlushedTimer()
@@ -3850,6 +4205,8 @@ def main() -> int:
                                    smi)
         serves["quirks"] = timed("quirks", phase_quirks, torch, kc, smi,
                                  prof)
+        serves["quirks_ln"] = timed("quirks_ln", phase_quirks_ln, torch, kc,
+                                    smi, build, prof)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3872,9 +4229,11 @@ def main() -> int:
     for name in ("qmm_gemv", "gmm_gemv"):
         shape_rows[name] += [r for rs in served for r in rs.values()
                              if r["kernel"] == name]
-    # and the attention rows at D = 256 (Gemma's geometry)
-    for row in serves["quirks"]["rows"].values():
-        shape_rows[row["kernel"]].append(row)
+    # and the attention rows at D = 256 (Gemma's geometry), 80 and 96
+    # (Phi-2's, Phi-3's) and G = 71 (Falcon-7B's)
+    for phase in ("quirks", "quirks_ln"):
+        for row in serves[phase]["rows"].values():
+            shape_rows[row["kernel"]].append(row)
     kernels = []
     for name, (src, replaces) in TPU_KERNELS.items():
         r = rep[name]

@@ -29,12 +29,17 @@
 //     registers into the A operand of P.V (V through ldmatrix.trans). That
 //     bf16 P is the one rounding the TPU kernel does not make;
 //   - key tiles: 64 keys (64 / BS pages; any BS) copied by cp.async 16-byte
-//     copies into a ring of 3 stages at D = 64 (2 at D = 128, where 3 would
-//     leave one block an SM, and at 256), later tiles in flight while this one is
+//     copies into a ring of 3 stages at D = 64 (2 at D = 80 and 96, where
+//     3 would leave two blocks an SM, at 128, where 3 would leave one, and
+//     at 256), later tiles in flight while this one is
 //     multiplied; shared-memory rows are padded by 16 bytes, so ldmatrix's
 //     8 rows fall in distinct banks; keys past kv_len arrive as zeros. The
 //     sequence's page ids are staged in shared memory once, beside the
 //     copy of Q, so no tile's copy waits on a read of the block table;
+//   - D = 80 and 96 (Phi-2, Phi-3) are multiples of 16: 5 or 6 k-steps of
+//     S = Q.K^T and 10 or 12 8-column tiles of O, in pairs; a row's D / 8
+//     16-byte chunks need no power of two, and rows of D + 8 bf16 (176 or
+//     208 bytes) keep ldmatrix's 8 rows in distinct banks;
 //   - skipping: only tiles between the block's first attended key (its
 //     lowest position less the window) and its last (its highest position,
 //     below kv_len) are loaded; only tiles that cross the diagonal, the
@@ -70,8 +75,8 @@ struct FpPlan {
   static constexpr bool QREG = D <= 128;
   // Q, the ring of K and V tiles, the page ids
   static constexpr int BYTES = (Q + 2 * STAGES * TILE) * 2 + FP_PAGES * 4;
-  // blocks an SM's 227 KB of shared memory holds (3 at D = 64, 2 at 128,
-  // 1 at 256);
+  // blocks an SM's 227 KB of shared memory holds (3 at D = 64, 80 and
+  // 96, 2 at 128, 1 at 256);
   // the launch bounds let ptxas take the registers that many leave
   static constexpr int BLOCKS = 232448 / (BYTES + 1024);
 };
@@ -352,8 +357,8 @@ int launch(const void* q, const void* k, const void* v, const void* positions,
 
 }  // namespace
 
-// D in {64, 128, 256}; BS a multiple of 8, at most 64; any T and any
-// G = H / KV.
+// D in {64, 80, 96, 128, 256}; BS a multiple of 8, at most 64; any T and
+// any G = H / KV.
 PORT_API int flash_prefill(const void* q, const void* k, const void* v,
                            const void* positions, const void* kv_len,
                            const void* pages, void* out, int B, int T, int H,
@@ -365,6 +370,12 @@ PORT_API int flash_prefill(const void* q, const void* k, const void* v,
   switch (D) {
     case 64:
       return launch<64>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
+                        NB, BS, nbmax, window, soft_cap, st);
+    case 80:
+      return launch<80>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
+                        NB, BS, nbmax, window, soft_cap, st);
+    case 96:
+      return launch<96>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
                         NB, BS, nbmax, window, soft_cap, st);
     case 128:
       return launch<128>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,

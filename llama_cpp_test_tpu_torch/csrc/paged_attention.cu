@@ -55,7 +55,12 @@
 //     rows, tools/attn_rows.py, H100 80GB HBM3 at 700 W). At D = 256 a
 //     bf16 stage is two 33 KB tiles (135 KB for the ring), a q8 ring 69 KB
 //     beside 66 KB of dequantized tiles: one block an SM.
-// The merge kernel takes one block per query head, a thread per dim, its
+// D = 80 and 96 (Phi-2, Phi-3) take the same walk: 5 or 6 k-steps, 10 or
+// 12 O tiles in pairs, 10 or 12 16-byte chunks a bf16 row and 5 or 6 an
+// int8 one (rows of 96 or 112 bytes staged), no power of two assumed.
+// The merge kernel takes one block per query head, a thread per dim (80
+// threads: two warps and a half one; its warp-wide reductions run in
+// warp 0 alone, which is whole), its
 // loads over the splits independent: a merge whose threads walked the
 // splits one load at a time took ~50 us at 64 splits (H100). It is a
 // programmatic dependent launch of the split kernel, so its launch
@@ -472,7 +477,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            void* ws, int B, int H, int KV, int NB, int BS, int D, int nbmax,
            int splits, int split_pages, float soft_cap, void* stream) {
   if (B < 1 || KV <= 0 || H % KV || BS < 1 ||
-      (D != 64 && D != 128 && D != 256) ||
+      (D != 64 && D != 80 && D != 96 && D != 128 && D != 256) ||
       splits < 1 || split_pages < 1 ||
       (long long)splits * split_pages < nbmax ||
       (splits > 1 && ws == nullptr))
@@ -482,6 +487,12 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   const dim3 grid(KV * ((G + ROWS - 1) / ROWS), B, splits);
   if (D == 64)
     launch_d<64, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV, NB,
+                    BS, nbmax, G, split_pages, soft_cap, st);
+  else if (D == 80)
+    launch_d<80, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV, NB,
+                    BS, nbmax, G, split_pages, soft_cap, st);
+  else if (D == 96)
+    launch_d<96, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV, NB,
                     BS, nbmax, G, split_pages, soft_cap, st);
   else if (D == 128)
     launch_d<128, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
@@ -512,7 +523,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// q/out [B, H, D] bf16, D in {64, 128, 256}; k/v [KV, NB, BS, D] bf16;
+// q/out [B, H, D] bf16, D in {64, 80, 96, 128, 256}; k/v [KV, NB, BS, D]
+// bf16;
 // lengths [B], pages
 // [B, nbmax] int32. The sequence's pages split into `splits` ranges of
 // split_pages (splits * split_pages >= nbmax; ops/paged_attention.split_plan

@@ -42,7 +42,7 @@ def attach_control_vector(weights: LlamaWeights,
     """Set per-layer control vectors on the weights' device (layer ids
     1-based; layer_end <= 0 means the last layer, as
     --control-vector-layer-range takes them)."""
-    dev = weights.output_norm.device
+    dev = weights.rope_inv_freq.device
     if layer_end <= 0:
         layer_end = len(weights.layers)
     for li, lw in enumerate(weights.layers):

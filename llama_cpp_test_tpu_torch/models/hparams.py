@@ -1,13 +1,16 @@
 """Model hyperparameters parsed from GGUF metadata.
 
 Counterpart of llama_cpp_test_tpu/models/hparams.py, trimmed to the
-sequential llama body of this port (models/registry.PORTED): dense, or
-Mixtral-style MoE with softmax top-k routing, and the gemma and qwen
-quirk axes (NEOX rope, GeGLU, embedding scale, sliding-window patterns
-with their own rope base, softcaps). Fields that select paths the port
-does not carry yet (sigmoid or sparsemixer gating, shared experts) are
-parsed so the loader can refuse them instead of running a different
-model.
+llama body of this port (models/registry.PORTED): dense, or Mixtral-style
+MoE with softmax top-k routing; the gemma and qwen quirk axes (NEOX rope,
+GeGLU, embedding scale, sliding-window patterns with their own rope base,
+softcaps); and the LayerNorm and parallel-residual axes of the phi,
+stablelm, starcoder2, gptneox, falcon, command-r, granite, olmo and
+nemotron archs (norm type, parallel residual, non-gated GELU and squared
+ReLU FFNs, the mup scales, QKV clamping, long-rope scaling). Fields that
+select paths the port does not carry yet (sigmoid or sparsemixer gating,
+shared experts) are parsed so the loader can refuse them instead of
+running a different model.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ class HParams:
     rms_eps: float = 1e-5
     rope_dim: int = 128
     rope_freq_base: float = 10000.0
-    rope_scaling: str = "none"  # none | linear | yarn
+    rope_scaling: str = "none"  # none | linear | yarn | longrope (phi3:
+    #                             the factor tables ride the weights)
     rope_scale_factor: float = 1.0
     rope_orig_ctx: int = 0
     rope_attn_factor: float = 1.0
@@ -52,15 +56,29 @@ class HParams:
     # global 1e6); 0 = rope_freq_base
     rope_freq_base_swa: float = 0.0
     # attention scale override; 0 = 1/sqrt(head_dim) (gemma 27B: by
-    # layer count, 1/sqrt(n_embd / n_head))
+    # layer count, 1/sqrt(n_embd / n_head); granite: attention.scale)
     attn_scale: float = 0.0
+    # olmo clip_qkv: q, k and v clamped to +-clamp_kqv; 0 = off
+    clamp_kqv: float = 0.0
     attn_softcap: float = 0.0   # tanh cap on attention logits (gemma2: 50)
     final_softcap: float = 0.0  # tanh cap on output logits (gemma2: 30)
     # GGUF rope convention: "norm" rows are un-permuted at load so the
     # half-split rotation applies; "neox" rows are half-split already
     rope_type: str = "norm"
-    act_fn: str = "silu"        # gated-FFN activation: silu | gelu (GeGLU)
+    # FFN activation: silu | gelu (tanh approximation; GeGLU when gated)
+    # | relu2 (nemotron's squared ReLU, non-gated)
+    act_fn: str = "silu"
     embd_scale: float = 1.0     # embedding multiplier (gemma: sqrt(n_embd))
+    # granite's mup multipliers: each branch output times residual_scale,
+    # the logits DIVIDED by logits_scale (command-r stores a multiplier,
+    # read here as its inverse)
+    residual_scale: float = 1.0
+    logits_scale: float = 1.0
+    # x + attn(norm(x)) + ffn(norm'(x)) (phi2, falcon, gptneox,
+    # command-r; stablelm by its use_parallel_residual key)
+    parallel_residual: bool = False
+    norm_type: str = "rms"      # rms | ln (LayerNorm, weight and bias
+    #                             each optional; olmo has neither)
     # embedding defaults (Context.embed): attention causality (false only
     # for the bert family, which the loader refuses) and the pooling of
     # GGUF {arch}.pooling_type (llama.h enum)
@@ -70,7 +88,15 @@ class HParams:
 
 # the ported archs whose GGUF Q/K rows are NEOX (half-split); the others
 # are NORM (reference hparams.py's neox set, trimmed to the port's archs)
-_NEOX = ("gemma", "gemma2", "gemma3", "qwen2", "qwen3")
+_NEOX = ("gemma", "gemma2", "gemma3", "qwen2", "qwen3", "falcon",
+         "stablelm", "olmo2", "phi2", "phi3", "starcoder2", "gptneox",
+         "nemotron")
+# the ported LayerNorm archs (reference hparams.py's norm_type "ln" set)
+_LN = ("phi2", "falcon", "gptneox", "stablelm", "command-r", "starcoder2",
+       "nemotron", "olmo")
+_PARALLEL = ("phi2", "falcon", "gptneox", "command-r")
+_GELU = ("gemma", "gemma2", "gemma3", "phi2", "falcon", "gptneox",
+         "starcoder2")
 
 
 def hparams_from_metadata(md: dict) -> HParams:
@@ -80,6 +106,8 @@ def hparams_from_metadata(md: dict) -> HParams:
         v = md.get(f"{arch}.{suffix}", default)
         if isinstance(default, float):
             return float(v)
+        if isinstance(default, bool):
+            return bool(v)
         if isinstance(default, int):
             return int(v)
         return v
@@ -100,6 +128,8 @@ def hparams_from_metadata(md: dict) -> HParams:
     attn_scale = 0.0
     if (arch, n_layer) in (("gemma2", 46), ("gemma3", 62)):
         attn_scale = 1.0 / math.sqrt(n_embd / max(n_head, 1))
+    if arch == "granite":
+        attn_scale = g("attention.scale", attn_scale)
     return HParams(
         arch=arch,
         n_vocab=n_vocab,
@@ -110,7 +140,9 @@ def hparams_from_metadata(md: dict) -> HParams:
         n_head_kv=g("attention.head_count_kv", n_head),
         n_ff=g("feed_forward_length", 11008),
         head_dim=head_dim,
-        rms_eps=g("attention.layer_norm_rms_epsilon", 1e-5),
+        # a LayerNorm arch stores a plain layer_norm_epsilon
+        rms_eps=g("attention.layer_norm_rms_epsilon",
+                  g("attention.layer_norm_epsilon", 1e-5)),
         rope_dim=g("rope.dimension_count", head_dim),
         rope_freq_base=g("rope.freq_base", 10000.0),
         rope_scaling=str(md.get(f"{arch}.rope.scaling.type", "none") or "none"),
@@ -130,14 +162,22 @@ def hparams_from_metadata(md: dict) -> HParams:
         rope_freq_base_swa=(g("rope.local_freq_base", 10000.0)
                             if arch == "gemma3" else 0.0),
         attn_scale=attn_scale,
+        clamp_kqv=g("attention.clamp_kqv", 0.0),
         attn_softcap=g("attn_logit_softcapping",
                        50.0 if arch == "gemma2" else 0.0),
         final_softcap=g("final_logit_softcapping",
                         30.0 if arch == "gemma2" else 0.0),
         rope_type="neox" if arch in _NEOX else "norm",
-        act_fn="gelu" if gemma_like else "silu",
+        act_fn=("relu2" if arch == "nemotron" else
+                "gelu" if arch in _GELU else "silu"),
         embd_scale=(math.sqrt(n_embd) if gemma_like
                     else g("embedding_scale", 1.0)),
+        residual_scale=g("residual_scale", 1.0),
+        logits_scale=(1.0 / g("logit_scale", 1.0) if arch == "command-r"
+                      else g("logit_scale", 1.0)),
+        # stablelm files carry the flag; elsewhere it is the arch's
+        parallel_residual=g("use_parallel_residual", arch in _PARALLEL),
+        norm_type="ln" if arch in _LN else "rms",
         causal=arch not in ("bert", "nomic-bert", "jina-bert-v2"),
         # mean unless the file says otherwise, as the reference reads it
         pooling={0: "none", 1: "mean", 2: "cls", 3: "last"}.get(

@@ -1,16 +1,22 @@
-"""LLaMA-family model (dense or Mixtral-style MoE, and the gemma and qwen
-quirk axes): GGUF weight loading + forward pass.
+"""LLaMA-family model (dense or Mixtral-style MoE, the gemma and qwen
+quirk axes, and the LayerNorm and parallel-residual archs): GGUF weight
+loading + forward pass.
 
-Counterpart of the sequential pre-norm body of
-llama_cpp_test_tpu/models/llama.py for the archs of models/registry.PORTED:
-per layer RMSNorm -> fused QKV (+ Q/K/V biases) -> per-head QK RMSNorm ->
-RoPE (the layer's table: sliding-window layers may have their own base)
--> paged attention (window, softcap) -> post-attention norm -> residual
--> RMSNorm -> FFN -> post-FFN norm -> residual; final norm + lm head +
-final softcap. The embedding is scaled (gemma), the FFN is fused gate|up
--> SwiGLU or GeGLU -> down, or, in a MoE layer, softmax top-k routing over
-the experts (moe_ffn) with the grouped expert matmul of ops/gmm. Loading
-is numpy (host planes); weights.py moves them to a device.
+Counterpart of the llama body of llama_cpp_test_tpu/models/llama.py for
+the archs of models/registry.PORTED. A sequential layer: pre-norm (RMS or
+LayerNorm with bias; olmo's LN has no weights, olmo2 has no pre-norms) ->
+fused QKV (+ Q/K/V biases; clamped for olmo) -> QK norms (per-head RMS
+[head_dim], per-head LayerNorms [H, head_dim], or olmo2's RMS over the
+flat q and k) -> RoPE (the layer's table, partial when rope_dim <
+head_dim) -> paged attention (window, softcap) -> wo (+ bias) -> post
+norm -> residual scale -> residual; then the FFN half: norm -> fused
+gate|up -> SwiGLU or GeGLU, or a non-gated up (+ bias) -> GELU or squared
+ReLU, or, in a MoE layer, softmax top-k routing over the experts (moe_ffn)
+-> down (+ bias) -> residual scale -> post norm -> residual. A parallel
+layer (phi2, falcon, gptneox, command-r) feeds attention and the FFN from
+the layer input's norms and adds both to it. Final norm + lm head (+ bias)
+/ logits scale + final softcap. Loading is numpy (host planes); weights.py
+moves them to a device.
 
 Every dense projection goes through ops/qmatmul (kernel K1 on CUDA), every
 expert projection through ops/gmm (kernel K4). `plain=True` selects the
@@ -38,9 +44,9 @@ from .registry import check_arch
 
 @dataclasses.dataclass
 class LayerWeights:
-    attn_norm: Any
+    attn_norm: Any           # None: olmo (weightless LN), olmo2 (no pre-norm)
     wo: QTensor
-    ffn_norm: Any
+    ffn_norm: Any            # None: olmo, olmo2, parallel layers with one norm
     w_down: QTensor | None = None
     # fused q|k|v and gate|up planes, built at load when the source tensors
     # share a quant type; the separate planes otherwise
@@ -58,13 +64,25 @@ class LayerWeights:
     gate_exps: QTensor | None = None
     up_exps: QTensor | None = None
     down_exps: QTensor | None = None
-    # Q/K/V biases (qwen2) and per-head Q/K RMSNorm weights [head_dim]
-    # (qwen3, gemma3), float32
+    # Q/K/V biases (qwen2, phi2, stablelm, starcoder2, gptneox) and the QK
+    # norms, float32: RMS weights [head_dim] shared by the heads (qwen3,
+    # gemma3), per-head LayerNorm weights [H, head_dim] (stablelm-2-12B,
+    # Command R+), or RMS weights over the flat q and k [H * head_dim]
+    # (olmo2)
     bq: Any = None
     bk: Any = None
     bv: Any = None
     attn_q_norm: Any = None
     attn_k_norm: Any = None
+    # LayerNorm biases; falcon-40B's second norm feeding the FFN branch;
+    # the output-projection and non-gated FFN biases, float32
+    attn_norm_b: Any = None
+    ffn_norm_b: Any = None
+    attn_norm_2: Any = None
+    attn_norm_2_b: Any = None
+    bo: Any = None
+    b_up: Any = None
+    b_down: Any = None
     # sandwich norms on the attention and FFN branch outputs before the
     # residual adds (gemma2, gemma3)
     attn_post_norm: Any = None
@@ -89,6 +107,13 @@ class LlamaWeights:
     # the sliding-window layers' table where their base differs (gemma3:
     # 10000 beside the global 1e6), else None
     rope_inv_freq_swa: Any = None
+    # phi3's long-rope table (base frequencies / rope_factors_long);
+    # rope_inv_freq then holds the short one, and a Context over more than
+    # rope_orig_ctx tokens serves the long one
+    rope_inv_freq_long: Any = None
+    # LayerNorm bias of the final norm and the lm head's bias (phi2)
+    output_norm_b: Any = None
+    output_b: Any = None
 
     def inv_freq_for(self, window: int):
         """The rope table of a layer with sliding window `window` (0 =
@@ -102,21 +127,36 @@ class LlamaWeights:
 # loading
 
 _DENSE_FFN = {"ffn_gate.weight", "ffn_up.weight", "ffn_down.weight"}
+# a non-gated FFN, or phi3's [gate|up] rows in one ffn_up (2 * n_ff wide)
+_UP_DOWN_FFN = {"ffn_up.weight", "ffn_down.weight"}
 _MOE_FFN = {"ffn_gate_inp.weight", "ffn_gate_exps.weight",
             "ffn_up_exps.weight", "ffn_down_exps.weight"}
+_QKV = {"attn_q.weight", "attn_k.weight", "attn_v.weight"}
 _BIASES = {"attn_q.bias": "bq", "attn_k.bias": "bk", "attn_v.bias": "bv"}
-# the per-head QK norms and the sandwich norms, under both GGUF names
-_QUIRK_NORMS = {"attn_q_norm.weight": "attn_q_norm",
-                "attn_k_norm.weight": "attn_k_norm",
-                "attn_post_norm.weight": "attn_post_norm",
-                "post_attention_norm.weight": "attn_post_norm",
-                "ffn_post_norm.weight": "ffn_post_norm",
-                "post_ffw_norm.weight": "ffn_post_norm"}
-_LAYER_TENSORS = {"attn_norm.weight", "attn_q.weight", "attn_k.weight",
-                  "attn_v.weight", "attn_output.weight",
-                  "ffn_norm.weight"} | _DENSE_FFN | _MOE_FFN | \
-    set(_BIASES) | set(_QUIRK_NORMS)
-_TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight"}
+# the QK norms, the sandwich norms under both GGUF names, the LayerNorm
+# biases, falcon-40B's second norm and the other projection biases
+_QUIRK_VECTORS = {"attn_q_norm.weight": "attn_q_norm",
+                  "attn_k_norm.weight": "attn_k_norm",
+                  "attn_post_norm.weight": "attn_post_norm",
+                  "post_attention_norm.weight": "attn_post_norm",
+                  "ffn_post_norm.weight": "ffn_post_norm",
+                  "post_ffw_norm.weight": "ffn_post_norm",
+                  "attn_norm.bias": "attn_norm_b",
+                  "ffn_norm.bias": "ffn_norm_b",
+                  "attn_norm_2.weight": "attn_norm_2",
+                  "attn_norm_2.bias": "attn_norm_2_b",
+                  "attn_output.bias": "bo",
+                  "ffn_up.bias": "b_up",
+                  "ffn_down.bias": "b_down"}
+_LAYER_TENSORS = {"attn_norm.weight", "attn_qkv.weight", "attn_qkv.bias",
+                  "attn_output.weight", "ffn_norm.weight"} | _QKV | \
+    _DENSE_FFN | _MOE_FFN | set(_BIASES) | set(_QUIRK_VECTORS)
+_TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight",
+                "output_norm.bias", "output.bias",
+                "rope_factors_short.weight", "rope_factors_long.weight"}
+# the archs whose files may lack norm tensors: olmo's LayerNorms have no
+# weights, olmo2 norms only the branch outputs (reference load_weights)
+_NORMLESS = ("olmo", "olmo2")
 
 
 def _repack_2d(reader: GGUFReader, name: str,
@@ -172,6 +212,30 @@ def _f32(reader: GGUFReader, name: str) -> np.ndarray:
     return reader.dequantize(name, np.float32)
 
 
+def _check_qk_norm(name: str, shape: tuple, hp: HParams) -> None:
+    """A QK norm the forward carries: [head_dim] RMS weights on a NEOX
+    arch, per-head LayerNorm weights [H, head_dim] (ggml (head_dim, H)) on
+    any, or RMS weights over the flat q or k [H * head_dim] on a NEOX arch
+    (olmo2). The reference permutes only the 2-D weights of a NORM-rope
+    file as it un-permutes the rows they scale."""
+    heads = hp.n_head if "attn_q_norm" in name else hp.n_head_kv
+    d = hp.head_dim
+    if shape not in ((d,), (heads * d,), (d, heads)):
+        raise NotImplementedError(
+            f"{name} of shape {shape}: this port carries per-head QK norms "
+            f"of shape ({d},) or ({d}, {heads}) and flat ones of shape "
+            f"({heads * d},)")
+    if len(shape) == 1 and hp.rope_type == "norm":
+        raise NotImplementedError(
+            f"{name} in a NORM-rope file: this port carries 1-D QK norms "
+            "on NEOX-rope archs")
+    if len(shape) == 1 and hp.parallel_residual:
+        # the reference's parallel layer takes any QK norm for a LayerNorm
+        raise NotImplementedError(
+            f"{name} of shape {shape} in a parallel-residual file: this "
+            "port carries per-head LayerNorm weights there")
+
+
 def _check_supported(reader: GGUFReader, hp: HParams) -> None:
     """Refuse what this port does not carry, instead of running another
     model than the file describes."""
@@ -186,42 +250,66 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
         raise ValueError(f"expert_used_count {hp.n_expert_used} of "
                          f"{hp.n_expert} experts")
     unknown = []
-    ffn = [set() for _ in range(hp.n_layer)]
+    have = [set() for _ in range(hp.n_layer)]
     for name in reader.tensors:
         if name in _TOP_TENSORS:
             continue
         parts = name.split(".", 2)
         if parts[0] == "blk" and len(parts) == 3 and parts[2] in _LAYER_TENSORS:
-            if parts[2] in _DENSE_FFN | _MOE_FFN and int(parts[1]) < hp.n_layer:
-                ffn[int(parts[1])].add(parts[2])
+            if int(parts[1]) < hp.n_layer:
+                have[int(parts[1])].add(parts[2])
             continue
         unknown.append(name)
     if unknown:
         raise NotImplementedError(
-            "tensors outside the llama, Mixtral, gemma and qwen layouts: "
+            "tensors outside the layouts of the ported archs: "
             f"{sorted(unknown)[:5]}")
     for name, info in reader.tensors.items():
         if name.endswith(("attn_q_norm.weight", "attn_k_norm.weight")):
-            if tuple(info.shape) != (hp.head_dim,):
-                raise NotImplementedError(
-                    f"{name} of shape {tuple(info.shape)}: this port carries "
-                    f"per-head QK norms of shape ({hp.head_dim},)")
-            if hp.rope_type == "norm":
-                raise NotImplementedError(
-                    f"{name} in a NORM-rope file: this port carries QK "
-                    "norms on NEOX-rope archs")
-    want = _MOE_FFN if hp.n_expert else _DENSE_FFN
-    for i, have in enumerate(ffn):
-        if have != want:
+            _check_qk_norm(name, tuple(info.shape), hp)
+    if ("rope_factors_short.weight" in reader.tensors) != \
+            ("rope_factors_long.weight" in reader.tensors):
+        raise NotImplementedError("rope_factors_short and rope_factors_long "
+                                  "come as a pair")
+    ffn_sets = ([_MOE_FFN] if hp.n_expert else [_DENSE_FFN, _UP_DOWN_FFN])
+    for i, names in enumerate(have):
+        ffn = names & (_DENSE_FFN | _MOE_FFN)
+        if ffn not in ffn_sets:
             raise NotImplementedError(
-                f"blk.{i} FFN tensors {sorted(have)}: this port carries "
+                f"blk.{i} FFN tensors {sorted(ffn)}: this port carries "
                 + ("the Mixtral expert set" if hp.n_expert else
-                   "the dense SwiGLU set") + " in every layer")
+                   "the gated set or a non-gated up and down")
+                + " in every layer")
+        attn = names & (_QKV | {"attn_qkv.weight"})
+        if attn not in (_QKV, {"attn_qkv.weight"}):
+            raise NotImplementedError(
+                f"blk.{i} attention tensors {sorted(attn)}: this port "
+                "carries attn_q, attn_k and attn_v or a fused attn_qkv")
+        if hp.arch not in _NORMLESS and (
+                "attn_norm.weight" not in names or not (
+                    "ffn_norm.weight" in names or hp.parallel_residual)):
+            raise KeyError(f"blk.{i}: a norm tensor is missing (arch "
+                           f"{hp.arch} requires pre-norms)")
+    if "output_norm.weight" not in reader.tensors and hp.arch != "olmo":
+        raise KeyError("output_norm.weight missing")
+
+
+def _split_rows(reader: GGUFReader, name: str, bounds) -> list[QTensor]:
+    """A fused tensor's row ranges [lo, hi) as QTensors: block quantization
+    is per row, so each range is a slice of packed byte rows (the
+    reference's split_qkv and fused gate|up split)."""
+    info = reader.tensors[name]
+    k, n = info.shape[0], info.shape[1]
+    raw = reader.tensor_bytes(name)
+    rows = raw.reshape(n, raw.size // n)
+    return [repack(np.ascontiguousarray(rows[lo:hi]), info.ggml_type,
+                   hi - lo, k) for lo, hi in bounds]
 
 
 def load_weights(reader: GGUFReader, hp: HParams | None = None
                  ) -> tuple[HParams, LlamaWeights]:
-    """Load + repack all tensors of a llama / Mixtral GGUF into host planes."""
+    """Load + repack all tensors of a GGUF of a ported arch into host
+    planes."""
     if hp is None:
         hp = hparams_from_metadata(reader.metadata)
     _check_supported(reader, hp)
@@ -232,26 +320,43 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
         q_perm = _unpermute_rows(hp.n_head, hp.head_dim, hp.rope_dim)
         k_perm = _unpermute_rows(hp.n_head_kv, hp.head_dim, hp.rope_dim)
     t = reader.tensors
+    n_q, n_kv = hp.n_head * hp.head_dim, hp.n_head_kv * hp.head_dim
 
     def layer(i: int) -> LayerWeights:
         p = f"blk.{i}."
+        opt = lambda name: _f32(reader, p + name) if p + name in t else None
         lw = LayerWeights(
-            attn_norm=_f32(reader, p + "attn_norm.weight"),
+            attn_norm=opt("attn_norm.weight"),
             wo=_repack_2d(reader, p + "attn_output.weight"),
-            ffn_norm=_f32(reader, p + "ffn_norm.weight"),
-            wq=_repack_2d(reader, p + "attn_q.weight", q_perm),
-            wk=_repack_2d(reader, p + "attn_k.weight", k_perm),
-            wv=_repack_2d(reader, p + "attn_v.weight"),
-        )
+            ffn_norm=opt("ffn_norm.weight"))
+        if p + "attn_qkv.weight" in t:
+            # fused [q; k; v] rows, as phi2, phi3, falcon and gptneox store
+            # them, with the fused bias split alike
+            lw.wq, lw.wk, lw.wv = _split_rows(
+                reader, p + "attn_qkv.weight",
+                ((0, n_q), (n_q, n_q + n_kv), (n_q + n_kv, n_q + 2 * n_kv)))
+            if p + "attn_qkv.bias" in t:
+                bias = _f32(reader, p + "attn_qkv.bias")
+                lw.bq, lw.bk, lw.bv = (bias[:n_q], bias[n_q:n_q + n_kv],
+                                       bias[n_q + n_kv:n_q + 2 * n_kv])
+        else:
+            lw.wq = _repack_2d(reader, p + "attn_q.weight", q_perm)
+            lw.wk = _repack_2d(reader, p + "attn_k.weight", k_perm)
+            lw.wv = _repack_2d(reader, p + "attn_v.weight")
         for name, perm in (("attn_q.bias", q_perm), ("attn_k.bias", k_perm),
                            ("attn_v.bias", None)):
             if p + name in t:
                 bias = _f32(reader, p + name)
                 setattr(lw, _BIASES[name],
                         bias if perm is None else bias[perm])
-        for name, field in _QUIRK_NORMS.items():
+        for name, field in _QUIRK_VECTORS.items():
             if p + name in t:
-                setattr(lw, field, _f32(reader, p + name))
+                arr = _f32(reader, p + name)
+                if arr.ndim == 2 and q_perm is not None:
+                    # per-head LayerNorm weights [H, d] of a NORM-rope file
+                    # (Command R+) follow the rows' within-head map
+                    arr = arr[:, _unpermute_rows(1, hp.head_dim)]
+                setattr(lw, field, arr)
         lw.wqkv = fuse_qtensors([lw.wq, lw.wk, lw.wv])
         if lw.wqkv is not None:
             lw.wq = lw.wk = lw.wv = None  # fused plane replaces them
@@ -263,8 +368,17 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
             lw.down_exps = _repack_3d(reader, p + "ffn_down_exps.weight")
             return lw
         lw.w_down = _repack_2d(reader, p + "ffn_down.weight")
-        lw.w_gate = _repack_2d(reader, p + "ffn_gate.weight")
-        lw.w_up = _repack_2d(reader, p + "ffn_up.weight")
+        n_up = t[p + "ffn_up.weight"].shape[-1]
+        if p + "ffn_gate.weight" in t:
+            lw.w_gate = _repack_2d(reader, p + "ffn_gate.weight")
+            lw.w_up = _repack_2d(reader, p + "ffn_up.weight")
+        elif n_up == 2 * hp.n_ff:
+            # phi3's [gate | up] rows in one ffn_up
+            lw.w_gate, lw.w_up = _split_rows(
+                reader, p + "ffn_up.weight", ((0, hp.n_ff), (hp.n_ff, n_up)))
+        else:   # non-gated: up -> activation -> down
+            lw.w_up = _repack_2d(reader, p + "ffn_up.weight")
+            return lw
         lw.w_gateup = fuse_qtensors([lw.w_gate, lw.w_up])
         if lw.w_gateup is not None:
             lw.w_gate = lw.w_up = None
@@ -283,6 +397,18 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
         tok_embd = f_embd.result()
         output = f_out.result()
     inv_freq, mscale = layers.rope_freqs(hp)
+    inv_freq_long = None
+    if "rope_factors_short.weight" in t:
+        # phi3 long rope: per-pair factors divide the base frequencies; the
+        # short table serves by default, the long one past rope_orig_ctx
+        short_f = _f32(reader, "rope_factors_short.weight")
+        long_f = _f32(reader, "rope_factors_long.weight")
+        if short_f.shape != inv_freq.shape or long_f.shape != inv_freq.shape:
+            raise ValueError(
+                f"rope factor tensors must be [rope_dim/2]={inv_freq.shape}; "
+                f"got short {short_f.shape} long {long_f.shape}")
+        inv_freq_long = np.asarray(inv_freq / long_f, np.float32)
+        inv_freq = inv_freq / short_f
     inv_freq_swa = None
     if hp.rope_freq_base_swa > 0 and \
             hp.rope_freq_base_swa != hp.rope_freq_base:
@@ -291,14 +417,18 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
         inv_freq_swa = np.asarray(layers.rope_freqs(dataclasses.replace(
             hp, rope_freq_base=hp.rope_freq_base_swa,
             rope_scaling="none"))[0])
+    top = lambda name: _f32(reader, name) if name in t else None
     w = LlamaWeights(
         tok_embd=tok_embd,
-        output_norm=_f32(reader, "output_norm.weight"),
+        output_norm=top("output_norm.weight"),
         output=output,
         layers=layer_list,
         rope_inv_freq=np.asarray(inv_freq),
         rope_mscale=float(mscale),
         rope_inv_freq_swa=inv_freq_swa,
+        rope_inv_freq_long=inv_freq_long,
+        output_norm_b=top("output_norm.bias"),
+        output_b=top("output.bias"),
     )
     return hp, w
 
@@ -371,6 +501,60 @@ def gateup_proj(cur: torch.Tensor, lw: LayerWeights, plain: bool = False):
                  for f in ("w_gate", "w_up"))
 
 
+def _norm(hp: HParams, x: torch.Tensor, weight, bias) -> torch.Tensor:
+    """The arch's norm: LayerNorm (weight and bias each optional), or RMS
+    norm, where a missing weight is the identity (olmo2's pre-norms)."""
+    if hp.norm_type == "ln":
+        return layers.layer_norm(x, weight, bias, hp.rms_eps)
+    return x if weight is None else layers.rms_norm(x, weight, hp.rms_eps)
+
+
+def _add(y: torch.Tensor, bias) -> torch.Tensor:
+    return y if bias is None else y + bias
+
+
+def _qk_norm(y: torch.Tensor, weight, hp: HParams) -> torch.Tensor:
+    """Per-head QK norm of y [B, T, H, D]: [H, D] weights are distinct
+    LayerNorms without bias, [D] weights one RMS norm."""
+    if weight is None:
+        return y
+    if weight.ndim == 2:
+        return layers.layer_norm(y, weight, None, hp.rms_eps)
+    return layers.rms_norm(y, weight, hp.rms_eps)
+
+
+def _attention(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
+               positions, inv_freq, mscale: float, attend, plain: bool,
+               tap) -> torch.Tensor:
+    """The attention branch on the normed input cur [B, T, C]: its output
+    after wo and its bias, float32 [B, T, C]."""
+    b, tdim, _ = cur.shape
+    h, kvh, d = hp.n_head, hp.n_head_kv, hp.head_dim
+    if tap is not None:
+        tap("attn_in", cur)
+    q, k, v = qkv_proj(cur, lw, plain)
+    if hp.clamp_kqv > 0:    # olmo clip_qkv
+        q, k, v = (y.clamp(-hp.clamp_kqv, hp.clamp_kqv) for y in (q, k, v))
+    q, k, v = _add(q, lw.bq), _add(k, lw.bk), _add(v, lw.bv)
+    flat = lw.attn_q_norm is not None and lw.attn_q_norm.shape[-1] != d
+    if flat:    # olmo2: RMS over the flat q and k, before the head split
+        q = layers.rms_norm(q, lw.attn_q_norm, hp.rms_eps)
+        k = layers.rms_norm(k, lw.attn_k_norm, hp.rms_eps)
+    q = q.reshape(b, tdim, h, d)
+    k = k.reshape(b, tdim, kvh, d)
+    v = v.reshape(b, tdim, kvh, d)
+    if not flat:     # per-head QK norms, before rope
+        q = _qk_norm(q, lw.attn_q_norm, hp)
+        k = _qk_norm(k, lw.attn_k_norm, hp)
+    q = layers.apply_rope(q, positions, inv_freq, mscale)
+    k = layers.apply_rope(k, positions, inv_freq, mscale)
+    attn_out = attend(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                      v.to(torch.bfloat16)).reshape(b, tdim, h * d)
+    if tap is not None:
+        tap("attn_out", attn_out)
+    return _add(linear_lora(attn_out, lw.wo, lw.lora.get("wo"), plain), lw.bo)
+
+
 def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
                   positions: torch.Tensor, inv_freq: torch.Tensor,
                   mscale: float, attend, plain: bool = False,
@@ -379,37 +563,42 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
     and returns [B, T, H, D]; inv_freq is the layer's rope table. tap, if
     given, is called as tap(role, activation) with the input of each
     projection: "attn_in" (q, k, v), "attn_out" (wo), "ffn_in" (gate and
-    up, or the router and experts), "ffn_act" (down)."""
-    b, tdim, _ = x.shape
-    h, kvh, d = hp.n_head, hp.n_head_kv, hp.head_dim
-    cur = layers.rms_norm(x, lw.attn_norm, hp.rms_eps)
-    if tap is not None:
-        tap("attn_in", cur)
-    q, k, v = qkv_proj(cur, lw, plain)
-    if lw.bq is not None:
-        q = q + lw.bq
-    if lw.bk is not None:
-        k = k + lw.bk
-    if lw.bv is not None:
-        v = v + lw.bv
-    q = q.reshape(b, tdim, h, d)
-    k = k.reshape(b, tdim, kvh, d)
-    v = v.reshape(b, tdim, kvh, d)
-    if lw.attn_q_norm is not None:     # per-head QK norms, before rope
-        q = layers.rms_norm(q, lw.attn_q_norm, hp.rms_eps)
-    if lw.attn_k_norm is not None:
-        k = layers.rms_norm(k, lw.attn_k_norm, hp.rms_eps)
-    q = layers.apply_rope(q, positions, inv_freq, mscale)
-    k = layers.apply_rope(k, positions, inv_freq, mscale)
-    attn_out = attend(q.to(torch.bfloat16), k.to(torch.bfloat16),
-                      v.to(torch.bfloat16)).reshape(b, tdim, h * d)
-    if tap is not None:
-        tap("attn_out", attn_out)
-    o = linear_lora(attn_out, lw.wo, lw.lora.get("wo"), plain)
+    up, or up alone, or the router and experts), "ffn_act" (down)."""
+    if hp.parallel_residual:
+        return _forward_layer_parallel(x, lw, hp, positions, inv_freq,
+                                       mscale, attend, plain, tap)
+    cur = _norm(hp, x, lw.attn_norm, lw.attn_norm_b)
+    o = _attention(cur, lw, hp, positions, inv_freq, mscale, attend, plain,
+                   tap)
     if lw.attn_post_norm is not None:  # sandwich norm on the branch
         o = layers.rms_norm(o, lw.attn_post_norm, hp.rms_eps)
+    if hp.residual_scale != 1.0:       # granite
+        o = o * hp.residual_scale
     x = x + o.to(x.dtype)
     return _forward_layer_ffn(x, lw, hp, plain, tap)
+
+
+def _forward_layer_parallel(x, lw, hp, positions, inv_freq, mscale, attend,
+                            plain: bool = False, tap=None) -> torch.Tensor:
+    """A parallel-residual layer, x + attn(norm(x)) + ffn(norm'(x)): the
+    FFN reads the attention's norm (phi2, falcon-7B, command-r), its own
+    attn_norm_2 (falcon-40B) or a dedicated ffn_norm (gptneox). The FFN is
+    non-gated, or gated SwiGLU (command-r). The adapters apply as in a
+    sequential layer, the control vector to the layer's output."""
+    cur = _norm(hp, x, lw.attn_norm, lw.attn_norm_b)
+    if lw.attn_norm_2 is not None:
+        ffn_in = _norm(hp, x, lw.attn_norm_2, lw.attn_norm_2_b)
+    elif lw.ffn_norm is not None:
+        ffn_in = _norm(hp, x, lw.ffn_norm, lw.ffn_norm_b)
+    else:
+        ffn_in = cur
+    o = _attention(cur, lw, hp, positions, inv_freq, mscale, attend, plain,
+                   tap)
+    ffn = _add(_ffn(ffn_in, lw, hp, plain, tap), lw.b_down)
+    x = x + (o + ffn).to(x.dtype)
+    if lw.cvec is not None:
+        x = x + lw.cvec.to(x.dtype)
+    return x
 
 
 def moe_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
@@ -447,22 +636,37 @@ def _moe_grouped(xf, lw, hp, topi, topv, plain: bool = False):
     return gmm_mod.combine(y, routing, m)
 
 
-def _forward_layer_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
-                       plain: bool = False, tap=None) -> torch.Tensor:
-    """FFN half of the layer: RMSNorm -> gate|up -> SwiGLU or GeGLU ->
-    down, or the routed experts of a MoE layer; the post-FFN norm, if
-    any; then the control vector, if any."""
-    cur = layers.rms_norm(x, lw.ffn_norm, hp.rms_eps)
+def _ffn(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
+         plain: bool = False, tap=None) -> torch.Tensor:
+    """The FFN on its normed input cur, before the down bias: the routed
+    experts of a MoE layer; gate|up (+ up bias) -> SwiGLU or GeGLU ->
+    down; or a non-gated up (+ bias) -> GELU or squared ReLU -> down.
+    float32 [B, T, C]."""
     if tap is not None:
         tap("ffn_in", cur)
     if lw.gate_inp is not None:
-        ffn = moe_ffn(cur, lw, hp, plain)
+        return moe_ffn(cur, lw, hp, plain)
+    if lw.w_gate is None and lw.w_gateup is None:
+        u = _add(linear_lora(cur, lw.w_up, lw.lora.get("w_up"), plain),
+                 lw.b_up)
+        act = layers.activation(u, hp.act_fn).to(torch.bfloat16)
     else:
         g, u = gateup_proj(cur, lw, plain)
-        act = layers.swiglu(g, u, hp.act_fn)
-        if tap is not None:
-            tap("ffn_act", act)
-        ffn = linear_lora(act, lw.w_down, lw.lora.get("w_down"), plain)
+        act = layers.swiglu(g, _add(u, lw.b_up), hp.act_fn)
+    if tap is not None:
+        tap("ffn_act", act)
+    return linear_lora(act, lw.w_down, lw.lora.get("w_down"), plain)
+
+
+def _forward_layer_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
+                       plain: bool = False, tap=None) -> torch.Tensor:
+    """FFN half of a sequential layer: the norm, the FFN and its down
+    bias, the residual scale, the post-FFN norm, the residual; then the
+    control vector, if any."""
+    ffn = _add(_ffn(_norm(hp, x, lw.ffn_norm, lw.ffn_norm_b), lw, hp, plain,
+                    tap), lw.b_down)
+    if hp.residual_scale != 1.0:       # granite
+        ffn = ffn * hp.residual_scale
     if lw.ffn_post_norm is not None:
         ffn = layers.rms_norm(ffn, lw.ffn_post_norm, hp.rms_eps)
     x = x + ffn.to(x.dtype)
@@ -472,14 +676,19 @@ def _forward_layer_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
 
 
 def final_norm(w: LlamaWeights, hp: HParams, x: torch.Tensor) -> torch.Tensor:
-    return layers.rms_norm(x, w.output_norm, hp.rms_eps)
+    """The output norm, RMS or LayerNorm (+ bias) by the arch: lm_head's
+    and every pooled embedding's."""
+    return _norm(hp, x, w.output_norm, w.output_norm_b)
 
 
 def lm_head(w: LlamaWeights, hp: HParams, x: torch.Tensor,
             plain: bool = False) -> torch.Tensor:
-    """Final norm + output projection (+ the final softcap, gemma2) ->
-    float32 logits [..., n_vocab]."""
-    logits = linear(final_norm(w, hp, x), w.output, plain)
+    """Final norm + output projection (+ bias), divided by the logits
+    scale, then the final softcap (gemma2) -> float32 logits
+    [..., n_vocab]."""
+    logits = _add(linear(final_norm(w, hp, x), w.output, plain), w.output_b)
+    if hp.logits_scale != 1.0:
+        logits = logits / hp.logits_scale
     if hp.final_softcap > 0:
         logits = torch.tanh(logits / hp.final_softcap) * hp.final_softcap
     return logits

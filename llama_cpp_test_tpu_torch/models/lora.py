@@ -86,7 +86,7 @@ def load_lora(path: str, hp: HParams, permute: bool = True) -> LoraAdapter:
 
 
 def _device(weights: LlamaWeights):
-    return weights.output_norm.device
+    return weights.rope_inv_freq.device
 
 
 def attach_lora(weights: LlamaWeights, adapter: LoraAdapter,

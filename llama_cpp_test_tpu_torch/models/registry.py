@@ -2,27 +2,34 @@
 serves, and the ROADMAP item that takes each one it does not serve yet.
 
 Counterpart of llama_cpp_test_tpu/models/registry.py, trimmed to the
-archs of the sequential llama body the port carries (models/llama.py):
-llama, mistral and mixtral (NORM rope, dense or Mixtral-style MoE), the
-gemma family (GeGLU, sqrt(n_embd) embedding scale; gemma2's sandwich
-norms, softcaps and alternating sliding windows; gemma3's per-head QK
-norms and 5:1 local/global windows with their own rope base) and qwen2
-and qwen3 (NEOX rope; Q/K/V biases, per-head QK norms). Every other arch
-the reference registers is refused by name with the item that ports it:
-7 the other llama quirk axes, 8 the other MoE forms (and the MLA
-attention of deepseek2 and minicpm3), 9 the other model families.
+archs of the llama body the port carries (models/llama.py): llama,
+mistral and mixtral (NORM rope, dense or Mixtral-style MoE), the gemma
+family (GeGLU, sqrt(n_embd) embedding scale; gemma2's sandwich norms,
+softcaps and alternating sliding windows; gemma3's per-head QK norms and
+5:1 local/global windows with their own rope base), qwen2 and qwen3
+(NEOX rope; Q/K/V biases, per-head QK norms); the LayerNorm, non-gated
+FFN and partial-rope archs stablelm, starcoder2, nemotron and olmo
+(non-parametric LN, QKV clamping); granite (the mup scales), olmo2
+(post norms only, flat QK norms) and phi3 (fused q|k|v and gate|up, the
+long-rope tables); and the parallel-residual archs phi2, falcon, gptneox
+and command-r (one or two LayerNorms feeding attention and the FFN side
+by side). Every other arch the reference registers is refused by name
+with the item that ports it: 7 the other llama quirk axes, 8 the other
+MoE forms (and the MLA attention of deepseek2 and minicpm3), 9 the other
+model families.
 """
 from __future__ import annotations
 
 PORTED = ("llama", "mistral", "mixtral", "gemma", "gemma2", "gemma3",
-          "qwen2", "qwen3")
+          "qwen2", "qwen3", "phi3", "granite", "stablelm", "olmo2",
+          "command-r", "starcoder2", "nemotron", "olmo", "gptneox", "phi2",
+          "falcon")
 
-_ITEM_7 = ("qwen2vl", "phi3", "granite", "stablelm", "olmo2", "command-r",
-           "starcoder2", "nemotron", "olmo", "gptneox", "phi2", "falcon",
-           "bert", "nomic-bert", "minicpm", "internlm2", "baichuan", "gpt2",
-           "starcoder", "bloom", "mpt", "chameleon", "chatglm", "cohere2",
-           "bitnet", "codeshell", "refact", "jais", "orion", "qwen",
-           "exaone", "jina-bert-v2", "xverse", "openelm", "deci", "plamo")
+_ITEM_7 = ("qwen2vl", "bert", "nomic-bert", "minicpm", "internlm2",
+           "baichuan", "gpt2", "starcoder", "bloom", "mpt", "chameleon",
+           "chatglm", "cohere2", "bitnet", "codeshell", "refact", "jais",
+           "orion", "qwen", "exaone", "jina-bert-v2", "xverse", "openelm",
+           "deci", "plamo")
 _ITEM_8 = ("qwen2moe", "qwen3moe", "olmoe", "deepseek2", "deepseek",
            "phimoe", "dbrx", "arctic", "grok", "granitemoe", "minicpm3")
 _ITEM_9 = ("t5", "t5encoder", "mamba", "rwkv6", "rwkv6qwen2", "rwkv7",

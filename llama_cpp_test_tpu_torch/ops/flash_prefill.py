@@ -25,6 +25,10 @@ import torch
 from . import _cuda
 from .layers import attention
 
+# the head dims K2 is built for (csrc/flash_prefill.cu); any other raises
+# on CUDA
+HEAD_DIMS = (64, 80, 96, 128, 256)
+
 
 def gather_pages(pages: torch.Tensor, page_indices: torch.Tensor) -> torch.Tensor:
     """pages [KV, NB, BS, D] + table [B, NBmax] -> [B, NBmax*BS, KV, D]."""
@@ -78,7 +82,7 @@ def flash_prefill(q, k_pages, v_pages, positions, kv_len, page_indices,
         req(a.device == q.device and a.dtype == torch.int32
             and a.is_contiguous() and tuple(a.shape) == shape,
             f"flash_prefill: {name} must be contiguous int32 {shape}")
-    req(h % kv == 0 and d in (64, 128, 256) and bs % 8 == 0 and bs <= 64,
+    req(h % kv == 0 and d in HEAD_DIMS and bs % 8 == 0 and bs <= 64,
         f"flash_prefill: unsupported H={h} KV={kv} D={d} BS={bs}")
     out = torch.empty_like(q)
     fn = _cuda.bind("flash_prefill", "flash_prefill",

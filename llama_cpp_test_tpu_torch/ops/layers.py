@@ -1,5 +1,7 @@
-"""Transformer building blocks in plain PyTorch: RMSNorm, RoPE (with
-linear/YaRN scaling), SwiGLU/GeGLU, and masked attention over gathered KV.
+"""Transformer building blocks in plain PyTorch: RMSNorm, LayerNorm, RoPE
+(with linear/YaRN scaling; partial when rope_dim < head_dim),
+SwiGLU/GeGLU, the non-gated activations (tanh GELU, squared ReLU), and
+masked attention over gathered KV.
 
 Counterpart of llama_cpp_test_tpu/ops/layers.py. Dtypes follow the
 reference: norms return the input dtype, rope and the activation compute
@@ -19,6 +21,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
+               bias: torch.Tensor | None, eps: float) -> torch.Tensor:
+    """Mean-centered LayerNorm with float32 statistics, weight and bias
+    each optional (olmo's norm has neither), cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) * (xf - mu)).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def _yarn_ramp(low: float, high: float, dim: int) -> np.ndarray:
@@ -78,6 +95,18 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor,
     a = (torch.nn.functional.gelu(g, approximate="tanh") if act == "gelu"
          else torch.nn.functional.silu(g))
     return (a * up.float()).to(gate.dtype)
+
+
+def activation(u: torch.Tensor, act: str) -> torch.Tensor:
+    """A non-gated FFN's activation in float32: "gelu" the tanh
+    approximation (phi2, falcon, gptneox, starcoder2), "relu2" the squared
+    ReLU (nemotron), else SiLU."""
+    u = u.float()
+    if act == "gelu":
+        return torch.nn.functional.gelu(u, approximate="tanh")
+    if act == "relu2":
+        return torch.square(torch.relu(u))
+    return torch.nn.functional.silu(u)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

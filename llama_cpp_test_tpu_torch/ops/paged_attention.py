@@ -23,6 +23,10 @@ import torch
 
 from . import _cuda
 
+# the head dims K3 and K3-q8 are built for (csrc/paged_attention.cu); any
+# other raises on CUDA
+HEAD_DIMS = (64, 80, 96, 128, 256)
+
 # The plan's caps live here only: the kernel takes any split it is given
 # (it stages a range's page ids in shared memory, 4 bytes each, and its
 # merge holds three floats a range).
@@ -115,7 +119,7 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, page_indices,
             and a.is_contiguous() and tuple(a.shape) == shape,
             f"paged_attention_decode: {name} must be contiguous int32 {shape}")
     g = h // kv
-    req(h % kv == 0 and d in (64, 128, 256),
+    req(h % kv == 0 and d in HEAD_DIMS,
         f"paged_attention_decode: unsupported H={h} KV={kv} D={d}")
     out = torch.empty_like(q)
     cap = float(soft_cap or 0.0)

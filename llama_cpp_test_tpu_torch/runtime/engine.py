@@ -47,7 +47,7 @@ TOKEN_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
 def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
-             rows, slots, kv_len, *, hp: HParams, decode: bool,
+             rows, slots, kv_len, *, hp: HParams, decode: bool, n_ctx: int,
              plain: bool = False, rope_delta=None,
              causal: bool = True, tap: list | None = None) -> torch.Tensor:
     """Embed, run all layers (writing KV in place), no final norm (lm_head
@@ -59,7 +59,13 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
     Self-Extend (SeqState.pos_offset). causal=False (a prefill for embed)
     lets every token attend the whole chunk: the mask positions become
     kv_len - 1 on every row, while rope keeps the true positions. tap, a
-    list, receives the embedding and every layer's output (tracing)."""
+    list, receives the embedding and every layer's output (tracing).
+
+    A window that cannot bind is no window in the dispatch: a key s is
+    masked iff s <= pos - window, and every mask position is below n_ctx
+    (the Context checks it), so a layer whose window is >= n_ctx attends
+    as a global layer does and its decode takes K3, not the gather path.
+    Its rope table stays the sliding layers' one."""
     x = llama_mod.embed(w, tokens, hp.embd_scale)
     if tap is not None:
         tap.append(x)
@@ -72,7 +78,8 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
     for li, lw in enumerate(w.layers):
         window = hparams_mod.layer_window(hp, li)
 
-        def attend(q, k_cur, v_cur, _li=li, _window=window):
+        def attend(q, k_cur, v_cur, _li=li,
+                   _window=window if window < n_ctx else 0):
             if pools.quantized:
                 # q8_0 KV: quantizing scatter; decode through K3's q8
                 # variant, prefill through the dequantizing gather
@@ -242,7 +249,15 @@ class Context:
                  kv_type: str = "bf16", plain: bool = False):
         self.model = model
         self.device = model.device
+        # long rope (phi3): the long table iff this Context is longer than
+        # the pretraining window, as the reference Context picks it; a view
+        # of the model's weights, so two Contexts may differ
         self.w = model.weights
+        if (self.w.rope_inv_freq_long is not None
+                and model.hp.rope_orig_ctx > 0
+                and n_ctx > model.hp.rope_orig_ctx):
+            self.w = dataclasses.replace(
+                self.w, rope_inv_freq=self.w.rope_inv_freq_long)
         self.kv_type = kv_type
         self.n_ctx = n_ctx
         self.block_size = block_size
@@ -456,13 +471,18 @@ class Context:
               causal: bool = True, tap: list | None = None):
         """Upload one step's host arrays and run the forward. Padding rows
         (slot -1) are dropped from the KV scatter here, on the host."""
+        if int(kv_len.max()) > self.n_ctx:
+            # the dispatch drops windows >= n_ctx on this bound
+            raise RuntimeError(f"kv_len {int(kv_len.max())} past n_ctx "
+                               f"{self.n_ctx}")
         flat = slot_arr.reshape(-1)
         keep = np.nonzero(flat >= 0)[0]
         return _forward(
             self.w, self.pools, self._to_dev(tok), self._to_dev(pos),
             self._to_dev(bt), self._to_dev(keep.astype(np.int64)),
             self._to_dev(flat[keep].astype(np.int64)), self._to_dev(kv_len),
-            hp=self.model.hp, decode=decode, plain=self.plain,
+            hp=self.model.hp, decode=decode, n_ctx=self.n_ctx,
+            plain=self.plain,
             rope_delta=None if rd is None else self._to_dev(rd),
             causal=causal, tap=tap)
 
@@ -669,9 +689,10 @@ class Context:
         for j in range(n_steps):
             kpos = pos[keep].long()
             slots = bt[keep, kpos // bs].long() * bs + kpos % bs
+            # _window_rows checked the room, so pos + 1 <= n_ctx
             x = _forward(self.w, self.pools, tok[:, None], pos[:, None], bt,
                          keep, slots, pos + 1, hp=self.model.hp, decode=True,
-                         plain=self.plain)
+                         n_ctx=self.n_ctx, plain=self.plain)
             nxt = pick(self._logits(x)[:, 0].float(), tok, pos)
             out[j] = nxt
             tok, pos = nxt.to(torch.int32), pos + 1

@@ -2,19 +2,23 @@
 
 Counterpart of llama_cpp_test_tpu/runtime/imatrix.py, rewritten in torch.
 For every weight, the per-column sums of squares of the activations that
-feed it, over a calibration text: the RMS-normed attention input (wq, wk,
-wv), the attention output (wo), the RMS-normed FFN input (gate, up; the
-router and expert stacks of a MoE layer), the SwiGLU or GeGLU activation
-(ffn_down) and the final-normed hidden state (output). One forward per
-chunk through the model's own layers (models/llama.forward_layer, which
-taps those inputs; K1 on CUDA, K4 for the experts), dense causal
-attention in torch (ops/layers.attention) as the reference has it.
+feed it, over a calibration text: the normed attention input (wq, wk,
+wv, or a fused attn_qkv), the attention output (wo), the normed FFN input
+(gate and up, a fused gate|up or a non-gated up; the router and expert
+stacks of a MoE layer), the FFN activation (ffn_down) and the
+final-normed hidden state (output). Each sum is keyed by the name of the
+tensor the file holds. One forward per chunk through the model's own
+layers (models/llama.forward_layer, which taps those inputs, sequential
+or parallel; K1 on CUDA, K4 for the experts), dense causal attention in
+torch (ops/layers.attention) as the reference has it.
 
-The reference re-implements the layer inline and leaves out the gemma
-and qwen quirk axes (the embedding scale, the biases and QK norms, the
-windows and softcaps, the post norms, GeGLU), so on those archs it
-collects the statistics of another model (ROADMAP §3, fault 11); on the
-llama archs both give the same sums.
+The reference re-implements the layer inline with RMS norms, a
+sequential residual and a gated FFN, and leaves out the quirk axes (the
+embedding scale, the biases and QK norms, the windows and softcaps, the
+post norms, GeGLU, the LayerNorms and their biases, the parallel
+residual), so on those archs it collects the statistics of another model
+or, on a non-gated FFN, raises (ROADMAP §3, fault 11); on the llama archs
+both give the same sums.
 
 Saved as .npz: sum::<tensor> [K] f32 per tensor, __names__ (the names
 joined by newlines) and __counts__. The reference keys each __counts__ row
@@ -40,24 +44,36 @@ from ..ops.flash_prefill import prefill_mask
 
 
 # the tensors each activation forward_layer taps feeds
-def _fed_by(role: str, lw) -> tuple:
+def _fed_by(role: str, lw, names) -> tuple:
+    """The tensors the activation of `role` feeds in layer weights lw, by
+    the names of the layer's file tensors (`names`: a set of suffixes,
+    or None for weights that came without a file)."""
     if role == "attn_in":
+        if names is not None and "attn_qkv.weight" in names:
+            return ("attn_qkv.weight",)
         return ("attn_q.weight", "attn_k.weight", "attn_v.weight")
     if role == "attn_out":
         return ("attn_output.weight",)
     if role == "ffn_in":
-        return (("ffn_gate_inp.weight", "ffn_gate_exps.weight",
-                 "ffn_up_exps.weight") if lw.gate_inp is not None
-                else ("ffn_gate.weight", "ffn_up.weight"))
+        if lw.gate_inp is not None:
+            return ("ffn_gate_inp.weight", "ffn_gate_exps.weight",
+                    "ffn_up_exps.weight")
+        if lw.w_gate is None and lw.w_gateup is None:
+            return ("ffn_up.weight",)
+        if names is not None and "ffn_gate.weight" not in names:
+            return ("ffn_up.weight",)          # phi3's fused gate|up
+        return ("ffn_gate.weight", "ffn_up.weight")
     return ("ffn_down.weight",)
 
 
 def _imatrix_step(w: LlamaWeights, tokens: torch.Tensor, *, hp: HParams,
-                  plain: bool = False) -> dict[str, torch.Tensor]:
+                  plain: bool = False,
+                  names: set | None = None) -> dict[str, torch.Tensor]:
     """tokens [1, T] -> name -> per-column sum of squares [K] f32, on the
     weights' device. The model's own layers (forward_layer) run, and tap
     the input of each projection; attention is dense and causal, with each
-    layer's window and the softcap."""
+    layer's window and the softcap. names: the file's tensor names (None:
+    the separate q/k/v and gate/up names)."""
     b, t = tokens.shape
     dev = tokens.device
     x = llama_mod.embed(w, tokens, hp.embd_scale)
@@ -79,8 +95,11 @@ def _imatrix_step(w: LlamaWeights, tokens: torch.Tensor, *, hp: HParams,
             return layers.attention(q, k, v, _mask, scale,
                                     softcap=hp.attn_softcap)
 
-        def tap(role, act, _p=f"blk.{li}.", _lw=lw):
-            record([_p + n for n in _fed_by(role, _lw)], act)
+        layer_names = None if names is None else {
+            n.split(".", 2)[2] for n in names if n.startswith(f"blk.{li}.")}
+
+        def tap(role, act, _p=f"blk.{li}.", _lw=lw, _names=layer_names):
+            record([_p + n for n in _fed_by(role, _lw, _names)], act)
 
         x = llama_mod.forward_layer(x, lw, hp, pos, w.inv_freq_for(window),
                                     w.rope_mscale, attend, plain, tap)
@@ -98,6 +117,8 @@ class IMatrixCollector:
         self.plain = plain
         self.sums: dict[str, np.ndarray] = {}
         self.counts: dict[str, int] = {}
+        reader = getattr(model, "reader", None)
+        self._names = None if reader is None else set(reader.tensors)
 
     def collect(self, tokens: list[int], chunk: int = 512) -> None:
         """Chunks of `chunk` tokens, stopping at the first shorter than 16
@@ -110,7 +131,8 @@ class IMatrixCollector:
             arr = torch.as_tensor(np.asarray(part, np.int32)[None]).to(dev)
             with torch.inference_mode():
                 stats = _imatrix_step(self.model.weights, arr,
-                                      hp=self.model.hp, plain=self.plain)
+                                      hp=self.model.hp, plain=self.plain,
+                                      names=self._names)
                 names = list(stats)
                 flat = torch.cat([stats[n] for n in names]).cpu().numpy()
             off = 0

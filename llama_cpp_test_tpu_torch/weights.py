@@ -5,8 +5,10 @@ carried across as host planes.
 to_device takes LlamaWeights whose QTensor planes and norm vectors are
 numpy arrays: the port's own loader output, or port_weights_from_reference
 of the reference's parameters (every LayerWeights field by name: the
-biases, QK norms and sandwich norms of the gemma and qwen archs too, and
-the sliding-window rope table). bf16 bit patterns (uint16) become
+biases, QK norms and sandwich norms of the gemma and qwen archs, the
+LayerNorm biases, falcon-40B's second norm and the projection biases too;
+the sliding-window and long-rope tables and the final norm's and lm
+head's biases). bf16 bit patterns (uint16) become
 torch.bfloat16, int8/uint8 planes keep their type, float arrays become
 float32. Expert stacks (a leading E axis on every plane) move the same way.
 Attached adapters move too: each LoRA pair (A, B, scale) as float32
@@ -103,7 +105,9 @@ def port_weights_from_reference(jw) -> LlamaWeights:
         output=conv(jw.output), layers=layers,
         rope_inv_freq=np.asarray(jw.rope_inv_freq, np.float32),
         rope_mscale=jw.rope_mscale,
-        rope_inv_freq_swa=conv(jw.rope_inv_freq_swa))
+        rope_inv_freq_swa=conv(jw.rope_inv_freq_swa),
+        rope_inv_freq_long=conv(jw.rope_inv_freq_long),
+        output_norm_b=conv(jw.output_norm_b), output_b=conv(jw.output_b))
 
 
 def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:
@@ -121,4 +125,6 @@ def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:
         tok_embd=conv(w.tok_embd), output_norm=conv(w.output_norm),
         output=conv(w.output), layers=layers,
         rope_inv_freq=conv(w.rope_inv_freq), rope_mscale=w.rope_mscale,
-        rope_inv_freq_swa=conv(w.rope_inv_freq_swa))
+        rope_inv_freq_swa=conv(w.rope_inv_freq_swa),
+        rope_inv_freq_long=conv(w.rope_inv_freq_long),
+        output_norm_b=conv(w.output_norm_b), output_b=conv(w.output_b))

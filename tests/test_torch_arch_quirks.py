@@ -272,7 +272,7 @@ def run(main, argv, **kw):
         sys.stdout = old
 
 
-@pytest.mark.parametrize("arch,item", [("phi3", 7), ("stablelm", 7),
+@pytest.mark.parametrize("arch,item", [("gpt2", 7), ("bloom", 7),
                                        ("qwen2moe", 8), ("deepseek2", 8),
                                        ("mamba", 9), ("t5", 9)])
 def test_unported_archs_name_their_item(tmp_path, arch, item):
@@ -536,13 +536,15 @@ def test_trace_eval_on_gemma2_traces_the_served_model(paths):
 
 @pytest.mark.parametrize("arch,name,shape,match", [
     ("llama", "blk.0.attn_q_norm.weight", (16,), "NORM-rope"),
-    ("qwen3", "blk.0.attn_q_norm.weight", (64,), "of shape"),
-    ("gemma2", "blk.0.attn_qkv.weight", (8, 64), "outside"),
+    ("llama", "blk.0.attn_q_norm.weight", (64,), "NORM-rope"),
+    ("gemma2", "blk.0.attn_qkv.weight", (8, 64), "attention tensors"),
 ], ids=["qk-norm-on-norm-rope", "flat-qk-norm", "fused-qkv"])
 def test_quirk_tensors_the_port_does_not_carry_raise(tmp_path, arch, name,
                                                      shape, match):
-    """QK norms on a NORM-rope file, flat (olmo2-style) QK norms and any
-    tensor outside the allow-list are refused before a tensor is read."""
+    """Per-head and flat (olmo2-style) QK norms on a NORM-rope file, and
+    a fused attn_qkv beside attn_q, attn_k and attn_v (the fused layout
+    alone is served since the phi and falcon archs) are refused before a
+    tensor is read."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter as PWriter
 
     path = str(tmp_path / "v.gguf")

@@ -56,15 +56,17 @@ def prefill_case(seed=0, b=2, t=16, h=8, kv=2, d=64, nb=12, bs=8, lens=None,
 
 
 @pytest.mark.parametrize("h,kv,d", [(8, 2, 64), (4, 4, 64), (32, 4, 64),
-                                    (8, 2, 128), (8, 4, 256), (4, 1, 256)],
+                                    (8, 2, 128), (8, 4, 256), (4, 1, 256),
+                                    (4, 4, 80), (8, 2, 96)],
                          ids=["G4", "G1", "G8", "G4-D128", "G2-D256",
-                              "G4-D256"])
+                              "G4-D256", "G1-D80", "G4-D96"])
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (5, 0.0), (0, 30.0),
                                         (5, 50.0)])
 def test_flash_prefill_matches_pallas(window, cap, h, kv, d):
     """Mixed lengths per sequence, GQA G in {1, 2, 4, 8} (8: TinyLlama's
-    layout, 2 and 4 at D = 256: Gemma-2's and Gemma-3's), D in {64, 128,
-    256}, window and softcap, and both at once (Gemma-2's local layers)."""
+    layout, 2 and 4 at D = 256: Gemma-2's and Gemma-3's, 1 at D = 80:
+    Phi-2's), D in {64, 80, 96, 128, 256}, window and softcap, and both at
+    once (Gemma-2's local layers)."""
     q, kp, vp, pos, kl, bt = prefill_case(h=h, kv=kv, d=d)
     scale = 0.125
     (jq, tq), (jk, tk), (jv, tv) = both(q * scale), both(kp), both(vp)
@@ -109,8 +111,10 @@ def decode_case(b=3, kv=2, g=4, d=64, nb=16, bs=16, nbmax=4, seed=0):
 
 @pytest.mark.parametrize("g,lengths,cap,d", [
     (4, None, None, 64), (1, None, None, 64), (4, [1, 2, 5], None, 64),
-    (4, None, 30.0, 64), (2, None, 50.0, 256), (4, [1, 2, 5], None, 256)],
-    ids=["G4", "G1", "short", "softcap", "G2-softcap-D256", "short-D256"])
+    (4, None, 30.0, 64), (2, None, 50.0, 256), (4, [1, 2, 5], None, 256),
+    (1, None, None, 80), (4, [1, 2, 5], None, 96)],
+    ids=["G4", "G1", "short", "softcap", "G2-softcap-D256", "short-D256",
+         "G1-D80", "short-D96"])
 def test_paged_decode_matches_pallas(g, lengths, cap, d):
     q, kp, vp, lens, pages = decode_case(g=g, kv=2 if g == 4 else 4, seed=g,
                                          d=d)
@@ -129,8 +133,10 @@ def test_paged_decode_matches_pallas(g, lengths, cap, d):
 
 @pytest.mark.parametrize("lengths", [[37 * 16 + 5], [1, 16, 37 * 16 + 5]],
                          ids=["B1", "B3-1-BS-37BS+5"])
-@pytest.mark.parametrize("g,kv,d", [(8, 4, 64), (4, 2, 128), (4, 1, 256)],
-                         ids=["G8", "G4-D128", "G4-D256"])
+@pytest.mark.parametrize("g,kv,d", [(8, 4, 64), (4, 2, 128), (4, 1, 256),
+                                    (1, 4, 80), (1, 4, 96)],
+                         ids=["G8", "G4-D128", "G4-D256", "G1-D80",
+                              "G1-D96"])
 def test_paged_decode_long_and_short_match_pallas(lengths, g, kv, d):
     """The plain version K3 is held against, at B = 1 and at B = 3 with
     lengths 1, BS and 37 BS + 5 (one sequence spanning many of K3's page
