@@ -11,19 +11,20 @@ non-zero before the final line:
   device   nvidia-smi name/power limit, torch and CUDA versions
   build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc;
            registers and spill bytes of every qmm_gemv, qmm_gemm,
-           qmm_cache, flash_prefill (D = 64, 80, 96, 128, 256), gmm_gemv,
-           gmm_gemm and paged_decode (D = 64, 80, 96, 128, 256; bf16 and
-           q8) instantiation (and of paged_decode's merge), and of the probe
+           qmm_cache, flash_prefill (D = 64, 80, 96, 100, 128, 256),
+           gmm_gemv, gmm_gemm and paged_decode (D = 64, 80, 96, 100, 128,
+           256; bf16 and q8) instantiation (and of paged_decode's merge), and of the probe
            GEMV (kbench_gemv, pairs_gemv) and the byte stream, from ptxas -v
            (a spill fails the phase), and the atomic instructions in the
            SASS of the GEMV kernels (K1's, K4's, the probes') and the byte
            stream by cuobjdump (one fails the phase)
   kernels  each kernel against its plain PyTorch version at the main
            paths' shapes: TinyLlama-1.1B and Mixtral-8x7B, plus the widest
-           Llama-3-8B ones and decode attention over ~4000 cached tokens
-           (error, gate, kernel/plain/library times, roofline bound); one
-           K1 and one K4 GEMV call under torch.profiler must each run one
-           kernel and no memset, and give the same bits twice
+           Llama-3-8B ones, decode attention over ~4000 cached tokens and
+           K2, K3 and K3-q8 at BitNet b1.58-3B's D = 100 (error, gate,
+           kernel/plain/library times, SDPA's backend, roofline bound); one
+           K1 and one K4 GEMV call, captured in a CUDA graph, must each hold
+           one kernel and no memset, and give the same bits twice
   serve    a TinyLlama-1.1B-geometry Q4_K GGUF (full width, 11 of 22
            layers) synthesized from seeded random block bytes is loaded with Model(path) on cuda and serves
            three generate() requests plus one batched decode; the launch
@@ -56,8 +57,8 @@ non-zero before the final line:
   probes   the five kernels of the port's tools (kbench F, G, H and the
            byte stream E; pairprobe's pairs GEMV) against their plain
            versions at the probes' own shapes, with the timer's floor for
-           one empty kernel beside them (one call of each, under
-           torch.profiler after the kernels phase, must run one kernel and
+           one empty kernel beside them (one call of each, captured in a
+           CUDA graph after the kernels phase, must hold one kernel and
            no memset and give the same bits twice); then both entry points
            (python -m llama_cpp_test_tpu_torch.tools.kbench / .pairprobe)
            run once in this process
@@ -147,7 +148,8 @@ non-zero before the final line:
   quirks_ln the LayerNorm, parallel-residual and partial-rope archs:
            Phi-3-mini-128k (Q4_K; head dim 96, fused QKV and gate|up, long
            rope, window 262144) and Phi-2 (Q4_K; head dim 80, partial rope,
-           parallel residual, biases) at published widths and depth, each
+           parallel residual, biases) at published widths, 16 of 32
+           layers each (cut for the smoke's clock), each
            served as in serve at bf16 and q8_0 KV (8 decode steps held to
            the plain path), a 600-token prompt at each n_ctx (Phi-3: 8192,
            the long rope table, and 2048, the short one) with K2 once a
@@ -161,6 +163,31 @@ non-zero before the final line:
            logits check at bf16 KV and its launch counts; K2, K3 and K3-q8
            rows at D = 80 and 96 and K3 at Falcon-7B's G = 71; the ptxas
            registers and spills of the D = 80 and 96 builds
+  quirks_body the other llama-body archs: MiniCPM-2B (Q8_0: FFN 5760; the
+           mup scales, tied head) at published widths and depth, Command
+           R7B (cohere2; Q4_K) at published widths and 4 layers (three
+           sliding at window 4096, one global without rope) and BitNet
+           b1.58-3B (Q8_0; D = 100, the sub-norms) at 2, each served as in
+           serve at bf16 and q8_0 KV (generate() at 16, 130 and 512
+           tokens, a batched decode of 8, 8 decode steps held to the plain
+           path) and a path prediction at bf16 and q8_0 KV (K2 once a layer
+           a chunk, K3 or K3-q8 once a global layer a step, K1's GEMV once
+           a quantized plane a step); on Command R7B a 4672-token prompt
+           past its window (K3 on the global layer alone) and one context
+           shift at each KV type held to the plain path; then nine 2-layer
+           files at published widths (InternLM2-7B, Baichuan2-7B,
+           XVERSE-7B, Orion-14B, Qwen-7B, EXAONE-3.5-2.4B, CodeShell-7B,
+           ChatGLM3-6B, PLaMo-13B), each with generate() and a batched
+           decode of 8 at bf16 and q8_0 KV, its logits at bf16 KV and its
+           path predictions; the ptxas registers and spills of the D = 100
+           builds
+  positions the position axes: GPT-2 (1024 learned positions) and
+           BLOOM-560m (ALiBi, the embedding LayerNorm) at published widths
+           and depth as in quirks_body, K2 and K3 launched on GPT-2 and
+           never on BLOOM (ALiBi takes the gather path, as the reference
+           sends it to XLA); then five 2-layer files (StarCoderBase-1B,
+           MPT-7B, Jais-13B, Refact-1.6B, Baichuan2-13B by its
+           max_alibi_bias key) with the same checks
   timings  the seconds of each phase
 
 Every file the serve phases write carries a synthesized tokenizer
@@ -266,20 +293,21 @@ QWEN3_06B = dict(arch="qwen3", n_vocab=151936, n_embd=1024, n_head=16,
                  rope_base=1e6, rms_eps=1e-6, tied=True, qk_norm=True)
 
 # Phi-3-mini-128k-instruct (microsoft/Phi-3-mini-128k-instruct
-# config.json) published widths and depth: head dim 96, MHA, fused
-# qkv_proj and gate_up_proj, NEOX rope, long rope (original context 4096
-# of 131072; 48-entry factor tables, seeded in the published range),
-# sliding window 262144 on every layer, untied head
+# config.json) published widths, depth cut from 32 to 16 layers for the
+# smoke's clock: head dim 96, MHA, fused qkv_proj and gate_up_proj, NEOX
+# rope, long rope (original context 4096 of 131072; 48-entry factor
+# tables, seeded in the published range), sliding window 262144 on every
+# layer, untied head
 PHI3_MINI = dict(arch="phi3", n_vocab=32064, n_embd=3072, n_head=32,
-                 n_head_kv=32, head_dim=96, n_layer=32, n_ff=8192,
+                 n_head_kv=32, head_dim=96, n_layer=16, n_ff=8192,
                  rope_base=10000.0, sliding_window=262144,
                  longrope=(4096, 131072), fused_qkv=True, ffn="fused")
-# Phi-2 (microsoft/phi-2 config.json) published widths and depth: head
-# dim 80, partial rope (32 of 80), one LayerNorm (eps 1e-5) feeding the
-# parallel attention and GELU FFN, biases on every projection and the
-# head
+# Phi-2 (microsoft/phi-2 config.json) published widths, depth cut from 32
+# to 16 layers for the smoke's clock: head dim 80, partial rope (32 of
+# 80), one LayerNorm (eps 1e-5) feeding the parallel attention and GELU
+# FFN, biases on every projection and the head
 PHI2 = dict(arch="phi2", n_vocab=51200, n_embd=2560, n_head=32,
-            n_head_kv=32, head_dim=80, rope_dim=32, n_layer=32, n_ff=10240,
+            n_head_kv=32, head_dim=80, rope_dim=32, n_layer=16, n_ff=10240,
             ln_eps=1e-5, norm_bias=True, ffn_norm=False, fused_qkv=True,
             qkv_bias=True, bo=True, ffn="up", ffn_bias=True, head_bias=True)
 # The other archs of the slice at published widths, depth cut to 2 layers:
@@ -664,7 +692,14 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     qkv_bias), bo, ffn ("gated", "up" non-gated, "fused" [gate|up] in one
     ffn_up), ffn_bias (up and down biases), head_bias, longrope ((original
     context, training context): the long-rope keys and seeded factor
-    tables in the published range) and meta (more {arch}.* keys). vocab:
+    tables in the published range) and meta (more {arch}.* keys). Those of
+    the position axes and the other llama-body archs: pos_rows (an F32
+    learned position table of that many rows, the context length too),
+    tok_norm (the embedding LayerNorm, weight and bias), sub_norms
+    (bitnet's attn_sub_norm and ffn_sub_norm) and gate_bias (an F32
+    ffn_gate bias). A tensor whose K the type's block does not divide is
+    written Q8_0, or BF16 where 32 does not divide it either (_fit_type);
+    the choices are returned, tensor role -> type name. vocab:
     the tokenizer written beside them (from vocab_seed, default seed),
     "spm" (spm_vocab) or "bpe" (bpe_vocab); "auto" takes "bpe" for
     Llama-3's 128256 tokens and "spm" for any other size; None writes
@@ -678,7 +713,8 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     n_exp = hp.get("n_expert", 0)
     arch = hp.get("arch", "llama")
     w = GGUFWriter(path, arch=arch)
-    meta = {"context_length": 2048, "embedding_length": c,
+    meta = {"context_length": hp.get("pos_rows") or 2048,
+            "embedding_length": c,
             "block_count": n_layer, "attention.head_count": hq,
             "attention.head_count_kv": hkv,
             "attention.key_length": d, "attention.value_length": d,
@@ -718,8 +754,17 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     for key, val in meta.items():
         w.add_kv(key, val)
 
+    fitted = {}
+
+    def fit(role, gt, k):
+        ft = _fit_type(gt, k)
+        if ft != gt:
+            fitted[role] = ft.name
+        return ft
+
     def quant(name, n, k, e=1, gt=None):
-        gt = gt or types[name.split(".")[-2]]
+        role = name.split(".")[-2]
+        gt = fit(role, gt or types[role], k)
         shape = (k, n) if e == 1 else (k, n, e)
         w.add_tensor(name, random_blocks(rng, gt, n * e, k),
                      ggml_type=gt, raw_ggml_shape=shape)
@@ -735,6 +780,11 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
 
     bias = lambda name, n: vec(name, n, mean=0.0, std=0.1)
     quant("token_embd.weight", v, c)
+    if hp.get("pos_rows"):
+        vec("position_embd.weight", hp["pos_rows"], c, mean=0.0, std=0.02)
+    if hp.get("tok_norm"):
+        vec("token_embd_norm.weight", c)
+        vec("token_embd_norm.bias", c, mean=0.0)
     if hp.get("output_norm", True):
         norm("output_norm.weight")
     if not hp.get("tied"):
@@ -748,9 +798,9 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             norm(p + "attn_norm.weight")
         if hp.get("fused_qkv"):
             # the attn_qkv rows as one tensor of the attn_q type
+            gt = fit("attn_qkv", types["attn_q"], c)
             w.add_tensor(p + "attn_qkv.weight", random_blocks(
-                rng, types["attn_q"], (hq + 2 * hkv) * d, c),
-                ggml_type=types["attn_q"],
+                rng, gt, (hq + 2 * hkv) * d, c), ggml_type=gt,
                 raw_ggml_shape=(c, (hq + 2 * hkv) * d))
         else:
             quant(p + "attn_q.weight", hq * d, c)
@@ -797,6 +847,11 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
         if hp.get("ffn_bias"):
             bias(p + "ffn_up.bias", ff)
             bias(p + "ffn_down.bias", c)
+        if hp.get("gate_bias"):
+            bias(p + "ffn_gate.bias", ff)
+        if hp.get("sub_norms"):
+            vec(p + "attn_sub_norm.weight", hq * d)
+            vec(p + "ffn_sub_norm.weight", ff)
     if "longrope" in hp:
         half = hp.get("rope_dim", d) // 2
         for name, hi in (("rope_factors_short.weight", 3.0),
@@ -804,6 +859,18 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             w.add_tensor(name, np.sort(rng.uniform(1.0, hi, half)).astype(
                 np.float32))
     w.write()
+    return fitted
+
+
+def _fit_type(ggml_type, k: int):
+    """ggml_type if its block divides K, else Q8_0 if 32 does, else BF16
+    (MiniCPM's FFN of 5760 and ChatGLM3's 13696 are no multiple of 256,
+    Jais-13B's 13653 not even of 32)."""
+    from llama_cpp_test_tpu_torch.gguf.constants import GGML_BLOCK_SIZES, GGMLType
+
+    if k % GGML_BLOCK_SIZES[ggml_type][0] == 0:
+        return ggml_type
+    return GGMLType.Q8_0 if k % 32 == 0 else GGMLType.BF16
 
 
 # ---------------------------------------------------------------------------
@@ -846,13 +913,13 @@ _INSTANTIATIONS = {
     "qmm_cache": ("qmm_cache", re.compile(r"qmm_cache_kernelILi(\d)ELb([01])E"),
                   8, _kind_label),
     "flash_prefill": ("flash_prefill",
-                      re.compile(r"flash_prefill_kernelILi(\d+)E"), 5,
+                      re.compile(r"flash_prefill_kernelILi(\d+)E"), 6,
                       lambda m: f"D={m.group(1)}"),
     "gmm_gemm": ("gmm", re.compile(r"gmm_gemm_kernelILi(\d)ELb([01])E"), 9,
                  _kind_label),
     "paged_decode": ("paged_attention",
                      re.compile(r"paged_decode_kernelILi(\d+)E(13__nv_bfloat16|a)E"),
-                     10, lambda m: f"D={m.group(1)} "
+                     12, lambda m: f"D={m.group(1)} "
                                   f"{'q8' if m.group(2) == 'a' else 'bf16'}"),
     "paged_decode_merge": ("paged_attention",
                            re.compile(r"paged_decode_merge_kernel"), 1,
@@ -947,8 +1014,11 @@ def phase_build() -> dict:
     inst = instantiations(reports)
     for name in _cuda.SOURCES:
         _cuda.lib(name)
-    atomics = {name: gemv_atomics(_cuda._lib_path(name))
-               for name in ("qmm", "gmm", "kbench", "pairprobe")}
+    # one cuobjdump a library, all started together
+    names = ("qmm", "gmm", "kbench", "pairprobe")
+    with ThreadPoolExecutor(len(names)) as pool:
+        atomics = dict(zip(names, pool.map(
+            lambda n: gemv_atomics(_cuda._lib_path(n)), names)))
     emit({"phase": "build", "seconds": round(secs, 3), "kernels": summary,
           "instantiations": inst, "gemv_atomics": atomics})
     for name, found in atomics.items():
@@ -1152,6 +1222,7 @@ class KernelChecks:
         one["splits"] = plan(b, kvh, nbmax, bs, torch.cuda.get_device_properties(
             0).multi_processor_count)
         cap = f" cap={soft_cap}" if soft_cap else ""
+        one["sdpa_backend"] = _sdpa_backend(torch, lq, lk, lv, mask)
         return self._row(
             "paged_decode_q8" if q8 else "paged_decode",
             f"B={b} H={h} KV={kvh} D={d} BS={bs} nbmax={nbmax}{cap} "
@@ -1200,7 +1271,23 @@ class KernelChecks:
             fn_k(), fn_p(), ATTN_GATE, fn_k, fn_p,
             lambda: sdpa(lq, lk, lv, attn_mask=mask, scale=1.0),
             2 * q.numel() * 2 + n * kvh * d * 2 * 2, 4.0 * d * h * pairs,
-            library="sdpa without the softcap" if soft_cap else None)
+            library="sdpa without the softcap" if soft_cap else None,
+            extra={"sdpa_backend": _sdpa_backend(torch, lq, lk, lv, mask)})
+
+
+def _sdpa_backend(torch, q, k, v, mask) -> str:
+    """The backend torch's scaled_dot_product_attention dispatches these
+    inputs to (flash, efficient, cuDNN, math): its flash backend takes no
+    mask and no head dim that is not a multiple of 8."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        i = int(torch._fused_sdp_choice(q, k, v, mask, 0.0, False,
+                                        scale=1.0))
+        names = {int(m): n for n, m in SDPBackend.__members__.items()}
+        return names.get(i, str(i))
+    except Exception as e:   # a torch without the private query
+        return f"not read ({type(e).__name__})"
 
 
 def _grouped_yardstick(torch, x, topi, w_all):
@@ -1270,13 +1357,16 @@ def _sdpa_kv(fp, kpool, vpool, table, g):
             vv.repeat_interleave(g, dim=1).contiguous())
 
 
-PROFILER_TRIES = 3
+# profiled decode windows before their check gives up: a session with no
+# device record at all proves nothing, and torch.profiler on an H100 has
+# returned none for whole sessions now and then (PERF.md §7)
+PROFILER_TRIES = 20
 
 
 def gemv_launches(torch, qt, stack) -> dict:
     """One K1 GEMV call (x [1, K] against planes qt) and one K4 GEMV call
-    (one token routed top-2 of the stacked experts), each under
-    torch.profiler: the device must run one kernel a call and no memset;
+    (one token routed top-2 of the stacked experts), each captured in a
+    CUDA graph: one kernel a call and no memset;
     and a second call on the same inputs must give the same bits (the K
     split meets in distributed shared memory, with no atomics)."""
     from llama_cpp_test_tpu_torch.ops import gmm, qmatmul
@@ -1295,39 +1385,67 @@ def gemv_launches(torch, qt, stack) -> dict:
     return one_launch_each(torch, calls, "kernels", "gemv launches")
 
 
-def one_launch_each(torch, calls: dict, phase: str, label: str) -> dict:
-    """Each call of `calls` (name -> fn) twice, the second under
-    torch.profiler: it must run one kernel and no memset on the device, and
-    give the same bits as the first. A session in which the profiler
-    recorded no device activity at all (it happens now and then on an
-    H100, PERF.md §7) proves nothing either way and is run again, up to
-    PROFILER_TRIES sessions."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# CUgraphNodeType (cuda.h): the node kinds a captured call can hold
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record", 8: "ext_semas_signal",
+                    9: "ext_semas_wait", 10: "mem_alloc", 11: "mem_free",
+                    12: "batch_mem_op", 13: "conditional"}
 
+
+def captured_nodes(torch, fn):
+    """One call of `fn` captured in a CUDA graph (any host sync inside it
+    fails the capture): (its output, the node kinds of the graph in
+    order). The graph is then replayed once, so the output holds what the
+    captured work computed on the device."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        out = fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(t)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(GRAPH_NODE_TYPES.get(t.value, str(t.value)))
+    g.replay()
+    torch.cuda.synchronize()
+    out = out.clone()
+    g.reset()
+    return out, kinds
+
+
+def one_launch_each(torch, calls: dict, phase: str, label: str) -> dict:
+    """Each call of `calls` (name -> fn) run once, then captured in a CUDA
+    graph and replayed: the graph must hold one kernel and no memset, and
+    its replay give the same bits as the first run. The graph records
+    every launch the call makes on its stream, with no sampling (the
+    torch.profiler sessions this check used before returned no device
+    record at all for one short call, now and then, PERF.md §7)."""
     out = {"phase": phase, "kernel": label}
     for name, fn in calls.items():
         first = fn()
         torch.cuda.synchronize()
-        for tries in range(1, PROFILER_TRIES + 1):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                second = fn()
-                torch.cuda.synchronize()
-            dev = [(ev.key, int(ev.count)) for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA]
-            if dev:
-                break
-        memsets = sum(c for k, c in dev if "memset" in k.lower())
-        kernels = sum(c for k, c in dev if "memset" not in k.lower()
-                      and "memcpy" not in k.lower())
-        out[name] = {"device_events": dev, "kernels": kernels,
-                     "memsets": memsets, "profiler_sessions": tries,
+        second, kinds = captured_nodes(torch, fn)
+        out[name] = {"graph_nodes": kinds,
+                     "kernels": kinds.count("kernel"),
+                     "memsets": kinds.count("memset"),
                      "bit_equal": bool(torch.equal(first, second))}
     emit(out)
     for name in calls:
         r = out[name]
         check(r["kernels"] == 1 and r["memsets"] == 0,
-              f"{name}: one call ran {r['device_events']} on the device "
+              f"{name}: one call put {r['graph_nodes']} on the device "
               "(one kernel and no memset expected)")
         check(r["bit_equal"], f"{name}: two calls on the same inputs differ")
     return out
@@ -1406,6 +1524,13 @@ def phase_kernels(torch, timer) -> dict:
             if label == "gate/up" and kind == "u4+min":
                 gemv_launches(torch, gemv_qt, qt)
             del qt
+    # BitNet b1.58-3B's geometry (MHA, D = 100, padded to 112 inside the
+    # kernels): K2 at T = 512, K3 and K3-q8 at B = 1 and 8
+    rows["flash_prefill"].append(kc.flash_prefill(BITNET_3B))
+    for b in (1, 8):
+        rows["paged_decode"].append(kc.paged_decode(BITNET_3B, b))
+        rows["paged_decode_q8"].append(kc.paged_decode(BITNET_3B, b,
+                                                       q8=True))
     rep["paged_decode_q8"] = kc.paged_decode(MIXTRAL, 8, q8=True)
     rows["paged_decode_q8"] += [rep["paged_decode_q8"],
                                 kc.paged_decode(MIXTRAL, 8, nbmax=32, q8=True),
@@ -1605,7 +1730,8 @@ def _kernels_vs_plain(model, prompt, contexts,
     with a min as the TPU kernels and K1, K4 and K5 do (PLAIN_MIN "fold");
     the plain path at the XLA path's joint rounding is recorded beside
     ("<context> joint min"), as the witness of what that rounding alone
-    moves. Where a MoE router's top-2 probabilities are near-tied, the
+    moves, on a file with a min (on one without, both roundings are one
+    computation, and that trace is not run). Where a MoE router's top-2 probabilities are near-tied, the
     kernels' rounding can send a row to another expert pair than the
     plain path does: that row is then another computation, not a kernel
     error. So the routing of every row is compared, and the gate holds the
@@ -1616,6 +1742,11 @@ def _kernels_vs_plain(model, prompt, contexts,
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     out, plain, bad = {}, {}, []
+    w = model.weights
+    has_min = any(qt is not None and qt.min_ is not None for qt in [
+        w.output] + [getattr(lw, f) for lw in w.layers for f in (
+            "wqkv", "wq", "wk", "wv", "wo", "w_gateup", "w_gate", "w_up",
+            "w_down", "gate_exps", "up_exps", "down_exps")])
     for kv, variant in contexts:
         label = _label(kv, variant)
         ctx = lambda **kw: Context(model, n_ctx=1024, n_seq_max=2,
@@ -1624,13 +1755,14 @@ def _kernels_vs_plain(model, prompt, contexts,
             steps_k, toks = _trace(ctx(), prompt, n_decode=n_decode)
         with _plain_min("fold"):
             steps_p, _ = _trace(ctx(plain=True), prompt, toks, n_decode)
-        with _plain_min("joint"):
-            steps_j, _ = _trace(ctx(plain=True), prompt, toks, n_decode)
         check(all(np.isfinite(lg).all() for lg, _ in steps_k),
               f"{label}: kernel logits not finite")
         plain[label] = steps_p
         out[label] = _compare(steps_p, steps_k)
-        out[f"{label} joint min"] = _compare(steps_j, steps_k)
+        if has_min:
+            with _plain_min("joint"):
+                steps_j, _ = _trace(ctx(plain=True), prompt, toks, n_decode)
+            out[f"{label} joint min"] = _compare(steps_j, steps_k)
         for step, r in out[label].items():
             v = r["nmse_same_routing"]
             if (v is not None and not v < LOGITS_GATE) or (
@@ -1924,10 +2056,8 @@ def phase_probes(torch, kc, one_launch: dict) -> dict:
     """The probe kernels' rows with the timer's floor beside them, then
     both probe entry points, each run as `python -m` runs it, with the
     launch counts zeroed just before and read just after. `one_launch`:
-    one_launch_each's check of the probe calls, made before the serve
-    phases: on an H100, once a process has run a prefill (or some 20000
-    cuBLAS matmuls), torch.profiler drops the device records of short
-    sessions, whatever memory is held (PERF.md §7)."""
+    one_launch_each's check of the probe calls, made after the kernels
+    phase."""
     import io
     import runpy
     import warnings
@@ -3693,6 +3823,17 @@ def _launch_counts(torch, ctx, prompt, n_decode: int, tokens=None) -> dict:
     return {"prefill": pre, "decode": dec, "rows": rows, "tokens": toks}
 
 
+def _k1_per_step(model) -> int:
+    """K1 launches one decode step makes: each quantized projection plane
+    of every layer once (the fused q|k|v and gate|up planes once each) and
+    the head; a BF16 tensor's dense plane is a plain product, no K1."""
+    w = model.weights
+    planes = [w.output] + [getattr(lw, f) for lw in w.layers for f in (
+        "wqkv", "wq", "wk", "wv", "wo", "w_gateup", "w_gate", "w_up",
+        "w_down")]
+    return sum(qt is not None and qt.kind != "dense" for qt in planes)
+
+
 def _path_prediction(torch, model, prompt, n_ctx: int,
                      kv: str = "bf16") -> dict:
     """The launches a prefill and QUIRK_DECODE decode steps of one
@@ -3700,14 +3841,16 @@ def _path_prediction(torch, model, prompt, n_ctx: int,
     not; none over q8_0 pages, which prefill on the dequantizing gather),
     K3 (K3-q8 at q8_0 KV) once a global layer a step (a sliding-window
     layer whose window binds at n_ctx decodes on the gather path, as the
-    reference sends any window to XLA), K1's GEMV four times a layer a step
-    (fused q|k|v, wo, fused gate|up or up, down) and once for the head.
+    reference sends any window to XLA), K1's GEMV once a quantized
+    projection plane a step (_k1_per_step: four a layer where q|k|v and
+    gate|up fuse, and the head). An ALiBi file launches neither K2 nor K3:
+    its attention takes the gather path, as the reference sends it to XLA.
     Then the same tokens through the plain path: the last prompt
     position's logits and every decode step's within the logits gate."""
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     hp = model.hp
-    glob = _global_layers(hp, n_ctx)
+    glob = [] if hp.alibi else _global_layers(hp, n_ctx)
     ctx = lambda **kw: Context(model, n_ctx=n_ctx, n_seq_max=1,
                                block_size=16, kv_type=kv, **kw)
     got = _launch_counts(torch, ctx(), prompt, QUIRK_DECODE)
@@ -3716,11 +3859,11 @@ def _path_prediction(torch, model, prompt, n_ctx: int,
                                got["tokens"])
     chunks = -(-len(prompt) // LONG_CHUNK)
     k3 = "paged_decode_q8" if kv == "q8_0" else "paged_decode"
-    want = {"prefill": {"flash_prefill": 0 if kv == "q8_0" else
+    want = {"prefill": {"flash_prefill": 0 if kv == "q8_0" or hp.alibi else
                         hp.n_layer * chunks, k3: 0},
             "decode": {"flash_prefill": 0,
                        k3: len(glob) * QUIRK_DECODE,
-                       "qmm_gemv": (4 * hp.n_layer + 1) * QUIRK_DECODE}}
+                       "qmm_gemv": _k1_per_step(model) * QUIRK_DECODE}}
     out = {"prompt": len(prompt), "kv": kv, "n_ctx": n_ctx,
            "global_layers": glob,
            "launches": {k: got[k] for k in ("prefill", "decode")},
@@ -3933,23 +4076,7 @@ def _ln_rows(kc) -> dict:
     return rows
 
 
-def _ln_load(label, hp, ftype, seed) -> tuple:
-    """A QUIRK_LN_SMALL file written and loaded on the card: (Model,
-    seconds the write took)."""
-    from llama_cpp_test_tpu_torch.runtime.engine import Model
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        path = os.path.join(tmp, f"{label}.gguf")
-        t0 = time.time()
-        write_llama_gguf(path, hp, seed=seed, ftype=ftype)
-        write_s = time.time() - t0
-        return Model(path, device="cuda"), write_s
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-
-def _ln_small(torch, label, hp, ftype, model, write_s) -> dict:
+def _ln_small(torch, label, hp, ftype, model, write_s, fitted) -> dict:
     """A 2-layer file at published widths, loaded: its logits over a
     130-token prefill (every row) and QUIRK_DECODE decode steps within the
     gate of the plain path at bf16 KV, and the launches its path predicts
@@ -3959,7 +4086,7 @@ def _ln_small(torch, label, hp, ftype, model, write_s) -> dict:
     checks, bad = _kernels_vs_plain(model, prompt[:130], [("bf16", None)],
                                     QUIRK_DECODE)
     out = {"phase": f"quirks_ln/{label}", "arch": model.hp.arch,
-           "n_layer": hp["n_layer"], "ftype": ftype,
+           "n_layer": hp["n_layer"], "ftype": ftype, "fitted_types": fitted,
            "write_gguf_s": write_s, "load_s": model.load_seconds,
            "plain_vs_kernel_nmse": checks, "gate": LOGITS_GATE,
            "path": _path_prediction(torch, model, prompt, 1024)}
@@ -3976,7 +4103,7 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
     """The LayerNorm, parallel-residual and partial-rope archs.
     Phi-3-mini-128k (Q4_K, head dim 96, long rope, window 262144) and
     Phi-2 (Q4_K, head dim 80, parallel residual) at published widths and
-    depth, each through _serve at bf16 and q8_0 KV (generate() at 16, 130
+    16 of 32 layers, each through _serve at bf16 and q8_0 KV (generate() at 16, 130
     and 512 tokens; the logits of a 130-token prefill and QUIRK_DECODE
     decode steps within the gate of the plain path), then a LN_PROMPT-token
     prompt at each n_ctx of QUIRK_LN_FILES with the launches the path
@@ -3985,8 +4112,8 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
     layer and once for the head) and its logits within the gate; Phi-3's
     rope table at n_ctx 8192 (long) and 2048 (short); the sched phase's
     eight requests at bf16 and q8_0 KV against their replay. Then the nine
-    2-layer files of QUIRK_LN_SMALL (_ln_load on three host threads,
-    _ln_small as each load completes), the K2, K3 and K3-q8 rows
+    2-layer files of QUIRK_LN_SMALL (_small_files: _small_load on three
+    host threads, _ln_small as each load completes), the K2, K3 and K3-q8 rows
     at D = 80 and 96 and K3 at G = 71 (_ln_rows), and the registers and
     spills of the D = 80 and 96 builds (a spill fails the build phase)."""
     files, launches = {}, {}
@@ -4019,22 +4146,9 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
                 _add_launches(launches, p["launches"][step])
         for kv in ("bf16", "q8_0"):
             _add_launches(launches, r["rows"]["sched"][kv]["launches"])
-    # the 2-layer files are written and loaded three at a time on host
-    # threads (their 50k-256k-row vocabularies repack for seconds each)
-    # while the card checks the ones already loaded, in the order they
-    # load; a file's seconds are its checks
-    ex = ThreadPoolExecutor(max_workers=3)
-    try:
-        loads = {ex.submit(_ln_load, *spec): spec for spec in QUIRK_LN_SMALL}
-        for load in as_completed(loads):
-            label, hp, ftype, _ = loads[load]
-            t0 = time.time()
-            files[label] = _ln_small(torch, label, hp, ftype,
-                                     *load.result())
-            files[label]["seconds"] = time.time() - t0
-            _add_launches(launches, files[label]["launches"])
-    finally:
-        ex.shutdown(wait=True, cancel_futures=True)
+    _small_files(QUIRK_LN_SMALL, files, launches,
+                 lambda label, hp, ftype, *loaded: _ln_small(
+                     torch, label, hp, ftype, *loaded))
     emit({"phase": "quirks_ln", "seconds": {
         label: round(f["seconds"], 1) for label, f in files.items()}})
     rows = _ln_rows(kc)
@@ -4049,6 +4163,358 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
     check(not missing, f"quirks_ln: kernels not launched: {missing}")
     return {"launches": launches, "files": files, "rows": rows,
             "builds": new_builds}
+
+
+# ---------------------------------------------------------------------------
+# the rest of the llama-body archs, and the position axes
+
+# MiniCPM-2B (openbmb/MiniCPM-2B-sft-bf16 config.json) published widths
+# and depth: MHA at D = 64, FFN 5760 (no multiple of 256: a Q8_0 file),
+# tied head, the mup scales (scale_emb 12, residual scale_depth 1.4 /
+# sqrt(40), logits divided by hidden / dim_model_base = 2304 / 256)
+MINICPM_2B = dict(arch="minicpm", n_vocab=122753, n_embd=2304, n_head=36,
+                  n_head_kv=36, head_dim=64, n_layer=40, n_ff=5760,
+                  tied=True, meta={"embedding_scale": 12.0,
+                                   "residual_scale": 1.4 / np.sqrt(40.0),
+                                   "logit_scale": 9.0})
+# Command R7B (CohereForAI/c4ai-command-r7b-12-2024 config.json) published
+# widths, depth cut from 32 to 4 layers (three sliding, one global, as
+# layers 0-3 are): GQA 32/8 at D = 128, sliding window 4096 on three
+# layers of four, no rope on the fourth, one weight-only LayerNorm feeding
+# a parallel gated FFN, logit_scale 0.25, rope base 50000, tied head
+COMMAND_R7B = dict(arch="cohere2", n_vocab=256000, n_embd=4096, n_head=32,
+                   n_head_kv=8, head_dim=128, n_layer=4, n_ff=14336,
+                   rope_base=50000.0, ln_eps=1e-5, ffn_norm=False, tied=True,
+                   sliding_window=4096, meta={"logit_scale": 0.25})
+# BitNet b1.58-3B (1bitLLM/bitnet_b1_58-3B config.json) published widths,
+# depth cut from 26 to 2 layers: D = 3200 / 32 = 100, the RMS sub-norms;
+# 3200 and 8640 are no multiple of 256 (nor TQ1_0's or TQ2_0's block), so
+# the file is Q8_0
+BITNET_3B = dict(arch="bitnet", n_vocab=32002, n_embd=3200, n_head=32,
+                 n_head_kv=32, head_dim=100, n_layer=2, n_ff=8640,
+                 tied=True, sub_norms=True)
+# the other llama-body archs at published widths (each model's
+# config.json), depth cut to 2 layers
+BODY_SMALL_HP = {
+    # internlm/internlm2-7b: GQA 32/8, rope base 1e6
+    "internlm2_7b": dict(arch="internlm2", n_vocab=92544, n_embd=4096,
+                         n_head=32, n_head_kv=8, head_dim=128, n_ff=14336,
+                         rope_base=1e6),
+    # baichuan-inc/Baichuan2-7B-Base: MHA, rope (no max_alibi_bias key)
+    "baichuan2_7b": dict(arch="baichuan", n_vocab=125696, n_embd=4096,
+                         n_head=32, n_head_kv=32, head_dim=128, n_ff=11008,
+                         rms_eps=1e-6),
+    # xverse/XVERSE-7B: MHA
+    "xverse_7b": dict(arch="xverse", n_vocab=100534, n_embd=4096,
+                      n_head=32, n_head_kv=32, head_dim=128, n_ff=11008,
+                      rms_eps=1e-6),
+    # OrionStarAI/Orion-14B-Base: LayerNorms with biases, NEOX rope
+    "orion_14b": dict(arch="orion", n_vocab=84608, n_embd=5120, n_head=40,
+                      n_head_kv=40, head_dim=128, n_ff=15360, ln_eps=1e-5,
+                      norm_bias=True),
+    # Qwen/Qwen-7B: fused c_attn with its bias, FFN 22016 / 2
+    "qwen_7b": dict(arch="qwen", n_vocab=151936, n_embd=4096, n_head=32,
+                    n_head_kv=32, head_dim=128, n_ff=11008, rms_eps=1e-6,
+                    fused_qkv=True, qkv_bias=True),
+    # LGAI-EXAONE/EXAONE-3.5-2.4B-Instruct: GQA 32/8 at D = 80, tied head
+    "exaone35_24b": dict(arch="exaone", n_vocab=102400, n_embd=2560,
+                         n_head=32, n_head_kv=8, head_dim=80, n_ff=7168,
+                         rope_base=1e6, tied=True),
+    # WisdomShell/CodeShell-7B: GQA 32/8, LayerNorms with biases, fused
+    # QKV with bias, wo bias, a non-gated GELU FFN with biases
+    "codeshell_7b": dict(arch="codeshell", n_vocab=70144, n_embd=4096,
+                         n_head=32, n_head_kv=8, head_dim=128, n_ff=16384,
+                         ln_eps=1e-5, norm_bias=True, fused_qkv=True,
+                         qkv_bias=True, bo=True, ffn="up", ffn_bias=True),
+    # THUDM/chatglm3-6b: 2 KV groups, partial NORM rope (64 of 128), Q/K/V
+    # biases, [gate|up] in one ffn_up of 2 x 13696 rows (13696: Q8_0 down)
+    "chatglm3_6b": dict(arch="chatglm", n_vocab=65024, n_embd=4096,
+                        n_head=32, n_head_kv=2, head_dim=128, rope_dim=64,
+                        n_ff=13696, qkv_bias=True, ffn="fused"),
+    # pfnet/plamo-13b: one RMS norm feeding the parallel attention and
+    # gated FFN
+    "plamo_13b": dict(arch="plamo", n_vocab=50432, n_embd=5120, n_head=40,
+                      n_head_kv=40, head_dim=128, n_ff=13312, rms_eps=1e-6,
+                      ffn_norm=False),
+}
+# GPT-2 (openai-community/gpt2 config.json) published widths and depth:
+# 1024 learned positions, LayerNorms with biases, fused QKV with bias, wo
+# bias, a non-gated GELU FFN with biases, tied head
+GPT2_124M = dict(arch="gpt2", n_vocab=50257, n_embd=768, n_head=12,
+                 n_head_kv=12, head_dim=64, n_layer=12, n_ff=3072,
+                 ln_eps=1e-5, norm_bias=True, fused_qkv=True, qkv_bias=True,
+                 bo=True, ffn="up", ffn_bias=True, tied=True, pos_rows=1024)
+# BLOOM-560m (bigscience/bloom-560m config.json) published widths and
+# depth: ALiBi over 16 heads, the embedding LayerNorm, the gpt2 layout
+# otherwise, tied head of 250880 rows
+BLOOM_560M = dict(GPT2_124M, arch="bloom", n_vocab=250880, n_embd=1024,
+                  n_head=16, n_head_kv=16, n_layer=24, n_ff=4096,
+                  pos_rows=0, tok_norm=True)
+POSITION_SMALL_HP = {
+    # bigcode/starcoderbase-1b: MQA at D = 128, 8192 learned positions
+    "starcoderbase_1b": dict(GPT2_124M, arch="starcoder", n_vocab=49152,
+                             n_embd=2048, n_head=16, n_head_kv=1,
+                             head_dim=128, n_ff=8192, pos_rows=8192),
+    # mosaicml/mpt-7b: ALiBi, no biases, weight-only LayerNorms, the exact
+    # GELU, tied head
+    "mpt_7b": dict(arch="mpt", n_vocab=50432, n_embd=4096, n_head=32,
+                   n_head_kv=32, head_dim=128, n_ff=16384, ln_eps=1e-5,
+                   fused_qkv=True, ffn="up", tied=True),
+    # inceptionai/jais-13b: ALiBi over 40 heads (no power of two: bloom's
+    # slope order), a gated FFN of 13653 with gate, up and down biases
+    # (13653: a BF16 down), 1/d_head attention, tied head
+    "jais_13b": dict(arch="jais", n_vocab=84992, n_embd=5120, n_head=40,
+                     n_head_kv=40, head_dim=128, n_ff=13653, ln_eps=1e-5,
+                     norm_bias=True, fused_qkv=True, qkv_bias=True, bo=True,
+                     ffn_bias=True, gate_bias=True, tied=True),
+    # smallcloudai/Refact-1_6B-fim: ALiBi, MQA at D = 64, RMS norms
+    "refact_16b": dict(arch="refact", n_vocab=49216, n_embd=2048, n_head=32,
+                       n_head_kv=1, head_dim=64, n_ff=5632),
+    # baichuan-inc/Baichuan2-13B-Base: ALiBi (the 40-layer class; at 2
+    # layers by its max_alibi_bias key), MHA, 13696 (Q8_0 down)
+    "baichuan2_13b": dict(arch="baichuan", n_vocab=125696, n_embd=5120,
+                          n_head=40, n_head_kv=40, head_dim=128, n_ff=13696,
+                          rms_eps=1e-6,
+                          meta={"attention.max_alibi_bias": 8.0}),
+}
+R7B_PROMPT = 4608 + 64      # past Command R7B's 4096 window: 10 K2 chunks
+R7B_SHIFT = (64, 512)       # n_keep, n_discard of its context shift
+
+
+def _small_load(label, hp, ftype, seed) -> tuple:
+    """A 2-layer file at published widths, written (no tokenizer: its
+    checks feed token ids) and loaded on the card: (Model, seconds the
+    write took, the types _fit_type chose)."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Model
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        path = os.path.join(tmp, f"{label}.gguf")
+        t0 = time.time()
+        fitted = write_llama_gguf(path, dict(hp, n_layer=2), seed=seed,
+                                  ftype=ftype, vocab=None)
+        write_s = time.time() - t0
+        return Model(path, device="cuda"), write_s, fitted
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _small_check(torch, phase, label, model, write_s, fitted) -> dict:
+    """A loaded 2-layer file: generate() on a 16-token prompt and one
+    batched decode of 8 rows at bf16 and q8_0 KV, its logits over a
+    130-token prefill (every row) and QUIRK_DECODE decode steps within the
+    gate of the plain path at bf16 KV, and the launches its path predicts
+    over a LN_PROMPT-token prompt at bf16 and q8_0 KV."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    hp = model.hp
+    rng = np.random.default_rng(13)
+    prompt = rng.integers(3, hp.n_vocab, size=LN_PROMPT).tolist()
+    served = {}
+    for kv in ("bf16", "q8_0"):
+        ctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16,
+                      kv_type=kv)
+        served[kv] = _serve_requests(torch, ctx, [prompt[:16], prompt[:24]],
+                                     hp.n_vocab, 8)
+        del ctx
+    checks, bad = _kernels_vs_plain(model, prompt[:130], [("bf16", None)],
+                                    QUIRK_DECODE)
+    out = {"phase": f"{phase}/{label}", "arch": hp.arch, "n_layer": 2,
+           "fitted_types": fitted, "write_gguf_s": write_s,
+           "load_s": model.load_seconds, "requests": served,
+           "plain_vs_kernel_nmse": checks, "gate": LOGITS_GATE,
+           "path": [_path_prediction(torch, model, prompt, 1024, kv)
+                    for kv in ("bf16", "q8_0")]}
+    emit(out)
+    check(not bad, f"{label}: logits outside the gate: {bad}")
+    out["launches"] = {}
+    for p in out["path"]:
+        for step in ("prefill", "decode"):
+            _add_launches(out["launches"], p["launches"][step])
+    return out
+
+
+def _small_files(specs, files, launches, check) -> None:
+    """The 2-layer files of specs ((label, geometry, type, seed)), written
+    and loaded three at a time on host threads (their vocabularies repack
+    for seconds each) while the card checks the ones already loaded, in
+    the order they load, by check(label, geometry, type, model, write
+    seconds, fitted types); a file's seconds are its checks."""
+    ex = ThreadPoolExecutor(max_workers=3)
+    try:
+        loads = {ex.submit(_small_load, *spec): spec for spec in specs}
+        for load in as_completed(loads):
+            label, hp, ftype, _ = loads[load]
+            t0 = time.time()
+            files[label] = check(label, hp, ftype, *load.result())
+            files[label]["seconds"] = time.time() - t0
+            _add_launches(launches, files[label]["launches"])
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+
+
+def _shift_vs_plain(torch, model, prompt, n_ctx: int, kv: str) -> dict:
+    """One context shift (R7B_SHIFT) of a sequence that holds `prompt`,
+    then QUIRK_DECODE greedy decode steps, through the kernels and through
+    the plain path on the same tokens: the logits within the gate. The
+    sliding layers' K is re-rotated, the global layer's (no rope) moved.
+    A fresh prefill of the kept tokens is printed beside, ungated: the
+    kept tokens' deeper K and V still carry the dropped ones, in the
+    reference and in llama.cpp alike."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    n_keep, n_discard = R7B_SHIFT
+
+    def run(plain, tokens=None):
+        ctx = Context(model, n_ctx=n_ctx, n_seq_max=1, block_size=16,
+                      kv_type=kv, plain=plain)
+        s = ctx.new_seq()
+        for i in range(0, len(prompt), LONG_CHUNK):
+            ctx.prefill(s, prompt[i:i + LONG_CHUNK])
+        ctx.shift_context(s, n_keep, n_discard)
+        rows, toks = [], []
+        nxt = 11
+        for i in range(QUIRK_DECODE):
+            toks.append(tokens[i] if tokens else nxt)
+            rows.append(ctx.decode([s], toks[-1:])[0])
+            nxt = int(np.argmax(rows[-1]))
+        ctx.free_seq(s)
+        return rows, toks
+
+    got, toks = run(False)
+    with _plain_min("fold"):
+        want, _ = run(True, toks)
+    kept = prompt[:n_keep] + prompt[n_keep + n_discard:]
+    ctx = Context(model, n_ctx=n_ctx, n_seq_max=1, block_size=16, kv_type=kv)
+    s = ctx.new_seq()
+    for i in range(0, len(kept), LONG_CHUNK):
+        ctx.prefill(s, kept[i:i + LONG_CHUNK])
+    fresh = ctx.decode([s], toks[:1])[0]
+    out = {"kv": kv, "n_keep": n_keep, "n_discard": n_discard,
+           "nmse": [nmse(a, b) for a, b in zip(want, got)],
+           "gate": LOGITS_GATE, "fresh_prefill_nmse_ungated": nmse(fresh,
+                                                                   got[0])}
+    check(all(np.isfinite(r).all() for r in got)
+          and max(out["nmse"]) < LOGITS_GATE,
+          f"{model.hp.arch}/{kv}: shifted logits outside the gate: {out}")
+    return out
+
+
+# (label, geometry, GGUF type, seed, the n_ctx of the path predictions)
+BODY_FILES = (("minicpm_2b", MINICPM_2B, "Q8_0", 71, 1024),
+              ("command_r7b", COMMAND_R7B, "Q4_K", 72, 5120),
+              ("bitnet_3b", BITNET_3B, "Q8_0", 73, 1024))
+BODY_SMALL = tuple((label, hp, "Q4_K", 74 + i)
+                   for i, (label, hp) in enumerate(BODY_SMALL_HP.items()))
+POSITION_FILES = (("gpt2", GPT2_124M, "Q4_K", 91),
+                  ("bloom_560m", BLOOM_560M, "Q4_K", 92))
+POSITION_SMALL = tuple((label, hp, "Q4_K", 93 + i) for i, (label, hp)
+                       in enumerate(POSITION_SMALL_HP.items()))
+
+
+def _headline(torch, phase, label, hp, ftype, seed, n_ctx, nvidia_smi,
+              profile, extra=None) -> dict:
+    """A headline file through _serve at bf16 and q8_0 KV (generate() at
+    16, 130 and 512 tokens, a batched decode of 8, the logits of a
+    130-token prefill and QUIRK_DECODE decode steps within the gate of the
+    plain path), then the launches its path predicts at each KV type over
+    a prompt of LN_PROMPT tokens, or R7B_PROMPT past a window; extra(model)
+    adds checks."""
+    long = hp.get("sliding_window", 0) > 0
+
+    def more(model):
+        prompt = np.random.default_rng(12).integers(
+            3, hp["n_vocab"], size=R7B_PROMPT if long else LN_PROMPT).tolist()
+        out = {"path": [_path_prediction(torch, model, prompt, n_ctx, kv)
+                        for kv in ("bf16", "q8_0")], "card": nvidia_smi}
+        if extra is not None:
+            out.update(extra(model, prompt))
+        emit({"phase": f"{phase}/{label}", "checks": out})
+        return out
+
+    t0 = time.time()
+    r = _serve(torch, f"{phase}/{label}", hp, seed,
+               [("bf16", None), ("q8_0", None)], 8, (), profile,
+               ftype=ftype, n_ctx=min(n_ctx, hp.get("pos_rows") or n_ctx),
+               n_decode=QUIRK_DECODE, rows=more)
+    r["seconds"] = time.time() - t0
+    return r
+
+
+def _collect(files, launches) -> None:
+    """Add a headline file's launches (its serve and its paths) to the
+    phase's."""
+    for r in files.values():
+        _add_launches(launches, r["launches"])
+        for p in r["rows"]["path"]:
+            for step in ("prefill", "decode"):
+                _add_launches(launches, p["launches"][step])
+
+
+def phase_quirks_body(torch, kc, nvidia_smi: str, build: dict,
+                      profile: bool = False) -> dict:
+    """The llama-body archs that need only small switches. MiniCPM-2B
+    (Q8_0, full depth, the mup scales), Command R7B (cohere2, Q4_K, 4
+    layers) and BitNet b1.58-3B (Q8_0, 2 layers, D = 100) through
+    _headline at bf16 and q8_0 KV; Command R7B over a R7B_PROMPT-token
+    prompt past its window (K3 on its global layer alone) and one context
+    shift at each KV type held to the plain path (_shift_vs_plain). Then
+    the nine 2-layer files of BODY_SMALL (_small_files) and the registers
+    and spills of the D = 100 builds (a spill fails the build phase; the
+    kernels phase holds K2, K3 and K3-q8 at D = 100 to their plain
+    versions)."""
+    files, launches = {}, {}
+    for label, hp, ftype, seed, n_ctx in BODY_FILES:
+        extra = None
+        if hp["arch"] == "cohere2":
+            extra = lambda model, prompt, n=n_ctx: {"shift": [
+                _shift_vs_plain(torch, model, prompt, n, kv)
+                for kv in ("bf16", "q8_0")]}
+        files[label] = _headline(torch, "quirks_body", label, hp, ftype,
+                                 seed, n_ctx, nvidia_smi, profile, extra)
+    _collect(files, launches)
+    _small_files(BODY_SMALL, files, launches,
+                 lambda label, hp, ftype, *loaded: _small_check(
+                     torch, "quirks_body", label, *loaded))
+    emit({"phase": "quirks_body", "seconds": {
+        label: round(f["seconds"], 1) for label, f in files.items()}})
+    new_builds = {k: v for k, v in build.items()
+                  if re.search(r"^(flash_prefill|paged_decode) D=100\b", k)}
+    emit({"phase": "quirks_body", "builds": new_builds, "card": nvidia_smi})
+    check(len(new_builds) == 3 and not any(
+        v["spill_bytes"] for v in new_builds.values()),
+          f"quirks_body: the D = 100 builds: {new_builds}")
+    missing = [k for k in DENSE_PATH + ("paged_decode_q8",)
+               if launches.get(k, 0) <= 0]
+    check(not missing, f"quirks_body: kernels not launched: {missing}")
+    return {"launches": launches, "files": files, "rows": {},
+            "builds": new_builds}
+
+
+def phase_positions(torch, kc, nvidia_smi: str,
+                    profile: bool = False) -> dict:
+    """The position axes. GPT-2 (Q4_K, 1024 learned positions) and
+    BLOOM-560m (Q4_K, ALiBi, the embedding LayerNorm) at published widths
+    and depth through _headline at bf16 and q8_0 KV: K2 once a layer a
+    chunk and K3 (K3-q8) once a layer a step on GPT-2, neither on BLOOM,
+    whose attention takes the gather path as the reference sends ALiBi to
+    XLA; then the five 2-layer files of POSITION_SMALL (StarCoderBase-1B,
+    MPT-7B, Jais-13B, Refact-1.6B, Baichuan2-13B) with the same launch
+    checks."""
+    files, launches = {}, {}
+    for label, hp, ftype, seed in POSITION_FILES:
+        files[label] = _headline(torch, "positions", label, hp, ftype, seed,
+                                 1024, nvidia_smi, profile)
+    _collect(files, launches)
+    _small_files(POSITION_SMALL, files, launches,
+                 lambda label, hp, ftype, *loaded: _small_check(
+                     torch, "positions", label, *loaded))
+    emit({"phase": "positions", "seconds": {
+        label: round(f["seconds"], 1) for label, f in files.items()}})
+    missing = [k for k in DENSE_PATH + ("paged_decode_q8",)
+               if launches.get(k, 0) <= 0]
+    check(not missing, f"positions: kernels not launched: {missing}")
+    return {"launches": launches, "files": files, "rows": {}}
 
 
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
@@ -4207,6 +4673,10 @@ def main() -> int:
                                  prof)
         serves["quirks_ln"] = timed("quirks_ln", phase_quirks_ln, torch, kc,
                                     smi, build, prof)
+        serves["quirks_body"] = timed("quirks_body", phase_quirks_body,
+                                      torch, kc, smi, build, prof)
+        serves["positions"] = timed("positions", phase_positions, torch, kc,
+                                    smi, prof)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -83,6 +83,15 @@ static __device__ __forceinline__ void cp_async16(const void* dst,
                "l"(src), "r"(full ? 16 : 0)
                : "memory");
 }
+// 8 bytes global -> shared, asynchronously; zeros where !full (rows whose
+// byte length is a multiple of 8 but not of 16: a bf16 row of D = 100)
+static __device__ __forceinline__ void cp_async8(const void* dst,
+                                                 const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 8 : 0)
+               : "memory");
+}
 // 4 bytes global -> shared, asynchronously; zeros where !full
 static __device__ __forceinline__ void cp_async4(const void* dst,
                                                  const void* src, bool full) {
@@ -91,6 +100,28 @@ static __device__ __forceinline__ void cp_async4(const void* dst,
                "l"(src), "r"(full ? 4 : 0)
                : "memory");
 }
+// BYTES (16, 8 or 4) global -> shared, asynchronously; zeros where !full
+template <int BYTES>
+static __device__ __forceinline__ void cp_async_n(const void* dst,
+                                                  const void* src, bool full) {
+  static_assert(BYTES == 16 || BYTES == 8 || BYTES == 4, "cp.async size");
+  if constexpr (BYTES == 16)
+    cp_async16(dst, src, full);
+  else if constexpr (BYTES == 8)
+    cp_async8(dst, src, full);
+  else
+    cp_async4(dst, src, full);
+}
+// the widest cp.async (16, 8 or 4 bytes) that a row of ROW_BYTES bytes
+// divides into, so every copy of a row laid out at multiples of ROW_BYTES
+// is aligned to its size
+__host__ __device__ constexpr int copy_bytes(int row_bytes) {
+  return row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : 4;
+}
+// a head dim padded to the 16 of an m16n8k16 k-step: the dim the kernels
+// hold in registers and shared memory (D = 100 runs at 112, its padded
+// lanes zero)
+__host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
 static __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -52,7 +52,17 @@
 //     16-wide k-step of S = Q.K^T reloads its Q fragment from the Q tile,
 //     which stays in shared memory for the whole walk (one ldmatrix a
 //     k-step, beside the two for K). The Q tile and two 64-key stages fill
-//     169 KB: one block an SM.
+//     169 KB: one block an SM;
+//   - D = 100 (BitNet b1.58-3B) is no multiple of 16, nor of 8: a bf16 row
+//     is 200 bytes, so a row at any slot is 8-byte aligned and no more.
+//     The kernel runs at DP = pad16(D) = 112 in registers and shared
+//     memory (7 k-steps, 14 O tiles, rows of 120 bf16), copies each row of
+//     Q, K and V by 8-byte cp.async (25 a row) and zero-fills lanes
+//     100..111 with the same copies at source size 0, so the padded lanes
+//     add exact zeros to Q.K^T and to P.V; O's padded columns are never
+//     stored. The pool keeps its [.., 100] rows: no session file, gather
+//     or KV byte changes. Where D is a multiple of 8 (every other dim), DP
+//     = D and the copies stay 16 bytes.
 #include "common.cuh"
 
 namespace {
@@ -64,19 +74,20 @@ constexpr int FP_PAGES = 1024;   // page ids staged in shared memory
 
 template <int D>
 struct FpPlan {
-  static constexpr int LD = D + 8;             // bf16 a padded smem row
+  static constexpr int DP = pad16(D);          // the dim held (D = 100: 112)
+  static constexpr int LD = DP + 8;            // bf16 a padded smem row
   static constexpr int TILE = FP_KEYS * LD;    // one K or V tile
   static constexpr int Q = FP_ROWS * LD;
-  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int STAGES = DP == 64 ? 3 : 2;
   // Q's fragments held in registers through the walk (D <= 128), or
   // reloaded from the Q tile at each k-step (D = 256, where holding them
   // spills). Reloading at D = 64/128 took 1.011-1.018x the held time over
   // the kernel rows (tools/attn_rows.py, H100 80GB HBM3 at 700 W).
-  static constexpr bool QREG = D <= 128;
+  static constexpr bool QREG = DP <= 128;
   // Q, the ring of K and V tiles, the page ids
   static constexpr int BYTES = (Q + 2 * STAGES * TILE) * 2 + FP_PAGES * 4;
   // blocks an SM's 227 KB of shared memory holds (3 at D = 64, 80 and
-  // 96, 2 at 128, 1 at 256);
+  // 96, 2 at 100 and 128, 1 at 256);
   // the launch bounds let ptxas take the registers that many leave
   static constexpr int BLOCKS = 232448 / (BYTES + 1024);
 };
@@ -129,7 +140,11 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      int NB, int BS, int nbmax, int G, int n_tiles,
                      int window, float soft_cap) {
   using P = FpPlan<D>;
-  constexpr int LD = P::LD, DC = D / 8, STAGES = P::STAGES;
+  constexpr int LD = P::LD, DP = P::DP, STAGES = P::STAGES;
+  // a row's copies: CB bytes (CE bf16) each, NCH of them over the DP held
+  // lanes, the first VCH from the row and the rest zero-filled
+  constexpr int CB = copy_bytes(D * 2), CE = CB / 2;
+  constexpr int NCH = DP / CE, VCH = D / CE;
   extern __shared__ __align__(128) unsigned char fp_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fp_smem);
   __nv_bfloat16* Ks = Qs + P::Q;                // [STAGES][FP_KEYS][LD]
@@ -156,10 +171,11 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     atomicMin(&s_lo, pos_b[t]);
     atomicMax(&s_hi, pos_b[t]);
   }
-  for (int i = tid; i < FP_ROWS * DC; i += FP_THREADS) {
-    const int r = i / DC, c = i % DC, gr = r0 + r;
-    cp_async16(Qs + r * LD + c * 8,
-               gr < rows ? q + q_row(gr) * D + c * 8 : q, gr < rows);
+  for (int i = tid; i < FP_ROWS * NCH; i += FP_THREADS) {
+    const int r = i / NCH, c = i % NCH, gr = r0 + r;
+    const bool ok = gr < rows && c < VCH;
+    cp_async_n<CB>(Qs + r * LD + c * CE, ok ? q + q_row(gr) * D + c * CE : q,
+                   ok);
   }
   const int* pg_b = pages + (size_t)b * nbmax;
   for (int i = tid; i < min(nbmax, FP_PAGES); i += FP_THREADS) pg_s[i] = pg_b[i];
@@ -175,15 +191,15 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   auto load_tile = [&](int kt) {
     __nv_bfloat16* kd = Ks + (kt % STAGES) * P::TILE;
     __nv_bfloat16* vd = Vs + (kt % STAGES) * P::TILE;
-    for (int i = tid; i < FP_KEYS * DC; i += FP_THREADS) {
-      const int r = i / DC, c = i % DC, s = kt * FP_KEYS + r, pg = s / BS;
-      const bool ok = s < len && pg < nbmax;
+    for (int i = tid; i < FP_KEYS * NCH; i += FP_THREADS) {
+      const int r = i / NCH, c = i % NCH, s = kt * FP_KEYS + r, pg = s / BS;
+      const bool ok = s < len && pg < nbmax && c < VCH;
       size_t off = 0;
       if (ok)
         off = (((size_t)kvh * NB + (pg < FP_PAGES ? pg_s[pg] : pg_b[pg])) *
-                   BS + s % BS) * D + c * 8;
-      cp_async16(kd + r * LD + c * 8, kp + off, ok);
-      cp_async16(vd + r * LD + c * 8, vp + off, ok);
+                   BS + s % BS) * D + c * CE;
+      cp_async_n<CB>(kd + r * LD + c * CE, kp + off, ok);
+      cp_async_n<CB>(vd + r * LD + c * CE, vp + off, ok);
     }
   };
 
@@ -195,13 +211,13 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     prow[h] = gr < rows ? pos_b[gr / G] : -1;
   }
 
-  float o[D / 8][4];
+  float o[DP / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};
-  uint32_t qf[P::QREG ? D / 16 : 1][4];
+  uint32_t qf[P::QREG ? DP / 16 : 1][4];
 
   // commit groups: Q with tile 0, then one a tile (empty past the last),
   // so group it is complete when at most STAGES - 1 are pending
@@ -221,7 +237,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     if constexpr (P::QREG) {
       if (it == 0) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], q_frag + kk * 16);
+        for (int kk = 0; kk < DP / 16; ++kk) ldsm_x4(qf[kk], q_frag + kk * 16);
       }
     }
     const __nv_bfloat16* kt = Ks + ((tile0 + it) % STAGES) * P::TILE;
@@ -234,7 +250,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       uint32_t qa[4];
       if constexpr (P::QREG) {
 #pragma unroll
@@ -285,7 +301,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       l_r[h] *= alpha[h];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
 #pragma unroll
@@ -306,7 +322,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                               pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
                               pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
 #pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
+      for (int j = 0; j < DP / 8; j += 2) {
         uint32_t vb[4];
         ldsm_x4_t(vb, vt + (16 * kk + (lane & 15)) * LD + (j + (lane >> 4)) * 8);
         mma16816(o[j], pa, vb[0], vb[1]);
@@ -327,9 +343,10 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     if (gr >= rows) continue;
     __nv_bfloat16* op = out + q_row(gr) * D + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
-          o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+    for (int j = 0; j < DP / 8; ++j)
+      if (DP == D || 8 * j + 2 * (lane & 3) < D)   // no padded column
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+            __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
   }
 }
 
@@ -357,8 +374,8 @@ int launch(const void* q, const void* k, const void* v, const void* positions,
 
 }  // namespace
 
-// D in {64, 80, 96, 128, 256}; BS a multiple of 8, at most 64; any T and
-// any G = H / KV.
+// D in {64, 80, 96, 100, 128, 256}; BS a multiple of 8, at most 64; any T
+// and any G = H / KV.
 PORT_API int flash_prefill(const void* q, const void* k, const void* v,
                            const void* positions, const void* kv_len,
                            const void* pages, void* out, int B, int T, int H,
@@ -377,6 +394,9 @@ PORT_API int flash_prefill(const void* q, const void* k, const void* v,
     case 96:
       return launch<96>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
                         NB, BS, nbmax, window, soft_cap, st);
+    case 100:
+      return launch<100>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
+                         NB, BS, nbmax, window, soft_cap, st);
     case 128:
       return launch<128>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
                          NB, BS, nbmax, window, soft_cap, st);

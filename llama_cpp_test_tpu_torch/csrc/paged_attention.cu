@@ -58,6 +58,14 @@
 // D = 80 and 96 (Phi-2, Phi-3) take the same walk: 5 or 6 k-steps, 10 or
 // 12 O tiles in pairs, 10 or 12 16-byte chunks a bf16 row and 5 or 6 an
 // int8 one (rows of 96 or 112 bytes staged), no power of two assumed.
+// D = 100 (BitNet b1.58-3B) is no multiple of 8: its rows (200 bytes in
+// bf16, 100 in int8) are 8- and 4-byte aligned only. The block holds
+// DP = pad16(D) = 112 lanes in shared memory and registers (7 k-steps, 14
+// O tiles), copies a bf16 row by 25 8-byte cp.async and an int8 row by 25
+// 4-byte ones, and zero-fills lanes 100..111 with the same copies at
+// source size 0 (Q's too), so the padded lanes add exact zeros; the
+// in-block merge and the output, the workspace and the merge kernel keep
+// D = 100 (100 threads). The pool keeps its [.., 100] rows.
 // The merge kernel takes one block per query head, a thread per dim (80
 // threads: two warps and a half one; its warp-wide reductions run in
 // warp 0 alone, which is whole), its
@@ -87,14 +95,15 @@ constexpr int NST = 2;        // ring stages
 template <int D, typename T>
 struct Plan {
   static constexpr bool Q8 = sizeof(T) == 1;
-  static constexpr int LD = D + 8;                    // bf16 an mma tile row
-  static constexpr int ROW = D * (int)sizeof(T) + 16; // bytes a staged row
+  static constexpr int DP = pad16(D);                 // lanes held (100: 112)
+  static constexpr int LD = DP + 8;                   // bf16 an mma tile row
+  static constexpr int ROW = DP * (int)sizeof(T) + 16;  // bytes a staged row
   static constexpr int TILE = TK * ROW;
   static constexpr int SCALES = Q8 ? 2 * TK * 4 : 0;
   static constexpr int STAGE = 2 * TILE + SCALES;
   static constexpr int DEQ = Q8 ? 2 * TK * LD * 2 : 0;
   static constexpr int QBYTES = ROWS * LD * 2;
-  static constexpr int OLD = D + 4;                   // f32 a merge row
+  static constexpr int OLD = DP + 4;                  // f32 a merge row
   static constexpr int MERGE = (4 * ROWS * OLD + 2 * 4 * ROWS) * 4;
   static constexpr int BODY = NST * STAGE + DEQ > MERGE ? NST * STAGE + DEQ
                                                         : MERGE;
@@ -156,8 +165,16 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     int H, int KV, int NB, int BS, int nbmax, int G,
                     int split_pages, float soft_cap) {
   using P = Plan<D, T>;
-  constexpr int LD = P::LD;
-  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte chunks a row
+  constexpr int LD = P::LD, DP = P::DP;
+  // a staged row's copies: CB bytes each, NCH over the DP held lanes, the
+  // first VCH from the row and the rest zero-filled; its dequantization
+  // (q8) walks CPR 16-byte chunks; Q's bf16 rows take QB-byte copies (QE
+  // lanes each), QN over DP lanes, the first QV from the row
+  constexpr int CB = copy_bytes(D * (int)sizeof(T));
+  constexpr int NCH = DP * (int)sizeof(T) / CB, VCH = D * (int)sizeof(T) / CB;
+  constexpr int CPR = DP * (int)sizeof(T) / 16;
+  constexpr int QB = copy_bytes(D * 2), QE = QB / 2;
+  constexpr int QN = DP / QE, QV = D / QE;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   unsigned char* ring = smem + P::QBYTES;
@@ -194,29 +211,29 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Q rows: heads g0.. of kv head kvh, zeros past the live ones
   const __nv_bfloat16* qb = q + ((size_t)b * H + kvh * G + g0) * D;
-  for (int i = tid; i < ROWS * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), c = i % (D / 8);
-    cp_async16(Qs + r * LD + c * 8, r < rows ? qb + r * D + c * 8 : qb,
-               r < rows);
+  for (int i = tid; i < ROWS * QN; i += THREADS) {
+    const int r = i / QN, c = i % QN;
+    const bool ok = r < rows && c < QV;
+    cp_async_n<QB>(Qs + r * LD + c * QE, ok ? qb + r * D + c * QE : qb, ok);
   }
   __syncthreads();  // the page ids
 
-  // tile t of the split into ring stage t % NST: key and value rows (and
-  // q8 slot scales) by 16- and 4-byte cp.async; keys past the split's end
-  // arrive as zeros and are masked
+  // tile t of the split into ring stage t % NST: key and value rows by
+  // CB-byte cp.async (and q8 slot scales by 4-byte ones); keys past the
+  // split's end arrive as zeros and are masked
   auto slot = [&](int key) {  // the pool slot of key (< k_hi)
     return ((size_t)kvh * NB + s_page[(key - k_lo) / BS]) * BS + key % BS;
   };
   auto issue = [&](int t) {
     unsigned char* st = ring + (t % NST) * P::STAGE;
     const int k0 = k_lo + t * TK;
-    for (int i = tid; i < 2 * TK * CPR; i += THREADS) {
-      const int v = i / (TK * CPR), r = (i / CPR) % TK, c = i % CPR;
+    for (int i = tid; i < 2 * TK * NCH; i += THREADS) {
+      const int v = i / (TK * NCH), r = (i / NCH) % TK, c = i % NCH;
       const int key = k0 + r;
-      const bool ok = key < k_hi;
+      const bool ok = key < k_hi && c < VCH;
       const T* src = v ? vp : kp;
-      if (ok) src += slot(key) * D + c * (16 / (int)sizeof(T));
-      cp_async16(st + v * P::TILE + r * P::ROW + c * 16, src, ok);
+      if (ok) src += slot(key) * D + c * (CB / (int)sizeof(T));
+      cp_async_n<CB>(st + v * P::TILE + r * P::ROW + c * CB, src, ok);
     }
     if constexpr (P::Q8) {
       for (int i = tid; i < 2 * TK; i += THREADS) {
@@ -229,9 +246,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  float o[D / 8][4];
+  float o[DP / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};
@@ -285,7 +302,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     // S = Q . K^T: 16 rows x the warp's 16 keys
     float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       uint32_t qa[4], kb[4];
       ldsm_x4(qa, q_frag + kk * 16);
       ldsm_x4(kb, kt + (kw + (lane & 7) + ((lane >> 4) << 3)) * LD +
@@ -318,7 +335,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       l_r[h] *= alpha[h];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
 #pragma unroll
@@ -337,7 +354,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                             pack_bf16x2(sc[1][0], sc[1][1]),
                             pack_bf16x2(sc[1][2], sc[1][3])};
 #pragma unroll
-    for (int j = 0; j < D / 8; j += 2) {
+    for (int j = 0; j < DP / 8; j += 2) {
       uint32_t vb[4];
       ldsm_x4_t(vb, vt + (kw + (lane & 15)) * LD + (j + (lane >> 4)) * 8);
       mma16816(o[j], pa, vb[0], vb[1]);
@@ -364,7 +381,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       s_l[r] = l;
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DP / 8; ++j)
       *reinterpret_cast<float2*>(s_o + r * P::OLD + 8 * j + 2 * (lane & 3)) =
           make_float2(o[j][2 * h], o[j][2 * h + 1]);
   }
@@ -477,7 +494,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            void* ws, int B, int H, int KV, int NB, int BS, int D, int nbmax,
            int splits, int split_pages, float soft_cap, void* stream) {
   if (B < 1 || KV <= 0 || H % KV || BS < 1 ||
-      (D != 64 && D != 80 && D != 96 && D != 128 && D != 256) ||
+      (D != 64 && D != 80 && D != 96 && D != 100 && D != 128 && D != 256) ||
       splits < 1 || split_pages < 1 ||
       (long long)splits * split_pages < nbmax ||
       (splits > 1 && ws == nullptr))
@@ -494,6 +511,9 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   else if (D == 96)
     launch_d<96, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV, NB,
                     BS, nbmax, G, split_pages, soft_cap, st);
+  else if (D == 100)
+    launch_d<100, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
+                     NB, BS, nbmax, G, split_pages, soft_cap, st);
   else if (D == 128)
     launch_d<128, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
                      NB, BS, nbmax, G, split_pages, soft_cap, st);
@@ -523,7 +543,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// q/out [B, H, D] bf16, D in {64, 80, 96, 128, 256}; k/v [KV, NB, BS, D]
+// q/out [B, H, D] bf16, D in {64, 80, 96, 100, 128, 256}; k/v [KV, NB, BS, D]
 // bf16;
 // lengths [B], pages
 // [B, nbmax] int32. The sequence's pages split into `splits` ranges of

@@ -7,7 +7,13 @@ GeGLU, embedding scale, sliding-window patterns with their own rope base,
 softcaps); and the LayerNorm and parallel-residual axes of the phi,
 stablelm, starcoder2, gptneox, falcon, command-r, granite, olmo and
 nemotron archs (norm type, parallel residual, non-gated GELU and squared
-ReLU FFNs, the mup scales, QKV clamping, long-rope scaling). Fields that
+ReLU FFNs, the mup scales, QKV clamping, long-rope scaling); the position
+axes (pos_embd: rope, learned absolute positions for gpt2 and starcoder,
+or none with an ALiBi bias for bloom, mpt, jais, refact and the 13B-class
+baichuan, whose slopes follow alibi_max_bias and alibi_style; cohere2's
+global layers without rope, nope_global); and the small switches of the
+other llama-body archs (jais's 1/d_head attention scale, cohere2's
+inverted logit scale and 3:1 sliding windows, mpt's exact erf GELU). Fields that
 select paths the port does not carry yet (sigmoid or sparsemixer gating,
 shared experts) are parsed so the loader can refuse them instead of
 running a different model.
@@ -66,7 +72,8 @@ class HParams:
     # half-split rotation applies; "neox" rows are half-split already
     rope_type: str = "norm"
     # FFN activation: silu | gelu (tanh approximation; GeGLU when gated)
-    # | relu2 (nemotron's squared ReLU, non-gated)
+    # | gelu_erf (the exact GELU, mpt) | relu2 (nemotron's squared ReLU,
+    # non-gated)
     act_fn: str = "silu"
     embd_scale: float = 1.0     # embedding multiplier (gemma: sqrt(n_embd))
     # granite's mup multipliers: each branch output times residual_scale,
@@ -84,19 +91,36 @@ class HParams:
     # GGUF {arch}.pooling_type (llama.h enum)
     causal: bool = True
     pooling: str = "last"
+    # positions: "rope"; "learned" absolute rows added to the embedding
+    # (gpt2, starcoder); "none" (the ALiBi archs)
+    pos_embd: str = "rope"
+    # ALiBi: slope_h * kv_index added to the attention logits, the slopes
+    # by alibi_style ("bloom": the power-of-two heads, then the rest at
+    # half the step; "mpt": from the next power of two, odd ones first)
+    alibi: bool = False
+    alibi_max_bias: float = 8.0
+    alibi_style: str = "bloom"
+    # cohere2: the global (window 0) layers take no rope
+    nope_global: bool = False
 
 
 # the ported archs whose GGUF Q/K rows are NEOX (half-split); the others
-# are NORM (reference hparams.py's neox set, trimmed to the port's archs)
+# are NORM (reference hparams.py's neox set, trimmed to the port's archs).
+# orion is NEOX as in the reference, which follows the model and the GGUF
+# rows (its converter leaves them unpermuted) rather than llama.cpp's
+# runtime (reference hparams.py, the note beside its neox set)
 _NEOX = ("gemma", "gemma2", "gemma3", "qwen2", "qwen3", "falcon",
          "stablelm", "olmo2", "phi2", "phi3", "starcoder2", "gptneox",
-         "nemotron")
+         "nemotron", "orion", "qwen", "exaone", "codeshell", "bitnet")
 # the ported LayerNorm archs (reference hparams.py's norm_type "ln" set)
 _LN = ("phi2", "falcon", "gptneox", "stablelm", "command-r", "starcoder2",
-       "nemotron", "olmo")
-_PARALLEL = ("phi2", "falcon", "gptneox", "command-r")
+       "nemotron", "olmo", "orion", "codeshell", "cohere2", "gpt2",
+       "starcoder", "bloom", "mpt", "jais")
+_PARALLEL = ("phi2", "falcon", "gptneox", "command-r", "cohere2", "plamo")
 _GELU = ("gemma", "gemma2", "gemma3", "phi2", "falcon", "gptneox",
-         "starcoder2")
+         "starcoder2", "gpt2", "starcoder", "codeshell", "bloom")
+_LEARNED = ("gpt2", "starcoder")
+_ALIBI = ("bloom", "mpt", "jais", "refact")
 
 
 def hparams_from_metadata(md: dict) -> HParams:
@@ -122,7 +146,7 @@ def hparams_from_metadata(md: dict) -> HParams:
     n_layer = g("block_count", 32)
     gemma_like = arch in ("gemma", "gemma2", "gemma3")
     swa_pattern = {"gemma2": 2, "gemma3": g("attention.sliding_window_pattern",
-                                            6)}.get(arch, 1)
+                                            6), "cohere2": 4}.get(arch, 1)
     # the 27B gemmas scale attention by 1/sqrt(n_embd / n_head), found by
     # layer count as the reference finds them
     attn_scale = 0.0
@@ -130,6 +154,12 @@ def hparams_from_metadata(md: dict) -> HParams:
         attn_scale = 1.0 / math.sqrt(n_embd / max(n_head, 1))
     if arch == "granite":
         attn_scale = g("attention.scale", attn_scale)
+    if arch == "jais":     # mup attention: 1/d_head, not 1/sqrt(d_head)
+        attn_scale = 1.0 / head_dim
+    # the 13B-class baichuan is ALiBi: by layer count, as llama.cpp finds
+    # it, or by an explicit max_alibi_bias key (a file cut in depth)
+    alibi = arch in _ALIBI or (arch == "baichuan" and (
+        n_layer >= 40 or g("attention.max_alibi_bias", 0.0) > 0))
     return HParams(
         arch=arch,
         n_vocab=n_vocab,
@@ -169,11 +199,13 @@ def hparams_from_metadata(md: dict) -> HParams:
                         30.0 if arch == "gemma2" else 0.0),
         rope_type="neox" if arch in _NEOX else "norm",
         act_fn=("relu2" if arch == "nemotron" else
+                "gelu_erf" if arch == "mpt" else
                 "gelu" if arch in _GELU else "silu"),
         embd_scale=(math.sqrt(n_embd) if gemma_like
                     else g("embedding_scale", 1.0)),
         residual_scale=g("residual_scale", 1.0),
-        logits_scale=(1.0 / g("logit_scale", 1.0) if arch == "command-r"
+        logits_scale=(1.0 / g("logit_scale", 1.0)
+                      if arch in ("command-r", "cohere2")
                       else g("logit_scale", 1.0)),
         # stablelm files carry the flag; elsewhere it is the arch's
         parallel_residual=g("use_parallel_residual", arch in _PARALLEL),
@@ -182,6 +214,12 @@ def hparams_from_metadata(md: dict) -> HParams:
         # mean unless the file says otherwise, as the reference reads it
         pooling={0: "none", 1: "mean", 2: "cls", 3: "last"}.get(
             int(g("pooling_type", 1)), "mean"),
+        pos_embd=("learned" if arch in _LEARNED else
+                  "none" if alibi else "rope"),
+        alibi=alibi,
+        alibi_max_bias=g("attention.max_alibi_bias", 8.0),
+        alibi_style="mpt" if arch == "mpt" else "bloom",
+        nope_global=arch == "cohere2",
     )
 
 

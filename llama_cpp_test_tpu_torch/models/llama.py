@@ -1,6 +1,6 @@
 """LLaMA-family model (dense or Mixtral-style MoE, the gemma and qwen
-quirk axes, and the LayerNorm and parallel-residual archs): GGUF weight
-loading + forward pass.
+quirk axes, the LayerNorm and parallel-residual archs, and the position
+axes: learned positions and ALiBi): GGUF weight loading + forward pass.
 
 Counterpart of the llama body of llama_cpp_test_tpu/models/llama.py for
 the archs of models/registry.PORTED. A sequential layer: pre-norm (RMS or
@@ -8,15 +8,19 @@ LayerNorm with bias; olmo's LN has no weights, olmo2 has no pre-norms) ->
 fused QKV (+ Q/K/V biases; clamped for olmo) -> QK norms (per-head RMS
 [head_dim], per-head LayerNorms [H, head_dim], or olmo2's RMS over the
 flat q and k) -> RoPE (the layer's table, partial when rope_dim <
-head_dim) -> paged attention (window, softcap) -> wo (+ bias) -> post
-norm -> residual scale -> residual; then the FFN half: norm -> fused
-gate|up -> SwiGLU or GeGLU, or a non-gated up (+ bias) -> GELU or squared
-ReLU, or, in a MoE layer, softmax top-k routing over the experts (moe_ffn)
--> down (+ bias) -> residual scale -> post norm -> residual. A parallel
-layer (phi2, falcon, gptneox, command-r) feeds attention and the FFN from
-the layer input's norms and adds both to it. Final norm + lm head (+ bias)
-/ logits scale + final softcap. Loading is numpy (host planes); weights.py
-moves them to a device.
+head_dim; none on a file without rope positions or on cohere2's global
+layers) -> paged attention (window, softcap, ALiBi bias) -> bitnet's RMS
+sub-norm -> wo (+ bias) -> post norm -> residual scale -> residual; then
+the FFN half: norm -> fused gate|up (+ gate and up biases) -> SwiGLU or
+GeGLU -> bitnet's RMS sub-norm, or a non-gated up (+ bias) -> GELU (tanh
+or erf) or squared ReLU, or, in a MoE layer, softmax top-k routing over
+the experts (moe_ffn) -> down (+ bias) -> residual scale -> post norm ->
+residual. A parallel layer (phi2, falcon, gptneox, command-r, cohere2,
+plamo) feeds attention and the FFN from the layer input's norms and adds
+both to it. The embedding takes the learned position rows (gpt2,
+starcoder) and bloom's embedding LayerNorm (embed_extras). Final norm +
+lm head (+ bias) / logits scale + final softcap. Loading is numpy (host
+planes); weights.py moves them to a device.
 
 Every dense projection goes through ops/qmatmul (kernel K1 on CUDA), every
 expert projection through ops/gmm (kernel K4). `plain=True` selects the
@@ -81,8 +85,13 @@ class LayerWeights:
     attn_norm_2: Any = None
     attn_norm_2_b: Any = None
     bo: Any = None
+    b_gate: Any = None       # jais's biased SwiGLU
     b_up: Any = None
     b_down: Any = None
+    # bitnet: RMS norms of the attention output before wo and of the
+    # SwiGLU product before ffn_down
+    attn_sub_norm: Any = None
+    ffn_sub_norm: Any = None
     # sandwich norms on the attention and FFN branch outputs before the
     # residual adds (gemma2, gemma3)
     attn_post_norm: Any = None
@@ -114,10 +123,20 @@ class LlamaWeights:
     # LayerNorm bias of the final norm and the lm head's bias (phi2)
     output_norm_b: Any = None
     output_b: Any = None
+    # the learned absolute position rows [n_ctx_train, C] (gpt2,
+    # starcoder) and the embedding LayerNorm (bloom), float32
+    pos_embd: Any = None
+    tok_norm: Any = None
+    tok_norm_b: Any = None
+    # cohere2: the global (window 0) layers take no rope
+    nope_global: bool = False
 
     def inv_freq_for(self, window: int):
         """The rope table of a layer with sliding window `window` (0 =
-        global)."""
+        global); None where the layer takes no rope (cohere2's global
+        layers)."""
+        if window == 0 and self.nope_global:
+            return None
         if window > 0 and self.rope_inv_freq_swa is not None:
             return self.rope_inv_freq_swa
         return self.rope_inv_freq
@@ -134,7 +153,8 @@ _MOE_FFN = {"ffn_gate_inp.weight", "ffn_gate_exps.weight",
 _QKV = {"attn_q.weight", "attn_k.weight", "attn_v.weight"}
 _BIASES = {"attn_q.bias": "bq", "attn_k.bias": "bk", "attn_v.bias": "bv"}
 # the QK norms, the sandwich norms under both GGUF names, the LayerNorm
-# biases, falcon-40B's second norm and the other projection biases
+# biases, falcon-40B's second norm, the other projection biases and
+# bitnet's sub-norms
 _QUIRK_VECTORS = {"attn_q_norm.weight": "attn_q_norm",
                   "attn_k_norm.weight": "attn_k_norm",
                   "attn_post_norm.weight": "attn_post_norm",
@@ -146,14 +166,26 @@ _QUIRK_VECTORS = {"attn_q_norm.weight": "attn_q_norm",
                   "attn_norm_2.weight": "attn_norm_2",
                   "attn_norm_2.bias": "attn_norm_2_b",
                   "attn_output.bias": "bo",
+                  "ffn_gate.bias": "b_gate",
                   "ffn_up.bias": "b_up",
-                  "ffn_down.bias": "b_down"}
+                  "ffn_down.bias": "b_down",
+                  "attn_sub_norm.weight": "attn_sub_norm",
+                  "ffn_sub_norm.weight": "ffn_sub_norm"}
 _LAYER_TENSORS = {"attn_norm.weight", "attn_qkv.weight", "attn_qkv.bias",
                   "attn_output.weight", "ffn_norm.weight"} | _QKV | \
     _DENSE_FFN | _MOE_FFN | set(_BIASES) | set(_QUIRK_VECTORS)
 _TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight",
                 "output_norm.bias", "output.bias",
                 "rope_factors_short.weight", "rope_factors_long.weight"}
+# the embedding extras the forward adds on a file without rope positions
+# (embed_extras): the learned position rows only where the positions are
+# learned, the embedding LayerNorm (bloom) on any such file
+_EMBED_EXTRAS = {"position_embd.weight": ("learned",),
+                 "token_embd_norm.weight": ("learned", "none"),
+                 "token_embd_norm.bias": ("learned", "none")}
+# the layer tensors a sequential gated FFN alone applies
+_SEQUENTIAL_GATED = ("ffn_gate.bias", "attn_sub_norm.weight",
+                     "ffn_sub_norm.weight")
 # the archs whose files may lack norm tensors: olmo's LayerNorms have no
 # weights, olmo2 norms only the branch outputs (reference load_weights)
 _NORMLESS = ("olmo", "olmo2")
@@ -252,7 +284,7 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
     unknown = []
     have = [set() for _ in range(hp.n_layer)]
     for name in reader.tensors:
-        if name in _TOP_TENSORS:
+        if name in _TOP_TENSORS or hp.pos_embd in _EMBED_EXTRAS.get(name, ()):
             continue
         parts = name.split(".", 2)
         if parts[0] == "blk" and len(parts) == 3 and parts[2] in _LAYER_TENSORS:
@@ -280,6 +312,15 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
                 + ("the Mixtral expert set" if hp.n_expert else
                    "the gated set or a non-gated up and down")
                 + " in every layer")
+        gated = "ffn_gate.weight" in names or (
+            "ffn_up.weight" in names and
+            reader.tensors[f"blk.{i}.ffn_up.weight"].shape[-1] == 2 * hp.n_ff)
+        odd = [n for n in _SEQUENTIAL_GATED if n in names
+               and (hp.parallel_residual or not gated)]
+        if odd:
+            raise NotImplementedError(
+                f"blk.{i} tensors outside the layouts of the ported archs: "
+                f"{odd} apply only in a sequential layer with a gated FFN")
         attn = names & (_QKV | {"attn_qkv.weight"})
         if attn not in (_QKV, {"attn_qkv.weight"}):
             raise NotImplementedError(
@@ -294,16 +335,20 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
         raise KeyError("output_norm.weight missing")
 
 
-def _split_rows(reader: GGUFReader, name: str, bounds) -> list[QTensor]:
+def _split_rows(reader: GGUFReader, name: str, bounds,
+                perms=None) -> list[QTensor]:
     """A fused tensor's row ranges [lo, hi) as QTensors: block quantization
     is per row, so each range is a slice of packed byte rows (the
-    reference's split_qkv and fused gate|up split)."""
+    reference's split_qkv and fused gate|up split), its rows reordered by
+    the range's entry of perms where that is not None."""
     info = reader.tensors[name]
     k, n = info.shape[0], info.shape[1]
     raw = reader.tensor_bytes(name)
     rows = raw.reshape(n, raw.size // n)
-    return [repack(np.ascontiguousarray(rows[lo:hi]), info.ggml_type,
-                   hi - lo, k) for lo, hi in bounds]
+    perms = perms or [None] * len(bounds)
+    return [repack(np.ascontiguousarray(
+        rows[lo:hi] if perm is None else rows[lo:hi][perm]), info.ggml_type,
+        hi - lo, k) for (lo, hi), perm in zip(bounds, perms)]
 
 
 def load_weights(reader: GGUFReader, hp: HParams | None = None
@@ -321,6 +366,11 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
         k_perm = _unpermute_rows(hp.n_head_kv, hp.head_dim, hp.rope_dim)
     t = reader.tensors
     n_q, n_kv = hp.n_head * hp.head_dim, hp.n_head_kv * hp.head_dim
+    # a fused q|k|v of a NORM-rope file takes the un-permutation only
+    # where rope applies: without it (gpt2, bloom, mpt, jais) the same
+    # permutation of q and k would cancel in q . k, and the rows stay in
+    # the reference's order
+    fused_perm = q_perm is not None and hp.pos_embd == "rope"
 
     def layer(i: int) -> LayerWeights:
         p = f"blk.{i}."
@@ -330,15 +380,23 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
             wo=_repack_2d(reader, p + "attn_output.weight"),
             ffn_norm=opt("ffn_norm.weight"))
         if p + "attn_qkv.weight" in t:
-            # fused [q; k; v] rows, as phi2, phi3, falcon and gptneox store
-            # them, with the fused bias split alike
+            # fused [q; k; v] rows, as phi2, phi3, falcon, gptneox, qwen,
+            # codeshell, gpt2, starcoder, bloom, mpt and jais store them,
+            # with the fused bias split alike; NORM-rope q and k rows (a
+            # chatglm file as llama.cpp converts it) are un-permuted as the
+            # separate tensors are, where the reference leaves them
+            # interleaved (ROADMAP §3, fault 14)
+            perms = [q_perm, k_perm, None] if fused_perm else None
             lw.wq, lw.wk, lw.wv = _split_rows(
                 reader, p + "attn_qkv.weight",
-                ((0, n_q), (n_q, n_q + n_kv), (n_q + n_kv, n_q + 2 * n_kv)))
+                ((0, n_q), (n_q, n_q + n_kv), (n_q + n_kv, n_q + 2 * n_kv)),
+                perms)
             if p + "attn_qkv.bias" in t:
                 bias = _f32(reader, p + "attn_qkv.bias")
                 lw.bq, lw.bk, lw.bv = (bias[:n_q], bias[n_q:n_q + n_kv],
                                        bias[n_q + n_kv:n_q + 2 * n_kv])
+                if fused_perm:
+                    lw.bq, lw.bk = lw.bq[q_perm], lw.bk[k_perm]
         else:
             lw.wq = _repack_2d(reader, p + "attn_q.weight", q_perm)
             lw.wk = _repack_2d(reader, p + "attn_k.weight", k_perm)
@@ -429,6 +487,10 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
         rope_inv_freq_long=inv_freq_long,
         output_norm_b=top("output_norm.bias"),
         output_b=top("output.bias"),
+        pos_embd=top("position_embd.weight"),
+        tok_norm=top("token_embd_norm.weight"),
+        tok_norm_b=top("token_embd_norm.bias"),
+        nope_global=hp.nope_global,
     )
     return hp, w
 
@@ -473,6 +535,35 @@ def embed(w: LlamaWeights, tokens: torch.Tensor,
     if scale != 1.0:
         e = (e.float() * scale).to(torch.bfloat16)
     return e
+
+
+def embed_extras(w: LlamaWeights, hp: HParams, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """The input-embedding additions of a file without rope positions, in
+    float32, then bf16: the learned absolute position rows at `positions`
+    (gpt2, starcoder), then the embedding LayerNorm (bloom)."""
+    xf = x.float()
+    if w.pos_embd is not None:
+        xf = xf + w.pos_embd[positions.long()]
+    if w.tok_norm is not None:
+        xf = layers.layer_norm(xf, w.tok_norm, w.tok_norm_b, hp.rms_eps)
+    return xf.to(torch.bfloat16)
+
+
+def embed_input(w: LlamaWeights, hp: HParams, tokens: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """The layers' input: the embedding rows (scaled), and on a file
+    without rope positions its extras (embed_extras)."""
+    x = embed(w, tokens, hp.embd_scale)
+    return x if hp.pos_embd == "rope" else embed_extras(w, hp, x, positions)
+
+
+def alibi_of(hp: HParams, device) -> torch.Tensor | None:
+    """The ALiBi slopes [n_head] float32 on device, or None without ALiBi."""
+    if not hp.alibi:
+        return None
+    return torch.from_numpy(layers.alibi_slopes(
+        hp.n_head, hp.alibi_max_bias, hp.alibi_style)).to(device)
 
 
 def qkv_proj(cur: torch.Tensor, lw: LayerWeights, plain: bool = False):
@@ -546,10 +637,15 @@ def _attention(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
     if not flat:     # per-head QK norms, before rope
         q = _qk_norm(q, lw.attn_q_norm, hp)
         k = _qk_norm(k, lw.attn_k_norm, hp)
-    q = layers.apply_rope(q, positions, inv_freq, mscale)
-    k = layers.apply_rope(k, positions, inv_freq, mscale)
+    # no rope on a file without rope positions (learned rows entered at
+    # the embedding; ALiBi biases the logits) or on cohere2's global layers
+    if hp.pos_embd == "rope" and inv_freq is not None:
+        q = layers.apply_rope(q, positions, inv_freq, mscale)
+        k = layers.apply_rope(k, positions, inv_freq, mscale)
     attn_out = attend(q.to(torch.bfloat16), k.to(torch.bfloat16),
                       v.to(torch.bfloat16)).reshape(b, tdim, h * d)
+    if lw.attn_sub_norm is not None:   # bitnet: RMS before wo
+        attn_out = layers.rms_norm(attn_out, lw.attn_sub_norm, hp.rms_eps)
     if tap is not None:
         tap("attn_out", attn_out)
     return _add(linear_lora(attn_out, lw.wo, lw.lora.get("wo"), plain), lw.bo)
@@ -580,11 +676,13 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
 
 def _forward_layer_parallel(x, lw, hp, positions, inv_freq, mscale, attend,
                             plain: bool = False, tap=None) -> torch.Tensor:
-    """A parallel-residual layer, x + attn(norm(x)) + ffn(norm'(x)): the
-    FFN reads the attention's norm (phi2, falcon-7B, command-r), its own
-    attn_norm_2 (falcon-40B) or a dedicated ffn_norm (gptneox). The FFN is
-    non-gated, or gated SwiGLU (command-r). The adapters apply as in a
-    sequential layer, the control vector to the layer's output."""
+    """A parallel-residual layer, x + attn(norm(x)) + ffn(norm'(x)), with
+    the arch's norm (hp.norm_type: LayerNorms, or RMS norms for plamo):
+    the FFN reads the attention's norm (phi2, falcon-7B, command-r,
+    cohere2, plamo), its own attn_norm_2 (falcon-40B) or a dedicated
+    ffn_norm (gptneox). The FFN is non-gated, or gated SwiGLU (command-r,
+    cohere2, plamo). The adapters apply as in a sequential layer, the
+    control vector to the layer's output."""
     cur = _norm(hp, x, lw.attn_norm, lw.attn_norm_b)
     if lw.attn_norm_2 is not None:
         ffn_in = _norm(hp, x, lw.attn_norm_2, lw.attn_norm_2_b)
@@ -639,9 +737,9 @@ def _moe_grouped(xf, lw, hp, topi, topv, plain: bool = False):
 def _ffn(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
          plain: bool = False, tap=None) -> torch.Tensor:
     """The FFN on its normed input cur, before the down bias: the routed
-    experts of a MoE layer; gate|up (+ up bias) -> SwiGLU or GeGLU ->
-    down; or a non-gated up (+ bias) -> GELU or squared ReLU -> down.
-    float32 [B, T, C]."""
+    experts of a MoE layer; gate|up (+ gate and up biases) -> SwiGLU or
+    GeGLU (-> bitnet's sub-norm) -> down; or a non-gated up (+ bias) ->
+    GELU (tanh or erf) or squared ReLU -> down. float32 [B, T, C]."""
     if tap is not None:
         tap("ffn_in", cur)
     if lw.gate_inp is not None:
@@ -652,7 +750,9 @@ def _ffn(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
         act = layers.activation(u, hp.act_fn).to(torch.bfloat16)
     else:
         g, u = gateup_proj(cur, lw, plain)
-        act = layers.swiglu(g, _add(u, lw.b_up), hp.act_fn)
+        act = layers.swiglu(_add(g, lw.b_gate), _add(u, lw.b_up), hp.act_fn)
+        if lw.ffn_sub_norm is not None:   # bitnet: RMS before ffn_down
+            act = layers.rms_norm(act, lw.ffn_sub_norm, hp.rms_eps)
     if tap is not None:
         tap("ffn_act", act)
     return linear_lora(act, lw.w_down, lw.lora.get("w_down"), plain)

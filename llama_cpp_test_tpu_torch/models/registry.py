@@ -11,10 +11,18 @@ softcaps and alternating sliding windows; gemma3's per-head QK norms and
 FFN and partial-rope archs stablelm, starcoder2, nemotron and olmo
 (non-parametric LN, QKV clamping); granite (the mup scales), olmo2
 (post norms only, flat QK norms) and phi3 (fused q|k|v and gate|up, the
-long-rope tables); and the parallel-residual archs phi2, falcon, gptneox
-and command-r (one or two LayerNorms feeding attention and the FFN side
-by side). Every other arch the reference registers is refused by name
-with the item that ports it: 7 the other llama quirk axes, 8 the other
+long-rope tables); the parallel-residual archs phi2, falcon, gptneox,
+command-r, cohere2 (3:1 sliding windows, no rope on the global layers)
+and plamo (RMS norms), one or two norms feeding attention and the FFN
+side by side; the llama-body archs that need only small switches:
+minicpm (the mup scales), internlm2, baichuan, xverse, orion, qwen,
+exaone, codeshell, chatglm (partial rope, fused [gate|up]) and bitnet
+(RMS sub-norms before wo and ffn_down); and the position axes: learned
+absolute positions (gpt2, starcoder) and ALiBi (bloom with its embedding
+LayerNorm, mpt, jais with its gate bias, refact, and the 13B-class
+baichuan). Every other arch the reference registers is refused by name
+with the item that ports it: 7 the bert-family encoders, per-layer
+geometry, chameleon and qwen2vl, 8 the other
 MoE forms (and the MLA attention of deepseek2 and minicpm3), 9 the other
 model families.
 """
@@ -23,20 +31,20 @@ from __future__ import annotations
 PORTED = ("llama", "mistral", "mixtral", "gemma", "gemma2", "gemma3",
           "qwen2", "qwen3", "phi3", "granite", "stablelm", "olmo2",
           "command-r", "starcoder2", "nemotron", "olmo", "gptneox", "phi2",
-          "falcon")
+          "falcon", "minicpm", "internlm2", "baichuan", "xverse", "orion",
+          "qwen", "exaone", "codeshell", "chatglm", "cohere2", "plamo",
+          "bitnet", "gpt2", "starcoder", "bloom", "mpt", "jais", "refact")
 
-_ITEM_7 = ("qwen2vl", "bert", "nomic-bert", "minicpm", "internlm2",
-           "baichuan", "gpt2", "starcoder", "bloom", "mpt", "chameleon",
-           "chatglm", "cohere2", "bitnet", "codeshell", "refact", "jais",
-           "orion", "qwen", "exaone", "jina-bert-v2", "xverse", "openelm",
-           "deci", "plamo")
+_ITEM_7 = ("bert", "nomic-bert", "jina-bert-v2", "openelm", "deci",
+           "chameleon", "qwen2vl")
 _ITEM_8 = ("qwen2moe", "qwen3moe", "olmoe", "deepseek2", "deepseek",
            "phimoe", "dbrx", "arctic", "grok", "granitemoe", "minicpm3")
 _ITEM_9 = ("t5", "t5encoder", "mamba", "rwkv6", "rwkv6qwen2", "rwkv7",
            "arwkv7", "wavtokenizer-dec")
 UNPORTED = {**dict.fromkeys(_ITEM_7, 7), **dict.fromkeys(_ITEM_8, 8),
             **dict.fromkeys(_ITEM_9, 9)}
-_ITEMS = {7: "the llama quirk axes", 8: "the other MoE forms",
+_ITEMS = {7: "the bert-family encoders, per-layer geometry, chameleon "
+             "and qwen2vl", 8: "the other MoE forms",
           9: "the other model families"}
 
 

@@ -25,9 +25,9 @@ import torch
 from . import _cuda
 from .layers import attention
 
-# the head dims K2 is built for (csrc/flash_prefill.cu); any other raises
-# on CUDA
-HEAD_DIMS = (64, 80, 96, 128, 256)
+# the head dims K2 is built for (csrc/flash_prefill.cu; 100 runs padded to
+# 112 inside the kernel); any other raises on CUDA
+HEAD_DIMS = (64, 80, 96, 100, 128, 256)
 
 
 def gather_pages(pages: torch.Tensor, page_indices: torch.Tensor) -> torch.Tensor:

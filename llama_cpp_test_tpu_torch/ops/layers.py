@@ -1,7 +1,8 @@
 """Transformer building blocks in plain PyTorch: RMSNorm, LayerNorm, RoPE
 (with linear/YaRN scaling; partial when rope_dim < head_dim),
-SwiGLU/GeGLU, the non-gated activations (tanh GELU, squared ReLU), and
-masked attention over gathered KV.
+SwiGLU/GeGLU, the non-gated activations (tanh and erf GELU, squared
+ReLU), the ALiBi slopes, and masked attention over gathered KV (with an
+optional ALiBi bias).
 
 Counterpart of llama_cpp_test_tpu/ops/layers.py. Dtypes follow the
 reference: norms return the input dtype, rope and the activation compute
@@ -99,31 +100,63 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor,
 
 def activation(u: torch.Tensor, act: str) -> torch.Tensor:
     """A non-gated FFN's activation in float32: "gelu" the tanh
-    approximation (phi2, falcon, gptneox, starcoder2), "relu2" the squared
-    ReLU (nemotron), else SiLU."""
+    approximation (phi2, falcon, gptneox, starcoder2, gpt2, bloom),
+    "gelu_erf" the exact GELU (mpt), "relu2" the squared ReLU (nemotron),
+    else SiLU."""
     u = u.float()
     if act == "gelu":
         return torch.nn.functional.gelu(u, approximate="tanh")
+    if act == "gelu_erf":
+        return torch.nn.functional.gelu(u)
     if act == "relu2":
         return torch.square(torch.relu(u))
     return torch.nn.functional.silu(u)
 
 
+def alibi_slopes(n_head: int, max_bias: float = 8.0,
+                 style: str = "bloom") -> np.ndarray:
+    """Per-head ALiBi slopes, float32 [n_head]. "bloom" (and ggml's
+    soft_max max_bias): the largest power of two n <= n_head takes
+    2^(-max_bias (i + 1) / n), the other heads the odd steps of half that
+    base. "mpt": the slopes of the next power of two, odd-indexed ones
+    first where n_head is not one."""
+    if style == "mpt":
+        n = 2 ** int(math.ceil(math.log2(n_head)))
+        slopes = [2.0 ** (-(i + 1) * max_bias / n) for i in range(n)]
+        if n != n_head:
+            slopes = slopes[1::2] + slopes[::2]
+        return np.asarray(slopes[:n_head], np.float32)
+    n = 2 ** int(math.floor(math.log2(n_head)))
+    base = 2.0 ** (-max_bias / n)
+    slopes = [base ** (i + 1) for i in range(n)]
+    if n < n_head:
+        base2 = 2.0 ** (-(max_bias / 2.0) / n)
+        slopes += [base2 ** (2 * i + 1) for i in range(n_head - n)]
+    return np.asarray(slopes[:n_head], np.float32)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              mask: torch.Tensor, scale: float, softcap: float = 0.0
-              ) -> torch.Tensor:
+              mask: torch.Tensor, scale: float, softcap: float = 0.0,
+              alibi: torch.Tensor | None = None) -> torch.Tensor:
     """Masked multi-head attention with GQA broadcast, in float32.
 
     q: [B, T, H, D]; k/v: [B, S, KV, D]; mask: [B, T, S] bool (True =
-    attend). Rows with nothing to attend give zeros. Returns [B, T, H, D]
-    in q's dtype."""
+    attend). alibi: optional [H] slopes, slope_h * s added to the logit of
+    key index s after the softcap and before the mask, as the reference
+    adds it (for a causal row the same as slope_h * (s - pos) up to a
+    constant). Rows with nothing to attend give zeros. Returns
+    [B, T, H, D] in q's dtype."""
     b, t, h, d = q.shape
-    kv = k.shape[2]
+    s, kv = k.shape[1], k.shape[2]
     rep = h // kv
     qf = q.float().reshape(b, t, kv, rep, d)
     logits = torch.einsum("btgrd,bsgd->bgrts", qf, k.float()) * scale
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
+    if alibi is not None:
+        sl = alibi.float().reshape(kv, rep)
+        logits = logits + (sl[:, :, None, None] * torch.arange(
+            s, dtype=torch.float32, device=q.device))[None]
     m = mask[:, None, None, :, :]
     logits = logits.masked_fill(~m, torch.finfo(torch.float32).min)
     p = torch.softmax(logits, dim=-1)

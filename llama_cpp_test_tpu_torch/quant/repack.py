@@ -24,6 +24,8 @@ torch.bfloat16 on upload.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -241,10 +243,55 @@ _DECOMPOSERS = {
 def _pack_n(q: np.ndarray, pack: int, bits: int) -> np.ndarray:
     """(N, K) unsigned ints -> (N/pack, K) bytes, value j in bits [j*bits, ...)."""
     n, k = q.shape
-    parts = q.reshape(pack, n // pack, k).astype(np.uint8)
+    parts = q.reshape(pack, n // pack, k)
     out = np.zeros((n // pack, k), dtype=np.uint8)
-    for h in range(pack):
-        out |= (parts[h] & ((1 << bits) - 1)) << (bits * h)
+
+    def part(lo, hi):
+        for h in range(pack):
+            out[lo:hi] |= (parts[h, lo:hi].astype(np.uint8)
+                           & ((1 << bits) - 1)) << (bits * h)
+
+    _chunked(q.size, n // pack, part)
+    return out
+
+
+# a tensor of at least this many elements (a vocabulary-sized embedding or
+# head) is repacked in row chunks on _POOL's threads: numpy releases the
+# GIL in its loops, and these tensors are the long poles of a load. The
+# pool is the repack's own (its workers never submit to it), so a
+# repack called from the loader's threads cannot wait on itself.
+PARALLEL_MIN = 1 << 26
+CHUNKS = min(8, os.cpu_count() or 1)
+_POOL = ThreadPoolExecutor(max_workers=CHUNKS)
+
+
+def _spans(n: int, parts: int, align: int = 1) -> list[tuple[int, int]]:
+    """[0, n) cut into at most `parts` spans whose bounds are multiples of
+    align (the last one excepted)."""
+    step = -(-n // parts)
+    step += -step % align
+    return [(lo, min(lo + step, n)) for lo in range(0, n, step)]
+
+
+def _chunked(a_size: int, n: int, fn, align: int = 1) -> list:
+    """fn(lo, hi) over row spans of [0, n), on _POOL when a_size (the
+    tensor's elements) reaches PARALLEL_MIN, else in one call."""
+    if a_size < PARALLEL_MIN or CHUNKS < 2:
+        return [fn(0, n)]
+    return list(_POOL.map(lambda span: fn(*span), _spans(n, CHUNKS, align)))
+
+
+def _transpose(a: np.ndarray, slab: int = 512) -> np.ndarray:
+    """a.T as a contiguous array, built from slabs of `slab` rows: each
+    slab's transpose stays in cache, where numpy's element-wise copy of a
+    whole byte plane walks memory with a stride of a row."""
+    out = np.empty(a.shape[::-1], a.dtype)
+
+    def part(lo, hi):
+        for i in range(lo, hi, slab):
+            out[:, i:min(i + slab, hi)] = a[i:min(i + slab, hi)].T
+
+    _chunked(a.size, a.shape[0], part, slab)
     return out
 
 
@@ -292,7 +339,7 @@ def _assemble(kind: str, q: np.ndarray, s: np.ndarray, m, g: int,
     else:
         qs = _pack_n(q, pack, BITS[kind])
     if layout == "t":
-        qs = np.ascontiguousarray(qs.T)  # [K, NPK]
+        qs = _transpose(qs)  # [K, NPK]
     return QTensor(kind, (n_full, k), n, g, qs, s, m, lut,
                    ggml_type=ggml_type, layout=layout)
 
@@ -302,12 +349,19 @@ def repack(raw: np.ndarray, ggml_type: GGMLType, n: int, k: int,
     """Packed GGUF row-major bytes for an (N=n rows, K=k cols) weight ->
     plane layout. Rows padded so N/pack is a multiple of tile_n."""
     assert layout in ("t", "rows")
+    if ggml_type == GGMLType.BF16 and layout == "t":
+        # the bf16 bits as they are: widened to float32 and rounded back
+        # they would come out the same
+        w = _pad_rows(np.ascontiguousarray(raw).view(np.uint16).reshape(n, k),
+                      n + (-n % tile_n))
+        return QTensor("dense", w.shape, n, k, _transpose(w),
+                       ggml_type=ggml_type, layout=layout)
     if ggml_type in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
         w = codecs.dequantize(np.ascontiguousarray(raw), ggml_type).reshape(n, k)
         n_pad = -n % tile_n
         w = _pad_rows(w.astype(np.float32), n + n_pad)
         if layout == "t":
-            w = f32_to_bf16_bits(np.ascontiguousarray(w.T))  # [K, N]
+            w = f32_to_bf16_bits(_transpose(w))  # [K, N]
         return QTensor("dense", (n + n_pad, k), n, k, w,
                        ggml_type=ggml_type, layout=layout)
     if ggml_type in IQ_DECOMPOSERS:
@@ -324,7 +378,13 @@ def repack(raw: np.ndarray, ggml_type: GGMLType, n: int, k: int,
                 t.name for t in sorted({*_DECOMPOSERS, *IQ_DECOMPOSERS}, key=int)))
     kind, fn = _DECOMPOSERS[ggml_type]
     b = _blocks(raw, ggml_type, n, k)
-    q, s, m, g = fn(b, n, k)
+    per = b.shape[0] // n          # blocks a row
+    parts = _chunked(n * k, n, lambda lo, hi: fn(b[lo * per:hi * per],
+                                                 hi - lo, k))
+    q, s, m, g = parts[0]
+    if len(parts) > 1:
+        cat = lambda i: np.concatenate([p[i] for p in parts])
+        q, s, m = cat(0), cat(1), None if m is None else cat(2)
     lut = KVALUES_IQ4NL.copy() if kind == "u4lut" else None
     return _assemble(kind, q, s, m, g, n, k, tile_n, layout, lut, ggml_type)
 

@@ -65,8 +65,13 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
     masked iff s <= pos - window, and every mask position is below n_ctx
     (the Context checks it), so a layer whose window is >= n_ctx attends
     as a global layer does and its decode takes K3, not the gather path.
-    Its rope table stays the sliding layers' one."""
-    x = llama_mod.embed(w, tokens, hp.embd_scale)
+    Its rope table stays the sliding layers' one.
+
+    A file without rope positions adds its learned position rows and
+    embedding LayerNorm at the embedding (embed_input); an ALiBi file's
+    slopes, made once a step, bias every layer's attention, which then
+    takes the gather path on every device, as in the reference."""
+    x = llama_mod.embed_input(w, hp, tokens, positions)
     if tap is not None:
         tap.append(x)
     rope_pos = positions if rope_delta is None else \
@@ -75,6 +80,7 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
         (kv_len - 1)[:, None].expand(positions.shape).contiguous()
     scale = hparams_mod.attn_scale_of(hp)
     cap = hp.attn_softcap
+    alibi = llama_mod.alibi_of(hp, x.device)
     for li, lw in enumerate(w.layers):
         window = hparams_mod.layer_window(hp, li)
 
@@ -89,20 +95,21 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
                 if decode:
                     return kv_cache.attend_decode_q8(
                         q, pools.k[_li], ks, pools.v[_li], vs, block_table,
-                        kv_len, scale, _window, cap, plain=plain)
+                        kv_len, scale, _window, cap, plain=plain,
+                        alibi=alibi)
                 return kv_cache.attend_gathered(
                     q, kv_cache.gather_kv_q8(pools.k[_li], ks, block_table),
                     kv_cache.gather_kv_q8(pools.v[_li], vs, block_table),
-                    mask_pos, kv_len, scale, _window, cap)
+                    mask_pos, kv_len, scale, _window, cap, alibi)
             kv_cache.write_kv(pools.k[_li], k_cur, rows, slots)
             kv_cache.write_kv(pools.v[_li], v_cur, rows, slots)
             if decode:
                 return kv_cache.attend_decode(
                     q, pools.k[_li], pools.v[_li], block_table, kv_len, scale,
-                    _window, cap, plain=plain)
+                    _window, cap, plain=plain, alibi=alibi)
             return kv_cache.attend_prefill(
                 q, pools.k[_li], pools.v[_li], block_table, mask_pos, kv_len,
-                scale, _window, cap, plain=plain)
+                scale, _window, cap, plain=plain, alibi=alibi)
 
         x = llama_mod.forward_layer(x, lw, hp, rope_pos,
                                     w.inv_freq_for(window), w.rope_mscale,
@@ -258,6 +265,15 @@ class Context:
                 and n_ctx > model.hp.rope_orig_ctx):
             self.w = dataclasses.replace(
                 self.w, rope_inv_freq=self.w.rope_inv_freq_long)
+        table = self.w.pos_embd
+        if table is not None and n_ctx > table.shape[0]:
+            # the reference's row lookup fills positions past the learned
+            # table with NaN (jnp.take), so its logits there are NaN
+            # (ROADMAP §3, fault 15); refuse such a Context instead
+            raise ValueError(
+                f"n_ctx {n_ctx} exceeds the learned position table of "
+                f"{table.shape[0]} rows (arch {model.hp.arch}); use "
+                f"n_ctx <= {table.shape[0]}")
         self.kv_type = kv_type
         self.n_ctx = n_ctx
         self.block_size = block_size
@@ -332,6 +348,13 @@ class Context:
 
     def _apply_shift(self, s: SeqState, src: list[int], dst: list[int],
                      delta: list[int]) -> None:
+        if self.model.hp.pos_embd != "rope":
+            # K holds no rotation to re-base (learned positions are in its
+            # values); the reference's Self-Extend and prompt-cache reuse
+            # rotate it all the same (ROADMAP §3, fault 16)
+            raise NotImplementedError(
+                "a K-shift requires rope positions (arch "
+                f"{self.model.hp.arch} uses {self.model.hp.pos_embd} ones)")
         s.table.ensure_resident()
         # un-share any COW blocks first: the shift mutates pool data in place
         for bi in range(len(s.table.blocks)):
@@ -352,6 +375,11 @@ class Context:
         n = s.n_cached
         if n_discard <= 0 or n_keep + n_discard > n:
             raise ValueError("shift_context: bad n_keep/n_discard")
+        if self.model.hp.pos_embd != "rope":
+            # as the reference: learned positions live in K's values
+            raise NotImplementedError(
+                "context shift requires rope positions (arch "
+                f"{self.model.hp.arch} uses {self.model.hp.pos_embd} ones)")
         s.table.ensure_resident()
         src = [self._seq_slot(s, i) for i in range(n_keep + n_discard, n)]
         dst = [self._seq_slot(s, i) for i in range(n_keep, n - n_discard)]
@@ -369,9 +397,13 @@ class Context:
         n_reuse_min matching tokens down to their new positions, discard the
         rest. On return the cache holds new_tokens[:ret] at contiguous
         positions; max_keep caps the kept prefix. Returns 0 after
-        self_extend."""
+        self_extend. A file without rope positions keeps the common prefix
+        only: its K cannot be re-based (the reference rotates it all the
+        same, ROADMAP §3, fault 16)."""
         if s.pos_offset:
             return 0
+        if self.model.hp.pos_embd != "rope":
+            n_reuse_min = 0
         old = s.tokens
         n_old = s.n_cached
         limit = len(new_tokens) if max_keep is None else min(

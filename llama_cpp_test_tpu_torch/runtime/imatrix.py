@@ -9,14 +9,17 @@ stacks of a MoE layer), the FFN activation (ffn_down) and the
 final-normed hidden state (output). Each sum is keyed by the name of the
 tensor the file holds. One forward per chunk through the model's own
 layers (models/llama.forward_layer, which taps those inputs, sequential
-or parallel; K1 on CUDA, K4 for the experts), dense causal attention in
-torch (ops/layers.attention) as the reference has it.
+or parallel; K1 on CUDA, K4 for the experts), after the embedding's
+learned position rows and LayerNorm where the file has them, with dense
+causal attention in torch (ops/layers.attention, with the ALiBi bias of
+an ALiBi file) as the reference has it.
 
 The reference re-implements the layer inline with RMS norms, a
 sequential residual and a gated FFN, and leaves out the quirk axes (the
 embedding scale, the biases and QK norms, the windows and softcaps, the
 post norms, GeGLU, the LayerNorms and their biases, the parallel
-residual), so on those archs it collects the statistics of another model
+residual, the sub-norms, the gate bias, the position rows and ALiBi), so
+on those archs it collects the statistics of another model
 or, on a non-gated FFN, raises (ROADMAP §3, fault 11); on the llama archs
 both give the same sums.
 
@@ -76,10 +79,11 @@ def _imatrix_step(w: LlamaWeights, tokens: torch.Tensor, *, hp: HParams,
     the separate q/k/v and gate/up names)."""
     b, t = tokens.shape
     dev = tokens.device
-    x = llama_mod.embed(w, tokens, hp.embd_scale)
     pos = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    x = llama_mod.embed_input(w, hp, tokens, pos)
     kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
     scale = attn_scale_of(hp)
+    alibi = llama_mod.alibi_of(hp, dev)
     stats: dict[str, torch.Tensor] = {}
 
     def record(names, act):
@@ -93,7 +97,7 @@ def _imatrix_step(w: LlamaWeights, tokens: torch.Tensor, *, hp: HParams,
 
         def attend(q, k, v, _mask=mask):
             return layers.attention(q, k, v, _mask, scale,
-                                    softcap=hp.attn_softcap)
+                                    softcap=hp.attn_softcap, alibi=alibi)
 
         layer_names = None if names is None else {
             n.split(".", 2)[2] for n in names if n.startswith(f"blk.{li}.")}

@@ -20,9 +20,11 @@ step). Slot id = block * block_size + offset; the engine drops padding
 tokens on the host before the scatter (write_kv takes only kept rows).
 
 Attention dispatch: on CUDA, prefill goes to kernel K2 and decode to
-kernel K3 (its q8 variant over q8_0 pools), a sliding-window decode to the
-gather path as in the reference; on the CPU, or when the caller asks for
-the plain path, both take the full-gather reference
+kernel K3 (its q8 variant over q8_0 pools), a sliding-window decode and
+every attention of an ALiBi file (alibi slopes given) to the gather path
+as in the reference, whose kernels have no bias input either; on the CPU,
+or when the caller asks for the plain path, both take the full-gather
+reference
 (attend_prefill_plain / attend_decode_plain; gather_kv_q8 +
 attend_gathered for q8_0). Prefill over q8_0 pools is the dequantizing
 gather on every device, as in the reference, which has no kernel there.
@@ -201,9 +203,11 @@ def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
     src/dst/delta: [n] slot ids and rope deltas. RoPE rotations add, so
     rotating the stored (already roped) K by delta re-bases it to position
     p + delta. The rotation is unscaled on purpose: stored K already
-    carries mscale from its first rope. V moves without rotation. A q8_0
-    pool is dequantized, rotated and requantized in the reference's op
-    order; every read happens before any write."""
+    carries mscale from its first rope. A layer whose table is None
+    (cohere2's global layers, which take no rope) moves its K unrotated.
+    V moves without rotation. A q8_0 pool is dequantized, rotated and
+    requantized in the reference's op order; every read happens before
+    any write."""
     kv, nb, bs, d = pools.k[0].shape
     for li in range(len(pools.k)):
         kflat = pools.k[li].view(kv, nb * bs, d)
@@ -213,9 +217,10 @@ def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
             ksflat = pools.k_scale[li].view(kv, nb * bs)
             vsflat = pools.v_scale[li].view(kv, nb * bs)
             kg = kg * ksflat[:, src, None]               # dequantize
-        kg = kg.transpose(0, 1)[None]                    # [1, n, KV, D]
-        kg = layers.apply_rope(kg, delta[None], inv_freqs[li], 1.0)
-        kg = kg[0].transpose(0, 1)
+        if inv_freqs[li] is not None:
+            kg = kg.transpose(0, 1)[None]                # [1, n, KV, D]
+            kg = layers.apply_rope(kg, delta[None], inv_freqs[li], 1.0)
+            kg = kg[0].transpose(0, 1)
         vg = vflat[:, src]
         if pools.quantized:
             kq, ksc = quantize_q8(kg)                    # requantize K
@@ -234,54 +239,59 @@ def gather_kv(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
 
 
 def attend_gathered(q, k, v, positions, kv_len, scale: float,
-                    window: int = 0, soft_cap: float = 0.0) -> torch.Tensor:
-    """Masked attention over already-gathered KV [B, S, KV, D]."""
+                    window: int = 0, soft_cap: float = 0.0,
+                    alibi=None) -> torch.Tensor:
+    """Masked attention over already-gathered KV [B, S, KV, D]; alibi:
+    optional [H] slopes (layers.attention)."""
     mask = prefill_mask(positions, kv_len, k.shape[1], window)
-    return layers.attention(q, k, v, mask, scale, softcap=soft_cap)
+    return layers.attention(q, k, v, mask, scale, softcap=soft_cap,
+                            alibi=alibi)
 
 
 def attend_prefill_plain(q, k_pool, v_pool, block_table, positions, kv_len,
                          scale: float, window: int = 0,
-                         soft_cap: float = 0.0) -> torch.Tensor:
+                         soft_cap: float = 0.0, alibi=None) -> torch.Tensor:
     """Reference prefill attention: full-cache gather + masked softmax."""
     return attend_gathered(q, gather_kv(k_pool, block_table),
                            gather_kv(v_pool, block_table), positions, kv_len,
-                           scale, window, soft_cap)
+                           scale, window, soft_cap, alibi)
 
 
 def attend_prefill(q, k_pool, v_pool, block_table, positions, kv_len,
                    scale: float, window: int = 0, soft_cap: float = 0.0,
-                   plain: bool = False) -> torch.Tensor:
+                   plain: bool = False, alibi=None) -> torch.Tensor:
     """Attention for a prefill chunk whose KV (incl. any cached prefix) is
     already written to the pools. q: [B, T, H, D]; positions [B, T];
-    kv_len [B] total tokens now in cache."""
-    if plain or q.device.type == "cpu":
+    kv_len [B] total tokens now in cache. With ALiBi slopes it takes the
+    gather path on every device, as the reference does."""
+    if plain or q.device.type == "cpu" or alibi is not None:
         return attend_prefill_plain(q, k_pool, v_pool, block_table,
                                     positions, kv_len, scale, window,
-                                    soft_cap)
+                                    soft_cap, alibi)
     qs = (q.float() * scale).to(q.dtype).contiguous()
     return flash_prefill(qs, k_pool, v_pool, positions, kv_len, block_table,
                          window=window, soft_cap=soft_cap)
 
 
 def attend_decode_plain(q, k_pool, v_pool, block_table, kv_len, scale: float,
-                        window: int = 0, soft_cap: float = 0.0) -> torch.Tensor:
+                        window: int = 0, soft_cap: float = 0.0,
+                        alibi=None) -> torch.Tensor:
     """Reference decode path (T == 1 per sequence): gather + masked softmax."""
     positions = (kv_len - 1)[:, None]
     return attend_prefill_plain(q, k_pool, v_pool, block_table, positions,
-                                kv_len, scale, window, soft_cap)
+                                kv_len, scale, window, soft_cap, alibi)
 
 
 def attend_decode(q, k_pool, v_pool, block_table, kv_len, scale: float,
                   window: int = 0, soft_cap: float = 0.0,
-                  plain: bool = False) -> torch.Tensor:
+                  plain: bool = False, alibi=None) -> torch.Tensor:
     """Decode attention: q [B, 1, H, D] -> [B, 1, H, D]. A bf16 decode
-    without a window goes to kernel K3 on CUDA; a sliding window takes the
-    gather path on every device, as the reference sends any window to its
-    gather (kv_cache.attend_decode there)."""
-    if plain or window > 0 or q.device.type == "cpu":
+    without a window goes to kernel K3 on CUDA; a sliding window or ALiBi
+    slopes take the gather path on every device, as the reference sends
+    either to its gather (kv_cache.attend_decode there)."""
+    if plain or window > 0 or q.device.type == "cpu" or alibi is not None:
         return attend_decode_plain(q, k_pool, v_pool, block_table, kv_len,
-                                   scale, window, soft_cap)
+                                   scale, window, soft_cap, alibi)
     qs = (q[:, 0].float() * scale).to(q.dtype).contiguous()
     out = paged_attention_decode(qs, k_pool, v_pool, kv_len, block_table,
                                  soft_cap=soft_cap if soft_cap > 0 else None)
@@ -290,17 +300,17 @@ def attend_decode(q, k_pool, v_pool, block_table, kv_len, scale: float,
 
 def attend_decode_q8(q, k_pool, k_scale, v_pool, v_scale, block_table, kv_len,
                      scale: float, window: int = 0, soft_cap: float = 0.0,
-                     plain: bool = False) -> torch.Tensor:
+                     plain: bool = False, alibi=None) -> torch.Tensor:
     """Decode attention over q8_0 pools: q [B, 1, H, D] -> [B, 1, H, D].
     On CUDA, kernel K3's q8 variant dequantizes the int8 pages in registers
     (half the bytes of bf16 pages); the plain version is the dequantizing
-    gather + masked softmax, which a sliding window takes on every device,
-    as in the reference."""
-    if plain or window > 0 or q.device.type == "cpu":
+    gather + masked softmax, which a sliding window or ALiBi slopes take on
+    every device, as in the reference."""
+    if plain or window > 0 or q.device.type == "cpu" or alibi is not None:
         k = gather_kv_q8(k_pool, k_scale, block_table)
         v = gather_kv_q8(v_pool, v_scale, block_table)
         return attend_gathered(q, k, v, (kv_len - 1)[:, None], kv_len, scale,
-                               window, soft_cap)
+                               window, soft_cap, alibi)
     qs = (q[:, 0].float() * scale).to(torch.bfloat16).contiguous()
     out = paged_attention_decode(qs, k_pool, v_pool, kv_len, block_table,
                                  soft_cap=soft_cap if soft_cap > 0 else None,

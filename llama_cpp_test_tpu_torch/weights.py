@@ -6,9 +6,11 @@ to_device takes LlamaWeights whose QTensor planes and norm vectors are
 numpy arrays: the port's own loader output, or port_weights_from_reference
 of the reference's parameters (every LayerWeights field by name: the
 biases, QK norms and sandwich norms of the gemma and qwen archs, the
-LayerNorm biases, falcon-40B's second norm and the projection biases too;
-the sliding-window and long-rope tables and the final norm's and lm
-head's biases). bf16 bit patterns (uint16) become
+LayerNorm biases, falcon-40B's second norm, the projection and gate
+biases and bitnet's sub-norms too; every LlamaWeights field likewise: the
+sliding-window and long-rope tables, the final norm's and lm head's
+biases, the learned position rows, the embedding LayerNorm and cohere2's
+nope_global flag). bf16 bit patterns (uint16) become
 torch.bfloat16, int8/uint8 planes keep their type, float arrays become
 float32. Expert stacks (a leading E axis on every plane) move the same way.
 Attached adapters move too: each LoRA pair (A, B, scale) as float32
@@ -73,6 +75,17 @@ def lora_to_torch(pair, device: torch.device | str) -> tuple:
     return conv(a), conv(b), float(scale)
 
 
+def _top_fields(w, conv, layers) -> LlamaWeights:
+    """A LlamaWeights with conv applied to every plane and vector field of
+    w (any object with its attributes), `layers` as its layers; the rope
+    magnitude and nope_global carried as they are."""
+    keep = ("rope_mscale", "nope_global")
+    out = {f.name: (getattr(w, f.name) if f.name in keep
+                    else conv(getattr(w, f.name)))
+           for f in dataclasses.fields(LlamaWeights) if f.name != "layers"}
+    return LlamaWeights(layers=layers, **out)
+
+
 def _layer_fields(lw, conv, conv_lora) -> LayerWeights:
     """A LayerWeights with conv applied to every plane and norm field,
     conv_lora to each LoRA pair; the control vector goes through conv."""
@@ -100,14 +113,7 @@ def port_weights_from_reference(jw) -> LlamaWeights:
         port_qtensor(x) if hasattr(x, "kind") else np.asarray(x, np.float32))
     conv_lora = lambda p: (host_array(p[0]), host_array(p[1]), float(p[2]))
     layers = [_layer_fields(lw, conv, conv_lora) for lw in jw.layers]
-    return LlamaWeights(
-        tok_embd=conv(jw.tok_embd), output_norm=conv(jw.output_norm),
-        output=conv(jw.output), layers=layers,
-        rope_inv_freq=np.asarray(jw.rope_inv_freq, np.float32),
-        rope_mscale=jw.rope_mscale,
-        rope_inv_freq_swa=conv(jw.rope_inv_freq_swa),
-        rope_inv_freq_long=conv(jw.rope_inv_freq_long),
-        output_norm_b=conv(jw.output_norm_b), output_b=conv(jw.output_b))
+    return _top_fields(jw, conv, layers)
 
 
 def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:
@@ -121,10 +127,4 @@ def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:
 
     layers = [_layer_fields(lw, conv, lambda p: lora_to_torch(p, device))
               for lw in w.layers]
-    return LlamaWeights(
-        tok_embd=conv(w.tok_embd), output_norm=conv(w.output_norm),
-        output=conv(w.output), layers=layers,
-        rope_inv_freq=conv(w.rope_inv_freq), rope_mscale=w.rope_mscale,
-        rope_inv_freq_swa=conv(w.rope_inv_freq_swa),
-        rope_inv_freq_long=conv(w.rope_inv_freq_long),
-        output_norm_b=conv(w.output_norm_b), output_b=conv(w.output_b))
+    return _top_fields(w, conv, layers)

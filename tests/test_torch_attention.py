@@ -57,16 +57,18 @@ def prefill_case(seed=0, b=2, t=16, h=8, kv=2, d=64, nb=12, bs=8, lens=None,
 
 @pytest.mark.parametrize("h,kv,d", [(8, 2, 64), (4, 4, 64), (32, 4, 64),
                                     (8, 2, 128), (8, 4, 256), (4, 1, 256),
-                                    (4, 4, 80), (8, 2, 96)],
+                                    (4, 4, 80), (8, 2, 96), (4, 4, 100),
+                                    (8, 2, 100)],
                          ids=["G4", "G1", "G8", "G4-D128", "G2-D256",
-                              "G4-D256", "G1-D80", "G4-D96"])
+                              "G4-D256", "G1-D80", "G4-D96", "G1-D100",
+                              "G4-D100"])
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (5, 0.0), (0, 30.0),
                                         (5, 50.0)])
 def test_flash_prefill_matches_pallas(window, cap, h, kv, d):
     """Mixed lengths per sequence, GQA G in {1, 2, 4, 8} (8: TinyLlama's
     layout, 2 and 4 at D = 256: Gemma-2's and Gemma-3's, 1 at D = 80:
-    Phi-2's), D in {64, 80, 96, 128, 256}, window and softcap, and both at
-    once (Gemma-2's local layers)."""
+    Phi-2's, 1 at D = 100: BitNet-3B's), D in {64, 80, 96, 100, 128, 256},
+    window and softcap, and both at once (Gemma-2's local layers)."""
     q, kp, vp, pos, kl, bt = prefill_case(h=h, kv=kv, d=d)
     scale = 0.125
     (jq, tq), (jk, tk), (jv, tv) = both(q * scale), both(kp), both(vp)
@@ -112,9 +114,10 @@ def decode_case(b=3, kv=2, g=4, d=64, nb=16, bs=16, nbmax=4, seed=0):
 @pytest.mark.parametrize("g,lengths,cap,d", [
     (4, None, None, 64), (1, None, None, 64), (4, [1, 2, 5], None, 64),
     (4, None, 30.0, 64), (2, None, 50.0, 256), (4, [1, 2, 5], None, 256),
-    (1, None, None, 80), (4, [1, 2, 5], None, 96)],
+    (1, None, None, 80), (4, [1, 2, 5], None, 96), (1, None, None, 100),
+    (4, None, 30.0, 100)],
     ids=["G4", "G1", "short", "softcap", "G2-softcap-D256", "short-D256",
-         "G1-D80", "short-D96"])
+         "G1-D80", "short-D96", "G1-D100", "softcap-D100"])
 def test_paged_decode_matches_pallas(g, lengths, cap, d):
     q, kp, vp, lens, pages = decode_case(g=g, kv=2 if g == 4 else 4, seed=g,
                                          d=d)
@@ -134,9 +137,9 @@ def test_paged_decode_matches_pallas(g, lengths, cap, d):
 @pytest.mark.parametrize("lengths", [[37 * 16 + 5], [1, 16, 37 * 16 + 5]],
                          ids=["B1", "B3-1-BS-37BS+5"])
 @pytest.mark.parametrize("g,kv,d", [(8, 4, 64), (4, 2, 128), (4, 1, 256),
-                                    (1, 4, 80), (1, 4, 96)],
+                                    (1, 4, 80), (1, 4, 96), (1, 4, 100)],
                          ids=["G8", "G4-D128", "G4-D256", "G1-D80",
-                              "G1-D96"])
+                              "G1-D96", "G1-D100"])
 def test_paged_decode_long_and_short_match_pallas(lengths, g, kv, d):
     """The plain version K3 is held against, at B = 1 and at B = 3 with
     lengths 1, BS and 37 BS + 5 (one sequence spanning many of K3's page
@@ -190,6 +193,51 @@ def test_attend_decode_matches_reference():
     ref = kv_cache.attend_decode_xla(jq, jk, jv, jp, jl, scale)
     got = pkv.attend_decode(tq, tk, tv, tp, tl, scale)
     assert got.shape == tuple(ref.shape)
+    assert nmse(f32(ref), f32(got)) < 1e-6
+
+
+@pytest.mark.parametrize("style,g,d", [("bloom", 1, 64), ("mpt", 3, 64),
+                                       ("bloom", 3, 100)])
+def test_alibi_attention_matches_reference(style, g, d):
+    """The ALiBi bias through the dispatchers (prefill over a cached
+    prefix, decode, and the q8_0 decode) against the reference's XLA
+    paths, which every ALiBi layer takes there: slope_h * kv_index added
+    after the softcap, before the mask; 6 heads take the non-power-of-two
+    slope orders."""
+    from llama_cpp_test_tpu.ops import layers as jlayers
+    from llama_cpp_test_tpu_torch.ops import layers as players
+
+    q, kp, vp, lens, pages = decode_case(g=g, kv=2, d=d, seed=11)
+    h, scale, cap = 2 * g, 0.125, 30.0
+    sl = jlayers.alibi_slopes(h, 8.0, style=style)
+    np.testing.assert_array_equal(sl, players.alibi_slopes(h, 8.0, style))
+    js, ts = jnp.asarray(sl), torch.from_numpy(sl)
+    (jq, tq), (jk, tk), (jv, tv) = both(q[:, None]), both(kp), both(vp)
+    (jl, tl), (jp, tp) = both(lens, "i32"), both(pages, "i32")
+    ref = kv_cache.attend_decode_xla(jq, jk, jv, jp, jl, scale, 0, cap,
+                                     alibi=js)
+    got = pkv.attend_decode(tq, tk, tv, tp, tl, scale, 0, cap, alibi=ts)
+    assert nmse(f32(ref), f32(got)) < 1e-6
+    plain = pkv.attend_decode(tq, tk, tv, tp, tl, scale, 0, cap)
+    assert nmse(f32(plain), f32(got)) > 1e-4
+    kq, ks = kv_cache.quantize_q8(jk)
+    vq, vs = kv_cache.quantize_q8(jv)
+    t = lambda a: torch.from_numpy(np.array(a))
+    ref8 = kv_cache.attend_gathered(
+        jq, kv_cache.gather_kv_q8(kq, ks, jp), kv_cache.gather_kv_q8(vq, vs, jp),
+        (jl - 1)[:, None], jl, scale, 0, cap, alibi=js)
+    got8 = pkv.attend_decode_q8(tq, t(kq), t(ks), t(vq), t(vs), tp, tl, scale,
+                                0, cap, alibi=ts)
+    assert nmse(f32(ref8), f32(got8)) < 1e-6
+    pos = np.stack([np.arange(n - 5, n) for n in np.maximum(lens, 5)])
+    pos = pos.astype(np.int32)
+    kl = np.maximum(lens, 5).astype(np.int32)
+    jq5, tq5 = both(np.repeat(q[:, None], 5, axis=1))
+    (jpos, tpos), (jkl, tkl) = both(pos, "i32"), both(kl, "i32")
+    ref = kv_cache.attend_prefill_xla(jq5, jk, jv, jp, jpos, jkl, scale, 4,
+                                      cap, alibi=js)
+    got = pkv.attend_prefill(tq5, tk, tv, tp, tpos, tkl, scale, 4, cap,
+                             alibi=ts)
     assert nmse(f32(ref), f32(got)) < 1e-6
 
 

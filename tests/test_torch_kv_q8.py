@@ -73,13 +73,16 @@ def test_write_and_gather_kv_q8_match_reference():
                                            ([64, 17, 33], None, 256),
                                            ([40, 9, 64], 50.0, 256),
                                            ([64, 17, 33], None, 80),
-                                           ([40, 9, 64], None, 96)],
+                                           ([40, 9, 64], None, 96),
+                                           ([64, 17, 33], None, 100),
+                                           ([40, 9, 64], 30.0, 100)],
                          ids=["mixed", "short", "softcap", "mixed-D256",
-                              "softcap-D256", "mixed-D80", "mixed-D96"])
+                              "softcap-D256", "mixed-D80", "mixed-D96",
+                              "mixed-D100", "softcap-D100"])
 def test_paged_decode_q8_matches_pallas(lengths, cap, d):
     """The q8 decode plain version (what K3-q8 is held against) against
     the JAX q8 Pallas kernel in interpret mode, at D = 64, at Phi-2's 80,
-    Phi-3's 96 and Gemma's 256."""
+    Phi-3's 96, BitNet-3B's 100 and Gemma's 256."""
     rng = np.random.default_rng(0)
     b, kv, g, nb, bs, nbmax = 3, 2, 4, 16, 16, 4
     kf = rng.standard_normal((kv, nb, bs, d)).astype(np.float32) * 0.3
@@ -108,15 +111,16 @@ def test_paged_decode_q8_matches_pallas(lengths, cap, d):
                                        ([37 * 16 + 5], 256),
                                        ([1, 16, 37 * 16 + 5], 256),
                                        ([1, 16, 37 * 16 + 5], 80),
-                                       ([37 * 16 + 5], 96)],
+                                       ([37 * 16 + 5], 96),
+                                       ([1, 16, 37 * 16 + 5], 100)],
                          ids=["B1", "B3-1-BS-37BS+5", "B1-D256",
                               "B3-1-BS-37BS+5-D256", "B3-1-BS-37BS+5-D80",
-                              "B1-D96"])
+                              "B1-D96", "B3-1-BS-37BS+5-D100"])
 def test_paged_decode_q8_long_and_short_match_pallas(lengths, d):
     """The q8 plain version at B = 1 and at B = 3 with lengths 1, BS and
     37 BS + 5 (one sequence spanning many of K3-q8's page ranges beside
     two shorter than one) against the JAX q8 Pallas kernel in interpret
-    mode, at D = 64, 80, 96 and 256; gate 2e-4 as above."""
+    mode, at D = 64, 80, 96, 100 and 256; gate 2e-4 as above."""
     rng = np.random.default_rng(len(lengths))
     b, kv, g, bs, nbmax = len(lengths), 2, 4, 16, 40
     nb = b * nbmax + 2

@@ -200,3 +200,33 @@ def test_qgather_lut_and_crumb_rows(numpy_repack, qtype):
     got = pqmm.qgather(torch.from_numpy(ids), qtensor_to_torch(pqt, "cpu"),
                        dtype=torch.float32).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("layout", ["t", "rows"])
+@pytest.mark.parametrize("qtype", [GGMLType.Q8_0, GGMLType.Q4_K,
+                                   GGMLType.Q6_K, GGMLType.Q2_K,
+                                   GGMLType.IQ4_XS, GGMLType.BF16],
+                         ids=lambda t: t.name)
+def test_repack_in_row_chunks_matches_reference(numpy_repack, monkeypatch,
+                                                qtype, layout):
+    """A tensor past PARALLEL_MIN elements (here every one) is decomposed,
+    packed and transposed in row chunks on the repack's threads, and a
+    BF16 matmul plane keeps its bits without the float32 round trip: the
+    planes equal the JAX repack's, at a row count (1000) that cuts into
+    uneven chunks and pads."""
+    monkeypatch.setattr(prepack, "PARALLEL_MIN", 1)
+    n = 1000
+    if qtype == GGMLType.BF16:
+        w = np.random.default_rng(5).standard_normal((n, K), np.float32)
+        raw = prepack.f32_to_bf16_bits(w).view(np.uint8).reshape(n, -1)
+    else:
+        raw = raw_of(qtype, n=n, seed=5)
+    jqt = repack.repack(raw, qtype, n, K, layout=layout)
+    pqt = prepack.repack(raw, PGGMLType(int(qtype)), n, K, layout=layout)
+    assert tuple(pqt.shape) == tuple(jqt.shape) and pqt.kind == jqt.kind
+    for name in ("qs", "scale", "min_", "lut"):
+        a, b = getattr(jqt, name), getattr(pqt, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_array_equal(plane_bits(a), plane_bits(b),
+                                          err_msg=name)
