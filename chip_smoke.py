@@ -25,7 +25,7 @@ non-zero before the final line:
            kernel/plain/library times, SDPA's backend, roofline bound); one
            K1 and one K4 GEMV call, captured in a CUDA graph, must each hold
            one kernel and no memset, and give the same bits twice
-  serve    a TinyLlama-1.1B-geometry Q4_K GGUF (full width, 11 of 22
+  serve    a TinyLlama-1.1B-geometry Q4_K GGUF (full width, 6 of 22
            layers) synthesized from seeded random block bytes is loaded with Model(path) on cuda and serves
            three generate() requests plus one batched decode; the launch
            count of every kernel of that path must be > 0, and the logits
@@ -40,7 +40,7 @@ non-zero before the final line:
   serve_iq4xs  the same for a Llama-3-70B-geometry IQ4_XS GGUF (full width,
            2 layers; u4lut planes), one bf16 Context, then K1 rows on the
            loaded planes of layer 0 and the lm head at M = 1, 8, 128, 512
-  serve_lowbit the same for two Llama-3-8B-geometry files (full width, 4
+  serve_lowbit the same for two Llama-3-8B-geometry files (full width, 2
            layers): Q2_K (u2 planes with a min) and IQ1_S (u2lut, with
            Q4_K attn_v, IQ2_XXS ffn_down, Q5_K output, Q2_K token_embd),
            each served by a Context at the default qmm variant and one at
@@ -148,7 +148,7 @@ non-zero before the final line:
   quirks_ln the LayerNorm, parallel-residual and partial-rope archs:
            Phi-3-mini-128k (Q4_K; head dim 96, fused QKV and gate|up, long
            rope, window 262144) and Phi-2 (Q4_K; head dim 80, partial rope,
-           parallel residual, biases) at published widths, 16 of 32
+           parallel residual, biases) at published widths, 4 of 32
            layers each (cut for the smoke's clock), each
            served as in serve at bf16 and q8_0 KV (8 decode steps held to
            the plain path), a 600-token prompt at each n_ctx (Phi-3: 8192,
@@ -164,7 +164,8 @@ non-zero before the final line:
            rows at D = 80 and 96 and K3 at Falcon-7B's G = 71; the ptxas
            registers and spills of the D = 80 and 96 builds
   quirks_body the other llama-body archs: MiniCPM-2B (Q8_0: FFN 5760; the
-           mup scales, tied head) at published widths and depth, Command
+           mup scales, tied head) at published widths and 4 of 40
+           layers (cut for the smoke's clock), Command
            R7B (cohere2; Q4_K) at published widths and 4 layers (three
            sliding at window 4096, one global without rope) and BitNet
            b1.58-3B (Q8_0; D = 100, the sub-norms) at 2, each served as in
@@ -182,18 +183,43 @@ non-zero before the final line:
            path predictions; the ptxas registers and spills of the D = 100
            builds
   positions the position axes: GPT-2 (1024 learned positions) and
-           BLOOM-560m (ALiBi, the embedding LayerNorm) at published widths
-           and depth as in quirks_body, K2 and K3 launched on GPT-2 and
+           BLOOM-560m (ALiBi, the embedding LayerNorm; 8 of 24 layers, cut
+           for the smoke's clock) at published widths and depth as in
+           quirks_body, K2 and K3 launched on GPT-2 and
            never on BLOOM (ALiBi takes the gather path, as the reference
            sends it to XLA); then five 2-layer files (StarCoderBase-1B,
            MPT-7B, Jais-13B, Refact-1.6B, Baichuan2-13B by its
            max_alibi_bias key) with the same checks
+  encoders the bert-family encoders: BERT-base, nomic-embed-text-v1.5 and
+           jina-embeddings-v2-base-en at published widths and depth (their
+           WordPiece vocabularies synthesized), each at Q8_0 and Q4_K:
+           pooled embeddings (CLS, mean, last) at 16, 130 and 512 tokens
+           within the embedding gate of the plain path, K2 once a layer a
+           512-token embed and bidirectional (none on jina: ALiBi takes
+           the gather path), K1's GEMM once a projection plane, the embed
+           wall; on each Q8_0 file cli.embedding's printout and the
+           server's /v1/embeddings equal to Context.embed, /rerank in its
+           order, a completion refused (no LM head), BERT's Context cut to
+           its 512 positions; K2 bidirectional at BERT-base's T = 512
+  geometry per-layer geometry and chameleon: OpenELM-270M (Q4_K; query
+           heads 12-20 on KV heads 3-5, FFN widths 768-5120) at published
+           widths and depth as in quirks_body, with a session save and
+           restore, one context shift held to the plain path and greedy
+           tokens at equal batches (B = 4) against the plain path, at
+           bf16 and q8_0 KV; then DeciLM-7B at 4 layers (KV heads 4, 4, 2,
+           2), a Llama-3.1-Nemotron-51B-width file of 3 layers
+           (attention, attention-free, linear attention), Chameleon-7B at
+           4 layers (QK LayerNorms with biases) and a Chameleon-34B-width
+           swin-norm file at 2, each with the 2-layer files' checks (K2
+           and K3 once an attending layer) and greedy tokens at equal
+           batches at bf16 and q8_0 KV; K3 and K3-q8 at DeciLM-7B's KV = 2
+           and OpenELM-270M's widest layer (20 on 5)
   timings  the seconds of each phase
 
 Every file the serve phases write carries a synthesized tokenizer
 (write_llama_gguf's vocab: SPM for 32000 tokens and for the gemma, qwen,
-phi and other vocabularies, Llama-3's BPE layout for 128256); nothing is
-downloaded.
+phi and other vocabularies, Llama-3's BPE layout for 128256, BERT's
+WordPiece layout for the encoders); nothing is downloaded.
 
 Before the last line it prints the kernels summary and the card's
 nvidia-smi name and power limit; the last line is
@@ -231,10 +257,11 @@ FOLD_GATE = 1e-8         # a GEMM with a min against the plain fold (the
 PROBE_GATE = 1e-5        # NMSE gate of tests/test_torch_probes.py
 
 # TinyLlama-1.1B (BASELINE.json config #1) published widths, depth cut
-# from 22 to 11 layers (full depth until the quirks_ln phase needed the
-# time; the cli, sched, server and adapters phases serve this file)
+# from 22 to 6 layers (full depth until the quirks_ln phase needed the
+# time, 11 until the encoders and geometry phases; the cli, sched, server
+# and adapters phases serve this file)
 TINYLLAMA = dict(n_vocab=32000, n_embd=2048, n_head=32, n_head_kv=4,
-                 head_dim=64, n_layer=11, n_ff=5632)
+                 head_dim=64, n_layer=6, n_ff=5632)
 # Llama-3-8B (BASELINE.json config #2) published widths
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_head=32, n_head_kv=8,
                  head_dim=128, n_layer=32, n_ff=14336)
@@ -251,9 +278,10 @@ MIXTRAL = dict(n_vocab=32000, n_embd=4096, n_head=32, n_head_kv=8,
 # the quirks_ln phase needed the time)
 LLAMA3_70B = dict(n_vocab=128256, n_embd=8192, n_head=64, n_head_kv=8,
                   head_dim=128, n_layer=2, n_ff=28672, rope_base=500000.0)
-# Llama-3-8B widths for the low-bit files, depth cut from 32 to 4 layers
-# (8 until the quirks_ln phase needed the time)
-LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=4, rope_base=500000.0)
+# Llama-3-8B widths for the low-bit files, depth cut from 32 to 2 layers
+# (8 until the quirks_ln phase needed the time, 4 until the encoders and
+# geometry phases)
+LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=2, rope_base=500000.0)
 # Mixtral-8x7B widths for the low-bit MoE files, depth cut from 32 to 2
 # layers (a layer's 1.4G expert weights are 0.56-0.7 GB of planes, but
 # repacking 4 layers took 9 s (Q2_K) and 21 s (IQ1_S) on the 8 host cores
@@ -293,21 +321,22 @@ QWEN3_06B = dict(arch="qwen3", n_vocab=151936, n_embd=1024, n_head=16,
                  rope_base=1e6, rms_eps=1e-6, tied=True, qk_norm=True)
 
 # Phi-3-mini-128k-instruct (microsoft/Phi-3-mini-128k-instruct
-# config.json) published widths, depth cut from 32 to 16 layers for the
-# smoke's clock: head dim 96, MHA, fused qkv_proj and gate_up_proj, NEOX
-# rope, long rope (original context 4096 of 131072; 48-entry factor
-# tables, seeded in the published range), sliding window 262144 on every
-# layer, untied head
+# config.json) published widths, depth cut from 32 to 4 layers for the
+# smoke's clock (16 before the encoders and geometry phases): head dim
+# 96, MHA, fused qkv_proj and gate_up_proj, NEOX rope, long rope
+# (original context 4096 of 131072; 48-entry factor tables, seeded in
+# the published range), sliding window 262144 on every layer, untied head
 PHI3_MINI = dict(arch="phi3", n_vocab=32064, n_embd=3072, n_head=32,
-                 n_head_kv=32, head_dim=96, n_layer=16, n_ff=8192,
+                 n_head_kv=32, head_dim=96, n_layer=4, n_ff=8192,
                  rope_base=10000.0, sliding_window=262144,
                  longrope=(4096, 131072), fused_qkv=True, ffn="fused")
 # Phi-2 (microsoft/phi-2 config.json) published widths, depth cut from 32
-# to 16 layers for the smoke's clock: head dim 80, partial rope (32 of
-# 80), one LayerNorm (eps 1e-5) feeding the parallel attention and GELU
-# FFN, biases on every projection and the head
+# to 4 layers for the smoke's clock (16 before the encoders and geometry
+# phases): head dim 80, partial rope (32 of 80), one LayerNorm (eps
+# 1e-5) feeding the parallel attention and GELU FFN, biases on every
+# projection and the head
 PHI2 = dict(arch="phi2", n_vocab=51200, n_embd=2560, n_head=32,
-            n_head_kv=32, head_dim=80, rope_dim=32, n_layer=16, n_ff=10240,
+            n_head_kv=32, head_dim=80, rope_dim=32, n_layer=4, n_ff=10240,
             ln_eps=1e-5, norm_bias=True, ffn_norm=False, fused_qkv=True,
             qkv_bias=True, bo=True, ffn="up", ffn_bias=True, head_bias=True)
 # The other archs of the slice at published widths, depth cut to 2 layers:
@@ -671,6 +700,41 @@ def bpe_vocab(n_vocab: int, seed: int, n_special: int = 256) -> dict:
             "tokenizer.ggml.add_bos_token": True}
 
 
+def wpm_vocab(n_vocab: int, seed: int) -> dict:
+    """Tokenizer metadata of a WordPiece vocab (tokenizer.ggml.model
+    "bert") laid out as BERT's uncased one as llama.cpp converts it: [PAD]
+    0, [unused0..98], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103, then
+    word pieces, a word's first piece marked with the '\u2581' space mark
+    and a continuation piece bare: the words of _WORDS and the printable
+    ASCII characters both ways, then seeded letter strings of 2-8 letters.
+    [CLS] and [SEP] wrap an encoded text."""
+    rng = np.random.default_rng(seed)
+    tokens = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + [
+        "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    types = [3] * len(tokens)
+    want = n_vocab - len(tokens)
+    chars = [chr(c) for c in range(33, 127) if not chr(c).isupper()]
+    pieces = dict.fromkeys(["\u2581" + w for w in _WORDS + tuple(chars)]
+                           + list(_WORDS) + chars)
+    letters = np.array(list(_LETTERS))
+    while len(pieces) < want:
+        lens = rng.integers(2, 9, size=4096)
+        rows = rng.choice(letters, size=(4096, 8), p=_LETTER_P / _LETTER_P.sum())
+        marks = rng.random(4096) < 0.5
+        for n, row, mark in zip(lens, rows, marks):
+            pieces.setdefault(("\u2581" if mark else "") + "".join(row[:n]))
+    tokens += list(pieces)[:want]
+    types += [1] * want
+    return {"tokenizer.ggml.model": "bert", "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.token_type": np.asarray(types, np.int32),
+            "tokenizer.ggml.bos_token_id": 101,
+            "tokenizer.ggml.eos_token_id": 102,
+            "tokenizer.ggml.unknown_token_id": 100,
+            "tokenizer.ggml.padding_token_id": 0,
+            "tokenizer.ggml.add_bos_token": True,
+            "tokenizer.ggml.add_eos_token": True}
+
+
 def write_llama_gguf(path: str, hp: dict, seed: int,
                      ftype: str = "Q4_K", vocab: str | None = "auto",
                      vocab_seed: int | None = None,
@@ -697,13 +761,23 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     learned position table of that many rows, the context length too),
     tok_norm (the embedding LayerNorm, weight and bias), sub_norms
     (bitnet's attn_sub_norm and ffn_sub_norm) and gate_bias (an F32
-    ffn_gate bias). A tensor whose K the type's block does not divide is
+    ffn_gate bias). Those of the encoders: post_norm (no pre-norms, no
+    final norm and no LM head; attn_output_norm and layer_output_norm,
+    with biases under norm_bias), types (the token-type rows) and
+    down_bias (an ffn_down bias alone). Those of per-layer geometry:
+    n_head_layers, n_head_kv_layers, n_ff_layers (each written as the
+    GGUF array of its key; n_head 0 an attention-free layer with its FFN
+    alone, n_head_kv 0 a linear-attention layer with attn_norm and an
+    n_embd x n_embd attn_output alone) and qk_norm "head_bias" (per-head
+    QK LayerNorms [H, D] with biases, chameleon's). A tensor whose K the
+    type's block does not divide is
     written Q8_0, or BF16 where 32 does not divide it either (_fit_type);
     the choices are returned, tensor role -> type name. vocab:
     the tokenizer written beside them (from vocab_seed, default seed),
-    "spm" (spm_vocab) or "bpe" (bpe_vocab); "auto" takes "bpe" for
-    Llama-3's 128256 tokens and "spm" for any other size; None writes
-    none. chat_template: the tokenizer.chat_template written with it."""
+    "spm" (spm_vocab), "bpe" (bpe_vocab) or "wpm" (wpm_vocab, BERT's);
+    "auto" takes "wpm" for an encoder, "bpe" for Llama-3's 128256 tokens
+    and "spm" for any other size; None writes none. chat_template: the
+    tokenizer.chat_template written with it."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -713,12 +787,16 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     n_exp = hp.get("n_expert", 0)
     arch = hp.get("arch", "llama")
     w = GGUFWriter(path, arch=arch)
+    per_layer = {key: hp.get(f"{key}_layers") or [dflt] * n_layer
+                 for key, dflt in (("n_head", hq), ("n_head_kv", hkv),
+                                   ("n_ff", ff))}
+    arr = lambda key, dflt: hp.get(f"{key}_layers") or dflt
     meta = {"context_length": hp.get("pos_rows") or 2048,
             "embedding_length": c,
-            "block_count": n_layer, "attention.head_count": hq,
-            "attention.head_count_kv": hkv,
+            "block_count": n_layer, "attention.head_count": arr("n_head", hq),
+            "attention.head_count_kv": arr("n_head_kv", hkv),
             "attention.key_length": d, "attention.value_length": d,
-            "feed_forward_length": ff,
+            "feed_forward_length": arr("n_ff", ff),
             "rope.dimension_count": hp.get("rope_dim", d),
             "rope.freq_base": hp.get("rope_base", 10000.0),
             ("attention.layer_norm_epsilon" if "ln_eps" in hp else
@@ -744,10 +822,12 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
                          1.0 + np.log(train / orig) / np.log(orig)))})
     meta.update(hp.get("meta", {}))
     meta = {f"{arch}.{k}": val for k, val in meta.items()}
+    post = hp.get("post_norm", False)
     if vocab == "auto":
-        vocab = "bpe" if v == 128256 else "spm"
+        vocab = "wpm" if post else "bpe" if v == 128256 else "spm"
     if vocab is not None:
-        meta.update({"spm": spm_vocab, "bpe": bpe_vocab}[vocab](
+        meta.update({"spm": spm_vocab, "bpe": bpe_vocab,
+                     "wpm": wpm_vocab}[vocab](
             v, seed if vocab_seed is None else vocab_seed))
     if chat_template is not None:
         meta["tokenizer.chat_template"] = chat_template
@@ -782,21 +862,33 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     quant("token_embd.weight", v, c)
     if hp.get("pos_rows"):
         vec("position_embd.weight", hp["pos_rows"], c, mean=0.0, std=0.02)
+    if hp.get("types"):
+        vec("token_types.weight", 2, c, mean=0.0, std=0.02)
     if hp.get("tok_norm"):
         vec("token_embd_norm.weight", c)
         vec("token_embd_norm.bias", c, mean=0.0)
-    if hp.get("output_norm", True):
+    if hp.get("output_norm", True) and not post:
         norm("output_norm.weight")
-    if not hp.get("tied"):
+    if not (hp.get("tied") or post):
         quant("output.weight", v, c)
     if hp.get("head_bias"):
         bias("output.bias", v)
     for i in range(n_layer):
         p = f"blk.{i}."
-        pre = hp.get("pre_norms", True)
-        if pre:
+        hq, hkv, ff = (per_layer[k][i] for k in ("n_head", "n_head_kv",
+                                                 "n_ff"))
+        pre = hp.get("pre_norms", True) and not post
+        if post:
+            norm(p + "attn_output_norm.weight")
+            norm(p + "layer_output_norm.weight")
+        if pre and hq:
             norm(p + "attn_norm.weight")
-        if hp.get("fused_qkv"):
+        if not (hq and hkv):
+            # deci: an attention-free layer has its FFN alone, a linear-
+            # attention one an n_embd x n_embd wo on its normed input
+            if hq:
+                quant(p + "attn_output.weight", c, c)
+        elif hp.get("fused_qkv"):
             # the attn_qkv rows as one tensor of the attn_q type
             gt = fit("attn_qkv", types["attn_q"], c)
             w.add_tensor(p + "attn_qkv.weight", random_blocks(
@@ -806,7 +898,8 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             quant(p + "attn_q.weight", hq * d, c)
             quant(p + "attn_k.weight", hkv * d, c)
             quant(p + "attn_v.weight", hkv * d, c)
-        quant(p + "attn_output.weight", c, hq * d)
+        if hq and hkv:
+            quant(p + "attn_output.weight", c, hq * d)
         if hp.get("qkv_bias") and hp.get("fused_qkv"):
             bias(p + "attn_qkv.bias", (hq + 2 * hkv) * d)
         elif hp.get("qkv_bias"):
@@ -815,13 +908,16 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
                 bias(p + name + ".bias", n)
         if hp.get("bo"):
             bias(p + "attn_output.bias", c)
-        qk = hp.get("qk_norm")
+        qk = hp.get("qk_norm") if hq and hkv else None
         if qk in (True, "shared"):
             vec(p + "attn_q_norm.weight", d)
             vec(p + "attn_k_norm.weight", d)
-        elif qk == "head":
+        elif qk in ("head", "head_bias"):
             vec(p + "attn_q_norm.weight", hq, d)
             vec(p + "attn_k_norm.weight", hkv, d)
+            if qk == "head_bias":
+                vec(p + "attn_q_norm.bias", hq, d, mean=0.0)
+                vec(p + "attn_k_norm.bias", hkv, d, mean=0.0)
         elif qk == "flat":
             vec(p + "attn_q_norm.weight", hq * d)
             vec(p + "attn_k_norm.weight", hkv * d)
@@ -846,6 +942,7 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
         quant(p + "ffn_down.weight", c, ff)
         if hp.get("ffn_bias"):
             bias(p + "ffn_up.bias", ff)
+        if hp.get("ffn_bias") or hp.get("down_bias"):
             bias(p + "ffn_down.bias", c)
         if hp.get("gate_bias"):
             bias(p + "ffn_gate.bias", ff)
@@ -1234,12 +1331,14 @@ class KernelChecks:
             library="sdpa without the softcap" if soft_cap else None)
 
     def flash_prefill(self, hp, t=512, start=0, bs=16, window=0,
-                      soft_cap=0.0):
+                      soft_cap=0.0, causal=True):
         """A chunk of t tokens at positions start.. over a cache that holds
         start + t tokens (start > 0: a cached prefix), with a sliding
-        window and a softcap if given. The operations count the (query,
-        key) pairs the window leaves; SDPA takes the window in its mask
-        but no softcap (with one, it times the uncapped function)."""
+        window and a softcap if given; causal=False gives every row the
+        mask position start + t - 1, as an encoder's embed does (every
+        query attends every key). The operations count the (query, key)
+        pairs the mask leaves; SDPA takes the window in its mask but no
+        softcap (with one, it times the uncapped function)."""
         from llama_cpp_test_tpu_torch.ops import flash_prefill as fp
 
         torch, rng = self.torch, self.rng
@@ -1251,6 +1350,8 @@ class KernelChecks:
         table = torch.from_numpy(rng.permutation(nb)[:nbmax].reshape(1, nbmax)
                                  .astype(np.int32)).to("cuda")
         pos = torch.arange(start, n, dtype=torch.int32, device="cuda")[None]
+        if not causal:
+            pos = torch.full_like(pos, n - 1)
         kvl = torch.tensor([n], dtype=torch.int32, device="cuda")
         q = torch_bf16(torch, rng.standard_normal((1, t, h, d)) / 8)
         kw = dict(window=window, soft_cap=soft_cap)
@@ -1261,10 +1362,11 @@ class KernelChecks:
         lk, lv = _sdpa_kv(fp, kpool, vpool, table, h // kvh)
         lq = q.permute(0, 2, 1, 3).contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        p = np.arange(start, n)
+        p = pos[0].cpu().numpy()
         pairs = int((np.minimum(p + 1, window) if window else p + 1).sum())
         quirks = (f" window={window}" if window else "") + (
-            f" cap={soft_cap}" if soft_cap else "")
+            f" cap={soft_cap}" if soft_cap else "") + (
+            "" if causal else " non-causal")
         return self._row(
             "flash_prefill",
             f"B=1 T={t} start={start} H={h} KV={kvh} D={d} BS={bs}{quirks}",
@@ -3790,12 +3892,14 @@ LONG_CHUNK = 512            # the Scheduler's prefill chunk
 
 
 def _global_layers(hp, n_ctx: int) -> list:
-    """The layers whose decode takes K3 in a Context of n_ctx tokens: no
-    window, or one that cannot bind (>= n_ctx)."""
+    """The layers whose decode takes K3 in a Context of n_ctx tokens: the
+    layers that attend (not deci's attention-free and linear-attention
+    ones) with no window, or one that cannot bind (>= n_ctx)."""
     from llama_cpp_test_tpu_torch.models.hparams import layer_window
+    from llama_cpp_test_tpu_torch.models.llama import attends
 
-    return [i for i in range(hp.n_layer)
-            if not 0 < layer_window(hp, i) < n_ctx]
+    return [i for i in range(hp.n_layer) if attends(hp, i)
+            and not 0 < layer_window(hp, i) < n_ctx]
 
 
 def _launch_counts(torch, ctx, prompt, n_decode: int, tokens=None) -> dict:
@@ -3837,8 +3941,9 @@ def _k1_per_step(model) -> int:
 def _path_prediction(torch, model, prompt, n_ctx: int,
                      kv: str = "bf16") -> dict:
     """The launches a prefill and QUIRK_DECODE decode steps of one
-    sequence must make: K2 once a layer a chunk (every layer, windowed or
-    not; none over q8_0 pages, which prefill on the dequantizing gather),
+    sequence must make: K2 once a layer that attends a chunk (every such
+    layer, windowed or not, at its own head counts; none over q8_0 pages,
+    which prefill on the dequantizing gather),
     K3 (K3-q8 at q8_0 KV) once a global layer a step (a sliding-window
     layer whose window binds at n_ctx decodes on the gather path, as the
     reference sends any window to XLA), K1's GEMV once a quantized
@@ -3847,10 +3952,12 @@ def _path_prediction(torch, model, prompt, n_ctx: int,
     its attention takes the gather path, as the reference sends it to XLA.
     Then the same tokens through the plain path: the last prompt
     position's logits and every decode step's within the logits gate."""
+    from llama_cpp_test_tpu_torch.models.llama import attends
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     hp = model.hp
     glob = [] if hp.alibi else _global_layers(hp, n_ctx)
+    attending = sum(attends(hp, i) for i in range(hp.n_layer))
     ctx = lambda **kw: Context(model, n_ctx=n_ctx, n_seq_max=1,
                                block_size=16, kv_type=kv, **kw)
     got = _launch_counts(torch, ctx(), prompt, QUIRK_DECODE)
@@ -3860,7 +3967,7 @@ def _path_prediction(torch, model, prompt, n_ctx: int,
     chunks = -(-len(prompt) // LONG_CHUNK)
     k3 = "paged_decode_q8" if kv == "q8_0" else "paged_decode"
     want = {"prefill": {"flash_prefill": 0 if kv == "q8_0" or hp.alibi else
-                        hp.n_layer * chunks, k3: 0},
+                        attending * chunks, k3: 0},
             "decode": {"flash_prefill": 0,
                        k3: len(glob) * QUIRK_DECODE,
                        "qmm_gemv": _k1_per_step(model) * QUIRK_DECODE}}
@@ -4103,7 +4210,7 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
     """The LayerNorm, parallel-residual and partial-rope archs.
     Phi-3-mini-128k (Q4_K, head dim 96, long rope, window 262144) and
     Phi-2 (Q4_K, head dim 80, parallel residual) at published widths and
-    16 of 32 layers, each through _serve at bf16 and q8_0 KV (generate() at 16, 130
+    4 of 32 layers, each through _serve at bf16 and q8_0 KV (generate() at 16, 130
     and 512 tokens; the logits of a 130-token prefill and QUIRK_DECODE
     decode steps within the gate of the plain path), then a LN_PROMPT-token
     prompt at each n_ctx of QUIRK_LN_FILES with the launches the path
@@ -4168,12 +4275,13 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
 # ---------------------------------------------------------------------------
 # the rest of the llama-body archs, and the position axes
 
-# MiniCPM-2B (openbmb/MiniCPM-2B-sft-bf16 config.json) published widths
-# and depth: MHA at D = 64, FFN 5760 (no multiple of 256: a Q8_0 file),
-# tied head, the mup scales (scale_emb 12, residual scale_depth 1.4 /
-# sqrt(40), logits divided by hidden / dim_model_base = 2304 / 256)
+# MiniCPM-2B (openbmb/MiniCPM-2B-sft-bf16 config.json) published widths,
+# depth cut from 40 to 4 layers for the smoke's clock: MHA at D =
+# 64, FFN 5760 (no multiple of 256: a Q8_0 file), tied head, the mup
+# scales (scale_emb 12, residual scale_depth 1.4 / sqrt(40) of the
+# published depth, logits divided by hidden / dim_model_base = 2304 / 256)
 MINICPM_2B = dict(arch="minicpm", n_vocab=122753, n_embd=2304, n_head=36,
-                  n_head_kv=36, head_dim=64, n_layer=40, n_ff=5760,
+                  n_head_kv=36, head_dim=64, n_layer=4, n_ff=5760,
                   tied=True, meta={"embedding_scale": 12.0,
                                    "residual_scale": 1.4 / np.sqrt(40.0),
                                    "logit_scale": 9.0})
@@ -4244,11 +4352,12 @@ GPT2_124M = dict(arch="gpt2", n_vocab=50257, n_embd=768, n_head=12,
                  n_head_kv=12, head_dim=64, n_layer=12, n_ff=3072,
                  ln_eps=1e-5, norm_bias=True, fused_qkv=True, qkv_bias=True,
                  bo=True, ffn="up", ffn_bias=True, tied=True, pos_rows=1024)
-# BLOOM-560m (bigscience/bloom-560m config.json) published widths and
-# depth: ALiBi over 16 heads, the embedding LayerNorm, the gpt2 layout
-# otherwise, tied head of 250880 rows
+# BLOOM-560m (bigscience/bloom-560m config.json) published widths, depth
+# cut from 24 to 8 layers for the smoke's clock: ALiBi over 16
+# heads, the embedding LayerNorm, the gpt2 layout otherwise, tied head of
+# 250880 rows
 BLOOM_560M = dict(GPT2_124M, arch="bloom", n_vocab=250880, n_embd=1024,
-                  n_head=16, n_head_kv=16, n_layer=24, n_ff=4096,
+                  n_head=16, n_head_kv=16, n_layer=8, n_ff=4096,
                   pos_rows=0, tok_norm=True)
 POSITION_SMALL_HP = {
     # bigcode/starcoderbase-1b: MQA at D = 128, 8192 learned positions
@@ -4281,17 +4390,17 @@ R7B_PROMPT = 4608 + 64      # past Command R7B's 4096 window: 10 K2 chunks
 R7B_SHIFT = (64, 512)       # n_keep, n_discard of its context shift
 
 
-def _small_load(label, hp, ftype, seed) -> tuple:
-    """A 2-layer file at published widths, written (no tokenizer: its
-    checks feed token ids) and loaded on the card: (Model, seconds the
-    write took, the types _fit_type chose)."""
+def _small_load(label, hp, ftype, seed, n_layer=2) -> tuple:
+    """A file of n_layer layers at published widths, written (no
+    tokenizer: its checks feed token ids) and loaded on the card: (Model,
+    seconds the write took, the types _fit_type chose)."""
     from llama_cpp_test_tpu_torch.runtime.engine import Model
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         path = os.path.join(tmp, f"{label}.gguf")
         t0 = time.time()
-        fitted = write_llama_gguf(path, dict(hp, n_layer=2), seed=seed,
+        fitted = write_llama_gguf(path, dict(hp, n_layer=n_layer), seed=seed,
                                   ftype=ftype, vocab=None)
         write_s = time.time() - t0
         return Model(path, device="cuda"), write_s, fitted
@@ -4319,7 +4428,8 @@ def _small_check(torch, phase, label, model, write_s, fitted) -> dict:
         del ctx
     checks, bad = _kernels_vs_plain(model, prompt[:130], [("bf16", None)],
                                     QUIRK_DECODE)
-    out = {"phase": f"{phase}/{label}", "arch": hp.arch, "n_layer": 2,
+    out = {"phase": f"{phase}/{label}", "arch": hp.arch,
+           "n_layer": hp.n_layer,
            "fitted_types": fitted, "write_gguf_s": write_s,
            "load_s": model.load_seconds, "requests": served,
            "plain_vs_kernel_nmse": checks, "gate": LOGITS_GATE,
@@ -4335,16 +4445,17 @@ def _small_check(torch, phase, label, model, write_s, fitted) -> dict:
 
 
 def _small_files(specs, files, launches, check) -> None:
-    """The 2-layer files of specs ((label, geometry, type, seed)), written
-    and loaded three at a time on host threads (their vocabularies repack
-    for seconds each) while the card checks the ones already loaded, in
-    the order they load, by check(label, geometry, type, model, write
-    seconds, fitted types); a file's seconds are its checks."""
+    """The small files of specs ((label, geometry, type, seed[, layers]),
+    2 layers by default), written and loaded three at a time on host
+    threads (their vocabularies repack for seconds each) while the card
+    checks the ones already loaded, in the order they load, by
+    check(label, geometry, type, model, write seconds, fitted types); a
+    file's seconds are its checks."""
     ex = ThreadPoolExecutor(max_workers=3)
     try:
         loads = {ex.submit(_small_load, *spec): spec for spec in specs}
         for load in as_completed(loads):
-            label, hp, ftype, _ = loads[load]
+            label, hp, ftype = loads[load][:3]
             t0 = time.time()
             files[label] = check(label, hp, ftype, *load.result())
             files[label]["seconds"] = time.time() - t0
@@ -4454,7 +4565,7 @@ def _collect(files, launches) -> None:
 def phase_quirks_body(torch, kc, nvidia_smi: str, build: dict,
                       profile: bool = False) -> dict:
     """The llama-body archs that need only small switches. MiniCPM-2B
-    (Q8_0, full depth, the mup scales), Command R7B (cohere2, Q4_K, 4
+    (Q8_0, 4 of 40 layers, the mup scales), Command R7B (cohere2, Q4_K, 4
     layers) and BitNet b1.58-3B (Q8_0, 2 layers, D = 100) through
     _headline at bf16 and q8_0 KV; Command R7B over a R7B_PROMPT-token
     prompt past its window (K3 on its global layer alone) and one context
@@ -4494,8 +4605,9 @@ def phase_quirks_body(torch, kc, nvidia_smi: str, build: dict,
 def phase_positions(torch, kc, nvidia_smi: str,
                     profile: bool = False) -> dict:
     """The position axes. GPT-2 (Q4_K, 1024 learned positions) and
-    BLOOM-560m (Q4_K, ALiBi, the embedding LayerNorm) at published widths
-    and depth through _headline at bf16 and q8_0 KV: K2 once a layer a
+    BLOOM-560m (Q4_K, ALiBi, the embedding LayerNorm; 8 of 24 layers) at
+    published widths and depth through _headline at bf16 and q8_0 KV: K2
+    once a layer a
     chunk and K3 (K3-q8) once a layer a step on GPT-2, neither on BLOOM,
     whose attention takes the gather path as the reference sends ALiBi to
     XLA; then the five 2-layer files of POSITION_SMALL (StarCoderBase-1B,
@@ -4517,6 +4629,417 @@ def phase_positions(torch, kc, nvidia_smi: str,
     return {"launches": launches, "files": files, "rows": {}}
 
 
+# ---------------------------------------------------------------------------
+# the bert-family encoders and per-layer geometry
+
+# BERT-base (google-bert/bert-base-uncased config.json) published widths
+# and depth: 12 layers of 768, 12 heads at D = 64, a non-gated erf-GELU
+# FFN of 3072 with biases, 512 learned positions, 2 token types, Q/K/V and
+# wo biases, LayerNorms with biases over the residual sums (eps 1e-12),
+# the WordPiece vocab of 30522, CLS pooling, no LM head
+BERT_BASE = dict(arch="bert", n_vocab=30522, n_embd=768, n_head=12,
+                 n_head_kv=12, head_dim=64, n_layer=12, n_ff=3072,
+                 ln_eps=1e-12, norm_bias=True, post_norm=True, types=True,
+                 pos_rows=512, tok_norm=True, qkv_bias=True, bo=True,
+                 ffn="up", ffn_bias=True, meta={"pooling_type": 2})
+# nomic-embed-text-v1.5 (nomic-ai/nomic-embed-text-v1.5 config.json): the
+# same widths and depth with NEOX rope (base 1000), a bias-free fused
+# Wqkv and wo, a SwiGLU FFN of 3072 without biases, mean pooling
+NOMIC_EMBED = dict(BERT_BASE, arch="nomic-bert", pos_rows=0,
+                   qkv_bias=False, bo=False, fused_qkv=True, ffn="gated",
+                   ffn_bias=False, rope_base=1000.0,
+                   meta={"pooling_type": 1})
+# jina-embeddings-v2-base-en (jinaai/jina-embeddings-v2-base-en
+# config.json): the same widths and depth with symmetric ALiBi (no
+# position rows), Q/K/V and wo biases, an erf-GELU GeGLU of 3072 with a
+# down bias, vocab 30528, mean pooling
+JINA_V2_BASE = dict(BERT_BASE, arch="jina-bert-v2", n_vocab=30528,
+                    pos_rows=0, ffn="gated", ffn_bias=False, down_bias=True,
+                    meta={"pooling_type": 1})
+ENCODER_FILES = (("bert_base", BERT_BASE, 101),
+                 ("nomic_embed_v15", NOMIC_EMBED, 102),
+                 ("jina_v2_base", JINA_V2_BASE, 103))
+ENCODER_TYPES = ("Q8_0", "Q4_K")
+ENCODER_LENS = (16, 130, 512)
+POOLINGS = ("cls", "mean", "last")
+ENCODER_TEXTS = ("the people of the world could find water",
+                 "the little house by the water", "give me three good words")
+
+
+def _openelm_270m() -> dict:
+    """OpenELM-270M (apple/OpenELM-270M config.json) published widths and
+    depth: 16 layers of 1280, D = 64, query heads from 12 to 20 on KV heads
+    from 3 to 5 (G = 4), FFN multipliers from 0.5 to 4.0 (divisor 256),
+    shared per-head QK RMS norms, a fused qkv, NEOX rope, tied head of
+    32000. The per-layer arrays are written here, not copied (PERF.md §4,
+    synthetic): KV heads 3 + round(2 i / 15), FFN 1280 x linspace(0.5, 4,
+    16) rounded up to 256."""
+    kv = [3 + round(2 * i / 15) for i in range(16)]
+    ff = [int(-(-m * 1280 // 256) * 256) for m in np.linspace(0.5, 4.0, 16)]
+    return dict(arch="openelm", n_vocab=32000, n_embd=1280, n_head=20,
+                n_head_kv=5, head_dim=64, n_layer=16, n_ff=max(ff),
+                rms_eps=1e-6, fused_qkv=True, qk_norm="shared", tied=True,
+                n_head_layers=[4 * k for k in kv], n_head_kv_layers=kv,
+                n_ff_layers=ff)
+
+
+OPENELM_270M = _openelm_270m()
+# DeciLM-7B (Deci/DeciLM-7B config.json) published widths, depth cut from
+# 32 to 4 layers: 4096 wide, 32 heads at D = 128, FFN 14336, per-layer KV
+# heads (its num_key_value_heads_per_layer; the four written here, 4, 4,
+# 2 and 2, are synthetic, PERF.md §4), NORM rope
+DECILM_7B = dict(arch="deci", n_vocab=32000, n_embd=4096, n_head=32,
+                 n_head_kv=4, head_dim=128, n_layer=4, n_ff=14336,
+                 n_head_kv_layers=[4, 4, 2, 2])
+# Llama-3.1-Nemotron-51B (nvidia/Llama-3_1-Nemotron-51B-Instruct
+# config.json block_configs) widths, 3 layers, one of each kind: attention
+# (64 heads on 8, D = 128, FFN 28672: ffn_mult 5.25), attention-free (FFN
+# 14336) and linear attention (an 8192 x 8192 wo; FFN 7168); vocab 128256
+NEMOTRON_51B = dict(arch="deci", n_vocab=128256, n_embd=8192, n_head=64,
+                    n_head_kv=8, head_dim=128, n_layer=3, n_ff=28672,
+                    n_head_layers=[64, 0, 64], n_head_kv_layers=[8, 0, 0],
+                    n_ff_layers=[28672, 14336, 7168])
+# Chameleon-7B (facebook/chameleon-7b config.json) published widths, depth
+# cut from 32 to 4 layers: MHA at D = 128, FFN 11008, per-head QK
+# LayerNorms with biases, NORM rope, vocab 65536
+CHAMELEON_7B = dict(arch="chameleon", n_vocab=65536, n_embd=4096,
+                    n_head=32, n_head_kv=32, head_dim=128, n_layer=4,
+                    n_ff=11008, qk_norm="head_bias")
+# Chameleon-34B (facebook/chameleon-30b config.json) widths, 2 layers:
+# 8192 wide, 64 heads on 8 at D = 128, FFN 22016, swin_norm (the norms on
+# the branch outputs, no pre-norms)
+CHAMELEON_34B = dict(CHAMELEON_7B, n_embd=8192, n_head=64, n_head_kv=8,
+                     n_layer=2, n_ff=22016, meta={"swin_norm": True})
+GEOMETRY_SMALL = (("decilm_7b", DECILM_7B, "Q4_K", 111, 4),
+                  ("nemotron_51b_width", NEMOTRON_51B, "Q4_K", 112, 3),
+                  ("chameleon_7b", CHAMELEON_7B, "Q4_K", 113, 4),
+                  ("chameleon_34b_swin", CHAMELEON_34B, "Q4_K", 114, 2))
+
+
+def _embed_ids(tok, rng, n: int) -> list:
+    """[CLS], n - 2 random word pieces, [SEP]: an encoder's input."""
+    v = tok.vocab
+    return [v.bos_id] + rng.integers(104, len(v.tokens), size=n - 2).tolist() \
+        + [v.eos_id]
+
+
+def _embed_path(torch, model, profile: bool = False) -> dict:
+    """Pooled embeddings at ENCODER_LENS tokens and every pooling through
+    the kernels and the plain path (its min rounded as the kernels round
+    it), within the embedding gate; the launches of one 512-token embed
+    (K2 once a layer, bidirectional, none under ALiBi; K1's GEMM once a
+    projection plane, no GEMV, no K3); the wall of a 512-token embed, and
+    with profile its device busy time (torch.profiler)."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, fit_n_ctx
+
+    hp = model.hp
+    rng = np.random.default_rng(21)
+    n_ctx = fit_n_ctx(model, 2048)
+    ctx = Context(model, n_ctx=n_ctx, n_seq_max=2, block_size=16)
+    plain = Context(model, n_ctx=n_ctx, n_seq_max=2, block_size=16,
+                    plain=True)
+    out = {"nmse": {}, "gate": LOGITS_GATE}
+    for n in ENCODER_LENS:
+        ids = _embed_ids(model.tokenizer, rng, n)
+        for pooling in POOLINGS:
+            a = ctx.embed(ids, pooling)
+            with _plain_min("fold"):
+                b = plain.embed(ids, pooling)
+            check(np.isfinite(a).all() and abs(np.linalg.norm(a) - 1) < 1e-3,
+                  f"{hp.arch}: embedding not finite or not unit norm")
+            out["nmse"][f"T={n} {pooling}"] = nmse(b, a)
+    ids = _embed_ids(model.tokenizer, rng, 512)
+    ctx.embed(ids)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    ctx.embed(ids)
+    torch.cuda.synchronize()
+    out["launches"] = dict(_cuda.LAUNCHES)
+    want = {"flash_prefill": 0 if hp.alibi else hp.n_layer,
+            "qmm_gemm": _k1_per_step(model), "qmm_gemv": 0,
+            "paged_decode": 0}
+    out["predicted"] = want
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.embed(ids)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["embed_ms_T512"] = float(np.median(walls))
+    if profile:
+        out["profile_T512"] = _profiled(torch, lambda: ctx.embed(ids))
+    bad = {k: v for k, v in out["nmse"].items() if not v < LOGITS_GATE}
+    check(not bad, f"{hp.arch}: embeddings outside the gate: {bad}")
+    for k, n in want.items():
+        check(out["launches"][k] == n, f"{hp.arch}: {k} launched "
+              f"{out['launches'][k]} times in a 512-token embed, the path "
+              f"predicts {n}")
+    return out
+
+
+def _encoder_entry_points(model, path, launches: dict) -> dict:
+    """cli.embedding and the server's /v1/embeddings against Context.embed
+    on ENCODER_TEXTS (the CLI's printed entries to the digit, the server's
+    vectors within 1e-10), /rerank in the order of Context.embed's
+    cosines, and a completion refused with 400 (no LM head); the server's
+    Context cut to a learned table."""
+    import io
+
+    from llama_cpp_test_tpu_torch.cli import embedding as cli_embedding
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, fit_n_ctx
+
+    tok = model.tokenizer
+    ctx = Context(model, n_ctx=fit_n_ctx(model, 2048), n_seq_max=1)
+    want = [ctx.embed(tok.encode(t, add_special=True)) for t in ENCODER_TEXTS]
+    del ctx
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_embedding.main(["-m", path] + [
+            a for t in ENCODER_TEXTS for a in ("-p", t)], device="cuda")
+    expect = "".join(f"embedding {i}: "
+                     + " ".join(f"{float(x):.6f}" for x in e[:8]) + " ...\n"
+                     for i, e in enumerate(want))
+    out = {"cli_rc": rc, "cli_equal": buf.getvalue() == expect}
+    check(rc == 0 and out["cli_equal"],
+          f"{model.hp.arch}: cli.embedding printed {buf.getvalue()!r}, "
+          f"Context.embed gives {expect!r}")
+    with _server(path, launches, n_ctx=2048, n_slots=1) as (srv, c):
+        out["server_n_ctx"] = srv.sched.ctx.n_ctx
+        st, body = c.post("/v1/embeddings", {"input": list(ENCODER_TEXTS)})
+        got = [np.asarray(d["embedding"]) for d in body["data"]]
+        out["server_nmse"] = [nmse(w, g) for w, g in zip(want, got)]
+        out["server_embed_launches"] = c.last
+        k2 = 0 if model.hp.alibi else model.hp.n_layer * len(ENCODER_TEXTS)
+        check(c.last["flash_prefill"] == k2 and c.last["qmm_gemm"] > 0,
+              f"{model.hp.arch}: /v1/embeddings launched {c.last}, K2 "
+              f"{k2} times predicted")
+        check(st == 200 and max(out["server_nmse"]) < 1e-10,
+              f"{model.hp.arch}: /v1/embeddings against Context.embed: "
+              f"{st} {out['server_nmse']}")
+        st, body = c.post("/rerank", {"query": ENCODER_TEXTS[0],
+                                      "documents": list(ENCODER_TEXTS)})
+        order = [r["index"] for r in body["results"]]
+        expect_order = np.argsort([-float(want[0] @ w) for w in want])
+        out["rerank_order"] = order
+        check(st == 200 and order == expect_order.tolist(),
+              f"{model.hp.arch}: /rerank order {order}, Context.embed's "
+              f"cosines give {expect_order.tolist()}")
+        st, body = c.post("/completion", {"prompt": "hello", "n_predict": 4})
+        out["completion_status"] = st
+        check(st == 400, f"{model.hp.arch}: a completion answered {st}")
+    return out
+
+
+def phase_encoders(torch, kc, nvidia_smi: str,
+                   profile: bool = False) -> dict:
+    """The bert-family encoders: BERT-base, nomic-embed-text-v1.5 and
+    jina-embeddings-v2-base-en at published widths and depth, each at Q8_0
+    and Q4_K (ENCODER_FILES; their WordPiece vocabularies synthesized),
+    loaded on the card: pooled embeddings (CLS, mean, last) at 16, 130
+    and 512 tokens against the plain path, K2 once a layer a 512-token
+    embed and bidirectional on BERT and nomic (none on jina, whose ALiBi
+    takes the gather path), K1's GEMM once a projection plane, the embed
+    wall (_embed_path); on each Q8_0 file cli.embedding, /v1/embeddings,
+    /rerank and a refused completion (_encoder_entry_points). Then K2 at
+    BERT-base's T = 512, H = KV = 12, D = 64, bidirectional, beside
+    SDPA."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Model
+
+    files, launches = {}, {}
+    for label, hp, seed in ENCODER_FILES:
+        for ftype in ENCODER_TYPES:
+            t0 = time.time()
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+            try:
+                path = os.path.join(tmp, f"{label}_{ftype}.gguf")
+                write_llama_gguf(path, hp, seed=seed, ftype=ftype)
+                write_s = time.time() - t0
+                model = Model(path, device="cuda")
+                r = {"arch": hp["arch"], "ftype": ftype, "write_gguf_s": write_s,
+                     "load_s": model.load_seconds,
+                     "embed": _embed_path(torch, model, profile)}
+                _add_launches(launches, r["embed"]["launches"])
+                if ftype == "Q8_0":
+                    r["entry_points"] = _encoder_entry_points(
+                        model, path, launches)
+                del model
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            r["seconds"] = time.time() - t0
+            files[f"{label}/{ftype}"] = r
+            emit({"phase": f"encoders/{label}/{ftype}", "checks": r,
+                  "card": nvidia_smi})
+    rows = {"BERT-base K2 T=512 non-causal": kc.flash_prefill(
+        BERT_BASE, t=512, causal=False)}
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    missing = [k for k in ("qmm_gemm", "flash_prefill")
+               if launches.get(k, 0) <= 0]
+    check(not missing, f"encoders: kernels not launched: {missing}")
+    return {"launches": launches, "files": files, "rows": rows}
+
+
+def _greedy_batches(torch, model, kv: str, batch: int = 4) -> dict:
+    """Greedy decode of `batch` sequences (prompts of 16 to 40 tokens) for
+    QUIRK_DECODE steps at equal batches through the kernels and the plain
+    path, the plain path fed the kernels' tokens: each token is the plain
+    path's argmax too, or a near tie within the two paths' logit
+    difference on its row (the kernels' rounding differs)."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(3, model.hp.n_vocab, size=16 + 8 * i).tolist()
+               for i in range(batch)]
+
+    def run(plain, tokens=None):
+        ctx = Context(model, n_ctx=1024, n_seq_max=batch, block_size=16,
+                      kv_type=kv, plain=plain)
+        seqs = [ctx.new_seq() for _ in prompts]
+        rows = [np.stack([ctx.prefill(s, p) for s, p in zip(seqs, prompts)])]
+        toks = []
+        for j in range(QUIRK_DECODE):
+            t = tokens[j] if tokens else np.argmax(rows[-1], -1).tolist()
+            toks.append([int(x) for x in t])
+            rows.append(ctx.decode(seqs, toks[-1]))
+        return rows, toks
+
+    got, toks = run(False)
+    with _plain_min("fold"):
+        want, _ = run(True, toks)
+    ties, bad = 0, []
+    for j, step in enumerate(toks):
+        for b, t in enumerate(step):
+            w, g = want[j][b], got[j][b]
+            if int(np.argmax(w)) != t:
+                gap = float(w.max() - w[t])
+                if gap <= float(np.abs(w - g).max()):
+                    ties += 1
+                else:
+                    bad.append((j, b, gap))
+    out = {"kv": kv, "batch": batch, "steps": QUIRK_DECODE,
+           "near_ties": ties, "mismatches": bad,
+           "nmse": [nmse(w, g) for w, g in zip(want, got)]}
+    check(not bad and max(out["nmse"]) < LOGITS_GATE,
+          f"{model.hp.arch}/{kv}: greedy tokens at equal batches: {out}")
+    return out
+
+
+def _session(torch, model, prompt, kv: str) -> dict:
+    """A sequence holding `prompt` saved (runtime.state), restored into a
+    fresh Context and decoded one step: the logits equal the unsaved
+    sequence's (to the bit at bf16 KV, within 1e-5 at q8_0); the file
+    holds k{li}/v{li} at each layer's own KV head count."""
+    from llama_cpp_test_tpu_torch.runtime import state
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ctx = lambda: Context(model, n_ctx=1024, n_seq_max=2, block_size=16,
+                              kv_type=kv)
+        a = ctx()
+        s = a.new_seq()
+        for i in range(0, len(prompt), LONG_CHUNK):
+            a.prefill(s, prompt[i:i + LONG_CHUNK])
+        path = os.path.join(tmp, "seq.npz")
+        t0 = time.perf_counter()
+        nbytes = state.save_seq_state(a, s, path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        want = a.decode([s], [11])[0]
+        shapes = [list(np.load(path)[f"k{i}"].shape)
+                  for i in range(model.hp.n_layer)]
+        b = ctx()
+        b.prefill(b.new_seq(), prompt[:7])
+        t0 = time.perf_counter()
+        s2 = state.load_seq_state(b, path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        got = b.decode([s2], [11])[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"kv": kv, "tokens": len(prompt), "bytes": nbytes,
+           "save_ms": save_ms, "restore_ms": load_ms,
+           "k_shapes": sorted({tuple(x) for x in shapes}),
+           "nmse": nmse(want, got)}
+    check([x[0] for x in shapes] == [max(model.hp.n_head_kv_of(i), 1)
+                                     for i in range(model.hp.n_layer)]
+          and out["nmse"] < (1e-10 if kv == "bf16" else 1e-5),
+          f"{model.hp.arch}/{kv}: session round trip: {out}")
+    return out
+
+
+def _geometry_small(torch, label, model, write_s, fitted,
+                    profile: bool = False) -> dict:
+    """A small geometry file through _small_check (bf16 and q8_0 KV), then
+    greedy tokens at equal batches at each KV type; with profile, the
+    decode and prefill breakdown of phase_profile at each."""
+    out = _small_check(torch, "geometry", label, model, write_s, fitted)
+    out["greedy"] = [_greedy_batches(torch, model, kv)
+                     for kv in ("bf16", "q8_0")]
+    emit({"phase": f"geometry/{label}", "greedy": out["greedy"]})
+    if profile:
+        for kv in ("bf16", "q8_0"):
+            phase_profile(torch, model, model.hp.n_vocab,
+                          f"geometry/{label}/{kv}", kv)
+    return out
+
+
+def _geometry_rows(kc) -> dict:
+    """K3 and K3-q8 at DeciLM-7B's smallest KV count (32 heads on 2) and at
+    OpenELM-270M's widest layer (20 on 5), B = 1 and 8."""
+    rows = {}
+    for label, hp in (("DeciLM-7B KV=2", dict(DECILM_7B, n_head_kv=2)),
+                      ("OpenELM-270M H=20", OPENELM_270M)):
+        for q8 in (False, True):
+            for b in (1, 8):
+                rows[f"{label} {'K3-q8' if q8 else 'K3'} B={b}"] = \
+                    kc.paged_decode(hp, b, q8=q8)
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    return rows
+
+
+def phase_geometry(torch, kc, nvidia_smi: str,
+                   profile: bool = False) -> dict:
+    """Per-layer geometry and chameleon. OpenELM-270M (Q4_K) at published
+    widths and depth through _headline at bf16 and q8_0 KV (K2 and K3 at
+    each layer's own G), with a session save/restore, one context shift
+    held to the plain path and greedy tokens at equal batches, at each KV
+    type; then GEOMETRY_SMALL (_small_files): DeciLM-7B at 4 layers of
+    two KV counts, a Nemotron-51B-width file of 3 layers (attention,
+    attention-free, linear attention; K2 and K3 on its attention layer
+    alone), Chameleon-7B at 4 layers (QK LayerNorms with biases) and a
+    Chameleon-34B-width swin-norm file at 2, each at bf16 and q8_0 KV
+    (_geometry_small); then K3 rows at DeciLM-7B's and OpenELM's
+    widest G (_geometry_rows)."""
+    files, launches = {}, {}
+
+    def extra(model, prompt):
+        from llama_cpp_test_tpu_torch.runtime.kv_cache import (
+            kv_bytes_per_token)
+
+        return {"kv_bytes_per_token": {kv: kv_bytes_per_token(model.hp, kv)
+                                       for kv in ("bf16", "q8_0")},
+                "session": [_session(torch, model, prompt, kv)
+                            for kv in ("bf16", "q8_0")],
+                "shift": [_shift_vs_plain(torch, model, prompt, 1024, kv)
+                          for kv in ("bf16", "q8_0")],
+                "greedy": [_greedy_batches(torch, model, kv)
+                           for kv in ("bf16", "q8_0")]}
+
+    files["openelm_270m"] = _headline(torch, "geometry", "openelm_270m",
+                                      OPENELM_270M, "Q4_K", 110, 1024,
+                                      nvidia_smi, profile, extra)
+    _collect(files, launches)
+    _small_files(GEOMETRY_SMALL, files, launches,
+                 lambda label, hp, ftype, *loaded: _geometry_small(
+                     torch, label, *loaded, profile=profile))
+    emit({"phase": "geometry", "seconds": {
+        label: round(f["seconds"], 1) for label, f in files.items()}})
+    rows = _geometry_rows(kc)
+    missing = [k for k in DENSE_PATH + ("paged_decode_q8",)
+               if launches.get(k, 0) <= 0]
+    check(not missing, f"geometry: kernels not launched: {missing}")
+    return {"launches": launches, "files": files, "rows": rows}
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
                  "paged_decode_merge_kernel",
@@ -4534,12 +5057,57 @@ def phase_profile(torch, model, n_vocab, label, kv_type,
         return _profile_runs(torch, model, n_vocab, label, kv_type)
 
 
-def _profile_runs(torch, model, n_vocab, label, kv_type) -> dict:
+def _profiled(torch, fn) -> dict:
+    """torch.profiler over one call of fn: wall time, device busy time,
+    idle share, the port's kernels' share, memsets, GEMV and K3 busy, and
+    the top device kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from llama_cpp_test_tpu_torch.ops import _cuda
 
+    torch.cuda.synchronize()
+    before = dict(_cuda.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    launched = sum(_cuda.LAUNCHES[k] - before[k] for k in before)
+    dev = []   # device-side events only (kernels, memsets, copies)
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            dev.append((ev.key, int(ev.count), float(us)))
+    busy_ms = sum(us for _, _, us in dev) / 1e3
+    port_ms = sum(us for k, _, us in dev
+                  if any(p in k for p in _PORT_KERNELS)) / 1e3
+    dev.sort(key=lambda e: -e[2])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "port_kernels_ms": port_ms,
+            "memset_launches": sum(c for k, c, _ in dev
+                                   if "memset" in k.lower()),
+            "gemv_ms": {k: sum(us for n, _, us in dev if k in n) / 1e3
+                        for k in ("qmm_gemv_kernel", "gmm_gemv_kernel",
+                                  "paged_decode")},
+            "device_kernel_launches": sum(c for _, c, _ in dev),
+            # the port's launches, and how many of its kernels the
+            # profiler recorded (K3 adds a merge kernel to a split
+            # launch): fewer recorded than launched means the profiler
+            # dropped device records (PERF.md §7)
+            "port_launches": launched,
+            "port_kernels_recorded": sum(
+                c for k, c, _ in dev if any(p in k for p in _PORT_KERNELS)),
+            "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
+                    for k, c, us in dev[:8]]}
+
+
+def _profile_runs(torch, model, n_vocab, label, kv_type) -> dict:
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     ctx = Context(model, n_ctx=1024, n_seq_max=2, block_size=16,
@@ -4560,47 +5128,7 @@ def _profile_runs(torch, model, n_vocab, label, kv_type) -> dict:
             "prefill_512": lambda: ctx.prefill(s2, prompt)}
     out = {"phase": "profile", "path": label}
     for name, fn in runs.items():
-        torch.cuda.synchronize()
-        before = dict(_cuda.LAUNCHES)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.time() - t0) * 1e3
-        launched = sum(_cuda.LAUNCHES[k] - before[k] for k in before)
-        dev = []   # device-side events only (kernels, memsets, copies)
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-            if us > 0:
-                dev.append((ev.key, int(ev.count), float(us)))
-        busy_ms = sum(us for _, _, us in dev) / 1e3
-        port_ms = sum(us for k, _, us in dev
-                      if any(p in k for p in _PORT_KERNELS)) / 1e3
-        dev.sort(key=lambda e: -e[2])
-        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                     "idle_share": 1.0 - busy_ms / wall_ms,
-                     "port_kernels_ms": port_ms,
-                     "memset_launches": sum(c for k, c, _ in dev
-                                            if "memset" in k.lower()),
-                     "gemv_ms": {k: sum(us for n, _, us in dev if k in n) / 1e3
-                                 for k in ("qmm_gemv_kernel",
-                                           "gmm_gemv_kernel",
-                                           "paged_decode")},
-                     "device_kernel_launches": sum(c for _, c, _ in dev),
-                     # the port's launches, and how many of its kernels
-                     # the profiler recorded (K3 adds a merge kernel to a
-                     # split launch): fewer recorded than launched means
-                     # the profiler dropped device records (PERF.md §7)
-                     "port_launches": launched,
-                     "port_kernels_recorded": sum(
-                         c for k, c, _ in dev
-                         if any(p in k for p in _PORT_KERNELS)),
-                     "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
-                             for k, c, us in dev[:8]]}
+        out[name] = _profiled(torch, fn)
     check(out["decode_8_steps"]["device_busy_ms"] > 0,
           "the profiler saw no device time")
     emit(out)
@@ -4677,6 +5205,10 @@ def main() -> int:
                                       torch, kc, smi, build, prof)
         serves["positions"] = timed("positions", phase_positions, torch, kc,
                                     smi, prof)
+        serves["encoders"] = timed("encoders", phase_encoders, torch, kc, smi,
+                                   prof)
+        serves["geometry"] = timed("geometry", phase_geometry, torch, kc, smi,
+                                   prof)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -4700,8 +5232,9 @@ def main() -> int:
         shape_rows[name] += [r for rs in served for r in rs.values()
                              if r["kernel"] == name]
     # and the attention rows at D = 256 (Gemma's geometry), 80 and 96
-    # (Phi-2's, Phi-3's) and G = 71 (Falcon-7B's)
-    for phase in ("quirks", "quirks_ln"):
+    # (Phi-2's, Phi-3's), G = 71 (Falcon-7B's), BERT-base's bidirectional
+    # K2 and the K3 rows of DeciLM-7B's and OpenELM-270M's G
+    for phase in ("quirks", "quirks_ln", "encoders", "geometry"):
         for row in serves[phase]["rows"].values():
             shape_rows[row["kernel"]].append(row)
     kernels = []

@@ -3,7 +3,9 @@
 Counterpart of llama_cpp_test_tpu/models/cvec.py. A control-vector GGUF
 carries per-layer direction tensors `direction.<layer>` (1-based layer
 index, [n_embd] f32). At inference the scaled direction is added to the
-hidden state after each decoder layer (models/llama._forward_layer_ffn).
+hidden state after each decoder layer (models/llama._forward_layer_ffn);
+an encoder's post-norm layer takes none, as in the reference and
+llama.cpp's bert graph.
 
 generate_control_vector is the cvector-generator: the dominant principal
 component of the per-layer hidden-state differences between positive and

@@ -13,15 +13,20 @@ or none with an ALiBi bias for bloom, mpt, jais, refact and the 13B-class
 baichuan, whose slopes follow alibi_max_bias and alibi_style; cohere2's
 global layers without rope, nope_global); and the small switches of the
 other llama-body archs (jais's 1/d_head attention scale, cohere2's
-inverted logit scale and 3:1 sliding windows, mpt's exact erf GELU). Fields that
-select paths the port does not carry yet (sigmoid or sparsemixer gating,
-shared experts) are parsed so the loader can refuse them instead of
-running a different model.
+inverted logit scale and 3:1 sliding windows, mpt's exact erf GELU); the
+bert-family encoders (post-norm layers, non-causal attention, jina's
+symmetric ALiBi); per-layer geometry (openelm's and deci's per-layer head
+counts and FFN widths, GGUF arrays under the scalar keys); and chameleon's
+swin norms. Fields that select paths the port does not carry yet (sigmoid
+or sparsemixer gating, shared experts) are parsed so the loader can
+refuse them instead of running a different model.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +77,7 @@ class HParams:
     # half-split rotation applies; "neox" rows are half-split already
     rope_type: str = "norm"
     # FFN activation: silu | gelu (tanh approximation; GeGLU when gated)
-    # | gelu_erf (the exact GELU, mpt) | relu2 (nemotron's squared ReLU,
+    # | gelu_erf (the exact GELU: mpt, bert, jina's GeGLU) | relu2 (nemotron's squared ReLU,
     # non-gated)
     act_fn: str = "silu"
     embd_scale: float = 1.0     # embedding multiplier (gemma: sqrt(n_embd))
@@ -87,7 +92,7 @@ class HParams:
     norm_type: str = "rms"      # rms | ln (LayerNorm, weight and bias
     #                             each optional; olmo has neither)
     # embedding defaults (Context.embed): attention causality (false only
-    # for the bert family, which the loader refuses) and the pooling of
+    # for the bert-family encoders) and the pooling of
     # GGUF {arch}.pooling_type (llama.h enum)
     causal: bool = True
     pooling: str = "last"
@@ -102,6 +107,38 @@ class HParams:
     alibi_style: str = "bloom"
     # cohere2: the global (window 0) layers take no rope
     nope_global: bool = False
+    # the bert-family encoders: LayerNorm over the residual sums (x =
+    # LN(x + attn(x)); x = LN(x + ffn(x))), no final norm, no LM head
+    post_norm: bool = False
+    # jina-bert-v2: the symmetric form of ALiBi, -slope_h * |i - j|
+    alibi_sym: bool = False
+    # chameleon-34B: no pre-norms; the attention and FFN norms apply to
+    # the branch outputs (the sandwich post-norm slots)
+    swin_norm: bool = False
+    # per-layer geometry (openelm, deci): head_count, head_count_kv and
+    # feed_forward_length as GGUF arrays, one entry a layer; () = uniform
+    # (the scalar fields, then the arrays' maxima, apply to every layer).
+    # deci writes an attention-free layer as n_head 0 and a linear-attention
+    # layer as n_head > 0 with n_head_kv 0
+    n_head_layers: tuple = ()
+    n_head_kv_layers: tuple = ()
+    n_ff_layers: tuple = ()
+
+    @property
+    def uniform_layers(self) -> bool:
+        """True when every layer has the scalar head counts and FFN width."""
+        return not (self.n_head_layers or self.n_head_kv_layers
+                    or self.n_ff_layers)
+
+    def n_head_of(self, li: int) -> int:
+        return self.n_head_layers[li] if self.n_head_layers else self.n_head
+
+    def n_head_kv_of(self, li: int) -> int:
+        return (self.n_head_kv_layers[li] if self.n_head_kv_layers
+                else self.n_head_kv)
+
+    def n_ff_of(self, li: int) -> int:
+        return self.n_ff_layers[li] if self.n_ff_layers else self.n_ff
 
 
 # the ported archs whose GGUF Q/K rows are NEOX (half-split); the others
@@ -111,16 +148,22 @@ class HParams:
 # runtime (reference hparams.py, the note beside its neox set)
 _NEOX = ("gemma", "gemma2", "gemma3", "qwen2", "qwen3", "falcon",
          "stablelm", "olmo2", "phi2", "phi3", "starcoder2", "gptneox",
-         "nemotron", "orion", "qwen", "exaone", "codeshell", "bitnet")
+         "nemotron", "orion", "qwen", "exaone", "codeshell", "bitnet",
+         "bert", "nomic-bert", "openelm")
 # the ported LayerNorm archs (reference hparams.py's norm_type "ln" set)
 _LN = ("phi2", "falcon", "gptneox", "stablelm", "command-r", "starcoder2",
        "nemotron", "olmo", "orion", "codeshell", "cohere2", "gpt2",
-       "starcoder", "bloom", "mpt", "jais")
+       "starcoder", "bloom", "mpt", "jais", "bert", "nomic-bert",
+       "jina-bert-v2")
+_ENCODERS = ("bert", "nomic-bert", "jina-bert-v2")
 _PARALLEL = ("phi2", "falcon", "gptneox", "command-r", "cohere2", "plamo")
 _GELU = ("gemma", "gemma2", "gemma3", "phi2", "falcon", "gptneox",
          "starcoder2", "gpt2", "starcoder", "codeshell", "bloom")
-_LEARNED = ("gpt2", "starcoder")
-_ALIBI = ("bloom", "mpt", "jais", "refact")
+_LEARNED = ("gpt2", "starcoder", "bert")
+_ALIBI = ("bloom", "mpt", "jais", "refact", "jina-bert-v2")
+# the exact erf GELU (mpt; bert's FFN and jina's GeGLU, as their models
+# define them)
+_GELU_ERF = ("mpt", "bert", "jina-bert-v2")
 
 
 def hparams_from_metadata(md: dict) -> HParams:
@@ -137,7 +180,21 @@ def hparams_from_metadata(md: dict) -> HParams:
         return v
 
     n_embd = g("embedding_length", 4096)
-    n_head = g("attention.head_count", 32)
+
+    def arr(suffix) -> tuple:
+        """A key's per-layer int array, or () where it is a scalar or
+        absent (llama.cpp's get_key_or_arr)."""
+        v = md.get(f"{arch}.{suffix}")
+        if v is None or isinstance(v, (int, float, np.integer, np.floating)):
+            return ()
+        a = np.asarray(v)
+        return tuple(int(x) for x in a.reshape(-1)) if a.ndim else ()
+
+    n_head_layers = arr("attention.head_count")
+    n_head_kv_layers = arr("attention.head_count_kv")
+    n_ff_layers = arr("feed_forward_length")
+    n_head = (max(n_head_layers) if n_head_layers
+              else g("attention.head_count", 32))
     head_dim = g("attention.key_length", n_embd // max(n_head, 1))
     n_vocab = g("vocab_size", 0)
     if not n_vocab:
@@ -167,8 +224,13 @@ def hparams_from_metadata(md: dict) -> HParams:
         n_embd=n_embd,
         n_layer=n_layer,
         n_head=n_head,
-        n_head_kv=g("attention.head_count_kv", n_head),
-        n_ff=g("feed_forward_length", 11008),
+        n_head_kv=(max(n_head_kv_layers) if n_head_kv_layers
+                   else g("attention.head_count_kv", n_head)),
+        n_ff=(max(n_ff_layers) if n_ff_layers
+              else g("feed_forward_length", 11008)),
+        n_head_layers=n_head_layers,
+        n_head_kv_layers=n_head_kv_layers,
+        n_ff_layers=n_ff_layers,
         head_dim=head_dim,
         # a LayerNorm arch stores a plain layer_norm_epsilon
         rms_eps=g("attention.layer_norm_rms_epsilon",
@@ -199,7 +261,7 @@ def hparams_from_metadata(md: dict) -> HParams:
                         30.0 if arch == "gemma2" else 0.0),
         rope_type="neox" if arch in _NEOX else "norm",
         act_fn=("relu2" if arch == "nemotron" else
-                "gelu_erf" if arch == "mpt" else
+                "gelu_erf" if arch in _GELU_ERF else
                 "gelu" if arch in _GELU else "silu"),
         embd_scale=(math.sqrt(n_embd) if gemma_like
                     else g("embedding_scale", 1.0)),
@@ -210,16 +272,19 @@ def hparams_from_metadata(md: dict) -> HParams:
         # stablelm files carry the flag; elsewhere it is the arch's
         parallel_residual=g("use_parallel_residual", arch in _PARALLEL),
         norm_type="ln" if arch in _LN else "rms",
-        causal=arch not in ("bert", "nomic-bert", "jina-bert-v2"),
+        post_norm=arch in _ENCODERS,
+        causal=arch not in _ENCODERS,
         # mean unless the file says otherwise, as the reference reads it
         pooling={0: "none", 1: "mean", 2: "cls", 3: "last"}.get(
             int(g("pooling_type", 1)), "mean"),
         pos_embd=("learned" if arch in _LEARNED else
                   "none" if alibi else "rope"),
         alibi=alibi,
+        alibi_sym=arch == "jina-bert-v2",
         alibi_max_bias=g("attention.max_alibi_bias", 8.0),
         alibi_style="mpt" if arch == "mpt" else "bloom",
         nope_global=arch == "cohere2",
+        swin_norm=bool(g("swin_norm", False)),
     )
 
 

@@ -1,26 +1,33 @@
 """LLaMA-family model (dense or Mixtral-style MoE, the gemma and qwen
-quirk axes, the LayerNorm and parallel-residual archs, and the position
-axes: learned positions and ALiBi): GGUF weight loading + forward pass.
+quirk axes, the LayerNorm and parallel-residual archs, the position axes:
+learned positions and ALiBi, the bert-family encoders and per-layer
+geometry): GGUF weight loading + forward pass.
 
 Counterpart of the llama body of llama_cpp_test_tpu/models/llama.py for
 the archs of models/registry.PORTED. A sequential layer: pre-norm (RMS or
-LayerNorm with bias; olmo's LN has no weights, olmo2 has no pre-norms) ->
-fused QKV (+ Q/K/V biases; clamped for olmo) -> QK norms (per-head RMS
-[head_dim], per-head LayerNorms [H, head_dim], or olmo2's RMS over the
-flat q and k) -> RoPE (the layer's table, partial when rope_dim <
-head_dim; none on a file without rope positions or on cohere2's global
-layers) -> paged attention (window, softcap, ALiBi bias) -> bitnet's RMS
-sub-norm -> wo (+ bias) -> post norm -> residual scale -> residual; then
-the FFN half: norm -> fused gate|up (+ gate and up biases) -> SwiGLU or
-GeGLU -> bitnet's RMS sub-norm, or a non-gated up (+ bias) -> GELU (tanh
-or erf) or squared ReLU, or, in a MoE layer, softmax top-k routing over
-the experts (moe_ffn) -> down (+ bias) -> residual scale -> post norm ->
-residual. A parallel layer (phi2, falcon, gptneox, command-r, cohere2,
-plamo) feeds attention and the FFN from the layer input's norms and adds
-both to it. The embedding takes the learned position rows (gpt2,
-starcoder) and bloom's embedding LayerNorm (embed_extras). Final norm +
-lm head (+ bias) / logits scale + final softcap. Loading is numpy (host
-planes); weights.py moves them to a device.
+LayerNorm with bias; olmo's LN has no weights, olmo2 and chameleon-34B
+have no pre-norms) -> fused QKV (+ Q/K/V biases; clamped for olmo) -> QK
+norms (per-head RMS [head_dim], per-head LayerNorms [H, head_dim] with
+optional biases, or olmo2's RMS over the flat q and k) -> RoPE (the
+layer's table, partial when rope_dim < head_dim; none on a file without
+rope positions or on cohere2's global layers) -> paged attention (window,
+softcap, ALiBi bias) -> bitnet's RMS sub-norm -> wo (+ bias) -> post norm
+-> residual scale -> residual; then the FFN half: norm -> fused gate|up
+(+ gate and up biases) -> SwiGLU or GeGLU -> bitnet's RMS sub-norm, or a
+non-gated up (+ bias) -> GELU (tanh or erf) or squared ReLU, or, in a MoE
+layer, softmax top-k routing over the experts (moe_ffn) -> down (+ bias)
+-> residual scale -> post norm -> residual. The head counts and the FFN
+width are the layer's own (openelm, deci); deci's attention-free layer
+is its FFN half alone, and its linear-attention layer replaces attention
+by wo on the normed input. A parallel layer (phi2, falcon, gptneox,
+command-r, cohere2, plamo) feeds attention and the FFN from the layer
+input's norms and adds both to it. A post-norm layer (bert, nomic-bert,
+jina-bert-v2) attends from the layer input and LayerNorms each residual
+sum. The embedding takes the token-type row (the encoders), the learned
+position rows (gpt2, starcoder, bert) and the embedding LayerNorm
+(embed_extras). Final norm (none on an encoder) + lm head (+ bias) /
+logits scale + final softcap; an encoder has no LM head. Loading is numpy
+(host planes); weights.py moves them to a device.
 
 Every dense projection goes through ops/qmatmul (kernel K1 on CUDA), every
 expert projection through ops/gmm (kernel K4). `plain=True` selects the
@@ -48,8 +55,10 @@ from .registry import check_arch
 
 @dataclasses.dataclass
 class LayerWeights:
-    attn_norm: Any           # None: olmo (weightless LN), olmo2 (no pre-norm)
-    wo: QTensor
+    # None: olmo (weightless LN), olmo2 and chameleon-34B (no pre-norm),
+    # the encoders (post-norm), deci's attention-free layers
+    attn_norm: Any
+    wo: QTensor | None       # None: deci's attention-free layers
     ffn_norm: Any            # None: olmo, olmo2, parallel layers with one norm
     w_down: QTensor | None = None
     # fused q|k|v and gate|up planes, built at load when the source tensors
@@ -78,6 +87,9 @@ class LayerWeights:
     bv: Any = None
     attn_q_norm: Any = None
     attn_k_norm: Any = None
+    # the biases of per-head QK LayerNorms [H, head_dim] (chameleon)
+    attn_q_norm_b: Any = None
+    attn_k_norm_b: Any = None
     # LayerNorm biases; falcon-40B's second norm feeding the FFN branch;
     # the output-projection and non-gated FFN biases, float32
     attn_norm_b: Any = None
@@ -96,6 +108,12 @@ class LayerWeights:
     # residual adds (gemma2, gemma3)
     attn_post_norm: Any = None
     ffn_post_norm: Any = None
+    # the encoders' LayerNorms of the residual sums, after attention and
+    # after the FFN (weight and bias)
+    attn_out_norm: Any = None
+    attn_out_norm_b: Any = None
+    layer_out_norm: Any = None
+    layer_out_norm_b: Any = None
     # LoRA pairs: field name (wq, wk, wv, wo, w_gate, w_up, w_down) ->
     # (A [r, K], B [N, r], scale), A and B float32 holding bf16 values
     # (models/lora.py)
@@ -109,7 +127,8 @@ class LayerWeights:
 class LlamaWeights:
     tok_embd: QTensor        # layout 'rows' (row gathers)
     output_norm: Any
-    output: QTensor          # lm head (token_embd planes when tied)
+    # lm head (token_embd planes when tied); None on an encoder
+    output: QTensor | None
     layers: list[LayerWeights]
     rope_inv_freq: Any
     rope_mscale: float
@@ -124,8 +143,10 @@ class LlamaWeights:
     output_norm_b: Any = None
     output_b: Any = None
     # the learned absolute position rows [n_ctx_train, C] (gpt2,
-    # starcoder) and the embedding LayerNorm (bloom), float32
+    # starcoder, bert), the token-type rows [n_types, C] (the encoders)
+    # and the embedding LayerNorm (bloom, the encoders), float32
     pos_embd: Any = None
+    type_embd: Any = None
     tok_norm: Any = None
     tok_norm_b: Any = None
     # cohere2: the global (window 0) layers take no rope
@@ -157,6 +178,8 @@ _BIASES = {"attn_q.bias": "bq", "attn_k.bias": "bk", "attn_v.bias": "bv"}
 # bitnet's sub-norms
 _QUIRK_VECTORS = {"attn_q_norm.weight": "attn_q_norm",
                   "attn_k_norm.weight": "attn_k_norm",
+                  "attn_q_norm.bias": "attn_q_norm_b",
+                  "attn_k_norm.bias": "attn_k_norm_b",
                   "attn_post_norm.weight": "attn_post_norm",
                   "post_attention_norm.weight": "attn_post_norm",
                   "ffn_post_norm.weight": "ffn_post_norm",
@@ -170,25 +193,56 @@ _QUIRK_VECTORS = {"attn_q_norm.weight": "attn_q_norm",
                   "ffn_up.bias": "b_up",
                   "ffn_down.bias": "b_down",
                   "attn_sub_norm.weight": "attn_sub_norm",
-                  "ffn_sub_norm.weight": "ffn_sub_norm"}
+                  "ffn_sub_norm.weight": "ffn_sub_norm",
+                  "attn_output_norm.weight": "attn_out_norm",
+                  "attn_output_norm.bias": "attn_out_norm_b",
+                  "layer_output_norm.weight": "layer_out_norm",
+                  "layer_output_norm.bias": "layer_out_norm_b"}
 _LAYER_TENSORS = {"attn_norm.weight", "attn_qkv.weight", "attn_qkv.bias",
                   "attn_output.weight", "ffn_norm.weight"} | _QKV | \
     _DENSE_FFN | _MOE_FFN | set(_BIASES) | set(_QUIRK_VECTORS)
 _TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight",
                 "output_norm.bias", "output.bias",
                 "rope_factors_short.weight", "rope_factors_long.weight"}
-# the embedding extras the forward adds on a file without rope positions
-# (embed_extras): the learned position rows only where the positions are
-# learned, the embedding LayerNorm (bloom) on any such file
+# the embedding extras the forward adds (embed_extras), by the file's
+# position mode, or "post_norm" on an encoder: the learned position rows
+# only where the positions are learned, the token-type rows on an
+# encoder, the embedding LayerNorm on an encoder or a file without rope
+# positions (bloom)
 _EMBED_EXTRAS = {"position_embd.weight": ("learned",),
-                 "token_embd_norm.weight": ("learned", "none"),
-                 "token_embd_norm.bias": ("learned", "none")}
+                 "token_types.weight": ("post_norm",),
+                 "token_embd_norm.weight": ("learned", "none", "post_norm"),
+                 "token_embd_norm.bias": ("learned", "none", "post_norm")}
 # the layer tensors a sequential gated FFN alone applies
 _SEQUENTIAL_GATED = ("ffn_gate.bias", "attn_sub_norm.weight",
                      "ffn_sub_norm.weight")
+# the LayerNorms of an encoder's residual sums, and what an encoder's
+# post-norm layer does not apply (pre-norms, QK norms, branch norms)
+_POST_NORMS = {"attn_output_norm.weight", "attn_output_norm.bias",
+               "layer_output_norm.weight", "layer_output_norm.bias"}
+_PRE_NORM_ONLY = ({"attn_norm.weight", "ffn_norm.weight"}
+                  | set(_QUIRK_VECTORS)) - _POST_NORMS - set(_BIASES) - {
+    "attn_output.bias", "ffn_up.bias", "ffn_down.bias", "ffn_gate.bias"}
 # the archs whose files may lack norm tensors: olmo's LayerNorms have no
 # weights, olmo2 norms only the branch outputs (reference load_weights)
 _NORMLESS = ("olmo", "olmo2")
+
+
+def attention_free(hp: HParams, li: int) -> bool:
+    """deci's attention-free layer (n_head 0): the block is its FFN."""
+    return hp.n_head_of(li) == 0
+
+
+def linear_attention(hp: HParams, li: int) -> bool:
+    """deci's linear-attention layer (n_head > 0, n_head_kv 0 in a file of
+    per-layer geometry): wo on the normed input replaces attention."""
+    return (not hp.uniform_layers and hp.n_head_of(li) > 0
+            and hp.n_head_kv_of(li) == 0)
+
+
+def attends(hp: HParams, li: int) -> bool:
+    """Whether layer li attends (and writes its KV pool)."""
+    return not (attention_free(hp, li) or linear_attention(hp, li))
 
 
 def _repack_2d(reader: GGUFReader, name: str,
@@ -244,13 +298,14 @@ def _f32(reader: GGUFReader, name: str) -> np.ndarray:
     return reader.dequantize(name, np.float32)
 
 
-def _check_qk_norm(name: str, shape: tuple, hp: HParams) -> None:
+def _check_qk_norm(name: str, shape: tuple, hp: HParams, li: int) -> None:
     """A QK norm the forward carries: [head_dim] RMS weights on a NEOX
     arch, per-head LayerNorm weights [H, head_dim] (ggml (head_dim, H)) on
     any, or RMS weights over the flat q or k [H * head_dim] on a NEOX arch
-    (olmo2). The reference permutes only the 2-D weights of a NORM-rope
-    file as it un-permutes the rows they scale."""
-    heads = hp.n_head if "attn_q_norm" in name else hp.n_head_kv
+    (olmo2), H the layer's own head count. The reference permutes only the
+    2-D weights of a NORM-rope file as it un-permutes the rows they
+    scale."""
+    heads = hp.n_head_of(li) if "attn_q_norm" in name else hp.n_head_kv_of(li)
     d = hp.head_dim
     if shape not in ((d,), (heads * d,), (d, heads)):
         raise NotImplementedError(
@@ -268,6 +323,74 @@ def _check_qk_norm(name: str, shape: tuple, hp: HParams) -> None:
             "port carries per-head LayerNorm weights there")
 
 
+def _check_layer(reader: GGUFReader, hp: HParams, i: int,
+                 names: set) -> None:
+    """Refuse a layer whose tensors the forward of its kind would not
+    apply, or which lacks one it needs."""
+    t = reader.tensors
+    ffn_sets = ([_MOE_FFN] if hp.n_expert else [_DENSE_FFN, _UP_DOWN_FFN])
+    ffn = names & (_DENSE_FFN | _MOE_FFN)
+    if ffn not in ffn_sets:
+        raise NotImplementedError(
+            f"blk.{i} FFN tensors {sorted(ffn)}: this port carries "
+            + ("the Mixtral expert set" if hp.n_expert else
+               "the gated set or a non-gated up and down")
+            + " in every layer")
+    gated = "ffn_gate.weight" in names or (
+        "ffn_up.weight" in names and
+        t[f"blk.{i}.ffn_up.weight"].shape[-1] == 2 * hp.n_ff_of(i))
+    odd = [n for n in _SEQUENTIAL_GATED if n in names
+           and (hp.parallel_residual or hp.post_norm or not gated)]
+    if hp.post_norm:
+        odd += sorted(names & _PRE_NORM_ONLY)
+        if not {"attn_output_norm.weight",
+                "layer_output_norm.weight"} <= names:
+            raise KeyError(f"blk.{i}: attn_output_norm and "
+                           "layer_output_norm are required in a post-norm "
+                           f"layer (arch {hp.arch})")
+    else:
+        odd += sorted(names & _POST_NORMS)
+    for w in ("attn_q_norm", "attn_k_norm"):
+        if f"{w}.bias" in names and (
+                hp.parallel_residual or f"{w}.weight" not in names or
+                t[f"blk.{i}.{w}.bias"].shape != t[f"blk.{i}.{w}.weight"].shape
+                or len(t[f"blk.{i}.{w}.weight"].shape) != 2):
+            odd.append(f"{w}.bias")
+    if odd:
+        raise NotImplementedError(
+            f"blk.{i} tensors outside the layouts of the ported archs: "
+            f"{odd} apply only in another kind of layer")
+    attn = names & (_QKV | {"attn_qkv.weight"})
+    if not attends(hp, i):
+        # deci: an attention-free layer has no attention tensors, a
+        # linear-attention layer its norm and wo alone
+        lin = linear_attention(hp, i)
+        extra = names & (_QKV | {"attn_qkv.weight", "attn_qkv.bias"}
+                         | set(_BIASES) | {"attn_output.bias"})
+        if not lin:
+            extra |= names & {"attn_norm.weight", "attn_output.weight"}
+        if extra or (lin and not {"attn_norm.weight",
+                                  "attn_output.weight"} <= names):
+            raise NotImplementedError(
+                f"blk.{i}: a {'linear' if lin else 'free'}-attention layer "
+                f"(n_head {hp.n_head_of(i)}, n_head_kv {hp.n_head_kv_of(i)})"
+                f" with tensors {sorted(names - ffn)}: this port carries "
+                + ("attn_norm and attn_output" if lin else "its FFN")
+                + " alone there")
+        if "ffn_norm.weight" not in names:
+            raise KeyError(f"blk.{i}: ffn_norm.weight missing")
+        return
+    if attn not in (_QKV, {"attn_qkv.weight"}):
+        raise NotImplementedError(
+            f"blk.{i} attention tensors {sorted(attn)}: this port "
+            "carries attn_q, attn_k and attn_v or a fused attn_qkv")
+    if hp.arch not in _NORMLESS and not hp.post_norm and (
+            "attn_norm.weight" not in names or not (
+                "ffn_norm.weight" in names or hp.parallel_residual)):
+        raise KeyError(f"blk.{i}: a norm tensor is missing (arch "
+                       f"{hp.arch} requires pre-norms)")
+
+
 def _check_supported(reader: GGUFReader, hp: HParams) -> None:
     """Refuse what this port does not carry, instead of running another
     model than the file describes."""
@@ -281,10 +404,22 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
     if hp.n_expert and not 0 < hp.n_expert_used <= hp.n_expert:
         raise ValueError(f"expert_used_count {hp.n_expert_used} of "
                          f"{hp.n_expert} experts")
+    for key, arr in (("head_count", hp.n_head_layers),
+                     ("head_count_kv", hp.n_head_kv_layers),
+                     ("feed_forward_length", hp.n_ff_layers)):
+        if arr and len(arr) != hp.n_layer:
+            raise ValueError(f"{hp.arch}.{key}: {len(arr)} entries for "
+                             f"{hp.n_layer} layers")
+    for li in range(hp.n_layer):
+        h, kvh = hp.n_head_of(li), hp.n_head_kv_of(li)
+        if attends(hp, li) and (kvh <= 0 or h % kvh):
+            raise NotImplementedError(
+                f"blk.{li}: {h} query heads on {kvh} KV heads")
+    modes = {hp.pos_embd} | ({"post_norm"} if hp.post_norm else set())
     unknown = []
     have = [set() for _ in range(hp.n_layer)]
     for name in reader.tensors:
-        if name in _TOP_TENSORS or hp.pos_embd in _EMBED_EXTRAS.get(name, ()):
+        if name in _TOP_TENSORS or modes & set(_EMBED_EXTRAS.get(name, ())):
             continue
         parts = name.split(".", 2)
         if parts[0] == "blk" and len(parts) == 3 and parts[2] in _LAYER_TENSORS:
@@ -292,46 +427,26 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
                 have[int(parts[1])].add(parts[2])
             continue
         unknown.append(name)
+    if hp.post_norm:
+        unknown += [n for n in ("output.weight", "output.bias",
+                                "output_norm.weight", "output_norm.bias")
+                    if n in reader.tensors]
     if unknown:
         raise NotImplementedError(
             "tensors outside the layouts of the ported archs: "
             f"{sorted(unknown)[:5]}")
     for name, info in reader.tensors.items():
         if name.endswith(("attn_q_norm.weight", "attn_k_norm.weight")):
-            _check_qk_norm(name, tuple(info.shape), hp)
+            _check_qk_norm(name, tuple(info.shape), hp,
+                           int(name.split(".")[1]))
     if ("rope_factors_short.weight" in reader.tensors) != \
             ("rope_factors_long.weight" in reader.tensors):
         raise NotImplementedError("rope_factors_short and rope_factors_long "
                                   "come as a pair")
-    ffn_sets = ([_MOE_FFN] if hp.n_expert else [_DENSE_FFN, _UP_DOWN_FFN])
     for i, names in enumerate(have):
-        ffn = names & (_DENSE_FFN | _MOE_FFN)
-        if ffn not in ffn_sets:
-            raise NotImplementedError(
-                f"blk.{i} FFN tensors {sorted(ffn)}: this port carries "
-                + ("the Mixtral expert set" if hp.n_expert else
-                   "the gated set or a non-gated up and down")
-                + " in every layer")
-        gated = "ffn_gate.weight" in names or (
-            "ffn_up.weight" in names and
-            reader.tensors[f"blk.{i}.ffn_up.weight"].shape[-1] == 2 * hp.n_ff)
-        odd = [n for n in _SEQUENTIAL_GATED if n in names
-               and (hp.parallel_residual or not gated)]
-        if odd:
-            raise NotImplementedError(
-                f"blk.{i} tensors outside the layouts of the ported archs: "
-                f"{odd} apply only in a sequential layer with a gated FFN")
-        attn = names & (_QKV | {"attn_qkv.weight"})
-        if attn not in (_QKV, {"attn_qkv.weight"}):
-            raise NotImplementedError(
-                f"blk.{i} attention tensors {sorted(attn)}: this port "
-                "carries attn_q, attn_k and attn_v or a fused attn_qkv")
-        if hp.arch not in _NORMLESS and (
-                "attn_norm.weight" not in names or not (
-                    "ffn_norm.weight" in names or hp.parallel_residual)):
-            raise KeyError(f"blk.{i}: a norm tensor is missing (arch "
-                           f"{hp.arch} requires pre-norms)")
-    if "output_norm.weight" not in reader.tensors and hp.arch != "olmo":
+        _check_layer(reader, hp, i, names)
+    if "output_norm.weight" not in reader.tensors and \
+            hp.arch != "olmo" and not hp.post_norm:
         raise KeyError("output_norm.weight missing")
 
 
@@ -358,49 +473,56 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
     if hp is None:
         hp = hparams_from_metadata(reader.metadata)
     _check_supported(reader, hp)
-    # NORM-rope Q/K rows (and biases) are un-permuted to half-split; NEOX
-    # rows are half-split already
-    q_perm = k_perm = None
-    if hp.rope_type == "norm":
-        q_perm = _unpermute_rows(hp.n_head, hp.head_dim, hp.rope_dim)
-        k_perm = _unpermute_rows(hp.n_head_kv, hp.head_dim, hp.rope_dim)
     t = reader.tensors
-    n_q, n_kv = hp.n_head * hp.head_dim, hp.n_head_kv * hp.head_dim
-    # a fused q|k|v of a NORM-rope file takes the un-permutation only
-    # where rope applies: without it (gpt2, bloom, mpt, jais) the same
-    # permutation of q and k would cancel in q . k, and the rows stay in
-    # the reference's order
-    fused_perm = q_perm is not None and hp.pos_embd == "rope"
+
+    def perms(i: int):
+        """NORM-rope Q/K rows (and biases) are un-permuted to half-split at
+        the layer's own head counts (deci's per-layer KV heads); NEOX rows
+        are half-split already."""
+        if hp.rope_type != "norm":
+            return None, None
+        return (_unpermute_rows(hp.n_head_of(i), hp.head_dim, hp.rope_dim),
+                _unpermute_rows(hp.n_head_kv_of(i), hp.head_dim,
+                                hp.rope_dim))
 
     def layer(i: int) -> LayerWeights:
         p = f"blk.{i}."
         opt = lambda name: _f32(reader, p + name) if p + name in t else None
         lw = LayerWeights(
             attn_norm=opt("attn_norm.weight"),
-            wo=_repack_2d(reader, p + "attn_output.weight"),
+            wo=(_repack_2d(reader, p + "attn_output.weight")
+                if p + "attn_output.weight" in t else None),
             ffn_norm=opt("ffn_norm.weight"))
+        q_perm, k_perm = perms(i)
+        n_q = hp.n_head_of(i) * hp.head_dim
+        n_kv = hp.n_head_kv_of(i) * hp.head_dim
         if p + "attn_qkv.weight" in t:
             # fused [q; k; v] rows, as phi2, phi3, falcon, gptneox, qwen,
-            # codeshell, gpt2, starcoder, bloom, mpt and jais store them,
-            # with the fused bias split alike; NORM-rope q and k rows (a
-            # chatglm file as llama.cpp converts it) are un-permuted as the
+            # codeshell, gpt2, starcoder, bloom, mpt, jais, nomic-bert and
+            # openelm (at the layer's head counts) store them, with the
+            # fused bias split alike; NORM-rope q and k rows (a chatglm
+            # file as llama.cpp converts it) are un-permuted as the
             # separate tensors are, where the reference leaves them
-            # interleaved (ROADMAP §3, fault 14)
-            perms = [q_perm, k_perm, None] if fused_perm else None
+            # interleaved (ROADMAP §3, fault 14). Without rope (gpt2,
+            # bloom, mpt, jais) the same permutation of q and k would
+            # cancel in q . k, and the rows stay in the reference's order
+            fused_perm = q_perm is not None and hp.pos_embd == "rope"
             lw.wq, lw.wk, lw.wv = _split_rows(
                 reader, p + "attn_qkv.weight",
                 ((0, n_q), (n_q, n_q + n_kv), (n_q + n_kv, n_q + 2 * n_kv)),
-                perms)
+                [q_perm, k_perm, None] if fused_perm else None)
             if p + "attn_qkv.bias" in t:
                 bias = _f32(reader, p + "attn_qkv.bias")
                 lw.bq, lw.bk, lw.bv = (bias[:n_q], bias[n_q:n_q + n_kv],
                                        bias[n_q + n_kv:n_q + 2 * n_kv])
                 if fused_perm:
                     lw.bq, lw.bk = lw.bq[q_perm], lw.bk[k_perm]
-        else:
+        elif p + "attn_q.weight" in t:
             lw.wq = _repack_2d(reader, p + "attn_q.weight", q_perm)
             lw.wk = _repack_2d(reader, p + "attn_k.weight", k_perm)
             lw.wv = _repack_2d(reader, p + "attn_v.weight")
+        # deci's attention-free and linear-attention layers carry no q, k
+        # and v planes
         for name, perm in (("attn_q.bias", q_perm), ("attn_k.bias", k_perm),
                            ("attn_v.bias", None)):
             if p + name in t:
@@ -411,13 +533,20 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
             if p + name in t:
                 arr = _f32(reader, p + name)
                 if arr.ndim == 2 and q_perm is not None:
-                    # per-head LayerNorm weights [H, d] of a NORM-rope file
-                    # (Command R+) follow the rows' within-head map
+                    # per-head LayerNorm weights and biases [H, d] of a
+                    # NORM-rope file (Command R+, chameleon) follow the
+                    # rows' within-head map
                     arr = arr[:, _unpermute_rows(1, hp.head_dim)]
                 setattr(lw, field, arr)
-        lw.wqkv = fuse_qtensors([lw.wq, lw.wk, lw.wv])
-        if lw.wqkv is not None:
-            lw.wq = lw.wk = lw.wv = None  # fused plane replaces them
+        if hp.swin_norm:
+            # chameleon-34B: no pre-norms; the attention and FFN norms
+            # apply to the branch outputs, the sandwich post-norm slots
+            lw.attn_post_norm, lw.attn_norm = lw.attn_norm, None
+            lw.ffn_post_norm, lw.ffn_norm = lw.ffn_norm, None
+        if lw.wq is not None:
+            lw.wqkv = fuse_qtensors([lw.wq, lw.wk, lw.wv])
+            if lw.wqkv is not None:
+                lw.wq = lw.wk = lw.wv = None  # fused plane replaces them
         if hp.n_expert:
             # an F32 router gives a 'dense' QTensor (a plain product)
             lw.gate_inp = _repack_2d(reader, p + "ffn_gate_inp.weight")
@@ -426,14 +555,14 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
             lw.down_exps = _repack_3d(reader, p + "ffn_down_exps.weight")
             return lw
         lw.w_down = _repack_2d(reader, p + "ffn_down.weight")
-        n_up = t[p + "ffn_up.weight"].shape[-1]
+        n_up, n_ff = t[p + "ffn_up.weight"].shape[-1], hp.n_ff_of(i)
         if p + "ffn_gate.weight" in t:
             lw.w_gate = _repack_2d(reader, p + "ffn_gate.weight")
             lw.w_up = _repack_2d(reader, p + "ffn_up.weight")
-        elif n_up == 2 * hp.n_ff:
+        elif n_up == 2 * n_ff:
             # phi3's [gate | up] rows in one ffn_up
             lw.w_gate, lw.w_up = _split_rows(
-                reader, p + "ffn_up.weight", ((0, hp.n_ff), (hp.n_ff, n_up)))
+                reader, p + "ffn_up.weight", ((0, n_ff), (n_ff, n_up)))
         else:   # non-gated: up -> activation -> down
             lw.w_up = _repack_2d(reader, p + "ffn_up.weight")
             return lw
@@ -448,12 +577,13 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
                            "rows")
         # the lm head pads N to tile_n=1024 multiples, as the reference
         # does; a file without output.weight (gemma) ties it to the
-        # embedding
+        # embedding; an encoder has none
         head = "output.weight" if "output.weight" in t else "token_embd.weight"
-        f_out = ex.submit(_repack_2d, reader, head, None, "t", 1024)
+        f_out = None if hp.post_norm else ex.submit(
+            _repack_2d, reader, head, None, "t", 1024)
         layer_list = list(ex.map(layer, range(hp.n_layer)))
         tok_embd = f_embd.result()
-        output = f_out.result()
+        output = None if f_out is None else f_out.result()
     inv_freq, mscale = layers.rope_freqs(hp)
     inv_freq_long = None
     if "rope_factors_short.weight" in t:
@@ -488,6 +618,7 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
         output_norm_b=top("output_norm.bias"),
         output_b=top("output.bias"),
         pos_embd=top("position_embd.weight"),
+        type_embd=top("token_types.weight"),
         tok_norm=top("token_embd_norm.weight"),
         tok_norm_b=top("token_embd_norm.bias"),
         nope_global=hp.nope_global,
@@ -539,10 +670,14 @@ def embed(w: LlamaWeights, tokens: torch.Tensor,
 
 def embed_extras(w: LlamaWeights, hp: HParams, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
-    """The input-embedding additions of a file without rope positions, in
-    float32, then bf16: the learned absolute position rows at `positions`
-    (gpt2, starcoder), then the embedding LayerNorm (bloom)."""
+    """The input-embedding additions of an encoder or a file without rope
+    positions, in float32, then bf16: the token-type row 0 (the encoders;
+    "sentence A", as the reference and llama.cpp take it), the learned
+    absolute position rows at `positions` (gpt2, starcoder, bert), then
+    the embedding LayerNorm (bloom, the encoders)."""
     xf = x.float()
+    if w.type_embd is not None:
+        xf = xf + w.type_embd[0]
     if w.pos_embd is not None:
         xf = xf + w.pos_embd[positions.long()]
     if w.tok_norm is not None:
@@ -552,10 +687,12 @@ def embed_extras(w: LlamaWeights, hp: HParams, x: torch.Tensor,
 
 def embed_input(w: LlamaWeights, hp: HParams, tokens: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
-    """The layers' input: the embedding rows (scaled), and on a file
-    without rope positions its extras (embed_extras)."""
+    """The layers' input: the embedding rows (scaled), and on an encoder
+    or a file without rope positions its extras (embed_extras)."""
     x = embed(w, tokens, hp.embd_scale)
-    return x if hp.pos_embd == "rope" else embed_extras(w, hp, x, positions)
+    if hp.pos_embd == "rope" and not hp.post_norm:
+        return x
+    return embed_extras(w, hp, x, positions)
 
 
 def alibi_of(hp: HParams, device) -> torch.Tensor | None:
@@ -604,23 +741,25 @@ def _add(y: torch.Tensor, bias) -> torch.Tensor:
     return y if bias is None else y + bias
 
 
-def _qk_norm(y: torch.Tensor, weight, hp: HParams) -> torch.Tensor:
+def _qk_norm(y: torch.Tensor, weight, bias, hp: HParams) -> torch.Tensor:
     """Per-head QK norm of y [B, T, H, D]: [H, D] weights are distinct
-    LayerNorms without bias, [D] weights one RMS norm."""
+    LayerNorms, with chameleon's biases where given, [D] weights one RMS
+    norm."""
     if weight is None:
         return y
     if weight.ndim == 2:
-        return layers.layer_norm(y, weight, None, hp.rms_eps)
+        return layers.layer_norm(y, weight, bias, hp.rms_eps)
     return layers.rms_norm(y, weight, hp.rms_eps)
 
 
 def _attention(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
                positions, inv_freq, mscale: float, attend, plain: bool,
-               tap) -> torch.Tensor:
-    """The attention branch on the normed input cur [B, T, C]: its output
-    after wo and its bias, float32 [B, T, C]."""
+               tap, li: int = 0) -> torch.Tensor:
+    """The attention branch of layer li on the normed input cur [B, T, C]
+    at the layer's head counts: its output after wo and its bias, float32
+    [B, T, C]."""
     b, tdim, _ = cur.shape
-    h, kvh, d = hp.n_head, hp.n_head_kv, hp.head_dim
+    h, kvh, d = hp.n_head_of(li), hp.n_head_kv_of(li), hp.head_dim
     if tap is not None:
         tap("attn_in", cur)
     q, k, v = qkv_proj(cur, lw, plain)
@@ -635,8 +774,8 @@ def _attention(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
     k = k.reshape(b, tdim, kvh, d)
     v = v.reshape(b, tdim, kvh, d)
     if not flat:     # per-head QK norms, before rope
-        q = _qk_norm(q, lw.attn_q_norm, hp)
-        k = _qk_norm(k, lw.attn_k_norm, hp)
+        q = _qk_norm(q, lw.attn_q_norm, lw.attn_q_norm_b, hp)
+        k = _qk_norm(k, lw.attn_k_norm, lw.attn_k_norm_b, hp)
     # no rope on a file without rope positions (learned rows entered at
     # the embedding; ALiBi biases the logits) or on cohere2's global layers
     if hp.pos_embd == "rope" and inv_freq is not None:
@@ -654,18 +793,33 @@ def _attention(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
 def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
                   positions: torch.Tensor, inv_freq: torch.Tensor,
                   mscale: float, attend, plain: bool = False,
-                  tap=None) -> torch.Tensor:
-    """One decoder layer. x [B, T, C] bf16; attend(q, k, v) writes the KV
-    and returns [B, T, H, D]; inv_freq is the layer's rope table. tap, if
+                  tap=None, li: int = 0) -> torch.Tensor:
+    """Layer li. x [B, T, C] bf16; attend(q, k, v) writes the KV and
+    returns [B, T, H, D]; inv_freq is the layer's rope table. tap, if
     given, is called as tap(role, activation) with the input of each
-    projection: "attn_in" (q, k, v), "attn_out" (wo), "ffn_in" (gate and
-    up, or up alone, or the router and experts), "ffn_act" (down)."""
+    projection: "attn_in" (q, k, v), "attn_out" (wo, or the linear
+    attention's projection), "ffn_in" (gate and up, or up alone, or the
+    router and experts), "ffn_act" (down). A layer that does not attend
+    (attends) never calls attend."""
+    if hp.post_norm:
+        return _forward_layer_postnorm(x, lw, hp, positions, inv_freq,
+                                       mscale, attend, plain, tap)
     if hp.parallel_residual:
         return _forward_layer_parallel(x, lw, hp, positions, inv_freq,
-                                       mscale, attend, plain, tap)
+                                       mscale, attend, plain, tap, li)
+    if attention_free(hp, li):        # deci: the block is its FFN
+        return _forward_layer_ffn(x, lw, hp, plain, tap)
     cur = _norm(hp, x, lw.attn_norm, lw.attn_norm_b)
+    if linear_attention(hp, li):
+        # deci: wo on the normed input replaces attention; its adapter
+        # applies as llama.cpp's build_lora_mm applies it (the reference
+        # drops it, ROADMAP §3 fault 20)
+        if tap is not None:
+            tap("attn_out", cur)
+        o = linear_lora(cur, lw.wo, lw.lora.get("wo"), plain)
+        return _forward_layer_ffn(x + o.to(x.dtype), lw, hp, plain, tap)
     o = _attention(cur, lw, hp, positions, inv_freq, mscale, attend, plain,
-                   tap)
+                   tap, li)
     if lw.attn_post_norm is not None:  # sandwich norm on the branch
         o = layers.rms_norm(o, lw.attn_post_norm, hp.rms_eps)
     if hp.residual_scale != 1.0:       # granite
@@ -675,7 +829,8 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
 
 
 def _forward_layer_parallel(x, lw, hp, positions, inv_freq, mscale, attend,
-                            plain: bool = False, tap=None) -> torch.Tensor:
+                            plain: bool = False, tap=None,
+                            li: int = 0) -> torch.Tensor:
     """A parallel-residual layer, x + attn(norm(x)) + ffn(norm'(x)), with
     the arch's norm (hp.norm_type: LayerNorms, or RMS norms for plamo):
     the FFN reads the attention's norm (phi2, falcon-7B, command-r,
@@ -691,12 +846,28 @@ def _forward_layer_parallel(x, lw, hp, positions, inv_freq, mscale, attend,
     else:
         ffn_in = cur
     o = _attention(cur, lw, hp, positions, inv_freq, mscale, attend, plain,
-                   tap)
+                   tap, li)
     ffn = _add(_ffn(ffn_in, lw, hp, plain, tap), lw.b_down)
     x = x + (o + ffn).to(x.dtype)
     if lw.cvec is not None:
         x = x + lw.cvec.to(x.dtype)
     return x
+
+
+def _forward_layer_postnorm(x, lw, hp, positions, inv_freq, mscale, attend,
+                            plain: bool = False, tap=None) -> torch.Tensor:
+    """An encoder layer (bert, nomic-bert, jina-bert-v2): attention from
+    the layer input (the projections' biases; rope on nomic-bert), then
+    x = LN(x + attn), x = LN(x + ffn(x)), the sums in float32. The
+    adapters apply as in a sequential layer; no control vector, as in the
+    reference and llama.cpp's bert graph."""
+    o = _attention(x, lw, hp, positions, inv_freq, mscale, attend, plain,
+                   tap)
+    x = layers.layer_norm(x.float() + o, lw.attn_out_norm,
+                          lw.attn_out_norm_b, hp.rms_eps).to(x.dtype)
+    ffn = _add(_ffn(x, lw, hp, plain, tap), lw.b_down)
+    return layers.layer_norm(x.float() + ffn, lw.layer_out_norm,
+                             lw.layer_out_norm_b, hp.rms_eps).to(x.dtype)
 
 
 def moe_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
@@ -777,7 +948,10 @@ def _forward_layer_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
 
 def final_norm(w: LlamaWeights, hp: HParams, x: torch.Tensor) -> torch.Tensor:
     """The output norm, RMS or LayerNorm (+ bias) by the arch: lm_head's
-    and every pooled embedding's."""
+    and every pooled embedding's. An encoder's layers end in their own
+    LayerNorm, and it has none."""
+    if hp.post_norm:
+        return x
     return _norm(hp, x, w.output_norm, w.output_norm_b)
 
 
@@ -785,7 +959,11 @@ def lm_head(w: LlamaWeights, hp: HParams, x: torch.Tensor,
             plain: bool = False) -> torch.Tensor:
     """Final norm + output projection (+ bias), divided by the logits
     scale, then the final softcap (gemma2) -> float32 logits
-    [..., n_vocab]."""
+    [..., n_vocab]. An encoder has no LM head and raises."""
+    if w.output is None:
+        raise NotImplementedError(
+            f"arch {hp.arch} is an encoder: it has no LM head and gives "
+            "embeddings only (Context.embed)")
     logits = _add(linear(final_norm(w, hp, x), w.output, plain), w.output_b)
     if hp.logits_scale != 1.0:
         logits = logits / hp.logits_scale

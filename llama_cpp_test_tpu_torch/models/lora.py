@@ -8,8 +8,10 @@ scale = alpha / r (models/llama.lora_delta). The base projection stays on
 its kernel (K1 on CUDA); the update is two small torch matmuls beside it.
 
 lora_b rows of attn_q and attn_k are permuted as the loader permutes the
-base rows (NORM-layout GGUF rows -> half-split rope; a NEOX arch's rows
-stay as they are), so the update lands in the same space.
+base rows (NORM-layout GGUF rows -> half-split rope, at the layer's own
+head counts; a NEOX arch's rows stay as they are), so the update lands in
+the same space. (The reference permutes at the global counts, which
+raises on a deci layer with fewer KV heads, ROADMAP §3 fault 21.)
 
 merge_lora() bakes an adapter into a dense GGUF (the export-lora tool),
 on the host in numpy.
@@ -60,12 +62,16 @@ def load_lora(path: str, hp: HParams, permute: bool = True) -> LoraAdapter:
     with GGUFReader(path) as r:
         alpha = float(r.metadata.get("adapter.lora.alpha", 16.0))
         tensors = {name: r.dequantize(name, np.float32) for name in r.tensors}
-    perms = {}
-    if permute and hp.rope_type == "norm":
-        perms = {"attn_q.weight": _unpermute_rows(hp.n_head, hp.head_dim,
-                                                  hp.rope_dim),
-                 "attn_k.weight": _unpermute_rows(hp.n_head_kv, hp.head_dim,
-                                                  hp.rope_dim)}
+    heads = {"attn_q.weight": hp.n_head_of, "attn_k.weight": hp.n_head_kv_of}
+
+    def perm_of(base: str):
+        """The loader's row map of base's layer, or None."""
+        parts = base.split(".", 2)
+        if not permute or hp.rope_type != "norm" or parts[-1] not in heads:
+            return None
+        return _unpermute_rows(heads[parts[-1]](int(parts[1])), hp.head_dim,
+                               hp.rope_dim)
+
     pairs: dict[str, LoraPair] = {}
     rank = 0
     for name, a in tensors.items():
@@ -76,7 +82,7 @@ def load_lora(path: str, hp: HParams, permute: bool = True) -> LoraAdapter:
         if b is None:
             continue
         rank = a.shape[0]
-        perm = perms.get(base.split(".", 2)[-1])
+        perm = perm_of(base)
         if perm is not None:
             b = b[perm]
         pairs[base] = LoraPair(a=a, b=b, scale=alpha / max(rank, 1))

@@ -20,11 +20,18 @@ exaone, codeshell, chatglm (partial rope, fused [gate|up]) and bitnet
 (RMS sub-norms before wo and ffn_down); and the position axes: learned
 absolute positions (gpt2, starcoder) and ALiBi (bloom with its embedding
 LayerNorm, mpt, jais with its gate bias, refact, and the 13B-class
-baichuan). Every other arch the reference registers is refused by name
-with the item that ports it: 7 the bert-family encoders, per-layer
-geometry, chameleon and qwen2vl, 8 the other
-MoE forms (and the MLA attention of deepseek2 and minicpm3), 9 the other
-model families.
+baichuan); the bert-family encoders: bert (post-norm layers, learned
+positions, the token-type row, CLS pooling), nomic-bert (post-norm with
+NEOX rope and a SwiGLU FFN) and jina-bert-v2 (symmetric ALiBi, GeGLU),
+non-causal and without an LM head; per-layer geometry: openelm (per-layer
+query and KV heads and FFN widths, shared per-head QK RMS norms) and deci
+(per-layer KV heads, attention-free and linear-attention layers); and
+chameleon (per-head QK LayerNorms with biases, the 34B's swin norms).
+Every other arch the reference registers is refused by name with the
+item that ports it: 7 qwen2vl (M-RoPE, which waits on the vision tower
+of item 9 and the embedding prefill of item 11), 8 the other MoE forms
+(and the MLA attention of deepseek2 and minicpm3), 9 the other model
+families.
 """
 from __future__ import annotations
 
@@ -33,18 +40,19 @@ PORTED = ("llama", "mistral", "mixtral", "gemma", "gemma2", "gemma3",
           "command-r", "starcoder2", "nemotron", "olmo", "gptneox", "phi2",
           "falcon", "minicpm", "internlm2", "baichuan", "xverse", "orion",
           "qwen", "exaone", "codeshell", "chatglm", "cohere2", "plamo",
-          "bitnet", "gpt2", "starcoder", "bloom", "mpt", "jais", "refact")
+          "bitnet", "gpt2", "starcoder", "bloom", "mpt", "jais", "refact",
+          "bert", "nomic-bert", "jina-bert-v2", "openelm", "deci",
+          "chameleon")
 
-_ITEM_7 = ("bert", "nomic-bert", "jina-bert-v2", "openelm", "deci",
-           "chameleon", "qwen2vl")
+_ITEM_7 = ("qwen2vl",)
 _ITEM_8 = ("qwen2moe", "qwen3moe", "olmoe", "deepseek2", "deepseek",
            "phimoe", "dbrx", "arctic", "grok", "granitemoe", "minicpm3")
 _ITEM_9 = ("t5", "t5encoder", "mamba", "rwkv6", "rwkv6qwen2", "rwkv7",
            "arwkv7", "wavtokenizer-dec")
 UNPORTED = {**dict.fromkeys(_ITEM_7, 7), **dict.fromkeys(_ITEM_8, 8),
             **dict.fromkeys(_ITEM_9, 9)}
-_ITEMS = {7: "the bert-family encoders, per-layer geometry, chameleon "
-             "and qwen2vl", 8: "the other MoE forms",
+_ITEMS = {7: "qwen2vl's M-RoPE, with the vision tower of item 9",
+          8: "the other MoE forms",
           9: "the other model families"}
 
 

@@ -2,7 +2,7 @@
 (with linear/YaRN scaling; partial when rope_dim < head_dim),
 SwiGLU/GeGLU, the non-gated activations (tanh and erf GELU, squared
 ReLU), the ALiBi slopes, and masked attention over gathered KV (with an
-optional ALiBi bias).
+optional ALiBi bias, causal or symmetric).
 
 Counterpart of llama_cpp_test_tpu/ops/layers.py. Dtypes follow the
 reference: norms return the input dtype, rope and the activation compute
@@ -91,10 +91,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def swiglu(gate: torch.Tensor, up: torch.Tensor,
            act: str = "silu") -> torch.Tensor:
     """Gated FFN activation act(gate) * up, computed in float32: act
-    "silu" (SwiGLU) or "gelu", the tanh approximation (gemma's GeGLU)."""
+    "silu" (SwiGLU), "gelu" the tanh approximation (gemma's GeGLU) or
+    "gelu_erf" the exact GELU (jina-bert-v2's GeGLU; the reference's
+    swiglu takes SiLU there, ROADMAP §3 fault 17)."""
     g = gate.float()
-    a = (torch.nn.functional.gelu(g, approximate="tanh") if act == "gelu"
-         else torch.nn.functional.silu(g))
+    if act == "gelu":
+        a = torch.nn.functional.gelu(g, approximate="tanh")
+    elif act == "gelu_erf":
+        a = torch.nn.functional.gelu(g)
+    else:
+        a = torch.nn.functional.silu(g)
     return (a * up.float()).to(gate.dtype)
 
 
@@ -137,14 +143,17 @@ def alibi_slopes(n_head: int, max_bias: float = 8.0,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor, scale: float, softcap: float = 0.0,
-              alibi: torch.Tensor | None = None) -> torch.Tensor:
+              alibi: torch.Tensor | None = None,
+              alibi_sym_pos: torch.Tensor | None = None) -> torch.Tensor:
     """Masked multi-head attention with GQA broadcast, in float32.
 
     q: [B, T, H, D]; k/v: [B, S, KV, D]; mask: [B, T, S] bool (True =
     attend). alibi: optional [H] slopes, slope_h * s added to the logit of
     key index s after the softcap and before the mask, as the reference
     adds it (for a causal row the same as slope_h * (s - pos) up to a
-    constant). Rows with nothing to attend give zeros. Returns
+    constant). alibi_sym_pos: the true query positions [B, T], which make
+    the bias symmetric, -slope_h * |pos - s| (jina-bert-v2, whose rows are
+    not causal). Rows with nothing to attend give zeros. Returns
     [B, T, H, D] in q's dtype."""
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
@@ -155,8 +164,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.tanh(logits / softcap) * softcap
     if alibi is not None:
         sl = alibi.float().reshape(kv, rep)
-        logits = logits + (sl[:, :, None, None] * torch.arange(
-            s, dtype=torch.float32, device=q.device))[None]
+        idx = torch.arange(s, dtype=torch.float32, device=q.device)
+        if alibi_sym_pos is not None:
+            dist = -(alibi_sym_pos.float()[:, :, None] - idx).abs()
+            logits = logits + sl[None, :, :, None, None] * \
+                dist[:, None, None, :, :]
+        else:
+            logits = logits + (sl[:, :, None, None] * idx)[None]
     m = mask[:, None, None, :, :]
     logits = logits.masked_fill(~m, torch.finfo(torch.float32).min)
     p = torch.softmax(logits, dim=-1)

@@ -67,10 +67,14 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
     as a global layer does and its decode takes K3, not the gather path.
     Its rope table stays the sliding layers' one.
 
-    A file without rope positions adds its learned position rows and
-    embedding LayerNorm at the embedding (embed_input); an ALiBi file's
-    slopes, made once a step, bias every layer's attention, which then
-    takes the gather path on every device, as in the reference."""
+    An encoder or a file without rope positions adds its token-type row,
+    learned position rows and embedding LayerNorm at the embedding
+    (embed_input); an ALiBi file's slopes, made once a step, bias every
+    layer's attention, which then takes the gather path on every device,
+    as in the reference; jina-bert-v2's bias is symmetric about the true
+    query positions (the mask positions of its non-causal rows are all
+    kv_len - 1). Each layer runs at its own head counts, and a layer that
+    does not attend (deci) writes no KV."""
     x = llama_mod.embed_input(w, hp, tokens, positions)
     if tap is not None:
         tap.append(x)
@@ -81,6 +85,7 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
     scale = hparams_mod.attn_scale_of(hp)
     cap = hp.attn_softcap
     alibi = llama_mod.alibi_of(hp, x.device)
+    al_sym = positions if hp.alibi_sym else None
     for li, lw in enumerate(w.layers):
         window = hparams_mod.layer_window(hp, li)
 
@@ -100,7 +105,7 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
                 return kv_cache.attend_gathered(
                     q, kv_cache.gather_kv_q8(pools.k[_li], ks, block_table),
                     kv_cache.gather_kv_q8(pools.v[_li], vs, block_table),
-                    mask_pos, kv_len, scale, _window, cap, alibi)
+                    mask_pos, kv_len, scale, _window, cap, alibi, al_sym)
             kv_cache.write_kv(pools.k[_li], k_cur, rows, slots)
             kv_cache.write_kv(pools.v[_li], v_cur, rows, slots)
             if decode:
@@ -109,11 +114,12 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
                     _window, cap, plain=plain, alibi=alibi)
             return kv_cache.attend_prefill(
                 q, pools.k[_li], pools.v[_li], block_table, mask_pos, kv_len,
-                scale, _window, cap, plain=plain, alibi=alibi)
+                scale, _window, cap, plain=plain, alibi=alibi,
+                alibi_sym_pos=al_sym)
 
         x = llama_mod.forward_layer(x, lw, hp, rope_pos,
                                     w.inv_freq_for(window), w.rope_mscale,
-                                    attend, plain=plain)
+                                    attend, plain=plain, li=li)
         if tap is not None:
             tap.append(x)
     return x
@@ -188,6 +194,22 @@ class Model:
 
     def n_vocab(self) -> int:
         return self.hp.n_vocab
+
+
+def fit_n_ctx(model: Model, n_ctx: int) -> int:
+    """n_ctx cut to the rows of a learned position table (BERT-base's 512,
+    GPT-2's 1024), for the entry points that open a Context of a fixed
+    size (the server, cli.embedding, cli.retrieval, cli.gritlm): a
+    Context past the table is refused here, where the reference opens it
+    and gives NaN past the table (ROADMAP §3, fault 15)."""
+    table = model.weights.pos_embd
+    if table is None or n_ctx <= table.shape[0]:
+        return n_ctx
+    from ..common import log
+
+    log.info("n_ctx %d cut to the %d rows of the learned position table",
+             n_ctx, table.shape[0])
+    return table.shape[0]
 
 
 @dataclasses.dataclass

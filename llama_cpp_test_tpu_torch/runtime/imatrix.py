@@ -6,13 +6,16 @@ feed it, over a calibration text: the normed attention input (wq, wk,
 wv, or a fused attn_qkv), the attention output (wo), the normed FFN input
 (gate and up, a fused gate|up or a non-gated up; the router and expert
 stacks of a MoE layer), the FFN activation (ffn_down) and the
-final-normed hidden state (output). Each sum is keyed by the name of the
-tensor the file holds. One forward per chunk through the model's own
-layers (models/llama.forward_layer, which taps those inputs, sequential
-or parallel; K1 on CUDA, K4 for the experts), after the embedding's
-learned position rows and LayerNorm where the file has them, with dense
-causal attention in torch (ops/layers.attention, with the ALiBi bias of
-an ALiBi file) as the reference has it.
+final-normed hidden state (output, where the file has an LM head). Each
+sum is keyed by the name of the tensor the file holds. One forward per
+chunk through the model's own layers (models/llama.forward_layer, which
+taps those inputs, sequential, parallel or post-norm, at each layer's
+own head counts, deci's linear-attention input under attn_output; K1 on
+CUDA, K4 for the experts), after the embedding's token-type row, learned
+position rows and LayerNorm where the file has them, with dense
+attention in torch (ops/layers.attention, with the ALiBi bias of an ALiBi
+file, symmetric on jina-bert-v2), causal as the reference has it, or
+bidirectional on an encoder, as the encoder serves.
 
 The reference re-implements the layer inline with RMS norms, a
 sequential residual and a gated FFN, and leaves out the quirk axes (the
@@ -20,8 +23,9 @@ embedding scale, the biases and QK norms, the windows and softcaps, the
 post norms, GeGLU, the LayerNorms and their biases, the parallel
 residual, the sub-norms, the gate bias, the position rows and ALiBi), so
 on those archs it collects the statistics of another model
-or, on a non-gated FFN, raises (ROADMAP §3, fault 11); on the llama archs
-both give the same sums.
+or, on a non-gated FFN, an encoder or deci's layers that do not attend,
+raises (ROADMAP §3, fault 11); on the llama archs both give the same
+sums.
 
 Saved as .npz: sum::<tensor> [K] f32 per tensor, __names__ (the names
 joined by newlines) and __counts__. The reference keys each __counts__ row
@@ -74,16 +78,19 @@ def _imatrix_step(w: LlamaWeights, tokens: torch.Tensor, *, hp: HParams,
                   names: set | None = None) -> dict[str, torch.Tensor]:
     """tokens [1, T] -> name -> per-column sum of squares [K] f32, on the
     weights' device. The model's own layers (forward_layer) run, and tap
-    the input of each projection; attention is dense and causal, with each
-    layer's window and the softcap. names: the file's tensor names (None:
-    the separate q/k/v and gate/up names)."""
+    the input of each projection; attention is dense and causal (every
+    key on an encoder), with each layer's window and the softcap. names:
+    the file's tensor names (None: the separate q/k/v and gate/up
+    names)."""
     b, t = tokens.shape
     dev = tokens.device
     pos = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
     x = llama_mod.embed_input(w, hp, tokens, pos)
     kv_len = torch.full((b,), t, dtype=torch.int32, device=dev)
+    mask_pos = pos if hp.causal else torch.full_like(pos, t - 1)
     scale = attn_scale_of(hp)
     alibi = llama_mod.alibi_of(hp, dev)
+    al_sym = pos if hp.alibi_sym else None
     stats: dict[str, torch.Tensor] = {}
 
     def record(names, act):
@@ -93,11 +100,12 @@ def _imatrix_step(w: LlamaWeights, tokens: torch.Tensor, *, hp: HParams,
 
     for li, lw in enumerate(w.layers):
         window = layer_window(hp, li)
-        mask = prefill_mask(pos, kv_len, t, window)
+        mask = prefill_mask(mask_pos, kv_len, t, window)
 
         def attend(q, k, v, _mask=mask):
             return layers.attention(q, k, v, _mask, scale,
-                                    softcap=hp.attn_softcap, alibi=alibi)
+                                    softcap=hp.attn_softcap, alibi=alibi,
+                                    alibi_sym_pos=al_sym)
 
         layer_names = None if names is None else {
             n.split(".", 2)[2] for n in names if n.startswith(f"blk.{li}.")}
@@ -106,8 +114,9 @@ def _imatrix_step(w: LlamaWeights, tokens: torch.Tensor, *, hp: HParams,
             record([_p + n for n in _fed_by(role, _lw, _names)], act)
 
         x = llama_mod.forward_layer(x, lw, hp, pos, w.inv_freq_for(window),
-                                    w.rope_mscale, attend, plain, tap)
-    record(["output.weight"], llama_mod.final_norm(w, hp, x))
+                                    w.rope_mscale, attend, plain, tap, li)
+    if w.output is not None:
+        record(["output.weight"], llama_mod.final_norm(w, hp, x))
     return stats
 
 

@@ -4,7 +4,9 @@ Counterpart of llama_cpp_test_tpu/runtime/kv_cache.py for bf16 and q8_0
 pools.
 
   KVPools.k / .v: per-layer [n_kv_heads, num_blocks, block_size, head_dim]
-  bf16 tensors, laid out so the decode kernel reads whole pages per kv head;
+  bf16 tensors, laid out so the decode kernel reads whole pages per kv head
+  (n_kv_heads the layer's own: openelm and deci vary it, and a deci layer
+  that does not attend gets a one-head pool it never writes);
   or, for kv_type "q8_0" (the type_k/type_v analogue), int8 tensors with
   per-slot f32 scales in k_scale / v_scale [n_kv_heads, num_blocks,
   block_size] (absmax/127 per (head, token) slot, as the reference has it).
@@ -12,7 +14,8 @@ pools.
 The cache edits the engine's sequence operations need: COW block copies
 (copy_blocks / apply_copies), one block's bytes out to the host and back
 (gather_block / scatter_block, the host swap) and the K-shift that moves
-cached tokens and re-rotates their K (apply_shift).
+cached tokens and re-rotates their K (apply_shift). Each helper takes
+every layer at its own shape.
 
 Writes scatter into the pools IN PLACE (the reference returns new arrays;
 PyTorch updates the tensors it holds, which saves a copy of every pool per
@@ -21,8 +24,9 @@ tokens on the host before the scatter (write_kv takes only kept rows).
 
 Attention dispatch: on CUDA, prefill goes to kernel K2 and decode to
 kernel K3 (its q8 variant over q8_0 pools), a sliding-window decode and
-every attention of an ALiBi file (alibi slopes given) to the gather path
-as in the reference, whose kernels have no bias input either; on the CPU,
+every attention of an ALiBi file (alibi slopes given; symmetric with the
+true query positions on jina-bert-v2) to the gather path as in the
+reference, whose kernels have no bias input either; on the CPU,
 or when the caller asks for the plain path, both take the full-gather
 reference
 (attend_prefill_plain / attend_decode_plain; gather_kv_q8 +
@@ -67,15 +71,23 @@ def new_kv_pools(hp: HParams, num_blocks: int, block_size: int = 32,
     if kv_type not in ("bf16", "q8_0"):
         raise NotImplementedError(
             f"kv_type {kv_type!r}: this port carries bf16 and q8_0 KV pools")
-    shape = (max(hp.n_head_kv, 1), num_blocks, block_size, hp.head_dim)
+    shapes = [(max(hp.n_head_kv_of(li), 1), num_blocks, block_size,
+               hp.head_dim) for li in range(hp.n_layer)]
     dtype = torch.int8 if kv_type == "q8_0" else torch.bfloat16
-    new = lambda s, dt: [torch.zeros(s, dtype=dt, device=device)
-                         for _ in range(hp.n_layer)]
+    new = lambda dt, cut=4: [torch.zeros(s[:cut], dtype=dt, device=device)
+                             for s in shapes]
     if kv_type == "q8_0":
-        return KVPools(new(shape, dtype), new(shape, dtype),
-                       new(shape[:3], torch.float32),
-                       new(shape[:3], torch.float32))
-    return KVPools(new(shape, dtype), new(shape, dtype))
+        return KVPools(new(dtype), new(dtype), new(torch.float32, 3),
+                       new(torch.float32, 3))
+    return KVPools(new(dtype), new(dtype))
+
+
+def kv_bytes_per_token(hp: HParams, kv_type: str = "bf16") -> int:
+    """Bytes of K and V one token takes across every layer's pool (the
+    reference's kv_bytes_per_token; a q8_0 slot adds its f32 scale)."""
+    heads = sum(max(hp.n_head_kv_of(li), 1) for li in range(hp.n_layer))
+    slot = hp.head_dim + 4 if kv_type == "q8_0" else 2 * hp.head_dim
+    return 2 * heads * slot
 
 
 def write_kv(pool: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
@@ -141,25 +153,30 @@ def apply_copies(pools: KVPools, src: torch.Tensor, dst: torch.Tensor) -> None:
 
 
 def gather_block(pools: KVPools, blk: int) -> tuple:
-    """One physical block across all layers -> stacked tensors for host
-    swap (swapBlocks swap-out): (k [L, KV, BS, D], v [L, KV, BS, D]
-    [, k_scale [L, KV, BS], v_scale [L, KV, BS]])."""
-    return tuple(torch.stack([p[:, blk] for p in plist])
+    """One physical block across all layers for host swap (swapBlocks
+    swap-out): one flat tensor for K, one for V (and one for each q8_0
+    scale list), every layer's [KV_l, BS, D] block in layer order, so
+    layers of different KV head counts share a payload (the reference
+    stacks them and raises there, ROADMAP §3 fault 18)."""
+    return tuple(torch.cat([p[:, blk].reshape(-1) for p in plist])
                  for plist in _pool_lists(pools))
 
 
 def scatter_block(pools: KVPools, data: tuple, blk: int) -> None:
     """Swap-in, in place: write a gather_block payload into block blk."""
-    for plist, stacked in zip(_pool_lists(pools), data):
-        for li, p in enumerate(plist):
-            p[:, blk] = stacked[li].to(p.device)
+    for plist, flat in zip(_pool_lists(pools), data):
+        off = 0
+        for p in plist:
+            n = p[:, blk].numel()
+            p[:, blk] = flat[off:off + n].view(p[:, blk].shape).to(p.device)
+            off += n
 
 
 def gather_seq(pools: KVPools, blocks: torch.Tensor, n: int) -> tuple:
     """The first n cached tokens of a sequence whose block ids are
-    `blocks` [nb], across all layers, as float32 (k, v) [L, KV, n, D]; a
-    q8_0 pool is dequantized (plane * scale), the values its decode
-    attends."""
+    `blocks` [nb], across all layers, as float32 (k, v): per-layer lists
+    of [KV_l, n, D]; a q8_0 pool is dequantized (plane * scale), the
+    values its decode attends."""
     out = []
     for i, plist in enumerate((pools.k, pools.v)):
         per_layer = []
@@ -170,16 +187,16 @@ def gather_seq(pools: KVPools, blocks: torch.Tensor, n: int) -> tuple:
                 sc = (pools.k_scale, pools.v_scale)[i][li][:, blocks]
                 g = g * sc[..., None]
             per_layer.append(g.reshape(kv, -1, d)[:, :n])
-        out.append(torch.stack(per_layer))
+        out.append(per_layer)
     return tuple(out)
 
 
-def scatter_seq(pools: KVPools, k: torch.Tensor, v: torch.Tensor,
+def scatter_seq(pools: KVPools, k: list, v: list,
                 slots: torch.Tensor) -> None:
-    """Write float (k, v) [L, KV, n, D] to global `slots` [n] of every
-    layer, in place: bf16 pools round, q8_0 pools quantize again
-    (write_kv_q8), so a gather_seq payload restores the planes and scales
-    it was read from."""
+    """Write float (k, v), per-layer lists of [KV_l, n, D], to global
+    `slots` [n] of every layer, in place: bf16 pools round, q8_0 pools
+    quantize again (write_kv_q8), so a gather_seq payload restores the
+    planes and scales it was read from."""
     n = slots.shape[0]
     rows = torch.arange(n, device=slots.device)
     for li in range(len(pools.k)):
@@ -207,9 +224,10 @@ def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
     (cohere2's global layers, which take no rope) moves its K unrotated.
     V moves without rotation. A q8_0 pool is dequantized, rotated and
     requantized in the reference's op order; every read happens before
-    any write."""
-    kv, nb, bs, d = pools.k[0].shape
+    any write. Each layer moves at its own KV head count (the reference
+    takes layer 0's for all, ROADMAP §3 fault 19)."""
     for li in range(len(pools.k)):
+        kv, nb, bs, d = pools.k[li].shape
         kflat = pools.k[li].view(kv, nb * bs, d)
         vflat = pools.v[li].view(kv, nb * bs, d)
         kg = kflat[:, src].float()                       # [KV, n, D]
@@ -240,34 +258,38 @@ def gather_kv(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
 
 def attend_gathered(q, k, v, positions, kv_len, scale: float,
                     window: int = 0, soft_cap: float = 0.0,
-                    alibi=None) -> torch.Tensor:
+                    alibi=None, alibi_sym_pos=None) -> torch.Tensor:
     """Masked attention over already-gathered KV [B, S, KV, D]; alibi:
-    optional [H] slopes (layers.attention)."""
+    optional [H] slopes, symmetric about alibi_sym_pos [B, T], the true
+    query positions, where given (layers.attention)."""
     mask = prefill_mask(positions, kv_len, k.shape[1], window)
     return layers.attention(q, k, v, mask, scale, softcap=soft_cap,
-                            alibi=alibi)
+                            alibi=alibi, alibi_sym_pos=alibi_sym_pos)
 
 
 def attend_prefill_plain(q, k_pool, v_pool, block_table, positions, kv_len,
                          scale: float, window: int = 0,
-                         soft_cap: float = 0.0, alibi=None) -> torch.Tensor:
+                         soft_cap: float = 0.0, alibi=None,
+                         alibi_sym_pos=None) -> torch.Tensor:
     """Reference prefill attention: full-cache gather + masked softmax."""
     return attend_gathered(q, gather_kv(k_pool, block_table),
                            gather_kv(v_pool, block_table), positions, kv_len,
-                           scale, window, soft_cap, alibi)
+                           scale, window, soft_cap, alibi, alibi_sym_pos)
 
 
 def attend_prefill(q, k_pool, v_pool, block_table, positions, kv_len,
                    scale: float, window: int = 0, soft_cap: float = 0.0,
-                   plain: bool = False, alibi=None) -> torch.Tensor:
+                   plain: bool = False, alibi=None,
+                   alibi_sym_pos=None) -> torch.Tensor:
     """Attention for a prefill chunk whose KV (incl. any cached prefix) is
-    already written to the pools. q: [B, T, H, D]; positions [B, T];
-    kv_len [B] total tokens now in cache. With ALiBi slopes it takes the
-    gather path on every device, as the reference does."""
+    already written to the pools. q: [B, T, H, D]; positions [B, T] (the
+    mask's: kv_len - 1 on every row of a non-causal chunk); kv_len [B]
+    total tokens now in cache. With ALiBi slopes it takes the gather path
+    on every device, as the reference does."""
     if plain or q.device.type == "cpu" or alibi is not None:
         return attend_prefill_plain(q, k_pool, v_pool, block_table,
                                     positions, kv_len, scale, window,
-                                    soft_cap, alibi)
+                                    soft_cap, alibi, alibi_sym_pos)
     qs = (q.float() * scale).to(q.dtype).contiguous()
     return flash_prefill(qs, k_pool, v_pool, positions, kv_len, block_table,
                          window=window, soft_cap=soft_cap)

@@ -8,8 +8,9 @@ scatters the values back. Used for prompt-cache session files
 (cli/main.py --prompt-cache) and the server's slot save/restore.
 
 Format: the reference's npz, with the same magic, version and keys (meta,
-k{layer}, v{layer} as float32 [KV, n, D]), so a bf16 session file saved by
-either package restores in the other.
+k{layer}, v{layer} as float32 [KV, n, D], KV the layer's own head count,
+so openelm's and deci's layers keep their own shapes), so a bf16 session
+file saved by either package restores in the other.
 
 A q8_0 pool saves its dequantized values (plane * scale) under those keys
 and restores them through the quantizing write, which gives back the same
@@ -34,16 +35,20 @@ VERSION = 1
 
 
 def _gather_seq_arrays(ctx: Context, s: SeqState, prefix: str = "") -> dict:
-    """Per-layer float32 K/V [KV, n_cached, D] via the block table, read to
-    the host in one copy each for K and V."""
+    """Per-layer float32 K/V [KV_l, n_cached, D] via the block table, read
+    to the host in one copy each for K and V (the layers concatenated
+    flat, then split on the host)."""
     blocks = ctx._to_dev(np.asarray(s.table.resident_blocks(), np.int64))
-    with torch.inference_mode():
-        k, v = kv_cache.gather_seq(ctx.pools, blocks, s.n_cached)
-        k, v = k.cpu().numpy(), v.cpu().numpy()
     arrays = {}
-    for li in range(ctx.model.hp.n_layer):
-        arrays[f"{prefix}k{li}"] = k[li]
-        arrays[f"{prefix}v{li}"] = v[li]
+    with torch.inference_mode():
+        for name, per_layer in zip("kv", kv_cache.gather_seq(
+                ctx.pools, blocks, s.n_cached)):
+            flat = torch.cat([t.reshape(-1) for t in per_layer]).cpu().numpy()
+            off = 0
+            for li, t in enumerate(per_layer):
+                arrays[f"{prefix}{name}{li}"] = \
+                    flat[off:off + t.numel()].reshape(t.shape)
+                off += t.numel()
     return arrays
 
 
@@ -70,11 +75,10 @@ def _restore(ctx: Context, data, prefix: str, n: int) -> SeqState:
     slots = s.table.append_tokens(n)
     ctx._drain_copies([s])
     n_layer = ctx.model.hp.n_layer
-    k = np.stack([data[f"{prefix}k{li}"] for li in range(n_layer)])
-    v = np.stack([data[f"{prefix}v{li}"] for li in range(n_layer)])
+    load = lambda name: [ctx._to_dev(np.asarray(
+        data[f"{prefix}{name}{li}"], np.float32)) for li in range(n_layer)]
     with torch.inference_mode():
-        kv_cache.scatter_seq(ctx.pools, ctx._to_dev(k.astype(np.float32)),
-                             ctx._to_dev(v.astype(np.float32)),
+        kv_cache.scatter_seq(ctx.pools, load("k"), load("v"),
                              ctx._to_dev(np.asarray(slots, np.int64)))
     s.n_cached = n
     return s

@@ -3,8 +3,10 @@
 Counterpart of llama_cpp_test_tpu/runtime/tracing.py. The engine's own
 forward (engine._forward) takes a tap, a list it appends the embedding and
 every layer's output to; trace_eval runs one prefill of a throwaway
-sequence through it, adds the logits, and summarizes each tensor on the
-host. The prefill runs the same kernels as Context.prefill (K1, K2).
+sequence through it (bidirectional on an encoder, as Context.embed runs
+it), adds the logits (an encoder's final hidden state, result_embd, as it
+has no LM head), and summarizes each tensor on the host. The prefill runs
+the same kernels as Context.prefill (K1, K2).
 
 The port's KV writes are in place, so the throwaway sequence takes blocks
 from the free list and gives them back: no live sequence's blocks are
@@ -18,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..models import llama as llama_mod
 from .engine import TOKEN_BUCKETS, Context, _bucket
 
 
@@ -35,7 +38,7 @@ def trace_eval(ctx: Context, tokens: list[int],
                keep_values: bool = False) -> list[TensorTrace]:
     """Run one traced prefill of `tokens` on a throwaway sequence and return
     the summaries of inp_embd, l_out-{i} for every layer and result_output
-    (eval-callback's printout, structured)."""
+    (result_embd on an encoder; eval-callback's printout, structured)."""
     hp = ctx.model.hp
     n = len(tokens)
     tb = _bucket(n, TOKEN_BUCKETS)
@@ -58,11 +61,14 @@ def trace_eval(ctx: Context, tokens: list[int],
         taps: list[torch.Tensor] = []
         with torch.inference_mode():
             ctx._step(tok, pos, ctx._table_arr([s]), slot_arr,
-                      np.asarray([n], np.int32), False, tap=taps)
-            taps.append(ctx._logits(taps[-1]))
+                      np.asarray([n], np.int32), False, causal=hp.causal,
+                      tap=taps)
+            encoder = ctx.w.output is None
+            taps.append(llama_mod.final_norm(ctx.w, hp, taps[-1]) if encoder
+                        else ctx._logits(taps[-1]))
             host = [t[0, :n].float().cpu().numpy() for t in taps]
-        names = ["inp_embd"] + \
-            [f"l_out-{i}" for i in range(hp.n_layer)] + ["result_output"]
+        names = ["inp_embd"] + [f"l_out-{i}" for i in range(hp.n_layer)] + \
+            ["result_embd" if encoder else "result_output"]
         return [TensorTrace(name=name, shape=tuple(a.shape),
                             mean=float(a.mean()), std=float(a.std()),
                             amax=float(np.abs(a).max()),

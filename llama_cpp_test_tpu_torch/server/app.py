@@ -26,7 +26,11 @@ have hot-swappable scales (POST /lora-adapters): the new scales attach
 under ctx_lock, between two scheduler steps, and a window already queued
 keeps the tensors it was queued with. An arch the port does not serve
 (models/registry: ROADMAP item 7, 8 or 9) and multi-device serving (item
-13) raise NotImplementedError.
+13) raise NotImplementedError. An encoder (bert, nomic-bert,
+jina-bert-v2) serves /v1/embeddings and /rerank with its own pooling and
+causality; its n_ctx is cut to a learned position table (fit_n_ctx), and
+a generation request answers 400, as it has no LM head (the reference's
+engine thread dies on it, ROADMAP §3 fault 22).
 
 Usage:
   python -m llama_cpp_test_tpu_torch.server.app -m model.gguf --port 8080
@@ -39,7 +43,7 @@ import threading
 import time
 import uuid
 
-from ..runtime.engine import Context, Model
+from ..runtime.engine import Context, Model, fit_n_ctx
 from ..runtime.sampling import SamplerParams
 from ..runtime.scheduler import GenRequest, Scheduler
 from .chat import apply_chat_template
@@ -160,6 +164,7 @@ class LlamaServer:
         # --chat-template: force a builtin template name or jinja source
         self.chat_template = chat_template
         self.alias = model_alias or model_path.rsplit("/", 1)[-1]
+        n_ctx = fit_n_ctx(self.model, n_ctx)
         ctx = Context(self.model, n_ctx=n_ctx, n_seq_max=n_slots,
                       kv_type=kv_type)
         draft_ctx = None
@@ -505,8 +510,19 @@ class LlamaServer:
             results = results[: int(top_n)]
         return web.json_response({"model": self.alias, "results": results})
 
+    def _check_generates(self) -> None:
+        """An encoder has no LM head: refuse a generation request before it
+        reaches the engine thread."""
+        if self.model.weights.output is None:
+            raise web.HTTPBadRequest(
+                text=json.dumps({"error": f"arch {self.model.hp.arch} is an "
+                                 "encoder: it serves /v1/embeddings and "
+                                 "/rerank, and has no LM head"}),
+                content_type="application/json")
+
     async def completions(self, request):
         """llama.cpp-style /completion and OpenAI /v1/completions."""
+        self._check_generates()
         body = await request.json()
         prompt_tokens = self._tokenize_prompt(body.get("prompt", ""))
         rid = f"cmpl-{uuid.uuid4().hex[:12]}"
@@ -563,6 +579,7 @@ class LlamaServer:
 
     async def infill(self, request):
         """Code-completion endpoint (reference server.cpp /infill)."""
+        self._check_generates()
         body = await request.json()
         prompt_tokens = self._fim_prompt(body)
         rid = f"infill-{uuid.uuid4().hex[:12]}"
@@ -586,6 +603,7 @@ class LlamaServer:
         })
 
     async def chat_completions(self, request):
+        self._check_generates()
         body = await request.json()
         tools = body.get("tools") or None
         prompt = apply_chat_template(

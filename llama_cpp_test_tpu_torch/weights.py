@@ -7,10 +7,12 @@ numpy arrays: the port's own loader output, or port_weights_from_reference
 of the reference's parameters (every LayerWeights field by name: the
 biases, QK norms and sandwich norms of the gemma and qwen archs, the
 LayerNorm biases, falcon-40B's second norm, the projection and gate
-biases and bitnet's sub-norms too; every LlamaWeights field likewise: the
-sliding-window and long-rope tables, the final norm's and lm head's
-biases, the learned position rows, the embedding LayerNorm and cohere2's
-nope_global flag). bf16 bit patterns (uint16) become
+biases, bitnet's sub-norms, chameleon's QK-norm biases and the encoders'
+post-norms too; every LlamaWeights field likewise: the sliding-window and
+long-rope tables, the final norm's and lm head's biases, the learned
+position rows, the token-type rows, the embedding LayerNorm and
+cohere2's nope_global flag; the per-layer geometry rides the HParams and
+the planes' own shapes). bf16 bit patterns (uint16) become
 torch.bfloat16, int8/uint8 planes keep their type, float arrays become
 float32. Expert stacks (a leading E axis on every plane) move the same way.
 Attached adapters move too: each LoRA pair (A, B, scale) as float32
@@ -100,7 +102,9 @@ def port_weights_from_reference(jw) -> LlamaWeights:
     """The reference's loaded parameters (any object with the attributes
     of its LlamaWeights, planes as arrays) as the port's host planes: every
     LayerWeights field by name, the expert stacks and the router
-    included, and the LoRA pairs and control vector attached to it. A
+    included, and the LoRA pairs and control vector attached to it. An
+    encoder's lm head, which the reference points at the embedding rows
+    and never dispatches, becomes None, as the port's loader leaves it. A
     reference that fused gate|up expert stacks into one plane
     (its LLAMA_TPU_MOE_FUSE load) is refused: the port keeps them apart."""
     for i, lw in enumerate(jw.layers):
@@ -113,7 +117,10 @@ def port_weights_from_reference(jw) -> LlamaWeights:
         port_qtensor(x) if hasattr(x, "kind") else np.asarray(x, np.float32))
     conv_lora = lambda p: (host_array(p[0]), host_array(p[1]), float(p[2]))
     layers = [_layer_fields(lw, conv, conv_lora) for lw in jw.layers]
-    return _top_fields(jw, conv, layers)
+    out = _top_fields(jw, conv, layers)
+    if getattr(jw.output, "layout", "t") == "rows":
+        out.output = None
+    return out
 
 
 def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:

@@ -67,9 +67,14 @@ V = 288
 # hkv, d, ff, n_layer; norm "rms" | "ln", norm_bias (LayerNorm biases),
 # ffn_norm (a pre-FFN norm; a parallel layer has one norm); qkv "fused" |
 # "split", qkv_bias, bo; ffn "gated" | "fused" ([gate|up] in ffn_up) |
-# "up" (non-gated), ffn_bias (up and down), gate_bias; sub_norms (bitnet);
-# pos_rows (learned position rows), tok_norm (the embedding LayerNorm);
-# tied, rope_dim, window, meta (more keys)
+# "up" (non-gated), ffn_bias (up and down), down_bias, gate_bias;
+# sub_norms (bitnet); pos_rows (learned position rows), tok_norm (the
+# embedding LayerNorm), types (token-type rows); post_norm (an encoder's
+# LayerNorms of the residual sums, no pre-norms, no final norm, no head);
+# qk_norm "rms" ([d] weights) | "ln_bias" ([H, d] LayerNorms with biases);
+# layers (per-layer (hq, hkv, ff), written as GGUF arrays; hq 0 an
+# attention-free layer, hkv 0 a linear-attention one); tied, rope_dim,
+# window, meta (more keys)
 BODY = {
     "minicpm": dict(tied=True, meta={"embedding_scale": 12.0,
                                      "residual_scale": 0.22,
@@ -105,7 +110,8 @@ def make_tiny_body(path, spec: dict, arch: str, seed=0):
     """An F32 GGUF of arch `arch` laid out by `spec` (see BODY): by
     default 2 layers of width 64, 4 query heads on 2 KV heads of 16 dims,
     FFN 128, RMS norms, separate q/k/v, a gated FFN, an SPM vocabulary of
-    288 tokens (the JAX CLI's sampler takes a top-k of 256)."""
+    288 tokens (the JAX CLI's sampler takes a top-k of 256). spec's
+    layers gives each layer its own head counts and FFN width."""
     rng = np.random.default_rng(seed)
     rand = lambda *shape, s=0.08: (rng.standard_normal(shape) * s).astype(
         np.float32)
@@ -113,7 +119,10 @@ def make_tiny_body(path, spec: dict, arch: str, seed=0):
     bias = lambda n: rand(n, s=0.05)
     sp = dict(dict(c=64, hq=4, hkv=2, d=16, ff=128, n_layer=2, norm="rms",
                    qkv="split", ffn="gated", ffn_norm=True), **spec)
-    c, hq, hkv, d, ff = sp["c"], sp["hq"], sp["hkv"], sp["d"], sp["ff"]
+    c, d = sp["c"], sp["d"]
+    geom = sp.get("layers") or [(sp["hq"], sp["hkv"], sp["ff"])] * \
+        sp["n_layer"]
+    post = sp.get("post_norm")
     ln_bias = sp["norm"] == "ln" and sp.get("norm_bias")
 
     def add_norm(name, n=c):
@@ -124,18 +133,29 @@ def make_tiny_body(path, spec: dict, arch: str, seed=0):
     wts = {"token_embd.weight": rand(V, c, s=0.3)}
     if sp.get("pos_rows"):
         wts["position_embd.weight"] = rand(sp["pos_rows"], c, s=0.3)
+    if sp.get("types"):
+        wts["token_types.weight"] = rand(2, c, s=0.3)
     if sp.get("tok_norm"):
         wts["token_embd_norm.weight"] = norm(c)
         wts["token_embd_norm.bias"] = bias(c)
-    add_norm("output_norm")
-    if not sp.get("tied"):
+    if not post:
+        add_norm("output_norm")
+    if not (sp.get("tied") or post):
         wts["output.weight"] = rand(V, c, s=0.2)
-    for i in range(sp["n_layer"]):
+    for i, (hq, hkv, ff) in enumerate(geom):
         p = f"blk.{i}."
-        add_norm(p + "attn_norm")
-        if sp["ffn_norm"]:
+        if post:
+            add_norm(p + "attn_output_norm")
+            add_norm(p + "layer_output_norm")
+        elif hq:
+            add_norm(p + "attn_norm")
+        if sp["ffn_norm"] and not post:
             add_norm(p + "ffn_norm")
-        if sp["qkv"] == "fused":
+        if hq == 0:                   # attention-free: the FFN alone
+            pass
+        elif hkv == 0:                # linear attention: wo on the norm
+            wts[p + "attn_output.weight"] = rand(c, c)
+        elif sp["qkv"] == "fused":
             wts[p + "attn_qkv.weight"] = rand((hq + 2 * hkv) * d, c)
             if sp.get("qkv_bias"):
                 wts[p + "attn_qkv.bias"] = bias((hq + 2 * hkv) * d)
@@ -144,9 +164,17 @@ def make_tiny_body(path, spec: dict, arch: str, seed=0):
                 wts[p + n + ".weight"] = rand(h * d, c)
                 if sp.get("qkv_bias"):
                     wts[p + n + ".bias"] = bias(h * d)
-        wts[p + "attn_output.weight"] = rand(c, hq * d)
-        if sp.get("bo"):
-            wts[p + "attn_output.bias"] = bias(c)
+        if hq and hkv:
+            wts[p + "attn_output.weight"] = rand(c, hq * d)
+            if sp.get("bo"):
+                wts[p + "attn_output.bias"] = bias(c)
+            if sp.get("qk_norm") == "rms":
+                wts[p + "attn_q_norm.weight"] = norm(d)
+                wts[p + "attn_k_norm.weight"] = norm(d)
+            elif sp.get("qk_norm") == "ln_bias":
+                for n, h in (("attn_q_norm", hq), ("attn_k_norm", hkv)):
+                    wts[p + n + ".weight"] = norm(h, d)
+                    wts[p + n + ".bias"] = rand(h, d, s=0.05)
         if sp["ffn"] == "gated":
             wts[p + "ffn_gate.weight"] = rand(ff, c)
             wts[p + "ffn_up.weight"] = rand(ff, c)
@@ -156,6 +184,7 @@ def make_tiny_body(path, spec: dict, arch: str, seed=0):
         wts[p + "ffn_down.weight"] = rand(c, ff)
         if sp.get("ffn_bias"):
             wts[p + "ffn_up.bias"] = bias(ff)
+        if sp.get("ffn_bias") or sp.get("down_bias"):
             wts[p + "ffn_down.bias"] = bias(c)
         if sp.get("gate_bias"):
             wts[p + "ffn_gate.bias"] = bias(ff)
@@ -164,11 +193,14 @@ def make_tiny_body(path, spec: dict, arch: str, seed=0):
             wts[p + "ffn_sub_norm.weight"] = norm(ff)
     eps = ("attention.layer_norm_epsilon" if sp["norm"] == "ln"
            else "attention.layer_norm_rms_epsilon")
+    per_layer = lambda j: (geom[0][j] if not sp.get("layers")
+                           else [g[j] for g in geom])
     md = {"context_length": sp.get("n_ctx_train", 256),
-          "embedding_length": c, "block_count": sp["n_layer"],
-          "attention.head_count": hq, "attention.head_count_kv": hkv,
+          "embedding_length": c, "block_count": len(geom),
+          "attention.head_count": per_layer(0),
+          "attention.head_count_kv": per_layer(1),
           "attention.key_length": d, "attention.value_length": d,
-          "feed_forward_length": ff,
+          "feed_forward_length": per_layer(2),
           "rope.dimension_count": sp.get("rope_dim", d),
           "rope.freq_base": 10000.0, eps: 1e-5, "vocab_size": V,
           **sp.get("meta", {})}
