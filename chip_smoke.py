@@ -11,9 +11,9 @@ non-zero before the final line:
   device   nvidia-smi name/power limit, torch and CUDA versions
   build    nvcc builds every kernel under llama_cpp_test_tpu_torch/csrc;
            registers and spill bytes of every qmm_gemv, qmm_gemm,
-           qmm_cache, flash_prefill (D = 64, 80, 96, 100, 128, 256),
+           qmm_cache, flash_prefill (D = 64, 80, 96, 100, 128, 192, 256),
            gmm_gemv, gmm_gemm and paged_decode (D = 64, 80, 96, 100, 128,
-           256; bf16 and q8) instantiation (and of paged_decode's merge), and of the probe
+           192, 256; bf16 and q8) instantiation (and of paged_decode's merge), and of the probe
            GEMV (kbench_gemv, pairs_gemv) and the byte stream, from ptxas -v
            (a spill fails the phase), and the atomic instructions in the
            SASS of the GEMV kernels (K1's, K4's, the probes') and the byte
@@ -25,7 +25,7 @@ non-zero before the final line:
            kernel/plain/library times, SDPA's backend, roofline bound); one
            K1 and one K4 GEMV call, captured in a CUDA graph, must each hold
            one kernel and no memset, and give the same bits twice
-  serve    a TinyLlama-1.1B-geometry Q4_K GGUF (full width, 6 of 22
+  serve    a TinyLlama-1.1B-geometry Q4_K GGUF (full width, 4 of 22
            layers) synthesized from seeded random block bytes is loaded with Model(path) on cuda and serves
            three generate() requests plus one batched decode; the launch
            count of every kernel of that path must be > 0, and the logits
@@ -48,9 +48,9 @@ non-zero before the final line:
            on each file's loaded planes (the int8 lm heads among them, at
            M = 1, 8, 128 and 512) and K5 rows at M = 130 and 512
   serve_moe_lowbit the same for three Mixtral-8x7B-geometry files (full
-           width): Q2_K (2 layers; u2 expert stacks with a min), IQ1_S (2
+           width): Q2_K (1 layer; u2 expert stacks with a min), IQ1_S (1
            layers; IQ1_S gate/up stacks as u2lut, IQ2_XXS down as u4lut)
-           and BF16 (2 layers; dense expert stacks), F32 router, one bf16
+           and BF16 (1 layer; dense expert stacks), F32 router, one bf16
            Context each; K4 (gmm_gemv and gmm_gemm) must launch on u2,
            u2lut, u4lut and dense; then K4 rows on each file's layer-0
            gate and down stacks at M = 1, 8 and 512
@@ -183,7 +183,7 @@ non-zero before the final line:
            path predictions; the ptxas registers and spills of the D = 100
            builds
   positions the position axes: GPT-2 (1024 learned positions) and
-           BLOOM-560m (ALiBi, the embedding LayerNorm; 8 of 24 layers, cut
+           BLOOM-560m (ALiBi, the embedding LayerNorm; 4 of 24 layers, cut
            for the smoke's clock) at published widths and depth as in
            quirks_body, K2 and K3 launched on GPT-2 and
            never on BLOOM (ALiBi takes the gather path, as the reference
@@ -214,6 +214,22 @@ non-zero before the final line:
            and K3 once an attending layer) and greedy tokens at equal
            batches at bf16 and q8_0 KV; K3 and K3-q8 at DeciLM-7B's KV = 2
            and OpenELM-270M's widest layer (20 on 5)
+  moe_forms the other MoE forms and MLA attention: DeepSeek-V2-Lite
+           (Q4_K; MLA at D = 192, a dense first layer, 64 experts top-6,
+           2 shared) at published widths and 4 of 27 layers, served as in
+           serve at bf16 and q8_0 KV with its path predictions (K4's GEMV
+           three times a MoE layer a step), the Scheduler's greedy tokens
+           and cli.main's printout equal to generate()'s; then, one at a
+           time on the card: DeepSeek-V3 (Q2_K, 2 layers: sigmoid gating,
+           the selection bias, 256 experts top-8), MiniCPM3-4B (MLA at D =
+           96), Qwen1.5-MoE-A2.7B, Qwen3-30B-A3B, OLMoE-1B-7B, Phi-3.5-MoE,
+           granite-3.0-3b-a800m and deepseek-moe-16b at 2 layers (Q4_K),
+           DBRX, Grok-1 and Arctic at one (Q2_K), each with generate() and
+           a batched decode of 8 at bf16 and q8_0 KV, its logits at bf16
+           KV and its path predictions; K2 at D = 192 (V2-Lite's 16 heads,
+           V3's 128), K3 and K3-q8 at D = 192, K4 at top-6 of 64, top-8 of
+           128 and top-2 of 128 (K = 7168); the ptxas registers and spills
+           of the D = 192 builds
   timings  the seconds of each phase
 
 Every file the serve phases write carries a synthesized tokenizer
@@ -257,11 +273,11 @@ FOLD_GATE = 1e-8         # a GEMM with a min against the plain fold (the
 PROBE_GATE = 1e-5        # NMSE gate of tests/test_torch_probes.py
 
 # TinyLlama-1.1B (BASELINE.json config #1) published widths, depth cut
-# from 22 to 6 layers (full depth until the quirks_ln phase needed the
-# time, 11 until the encoders and geometry phases; the cli, sched, server
-# and adapters phases serve this file)
+# from 22 to 4 layers (full depth until the quirks_ln phase needed the
+# time, 11 until the encoders and geometry phases, 6 until the moe_forms
+# phase; the cli, sched, server and adapters phases serve this file)
 TINYLLAMA = dict(n_vocab=32000, n_embd=2048, n_head=32, n_head_kv=4,
-                 head_dim=64, n_layer=6, n_ff=5632)
+                 head_dim=64, n_layer=4, n_ff=5632)
 # Llama-3-8B (BASELINE.json config #2) published widths
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_head=32, n_head_kv=8,
                  head_dim=128, n_layer=32, n_ff=14336)
@@ -282,13 +298,13 @@ LLAMA3_70B = dict(n_vocab=128256, n_embd=8192, n_head=64, n_head_kv=8,
 # (8 until the quirks_ln phase needed the time, 4 until the encoders and
 # geometry phases)
 LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=2, rope_base=500000.0)
-# Mixtral-8x7B widths for the low-bit MoE files, depth cut from 32 to 2
-# layers (a layer's 1.4G expert weights are 0.56-0.7 GB of planes, but
+# Mixtral-8x7B widths for the low-bit MoE files, depth cut from 32 to 1
+# layer (a layer's 1.4G expert weights are 0.56-0.7 GB of planes, but
 # repacking 4 layers took 9 s (Q2_K) and 21 s (IQ1_S) on the 8 host cores
-# of an H100 machine; 4 until the quirks_ln phase needed the time), and
-# to 2 for the BF16 file (3.1 GB a layer: ~6.3 GB)
-MIXTRAL_LOWBIT = dict(MIXTRAL, n_layer=2)
-MIXTRAL_BF16 = dict(MIXTRAL, n_layer=2)
+# of an H100 machine; 4 until the quirks_ln phase, 2 until the moe_forms
+# phase needed the time), and to 1 for the BF16 file (3.1 GB a layer)
+MIXTRAL_LOWBIT = dict(MIXTRAL, n_layer=1)
+MIXTRAL_BF16 = dict(MIXTRAL, n_layer=1)
 # Gemma-2-2B (google/gemma-2-2b config.json) published widths, depth cut
 # from 26 to 4 layers (two global, as layers 1 and 3 are; full depth
 # until the quirks_ln phase needed the time): head dim 256,
@@ -769,8 +785,18 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     GGUF array of its key; n_head 0 an attention-free layer with its FFN
     alone, n_head_kv 0 a linear-attention layer with attn_norm and an
     n_embd x n_embd attn_output alone) and qk_norm "head_bias" (per-head
-    QK LayerNorms [H, D] with biases, chameleon's). A tensor whose K the
-    type's block does not divide is
+    QK LayerNorms [H, D] with biases, chameleon's). Those of the other MoE
+    forms and MLA: n_ff_exp (the experts' width, default n_ff),
+    n_dense_lead (leading layers with a gated FFN of n_ff), shexp_ff (the
+    shared experts' width: ffn_{gate,up,down}_shexp in each MoE layer),
+    shexp_gate (qwen2moe's F32 ffn_gate_inp_shexp), exp_probs_b (an F32
+    selection bias), arctic (a gated FFN of n_ff beside the experts and
+    ffn_norm_exps), branch_norms ("grok": attn_output_norm and
+    layer_output_norm on the branch outputs; "dbrx": attn_output_norm in
+    place of ffn_norm) and mla (dict of q_lora, kv_lora, rope_dim, v_dim:
+    attn_q or attn_q_a, attn_q_a_norm and attn_q_b; attn_kv_a_mqa,
+    attn_kv_a_norm, attn_kv_b; head_dim is the q and k head, nope +
+    rope_dim). A tensor whose K the type's block does not divide is
     written Q8_0, or BF16 where 32 does not divide it either (_fit_type);
     the choices are returned, tensor role -> type name. vocab:
     the tokenizer written beside them (from vocab_seed, default seed),
@@ -844,7 +870,9 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
 
     def quant(name, n, k, e=1, gt=None):
         role = name.split(".")[-2]
-        gt = fit(role, gt or types[role], k)
+        # a shared expert takes its FFN role's type, an MLA plane attn_q's
+        base = role.replace("_shexp", "")
+        gt = fit(role, gt or types.get(base, types["attn_q"]), k)
         shape = (k, n) if e == 1 else (k, n, e)
         w.add_tensor(name, random_blocks(rng, gt, n * e, k),
                      ggml_type=gt, raw_ggml_shape=shape)
@@ -878,16 +906,31 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
         hq, hkv, ff = (per_layer[k][i] for k in ("n_head", "n_head_kv",
                                                  "n_ff"))
         pre = hp.get("pre_norms", True) and not post
-        if post:
+        branch = hp.get("branch_norms")
+        if post or branch:
             norm(p + "attn_output_norm.weight")
+        if post or branch == "grok":
             norm(p + "layer_output_norm.weight")
         if pre and hq:
             norm(p + "attn_norm.weight")
+        mla = hp.get("mla")
         if not (hq and hkv):
             # deci: an attention-free layer has its FFN alone, a linear-
             # attention one an n_embd x n_embd wo on its normed input
             if hq:
                 quant(p + "attn_output.weight", c, c)
+        elif mla:
+            rd, dv, ql, kl = (mla[k] for k in ("rope_dim", "v_dim", "q_lora",
+                                                "kv_lora"))
+            if ql:
+                quant(p + "attn_q_a.weight", ql, c)
+                vec(p + "attn_q_a_norm.weight", ql)
+                quant(p + "attn_q_b.weight", hq * d, ql)
+            else:
+                quant(p + "attn_q.weight", hq * d, c)
+            quant(p + "attn_kv_a_mqa.weight", kl + rd, c)
+            vec(p + "attn_kv_a_norm.weight", kl)
+            quant(p + "attn_kv_b.weight", hq * (d - rd + dv), kl)
         elif hp.get("fused_qkv"):
             # the attn_qkv rows as one tensor of the attn_q type
             gt = fit("attn_qkv", types["attn_q"], c)
@@ -899,7 +942,8 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             quant(p + "attn_k.weight", hkv * d, c)
             quant(p + "attn_v.weight", hkv * d, c)
         if hq and hkv:
-            quant(p + "attn_output.weight", c, hq * d)
+            quant(p + "attn_output.weight", c,
+                  hq * (mla["v_dim"] if mla else d))
         if hp.get("qkv_bias") and hp.get("fused_qkv"):
             bias(p + "attn_qkv.bias", (hq + 2 * hkv) * d)
         elif hp.get("qkv_bias"):
@@ -926,15 +970,27 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             vec(p + "post_ffw_norm.weight", c)
         if pre and hp.get("ffn_norm", True):
             norm(p + "ffn_norm.weight")
-        if n_exp:
+        if n_exp and i >= hp.get("n_dense_lead", 0):
             # router logits of std ~3 over the experts
             w.add_tensor(p + "ffn_gate_inp.weight", 0.05 * rng.standard_normal(
                 (n_exp, c)).astype(np.float32))
             gt_gate, gt_up, gt_down = expert_types(ftype, i)
-            quant(p + "ffn_gate_exps.weight", ff, c, n_exp, gt_gate)
-            quant(p + "ffn_up_exps.weight", ff, c, n_exp, gt_up)
-            quant(p + "ffn_down_exps.weight", c, ff, n_exp, gt_down)
-            continue
+            fe = hp.get("n_ff_exp", ff)
+            quant(p + "ffn_gate_exps.weight", fe, c, n_exp, gt_gate)
+            quant(p + "ffn_up_exps.weight", fe, c, n_exp, gt_up)
+            quant(p + "ffn_down_exps.weight", c, fe, n_exp, gt_down)
+            fs = hp.get("shexp_ff", 0)
+            if fs:
+                quant(p + "ffn_gate_shexp.weight", fs, c)
+                quant(p + "ffn_up_shexp.weight", fs, c)
+                quant(p + "ffn_down_shexp.weight", c, fs)
+            if hp.get("shexp_gate"):
+                vec(p + "ffn_gate_inp_shexp.weight", c, mean=0.0, std=0.05)
+            if hp.get("exp_probs_b"):
+                vec(p + "exp_probs_b.bias", n_exp, mean=0.0, std=0.3)
+            if not hp.get("arctic"):
+                continue
+            vec(p + "ffn_norm_exps.weight", c)
         ffn = hp.get("ffn", "gated")
         if ffn == "gated":
             quant(p + "ffn_gate.weight", ff, c)
@@ -1010,13 +1066,13 @@ _INSTANTIATIONS = {
     "qmm_cache": ("qmm_cache", re.compile(r"qmm_cache_kernelILi(\d)ELb([01])E"),
                   8, _kind_label),
     "flash_prefill": ("flash_prefill",
-                      re.compile(r"flash_prefill_kernelILi(\d+)E"), 6,
+                      re.compile(r"flash_prefill_kernelILi(\d+)E"), 7,
                       lambda m: f"D={m.group(1)}"),
     "gmm_gemm": ("gmm", re.compile(r"gmm_gemm_kernelILi(\d)ELb([01])E"), 9,
                  _kind_label),
     "paged_decode": ("paged_attention",
                      re.compile(r"paged_decode_kernelILi(\d+)E(13__nv_bfloat16|a)E"),
-                     12, lambda m: f"D={m.group(1)} "
+                     14, lambda m: f"D={m.group(1)} "
                                   f"{'q8' if m.group(2) == 'a' else 'bf16'}"),
     "paged_decode_merge": ("paged_attention",
                            re.compile(r"paged_decode_merge_kernel"), 1,
@@ -1698,14 +1754,19 @@ def _serve_requests(torch, ctx, prompts, n_vocab, batch: int) -> list:
 @contextlib.contextmanager
 def _record_routing():
     """Collect the expert ids (sorted per row) that moe_ffn routes each MoE
-    layer's rows to, one [rows, top_k] array per layer call, by wrapping
-    models.llama._moe_grouped while the block runs."""
+    layer's rows to, with their weights where the gating is phimoe's
+    sparsemixer (zeros otherwise), one [rows, 2 * top_k] array (ids, then
+    weights) per layer call, by wrapping models.llama._moe_grouped while
+    the block runs."""
     from llama_cpp_test_tpu_torch.models import llama
 
     orig, calls = llama._moe_grouped, []
 
     def record(xf, lw, hp, topi, topv, plain=False):
-        calls.append(topi.sort(dim=-1).values.cpu().numpy())
+        ids, order = topi.sort(dim=-1)
+        w = (topv.gather(-1, order) if hp.expert_gating == "sparsemixer"
+             else topv.new_zeros(topv.shape))
+        calls.append(_routing_array(ids, w))
         return orig(xf, lw, hp, topi, topv, plain)
 
     llama._moe_grouped = record
@@ -1715,10 +1776,36 @@ def _record_routing():
         llama._moe_grouped = orig
 
 
+def _routing_array(ids, weights) -> np.ndarray:
+    """[rows, k] expert ids and [rows, k] weights as one float64 numpy
+    array [rows, 2k]."""
+    return np.concatenate([ids.cpu().double().numpy(),
+                           weights.cpu().double().numpy()], -1)
+
+
+# a sparsemixer pick whose weight moves by more than this share of its
+# row's largest weight took another routing: phimoe's sparsemixer masks an
+# expert within 2 * router_jitter of the best out of the pick's softmax, a
+# decision a rounding can flip with the same picks, and the weight jumps
+# (the softmax and sigmoid gates' weights move with the logits, smoothly,
+# and only their picks are compared)
+ROUTE_WEIGHT_TOL = 0.1
+
+
+def _routing_differs(ra, rb) -> np.ndarray:
+    """[..., rows] True where two recorded routings (ids, then weights)
+    differ: another expert, or a weight moved past ROUTE_WEIGHT_TOL."""
+    k = ra.shape[-1] // 2
+    wa, wb = ra[..., k:], rb[..., k:]
+    tol = ROUTE_WEIGHT_TOL * np.abs(wa).max(-1, keepdims=True)
+    return (ra[..., :k] != rb[..., :k]).any(-1) | (
+        np.abs(wa - wb) > tol).any(-1)
+
+
 def _trace(ctx, prompt, tokens=None, n_decode: int = 4):
     """One prefill (logits at every position) and n_decode decode steps, on
     the given decode tokens or else greedy ones. Returns the logits of each
-    step [rows, V], its routing [layers, rows, top_k] (None on a dense
+    step [rows, V], its routing [layers, rows, 2 * top_k] (None on a dense
     model) and the decode tokens."""
     s = ctx.new_seq()
     steps, toks = [], []
@@ -1743,7 +1830,7 @@ def _compare(steps_a, steps_b) -> dict:
     out = {}
     for i, ((la, ra), (lb, rb)) in enumerate(zip(steps_a, steps_b)):
         diff = (np.zeros((1, la.shape[0]), bool) if ra is None
-                else (ra != rb).any(-1))                  # [layers, rows]
+                else _routing_differs(ra, rb))            # [layers, rows]
         same = ~diff.any(0)
         out["prefill" if i == 0 else f"decode{i - 1}"] = {
             "rows": int(la.shape[0]), "nmse": nmse(la, lb),
@@ -1824,8 +1911,8 @@ def _label(kv, variant) -> str:
     return kv if variant is None else f"{kv}/{variant}"
 
 
-def _kernels_vs_plain(model, prompt, contexts,
-                      n_decode: int = 4) -> tuple[dict, list]:
+def _kernels_vs_plain(model, prompt, contexts, n_decode: int = 4,
+                      joint: bool = True) -> tuple[dict, list]:
     """Logits at every position of one prefill and of n_decode decode
     steps on the same tokens, through the kernels and through the plain path, per
     Context (KV type, qmm variant). The gated plain path rounds a weight
@@ -1861,7 +1948,7 @@ def _kernels_vs_plain(model, prompt, contexts,
               f"{label}: kernel logits not finite")
         plain[label] = steps_p
         out[label] = _compare(steps_p, steps_k)
-        if has_min:
+        if has_min and joint:
             with _plain_min("joint"):
                 steps_j, _ = _trace(ctx(plain=True), prompt, toks, n_decode)
             out[f"{label} joint min"] = _compare(steps_j, steps_k)
@@ -2043,16 +2130,20 @@ def phase_serve_lowbit(torch, kc, kept: Kept, profile: bool = False) -> dict:
     return {"launches": launches, "files": files}
 
 
-def _moe_rows(kc, model, prefix):
-    """K4 rows at M = 1, 8 and 512 on layer 0's gate and down expert
-    stacks as the file loaded them (up has gate's shape and kind)."""
-    lw = model.weights.layers[0]
+def _moe_rows(kc, model, prefix, stacks=("gate", "down")):
+    """K4 rows at M = 1, 8 and 512 on the first MoE layer's expert stacks
+    (gate and down by default: up has gate's shape and kind) as the file
+    loaded them, routed top-k of E as the file routes them."""
+    lw = next(lw for lw in model.weights.layers if lw.gate_inp is not None)
     rows = {}
-    for label, qt in (("gate", lw.gate_exps), ("down", lw.down_exps)):
+    for label in stacks:
+        qt = getattr(lw, f"{label}_exps")
         kind = f"{qt.ggml_type.name}/{qt.kind}" + ("+min" if qt.min_ is not
                                                     None else "")
         for m in (1, 8, 512):
-            rows[f"{label} M={m}"] = kc.gmm(f"{prefix} {label}", kind, qt, m)
+            rows[f"{prefix} {label} M={m}"] = kc.gmm(
+                f"{prefix} {label}", kind, qt, m,
+                top_k=model.hp.n_expert_used)
     check(not kc.failures, f"kernels outside their gate: {kc.failures}")
     return rows
 
@@ -2215,13 +2306,23 @@ def phase_cli(torch, kept: Kept) -> dict:
     at an end-of-generation token, and without the last token's piece
     when it stops by length, as the JAX CLI prints), and K1, K2 and K3
     must launch."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Model
+
+    path = kept.files["tinyllama"]
+    return _cli_vs_generate(torch, "cli", path, Model(path, device="cuda"),
+                            DENSE_PATH)
+
+
+def _cli_vs_generate(torch, phase, path, model, path_kernels) -> dict:
+    """cli.main on the file at path, greedy at -n 32, against generate()
+    on `model` (the same file, loaded): the printout of phase_cli, and
+    path_kernels launched by the CLI's run."""
     import io
 
     from llama_cpp_test_tpu_torch.cli import main as cli
     from llama_cpp_test_tpu_torch.ops import _cuda
-    from llama_cpp_test_tpu_torch.runtime.engine import Context, Model, generate
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, generate
 
-    path = kept.files["tinyllama"]
     torch.cuda.synchronize()
     _cuda.reset_launches()
     buf = io.StringIO()
@@ -2231,7 +2332,6 @@ def phase_cli(torch, kept: Kept) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(_cuda.LAUNCHES)
-    model = Model(path, device="cuda")
     tok = model.tokenizer
     ids = tok.encode(CLI_TEXT, add_special=True, parse_special=True)
     eog = {t for t in range(model.hp.n_vocab) if tok.vocab.is_eog(t)}
@@ -2242,14 +2342,15 @@ def phase_cli(torch, kept: Kept) -> dict:
     shown = toks[:-1] if len(toks) == 32 else toks
     want = CLI_TEXT + "".join(tok.token_to_piece(t) for t in shown)
     got = buf.getvalue()
-    out = {"phase": "cli", "rc": rc, "wall_s": wall, "prompt_tokens": len(ids),
+    out = {"phase": phase, "rc": rc, "wall_s": wall, "prompt_tokens": len(ids),
            "generated": len(toks), "stdout": got, "same_as_generate": got == want,
            "launches": launches}
     emit(out)
     check(rc == 0, f"cli.main returned {rc}")
     check(got == want, f"the CLI printed {got!r}, generate() gives {want!r}")
-    missing = [k for k in DENSE_PATH if launches[k] <= 0]
-    check(not missing, f"cli: kernels not launched: {missing} ({launches})")
+    missing = [k for k in path_kernels if launches[k] <= 0]
+    check(not missing, f"{phase}: kernels not launched: {missing} "
+                       f"({launches})")
     return out
 
 
@@ -3906,40 +4007,52 @@ def _launch_counts(torch, ctx, prompt, n_decode: int, tokens=None) -> dict:
     """Launches of one prefill of `prompt` (LONG_CHUNK-token chunks) on a
     fresh sequence, then of n_decode decode steps (on `tokens`, else
     greedy), counted apart; with the logits of the last prefill position
-    and of each decode step and the tokens fed."""
+    and of each decode step, the tokens fed and, on a MoE model, the
+    experts each of those rows took in every layer (else None)."""
     from llama_cpp_test_tpu_torch.ops import _cuda
 
     s = ctx.new_seq()
-    torch.cuda.synchronize()
-    _cuda.reset_launches()
-    for i in range(0, len(prompt), LONG_CHUNK):
-        logits = ctx.prefill(s, prompt[i:i + LONG_CHUNK])
-    torch.cuda.synchronize()
-    pre = dict(_cuda.LAUNCHES)
-    _cuda.reset_launches()
-    rows, toks = [logits], []
-    for i in range(n_decode):
-        toks.append(tokens[i] if tokens else int(np.argmax(rows[-1])))
-        rows.append(ctx.decode([s], toks[-1:])[0])
-    torch.cuda.synchronize()
+    route = lambda calls, row: (np.stack([c[row] for c in calls])
+                                if calls else None)
+    with _record_routing() as calls:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        for i in range(0, len(prompt), LONG_CHUNK):
+            calls.clear()
+            chunk = prompt[i:i + LONG_CHUNK]
+            logits = ctx.prefill(s, chunk)
+        torch.cuda.synchronize()
+        pre = dict(_cuda.LAUNCHES)
+        _cuda.reset_launches()
+        rows, toks = [logits], []
+        routes = [route(calls, len(chunk) - 1)]
+        for i in range(n_decode):
+            toks.append(tokens[i] if tokens else int(np.argmax(rows[-1])))
+            calls.clear()
+            rows.append(ctx.decode([s], toks[-1:])[0])
+            routes.append(route(calls, 0))
+        torch.cuda.synchronize()
     dec = dict(_cuda.LAUNCHES)
     ctx.free_seq(s)
-    return {"prefill": pre, "decode": dec, "rows": rows, "tokens": toks}
+    return {"prefill": pre, "decode": dec, "rows": rows, "tokens": toks,
+            "routes": routes}
 
 
 def _k1_per_step(model) -> int:
     """K1 launches one decode step makes: each quantized projection plane
-    of every layer once (the fused q|k|v and gate|up planes once each) and
-    the head; a BF16 tensor's dense plane is a plain product, no K1."""
+    of every layer once (the fused q|k|v and gate|up planes once each, the
+    MLA planes, the shared experts') and the head; a BF16 tensor's dense
+    plane (an F32 router's too) is a plain product, no K1."""
     w = model.weights
     planes = [w.output] + [getattr(lw, f) for lw in w.layers for f in (
         "wqkv", "wq", "wk", "wv", "wo", "w_gateup", "w_gate", "w_up",
-        "w_down")]
+        "w_down", "wq_a", "wq_b", "wkv_a", "wkv_b", "gate_shexp",
+        "up_shexp", "down_shexp")]
     return sum(qt is not None and qt.kind != "dense" for qt in planes)
 
 
 def _path_prediction(torch, model, prompt, n_ctx: int,
-                     kv: str = "bf16") -> dict:
+                     kv: str = "bf16", plain_too: bool = True) -> dict:
     """The launches a prefill and QUIRK_DECODE decode steps of one
     sequence must make: K2 once a layer that attends a chunk (every such
     layer, windowed or not, at its own head counts; none over q8_0 pages,
@@ -3948,10 +4061,17 @@ def _path_prediction(torch, model, prompt, n_ctx: int,
     layer whose window binds at n_ctx decodes on the gather path, as the
     reference sends any window to XLA), K1's GEMV once a quantized
     projection plane a step (_k1_per_step: four a layer where q|k|v and
-    gate|up fuse, and the head). An ALiBi file launches neither K2 nor K3:
+    gate|up fuse, and the head), K4's GEMV three times a MoE layer a step
+    (gate, up, down; its GEMM never in decode). An ALiBi file launches
+    neither K2 nor K3:
     its attention takes the gather path, as the reference sends it to XLA.
     Then the same tokens through the plain path: the last prompt
-    position's logits and every decode step's within the logits gate."""
+    position's logits and every decode step's within the logits gate; on
+    a MoE model, the steps whose expert routing agrees with the plain
+    path's in every layer (a near tie may send one to other experts,
+    another computation: counted, and at most half the steps). With
+    plain_too False, the launches alone (a caller that holds the same
+    file's logits to the plain path elsewhere)."""
     from llama_cpp_test_tpu_torch.models.llama import attends
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
@@ -3961,9 +4081,6 @@ def _path_prediction(torch, model, prompt, n_ctx: int,
     ctx = lambda **kw: Context(model, n_ctx=n_ctx, n_seq_max=1,
                                block_size=16, kv_type=kv, **kw)
     got = _launch_counts(torch, ctx(), prompt, QUIRK_DECODE)
-    with _plain_min("fold"):
-        plain = _launch_counts(torch, ctx(plain=True), prompt, QUIRK_DECODE,
-                               got["tokens"])
     chunks = -(-len(prompt) // LONG_CHUNK)
     k3 = "paged_decode_q8" if kv == "q8_0" else "paged_decode"
     want = {"prefill": {"flash_prefill": 0 if kv == "q8_0" or hp.alibi else
@@ -3971,20 +4088,35 @@ def _path_prediction(torch, model, prompt, n_ctx: int,
             "decode": {"flash_prefill": 0,
                        k3: len(glob) * QUIRK_DECODE,
                        "qmm_gemv": _k1_per_step(model) * QUIRK_DECODE}}
+    moe_layers = sum(lw.gate_inp is not None for lw in model.weights.layers)
+    if moe_layers:
+        want["decode"].update(gmm_gemv=3 * moe_layers * QUIRK_DECODE,
+                              gmm_gemm=0)
     out = {"prompt": len(prompt), "kv": kv, "n_ctx": n_ctx,
            "global_layers": glob,
            "launches": {k: got[k] for k in ("prefill", "decode")},
-           "predicted": want,
-           "nmse": [nmse(a, b) for a, b in zip(plain["rows"], got["rows"])],
-           "gate": LOGITS_GATE}
+           "predicted": want}
     for step, counts in want.items():
         for k, n in counts.items():
             check(got[step][k] == n, f"{hp.arch} {len(prompt)} tokens: {k} "
                                      f"launched {got[step][k]} times in "
                                      f"{step}, the path predicts {n}")
-    check(max(out["nmse"]) < LOGITS_GATE,
+    if not plain_too:
+        return out
+    with _plain_min("fold"):
+        plain = _launch_counts(torch, ctx(plain=True), prompt, QUIRK_DECODE,
+                               got["tokens"])
+    same = [a is None or not _routing_differs(a, b).any()
+            for a, b in zip(plain["routes"], got["routes"])]
+    out.update(nmse=[nmse(a, b) for a, b in zip(plain["rows"], got["rows"])],
+               routing_changed_steps=[i for i, ok in enumerate(same)
+                                      if not ok],
+               gate=LOGITS_GATE)
+    held = [v for v, ok in zip(out["nmse"], same) if ok]
+    check(2 * len(held) > len(same) and max(held) < LOGITS_GATE,
           f"{hp.arch} {len(prompt)} tokens: logits outside the gate: "
-          f"{out['nmse']}")
+          f"{out['nmse']} (routing changed at steps "
+          f"{out['routing_changed_steps']})")
     return out
 
 
@@ -4353,11 +4485,12 @@ GPT2_124M = dict(arch="gpt2", n_vocab=50257, n_embd=768, n_head=12,
                  ln_eps=1e-5, norm_bias=True, fused_qkv=True, qkv_bias=True,
                  bo=True, ffn="up", ffn_bias=True, tied=True, pos_rows=1024)
 # BLOOM-560m (bigscience/bloom-560m config.json) published widths, depth
-# cut from 24 to 8 layers for the smoke's clock: ALiBi over 16
+# cut from 24 to 4 layers for the smoke's clock (8 until the moe_forms
+# phase): ALiBi over 16
 # heads, the embedding LayerNorm, the gpt2 layout otherwise, tied head of
 # 250880 rows
 BLOOM_560M = dict(GPT2_124M, arch="bloom", n_vocab=250880, n_embd=1024,
-                  n_head=16, n_head_kv=16, n_layer=8, n_ff=4096,
+                  n_head=16, n_head_kv=16, n_layer=4, n_ff=4096,
                   pos_rows=0, tok_norm=True)
 POSITION_SMALL_HP = {
     # bigcode/starcoderbase-1b: MQA at D = 128, 8192 learned positions
@@ -4408,12 +4541,16 @@ def _small_load(label, hp, ftype, seed, n_layer=2) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _small_check(torch, phase, label, model, write_s, fitted) -> dict:
+def _small_check(torch, phase, label, model, write_s, fitted,
+                 recheck: bool = True) -> dict:
     """A loaded 2-layer file: generate() on a 16-token prompt and one
     batched decode of 8 rows at bf16 and q8_0 KV, its logits over a
     130-token prefill (every row) and QUIRK_DECODE decode steps within the
     gate of the plain path at bf16 KV, and the launches its path predicts
-    over a LN_PROMPT-token prompt at bf16 and q8_0 KV."""
+    over a LN_PROMPT-token prompt at bf16 and q8_0 KV. recheck False (the
+    clock) holds the logits to the plain path that once: the path
+    predictions count launches alone and the joint-min witness is not
+    traced."""
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     hp = model.hp
@@ -4427,14 +4564,14 @@ def _small_check(torch, phase, label, model, write_s, fitted) -> dict:
                                      hp.n_vocab, 8)
         del ctx
     checks, bad = _kernels_vs_plain(model, prompt[:130], [("bf16", None)],
-                                    QUIRK_DECODE)
+                                    QUIRK_DECODE, recheck)
     out = {"phase": f"{phase}/{label}", "arch": hp.arch,
            "n_layer": hp.n_layer,
            "fitted_types": fitted, "write_gguf_s": write_s,
            "load_s": model.load_seconds, "requests": served,
            "plain_vs_kernel_nmse": checks, "gate": LOGITS_GATE,
-           "path": [_path_prediction(torch, model, prompt, 1024, kv)
-                    for kv in ("bf16", "q8_0")]}
+           "path": [_path_prediction(torch, model, prompt, 1024, kv,
+                                     recheck) for kv in ("bf16", "q8_0")]}
     emit(out)
     check(not bad, f"{label}: logits outside the gate: {bad}")
     out["launches"] = {}
@@ -4605,7 +4742,7 @@ def phase_quirks_body(torch, kc, nvidia_smi: str, build: dict,
 def phase_positions(torch, kc, nvidia_smi: str,
                     profile: bool = False) -> dict:
     """The position axes. GPT-2 (Q4_K, 1024 learned positions) and
-    BLOOM-560m (Q4_K, ALiBi, the embedding LayerNorm; 8 of 24 layers) at
+    BLOOM-560m (Q4_K, ALiBi, the embedding LayerNorm; 4 of 24 layers) at
     published widths and depth through _headline at bf16 and q8_0 KV: K2
     once a layer a
     chunk and K3 (K3-q8) once a layer a step on GPT-2, neither on BLOOM,
@@ -5040,6 +5177,296 @@ def phase_geometry(torch, kc, nvidia_smi: str,
     return {"launches": launches, "files": files, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# the other MoE forms and MLA attention
+
+# DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite config.json) published
+# widths: 2048 wide, 16 heads, kv_lora_rank 512 with a plain q, qk 128 +
+# 64 (D = 192), v 128, the first layer dense at 10944, 64 routed experts
+# top-6 of 1408 (softmax, not renormalized), 2 shared, vocab 102400, YaRN
+# x40 over 4096 (mscale_all_dim 0.707); depth cut from 27 to 4 layers
+DEEPSEEK_V2_LITE = dict(
+    arch="deepseek2", n_vocab=102400, n_embd=2048, n_head=16, n_head_kv=16,
+    head_dim=192, rope_dim=64, n_ff=10944, n_layer=4, rms_eps=1e-6,
+    n_expert=64, n_expert_used=6, n_ff_exp=1408, n_dense_lead=1,
+    shexp_ff=2 * 1408,
+    mla=dict(q_lora=0, kv_lora=512, rope_dim=64, v_dim=128),
+    meta={"attention.kv_lora_rank": 512, "attention.value_length": 128,
+          "expert_feed_forward_length": 1408,
+          "leading_dense_block_count": 1, "expert_shared_count": 2,
+          "expert_weights_scale": 1.0, "expert_weights_norm": False,
+          "expert_gating_func": 1, "rope.scaling.type": "yarn",
+          "rope.scaling.factor": 40.0,
+          "rope.scaling.original_context_length": 4096,
+          "rope.scaling.yarn_log_multiplier": 0.0707,
+          "context_length": 163840})
+# DeepSeek-V3 (deepseek-ai/DeepSeek-V3 config.json) published widths: 7168
+# wide, 128 heads, q_lora_rank 1536, kv_lora_rank 512, D = 192, dense FFN
+# 18432, 256 routed experts top-8 of 2048 with sigmoid scores, the
+# e_score_correction_bias, renormalized weights scaled by 2.5, 1 shared,
+# vocab 129280, YaRN x40 over 4096; depth cut from 61 layers (3 dense) to
+# 2: one dense, one MoE
+DEEPSEEK_V3 = dict(
+    DEEPSEEK_V2_LITE, n_vocab=129280, n_embd=7168, n_head=128,
+    n_head_kv=128, n_ff=18432, n_layer=2, n_expert=256, n_expert_used=8,
+    n_ff_exp=2048, shexp_ff=2048, exp_probs_b=True,
+    mla=dict(q_lora=1536, kv_lora=512, rope_dim=64, v_dim=128),
+    meta={"attention.q_lora_rank": 1536, "attention.kv_lora_rank": 512,
+          "attention.value_length": 128, "expert_feed_forward_length": 2048,
+          "leading_dense_block_count": 1, "expert_shared_count": 1,
+          "expert_weights_scale": 2.5, "expert_weights_norm": True,
+          "expert_gating_func": 2, "rope.scaling.type": "yarn",
+          "rope.scaling.factor": 40.0,
+          "rope.scaling.original_context_length": 4096,
+          "rope.scaling.yarn_log_multiplier": 0.1,
+          "context_length": 163840})
+# MiniCPM3-4B (openbmb/MiniCPM3-4B config.json): 2560 wide, 40 heads,
+# q_lora_rank 768, kv_lora_rank 256, qk 64 + 32 (D = 96), v 64, FFN 6400,
+# vocab 73448, the mup scales (scale_emb 12, scale_depth 1.4 over 62
+# layers, dim_model_base 256); its long-rope tables are not written;
+# depth cut from 62 to 2
+MINICPM3_4B = dict(
+    arch="minicpm3", n_vocab=73448, n_embd=2560, n_head=40, n_head_kv=40,
+    head_dim=96, rope_dim=32, n_ff=6400,
+    mla=dict(q_lora=768, kv_lora=256, rope_dim=32, v_dim=64),
+    meta={"attention.q_lora_rank": 768, "attention.kv_lora_rank": 256,
+          "attention.value_length": 64, "embedding_scale": 12.0,
+          "residual_scale": 1.4 / 62 ** 0.5, "logit_scale": 2560 / 256})
+# the published widths of the other MoE files (each model's config.json),
+# depth cut to 2 layers (1 for DBRX, Grok-1 and Arctic)
+MOE_SMALL_HP = {
+    # Qwen/Qwen1.5-MoE-A2.7B: 60 experts top-4 of 1408 (not renormalized),
+    # a sigmoid-gated shared expert of 5632, Q/K/V biases; 24 layers
+    "qwen15_moe_a27b": dict(
+        arch="qwen2moe", n_vocab=151936, n_embd=2048, n_head=16,
+        n_head_kv=16, head_dim=128, n_ff=5632, rms_eps=1e-6,
+        rope_base=1e6, qkv_bias=True, n_expert=60, n_expert_used=4,
+        n_ff_exp=1408, shexp_ff=5632, shexp_gate=True,
+        meta={"expert_feed_forward_length": 1408}),
+    # Qwen/Qwen3-30B-A3B: 32 heads on 4, QK norms, 128 experts top-8 of
+    # 768 (renormalized); 48 layers
+    "qwen3_30b_a3b": dict(
+        arch="qwen3moe", n_vocab=151936, n_embd=2048, n_head=32,
+        n_head_kv=4, head_dim=128, n_ff=6144, rms_eps=1e-6, rope_base=1e6,
+        qk_norm=True, n_expert=128, n_expert_used=8, n_ff_exp=768,
+        meta={"expert_feed_forward_length": 768}),
+    # allenai/OLMoE-1B-7B-0924: RMS norms over the flat q and k, 64
+    # experts top-8 of 1024 (not renormalized); 16 layers
+    "olmoe_1b_7b": dict(
+        arch="olmoe", n_vocab=50304, n_embd=2048, n_head=16, n_head_kv=16,
+        head_dim=128, n_ff=1024, qk_norm="flat", n_expert=64,
+        n_expert_used=8, meta={"expert_feed_forward_length": 1024}),
+    # microsoft/Phi-3.5-MoE-instruct: LayerNorms with biases, Q/K/V, wo
+    # and lm head biases, 16 experts top-2 of 6400 by the sparsemixer;
+    # its long-rope tables are not written; 32 layers
+    "phi35_moe": dict(
+        arch="phimoe", n_vocab=32064, n_embd=4096, n_head=32, n_head_kv=8,
+        head_dim=128, n_ff=6400, ln_eps=1e-5, norm_bias=True,
+        qkv_bias=True, bo=True, head_bias=True, n_expert=16,
+        n_expert_used=2),
+    # ibm-granite/granite-3.0-3b-a800m-base: 24 heads on 8 at D = 64, 40
+    # experts top-8 of 512, the mup scales, a tied head; 32 layers
+    "granite3_3b_a800m": dict(
+        arch="granitemoe", n_vocab=49155, n_embd=1536, n_head=24,
+        n_head_kv=8, head_dim=64, n_ff=512, tied=True, n_expert=40,
+        n_expert_used=8,
+        meta={"embedding_scale": 12.0, "residual_scale": 0.22,
+              "attention.scale": 0.015625, "logit_scale": 6.0}),
+    # deepseek-ai/deepseek-moe-16b-base: the first layer dense at 10944,
+    # 64 experts top-6 of 1408 (not renormalized), 2 shared; 28 layers
+    "deepseek_moe_16b": dict(
+        arch="deepseek", n_vocab=102400, n_embd=2048, n_head=16,
+        n_head_kv=16, head_dim=128, n_ff=10944, rms_eps=1e-6, n_expert=64,
+        n_expert_used=6, n_ff_exp=1408, n_dense_lead=1, shexp_ff=2 * 1408,
+        meta={"expert_feed_forward_length": 1408,
+              "leading_dense_block_count": 1, "expert_shared_count": 2}),
+    # databricks/dbrx-base: 48 heads on 8, a fused Wqkv clamped at 8,
+    # bias-free LayerNorms (the pre-MoE one under attn_output_norm), 16
+    # experts top-4 of 10752, rope base 5e5; 40 layers
+    "dbrx": dict(
+        arch="dbrx", n_vocab=100352, n_embd=6144, n_head=48, n_head_kv=8,
+        head_dim=128, n_ff=10752, ln_eps=1e-5, fused_qkv=True,
+        rope_base=500000.0, ffn_norm=False, branch_norms="dbrx",
+        n_expert=16, n_expert_used=4, meta={"attention.clamp_kqv": 8.0}),
+    # xai-org/grok-1: 48 heads on 8, 8 GELU experts top-2 of 32768, the
+    # norms of the branch outputs, the attention softcap 30, the embedding
+    # multiplier 78.38 and the output multiplier 1/sqrt(3); 64 layers
+    "grok1": dict(
+        arch="grok", n_vocab=131072, n_embd=6144, n_head=48, n_head_kv=8,
+        head_dim=128, n_ff=32768, branch_norms="grok", n_expert=8,
+        n_expert_used=2,
+        meta={"embedding_scale": 78.38367176906169,
+              "logit_scale": 3.0 ** 0.5}),
+    # Snowflake/snowflake-arctic-base: 56 heads on 8, a dense MLP of 4864
+    # beside 128 experts top-2 of 4864 on the layer input; 35 layers
+    "arctic": dict(
+        arch="arctic", n_vocab=32000, n_embd=7168, n_head=56, n_head_kv=8,
+        head_dim=128, n_ff=4864, arctic=True, n_expert=128,
+        n_expert_used=2),
+}
+# (label, geometry, GGUF type, seed, layers): the big-expert files take
+# Q2_K, whose random blocks the host synthesizes fastest
+MOE_SMALL = (("deepseek_v3", DEEPSEEK_V3, "Q2_K", 131, 2),
+             ("minicpm3_4b", dict(MINICPM3_4B, n_layer=2), "Q4_K", 132, 2),
+             *((label, hp, "Q4_K", 133 + i, 2) for i, (label, hp) in
+               enumerate(list(MOE_SMALL_HP.items())[:6])),
+             *((label, hp, "Q2_K", 139 + i, 1) for i, (label, hp) in
+               enumerate(list(MOE_SMALL_HP.items())[6:])))
+MOE_ROW_FILES = {"qwen3_30b_a3b": ("gate",), "arctic": ("gate",)}
+
+
+def _host_load(label, hp, ftype, seed, n_layer) -> tuple:
+    """A file of n_layer layers at published widths written (no
+    tokenizer) and loaded into host planes: (HParams, weights, write
+    seconds, load seconds, the types _fit_type chose)."""
+    from llama_cpp_test_tpu_torch.gguf.reader import GGUFReader
+    from llama_cpp_test_tpu_torch.models.llama import load_weights
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        path = os.path.join(tmp, f"{label}.gguf")
+        t0 = time.time()
+        fitted = write_llama_gguf(path, dict(hp, n_layer=n_layer), seed=seed,
+                                  ftype=ftype, vocab=None)
+        t1 = time.time()
+        php, w = load_weights(GGUFReader(path))
+        return php, w, t1 - t0, time.time() - t1, fitted
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _sched_vs_generate(torch, model, kv: str) -> dict:
+    """Three greedy requests queued on one Scheduler slot (windows of 8:
+    a batch of one, as generate() decodes) give generate()'s tokens,
+    request by request. (At equal batches of several rows the sched
+    phase holds the windows to a per-token replay.)"""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, generate
+    from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
+    from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, Scheduler
+
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(3, model.hp.n_vocab, size=n).tolist()
+               for n in (16, 130, 300)]
+    want = [list(generate(Context(model, n_ctx=1024, n_seq_max=1,
+                                  block_size=16, kv_type=kv), p, 24))
+            for p in prompts]
+    t0 = time.time()
+    sched = Scheduler(Context(model, n_ctx=1024, n_seq_max=1, block_size=16,
+                              kv_type=kv), n_slots=1, decode_window=8)
+    reqs = [sched.submit(GenRequest(p, max_tokens=24, ignore_eos=True,
+                                    sampling=SamplerParams(temp=0.0)))
+            for p in prompts]
+    sched.run()
+    got = [r.output_tokens for r in reqs]
+    out = {"kv": kv, "wall_s": time.time() - t0, "metrics": sched.metrics(),
+           "same_as_generate": got == want}
+    check(got == want, f"{model.hp.arch}/{kv}: the Scheduler's tokens "
+                       f"{got} differ from generate()'s {want}")
+    return out
+
+
+def phase_moe_forms(torch, kc, nvidia_smi: str, kept: Kept, build: dict,
+                    profile: bool = False) -> dict:
+    """The other MoE forms and MLA attention. DeepSeek-V2-Lite (Q4_K, 4 of
+    27 layers) through _serve at bf16 and q8_0 KV (generate() at 16, 130
+    and 512 tokens, a batched decode of 8, the logits of a 130-token
+    prefill and QUIRK_DECODE decode steps within the gate of the plain
+    path on the rows whose routing agrees), the launches its path predicts
+    at each KV type (K2 once a layer a chunk, K3 or K3-q8 once a layer a
+    step, K1's GEMV once a quantized plane a step, K4's GEMV three times
+    a MoE layer a step), the Scheduler's greedy tokens and cli.main's
+    printout equal to generate()'s, K4 rows on its stacks (top-6 of 64)
+    and K2, K3 and K3-q8 rows at D = 192. Then MOE_SMALL one at a time on
+    the card, the next written and loaded into host planes meanwhile,
+    each freed before the next, each held to the plain path once
+    (_small_check with recheck False): DeepSeek-V3 (2 layers; sigmoid gating,
+    the selection bias) and MiniCPM3-4B (2 layers; MLA at D = 96), the
+    six 2-layer files and DBRX, Grok-1 and Arctic at one layer, each
+    through _small_check; K4 rows on Qwen3-30B-A3B's (top-8 of 128) and
+    Arctic's (top-2 of 128, K = 7168) gate stacks, K2 at V3's 128 heads;
+    the ptxas registers and spills of the D = 192 builds."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Model
+
+    files, launches, rows = {}, {}, {}
+    lite = DEEPSEEK_V2_LITE
+
+    def more(model):
+        prompt = np.random.default_rng(12).integers(
+            3, lite["n_vocab"], size=LN_PROMPT).tolist()
+        out = {"path": [_path_prediction(torch, model, prompt, 1024, kv)
+                        for kv in ("bf16", "q8_0")], "card": nvidia_smi,
+               "sched": [_sched_vs_generate(torch, model, kv)
+                         for kv in ("bf16", "q8_0")]}
+        out["cli"] = _cli_vs_generate(torch, "moe_forms/cli",
+                                      kept.files["deepseek_v2_lite"], model,
+                                      MOE_BF16_PATH)
+        rows.update(_moe_rows(kc, model, "DeepSeek-V2-Lite"))
+        emit({"phase": "moe_forms/deepseek_v2_lite", "checks": out})
+        return out
+
+    # the small files write and load into host planes on one thread, one
+    # ahead of the card (two at once, or one beside V2-Lite's serve, slowed
+    # the card's host-bound steps more than they hid; PERF.md §6)
+    ex = ThreadPoolExecutor(max_workers=1)
+    try:
+        t0 = time.time()
+        files["deepseek_v2_lite"] = _serve(
+            torch, "moe_forms/deepseek_v2_lite", lite, 121,
+            [("bf16", None), ("q8_0", None)], 8, MOE_PATH, profile,
+            ftype="Q4_K", keep=(kept, "deepseek_v2_lite"),
+            n_decode=QUIRK_DECODE, rows=more)
+        files["deepseek_v2_lite"]["seconds"] = time.time() - t0
+        emit({"phase": "moe_forms/deepseek_v2_lite",
+              "seconds": files["deepseek_v2_lite"]["seconds"]})
+        _collect(files, launches)
+        for q8 in (False, True):
+            name = "K3-q8" if q8 else "K3"
+            for b in (1, 8):
+                rows[f"DeepSeek-V2-Lite {name} B={b}"] = kc.paged_decode(
+                    lite, b, q8=q8)
+        rows["DeepSeek-V2-Lite K2 T=512"] = kc.flash_prefill(lite, t=512)
+        rows["DeepSeek-V3 K2 T=512"] = kc.flash_prefill(DEEPSEEK_V3, t=512)
+        check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+        nxt = ex.submit(_host_load, *MOE_SMALL[0])
+        for i, spec in enumerate(MOE_SMALL):
+            label = spec[0]
+            php, w, write_s, load_s, fitted = nxt.result()
+            if i + 1 < len(MOE_SMALL):
+                nxt = ex.submit(_host_load, *MOE_SMALL[i + 1])
+            t0 = time.time()
+            model = Model.from_weights(php, w, device="cuda")
+            del w
+            # held to the plain path once (the clock; V2-Lite is held at
+            # every step of its paths, with the joint-min witness)
+            out = _small_check(torch, "moe_forms", label, model, write_s,
+                               fitted, recheck=False)
+            out["host_load_s"] = load_s
+            if label in MOE_ROW_FILES:
+                rows.update(_moe_rows(kc, model, label,
+                                      MOE_ROW_FILES[label]))
+            out["seconds"] = time.time() - t0
+            emit({"phase": f"moe_forms/{label}", "seconds": out["seconds"],
+                  "host_load_s": load_s})
+            files[label] = out
+            _add_launches(launches, out["launches"])
+            del model, out
+            torch.cuda.empty_cache()
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+    emit({"phase": "moe_forms", "seconds": {
+        label: round(f["seconds"], 1) for label, f in files.items()}})
+    new_builds = {k: v for k, v in build.items()
+                  if re.search(r"^(flash_prefill|paged_decode) D=192\b", k)}
+    emit({"phase": "moe_forms", "builds": new_builds, "card": nvidia_smi})
+    check(len(new_builds) == 3 and not any(
+        v["spill_bytes"] for v in new_builds.values()),
+          f"moe_forms: the D = 192 builds: {new_builds}")
+    missing = [k for k in MOE_PATH if launches.get(k, 0) <= 0]
+    check(not missing, f"moe_forms: kernels not launched: {missing}")
+    return {"launches": launches, "files": files, "rows": rows,
+            "builds": new_builds}
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
                  "paged_decode_merge_kernel",
@@ -5209,6 +5636,8 @@ def main() -> int:
                                    prof)
         serves["geometry"] = timed("geometry", phase_geometry, torch, kc, smi,
                                    prof)
+        serves["moe_forms"] = timed("moe_forms", phase_moe_forms, torch, kc,
+                                    smi, kept, build, prof)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5233,8 +5662,10 @@ def main() -> int:
                              if r["kernel"] == name]
     # and the attention rows at D = 256 (Gemma's geometry), 80 and 96
     # (Phi-2's, Phi-3's), G = 71 (Falcon-7B's), BERT-base's bidirectional
-    # K2 and the K3 rows of DeciLM-7B's and OpenELM-270M's G
-    for phase in ("quirks", "quirks_ln", "encoders", "geometry"):
+    # K2, the K3 rows of DeciLM-7B's and OpenELM-270M's G, and D = 192
+    # (DeepSeek's MLA) with K4 at the new routings
+    for phase in ("quirks", "quirks_ln", "encoders", "geometry",
+                  "moe_forms"):
         for row in serves[phase]["rows"].values():
             shape_rows[row["kernel"]].append(row)
     kernels = []

@@ -53,6 +53,12 @@
 //     which stays in shared memory for the whole walk (one ldmatrix a
 //     k-step, beside the two for K). The Q tile and two 64-key stages fill
 //     169 KB: one block an SM;
+//   - D = 192 (DeepSeek-V2/V3's MLA: q|k roped at 128 + 64, v zero-padded
+//     to 192) takes D = 256's walk: O is 96 f32 registers a thread, and
+//     Q's 12 k-steps of fragments (48 more) are reloaded from the Q tile,
+//     not held. Rows of 200 bf16 (400 bytes) keep ldmatrix's 8 rows in
+//     distinct banks; the Q tile and two 64-key stages fill 129 KB: one
+//     block an SM;
 //   - D = 100 (BitNet b1.58-3B) is no multiple of 16, nor of 8: a bf16 row
 //     is 200 bytes, so a row at any slot is 8-byte aligned and no more.
 //     The kernel runs at DP = pad16(D) = 112 in registers and shared
@@ -80,14 +86,14 @@ struct FpPlan {
   static constexpr int Q = FP_ROWS * LD;
   static constexpr int STAGES = DP == 64 ? 3 : 2;
   // Q's fragments held in registers through the walk (D <= 128), or
-  // reloaded from the Q tile at each k-step (D = 256, where holding them
-  // spills). Reloading at D = 64/128 took 1.011-1.018x the held time over
+  // reloaded from the Q tile at each k-step (D = 192 and 256; at 256
+  // holding them spills). Reloading at D = 64/128 took 1.011-1.018x the held time over
   // the kernel rows (tools/attn_rows.py, H100 80GB HBM3 at 700 W).
   static constexpr bool QREG = DP <= 128;
   // Q, the ring of K and V tiles, the page ids
   static constexpr int BYTES = (Q + 2 * STAGES * TILE) * 2 + FP_PAGES * 4;
   // blocks an SM's 227 KB of shared memory holds (3 at D = 64, 80 and
-  // 96, 2 at 100 and 128, 1 at 256);
+  // 96, 2 at 100 and 128, 1 at 192 and 256);
   // the launch bounds let ptxas take the registers that many leave
   static constexpr int BLOCKS = 232448 / (BYTES + 1024);
 };
@@ -374,7 +380,7 @@ int launch(const void* q, const void* k, const void* v, const void* positions,
 
 }  // namespace
 
-// D in {64, 80, 96, 100, 128, 256}; BS a multiple of 8, at most 64; any T
+// D in {64, 80, 96, 100, 128, 192, 256}; BS a multiple of 8, at most 64; any T
 // and any G = H / KV.
 PORT_API int flash_prefill(const void* q, const void* k, const void* v,
                            const void* positions, const void* kv_len,
@@ -399,6 +405,9 @@ PORT_API int flash_prefill(const void* q, const void* k, const void* v,
                          NB, BS, nbmax, window, soft_cap, st);
     case 128:
       return launch<128>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
+                         NB, BS, nbmax, window, soft_cap, st);
+    case 192:
+      return launch<192>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,
                          NB, BS, nbmax, window, soft_cap, st);
     case 256:
       return launch<256>(q, k, v, positions, kv_len, pages, out, B, T, H, KV,

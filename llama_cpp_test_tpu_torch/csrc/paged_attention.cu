@@ -55,6 +55,12 @@
 //     rows, tools/attn_rows.py, H100 80GB HBM3 at 700 W). At D = 256 a
 //     bf16 stage is two 33 KB tiles (135 KB for the ring), a q8 ring 69 KB
 //     beside 66 KB of dequantized tiles: one block an SM.
+// D = 192 (DeepSeek-V2/V3's MLA) takes the same walk at 12 k-steps and
+// 24 O tiles (96 f32 accumulators a thread); MLA has as many KV heads as
+// query heads (G = 1), so 15 of the block's 16 mma rows are padding, as
+// at Falcon's one KV head. A bf16 stage is two 25 KB tiles (100 KB for
+// the ring), a q8 ring 53 KB beside 50 KB of dequantized tiles: two
+// blocks an SM.
 // D = 80 and 96 (Phi-2, Phi-3) take the same walk: 5 or 6 k-steps, 10 or
 // 12 O tiles in pairs, 10 or 12 16-byte chunks a bf16 row and 5 or 6 an
 // int8 one (rows of 96 or 112 bytes staged), no power of two assumed.
@@ -494,7 +500,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            void* ws, int B, int H, int KV, int NB, int BS, int D, int nbmax,
            int splits, int split_pages, float soft_cap, void* stream) {
   if (B < 1 || KV <= 0 || H % KV || BS < 1 ||
-      (D != 64 && D != 80 && D != 96 && D != 100 && D != 128 && D != 256) ||
+      (D != 64 && D != 80 && D != 96 && D != 100 && D != 128 && D != 192 &&
+       D != 256) ||
       splits < 1 || split_pages < 1 ||
       (long long)splits * split_pages < nbmax ||
       (splits > 1 && ws == nullptr))
@@ -516,6 +523,9 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
                      NB, BS, nbmax, G, split_pages, soft_cap, st);
   else if (D == 128)
     launch_d<128, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
+                     NB, BS, nbmax, G, split_pages, soft_cap, st);
+  else if (D == 192)
+    launch_d<192, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
                      NB, BS, nbmax, G, split_pages, soft_cap, st);
   else
     launch_d<256, T>(grid, q, k, v, ks, vs, lengths, pages, out, ws, H, KV,
@@ -543,7 +553,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// q/out [B, H, D] bf16, D in {64, 80, 96, 100, 128, 256}; k/v [KV, NB, BS, D]
+// q/out [B, H, D] bf16, D in {64, 80, 96, 100, 128, 192, 256}; k/v [KV, NB, BS, D]
 // bf16;
 // lengths [B], pages
 // [B, nbmax] int32. The sequence's pages split into `splits` ranges of

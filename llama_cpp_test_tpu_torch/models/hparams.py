@@ -1,8 +1,12 @@
 """Model hyperparameters parsed from GGUF metadata.
 
 Counterpart of llama_cpp_test_tpu/models/hparams.py, trimmed to the
-llama body of this port (models/registry.PORTED): dense, or Mixtral-style
-MoE with softmax top-k routing; the gemma and qwen quirk axes (NEOX rope,
+llama body of this port (models/registry.PORTED): dense, or MoE with
+softmax, sigmoid (DeepSeek-V3) or sparsemixer (phimoe) routing, with or
+without renormalized top-k weights, shared experts, deepseek's leading
+dense layers and the selection bias; deepseek2's and minicpm3's MLA
+attention (the q and kv LoRA ranks, the value head dim, the YaRN
+magnitude folded into the attention scale); the gemma and qwen quirk axes (NEOX rope,
 GeGLU, embedding scale, sliding-window patterns with their own rope base,
 softcaps); and the LayerNorm and parallel-residual axes of the phi,
 stablelm, starcoder2, gptneox, falcon, command-r, granite, olmo and
@@ -17,9 +21,7 @@ inverted logit scale and 3:1 sliding windows, mpt's exact erf GELU); the
 bert-family encoders (post-norm layers, non-causal attention, jina's
 symmetric ALiBi); per-layer geometry (openelm's and deci's per-layer head
 counts and FFN widths, GGUF arrays under the scalar keys); and chameleon's
-swin norms. Fields that select paths the port does not carry yet (sigmoid
-or sparsemixer gating, shared experts) are parsed so the loader can
-refuse them instead of running a different model.
+swin norms.
 """
 from __future__ import annotations
 
@@ -53,12 +55,24 @@ class HParams:
     # MoE
     n_expert: int = 0
     n_expert_used: int = 0
-    # renormalize the selected top-k routing weights: true for Mixtral;
-    # the archs that do not (qwen2moe, olmoe, deepseek) are refused
+    n_ff_exp: int = 0
+    # renormalize the selected top-k routing weights: true for Mixtral,
+    # false for qwen2moe, olmoe and deepseek, deepseek2's by its
+    # expert_weights_norm key
     norm_topk: bool = True
+    n_layer_dense_lead: int = 0        # deepseek: leading dense layers
     n_expert_shared: int = 0
     expert_weights_scale: float = 1.0  # routed output multiplier
     expert_gating: str = "softmax"     # softmax | sigmoid | sparsemixer
+    router_jitter: float = 0.01        # phimoe's sparsemixer threshold
+    # MLA attention (deepseek2, minicpm3): the q and kv LoRA ranks (0 =
+    # a plain attn_q / standard attention), the value head dim where it
+    # differs from head_dim (0 = head_dim), and deepseek2's YaRN
+    # magnitude multiplier, folded into attn_scale (not the rope tables)
+    n_lora_q: int = 0
+    n_lora_kv: int = 0
+    head_dim_v: int = 0
+    rope_yarn_log_mul: float = 0.0
     sliding_window: int = 0
     # with sliding_window set, layer li is global when (li + 1) %
     # swa_pattern == 0 (gemma2: 2, gemma3: 6); 1 = every layer slides
@@ -125,6 +139,11 @@ class HParams:
     n_ff_layers: tuple = ()
 
     @property
+    def v_dim(self) -> int:
+        """Value head dim (head_dim except on the MLA archs)."""
+        return self.head_dim_v or self.head_dim
+
+    @property
     def uniform_layers(self) -> bool:
         """True when every layer has the scalar head counts and FFN width."""
         return not (self.n_head_layers or self.n_head_kv_layers
@@ -149,16 +168,17 @@ class HParams:
 _NEOX = ("gemma", "gemma2", "gemma3", "qwen2", "qwen3", "falcon",
          "stablelm", "olmo2", "phi2", "phi3", "starcoder2", "gptneox",
          "nemotron", "orion", "qwen", "exaone", "codeshell", "bitnet",
-         "bert", "nomic-bert", "openelm")
+         "bert", "nomic-bert", "openelm", "grok", "dbrx", "qwen2moe",
+         "qwen3moe", "olmoe", "phimoe", "minicpm3")
 # the ported LayerNorm archs (reference hparams.py's norm_type "ln" set)
 _LN = ("phi2", "falcon", "gptneox", "stablelm", "command-r", "starcoder2",
        "nemotron", "olmo", "orion", "codeshell", "cohere2", "gpt2",
        "starcoder", "bloom", "mpt", "jais", "bert", "nomic-bert",
-       "jina-bert-v2")
+       "jina-bert-v2", "dbrx", "phimoe")
 _ENCODERS = ("bert", "nomic-bert", "jina-bert-v2")
 _PARALLEL = ("phi2", "falcon", "gptneox", "command-r", "cohere2", "plamo")
 _GELU = ("gemma", "gemma2", "gemma3", "phi2", "falcon", "gptneox",
-         "starcoder2", "gpt2", "starcoder", "codeshell", "bloom")
+         "starcoder2", "gpt2", "starcoder", "codeshell", "bloom", "grok")
 _LEARNED = ("gpt2", "starcoder", "bert")
 _ALIBI = ("bloom", "mpt", "jais", "refact", "jina-bert-v2")
 # the exact erf GELU (mpt; bert's FFN and jina's GeGLU, as their models
@@ -209,7 +229,7 @@ def hparams_from_metadata(md: dict) -> HParams:
     attn_scale = 0.0
     if (arch, n_layer) in (("gemma2", 46), ("gemma3", 62)):
         attn_scale = 1.0 / math.sqrt(n_embd / max(n_head, 1))
-    if arch == "granite":
+    if arch in ("granite", "granitemoe"):
         attn_scale = g("attention.scale", attn_scale)
     if arch == "jais":     # mup attention: 1/d_head, not 1/sqrt(d_head)
         attn_scale = 1.0 / head_dim
@@ -217,6 +237,17 @@ def hparams_from_metadata(md: dict) -> HParams:
     # it, or by an explicit max_alibi_bias key (a file cut in depth)
     alibi = arch in _ALIBI or (arch == "baichuan" and (
         n_layer >= 40 or g("attention.max_alibi_bias", 0.0) > 0))
+    # deepseek2: the YaRN magnitude m = attn_factor * (1 + log_mul *
+    # ln(factor)) scales the attention as m^2 / sqrt(head_dim), and its
+    # rope runs at magnitude 1 (layers.rope_freqs)
+    scaling = str(md.get(f"{arch}.rope.scaling.type", "none") or "none")
+    yarn_log_mul = g("rope.scaling.yarn_log_multiplier", 0.0)
+    if arch == "deepseek2":
+        factor, m = g("rope.scaling.factor", 1.0), 1.0
+        if scaling == "yarn" and factor > 1.0:
+            m = g("rope.scaling.attn_factor", 1.0) * (
+                1.0 + yarn_log_mul * math.log(factor))
+        attn_scale = m * m / math.sqrt(head_dim)
     return HParams(
         arch=arch,
         n_vocab=n_vocab,
@@ -237,26 +268,39 @@ def hparams_from_metadata(md: dict) -> HParams:
                   g("attention.layer_norm_epsilon", 1e-5)),
         rope_dim=g("rope.dimension_count", head_dim),
         rope_freq_base=g("rope.freq_base", 10000.0),
-        rope_scaling=str(md.get(f"{arch}.rope.scaling.type", "none") or "none"),
+        rope_scaling=scaling,
         rope_scale_factor=g("rope.scaling.factor", 1.0),
         rope_orig_ctx=g("rope.scaling.original_context_length", 0),
         rope_attn_factor=g("rope.scaling.attn_factor", 1.0),
         n_expert=g("expert_count", 0),
         n_expert_used=g("expert_used_count", 0),
-        norm_topk=arch not in ("qwen2moe", "olmoe", "deepseek"),
+        n_ff_exp=g("expert_feed_forward_length", 0),
+        norm_topk=(bool(g("expert_weights_norm", False))
+                   if arch == "deepseek2"
+                   else arch not in ("qwen2moe", "olmoe", "deepseek")),
+        n_layer_dense_lead=g("leading_dense_block_count", 0),
         n_expert_shared=g("expert_shared_count", 0),
         expert_weights_scale=g("expert_weights_scale", 1.0),
         expert_gating=("sparsemixer" if arch == "phimoe"
                        else "sigmoid" if int(g("expert_gating_func", 1)) == 2
                        else "softmax"),
+        router_jitter=g("router_jitter", 0.01),
+        n_lora_q=g("attention.q_lora_rank", 0),
+        n_lora_kv=g("attention.kv_lora_rank", 0),
+        # minicpm3 files omit value_length: its v head is n_embd / n_head
+        head_dim_v=g("attention.value_length",
+                     n_embd // max(n_head, 1) if arch == "minicpm3" else 0),
+        rope_yarn_log_mul=yarn_log_mul,
         sliding_window=g("attention.sliding_window", 0),
         swa_pattern=max(1, swa_pattern),
         rope_freq_base_swa=(g("rope.local_freq_base", 10000.0)
                             if arch == "gemma3" else 0.0),
         attn_scale=attn_scale,
         clamp_kqv=g("attention.clamp_kqv", 0.0),
+        # grok-1: 30 * tanh(logits / 30), as the model computes it
         attn_softcap=g("attn_logit_softcapping",
-                       50.0 if arch == "gemma2" else 0.0),
+                       50.0 if arch == "gemma2" else
+                       30.0 if arch == "grok" else 0.0),
         final_softcap=g("final_logit_softcapping",
                         30.0 if arch == "gemma2" else 0.0),
         rope_type="neox" if arch in _NEOX else "norm",

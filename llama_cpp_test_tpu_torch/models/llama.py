@@ -1,7 +1,7 @@
-"""LLaMA-family model (dense or Mixtral-style MoE, the gemma and qwen
-quirk axes, the LayerNorm and parallel-residual archs, the position axes:
-learned positions and ALiBi, the bert-family encoders and per-layer
-geometry): GGUF weight loading + forward pass.
+"""LLaMA-family model (dense or MoE, the gemma and qwen quirk axes, the
+LayerNorm and parallel-residual archs, the position axes: learned
+positions and ALiBi, the bert-family encoders, per-layer geometry and
+MLA attention): GGUF weight loading + forward pass.
 
 Counterpart of the llama body of llama_cpp_test_tpu/models/llama.py for
 the archs of models/registry.PORTED. A sequential layer: pre-norm (RMS or
@@ -15,8 +15,12 @@ softcap, ALiBi bias) -> bitnet's RMS sub-norm -> wo (+ bias) -> post norm
 -> residual scale -> residual; then the FFN half: norm -> fused gate|up
 (+ gate and up biases) -> SwiGLU or GeGLU -> bitnet's RMS sub-norm, or a
 non-gated up (+ bias) -> GELU (tanh or erf) or squared ReLU, or, in a MoE
-layer, softmax top-k routing over the experts (moe_ffn) -> down (+ bias)
--> residual scale -> post norm -> residual. The head counts and the FFN
+layer, routing over the experts (moe_ffn: softmax or sigmoid top-k,
+DeepSeek-V3's selection bias, phimoe's sparsemixer) -> down (+ bias) ->
+the shared experts -> residual scale -> post norm -> residual. An MLA
+layer (deepseek2, minicpm3) projects q, the compressed kv and its shared
+rope key instead of q, k and v (mla_qkv); arctic's layer adds a dense
+MLP beside the experts. The head counts and the FFN
 width are the layer's own (openelm, deci); deci's attention-free layer
 is its FFN half alone, and its linear-attention layer replaces attention
 by wo on the normed input. A parallel layer (phi2, falcon, gptneox,
@@ -70,13 +74,33 @@ class LayerWeights:
     w_gateup: QTensor | None = None
     w_gate: QTensor | None = None
     w_up: QTensor | None = None
-    # MoE (Mixtral): router [n_expert, n_embd] and expert stacks whose
-    # planes carry a leading E axis; gate and up stay separate, as the
-    # reference keeps them by default
+    # MoE: router [n_expert, n_embd] and expert stacks whose planes carry
+    # a leading E axis; gate and up stay separate, as the reference keeps
+    # them by default
     gate_inp: QTensor | None = None
     gate_exps: QTensor | None = None
     up_exps: QTensor | None = None
     down_exps: QTensor | None = None
+    # the shared experts (qwen2moe, deepseek, deepseek2), gated by
+    # sigmoid(x . gate_inp_shexp) where that [n_embd] vector exists;
+    # DeepSeek-V3's expert-selection bias [n_expert]; arctic's norm of the
+    # MoE branch, whose layer carries a dense MLP beside the experts
+    gate_shexp: QTensor | None = None
+    up_shexp: QTensor | None = None
+    down_shexp: QTensor | None = None
+    gate_inp_shexp: Any = None
+    exp_probs_b: Any = None
+    ffn_norm_exps: Any = None
+    # MLA attention (deepseek2, minicpm3): the low-rank q (wq_a -> RMS ->
+    # wq_b; a plain wq otherwise), the compressed kv with the shared rope
+    # key (wkv_a [kv_lora_rank + rope_dim]) and its RMS norm, and the
+    # up-projection wkv_b [H * (nope + v_dim)]
+    wq_a: QTensor | None = None
+    wq_b: QTensor | None = None
+    attn_q_a_norm: Any = None
+    wkv_a: QTensor | None = None
+    attn_kv_a_norm: Any = None
+    wkv_b: QTensor | None = None
     # Q/K/V biases (qwen2, phi2, stablelm, starcoder2, gptneox) and the QK
     # norms, float32: RMS weights [head_dim] shared by the heads (qwen3,
     # gemma3), per-head LayerNorm weights [H, head_dim] (stablelm-2-12B,
@@ -171,7 +195,18 @@ _DENSE_FFN = {"ffn_gate.weight", "ffn_up.weight", "ffn_down.weight"}
 _UP_DOWN_FFN = {"ffn_up.weight", "ffn_down.weight"}
 _MOE_FFN = {"ffn_gate_inp.weight", "ffn_gate_exps.weight",
             "ffn_up_exps.weight", "ffn_down_exps.weight"}
+# a MoE layer's shared experts (with qwen2moe's gate vector, optional),
+# DeepSeek-V3's selection bias and arctic's MoE-branch norm
+_SHEXP = {"ffn_gate_shexp.weight", "ffn_up_shexp.weight",
+          "ffn_down_shexp.weight"}
+_MOE_EXTRAS = _SHEXP | {"ffn_gate_inp_shexp.weight", "exp_probs_b.bias",
+                        "ffn_norm_exps.weight"}
 _QKV = {"attn_q.weight", "attn_k.weight", "attn_v.weight"}
+# MLA: the compressed kv set beside a plain attn_q or the low-rank q set
+_MLA_KV = {"attn_kv_a_mqa.weight", "attn_kv_a_norm.weight",
+           "attn_kv_b.weight"}
+_MLA_Q = {"attn_q_a.weight", "attn_q_a_norm.weight", "attn_q_b.weight"}
+_MLA_SETS = ({"attn_q.weight"} | _MLA_KV, _MLA_Q | _MLA_KV)
 _BIASES = {"attn_q.bias": "bq", "attn_k.bias": "bk", "attn_v.bias": "bv"}
 # the QK norms, the sandwich norms under both GGUF names, the LayerNorm
 # biases, falcon-40B's second norm, the other projection biases and
@@ -200,7 +235,8 @@ _QUIRK_VECTORS = {"attn_q_norm.weight": "attn_q_norm",
                   "layer_output_norm.bias": "layer_out_norm_b"}
 _LAYER_TENSORS = {"attn_norm.weight", "attn_qkv.weight", "attn_qkv.bias",
                   "attn_output.weight", "ffn_norm.weight"} | _QKV | \
-    _DENSE_FFN | _MOE_FFN | set(_BIASES) | set(_QUIRK_VECTORS)
+    _DENSE_FFN | _MOE_FFN | _MOE_EXTRAS | _MLA_KV | _MLA_Q | \
+    set(_BIASES) | set(_QUIRK_VECTORS)
 _TOP_TENSORS = {"token_embd.weight", "output_norm.weight", "output.weight",
                 "output_norm.bias", "output.bias",
                 "rope_factors_short.weight", "rope_factors_long.weight"}
@@ -220,6 +256,12 @@ _SEQUENTIAL_GATED = ("ffn_gate.bias", "attn_sub_norm.weight",
 # post-norm layer does not apply (pre-norms, QK norms, branch norms)
 _POST_NORMS = {"attn_output_norm.weight", "attn_output_norm.bias",
                "layer_output_norm.weight", "layer_output_norm.bias"}
+# the same names in a pre-norm layer: grok's norms of the attention and
+# MoE branch outputs (the sandwich post-norm slots), dbrx's pre-MoE norm
+# (the ffn_norm slot)
+_BRANCH_NORMS = {"grok": {"attn_output_norm.weight",
+                          "layer_output_norm.weight"},
+                 "dbrx": {"attn_output_norm.weight"}}
 _PRE_NORM_ONLY = ({"attn_norm.weight", "ffn_norm.weight"}
                   | set(_QUIRK_VECTORS)) - _POST_NORMS - set(_BIASES) - {
     "attn_output.bias", "ffn_up.bias", "ffn_down.bias", "ffn_gate.bias"}
@@ -294,6 +336,27 @@ def _unpermute_rows(n_head: int, head_dim: int,
     return idx
 
 
+def _mla_q_perm(hp: HParams) -> np.ndarray:
+    """An MLA q projection's rows: each head's nope rows as they are, its
+    trailing rope_dim pe rows from the NORM layout to half-split (the
+    permutation common to q_pe and k_pe cancels in their product)."""
+    dk, rd = hp.head_dim, hp.rope_dim
+    idx = np.arange(hp.n_head * dk, dtype=np.int64)
+    sub = _unpermute_rows(1, rd)
+    for h in range(hp.n_head):
+        base = h * dk + dk - rd
+        idx[base:base + rd] = base + sub
+    return idx
+
+
+def _mla_kva_perm(hp: HParams) -> np.ndarray:
+    """attn_kv_a_mqa's rows: the kv_lora_rank compressed rows as they are,
+    the shared pe tail from the NORM layout to half-split."""
+    idx = np.arange(hp.n_lora_kv + hp.rope_dim, dtype=np.int64)
+    idx[hp.n_lora_kv:] = hp.n_lora_kv + _unpermute_rows(1, hp.rope_dim)
+    return idx
+
+
 def _f32(reader: GGUFReader, name: str) -> np.ndarray:
     return reader.dequantize(name, np.float32)
 
@@ -323,19 +386,51 @@ def _check_qk_norm(name: str, shape: tuple, hp: HParams, li: int) -> None:
             "port carries per-head LayerNorm weights there")
 
 
+def _ffn_sets(hp: HParams, i: int, names: set) -> list:
+    """The FFN tensor sets layer i may carry: the gated set or a non-gated
+    up and down in a dense file; in a MoE file the expert set, the gated
+    set in deepseek's leading dense layers, and the expert set with the
+    gated set beside it in arctic's layers (with its ffn_norm_exps)."""
+    if not hp.n_expert:
+        return [_DENSE_FFN, _UP_DOWN_FFN]
+    if i < hp.n_layer_dense_lead:
+        return [_DENSE_FFN]
+    if "ffn_norm_exps.weight" in names:
+        return [_MOE_FFN | _DENSE_FFN]
+    return [_MOE_FFN]
+
+
+def _check_moe_extras(hp: HParams, i: int, names: set) -> None:
+    """The shared experts (all three planes, qwen2moe's gate vector
+    optional), the selection bias and arctic's norm only in a MoE layer;
+    a file that counts shared experts carries them in every MoE layer."""
+    moe = "ffn_gate_inp.weight" in names
+    extras = names & _MOE_EXTRAS
+    shexp = extras - {"exp_probs_b.bias", "ffn_norm_exps.weight"}
+    if (extras and not moe) or (shexp and not _SHEXP <= shexp) or (
+            moe and hp.n_expert_shared and not _SHEXP <= names):
+        raise NotImplementedError(
+            f"blk.{i} tensors {sorted(extras)} (expert_shared_count "
+            f"{hp.n_expert_shared}): this port carries ffn_gate_shexp, "
+            "ffn_up_shexp and ffn_down_shexp together (with an optional "
+            "ffn_gate_inp_shexp), exp_probs_b and ffn_norm_exps in MoE "
+            "layers only")
+
+
 def _check_layer(reader: GGUFReader, hp: HParams, i: int,
                  names: set) -> None:
     """Refuse a layer whose tensors the forward of its kind would not
     apply, or which lacks one it needs."""
     t = reader.tensors
-    ffn_sets = ([_MOE_FFN] if hp.n_expert else [_DENSE_FFN, _UP_DOWN_FFN])
     ffn = names & (_DENSE_FFN | _MOE_FFN)
-    if ffn not in ffn_sets:
+    if ffn not in _ffn_sets(hp, i, names):
         raise NotImplementedError(
             f"blk.{i} FFN tensors {sorted(ffn)}: this port carries "
-            + ("the Mixtral expert set" if hp.n_expert else
-               "the gated set or a non-gated up and down")
+            + ("the expert set (the gated set in the leading dense layers "
+               "and beside the experts with ffn_norm_exps)" if hp.n_expert
+               else "the gated set or a non-gated up and down")
             + " in every layer")
+    _check_moe_extras(hp, i, names)
     gated = "ffn_gate.weight" in names or (
         "ffn_up.weight" in names and
         t[f"blk.{i}.ffn_up.weight"].shape[-1] == 2 * hp.n_ff_of(i))
@@ -349,7 +444,10 @@ def _check_layer(reader: GGUFReader, hp: HParams, i: int,
                            "layer_output_norm are required in a post-norm "
                            f"layer (arch {hp.arch})")
     else:
-        odd += sorted(names & _POST_NORMS)
+        odd += sorted(names & _POST_NORMS - _BRANCH_NORMS.get(hp.arch, set()))
+        if hp.arch == "dbrx" and {"attn_output_norm.weight",
+                                  "ffn_norm.weight"} <= names:
+            odd.append("attn_output_norm.weight")
     for w in ("attn_q_norm", "attn_k_norm"):
         if f"{w}.bias" in names and (
                 hp.parallel_residual or f"{w}.weight" not in names or
@@ -360,7 +458,7 @@ def _check_layer(reader: GGUFReader, hp: HParams, i: int,
         raise NotImplementedError(
             f"blk.{i} tensors outside the layouts of the ported archs: "
             f"{odd} apply only in another kind of layer")
-    attn = names & (_QKV | {"attn_qkv.weight"})
+    attn = names & (_QKV | {"attn_qkv.weight"} | _MLA_Q | _MLA_KV)
     if not attends(hp, i):
         # deci: an attention-free layer has no attention tensors, a
         # linear-attention layer its norm and wo alone
@@ -380,13 +478,20 @@ def _check_layer(reader: GGUFReader, hp: HParams, i: int,
         if "ffn_norm.weight" not in names:
             raise KeyError(f"blk.{i}: ffn_norm.weight missing")
         return
-    if attn not in (_QKV, {"attn_qkv.weight"}):
+    if attn not in (_MLA_SETS if hp.n_lora_kv else
+                    (_QKV, {"attn_qkv.weight"})):
         raise NotImplementedError(
             f"blk.{i} attention tensors {sorted(attn)}: this port "
-            "carries attn_q, attn_k and attn_v or a fused attn_qkv")
+            + ("carries the MLA sets (attn_q or attn_q_a, attn_q_a_norm "
+               "and attn_q_b; attn_kv_a_mqa, attn_kv_a_norm and attn_kv_b)"
+               f" at kv_lora_rank {hp.n_lora_kv}" if hp.n_lora_kv else
+               "carries attn_q, attn_k and attn_v or a fused attn_qkv"))
+    # dbrx's pre-MoE norm is its attn_output_norm
+    ffn_normed = "ffn_norm.weight" in names or (
+        hp.arch == "dbrx" and "attn_output_norm.weight" in names)
     if hp.arch not in _NORMLESS and not hp.post_norm and (
             "attn_norm.weight" not in names or not (
-                "ffn_norm.weight" in names or hp.parallel_residual)):
+                ffn_normed or hp.parallel_residual)):
         raise KeyError(f"blk.{i}: a norm tensor is missing (arch "
                        f"{hp.arch} requires pre-norms)")
 
@@ -395,12 +500,19 @@ def _check_supported(reader: GGUFReader, hp: HParams) -> None:
     """Refuse what this port does not carry, instead of running another
     model than the file describes."""
     check_arch(hp.arch)
-    if hp.n_expert and (hp.expert_gating != "softmax" or hp.n_expert_shared
-                        or not hp.norm_topk):
+    if hp.n_expert and hp.expert_gating == "sparsemixer" and \
+            hp.n_expert_used != 2:
+        # the sparsemixer makes two picks whatever the count says
         raise NotImplementedError(
-            f"MoE with {hp.expert_gating} gating, {hp.n_expert_shared} shared "
-            f"experts, norm_topk={hp.norm_topk}: this port carries softmax "
-            "top-k routing with renormalized weights only")
+            f"sparsemixer routing with expert_used_count "
+            f"{hp.n_expert_used}: it routes each token to 2 experts")
+    if hp.n_lora_kv and (not hp.uniform_layers or
+                         not 0 < hp.rope_dim < hp.head_dim or
+                         hp.v_dim > hp.head_dim):
+        raise NotImplementedError(
+            f"MLA at head dim {hp.head_dim}, rope dim {hp.rope_dim}, value "
+            f"dim {hp.v_dim}: this port carries a roped tail of each head "
+            "and a value dim of at most the head dim, on uniform layers")
     if hp.n_expert and not 0 < hp.n_expert_used <= hp.n_expert:
         raise ValueError(f"expert_used_count {hp.n_expert_used} of "
                          f"{hp.n_expert} experts")
@@ -496,7 +608,23 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
         q_perm, k_perm = perms(i)
         n_q = hp.n_head_of(i) * hp.head_dim
         n_kv = hp.n_head_kv_of(i) * hp.head_dim
-        if p + "attn_qkv.weight" in t:
+        if p + "attn_kv_a_mqa.weight" in t:
+            # MLA: only the pe rows of a NORM-rope file (deepseek2) are
+            # permuted; minicpm3's are NEOX already
+            norm_rope = hp.rope_type == "norm"
+            mqp = _mla_q_perm(hp) if norm_rope else None
+            q_perm = k_perm = None
+            if p + "attn_q_a.weight" in t:
+                lw.wq_a = _repack_2d(reader, p + "attn_q_a.weight")
+                lw.attn_q_a_norm = _f32(reader, p + "attn_q_a_norm.weight")
+                lw.wq_b = _repack_2d(reader, p + "attn_q_b.weight", mqp)
+            else:
+                lw.wq = _repack_2d(reader, p + "attn_q.weight", mqp)
+            lw.wkv_a = _repack_2d(reader, p + "attn_kv_a_mqa.weight",
+                                  _mla_kva_perm(hp) if norm_rope else None)
+            lw.attn_kv_a_norm = _f32(reader, p + "attn_kv_a_norm.weight")
+            lw.wkv_b = _repack_2d(reader, p + "attn_kv_b.weight")
+        elif p + "attn_qkv.weight" in t:
             # fused [q; k; v] rows, as phi2, phi3, falcon, gptneox, qwen,
             # codeshell, gpt2, starcoder, bloom, mpt, jais, nomic-bert and
             # openelm (at the layer's head counts) store them, with the
@@ -543,17 +671,32 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
             # apply to the branch outputs, the sandwich post-norm slots
             lw.attn_post_norm, lw.attn_norm = lw.attn_norm, None
             lw.ffn_post_norm, lw.ffn_norm = lw.ffn_norm, None
-        if lw.wq is not None:
+        if hp.arch == "grok":
+            # the norms of the attention and MoE branch outputs
+            lw.attn_post_norm, lw.attn_out_norm = lw.attn_out_norm, None
+            lw.ffn_post_norm, lw.layer_out_norm = lw.layer_out_norm, None
+        if hp.arch == "dbrx" and lw.ffn_norm is None:
+            # dbrx's pre-MoE norm, under the encoders' name
+            lw.ffn_norm, lw.attn_out_norm = lw.attn_out_norm, None
+        if lw.wk is not None:
             lw.wqkv = fuse_qtensors([lw.wq, lw.wk, lw.wv])
             if lw.wqkv is not None:
                 lw.wq = lw.wk = lw.wv = None  # fused plane replaces them
-        if hp.n_expert:
+        if p + "ffn_gate_inp.weight" in t:
             # an F32 router gives a 'dense' QTensor (a plain product)
             lw.gate_inp = _repack_2d(reader, p + "ffn_gate_inp.weight")
             lw.gate_exps = _repack_3d(reader, p + "ffn_gate_exps.weight")
             lw.up_exps = _repack_3d(reader, p + "ffn_up_exps.weight")
             lw.down_exps = _repack_3d(reader, p + "ffn_down_exps.weight")
-            return lw
+            if p + "ffn_up_shexp.weight" in t:
+                for f in ("gate", "up", "down"):
+                    setattr(lw, f"{f}_shexp", _repack_2d(
+                        reader, p + f"ffn_{f}_shexp.weight"))
+            lw.gate_inp_shexp = opt("ffn_gate_inp_shexp.weight")
+            lw.exp_probs_b = opt("exp_probs_b.bias")
+            lw.ffn_norm_exps = opt("ffn_norm_exps.weight")
+            if p + "ffn_gate.weight" not in t:
+                return lw
         lw.w_down = _repack_2d(reader, p + "ffn_down.weight")
         n_up, n_ff = t[p + "ffn_up.weight"].shape[-1], hp.n_ff_of(i)
         if p + "ffn_gate.weight" in t:
@@ -790,6 +933,56 @@ def _attention(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
     return _add(linear_lora(attn_out, lw.wo, lw.lora.get("wo"), plain), lw.bo)
 
 
+def mla_qkv(cur: torch.Tensor, lw: LayerWeights, hp: HParams, positions,
+            inv_freq, mscale: float, plain: bool = False):
+    """MLA projections of the normed input cur [B, T, C] (deepseek2,
+    minicpm3): q by the low-rank wq_a -> RMS -> wq_b or a plain wq, each
+    head [nope | pe]; wkv_a -> [compressed kv | one shared k_pe]; RMS of
+    the compressed kv -> wkv_b -> each head [k_nope | v]. Rope turns the
+    pe slices only (k_pe once, broadcast to every head); v is zero-padded
+    to head_dim, so the paged KV cache and the attention kernels run at
+    one head dim. Returns q, k, v [B, T, H, head_dim]."""
+    b, tdim, _ = cur.shape
+    h, dk, rd, dv = hp.n_head, hp.head_dim, hp.rope_dim, hp.v_dim
+    nope = dk - rd
+    if lw.wq_a is not None:
+        qa = layers.rms_norm(linear(cur, lw.wq_a, plain), lw.attn_q_a_norm,
+                             hp.rms_eps)
+        q = linear(qa.to(torch.bfloat16), lw.wq_b, plain)
+    else:
+        q = linear_lora(cur, lw.wq, lw.lora.get("wq"), plain)
+    q = q.reshape(b, tdim, h, dk)
+    kva = linear(cur, lw.wkv_a, plain)
+    kv_c = layers.rms_norm(kva[..., :hp.n_lora_kv], lw.attn_kv_a_norm,
+                           hp.rms_eps)
+    kvb = linear(kv_c.to(torch.bfloat16), lw.wkv_b, plain).reshape(
+        b, tdim, h, nope + dv)
+    q_pe = layers.apply_rope(q[..., nope:], positions, inv_freq, mscale)
+    k_pe = layers.apply_rope(kva[..., None, hp.n_lora_kv:], positions,
+                             inv_freq, mscale)
+    q = torch.cat([q[..., :nope], q_pe], dim=-1)
+    k = torch.cat([kvb[..., :nope], k_pe.expand(b, tdim, h, rd)], dim=-1)
+    v = torch.nn.functional.pad(kvb[..., nope:], (0, dk - dv))
+    return q, k, v
+
+
+def _mla_attention(cur, lw, hp, positions, inv_freq, mscale, attend,
+                   plain: bool, tap) -> torch.Tensor:
+    """The MLA attention branch on the normed input: mla_qkv, attention at
+    head_dim, the output cut to v_dim a head, then wo and its bias,
+    float32 [B, T, C]."""
+    b, tdim, _ = cur.shape
+    if tap is not None:
+        tap("attn_in", cur)
+    q, k, v = mla_qkv(cur, lw, hp, positions, inv_freq, mscale, plain)
+    attn_out = attend(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                      v.to(torch.bfloat16))[..., :hp.v_dim]
+    attn_out = attn_out.reshape(b, tdim, hp.n_head * hp.v_dim)
+    if tap is not None:
+        tap("attn_out", attn_out)
+    return _add(linear_lora(attn_out, lw.wo, lw.lora.get("wo"), plain), lw.bo)
+
+
 def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
                   positions: torch.Tensor, inv_freq: torch.Tensor,
                   mscale: float, attend, plain: bool = False,
@@ -800,7 +993,10 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
     projection: "attn_in" (q, k, v), "attn_out" (wo, or the linear
     attention's projection), "ffn_in" (gate and up, or up alone, or the
     router and experts), "ffn_act" (down). A layer that does not attend
-    (attends) never calls attend."""
+    (attends) never calls attend. An MLA layer adds its attention branch
+    as it is (no post norm, no residual scale, as the reference adds it);
+    arctic's layer adds its dense MLP on the post-attention sum and its
+    experts on the layer input (_forward_layer_arctic)."""
     if hp.post_norm:
         return _forward_layer_postnorm(x, lw, hp, positions, inv_freq,
                                        mscale, attend, plain, tap)
@@ -810,6 +1006,10 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
     if attention_free(hp, li):        # deci: the block is its FFN
         return _forward_layer_ffn(x, lw, hp, plain, tap)
     cur = _norm(hp, x, lw.attn_norm, lw.attn_norm_b)
+    if lw.wkv_a is not None:
+        o = _mla_attention(cur, lw, hp, positions, inv_freq, mscale, attend,
+                           plain, tap)
+        return _forward_layer_ffn(x + o.to(x.dtype), lw, hp, plain, tap)
     if linear_attention(hp, li):
         # deci: wo on the normed input replaces attention; its adapter
         # applies as llama.cpp's build_lora_mm applies it (the reference
@@ -824,8 +1024,27 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
         o = layers.rms_norm(o, lw.attn_post_norm, hp.rms_eps)
     if hp.residual_scale != 1.0:       # granite
         o = o * hp.residual_scale
+    if lw.ffn_norm_exps is not None:
+        return _forward_layer_arctic(x, x + o.to(x.dtype), lw, hp, plain,
+                                     tap)
     x = x + o.to(x.dtype)
     return _forward_layer_ffn(x, lw, hp, plain, tap)
+
+
+def _forward_layer_arctic(x_in, x, lw, hp, plain: bool = False,
+                          tap=None) -> torch.Tensor:
+    """Arctic's FFN half: the dense MLP on the norm of the post-attention
+    sum x, the experts on ffn_norm_exps of the layer input x_in, both
+    added to x; then the control vector. The tap sees the dense MLP's
+    input (the experts read another one)."""
+    dense = _dense_ffn(_norm(hp, x, lw.ffn_norm, lw.ffn_norm_b), lw, hp,
+                       plain, tap)
+    x = x + dense.to(x.dtype)
+    moe = moe_ffn(_norm(hp, x_in, lw.ffn_norm_exps, None), lw, hp, plain)
+    x = x + moe.to(x.dtype)
+    if lw.cvec is not None:
+        x = x + lw.cvec.to(x.dtype)
+    return x
 
 
 def _forward_layer_parallel(x, lw, hp, positions, inv_freq, mscale, attend,
@@ -870,28 +1089,75 @@ def _forward_layer_postnorm(x, lw, hp, positions, inv_freq, mscale, attend,
                              lw.layer_out_norm_b, hp.rms_eps).to(x.dtype)
 
 
-def moe_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
-            plain: bool = False) -> torch.Tensor:
-    """Mixtral-style routing: softmax over the router logits, top-k
-    experts, weights renormalized and scaled; the experts run
-    through the grouped matmul (_moe_grouped). x [B, T, C] -> [B, T, C]
-    float32."""
-    b, tdim = x.shape[0], x.shape[1]
-    xf = x.reshape(-1, x.shape[-1])
-    router = linear(xf, lw.gate_inp, plain)               # [M, E]
-    probs = torch.softmax(router, dim=-1)
-    topv, topi = torch.topk(probs, hp.n_expert_used, dim=-1)
-    topv = topv / topv.sum(dim=-1, keepdim=True)
+def _route(router: torch.Tensor, lw: LayerWeights, hp: HParams):
+    """The top-k experts of each row of router logits [M, E] and their
+    weights, in the reference's order of operations: softmax or sigmoid
+    probabilities, the selection biased by exp_probs_b where given (the
+    weights stay unbiased), weights renormalized under norm_topk, times
+    expert_weights_scale; or phimoe's sparsemixer: two picks, each
+    weighted by the softmax at its pick over the experts within
+    2 * router_jitter (relative) of the best left, not renormalized. Torch
+    ops on the router's device, no host sync."""
+    if hp.expert_gating == "sparsemixer":
+        eps2 = 2.0 * hp.router_jitter
+
+        def pick(scores):
+            m = scores.amax(dim=-1, keepdim=True)
+            f = torch.maximum(scores.abs(), m)
+            g = scores.masked_fill((m - scores) / f > eps2, float("-inf"))
+            i = scores.argmax(dim=-1, keepdim=True)
+            return i, torch.softmax(g, dim=-1).gather(-1, i)
+
+        i1, w1 = pick(router)
+        i2, w2 = pick(router.scatter(-1, i1, float("-inf")))
+        topi, topv = torch.cat([i1, i2], dim=-1), torch.cat([w1, w2], dim=-1)
+    else:
+        probs = (torch.sigmoid(router) if hp.expert_gating == "sigmoid"
+                 else torch.softmax(router, dim=-1))
+        if lw.exp_probs_b is not None:
+            topi = torch.topk(probs + lw.exp_probs_b, hp.n_expert_used,
+                              dim=-1).indices
+            topv = probs.gather(-1, topi)
+        else:
+            topv, topi = torch.topk(probs, hp.n_expert_used, dim=-1)
+        if hp.norm_topk:
+            topv = topv / topv.sum(dim=-1, keepdim=True)
     if hp.expert_weights_scale != 1.0:
         topv = topv * hp.expert_weights_scale
+    return topi, topv
+
+
+def moe_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
+            plain: bool = False) -> torch.Tensor:
+    """The routed experts: the router's logits, the routing (_route), the
+    experts through the grouped matmul (_moe_grouped). x [B, T, C] ->
+    [B, T, C] float32."""
+    b, tdim = x.shape[0], x.shape[1]
+    xf = x.reshape(-1, x.shape[-1])
+    topi, topv = _route(linear(xf, lw.gate_inp, plain), lw, hp)
     out = _moe_grouped(xf, lw, hp, topi, topv, plain)
     return out.reshape(b, tdim, hp.n_embd)
 
 
+def shared_expert_ffn(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
+                      plain: bool = False) -> torch.Tensor:
+    """The shared experts on the normed input: the gated FFN of the
+    arch's activation, times sigmoid(cur . gate_inp_shexp) in float32
+    where that vector exists (qwen2moe), always on otherwise (deepseek,
+    deepseek2). float32 [B, T, C]."""
+    g = linear(cur, lw.gate_shexp, plain)
+    u = linear(cur, lw.up_shexp, plain)
+    sh = linear(layers.swiglu(g, u, hp.act_fn), lw.down_shexp, plain)
+    if lw.gate_inp_shexp is not None:
+        sh = sh * torch.sigmoid(cur.float() @ lw.gate_inp_shexp.float()
+                                )[..., None]
+    return sh
+
+
 def _moe_grouped(xf, lw, hp, topi, topv, plain: bool = False):
     """Route once, reuse the plan for gate/up/down: one gather into
-    scratch-row space, gate -> SwiGLU -> down there, one weighted
-    scatter-add back per token."""
+    scratch-row space, gate -> the arch's gated activation -> down there,
+    one weighted scatter-add back per token."""
     m = xf.shape[0]
     tile_m = (gmm_mod.TILE_GEMV if m * hp.n_expert_used <= 256
               else gmm_mod.TILE_GEMM)
@@ -900,7 +1166,7 @@ def _moe_grouped(xf, lw, hp, topi, topv, plain: bool = False):
     xs = xf[routing.tok_idx.long()]
     g = gmm_mod.gmm_apply(xs, lw.gate_exps, routing, tile_m, plain)
     u = gmm_mod.gmm_apply(xs, lw.up_exps, routing, tile_m, plain)
-    h = layers.swiglu(g, u)
+    h = layers.swiglu(g, u, hp.act_fn)
     y = gmm_mod.gmm_apply(h, lw.down_exps, routing, tile_m, plain)
     return gmm_mod.combine(y, routing, m)
 
@@ -908,13 +1174,22 @@ def _moe_grouped(xf, lw, hp, topi, topv, plain: bool = False):
 def _ffn(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
          plain: bool = False, tap=None) -> torch.Tensor:
     """The FFN on its normed input cur, before the down bias: the routed
-    experts of a MoE layer; gate|up (+ gate and up biases) -> SwiGLU or
-    GeGLU (-> bitnet's sub-norm) -> down; or a non-gated up (+ bias) ->
-    GELU (tanh or erf) or squared ReLU -> down. float32 [B, T, C]."""
+    experts of a MoE layer, or the dense FFN (_dense_ffn). float32
+    [B, T, C]."""
+    if lw.gate_inp is not None:
+        if tap is not None:
+            tap("ffn_in", cur)
+        return moe_ffn(cur, lw, hp, plain)
+    return _dense_ffn(cur, lw, hp, plain, tap)
+
+
+def _dense_ffn(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
+               plain: bool = False, tap=None) -> torch.Tensor:
+    """gate|up (+ gate and up biases) -> SwiGLU or GeGLU (-> bitnet's
+    sub-norm) -> down; or a non-gated up (+ bias) -> GELU (tanh or erf)
+    or squared ReLU -> down. float32 [B, T, C]."""
     if tap is not None:
         tap("ffn_in", cur)
-    if lw.gate_inp is not None:
-        return moe_ffn(cur, lw, hp, plain)
     if lw.w_gate is None and lw.w_gateup is None:
         u = _add(linear_lora(cur, lw.w_up, lw.lora.get("w_up"), plain),
                  lw.b_up)
@@ -932,10 +1207,12 @@ def _ffn(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
 def _forward_layer_ffn(x: torch.Tensor, lw: LayerWeights, hp: HParams,
                        plain: bool = False, tap=None) -> torch.Tensor:
     """FFN half of a sequential layer: the norm, the FFN and its down
-    bias, the residual scale, the post-FFN norm, the residual; then the
-    control vector, if any."""
-    ffn = _add(_ffn(_norm(hp, x, lw.ffn_norm, lw.ffn_norm_b), lw, hp, plain,
-                    tap), lw.b_down)
+    bias, the shared experts, the residual scale, the post-FFN norm, the
+    residual; then the control vector, if any."""
+    cur = _norm(hp, x, lw.ffn_norm, lw.ffn_norm_b)
+    ffn = _add(_ffn(cur, lw, hp, plain, tap), lw.b_down)
+    if lw.up_shexp is not None:
+        ffn = ffn + shared_expert_ffn(cur, lw, hp, plain)
     if hp.residual_scale != 1.0:       # granite
         ffn = ffn * hp.residual_scale
     if lw.ffn_post_norm is not None:

@@ -11,7 +11,10 @@ lora_b rows of attn_q and attn_k are permuted as the loader permutes the
 base rows (NORM-layout GGUF rows -> half-split rope, at the layer's own
 head counts; a NEOX arch's rows stay as they are), so the update lands in
 the same space. (The reference permutes at the global counts, which
-raises on a deci layer with fewer KV heads, ROADMAP §3 fault 21.)
+raises on a deci layer with fewer KV heads, ROADMAP §3 fault 21.) An MLA
+file's plain attn_q (deepseek2-lite) has only each head's pe tail
+permuted, as the loader permutes it (the reference permutes whole heads,
+fault 23).
 
 merge_lora() bakes an adapter into a dense GGUF (the export-lora tool),
 on the host in numpy.
@@ -28,7 +31,7 @@ from ..gguf.reader import GGUFReader
 from ..gguf.writer import GGUFWriter
 from ..weights import lora_to_torch
 from .hparams import HParams, hparams_from_metadata
-from .llama import LlamaWeights, _unpermute_rows
+from .llama import LlamaWeights, _mla_q_perm, _unpermute_rows
 
 # LayerWeights field <-> GGUF tensor base name
 _TARGETS = {
@@ -69,6 +72,8 @@ def load_lora(path: str, hp: HParams, permute: bool = True) -> LoraAdapter:
         parts = base.split(".", 2)
         if not permute or hp.rope_type != "norm" or parts[-1] not in heads:
             return None
+        if hp.n_lora_kv:
+            return _mla_q_perm(hp)
         return _unpermute_rows(heads[parts[-1]](int(parts[1])), hp.head_dim,
                                hp.rope_dim)
 

@@ -26,12 +26,17 @@ NEOX rope and a SwiGLU FFN) and jina-bert-v2 (symmetric ALiBi, GeGLU),
 non-causal and without an LM head; per-layer geometry: openelm (per-layer
 query and KV heads and FFN widths, shared per-head QK RMS norms) and deci
 (per-layer KV heads, attention-free and linear-attention layers); and
-chameleon (per-head QK LayerNorms with biases, the 34B's swin norms).
-Every other arch the reference registers is refused by name with the
-item that ports it: 7 qwen2vl (M-RoPE, which waits on the vision tower
-of item 9 and the embedding prefill of item 11), 8 the other MoE forms
-(and the MLA attention of deepseek2 and minicpm3), 9 the other model
-families.
+chameleon (per-head QK LayerNorms with biases, the 34B's swin norms);
+the other MoE forms: qwen2moe (a sigmoid-gated shared expert), qwen3moe,
+olmoe and granitemoe (softmax top-k, renormalized or not), deepseek
+(leading dense layers, ungated shared experts), deepseek2 (the same with
+MLA attention, sigmoid gating and the selection bias of V3), phimoe (the
+sparsemixer), dbrx, grok (GELU experts, post-branch norms, an attention
+softcap) and arctic (a dense MLP beside the experts), and minicpm3 (MLA
+with a q LoRA at head dim 96). Every other arch the reference registers
+is refused by name with the item that ports it: 7 qwen2vl (M-RoPE,
+which waits on the vision tower of item 9 and the embedding prefill of
+item 11), 9 the other model families.
 """
 from __future__ import annotations
 
@@ -42,17 +47,15 @@ PORTED = ("llama", "mistral", "mixtral", "gemma", "gemma2", "gemma3",
           "qwen", "exaone", "codeshell", "chatglm", "cohere2", "plamo",
           "bitnet", "gpt2", "starcoder", "bloom", "mpt", "jais", "refact",
           "bert", "nomic-bert", "jina-bert-v2", "openelm", "deci",
-          "chameleon")
+          "chameleon", "qwen2moe", "qwen3moe", "olmoe", "deepseek2",
+          "deepseek", "phimoe", "dbrx", "arctic", "grok", "granitemoe",
+          "minicpm3")
 
 _ITEM_7 = ("qwen2vl",)
-_ITEM_8 = ("qwen2moe", "qwen3moe", "olmoe", "deepseek2", "deepseek",
-           "phimoe", "dbrx", "arctic", "grok", "granitemoe", "minicpm3")
 _ITEM_9 = ("t5", "t5encoder", "mamba", "rwkv6", "rwkv6qwen2", "rwkv7",
            "arwkv7", "wavtokenizer-dec")
-UNPORTED = {**dict.fromkeys(_ITEM_7, 7), **dict.fromkeys(_ITEM_8, 8),
-            **dict.fromkeys(_ITEM_9, 9)}
+UNPORTED = {**dict.fromkeys(_ITEM_7, 7), **dict.fromkeys(_ITEM_9, 9)}
 _ITEMS = {7: "qwen2vl's M-RoPE, with the vision tower of item 9",
-          8: "the other MoE forms",
           9: "the other model families"}
 
 

@@ -27,7 +27,7 @@ from .layers import attention
 
 # the head dims K2 is built for (csrc/flash_prefill.cu; 100 runs padded to
 # 112 inside the kernel); any other raises on CUDA
-HEAD_DIMS = (64, 80, 96, 100, 128, 256)
+HEAD_DIMS = (64, 80, 96, 100, 128, 192, 256)
 
 
 def gather_pages(pages: torch.Tensor, page_indices: torch.Tensor) -> torch.Tensor:

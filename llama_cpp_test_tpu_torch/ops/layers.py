@@ -66,7 +66,10 @@ def rope_freqs(hp: HParams) -> tuple[np.ndarray, float]:
         high = min(half - 1.0, math.ceil(corr_dim(hp.yarn_beta_slow)))
         ramp = _yarn_ramp(low, high, hp.rope_dim)
         inv_freq = inv_freq / factor * (1 - ramp) + inv_freq * ramp
-        mscale *= 1.0 + 0.1 * math.log(factor)
+        if hp.arch != "deepseek2":
+            # deepseek2 folds the YaRN magnitude into its attention scale
+            # (hparams.attn_scale); its rope runs at magnitude 1
+            mscale *= 1.0 + 0.1 * math.log(factor)
     return np.asarray(inv_freq, np.float32), mscale
 
 

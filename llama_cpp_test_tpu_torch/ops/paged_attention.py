@@ -25,7 +25,7 @@ from . import _cuda
 
 # the head dims K3 and K3-q8 are built for (csrc/paged_attention.cu; 100
 # runs padded to 112 inside the kernel); any other raises on CUDA
-HEAD_DIMS = (64, 80, 96, 100, 128, 256)
+HEAD_DIMS = (64, 80, 96, 100, 128, 192, 256)
 
 # The plan's caps live here only: the kernel takes any split it is given
 # (it stages a range's page ids in shared memory, 4 bytes each, and its

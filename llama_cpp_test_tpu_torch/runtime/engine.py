@@ -382,13 +382,17 @@ class Context:
         for bi in range(len(s.table.blocks)):
             s.table._ensure_writable(bi)
         self._drain_copies([s])
+        hp = self.model.hp
         with torch.inference_mode():
             kv_cache.apply_shift(self.pools, self._to_dev(np.asarray(src)),
                                  self._to_dev(np.asarray(dst)),
                                  self._to_dev(np.asarray(delta, np.int32)),
                                  [self.w.inv_freq_for(
-                                     hparams_mod.layer_window(self.model.hp, li))
-                                  for li in range(self.model.hp.n_layer)])
+                                     hparams_mod.layer_window(hp, li))
+                                  for li in range(hp.n_layer)],
+                                 # an MLA K ropes its pe tail only
+                                 hp.head_dim - hp.rope_dim if hp.n_lora_kv
+                                 else 0)
 
     def shift_context(self, s: SeqState, n_keep: int, n_discard: int) -> None:
         """Context shift: drop tokens [n_keep, n_keep+n_discard), slide the

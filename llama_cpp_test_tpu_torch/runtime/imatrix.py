@@ -56,15 +56,21 @@ def _fed_by(role: str, lw, names) -> tuple:
     the names of the layer's file tensors (`names`: a set of suffixes,
     or None for weights that came without a file)."""
     if role == "attn_in":
+        if lw.wkv_a is not None:       # MLA
+            return ("attn_q_a.weight" if lw.wq_a is not None
+                    else "attn_q.weight", "attn_kv_a_mqa.weight")
         if names is not None and "attn_qkv.weight" in names:
             return ("attn_qkv.weight",)
         return ("attn_q.weight", "attn_k.weight", "attn_v.weight")
     if role == "attn_out":
         return ("attn_output.weight",)
     if role == "ffn_in":
-        if lw.gate_inp is not None:
+        # arctic's tap is its dense MLP's input (the experts read another)
+        if lw.gate_inp is not None and lw.ffn_norm_exps is None:
+            shared = (("ffn_gate_shexp.weight", "ffn_up_shexp.weight")
+                      if lw.up_shexp is not None else ())
             return ("ffn_gate_inp.weight", "ffn_gate_exps.weight",
-                    "ffn_up_exps.weight")
+                    "ffn_up_exps.weight") + shared
         if lw.w_gate is None and lw.w_gateup is None:
             return ("ffn_up.weight",)
         if names is not None and "ffn_gate.weight" not in names:

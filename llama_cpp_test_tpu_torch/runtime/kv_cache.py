@@ -210,7 +210,8 @@ def scatter_seq(pools: KVPools, k: list, v: list,
 
 
 def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
-                delta: torch.Tensor, inv_freqs: list[torch.Tensor]) -> None:
+                delta: torch.Tensor, inv_freqs: list[torch.Tensor],
+                rope_at: int = 0) -> None:
     """Move cached tokens between slots, re-rotating K by a per-token
     position delta, in place (the K-shift of context shift, prompt-cache
     reuse and Self-Extend; reference kv_cache.apply_shift). inv_freqs
@@ -222,7 +223,10 @@ def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
     p + delta. The rotation is unscaled on purpose: stored K already
     carries mscale from its first rope. A layer whose table is None
     (cohere2's global layers, which take no rope) moves its K unrotated.
-    V moves without rotation. A q8_0 pool is dequantized, rotated and
+    rope_at is the first roped dim of a K row: an MLA K (deepseek2,
+    minicpm3) is [nope | pe] and only its pe tail was roped, so only that
+    tail turns (the reference turns the first rope_dim dims, ROADMAP §3
+    fault 24). V moves without rotation. A q8_0 pool is dequantized, rotated and
     requantized in the reference's op order; every read happens before
     any write. Each layer moves at its own KV head count (the reference
     takes layer 0's for all, ROADMAP §3 fault 19)."""
@@ -236,9 +240,9 @@ def apply_shift(pools: KVPools, src: torch.Tensor, dst: torch.Tensor,
             vsflat = pools.v_scale[li].view(kv, nb * bs)
             kg = kg * ksflat[:, src, None]               # dequantize
         if inv_freqs[li] is not None:
-            kg = kg.transpose(0, 1)[None]                # [1, n, KV, D]
-            kg = layers.apply_rope(kg, delta[None], inv_freqs[li], 1.0)
-            kg = kg[0].transpose(0, 1)
+            pe = kg[..., rope_at:].transpose(0, 1)[None]  # [1, n, KV, R]
+            pe = layers.apply_rope(pe, delta[None], inv_freqs[li], 1.0)
+            kg = torch.cat([kg[..., :rope_at], pe[0].transpose(0, 1)], -1)
         vg = vflat[:, src]
         if pools.quantized:
             kq, ksc = quantize_q8(kg)                    # requantize K

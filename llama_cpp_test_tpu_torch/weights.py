@@ -8,13 +8,18 @@ of the reference's parameters (every LayerWeights field by name: the
 biases, QK norms and sandwich norms of the gemma and qwen archs, the
 LayerNorm biases, falcon-40B's second norm, the projection and gate
 biases, bitnet's sub-norms, chameleon's QK-norm biases and the encoders'
-post-norms too; every LlamaWeights field likewise: the sliding-window and
+post-norms, the shared experts and their gate, the selection bias,
+arctic's MoE-branch norm and the MLA planes and norms too; every
+LlamaWeights field likewise: the sliding-window and
 long-rope tables, the final norm's and lm head's biases, the learned
 position rows, the token-type rows, the embedding LayerNorm and
 cohere2's nope_global flag; the per-layer geometry rides the HParams and
 the planes' own shapes). bf16 bit patterns (uint16) become
 torch.bfloat16, int8/uint8 planes keep their type, float arrays become
-float32. Expert stacks (a leading E axis on every plane) move the same way.
+float32. Expert stacks (a leading E axis on every plane) move the same
+way; a reference that fused gate|up expert stacks into one plane (its
+LLAMA_TPU_MOE_FUSE load) has them split back into the separate stacks
+the port's loader makes.
 Attached adapters move too: each LoRA pair (A, B, scale) as float32
 tensors holding A and B rounded to bf16, a control vector as float32.
 """
@@ -98,25 +103,37 @@ def _layer_fields(lw, conv, conv_lora) -> LayerWeights:
     return LayerWeights(**out)
 
 
+def split_expert_stacks(qt: QTensor) -> tuple[QTensor, QTensor]:
+    """A fused gate|up expert stack (host planes; parts ((npk, n_orig) of
+    gate, of up), every plane's columns concatenated on its last axis) as
+    the separate gate and up stacks."""
+    (npk_g, n_g), (npk_u, n_u) = qt.parts
+    cut = lambda a, lo, hi: None if a is None else np.ascontiguousarray(
+        a[..., lo:hi])
+    return tuple(
+        QTensor(qt.kind, (npk * qt.pack, qt.shape[1]), n, qt.group,
+                cut(qt.qs, lo, lo + npk), cut(qt.scale, lo, lo + npk),
+                cut(qt.min_, lo, lo + npk), qt.lut, qt.ggml_type, qt.layout)
+        for lo, npk, n in ((0, npk_g, n_g), (npk_g, npk_u, n_u)))
+
+
 def port_weights_from_reference(jw) -> LlamaWeights:
     """The reference's loaded parameters (any object with the attributes
     of its LlamaWeights, planes as arrays) as the port's host planes: every
     LayerWeights field by name, the expert stacks and the router
     included, and the LoRA pairs and control vector attached to it. An
     encoder's lm head, which the reference points at the embedding rows
-    and never dispatches, becomes None, as the port's loader leaves it. A
-    reference that fused gate|up expert stacks into one plane
-    (its LLAMA_TPU_MOE_FUSE load) is refused: the port keeps them apart."""
-    for i, lw in enumerate(jw.layers):
-        if getattr(lw, "gate_inp", None) is not None and (
-                lw.gate_exps is None or lw.up_exps is None):
-            raise NotImplementedError(
-                f"layer {i}: fused gate|up expert stacks; the port carries "
-                "separate gate and up stacks")
+    and never dispatches, becomes None, as the port's loader leaves it.
+    Fused gate|up expert stacks (the reference's LLAMA_TPU_MOE_FUSE load)
+    are split back into the gate and up stacks (split_expert_stacks)."""
     conv = lambda x: None if x is None else (
         port_qtensor(x) if hasattr(x, "kind") else np.asarray(x, np.float32))
     conv_lora = lambda p: (host_array(p[0]), host_array(p[1]), float(p[2]))
     layers = [_layer_fields(lw, conv, conv_lora) for lw in jw.layers]
+    for lw, jl in zip(layers, jw.layers):
+        fused = getattr(jl, "gateup_exps", None)
+        if fused is not None:
+            lw.gate_exps, lw.up_exps = split_expert_stacks(conv(fused))
     out = _top_fields(jw, conv, layers)
     if getattr(jw.output, "layout", "t") == "rows":
         out.output = None

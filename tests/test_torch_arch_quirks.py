@@ -273,7 +273,7 @@ def run(main, argv, **kw):
 
 
 @pytest.mark.parametrize("arch,item", [("qwen2vl", 7), ("rwkv6", 9),
-                                       ("qwen2moe", 8), ("deepseek2", 8),
+                                       ("rwkv7", 9), ("wavtokenizer-dec", 9),
                                        ("mamba", 9), ("t5", 9)])
 def test_unported_archs_name_their_item(tmp_path, arch, item):
     """Model, the CLI and the server refuse an arch the port does not

@@ -12,10 +12,10 @@ u2lut kinds (groups 16, 32 and 256), K1's GEMM at M 9-512 (its one- and
 two-warpgroup tiles, ragged rows) and K up to 14336 with npk 640/pack
 (a ragged 256-column tile for int8), its refusals, K5 on every kind (and
 against K1 at M 130-512, K 512 and 4096), K2 at G in {1, 2, 4, 8, 71}
-(71: Falcon-7B), D in {64, 80, 96, 100, 128, 256} and BS in {8, 16, 64}
+(71: Falcon-7B), D in {64, 80, 96, 100, 128, 192, 256} and BS in {8, 16, 64}
 with a sliding window, softcap and a cached prefix, windowed decode on the
 gather path, K3 (bf16 and q8 pages) at G in {1, 2, 4, 8, 71} and D in
-{64, 80, 96, 100, 128, 256} with softcap and very short caches, and with a
+{64, 80, 96, 100, 128, 192, 256} with softcap and very short caches, and with a
 sequence's pages split across blocks (~4000 cached tokens at B = 1, at
 Phi-2's and BitNet-3B's geometry too, 4608 at Gemma-2's, one long
 sequence beside ones shorter than a split, BitNet-3B's D = 100 at B = 8),
@@ -295,10 +295,11 @@ def _i32(a, dev):
 @pytest.mark.parametrize("h,kv,d", [(8, 2, 64), (4, 4, 64), (32, 4, 64),
                                     (32, 8, 128), (8, 4, 256), (4, 1, 256),
                                     (4, 4, 80), (8, 2, 96), (71, 1, 64),
-                                    (4, 4, 100), (8, 2, 100)],
+                                    (4, 4, 100), (8, 2, 100), (16, 16, 192),
+                                    (8, 2, 192)],
                          ids=["G4", "G1", "G8", "G4-D128", "G2-D256",
                               "G4-D256", "G1-D80", "G4-D96", "G71",
-                              "G1-D100", "G4-D100"])
+                              "G1-D100", "G4-D100", "G1-D192", "G4-D192"])
 @pytest.mark.parametrize("window,cap,start", [(0, 0.0, 0), (5, 0.0, 0),
                                               (0, 30.0, 0), (7, 50.0, 40)])
 def test_flash_prefill_kernel_matches_plain(cuda, h, kv, d, window, cap, start,
@@ -381,7 +382,8 @@ def test_windowed_decode_takes_the_gather_path(cuda, q8):
                                     (20, 2, 64), (40, 1, 128), (2, 4, 256),
                                     (4, 1, 256), (1, 4, 80), (1, 4, 96),
                                     (4, 2, 96), (71, 1, 64), (1, 4, 100),
-                                    (4, 2, 100), (20, 1, 100)])
+                                    (4, 2, 100), (20, 1, 100), (1, 16, 192),
+                                    (4, 2, 192)])
 @pytest.mark.parametrize("cap,short", [(None, False), (30.0, False),
                                        (None, True)], ids=["plain", "softcap",
                                                            "short"])
@@ -405,7 +407,8 @@ def test_paged_decode_kernel_matches_plain(cuda, g, kv, d, cap, short):
 @pytest.mark.parametrize("g,kv,d", [(1, 4, 64), (4, 2, 64), (4, 8, 128),
                                     (20, 1, 128), (2, 4, 256), (4, 1, 256),
                                     (1, 4, 80), (1, 4, 96), (71, 1, 64),
-                                    (1, 4, 100), (4, 2, 100)])
+                                    (1, 4, 100), (4, 2, 100), (1, 16, 192),
+                                    (4, 2, 192)])
 @pytest.mark.parametrize("cap,short", [(None, False), (30.0, False),
                                        (None, True)], ids=["plain", "softcap",
                                                            "short"])
@@ -506,9 +509,9 @@ def test_paged_decode_kernel_any_page_size(cuda, q8, bs):
     assert nmse(ref.float().cpu(), got.float().cpu()) < 2e-4
 
 
-@pytest.mark.parametrize("d", [32, 72, 112, 512])
+@pytest.mark.parametrize("d", [32, 72, 112, 160, 512])
 def test_attention_kernels_refuse_other_head_dims(cuda, d):
-    """K2 and K3 take D in {64, 80, 96, 100, 128, 256}; any other head dim
+    """K2 and K3 take D in {64, 80, 96, 100, 128, 192, 256}; any other head dim
     raises on CUDA (72, and 112, the dim D = 100 runs at inside the
     kernels, too), with no fallback to the plain version."""
     b, t, h, kv, bs, nb = 1, 4, 4, 2, 16, 2

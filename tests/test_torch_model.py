@@ -242,13 +242,25 @@ def test_moe_port_runs_on_reference_parameters(moe_models):
 
 
 def test_moe_fused_reference_parameters_raise(moe_models, monkeypatch):
-    """A reference loaded with its gate|up expert stacks fused is refused:
-    the port carries gate and up as separate stacks."""
+    """A reference loaded with its gate|up expert stacks fused is carried
+    with the stacks split back apart (the port keeps gate and up as
+    separate stacks): the split planes equal the port loader's, and the
+    port on them gives its own logits."""
+    path, _, pmodel = moe_models
     monkeypatch.setenv("LLAMA_TPU_MOE_FUSE", "1")
-    _, jw = jllama.load_weights(GGUFReader(moe_models[0]))
+    _, jw = jllama.load_weights(GGUFReader(path))
     assert jw.layers[0].gate_exps is None
-    with pytest.raises(NotImplementedError):
-        port_weights_from_reference(jw)
+    pw = port_weights_from_reference(jw)
+    _, own = pllama.load_weights(PGGUFReader(path))
+    for lw, ol in zip(pw.layers, own.layers):
+        for f in ("gate_exps", "up_exps"):
+            assert_same_qtensor(getattr(ol, f), getattr(lw, f), f)
+    model = pengine.Model.from_weights(pmodel.hp, pw, device="cpu")
+    ctx = pengine.Context(model, n_ctx=64, n_seq_max=2, block_size=8)
+    own_ctx = pengine.Context(pmodel, n_ctx=64, n_seq_max=2, block_size=8)
+    np.testing.assert_array_equal(
+        ctx.prefill(ctx.new_seq(), PROMPT, all_logits=True),
+        own_ctx.prefill(own_ctx.new_seq(), PROMPT, all_logits=True))
 
 
 def _moe_variant(path, arch="llama", md=None, add=(), drop=()):
@@ -273,17 +285,29 @@ def _moe_variant(path, arch="llama", md=None, add=(), drop=()):
     return path
 
 
+_DENSE_SET = ["blk.0.ffn_gate.weight", "blk.0.ffn_up.weight",
+              "blk.0.ffn_down.weight"]
+_EXPERT_SET = ["blk.0.ffn_gate_inp.weight", "blk.0.ffn_gate_exps.weight",
+               "blk.0.ffn_up_exps.weight", "blk.0.ffn_down_exps.weight"]
+
+
 @pytest.mark.parametrize("variant", [
-    dict(arch="qwen2moe"),
-    dict(arch="deepseek2"),
-    dict(md={"expert_gating_func": 2}),
+    # a shared-expert gate without its expert
+    dict(arch="qwen2moe", add=["blk.0.ffn_gate_inp_shexp.weight"]),
+    # a kv LoRA rank on a layer without the MLA tensors
+    dict(arch="deepseek2", md={"attention.kv_lora_rank": 4}),
+    # experts in a leading dense layer
+    dict(md={"expert_gating_func": 2, "leading_dense_block_count": 1}),
+    # the sparsemixer at one expert a token
     dict(arch="phimoe"),
     dict(md={"expert_shared_count": 1}),
-    dict(add=["blk.0.ffn_up_shexp.weight", "blk.0.ffn_gate_shexp.weight",
-              "blk.0.ffn_down_shexp.weight"]),
-    dict(add=["blk.0.exp_probs_b.bias"]),
-    dict(add=["blk.0.ffn_gate.weight", "blk.0.ffn_up.weight",
-              "blk.0.ffn_down.weight"]),
+    # two of the three shared-expert planes
+    dict(add=["blk.0.ffn_up_shexp.weight", "blk.0.ffn_gate_shexp.weight"]),
+    # the selection bias in a dense layer
+    dict(md={"leading_dense_block_count": 1}, drop=_EXPERT_SET,
+         add=["blk.0.exp_probs_b.bias"] + _DENSE_SET),
+    # a dense MLP beside the experts without arctic's ffn_norm_exps
+    dict(add=_DENSE_SET),
     dict(drop=["blk.0.ffn_up_exps.weight"]),
 ], ids=["qwen2moe", "deepseek2", "sigmoid-gating", "sparsemixer",
         "shared-count", "shexp-tensors", "exp-probs-b", "dense-beside",
