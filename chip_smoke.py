@@ -25,23 +25,23 @@ non-zero before the final line:
            kernel/plain/library times, SDPA's backend, roofline bound); one
            K1 and one K4 GEMV call, captured in a CUDA graph, must each hold
            one kernel and no memset, and give the same bits twice
-  serve    a TinyLlama-1.1B-geometry Q4_K GGUF (full width, 4 of 22
+  serve    a TinyLlama-1.1B-geometry Q4_K GGUF (full width, 2 of 22
            layers) synthesized from seeded random block bytes is loaded with Model(path) on cuda and serves
            three generate() requests plus one batched decode; the launch
            count of every kernel of that path must be > 0, and the logits
            at every row of a prefill and of the next decode steps are held
            against the plain path, its min rounded as the TPU kernels round
            it (the XLA path's joint rounding is recorded beside)
-  serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 2
-           layers), served by two Contexts, bf16 and q8_0 KV, each with
+  serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 1
+           layer), served by two Contexts, bf16 and q8_0 KV, each with
            three generate() requests and one batched decode of 8 sequences;
            the logits gate holds the rows whose expert routing agrees with
            the plain path's, and the rows whose routing differs are counted
   serve_iq4xs  the same for a Llama-3-70B-geometry IQ4_XS GGUF (full width,
-           2 layers; u4lut planes), one bf16 Context, then K1 rows on the
+           1 layer; u4lut planes), one bf16 Context, then K1 rows on the
            loaded planes of layer 0 and the lm head at M = 1, 8, 128, 512
-  serve_lowbit the same for two Llama-3-8B-geometry files (full width, 2
-           layers): Q2_K (u2 planes with a min) and IQ1_S (u2lut, with
+  serve_lowbit the same for two Llama-3-8B-geometry files (full width, 1
+           layer): Q2_K (u2 planes with a min) and IQ1_S (u2lut, with
            Q4_K attn_v, IQ2_XXS ffn_down, Q5_K output, Q2_K token_embd),
            each served by a Context at the default qmm variant and one at
            "cache", whose prefills must launch K5 (qmm_cache); then K1 rows
@@ -63,10 +63,13 @@ non-zero before the final line:
            (python -m llama_cpp_test_tpu_torch.tools.kbench / .pairprobe)
            run once in this process
   cli      llama_cpp_test_tpu_torch.cli.main -m <TinyLlama file> -p <text>
-           -n 32 --temp 0, in this process on the serve phase's file (full
-           width and depth, its synthesized SPM vocabulary): the printed
+           -n 32 --temp 0, in this process on the serve phase's file (its
+           synthesized SPM vocabulary): the printed
            text must equal the pieces of generate()'s greedy tokens, and K1,
-           K2 and K3 must launch
+           K2 and K3 must launch; then cli.perplexity -c 512 --chunks 2 on
+           the same file, its perplexity within 1e-3 relative of the plain
+           path's over the same chunks and K1's GEMM and K2 launched; K1's
+           GEMM row of the lm head at M = 512 (prefill_nll's head)
   sched    the Scheduler on the TinyLlama file (bf16, then q8_0 KV) and on
            serve_lowbit's Llama-3-8B Q2_K file (its synthesized Llama-3 BPE
            vocabulary; the segmented candidate selector): eight requests of
@@ -128,17 +131,17 @@ non-zero before the final line:
            the decode wall with and without the adapter, imatrix tok/s and
            the drafters' tokens a pass and tok/s beside the card
   quirks   the gemma and qwen archs: Gemma-2-2B (Q4_K) and Gemma-3-1B
-           (Q8_0) at published widths, depth cut to 4 and 6 of 26 layers
+           (Q8_0) at published widths, depth cut to 2 and 6 of 26 layers
            (head dim 256, tied heads; Gemma-2's window 4096 on every second layer and
            softcaps 50/30, Gemma-3's window 512 on five layers of six with
            a local rope base and QK norms), Qwen2.5-0.5B (biases) and
-           Qwen3-0.6B (QK norms) at published widths, 4 layers, each
+           Qwen3-0.6B (QK norms) at published widths, 2 layers, each
            served as in serve (generate() at 16, 130 and 512 tokens; on
            the Gemma files at bf16 and q8_0 KV, 8 decode steps held to
            the plain path); on
            each Gemma file a prompt past its window (4608 and 1024
            tokens) in 512-token chunks: K2 launched once a layer a chunk,
-           K3 once a global layer a decode step (2 of 4, 1 of 6; the
+           K3 once a global layer a decode step (1 of 2, 1 of 6; the
            windowed layers decode on the gather path), K1's GEMV 4 times
            a layer and once for the head, the logits within the plain
            path's gate; the same prompt through one Scheduler slot equal
@@ -148,7 +151,7 @@ non-zero before the final line:
   quirks_ln the LayerNorm, parallel-residual and partial-rope archs:
            Phi-3-mini-128k (Q4_K; head dim 96, fused QKV and gate|up, long
            rope, window 262144) and Phi-2 (Q4_K; head dim 80, partial rope,
-           parallel residual, biases) at published widths, 4 of 32
+           parallel residual, biases) at published widths, 2 of 32
            layers each (cut for the smoke's clock), each
            served as in serve at bf16 and q8_0 KV (8 decode steps held to
            the plain path), a 600-token prompt at each n_ctx (Phi-3: 8192,
@@ -164,7 +167,7 @@ non-zero before the final line:
            rows at D = 80 and 96 and K3 at Falcon-7B's G = 71; the ptxas
            registers and spills of the D = 80 and 96 builds
   quirks_body the other llama-body archs: MiniCPM-2B (Q8_0: FFN 5760; the
-           mup scales, tied head) at published widths and 4 of 40
+           mup scales, tied head) at published widths and 2 of 40
            layers (cut for the smoke's clock), Command
            R7B (cohere2; Q4_K) at published widths and 4 layers (three
            sliding at window 4096, one global without rope) and BitNet
@@ -182,9 +185,9 @@ non-zero before the final line:
            decode of 8 at bf16 and q8_0 KV, its logits at bf16 KV and its
            path predictions; the ptxas registers and spills of the D = 100
            builds
-  positions the position axes: GPT-2 (1024 learned positions) and
-           BLOOM-560m (ALiBi, the embedding LayerNorm; 4 of 24 layers, cut
-           for the smoke's clock) at published widths and depth as in
+  positions the position axes: GPT-2 (1024 learned positions; 6 of 12
+           layers) and BLOOM-560m (ALiBi, the embedding LayerNorm; 2 of 24
+           layers), cut for the smoke's clock, at published widths as in
            quirks_body, K2 and K3 launched on GPT-2 and
            never on BLOOM (ALiBi takes the gather path, as the reference
            sends it to XLA); then five 2-layer files (StarCoderBase-1B,
@@ -203,7 +206,7 @@ non-zero before the final line:
            its 512 positions; K2 bidirectional at BERT-base's T = 512
   geometry per-layer geometry and chameleon: OpenELM-270M (Q4_K; query
            heads 12-20 on KV heads 3-5, FFN widths 768-5120) at published
-           widths and depth as in quirks_body, with a session save and
+           widths and 8 of 16 layers as in quirks_body, with a session save and
            restore, one context shift held to the plain path and greedy
            tokens at equal batches (B = 4) against the plain path, at
            bf16 and q8_0 KV; then DeciLM-7B at 4 layers (KV heads 4, 4, 2,
@@ -216,7 +219,7 @@ non-zero before the final line:
            and OpenELM-270M's widest layer (20 on 5)
   moe_forms the other MoE forms and MLA attention: DeepSeek-V2-Lite
            (Q4_K; MLA at D = 192, a dense first layer, 64 experts top-6,
-           2 shared) at published widths and 4 of 27 layers, served as in
+           2 shared) at published widths and 2 of 27 layers, served as in
            serve at bf16 and q8_0 KV with its path predictions (K4's GEMV
            three times a MoE layer a step), the Scheduler's greedy tokens
            and cli.main's printout equal to generate()'s; then, one at a
@@ -230,6 +233,21 @@ non-zero before the final line:
            V3's 128), K3 and K3-q8 at D = 192, K4 at top-6 of 64, top-8 of
            128 and top-2 of 128 (K = 7168); the ptxas registers and spills
            of the D = 192 builds
+  multimodal image input at published widths, driven as the llava CLI
+           drives it after preprocessing (seeded arrays, no PIL):
+           LLaVA-1.5-7B (CLIP ViT-L/14-336, 23 blocks, MLP projector, f16;
+           the Llama-2-7B LLM at 2 of 32 layers, Q4_K) and Qwen2-VL-2B (the
+           32-block tower and merger, f16, a 448 x 448 image of 256 merged
+           tokens; the LLM at 4 of 28 layers, Q4_K, M-RoPE); each tower's
+           encode_image within 1e-6 of itself in float64 on the card, its
+           wall and busy ms against its f32 bound; each LLM's turn (text,
+           prefill_embeds, text, 16 greedy decode steps) with K1's GEMV
+           and GEMM, K2 and K3 launched, every step within the logits gate
+           of the plain path, greedy tokens equal or first different
+           within the logit difference; a profile of prefill_embeds + 8
+           decode steps; K2 at Llama-2-7B's T = 576 + text and Qwen2-VL's
+           256 and 512, K3 at both at B = 1 and 8, K1 at Qwen2-VL-2B's
+           gate|up at M = 1 and 512
   timings  the seconds of each phase
 
 Every file the serve phases write carries a synthesized tokenizer
@@ -273,31 +291,32 @@ FOLD_GATE = 1e-8         # a GEMM with a min against the plain fold (the
 PROBE_GATE = 1e-5        # NMSE gate of tests/test_torch_probes.py
 
 # TinyLlama-1.1B (BASELINE.json config #1) published widths, depth cut
-# from 22 to 4 layers (full depth until the quirks_ln phase needed the
+# from 22 to 2 layers (full depth until the quirks_ln phase needed the
 # time, 11 until the encoders and geometry phases, 6 until the moe_forms
-# phase; the cli, sched, server and adapters phases serve this file)
+# phase, 4 until the multimodal phase; the cli, sched, server and
+# adapters phases serve this file)
 TINYLLAMA = dict(n_vocab=32000, n_embd=2048, n_head=32, n_head_kv=4,
-                 head_dim=64, n_layer=4, n_ff=5632)
+                 head_dim=64, n_layer=2, n_ff=5632)
 # Llama-3-8B (BASELINE.json config #2) published widths
 LLAMA3_8B = dict(n_vocab=128256, n_embd=4096, n_head=32, n_head_kv=8,
                  head_dim=128, n_layer=32, n_ff=14336)
 # Mixtral-8x7B (BASELINE.json config #4; mistralai/Mixtral-8x7B-v0.1
-# config.json) published widths, depth cut from 32 to 2 layers (8 until
-# the quirks phase, 4 until the quirks_ln phase needed the time); weights
-# at the TinyLlama phase's std (~0.015)
+# config.json) published widths, depth cut from 32 to 1 layer (8 until
+# the quirks phase, 4 until the quirks_ln phase, 2 until the multimodal
+# phase needed the time); weights at the TinyLlama phase's std (~0.015)
 MIXTRAL = dict(n_vocab=32000, n_embd=4096, n_head=32, n_head_kv=8,
-               head_dim=128, n_layer=2, n_ff=14336, n_expert=8,
+               head_dim=128, n_layer=1, n_ff=14336, n_expert=8,
                n_expert_used=2, rope_base=1e6)
 
 # Llama-3-70B (BASELINE.json config #5; meta-llama/Meta-Llama-3-70B
-# config.json) published widths, depth cut from 80 to 2 layers (4 until
-# the quirks_ln phase needed the time)
+# config.json) published widths, depth cut from 80 to 1 layer (4 until
+# the quirks_ln phase needed the time, 2 until the multimodal phase)
 LLAMA3_70B = dict(n_vocab=128256, n_embd=8192, n_head=64, n_head_kv=8,
-                  head_dim=128, n_layer=2, n_ff=28672, rope_base=500000.0)
-# Llama-3-8B widths for the low-bit files, depth cut from 32 to 2 layers
+                  head_dim=128, n_layer=1, n_ff=28672, rope_base=500000.0)
+# Llama-3-8B widths for the low-bit files, depth cut from 32 to 1 layer
 # (8 until the quirks_ln phase needed the time, 4 until the encoders and
-# geometry phases)
-LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=2, rope_base=500000.0)
+# geometry phases, 2 until the multimodal phase)
+LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=1, rope_base=500000.0)
 # Mixtral-8x7B widths for the low-bit MoE files, depth cut from 32 to 1
 # layer (a layer's 1.4G expert weights are 0.56-0.7 GB of planes, but
 # repacking 4 layers took 9 s (Q2_K) and 21 s (IQ1_S) on the 8 host cores
@@ -306,12 +325,13 @@ LLAMA3_8B_LOWBIT = dict(LLAMA3_8B, n_layer=2, rope_base=500000.0)
 MIXTRAL_LOWBIT = dict(MIXTRAL, n_layer=1)
 MIXTRAL_BF16 = dict(MIXTRAL, n_layer=1)
 # Gemma-2-2B (google/gemma-2-2b config.json) published widths, depth cut
-# from 26 to 4 layers (two global, as layers 1 and 3 are; full depth
-# until the quirks_ln phase needed the time): head dim 256,
+# from 26 to 2 layers (one sliding, one global, as layers 0 and 1 are;
+# full depth until the quirks_ln phase needed the time, 4 until the
+# multimodal phase): head dim 256,
 # query_pre_attn_scalar 256, tied head, sliding window 4096 on every
 # second layer, attention and final softcaps 50 and 30
 GEMMA2_2B = dict(arch="gemma2", n_vocab=256000, n_embd=2304, n_head=8,
-                 n_head_kv=4, head_dim=256, n_layer=4, n_ff=9216,
+                 n_head_kv=4, head_dim=256, n_layer=2, n_ff=9216,
                  rope_base=10000.0, rms_eps=1e-6, sliding_window=4096,
                  attn_softcap=50.0, final_softcap=30.0, tied=True,
                  post_norms=True)
@@ -326,33 +346,36 @@ GEMMA3_1B = dict(arch="gemma3", n_vocab=262144, n_embd=1152, n_head=4,
                  sliding_window=512, swa_pattern=6, tied=True,
                  post_norms=True, qk_norm=True)
 # Qwen2.5-0.5B (Qwen/Qwen2.5-0.5B config.json) published widths, depth cut
-# from 24 to 4 layers: Q/K/V biases, NEOX rope, tied head
+# from 24 to 2 layers (4 until the multimodal phase): Q/K/V biases, NEOX
+# rope, tied head
 QWEN25_05B = dict(arch="qwen2", n_vocab=151936, n_embd=896, n_head=14,
-                  n_head_kv=2, head_dim=64, n_layer=4, n_ff=4864,
+                  n_head_kv=2, head_dim=64, n_layer=2, n_ff=4864,
                   rope_base=1e6, rms_eps=1e-6, tied=True, qkv_bias=True)
 # Qwen3-0.6B (Qwen/Qwen3-0.6B config.json) published widths, depth cut
-# from 28 to 4 layers: per-head QK norms, head dim 128, tied head
+# from 28 to 2 layers (4 until the multimodal phase): per-head QK norms,
+# head dim 128, tied head
 QWEN3_06B = dict(arch="qwen3", n_vocab=151936, n_embd=1024, n_head=16,
-                 n_head_kv=8, head_dim=128, n_layer=4, n_ff=3072,
+                 n_head_kv=8, head_dim=128, n_layer=2, n_ff=3072,
                  rope_base=1e6, rms_eps=1e-6, tied=True, qk_norm=True)
 
 # Phi-3-mini-128k-instruct (microsoft/Phi-3-mini-128k-instruct
-# config.json) published widths, depth cut from 32 to 4 layers for the
-# smoke's clock (16 before the encoders and geometry phases): head dim
-# 96, MHA, fused qkv_proj and gate_up_proj, NEOX rope, long rope
-# (original context 4096 of 131072; 48-entry factor tables, seeded in
-# the published range), sliding window 262144 on every layer, untied head
+# config.json) published widths, depth cut from 32 to 2 layers for the
+# smoke's clock (16 before the encoders and geometry phases, 4 before the
+# multimodal phase): head dim 96, MHA, fused qkv_proj and gate_up_proj,
+# NEOX rope, long rope (original context 4096 of 131072; 48-entry factor
+# tables, seeded in the published range), sliding window 262144 on every
+# layer, untied head
 PHI3_MINI = dict(arch="phi3", n_vocab=32064, n_embd=3072, n_head=32,
-                 n_head_kv=32, head_dim=96, n_layer=4, n_ff=8192,
+                 n_head_kv=32, head_dim=96, n_layer=2, n_ff=8192,
                  rope_base=10000.0, sliding_window=262144,
                  longrope=(4096, 131072), fused_qkv=True, ffn="fused")
 # Phi-2 (microsoft/phi-2 config.json) published widths, depth cut from 32
-# to 4 layers for the smoke's clock (16 before the encoders and geometry
-# phases): head dim 80, partial rope (32 of 80), one LayerNorm (eps
-# 1e-5) feeding the parallel attention and GELU FFN, biases on every
-# projection and the head
+# to 2 layers for the smoke's clock (16 before the encoders and geometry
+# phases, 4 before the multimodal phase): head dim 80, partial rope (32
+# of 80), one LayerNorm (eps 1e-5) feeding the parallel attention and
+# GELU FFN, biases on every projection and the head
 PHI2 = dict(arch="phi2", n_vocab=51200, n_embd=2560, n_head=32,
-            n_head_kv=32, head_dim=80, rope_dim=32, n_layer=4, n_ff=10240,
+            n_head_kv=32, head_dim=80, rope_dim=32, n_layer=2, n_ff=10240,
             ln_eps=1e-5, norm_bias=True, ffn_norm=False, fused_qkv=True,
             qkv_bias=True, bo=True, ffn="up", ffn_bias=True, head_bias=True)
 # The other archs of the slice at published widths, depth cut to 2 layers:
@@ -2298,19 +2321,90 @@ CLI_TEXT = ("The people of the world could find water in the little house, "
             "and they said that the first man came back.")
 
 
-def phase_cli(torch, kept: Kept) -> dict:
+def phase_cli(torch, kept: Kept, kc) -> dict:
     """llama_cpp_test_tpu_torch.cli.main, run in this process on the kept
-    TinyLlama file (full width and depth) as a user runs it, greedy: its
+    TinyLlama file as a user runs it, greedy: its
     standard output must be the prompt and then the pieces of the greedy
     tokens of generate() on the same file (stopping where the CLI stops,
     at an end-of-generation token, and without the last token's piece
     when it stops by length, as the JAX CLI prints), and K1, K2 and K3
-    must launch."""
+    must launch. Then cli.perplexity on the same file (_perplexity) and
+    K1's GEMM row of its lm head at M = 512."""
     from llama_cpp_test_tpu_torch.runtime.engine import Model
 
     path = kept.files["tinyllama"]
-    return _cli_vs_generate(torch, "cli", path, Model(path, device="cuda"),
-                            DENSE_PATH)
+    model = Model(path, device="cuda")
+    out = _cli_vs_generate(torch, "cli", path, model, DENSE_PATH)
+    out["perplexity"] = _perplexity(torch, path, model, kept.dir)
+    out["rows"] = {"lm_head M=512": kc.qmm(
+        "TinyLlama lm_head (prefill_nll)", model.weights.output.ggml_type.name,
+        model.weights.output, 512)}
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    return out
+
+
+PPL_CTX = 512           # the perplexity CLI's chunk (its default -c)
+PPL_CHUNKS = 2
+
+
+def _perplexity(torch, path, model, tmp_dir) -> dict:
+    """cli.perplexity -c 512 --chunks 2 on the file at path, in this
+    process on the card, the launch counts zeroed before and read after
+    (K1's GEMM and K2 must launch: every position's logits through the lm
+    head); its perplexity against the plain path's over the same chunks
+    (Context(plain=True).prefill_nll, the CLI's chunking and warm-up
+    halves): relative difference < 1e-3, and the saved per-token NLL
+    within the logits gate. Its tok/s is the CLI's own line."""
+    import io
+
+    from llama_cpp_test_tpu_torch.cli import perplexity as ppl
+    from llama_cpp_test_tpu_torch.ops import _cuda
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    body = " ".join([CLI_TEXT] * 100)
+    text = os.path.join(tmp_dir, "ppl.txt")
+    with open(text, "w") as f:
+        f.write(body)
+    npz = os.path.join(tmp_dir, "ppl_nll.npz")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = ppl.main(["-m", path, "-f", text, "-c", str(PPL_CTX),
+                       "--chunks", str(PPL_CHUNKS), "--save-nll", npz])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    check(rc == 0, f"cli.perplexity returned {rc}: {err.getvalue()[-400:]}")
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rate = re.search(r"\(([0-9.]+) tok/s\)", err.getvalue())
+    got = np.load(npz)["nll"]
+    # the plain path over the same chunks, as the CLI scores them
+    ids = model.tokenizer.encode(body, add_special=True)
+    ctx = Context(model, n_ctx=PPL_CTX, n_seq_max=1, plain=True)
+    stride, want = PPL_CTX // 2, []
+    for i, (start, chunk) in enumerate(ppl.chunks(ids, PPL_CTX, stride)):
+        if i == PPL_CHUNKS:
+            break
+        s = ctx.new_seq()
+        want.append(ctx.prefill_nll(s, chunk)[
+            0 if start == 0 else PPL_CTX - stride - 1:])
+        ctx.free_seq(s)
+    want = np.concatenate(want)
+    ppl_plain = float(np.exp(want.mean()))
+    out = {"phase": "cli/perplexity", "rc": rc, "result": res,
+           "plain_ppl": ppl_plain,
+           "rel_diff": abs(res["ppl"] / ppl_plain - 1),
+           "nll_nmse": nmse(want, got) if got.shape == want.shape else None,
+           "tok_s": float(rate.group(1)) if rate else None,
+           "wall_s": wall, "launches": launches}
+    emit(out)
+    check(got.shape == want.shape and out["nll_nmse"] < LOGITS_GATE and
+          out["rel_diff"] < 1e-3, f"perplexity off the plain path: {out}")
+    missing = [k for k in ("qmm_gemm", "flash_prefill") if launches[k] <= 0]
+    check(not missing, f"cli/perplexity: kernels not launched: {missing}")
+    return out
 
 
 def _cli_vs_generate(torch, phase, path, model, path_kernels) -> dict:
@@ -4205,7 +4299,7 @@ def _quirk_rows(kc, hp: dict, long: int) -> dict:
 
 def phase_quirks(torch, kc, nvidia_smi: str, profile: bool = False) -> dict:
     """The gemma and qwen quirk axes. Gemma-2-2B (Q4_K) and Gemma-3-1B
-    (Q8_0) at published widths, 4 and 6 layers, Qwen2.5-0.5B and Qwen3-0.6B
+    (Q8_0) at published widths, 2 and 6 layers, Qwen2.5-0.5B and Qwen3-0.6B
     (Q8_0) at published widths, 4 layers, each file from seeded random
     blocks with an SPM vocabulary at the published size, through _serve
     (bf16 KV, and q8_0 KV on the Gemma files; generate() at 16, 130 and
@@ -4342,7 +4436,7 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
     """The LayerNorm, parallel-residual and partial-rope archs.
     Phi-3-mini-128k (Q4_K, head dim 96, long rope, window 262144) and
     Phi-2 (Q4_K, head dim 80, parallel residual) at published widths and
-    4 of 32 layers, each through _serve at bf16 and q8_0 KV (generate() at 16, 130
+    2 of 32 layers, each through _serve at bf16 and q8_0 KV (generate() at 16, 130
     and 512 tokens; the logits of a 130-token prefill and QUIRK_DECODE
     decode steps within the gate of the plain path), then a LN_PROMPT-token
     prompt at each n_ctx of QUIRK_LN_FILES with the launches the path
@@ -4408,12 +4502,13 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
 # the rest of the llama-body archs, and the position axes
 
 # MiniCPM-2B (openbmb/MiniCPM-2B-sft-bf16 config.json) published widths,
-# depth cut from 40 to 4 layers for the smoke's clock: MHA at D =
+# depth cut from 40 to 2 layers for the smoke's clock (4 until the
+# multimodal phase): MHA at D =
 # 64, FFN 5760 (no multiple of 256: a Q8_0 file), tied head, the mup
 # scales (scale_emb 12, residual scale_depth 1.4 / sqrt(40) of the
 # published depth, logits divided by hidden / dim_model_base = 2304 / 256)
 MINICPM_2B = dict(arch="minicpm", n_vocab=122753, n_embd=2304, n_head=36,
-                  n_head_kv=36, head_dim=64, n_layer=4, n_ff=5760,
+                  n_head_kv=36, head_dim=64, n_layer=2, n_ff=5760,
                   tied=True, meta={"embedding_scale": 12.0,
                                    "residual_scale": 1.4 / np.sqrt(40.0),
                                    "logit_scale": 9.0})
@@ -4477,20 +4572,21 @@ BODY_SMALL_HP = {
                       n_head_kv=40, head_dim=128, n_ff=13312, rms_eps=1e-6,
                       ffn_norm=False),
 }
-# GPT-2 (openai-community/gpt2 config.json) published widths and depth:
-# 1024 learned positions, LayerNorms with biases, fused QKV with bias, wo
+# GPT-2 (openai-community/gpt2 config.json) published widths, depth cut
+# from 12 to 6 layers (full depth until the multimodal phase): 1024
+# learned positions, LayerNorms with biases, fused QKV with bias, wo
 # bias, a non-gated GELU FFN with biases, tied head
 GPT2_124M = dict(arch="gpt2", n_vocab=50257, n_embd=768, n_head=12,
-                 n_head_kv=12, head_dim=64, n_layer=12, n_ff=3072,
+                 n_head_kv=12, head_dim=64, n_layer=6, n_ff=3072,
                  ln_eps=1e-5, norm_bias=True, fused_qkv=True, qkv_bias=True,
                  bo=True, ffn="up", ffn_bias=True, tied=True, pos_rows=1024)
 # BLOOM-560m (bigscience/bloom-560m config.json) published widths, depth
-# cut from 24 to 4 layers for the smoke's clock (8 until the moe_forms
-# phase): ALiBi over 16
+# cut from 24 to 2 layers for the smoke's clock (8 until the moe_forms
+# phase, 4 until the multimodal phase): ALiBi over 16
 # heads, the embedding LayerNorm, the gpt2 layout otherwise, tied head of
 # 250880 rows
 BLOOM_560M = dict(GPT2_124M, arch="bloom", n_vocab=250880, n_embd=1024,
-                  n_head=16, n_head_kv=16, n_layer=4, n_ff=4096,
+                  n_head=16, n_head_kv=16, n_layer=2, n_ff=4096,
                   pos_rows=0, tok_norm=True)
 POSITION_SMALL_HP = {
     # bigcode/starcoderbase-1b: MQA at D = 128, 8192 learned positions
@@ -4702,7 +4798,7 @@ def _collect(files, launches) -> None:
 def phase_quirks_body(torch, kc, nvidia_smi: str, build: dict,
                       profile: bool = False) -> dict:
     """The llama-body archs that need only small switches. MiniCPM-2B
-    (Q8_0, 4 of 40 layers, the mup scales), Command R7B (cohere2, Q4_K, 4
+    (Q8_0, 2 of 40 layers, the mup scales), Command R7B (cohere2, Q4_K, 4
     layers) and BitNet b1.58-3B (Q8_0, 2 layers, D = 100) through
     _headline at bf16 and q8_0 KV; Command R7B over a R7B_PROMPT-token
     prompt past its window (K3 on its global layer alone) and one context
@@ -4741,9 +4837,9 @@ def phase_quirks_body(torch, kc, nvidia_smi: str, build: dict,
 
 def phase_positions(torch, kc, nvidia_smi: str,
                     profile: bool = False) -> dict:
-    """The position axes. GPT-2 (Q4_K, 1024 learned positions) and
-    BLOOM-560m (Q4_K, ALiBi, the embedding LayerNorm; 4 of 24 layers) at
-    published widths and depth through _headline at bf16 and q8_0 KV: K2
+    """The position axes. GPT-2 (Q4_K, 1024 learned positions; 6 of 12
+    layers) and BLOOM-560m (Q4_K, ALiBi, the embedding LayerNorm; 2 of 24
+    layers) at published widths through _headline at bf16 and q8_0 KV: K2
     once a layer a
     chunk and K3 (K3-q8) once a layer a step on GPT-2, neither on BLOOM,
     whose attention takes the gather path as the reference sends ALiBi to
@@ -4804,17 +4900,21 @@ ENCODER_TEXTS = ("the people of the world could find water",
 
 
 def _openelm_270m() -> dict:
-    """OpenELM-270M (apple/OpenELM-270M config.json) published widths and
-    depth: 16 layers of 1280, D = 64, query heads from 12 to 20 on KV heads
-    from 3 to 5 (G = 4), FFN multipliers from 0.5 to 4.0 (divisor 256),
-    shared per-head QK RMS norms, a fused qkv, NEOX rope, tied head of
-    32000. The per-layer arrays are written here, not copied (PERF.md §4,
-    synthetic): KV heads 3 + round(2 i / 15), FFN 1280 x linspace(0.5, 4,
-    16) rounded up to 256."""
-    kv = [3 + round(2 * i / 15) for i in range(16)]
-    ff = [int(-(-m * 1280 // 256) * 256) for m in np.linspace(0.5, 4.0, 16)]
+    """OpenELM-270M (apple/OpenELM-270M config.json) published widths,
+    depth cut from 16 to 8 layers (0, 2, 4, 6, 9, 11, 13 and 15, the first
+    and the last kept; full depth until the multimodal phase): 1280 wide,
+    D = 64, query heads from 12 to 20 on KV heads from 3 to 5 (G = 4), FFN
+    multipliers from 0.5 to 4.0 (divisor 256), shared per-head QK RMS
+    norms, a fused qkv, NEOX rope, tied head of 32000. The per-layer
+    arrays are written here, not copied (PERF.md §4, synthetic): layer i
+    of 16 has KV heads 3 + round(2 i / 15) and FFN 1280 x linspace(0.5, 4,
+    16)[i] rounded up to 256."""
+    kept = [0, 2, 4, 6, 9, 11, 13, 15]
+    kv = [3 + round(2 * i / 15) for i in kept]
+    ff = [int(-(-m * 1280 // 256) * 256)
+          for m in np.linspace(0.5, 4.0, 16)[kept]]
     return dict(arch="openelm", n_vocab=32000, n_embd=1280, n_head=20,
-                n_head_kv=5, head_dim=64, n_layer=16, n_ff=max(ff),
+                n_head_kv=5, head_dim=64, n_layer=8, n_ff=max(ff),
                 rms_eps=1e-6, fused_qkv=True, qk_norm="shared", tied=True,
                 n_head_layers=[4 * k for k in kv], n_head_kv_layers=kv,
                 n_ff_layers=ff)
@@ -5136,11 +5236,12 @@ def _geometry_rows(kc) -> dict:
 def phase_geometry(torch, kc, nvidia_smi: str,
                    profile: bool = False) -> dict:
     """Per-layer geometry and chameleon. OpenELM-270M (Q4_K) at published
-    widths and depth through _headline at bf16 and q8_0 KV (K2 and K3 at
-    each layer's own G), with a session save/restore, one context shift
-    held to the plain path and greedy tokens at equal batches, at each KV
-    type; then GEOMETRY_SMALL (_small_files): DeciLM-7B at 4 layers of
-    two KV counts, a Nemotron-51B-width file of 3 layers (attention,
+    widths and 8 of 16 layers through _headline at bf16 and q8_0 KV (K2
+    and K3 at each layer's own G), with a session save/restore, one
+    context shift held to the plain path and greedy tokens at equal
+    batches, at each KV type; then GEOMETRY_SMALL (_small_files):
+    DeciLM-7B at 4 layers of two KV counts, a Nemotron-51B-width file of 3
+    layers (attention,
     attention-free, linear attention; K2 and K3 on its attention layer
     alone), Chameleon-7B at 4 layers (QK LayerNorms with biases) and a
     Chameleon-34B-width swin-norm file at 2, each at bf16 and q8_0 KV
@@ -5184,10 +5285,11 @@ def phase_geometry(torch, kc, nvidia_smi: str,
 # widths: 2048 wide, 16 heads, kv_lora_rank 512 with a plain q, qk 128 +
 # 64 (D = 192), v 128, the first layer dense at 10944, 64 routed experts
 # top-6 of 1408 (softmax, not renormalized), 2 shared, vocab 102400, YaRN
-# x40 over 4096 (mscale_all_dim 0.707); depth cut from 27 to 4 layers
+# x40 over 4096 (mscale_all_dim 0.707); depth cut from 27 to 2 layers,
+# the dense one and a MoE one (4 until the multimodal phase)
 DEEPSEEK_V2_LITE = dict(
     arch="deepseek2", n_vocab=102400, n_embd=2048, n_head=16, n_head_kv=16,
-    head_dim=192, rope_dim=64, n_ff=10944, n_layer=4, rms_eps=1e-6,
+    head_dim=192, rope_dim=64, n_ff=10944, n_layer=2, rms_eps=1e-6,
     n_expert=64, n_expert_used=6, n_ff_exp=1408, n_dense_lead=1,
     shexp_ff=2 * 1408,
     mla=dict(q_lora=0, kv_lora=512, rope_dim=64, v_dim=128),
@@ -5367,7 +5469,7 @@ def _sched_vs_generate(torch, model, kv: str) -> dict:
 
 def phase_moe_forms(torch, kc, nvidia_smi: str, kept: Kept, build: dict,
                     profile: bool = False) -> dict:
-    """The other MoE forms and MLA attention. DeepSeek-V2-Lite (Q4_K, 4 of
+    """The other MoE forms and MLA attention. DeepSeek-V2-Lite (Q4_K, 2 of
     27 layers) through _serve at bf16 and q8_0 KV (generate() at 16, 130
     and 512 tokens, a batched decode of 8, the logits of a 130-token
     prefill and QUIRK_DECODE decode steps within the gate of the plain
@@ -5465,6 +5567,428 @@ def phase_moe_forms(torch, kc, nvidia_smi: str, kept: Kept, build: dict,
     check(not missing, f"moe_forms: kernels not launched: {missing}")
     return {"launches": launches, "files": files, "rows": rows,
             "builds": new_builds}
+
+
+# LLaVA-1.5-7B (liuhaotian/llava-v1.5-7b config.json): the LLM is
+# Llama-2-7B's widths, depth cut from 32 to 2 layers, Q4_K
+LLAVA_LLM = dict(arch="llama", n_vocab=32000, n_embd=4096, n_head=32,
+                 n_head_kv=32, head_dim=128, n_layer=2, n_ff=11008)
+# its tower, CLIP ViT-L/14-336 (openai/clip-vit-large-patch14-336
+# config.json) as llama.cpp's convert_image_encoder_to_gguf.py writes it
+# for LLaVA: 23 of the 24 blocks (the last one's output is never used),
+# 577 positions (576 patches + CLS), pre-LN, f16 weights; the projector
+# 1024 -> 4096 -> 4096 (mm.0, mm.2)
+CLIP_L336 = dict(image_size=336, patch=14, hidden=1024, heads=16,
+                 n_ff=4096, n_layer=23, proj=(4096, 4096))
+# Qwen2-VL-2B (Qwen/Qwen2-VL-2B-Instruct config.json): the LLM at
+# published widths, depth cut from 28 to 4 layers, Q4_K: Q/K/V biases,
+# tied head, rope base 1e6, M-RoPE sections 16/24/24
+QWEN2VL_LLM = dict(arch="qwen2vl", n_vocab=151936, n_embd=1536, n_head=12,
+                   n_head_kv=2, head_dim=128, n_layer=4, n_ff=8960,
+                   rope_base=1e6, rms_eps=1e-6, tied=True, qkv_bias=True,
+                   meta={"rope.dimension_sections": [16, 24, 24, 0]})
+# its vision tower at full width and depth: 32 blocks, embed 1280, 16
+# heads (D = 80), MLP 5120, quick GELU, patch 14, 2 temporal frames, the
+# 2x2 merger to 1536 (llama.cpp's qwen2_vl_surgery.py names, f16)
+QWEN2VL_VIT = dict(embed=1280, heads=16, n_ff=5120, n_layer=32, patch=14,
+                   out=1536)
+QWEN2VL_GRID = (32, 32)     # a 448 x 448 image: 1024 patches, 256 tokens
+PEAK_FP32 = 67e12           # H100 SXM non-tensor FP32 flop/s (data sheet)
+TOWER_GATE = 1e-6           # a tower's f32 output against its f64 run
+MM_DECODE = 16              # greedy decode steps after an image
+LLAVA_PROMPT = ("USER: ", "\nDescribe the image in detail. ASSISTANT:")
+QWEN2VL_PROMPT = ("<|im_start|>user\n<|vision_start|>",
+                  "<|vision_end|>Describe this image.<|im_end|>\n"
+                  "<|im_start|>assistant\n")
+
+
+def f16_weights(rng, *shape) -> np.ndarray:
+    """Seeded f16 weights: a random sign and mantissa under one exponent,
+    magnitudes in [2^-6, 2^-5) (std ~0.024), from one integer draw (a
+    normal draw of the towers' 1 G weights set the phase's host time)."""
+    bits = rng.integers(0, 1 << 16, size=shape, dtype=np.uint16)
+    return ((bits & np.uint16(0x83FF)) | np.uint16(9 << 10)).view(
+        np.float16)
+
+
+def _f16_block(w, rng, p, e, ff, names) -> None:
+    """One pre-LN ViT block (clip.cpp names; names maps the two MLP
+    projections, the surgery script's swapped ones for Qwen2-VL): 2-D
+    weights f16 (f16_weights), norms and biases F32."""
+    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
+
+    vec = lambda n, mean=0.0: mean + 0.02 * rng.standard_normal(
+        n, dtype=np.float32)
+    up, down = names
+    for name, n, k in (("attn_q", e, e), ("attn_k", e, e), ("attn_v", e, e),
+                       ("attn_out", e, e), (up, ff, e), (down, e, ff)):
+        w.add_tensor(p + name + ".weight", f16_weights(rng, n, k),
+                     ggml_type=GGMLType.F16)
+        w.add_tensor(p + name + ".bias", vec(n))
+    for name in ("ln1", "ln2"):
+        w.add_tensor(p + name + ".weight", vec(e, 1.0))
+        w.add_tensor(p + name + ".bias", vec(e))
+
+
+def write_clip_mmproj(path: str, spec: dict, seed: int) -> None:
+    """A llava mmproj GGUF of geometry spec (CLIP_L336) from seeded
+    weights (f16_weights; F32 norms and biases), as llama.cpp's converter
+    lays it out."""
+    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    e, p, s = spec["hidden"], spec["patch"], spec["image_size"]
+    w = GGUFWriter(path, arch="clip")
+    for k, v in {"clip.has_vision_encoder": True,
+                 "clip.has_llava_projector": True,
+                 "clip.projector_type": "mlp", "clip.use_gelu": False,
+                 "clip.vision.image_size": s, "clip.vision.patch_size": p,
+                 "clip.vision.embedding_length": e,
+                 "clip.vision.feed_forward_length": spec["n_ff"],
+                 "clip.vision.projection_dim": spec["proj"][1],
+                 "clip.vision.block_count": spec["n_layer"],
+                 "clip.vision.attention.head_count": spec["heads"],
+                 "clip.vision.attention.layer_norm_epsilon": 1e-5}.items():
+        w.add_kv(k, v)
+    f16 = lambda name, *shape: w.add_tensor(
+        name, f16_weights(rng, *shape), ggml_type=GGMLType.F16)
+    vec = lambda name, n, mean=0.0: w.add_tensor(
+        name, mean + 0.02 * rng.standard_normal(n, dtype=np.float32))
+    f16("v.patch_embd.weight", e, 3, p, p)
+    vec("v.class_embd", e)
+    f16("v.position_embd.weight", (s // p) ** 2 + 1, e)
+    vec("v.pre_ln.weight", e, 1.0)
+    vec("v.pre_ln.bias", e)
+    for i in range(spec["n_layer"]):
+        _f16_block(w, rng, f"v.blk.{i}.", e, spec["n_ff"],
+                   ("ffn_up", "ffn_down"))
+    (m0, m2) = spec["proj"]
+    f16("mm.0.weight", m0, e)
+    vec("mm.0.bias", m0)
+    f16("mm.2.weight", m2, m0)
+    vec("mm.2.bias", m2)
+    w.write()
+
+
+def write_qwen2vl_mmproj(path: str, spec: dict, seed: int) -> None:
+    """A Qwen2-VL mmproj GGUF of geometry spec (QWEN2VL_VIT) from seeded
+    weights (f16_weights; F32 norms and biases), as llama.cpp's
+    qwen2_vl_surgery.py writes it: the
+    conv3d as two frames, fc1 under ffn_down and fc2 under ffn_up, the
+    merger's ln_q as v.post_ln."""
+    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    e, p = spec["embed"], spec["patch"]
+    w = GGUFWriter(path, arch="clip")
+    for k, v in {"clip.has_vision_encoder": True,
+                 "clip.has_qwen2vl_merger": True,
+                 "clip.projector_type": "qwen2vl_merger",
+                 "clip.vision.image_size": 560, "clip.vision.patch_size": p,
+                 "clip.vision.embedding_length": e,
+                 "clip.vision.feed_forward_length": 0,
+                 "clip.vision.projection_dim": spec["out"],
+                 "clip.vision.block_count": spec["n_layer"],
+                 "clip.vision.attention.head_count": spec["heads"],
+                 "clip.vision.attention.layer_norm_epsilon": 1e-6}.items():
+        w.add_kv(k, v)
+    f16 = lambda name, *shape: w.add_tensor(
+        name, f16_weights(rng, *shape), ggml_type=GGMLType.F16)
+    vec = lambda name, n, mean=0.0: w.add_tensor(
+        name, mean + 0.02 * rng.standard_normal(n, dtype=np.float32))
+    f16("v.patch_embd.weight", e, 3, p, p)
+    f16("v.patch_embd.weight.1", e, 3, p, p)
+    for i in range(spec["n_layer"]):
+        _f16_block(w, rng, f"v.blk.{i}.", e, spec["n_ff"],
+                   ("ffn_down", "ffn_up"))
+    vec("v.post_ln.weight", e, 1.0)
+    vec("v.post_ln.bias", e)
+    f16("mm.0.weight", 4 * e, 4 * e)
+    vec("mm.0.bias", 4 * e)
+    f16("mm.2.weight", spec["out"], 4 * e)
+    vec("mm.2.bias", spec["out"])
+    w.write()
+
+
+def _tower_flops(kind: str, spec: dict) -> float:
+    """Multiply-adds x 2 of one image through a tower: the patch
+    embedding, every block's projections, MLP and attention products,
+    and the projector or merger."""
+    if kind == "clip":
+        e, f, n = spec["hidden"], spec["n_ff"], (
+            spec["image_size"] // spec["patch"]) ** 2
+        t = n + 1
+        m0, m2 = spec["proj"]
+        head = 2.0 * n * (3 * spec["patch"] ** 2 * e + e * m0 + m0 * m2)
+    else:
+        e, f = spec["embed"], spec["n_ff"]
+        t = QWEN2VL_GRID[0] * QWEN2VL_GRID[1]
+        head = 2.0 * t * 6 * spec["patch"] ** 2 * e + 2.0 * (t // 4) * (
+            16 * e * e + 4 * e * spec["out"])
+    block = 2.0 * t * (4 * e * e + 2 * e * f) + 4.0 * t * t * e
+    return spec["n_layer"] * block + head
+
+
+def _tower(torch, label, kind, spec, seed, kept_dir) -> tuple:
+    """Write and load a tower's mmproj (load_clip / load_qwen2vl_vision on
+    cuda), encode one seeded image and hold it against the same tower in
+    float64 on the card (NMSE < TOWER_GATE); time the encode (wall, after
+    a warm-up; device busy by torch.profiler) against its f32 bound.
+    Returns (model, input, embeddings, readings)."""
+    from llama_cpp_test_tpu_torch.models import clip
+    from llama_cpp_test_tpu_torch.models import qwen2vl_vision as qv
+
+    path = os.path.join(kept_dir, f"{label}.gguf")
+    t0 = time.time()
+    if kind == "clip":
+        write_clip_mmproj(path, spec, seed)
+    else:
+        write_qwen2vl_mmproj(path, spec, seed)
+    t1 = time.time()
+    m = (clip.load_clip(path, device="cuda") if kind == "clip" else
+         qv.load_qwen2vl_vision(path, device="cuda"))
+    load_s = time.time() - t1
+    os.remove(path)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "clip":
+        s = spec["image_size"]
+        x = torch.from_numpy(rng.standard_normal((3, s, s), dtype=np.float32))
+        enc = lambda mm: clip.encode_image(mm, x)
+    else:
+        gh, gw = QWEN2VL_GRID
+        x = torch.from_numpy(0.5 * rng.standard_normal(
+            (gh * gw, 6 * spec["patch"] ** 2), dtype=np.float32))
+        enc = lambda mm: qv.encode_image(mm, x, gh, gw)
+    emb = enc(m)                                  # warm-up, and the output
+    hi = m.to(dtype=torch.float64)
+    ref = enc(hi)
+    del hi
+    torch.cuda.empty_cache()
+    err = nmse(ref.cpu(), emb.double().cpu())
+    torch.cuda.synchronize()
+    t2 = time.time()
+    enc(m)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t2) * 1e3
+    prof = _profiled(torch, lambda: enc(m))
+    flops = _tower_flops(kind, spec)
+    out = {"tower": label, "layers": len(m.layers), "tokens": emb.shape[0],
+           "width": emb.shape[1], "write_s": t1 - t0, "load_s": load_s,
+           "nmse_vs_f64": err, "gate": TOWER_GATE,
+           "finite": bool(torch.isfinite(emb).all()),
+           "encode_wall_ms": wall_ms,
+           "encode_busy_ms": prof["device_busy_ms"], "gflop": flops / 1e9,
+           "f32_bound_ms": flops / PEAK_FP32 * 1e3,
+           "top": prof["top"][:4]}
+    emit({"phase": "multimodal", "tower": out})
+    check(out["finite"] and err < TOWER_GATE,
+          f"{label}: encode_image off its float64 run (NMSE {err})")
+    return m, x, emb, out
+
+
+def _image_turn(torch, ctx, pre, emb, post, grid, tokens=None):
+    """The llava CLI's steps after preprocessing: the text before the
+    image, the image through prefill_embeds (with grid, Qwen2-VL's (gh,
+    gw): its M-RoPE streams, then pos_offset set as the CLI sets it), the
+    text after it (every row's logits), then MM_DECODE decode steps on
+    `tokens` or greedy. Returns (logits of each step, decode tokens,
+    prefill_embeds wall ms)."""
+    from llama_cpp_test_tpu_torch.models import qwen2vl_vision as qv
+
+    s = ctx.new_seq()
+    rows = [ctx.prefill(s, pre)[None]]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    if grid is None:
+        rows.append(ctx.prefill_embeds(s, emb)[None])
+    else:
+        t_img = s.n_cached + s.pos_offset
+        rows.append(ctx.prefill_embeds(
+            s, emb, mrope_pos=qv.mrope_image_positions(t_img, *grid))[None])
+        s.pos_offset = qv.mrope_delta_after_image(t_img, *grid) - s.n_cached
+    embeds_ms = (time.time() - t0) * 1e3
+    rows.append(ctx.prefill(s, post)[None])
+    toks = []
+    for i in range(MM_DECODE):
+        toks.append(tokens[i] if tokens else int(np.argmax(rows[-1][-1])))
+        rows.append(ctx.decode([s], toks[-1:]))
+    ctx.free_seq(s)
+    return rows, toks, embeds_ms
+
+
+def _greedy_parity(rows_k, rows_p, toks) -> dict:
+    """The kernel path's greedy tokens against the plain path's argmax on
+    the same (teacher-forced) steps: equal, or the first difference where
+    the plain path's top-2 gap is within the largest logit difference
+    between the two paths on that row."""
+    lead = len(rows_k) - len(toks) - 1       # rows before the first token
+    for i, t in enumerate(toks):
+        lp, lk = rows_p[lead + i][-1], rows_k[lead + i][-1]
+        if int(np.argmax(lp)) != t:
+            top = np.sort(lp)[-2:]
+            gap, diff = float(top[1] - top[0]), float(np.abs(lk - lp).max())
+            return {"same": False, "first_diff": i, "plain_gap": gap,
+                    "logit_diff": diff, "within": gap <= diff}
+    return {"same": True}
+
+
+def _mm_llm(torch, label, hp, seed, kind, tower, emb, prompt, kept_dir,
+            nvidia_smi) -> dict:
+    """An LLM of the phase: the file written and loaded (Model on cuda),
+    the launch counts zeroed, the image turn driven through the kernels
+    (the tower's encode included, as the CLI runs it) and the counts read;
+    every kernel of DENSE_PATH must launch. The same turn through a plain
+    Context on the same embeddings and tokens: every step's logits within
+    LOGITS_GATE, the greedy tokens by _greedy_parity. Then prefill_embeds
+    wall and the profile of prefill_embeds + 8 decode steps."""
+    from llama_cpp_test_tpu_torch.models import clip
+    from llama_cpp_test_tpu_torch.models import qwen2vl_vision as qv
+    from llama_cpp_test_tpu_torch.ops import _cuda
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
+
+    path = os.path.join(kept_dir, f"{label}.gguf")
+    t0 = time.time()
+    write_llama_gguf(path, hp, seed=seed, ftype="Q4_K")
+    model = Model(path, device="cuda")
+    os.remove(path)
+    write_load_s = time.time() - t0
+    tok = model.tokenizer
+    pre = tok.encode(prompt[0], add_special=True)
+    post = tok.encode(prompt[1], add_special=False)
+    grid = None if kind == "clip" else QWEN2VL_GRID
+    m, x = tower
+    ctx = lambda **kw: Context(model, n_ctx=1024, n_seq_max=1,
+                               block_size=16, **kw)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    img = (clip.encode_image(m, x) if kind == "clip" else
+           qv.encode_image(m, x, *QWEN2VL_GRID))
+    rows_k, toks, embeds_ms = _image_turn(torch, ctx(), pre, img, post, grid)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    rows_p, _, _ = _image_turn(torch, ctx(plain=True), pre, emb, post, grid,
+                               toks)
+    errs = [nmse(a, b) for a, b in zip(rows_p, rows_k)]
+    parity = _greedy_parity(rows_k, rows_p, toks)
+    # under the profiler, each after a text prefill of the prompt's head:
+    # prefill_embeds alone, and prefill_embeds + 8 decode steps
+    c = ctx()
+
+    def embeds_decode(n_decode):
+        s = c.new_seq()
+        c.prefill(s, pre)
+        torch.cuda.synchronize()
+
+        def run():
+            if grid is None:
+                lg = c.prefill_embeds(s, emb)
+            else:
+                t_img = s.n_cached
+                lg = c.prefill_embeds(
+                    s, emb, mrope_pos=qv.mrope_image_positions(t_img, *grid))
+                s.pos_offset = qv.mrope_delta_after_image(t_img, *grid) - \
+                    s.n_cached
+            for _ in range(n_decode):
+                lg = c.decode([s], [int(np.argmax(lg))])[0]
+
+        out = _profiled(torch, run)
+        c.free_seq(s)
+        return out
+
+    embeds_prof = embeds_decode(0)
+    prof = embeds_decode(8)
+    out = {"llm": label, "arch": model.hp.arch, "n_layer": hp["n_layer"],
+           "write_load_s": write_load_s, "prompt_tokens": [len(pre),
+                                                           len(post)],
+           "image_tokens": int(emb.shape[0]), "launches": launches,
+           "logits_nmse": errs, "max_nmse": max(errs), "gate": LOGITS_GATE,
+           "greedy": parity, "tokens": toks,
+           "prefill_embeds_wall_ms": embeds_ms,
+           "prefill_embeds_busy_ms": embeds_prof["device_busy_ms"],
+           "profile_embeds_decode8": prof, "card": nvidia_smi}
+    emit({"phase": "multimodal", "llm": {k: v for k, v in out.items()
+                                         if k != "profile_embeds_decode8"},
+          "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                           "idle_share", "gemv_ms")}})
+    missing = [k for k in DENSE_PATH if launches[k] <= 0]
+    check(not missing, f"multimodal/{label}: kernels not launched: "
+                       f"{missing} ({launches})")
+    check(all(np.isfinite(r).all() for r in rows_k) and
+          max(errs) < LOGITS_GATE, f"multimodal/{label}: logits off the "
+                                   f"plain path: {errs}")
+    check(parity["same"] or parity["within"],
+          f"multimodal/{label}: greedy tokens differ past the logit "
+          f"difference: {parity}")
+    out["model"] = model
+    return out
+
+
+def phase_multimodal(torch, kc, nvidia_smi: str) -> dict:
+    """Image input at published widths, driven as the llava CLI drives it
+    after preprocessing (seeded arrays; PIL is not needed): LLaVA-1.5-7B
+    (CLIP ViT-L/14-336, 23 blocks, and its MLP projector, f16; the
+    Llama-2-7B LLM at 2 of 32 layers, Q4_K) and Qwen2-VL-2B (its 32-block
+    vision tower and merger, f16, a 448 x 448 image of 256 merged tokens;
+    the LLM at 4 of 28 layers, Q4_K, with the M-RoPE streams). Each tower
+    is held against itself in float64 on the card; each LLM's image turn
+    (_mm_llm: text, prefill_embeds, text, MM_DECODE greedy steps) launches
+    K1's GEMV and GEMM, K2 and K3 and stays within the logits gate of the
+    plain path. Rows: K2 at Llama-2-7B's T = 576 + text and Qwen2-VL's T =
+    256 and 512, K3 at both at B = 1 and 8, K1 at Qwen2-VL-2B's gate|up
+    (M = 1 and 512). The vision towers keep full width and depth."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    out = {"pil": pil, "towers": {}, "llms": {}, "rows": {}}
+    launches = dict.fromkeys(_cuda.LAUNCHES, 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mm_")
+    try:
+        for label, kind, spec, seed, llm, hp, lseed, prompt in (
+                ("clip_vit_l14_336", "clip", CLIP_L336, 141, "llava_7b",
+                 LLAVA_LLM, 142, LLAVA_PROMPT),
+                ("qwen2vl_vit", "qwen2vl", QWEN2VL_VIT, 143, "qwen2vl_2b",
+                 QWEN2VL_LLM, 144, QWEN2VL_PROMPT)):
+            t0 = time.time()
+            m, x, emb, out["towers"][label] = _tower(torch, label, kind,
+                                                     spec, seed, tmp)
+            r = _mm_llm(torch, llm, hp, lseed, kind, (m, x), emb, prompt,
+                        tmp, nvidia_smi)
+            del m, x, emb
+            model = r.pop("model")
+            for k, v in r["launches"].items():
+                launches[k] += v
+            n_text = sum(r["prompt_tokens"])
+            if kind == "clip":
+                out["rows"]["LLaVA-7B K2 T=576+text"] = kc.flash_prefill(
+                    hp, t=576 + n_text)
+            else:
+                for t in (256, 512):
+                    out["rows"][f"Qwen2-VL-2B K2 T={t}"] = kc.flash_prefill(
+                        hp, t=t)
+                lw = model.weights.layers[0]
+                for mm in (1, 512):
+                    out["rows"][f"Qwen2-VL-2B gate|up M={mm}"] = kc.qmm(
+                        "Qwen2-VL-2B gate|up", "Q4_K", lw.w_gateup, mm)
+            for b in (1, 8):
+                out["rows"][f"{llm} K3 B={b}"] = kc.paged_decode(hp, b)
+            r["seconds"] = time.time() - t0
+            out["llms"][llm] = r
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    out["launches"] = launches
+    emit({"phase": "multimodal", "pil": pil, "seconds": {
+        k: round(v["seconds"], 1) for k, v in out["llms"].items()},
+          "card": nvidia_smi})
+    return out
 
 
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
@@ -5619,7 +6143,7 @@ def main() -> int:
                                       prof),
             "probes": timed("probes", phase_probes, torch, kc,
                             probe_launches)}
-        serves["cli"] = timed("cli", phase_cli, torch, kept)
+        serves["cli"] = timed("cli", phase_cli, torch, kept, kc)
         serves["sched"] = timed("sched", phase_sched, torch, kept, smi)
         serves["server"] = timed("server", phase_server, torch, kept, smi)
         serves["adapters"] = timed("adapters", phase_adapters, torch, kept,
@@ -5638,6 +6162,8 @@ def main() -> int:
                                    prof)
         serves["moe_forms"] = timed("moe_forms", phase_moe_forms, torch, kc,
                                     smi, kept, build, prof)
+        serves["multimodal"] = timed("multimodal", phase_multimodal, torch,
+                                     kc, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5665,9 +6191,9 @@ def main() -> int:
     # K2, the K3 rows of DeciLM-7B's and OpenELM-270M's G, and D = 192
     # (DeepSeek's MLA) with K4 at the new routings
     for phase in ("quirks", "quirks_ln", "encoders", "geometry",
-                  "moe_forms"):
+                  "moe_forms", "multimodal", "cli"):
         for row in serves[phase]["rows"].values():
-            shape_rows[row["kernel"]].append(row)
+            shape_rows.setdefault(row["kernel"], []).append(row)
     kernels = []
     for name, (src, replaces) in TPU_KERNELS.items():
         r = rep[name]

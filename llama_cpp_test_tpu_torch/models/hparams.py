@@ -20,8 +20,8 @@ other llama-body archs (jais's 1/d_head attention scale, cohere2's
 inverted logit scale and 3:1 sliding windows, mpt's exact erf GELU); the
 bert-family encoders (post-norm layers, non-causal attention, jina's
 symmetric ALiBi); per-layer geometry (openelm's and deci's per-layer head
-counts and FFN widths, GGUF arrays under the scalar keys); and chameleon's
-swin norms.
+counts and FFN widths, GGUF arrays under the scalar keys); chameleon's
+swin norms; and qwen2vl's M-RoPE sections.
 """
 from __future__ import annotations
 
@@ -137,6 +137,10 @@ class HParams:
     n_head_layers: tuple = ()
     n_head_kv_layers: tuple = ()
     n_ff_layers: tuple = ()
+    # qwen2vl M-RoPE frequency sections (t, h, w) over the rope half-dims:
+    # image tokens rope each frequency with its section's position stream;
+    # equal streams (text) reduce to NEOX rope ({arch}.rope.dimension_sections)
+    mrope_sections: tuple = ()
 
     @property
     def v_dim(self) -> int:
@@ -165,7 +169,7 @@ class HParams:
 # orion is NEOX as in the reference, which follows the model and the GGUF
 # rows (its converter leaves them unpermuted) rather than llama.cpp's
 # runtime (reference hparams.py, the note beside its neox set)
-_NEOX = ("gemma", "gemma2", "gemma3", "qwen2", "qwen3", "falcon",
+_NEOX = ("gemma", "gemma2", "gemma3", "qwen2", "qwen2vl", "qwen3", "falcon",
          "stablelm", "olmo2", "phi2", "phi3", "starcoder2", "gptneox",
          "nemotron", "orion", "qwen", "exaone", "codeshell", "bitnet",
          "bert", "nomic-bert", "openelm", "grok", "dbrx", "qwen2moe",
@@ -329,6 +333,10 @@ def hparams_from_metadata(md: dict) -> HParams:
         alibi_style="mpt" if arch == "mpt" else "bloom",
         nope_global=arch == "cohere2",
         swin_norm=bool(g("swin_norm", False)),
+        # the first three entries (converters write a fourth, 0)
+        mrope_sections=tuple(
+            int(x) for x in np.asarray(
+                md.get(f"{arch}.rope.dimension_sections", []))[:3]),
     )
 
 

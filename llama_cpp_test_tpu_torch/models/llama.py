@@ -10,7 +10,8 @@ have no pre-norms) -> fused QKV (+ Q/K/V biases; clamped for olmo) -> QK
 norms (per-head RMS [head_dim], per-head LayerNorms [H, head_dim] with
 optional biases, or olmo2's RMS over the flat q and k) -> RoPE (the
 layer's table, partial when rope_dim < head_dim; none on a file without
-rope positions or on cohere2's global layers) -> paged attention (window,
+rope positions or on cohere2's global layers; qwen2vl's image tokens by
+their M-RoPE streams) -> paged attention (window,
 softcap, ALiBi bias) -> bitnet's RMS sub-norm -> wo (+ bias) -> post norm
 -> residual scale -> residual; then the FFN half: norm -> fused gate|up
 (+ gate and up biases) -> SwiGLU or GeGLU -> bitnet's RMS sub-norm, or a
@@ -897,10 +898,11 @@ def _qk_norm(y: torch.Tensor, weight, bias, hp: HParams) -> torch.Tensor:
 
 def _attention(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
                positions, inv_freq, mscale: float, attend, plain: bool,
-               tap, li: int = 0) -> torch.Tensor:
+               tap, li: int = 0, mrope_pos=None) -> torch.Tensor:
     """The attention branch of layer li on the normed input cur [B, T, C]
     at the layer's head counts: its output after wo and its bias, float32
-    [B, T, C]."""
+    [B, T, C]. mrope_pos [B, T, 3] (qwen2vl image tokens) ropes q and k
+    by their M-RoPE streams instead of positions."""
     b, tdim, _ = cur.shape
     h, kvh, d = hp.n_head_of(li), hp.n_head_kv_of(li), hp.head_dim
     if tap is not None:
@@ -921,7 +923,12 @@ def _attention(cur: torch.Tensor, lw: LayerWeights, hp: HParams,
         k = _qk_norm(k, lw.attn_k_norm, lw.attn_k_norm_b, hp)
     # no rope on a file without rope positions (learned rows entered at
     # the embedding; ALiBi biases the logits) or on cohere2's global layers
-    if hp.pos_embd == "rope" and inv_freq is not None:
+    if mrope_pos is not None and hp.mrope_sections:
+        q = layers.apply_mrope(q, mrope_pos, inv_freq, hp.mrope_sections,
+                               mscale)
+        k = layers.apply_mrope(k, mrope_pos, inv_freq, hp.mrope_sections,
+                               mscale)
+    elif hp.pos_embd == "rope" and inv_freq is not None:
         q = layers.apply_rope(q, positions, inv_freq, mscale)
         k = layers.apply_rope(k, positions, inv_freq, mscale)
     attn_out = attend(q.to(torch.bfloat16), k.to(torch.bfloat16),
@@ -986,9 +993,11 @@ def _mla_attention(cur, lw, hp, positions, inv_freq, mscale, attend,
 def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
                   positions: torch.Tensor, inv_freq: torch.Tensor,
                   mscale: float, attend, plain: bool = False,
-                  tap=None, li: int = 0) -> torch.Tensor:
+                  tap=None, li: int = 0, mrope_pos=None) -> torch.Tensor:
     """Layer li. x [B, T, C] bf16; attend(q, k, v) writes the KV and
-    returns [B, T, H, D]; inv_freq is the layer's rope table. tap, if
+    returns [B, T, H, D]; inv_freq is the layer's rope table; mrope_pos
+    [B, T, 3], qwen2vl's image streams, replaces positions in the rope of
+    a sequential layer (the reference's one M-RoPE branch). tap, if
     given, is called as tap(role, activation) with the input of each
     projection: "attn_in" (q, k, v), "attn_out" (wo, or the linear
     attention's projection), "ffn_in" (gate and up, or up alone, or the
@@ -1019,7 +1028,7 @@ def forward_layer(x: torch.Tensor, lw: LayerWeights, hp: HParams,
         o = linear_lora(cur, lw.wo, lw.lora.get("wo"), plain)
         return _forward_layer_ffn(x + o.to(x.dtype), lw, hp, plain, tap)
     o = _attention(cur, lw, hp, positions, inv_freq, mscale, attend, plain,
-                   tap, li)
+                   tap, li, mrope_pos)
     if lw.attn_post_norm is not None:  # sandwich norm on the branch
         o = layers.rms_norm(o, lw.attn_post_norm, hp.rms_eps)
     if hp.residual_scale != 1.0:       # granite

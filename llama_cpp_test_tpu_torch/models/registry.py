@@ -33,10 +33,10 @@ olmoe and granitemoe (softmax top-k, renormalized or not), deepseek
 MLA attention, sigmoid gating and the selection bias of V3), phimoe (the
 sparsemixer), dbrx, grok (GELU experts, post-branch norms, an attention
 softcap) and arctic (a dense MLP beside the experts), and minicpm3 (MLA
-with a q LoRA at head dim 96). Every other arch the reference registers
-is refused by name with the item that ports it: 7 qwen2vl (M-RoPE,
-which waits on the vision tower of item 9 and the embedding prefill of
-item 11), 9 the other model families.
+with a q LoRA at head dim 96); and qwen2vl (qwen2's body, whose image
+tokens rope by their M-RoPE streams). Every other arch the reference
+registers is refused by name with the item that ports it: 9 the other
+model families.
 """
 from __future__ import annotations
 
@@ -49,14 +49,12 @@ PORTED = ("llama", "mistral", "mixtral", "gemma", "gemma2", "gemma3",
           "bert", "nomic-bert", "jina-bert-v2", "openelm", "deci",
           "chameleon", "qwen2moe", "qwen3moe", "olmoe", "deepseek2",
           "deepseek", "phimoe", "dbrx", "arctic", "grok", "granitemoe",
-          "minicpm3")
+          "minicpm3", "qwen2vl")
 
-_ITEM_7 = ("qwen2vl",)
 _ITEM_9 = ("t5", "t5encoder", "mamba", "rwkv6", "rwkv6qwen2", "rwkv7",
            "arwkv7", "wavtokenizer-dec")
-UNPORTED = {**dict.fromkeys(_ITEM_7, 7), **dict.fromkeys(_ITEM_9, 9)}
-_ITEMS = {7: "qwen2vl's M-RoPE, with the vision tower of item 9",
-          9: "the other model families"}
+UNPORTED = dict.fromkeys(_ITEM_9, 9)
+_ITEMS = {9: "the other model families"}
 
 
 def check_arch(arch: str) -> None:

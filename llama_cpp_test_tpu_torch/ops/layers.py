@@ -91,6 +91,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat(parts, dim=-1).to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, inv_freq: torch.Tensor,
+                sections: tuple, mscale: float = 1.0) -> torch.Tensor:
+    """Multi-stream (M-RoPE) rotary embedding for qwen2vl image tokens, in
+    float32. x: [..., T, H, D]; pos3: [..., T, 3] (t, h, w) position
+    streams; sections (s_t, s_h, s_w) partition the D/2 frequencies, each
+    rotating with its section's stream (GGML_ROPE_TYPE_MROPE). Equal
+    streams give apply_rope's result bit for bit: each angle is the same
+    product."""
+    half = inv_freq.shape[-1]
+    s_t, s_h, s_w = sections
+    if s_t + s_h + s_w != half:
+        raise ValueError(f"M-RoPE sections {sections} do not cover the "
+                         f"{half} rope frequencies")
+    p = pos3.float()
+    theta = torch.cat([p[..., 0:1] * inv_freq[:s_t],
+                       p[..., 1:2] * inv_freq[s_t:s_t + s_h],
+                       p[..., 2:3] * inv_freq[s_t + s_h:]], dim=-1)
+    d = x.shape[-1]
+    rot = 2 * half
+    cos = (torch.cos(theta) * mscale)[..., None, :]
+    sin = (torch.sin(theta) * mscale)[..., None, :]
+    x1 = x[..., :half].float()
+    x2 = x[..., half:rot].float()
+    parts = [x1 * cos - x2 * sin, x2 * cos + x1 * sin]
+    if rot < d:
+        parts.append(x[..., rot:].float())
+    return torch.cat(parts, dim=-1).to(x.dtype)
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor,
            act: str = "silu") -> torch.Tensor:
     """Gated FFN activation act(gate) * up, computed in float32: act

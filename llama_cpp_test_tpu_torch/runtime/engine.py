@@ -49,7 +49,8 @@ TOKEN_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
              rows, slots, kv_len, *, hp: HParams, decode: bool, n_ctx: int,
              plain: bool = False, rope_delta=None,
-             causal: bool = True, tap: list | None = None) -> torch.Tensor:
+             causal: bool = True, tap: list | None = None,
+             x_embd=None, mrope_pos=None) -> torch.Tensor:
     """Embed, run all layers (writing KV in place), no final norm (lm_head
     applies it). rows/slots: flat token rows of the batch whose KV is kept
     and their global slot ids. Returns hidden [B, T, C].
@@ -74,8 +75,19 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
     as in the reference; jina-bert-v2's bias is symmetric about the true
     query positions (the mask positions of its non-causal rows are all
     kv_len - 1). Each layer runs at its own head counts, and a layer that
-    does not attend (deci) writes no KV."""
-    x = llama_mod.embed_input(w, hp, tokens, positions)
+    does not attend (deci) writes no KV.
+
+    x_embd [B, T, C] (image features, models/clip and
+    models/qwen2vl_vision) replaces the token-embedding lookup, rounded to
+    bf16 as the reference rounds it; the extras of an encoder or a file
+    without rope positions still apply. mrope_pos [B, T, 3], qwen2vl's
+    image streams, ropes q and k in place of the rope positions."""
+    if x_embd is None:
+        x = llama_mod.embed_input(w, hp, tokens, positions)
+    else:
+        x = x_embd.to(torch.bfloat16)
+        if hp.pos_embd != "rope" or hp.post_norm:
+            x = llama_mod.embed_extras(w, hp, x, positions)
     if tap is not None:
         tap.append(x)
     rope_pos = positions if rope_delta is None else \
@@ -119,7 +131,8 @@ def _forward(w: LlamaWeights, pools: KVPools, tokens, positions, block_table,
 
         x = llama_mod.forward_layer(x, lw, hp, rope_pos,
                                     w.inv_freq_for(window), w.rope_mscale,
-                                    attend, plain=plain, li=li)
+                                    attend, plain=plain, li=li,
+                                    mrope_pos=mrope_pos)
         if tap is not None:
             tap.append(x)
     return x
@@ -526,9 +539,12 @@ class Context:
         return upload(a, self.device)
 
     def _step(self, tok, pos, bt, slot_arr, kv_len, decode: bool, rd=None,
-              causal: bool = True, tap: list | None = None):
+              causal: bool = True, tap: list | None = None, x_embd=None,
+              mrope_pos=None):
         """Upload one step's host arrays and run the forward. Padding rows
-        (slot -1) are dropped from the KV scatter here, on the host."""
+        (slot -1) are dropped from the KV scatter here, on the host.
+        x_embd (a device tensor) replaces the token rows; mrope_pos is a
+        host array of M-RoPE streams."""
         if int(kv_len.max()) > self.n_ctx:
             # the dispatch drops windows >= n_ctx on this bound
             raise RuntimeError(f"kv_len {int(kv_len.max())} past n_ctx "
@@ -542,7 +558,8 @@ class Context:
             hp=self.model.hp, decode=decode, n_ctx=self.n_ctx,
             plain=self.plain,
             rope_delta=None if rd is None else self._to_dev(rd),
-            causal=causal, tap=tap)
+            causal=causal, tap=tap, x_embd=x_embd,
+            mrope_pos=None if mrope_pos is None else self._to_dev(mrope_pos))
 
     def _check_room(self, s: SeqState, n: int) -> None:
         if s.n_cached + n > self.n_ctx:
@@ -552,6 +569,26 @@ class Context:
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return llama_mod.lm_head(self.w, self.model.hp, x, self.plain)
+
+    def _chunk(self, s: SeqState, n: int, what: str) -> tuple:
+        """Reserve n slots at the end of s and build one chunk's host
+        arrays, padded to its TOKEN_BUCKETS size tb: (tb, positions
+        t0..t0+n, slot ids with -1 padding, the block table, kv_len)."""
+        if n == 0:
+            raise ValueError(f"{what}: empty token list")
+        self._check_room(s, n)
+        tb = _bucket(n, TOKEN_BUCKETS)
+        if n > tb:
+            raise ValueError(f"{what}: {n} tokens exceed the largest bucket")
+        t0 = s.n_cached
+        slots = s.table.append_tokens(n)
+        self._drain_copies([s])
+        pos = np.zeros((1, tb), np.int32)
+        pos[0, :n] = np.arange(t0, t0 + n)
+        slot_arr = np.full((1, tb), -1, np.int32)
+        slot_arr[0, :n] = slots
+        return (tb, pos, slot_arr, self._table_arr([s]),
+                np.asarray([t0 + n], np.int32))
 
     def prefill(self, s: SeqState, tokens: list[int],
                 all_logits: bool = False, top_k: int = 0):
@@ -564,26 +601,12 @@ class Context:
         if top_k > 0 and all_logits:
             raise NotImplementedError("prefill(top_k=...) is last-position only")
         n = len(tokens)
-        if n == 0:
-            raise ValueError("prefill: empty token list")
-        self._check_room(s, n)
-        t0 = s.n_cached
-        slots = s.table.append_tokens(n)
-        self._drain_copies([s])
-        tb = _bucket(n, TOKEN_BUCKETS)
-        if n > tb:
-            raise ValueError(f"prefill: {n} tokens exceed the largest bucket")
+        if all_logits and s.pos_offset:
+            raise NotImplementedError("all_logits after self_extend")
+        tb, pos, slot_arr, bt, kv_len = self._chunk(s, n, "prefill")
         tok = np.zeros((1, tb), np.int32)
         tok[0, :n] = tokens
-        pos = np.zeros((1, tb), np.int32)
-        pos[0, :n] = np.arange(t0, t0 + n)
-        slot_arr = np.full((1, tb), -1, np.int32)
-        slot_arr[0, :n] = slots
-        bt = self._table_arr([s])
-        kv_len = np.asarray([t0 + n], np.int32)
         rd = np.asarray([s.pos_offset], np.int32) if s.pos_offset else None
-        if all_logits and rd is not None:
-            raise NotImplementedError("all_logits after self_extend")
         s.tokens.extend(tokens)
         s.n_cached += n
         with torch.inference_mode():
@@ -596,6 +619,74 @@ class Context:
                 return (vals[0].cpu().numpy(),
                         ids[0].to(torch.int32).cpu().numpy())
             return logits.cpu().numpy()
+
+    def prefill_embeds(self, s: SeqState, embeds,
+                       placeholder_token: int = -1,
+                       mrope_pos: np.ndarray | None = None) -> np.ndarray:
+        """Prefill pre-computed input embeddings [T, C] (image features
+        from models/clip.encode_image or models/qwen2vl_vision
+        .encode_image; a numpy array or a tensor) instead of tokens, the
+        llava_eval_image_embed analogue. s.tokens records
+        `placeholder_token` for these positions, whose mask positions are
+        t0..t0+T. mrope_pos [T, 3]: qwen2vl's image streams, which rope q
+        and k in place of the positions; the caller then sets
+        s.pos_offset so the following text ropes at the compressed
+        position (qwen2vl-cli.cpp). Returns last-position logits [V].
+
+        The streams carry the compressed position already, so an image
+        with them may follow one (s.pos_offset nonzero); the reference
+        refuses it there and so cannot take a second qwen2vl image
+        (ROADMAP §3, fault 25). Without streams a nonzero pos_offset
+        (Self-Extend) raises, as in the reference."""
+        self._check_abort()
+        if s.pos_offset and mrope_pos is None:
+            raise NotImplementedError("prefill_embeds after self_extend")
+        hp = self.model.hp
+        n = embeds.shape[0]
+        if embeds.shape[-1] != hp.n_embd:
+            raise ValueError(f"prefill_embeds: embeddings of width "
+                             f"{embeds.shape[-1]}, the model's is "
+                             f"{hp.n_embd}")
+        tb, pos, slot_arr, bt, kv_len = self._chunk(s, n, "prefill_embeds")
+        mr = None
+        if mrope_pos is not None:
+            mr = np.zeros((1, tb, 3), np.int32)
+            mr[0, :n] = np.asarray(mrope_pos, np.int32)
+        s.tokens.extend([placeholder_token] * n)
+        s.n_cached += n
+        with torch.inference_mode():
+            e = (embeds if isinstance(embeds, torch.Tensor)
+                 else torch.from_numpy(np.array(embeds, np.float32)))
+            x_embd = torch.zeros((1, tb, hp.n_embd), dtype=torch.float32,
+                                 device=self.device)
+            x_embd[0, :n] = e.to(self.device, torch.float32)
+            x = self._step(np.zeros((1, tb), np.int32), pos, bt, slot_arr,
+                           kv_len, False, x_embd=x_embd, mrope_pos=mr)
+            return self._logits(x[:, n - 1:n])[0, 0].float().cpu().numpy()
+
+    def prefill_nll(self, s: SeqState, tokens: list[int]) -> np.ndarray:
+        """Prefill `tokens` and return the negative log-likelihood of
+        tokens[i+1] given the prefix through tokens[i], float32 [n-1] (the
+        perplexity path). Every position's logits go through the lm head
+        (K1's GEMM on the card); the log-softmax and the target gather
+        stay on the device, and only the n-1 values come back."""
+        self._check_abort()
+        n = len(tokens)
+        if n < 2:
+            raise ValueError("prefill_nll needs >= 2 tokens")
+        if s.pos_offset:
+            raise NotImplementedError("prefill_nll after self_extend")
+        tb, pos, slot_arr, bt, kv_len = self._chunk(s, n, "prefill_nll")
+        tok = np.zeros((1, tb), np.int32)
+        tok[0, :n] = tokens
+        s.tokens.extend(tokens)
+        s.n_cached += n
+        with torch.inference_mode():
+            x = self._step(tok, pos, bt, slot_arr, kv_len, False)
+            logp = torch.log_softmax(self._logits(x)[0, :n - 1].float(), -1)
+            tgt = self._to_dev(np.asarray(tokens[1:], np.int64))
+            nll = -torch.gather(logp, 1, tgt[:, None])[:, 0]
+            return nll.cpu().numpy()
 
     def _rows(self, b: int) -> int:
         """Decode batch rows for b sequences: the next power of two (the

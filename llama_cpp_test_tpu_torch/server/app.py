@@ -25,8 +25,8 @@ before anything another thread queues. LoRA adapters (lora=, --lora)
 have hot-swappable scales (POST /lora-adapters): the new scales attach
 under ctx_lock, between two scheduler steps, and a window already queued
 keeps the tensors it was queued with. An arch the port does not serve
-(models/registry: ROADMAP item 7, 8 or 9) and multi-device serving (item
-13) raise NotImplementedError. An encoder (bert, nomic-bert,
+(models/registry: ROADMAP item 9) and multi-device serving (item 13)
+raise NotImplementedError. An encoder (bert, nomic-bert,
 jina-bert-v2) serves /v1/embeddings and /rerank with its own pooling and
 causality; its n_ctx is cut to a learned position table (fit_n_ctx), and
 a generation request answers 400, as it has no LM head (the reference's

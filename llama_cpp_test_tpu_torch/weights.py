@@ -22,6 +22,10 @@ LLAMA_TPU_MOE_FUSE load) has them split back into the separate stacks
 the port's loader makes.
 Attached adapters move too: each LoRA pair (A, B, scale) as float32
 tensors holding A and B rounded to bf16, a control vector as float32.
+
+The vision towers' parameters cross the same way
+(port_clip_from_reference, port_qwen2vl_vision_from_reference): the
+reference's loaded float arrays as the port's models on a device.
 """
 from __future__ import annotations
 
@@ -138,6 +142,26 @@ def port_weights_from_reference(jw) -> LlamaWeights:
     if getattr(jw.output, "layout", "t") == "rows":
         out.output = None
     return out
+
+
+def port_clip_from_reference(jm, device=None):
+    """The reference's loaded ClipModel (numpy float arrays: the layers,
+    every projector and the resampler's dict) as the port's, float32 on
+    device (CUDA unless the caller asks for the CPU)."""
+    from .device import resolve_device
+    from .models import clip
+
+    return clip.convert(jm, resolve_device(device))
+
+
+def port_qwen2vl_vision_from_reference(jm, device=None):
+    """The reference's loaded Qwen2VLVision (numpy float arrays) as the
+    port's, float32 on device (CUDA unless the caller asks for the
+    CPU)."""
+    from .device import resolve_device
+    from .models import qwen2vl_vision as qv
+
+    return qv.convert(jm, resolve_device(device))
 
 
 def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:

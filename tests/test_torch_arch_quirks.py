@@ -272,7 +272,7 @@ def run(main, argv, **kw):
         sys.stdout = old
 
 
-@pytest.mark.parametrize("arch,item", [("qwen2vl", 7), ("rwkv6", 9),
+@pytest.mark.parametrize("arch,item", [("rwkv6qwen2", 9), ("rwkv6", 9),
                                        ("rwkv7", 9), ("wavtokenizer-dec", 9),
                                        ("mamba", 9), ("t5", 9)])
 def test_unported_archs_name_their_item(tmp_path, arch, item):
