@@ -31,7 +31,8 @@ non-zero before the final line:
            count of every kernel of that path must be > 0, and the logits
            at every row of a prefill and of the next decode steps are held
            against the plain path, its min rounded as the TPU kernels round
-           it (the XLA path's joint rounding is recorded beside)
+           it (the XLA path's joint rounding is recorded beside, on this
+           file alone since PR 19)
   serve_moe the same for a Mixtral-8x7B-geometry MoE GGUF (full width, 1
            layer), served by two Contexts, bf16 and q8_0 KV, each with
            three generate() requests and one batched decode of 8 sequences;
@@ -146,8 +147,8 @@ non-zero before the final line:
            a layer and once for the head, the logits within the plain
            path's gate; the same prompt through one Scheduler slot equal
            to its per-token replay; the sched phase's eight requests at
-           bf16 and q8_0 KV (K3, K3-q8 at B = 8, D = 256) against their
-           replay; K2, K3 and K3-q8 rows at D = 256
+           bf16 KV (K3 at B = 8, D = 256) against their replay; K2, K3 and
+           K3-q8 rows at D = 256
   quirks_ln the LayerNorm, parallel-residual and partial-rope archs:
            Phi-3-mini-128k (Q4_K; head dim 96, fused QKV and gate|up, long
            rope, window 262144) and Phi-2 (Q4_K; head dim 80, partial rope,
@@ -159,13 +160,13 @@ non-zero before the final line:
            layer a chunk, K3 (K3-q8) once a layer a decode step (no window
            binds) and K1's GEMV four times a layer and once for the head,
            the logits within the gate; the sched phase's eight requests at
-           bf16 and q8_0 KV against their replay; then nine 2-layer files at
+           bf16 KV against their replay; then eight 1-layer Q8_0 files at
            published widths (StableLM-2-1.6B, StarCoder2-3B, Pythia-1.4B,
-           Falcon-7B in Q8_0, Command-R v01, Granite-3.0-2B,
-           OLMo-2-1124-7B, Minitron-4B, OLMo-1.7-7B), each with the same
-           logits check at bf16 KV and its launch counts; K2, K3 and K3-q8
-           rows at D = 80 and 96 and K3 at Falcon-7B's G = 71; the ptxas
-           registers and spills of the D = 80 and 96 builds
+           Falcon-7B, Granite-3.0-2B, OLMo-2-1124-7B, Minitron-4B,
+           OLMo-1.7-7B; Command-R v01 left out for the clock), each with
+           the same logits check at bf16 KV and its launch counts; K2, K3
+           and K3-q8 rows at D = 80 and 96 and K3 at Falcon-7B's G = 71;
+           the ptxas registers and spills of the D = 80 and 96 builds
   quirks_body the other llama-body archs: MiniCPM-2B (Q8_0: FFN 5760; the
            mup scales, tied head) at published widths and 2 of 40
            layers (cut for the smoke's clock), Command
@@ -178,21 +179,20 @@ non-zero before the final line:
            a chunk, K3 or K3-q8 once a global layer a step, K1's GEMV once
            a quantized plane a step); on Command R7B a 4672-token prompt
            past its window (K3 on the global layer alone) and one context
-           shift at each KV type held to the plain path; then nine 2-layer
-           files at published widths (InternLM2-7B, Baichuan2-7B,
+           shift at each KV type held to the plain path; then nine 1-layer
+           Q8_0 files at published widths (InternLM2-7B, Baichuan2-7B,
            XVERSE-7B, Orion-14B, Qwen-7B, EXAONE-3.5-2.4B, CodeShell-7B,
            ChatGLM3-6B, PLaMo-13B), each with generate() and a batched
-           decode of 8 at bf16 and q8_0 KV, its logits at bf16 KV and its
-           path predictions; the ptxas registers and spills of the D = 100
-           builds
-  positions the position axes: GPT-2 (1024 learned positions; 6 of 12
+           decode of 8, its logits and its path prediction at bf16 KV; the
+           ptxas registers and spills of the D = 100 builds
+  positions the position axes: GPT-2 (1024 learned positions; 2 of 12
            layers) and BLOOM-560m (ALiBi, the embedding LayerNorm; 2 of 24
            layers), cut for the smoke's clock, at published widths as in
            quirks_body, K2 and K3 launched on GPT-2 and
            never on BLOOM (ALiBi takes the gather path, as the reference
-           sends it to XLA); then five 2-layer files (StarCoderBase-1B,
-           MPT-7B, Jais-13B, Refact-1.6B, Baichuan2-13B by its
-           max_alibi_bias key) with the same checks
+           sends it to XLA); then five 1-layer Q8_0 files
+           (StarCoderBase-1B, MPT-7B, Jais-13B, Refact-1.6B, Baichuan2-13B
+           by its max_alibi_bias key) with the same checks
   encoders the bert-family encoders: BERT-base, nomic-embed-text-v1.5 and
            jina-embeddings-v2-base-en at published widths and depth (their
            WordPiece vocabularies synthesized), each at Q8_0 and Q4_K:
@@ -206,17 +206,17 @@ non-zero before the final line:
            its 512 positions; K2 bidirectional at BERT-base's T = 512
   geometry per-layer geometry and chameleon: OpenELM-270M (Q4_K; query
            heads 12-20 on KV heads 3-5, FFN widths 768-5120) at published
-           widths and 8 of 16 layers as in quirks_body, with a session save and
+           widths and 4 of 16 layers as in quirks_body, with a session save and
            restore, one context shift held to the plain path and greedy
            tokens at equal batches (B = 4) against the plain path, at
-           bf16 and q8_0 KV; then DeciLM-7B at 4 layers (KV heads 4, 4, 2,
+           bf16 and q8_0 KV; then DeciLM-7B at 2 layers (KV heads 4 and
            2), a Llama-3.1-Nemotron-51B-width file of 3 layers
            (attention, attention-free, linear attention), Chameleon-7B at
-           4 layers (QK LayerNorms with biases) and a Chameleon-34B-width
-           swin-norm file at 2, each with the 2-layer files' checks (K2
-           and K3 once an attending layer) and greedy tokens at equal
-           batches at bf16 and q8_0 KV; K3 and K3-q8 at DeciLM-7B's KV = 2
-           and OpenELM-270M's widest layer (20 on 5)
+           1 layer (QK LayerNorms with biases) and a Chameleon-34B-width
+           swin-norm file at 1, each with the small files' checks at bf16
+           KV (K2 and K3 once an attending layer) and greedy tokens at
+           equal batches at bf16 and q8_0 KV; K3 and K3-q8 at DeciLM-7B's
+           KV = 2 and OpenELM-270M's widest layer (20 on 5)
   moe_forms the other MoE forms and MLA attention: DeepSeek-V2-Lite
            (Q4_K; MLA at D = 192, a dense first layer, 64 experts top-6,
            2 shared) at published widths and 2 of 27 layers, served as in
@@ -225,13 +225,14 @@ non-zero before the final line:
            and cli.main's printout equal to generate()'s; then, one at a
            time on the card: DeepSeek-V3 (Q2_K, 2 layers: sigmoid gating,
            the selection bias, 256 experts top-8), MiniCPM3-4B (MLA at D =
-           96), Qwen1.5-MoE-A2.7B, Qwen3-30B-A3B, OLMoE-1B-7B, Phi-3.5-MoE,
-           granite-3.0-3b-a800m and deepseek-moe-16b at 2 layers (Q4_K),
-           DBRX, Grok-1 and Arctic at one (Q2_K), each with generate() and
-           a batched decode of 8 at bf16 and q8_0 KV, its logits at bf16
-           KV and its path predictions; K2 at D = 192 (V2-Lite's 16 heads,
-           V3's 128), K3 and K3-q8 at D = 192, K4 at top-6 of 64, top-8 of
-           128 and top-2 of 128 (K = 7168); the ptxas registers and spills
+           96, 1 layer), Qwen1.5-MoE-A2.7B, Qwen3-30B-A3B, OLMoE-1B-7B,
+           Phi-3.5-MoE and granite-3.0-3b-a800m at 1 layer and
+           deepseek-moe-16b at 2 (its dense lead) (Q4_K) and DBRX at one
+           (Q2_K), each with generate() and a batched decode of 8, its
+           logits and its path prediction at bf16 KV (Grok-1 and Arctic
+           left out for the clock); K2 at D = 192 (V2-Lite's 16 heads,
+           V3's 128), K3 and K3-q8 at D = 192, K4 at top-6 of 64 and top-8
+           of 128; the ptxas registers and spills
            of the D = 192 builds
   multimodal image input at published widths, driven as the llava CLI
            drives it after preprocessing (seeded arrays, no PIL):
@@ -248,6 +249,23 @@ non-zero before the final line:
            decode steps; K2 at Llama-2-7B's T = 576 + text and Qwen2-VL's
            256 and 512, K3 at both at B = 1 and 8, K1 at Qwen2-VL-2B's
            gate|up at M = 1 and 512
+  recurrent the recurrent families, plain f32 torch (no kernel of the
+           port launches: every count stays 0): Mamba-130M (24 layers),
+           RWKV-6 World 1.6B (6 of 24) and RWKV-7 World 1.5B (2 of 24) at
+           published widths from seeded F16 files, each loaded on the
+           card and its weights copied to the CPU: a 32-token prompt and a
+           16-token greedy continuation prefilled at once on both within
+           NMSE 1e-6, the
+           CPU's argmax the card's token at each step; a prefill of T and
+           one decode against a prefill of T + 1; RecurrentContext at
+           B = 4 on rows out of order after a free_seq against each
+           sequence's solo Context; the Scheduler on 8 mixed requests, one
+           past n_ctx (shift_context); the wall ms a decoded token at
+           B = 1 and 4 and of the prefill, device busy and launches a
+           token, the f32 byte bound; on Mamba-130M cli.main's printout
+           and the server (/completion, a streamed chat, /embeddings and
+           a slot save answering 400); then the rwkv6qwen2 and arwkv7
+           branches at the CPU tests' widths
   timings  the seconds of each phase
 
 Every file the serve phases write carries a synthesized tokenizer
@@ -378,7 +396,8 @@ PHI2 = dict(arch="phi2", n_vocab=51200, n_embd=2560, n_head=32,
             n_head_kv=32, head_dim=80, rope_dim=32, n_layer=2, n_ff=10240,
             ln_eps=1e-5, norm_bias=True, ffn_norm=False, fused_qkv=True,
             qkv_bias=True, bo=True, ffn="up", ffn_bias=True, head_bias=True)
-# The other archs of the slice at published widths, depth cut to 2 layers:
+# The other archs of the slice at published widths, depth cut to 1 layer
+# (2 until PR 19):
 # StableLM-2-1.6B (stabilityai/stablelm-2-1_6b config.json): partial rope
 # (16 of 64), LayerNorms with biases, Q/K/V biases
 STABLELM2_16B = dict(arch="stablelm", n_vocab=100352, n_embd=2048,
@@ -540,7 +559,11 @@ def random_blocks(rng, ggml_type, n: int, k: int) -> np.ndarray:
 
     blk, nbytes = GGML_BLOCK_SIZES[ggml_type]
     nb = n * k // blk
-    raw = rng.integers(0, 256, size=(nb, nbytes), dtype=np.uint8)
+    # the random bytes drawn as 64-bit words: about twice the rate of a
+    # uint8 draw, which set much of the smoke's host time
+    words = rng.integers(0, 1 << 64, size=-(-nb * nbytes // 8),
+                         dtype=np.uint64)
+    raw = words.view(np.uint8)[:nb * nbytes].reshape(nb, nbytes)
     d = lambda lo, hi: rng.uniform(lo, hi, nb).astype(np.float16)
     if ggml_type == GGMLType.Q4_K:
         # weight std ~0.015. A random 22-layer stack at TinyLlama's trained
@@ -2001,7 +2024,7 @@ class Kept:
 
 def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
            ftype="Q4_K", kinds=(), rows=None, keep=None, chat_template=None,
-           n_ctx=1024, n_decode=4):
+           n_ctx=1024, n_decode=4, joint=True):
     """Synthesize the GGUF, load it with Model(path) on cuda, serve every
     Context (KV type, qmm variant; n_ctx tokens) with the launch counts
     zeroed just before and read just after: generate() at 16, 130 and
@@ -2011,7 +2034,9 @@ def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
     phase; a "cache" Context must launch K5; every plane kind in `kinds`
     must reach K1. rows(model), if given, runs after the checks (kernel
     rows on the loaded planes, further checks). keep: (Kept, name) to keep
-    the file under (else it is removed once loaded)."""
+    the file under (else it is removed once loaded). joint False: no
+    joint-min witness (_kernels_vs_plain; every file after TinyLlama's,
+    for the smoke's clock)."""
     from llama_cpp_test_tpu_torch.ops import _cuda
     from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
 
@@ -2058,7 +2083,7 @@ def _serve(torch, name, hp, seed, contexts, batch, path_kernels, profile,
         check(set(kinds) <= reached, f"{name}: plane kinds {sorted(kinds)} "
                                      f"should reach K1; reached {reached}")
         checks, bad = _kernels_vs_plain(model, prompts[1], contexts,
-                                        n_decode)
+                                        n_decode, joint)
         plane_bytes = _decode_plane_bytes(model.weights, model.hp)
         out = {"phase": name, "arch": model.hp.arch,
                "n_layer": hp["n_layer"], "ftype": ftype,
@@ -2090,7 +2115,8 @@ def phase_serve(torch, kept: Kept, profile: bool = False) -> dict:
 
 def phase_serve_moe(torch, profile: bool = False) -> dict:
     return _serve(torch, "serve_moe", MIXTRAL, 8,
-                  [("bf16", None), ("q8_0", None)], 8, MOE_PATH, profile)
+                  [("bf16", None), ("q8_0", None)], 8, MOE_PATH, profile,
+                  joint=False)
 
 
 def _projections(model):
@@ -2131,7 +2157,8 @@ def _model_rows(kc, model, prefix, k5=()):
 def phase_serve_iq4xs(torch, kc, profile: bool = False) -> dict:
     return _serve(torch, "serve_iq4xs", LLAMA3_70B, 9, [("bf16", None)], 8,
                   DENSE_PATH, profile, ftype="IQ4_XS", kinds=("u4lut",),
-                  rows=lambda model: _model_rows(kc, model, "70B"))
+                  rows=lambda model: _model_rows(kc, model, "70B"),
+                  joint=False)
 
 
 def phase_serve_lowbit(torch, kc, kept: Kept, profile: bool = False) -> dict:
@@ -2145,7 +2172,8 @@ def phase_serve_lowbit(torch, kc, kept: Kept, profile: bool = False) -> dict:
                       ftype=ftype, kinds=kinds,
                       rows=lambda model, f=ftype: _model_rows(
                           kc, model, f"8B {f}", k5=k5),
-                      keep=(kept, "8b_q2k") if ftype == "Q2_K" else None)
+                      keep=(kept, "8b_q2k") if ftype == "Q2_K" else None,
+                      joint=False)
         for ftype, seed, kinds in (("Q2_K", 10, ("u2",)),
                                    ("IQ1_S", 12, ("u2lut", "u4lut")))}
     launches = {k: sum(f["launches"][k] for f in files.values())
@@ -2179,7 +2207,7 @@ def phase_serve_moe_lowbit(torch, kc, profile: bool = False) -> dict:
         ftype: _serve(torch, f"serve_moe_lowbit/{ftype}", hp, seed,
                       [("bf16", None)], 8, path, profile, ftype=ftype,
                       rows=lambda model, f=ftype: _moe_rows(
-                          kc, model, f"Mixtral {f}"))
+                          kc, model, f"Mixtral {f}"), joint=False)
         for ftype, hp, seed, path in (
             ("Q2_K", MIXTRAL_LOWBIT, 13, MOE_BF16_PATH),
             ("IQ1_S", MIXTRAL_LOWBIT, 14, MOE_BF16_PATH),
@@ -4239,15 +4267,17 @@ def _long_sched(torch, model, prompt, n_ctx: int) -> dict:
 
 def _quirk_sched(torch, model) -> dict:
     """The sched phase's eight requests (four greedy, four seeded; 8
-    slots, windows of 16) at bf16 and q8_0 KV: K3 and K3-q8 at B = 8 on
-    the global layers; every greedy token equals the per-token replay."""
+    slots, windows of 16) at bf16 KV: K3 at B = 8 on the global layers;
+    every greedy token equals the per-token replay (q8_0 KV, run by the
+    sched phase and by each file's _serve, was cut for the smoke's clock
+    in PR 19)."""
     from llama_cpp_test_tpu_torch.ops import _cuda
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     prompts = _sched_prompts(model.tokenizer, 21)
     params = _sched_params()
     out = {}
-    for kv in ("bf16", "q8_0"):
+    for kv in ("bf16",):
         torch.cuda.synchronize()
         _cuda.reset_launches()
         t0 = time.time()
@@ -4309,7 +4339,7 @@ def phase_quirks(torch, kc, nvidia_smi: str, profile: bool = False) -> dict:
     launches the path predicts and its logits within the gate
     (_path_prediction); the same prompt through one Scheduler slot
     against its replay (_long_sched); eight Scheduler requests at bf16
-    and q8_0 KV (_quirk_sched); K2, K3 and K3-q8 rows at D = 256."""
+    KV (_quirk_sched); K2, K3 and K3-q8 rows at D = 256."""
     files, launches = {}, {}
     for label, hp, ftype, seed, long in QUIRK_FILES:
         n_ctx = 1024 if long is None else -(-(long + 64) // 1024) * 1024
@@ -4329,14 +4359,14 @@ def phase_quirks(torch, kc, nvidia_smi: str, profile: bool = False) -> dict:
         contexts = [("bf16", None)] + ([] if long is None else
                                        [("q8_0", None)])
         r = _serve(torch, f"quirks/{label}", hp, seed, contexts, 2,
-                   DENSE_PATH, profile, ftype=ftype, n_ctx=n_ctx, n_decode=QUIRK_DECODE if long else 4,
-                   rows=None if long is None else more)
+                   DENSE_PATH, profile, ftype=ftype, n_ctx=n_ctx,
+                   n_decode=QUIRK_DECODE if long else 4,
+                   rows=None if long is None else more, joint=False)
         r["seconds"] = time.time() - t0
         files[label] = r
         runs = [r["launches"]]
         if long is not None:
-            runs += [r["rows"]["sched"][kv]["launches"]
-                     for kv in ("bf16", "q8_0")]
+            runs += [r["rows"]["sched"]["bf16"]["launches"]]
         for counts in runs:
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
@@ -4353,16 +4383,19 @@ def phase_quirks(torch, kc, nvidia_smi: str, profile: bool = False) -> dict:
 # (bf16 KV, then q8_0 at the first))
 QUIRK_LN_FILES = (("phi3_mini", PHI3_MINI, "Q4_K", 51, (8192, 2048)),
                   ("phi2", PHI2, "Q4_K", 52, (2048,)))
-# (label, geometry, GGUF type, seed): 2 layers each
-QUIRK_LN_SMALL = (("stablelm2_16b", STABLELM2_16B, "Q4_K", 53),
-                  ("starcoder2_3b", STARCODER2_3B, "Q4_K", 54),
-                  ("pythia_14b", PYTHIA_14B, "Q4_K", 55),
+# (label, geometry, GGUF type, seed): 1 layer each, Q8_0 (cut from 2
+# layers and Q4_K for the smoke's clock, PR 19: a Q8_0 tensor repacks in
+# about half a Q4_K one's host time a weight). Command-R v01 (COMMAND_R,
+# seed 57: 25.7 s of writing and repacking its tied 256000 x 8192 head,
+# PR 19 run 9) is left out for the clock since PR 19 (ROADMAP §2 C (t))
+QUIRK_LN_SMALL = (("stablelm2_16b", STABLELM2_16B, "Q8_0", 53),
+                  ("starcoder2_3b", STARCODER2_3B, "Q8_0", 54),
+                  ("pythia_14b", PYTHIA_14B, "Q8_0", 55),
                   ("falcon_7b", FALCON_7B, "Q8_0", 56),
-                  ("command_r", COMMAND_R, "Q4_K", 57),
-                  ("granite3_2b", GRANITE3_2B, "Q4_K", 58),
-                  ("olmo2_7b", OLMO2_7B, "Q4_K", 59),
-                  ("minitron_4b", MINITRON_4B, "Q4_K", 60),
-                  ("olmo17_7b", OLMO17_7B, "Q4_K", 61))
+                  ("granite3_2b", GRANITE3_2B, "Q8_0", 58),
+                  ("olmo2_7b", OLMO2_7B, "Q8_0", 59),
+                  ("minitron_4b", MINITRON_4B, "Q8_0", 60),
+                  ("olmo17_7b", OLMO17_7B, "Q8_0", 61))
 LN_PROMPT = 600             # two K2 chunks (512 + 88) for the path check
 
 
@@ -4410,7 +4443,7 @@ def _ln_rows(kc) -> dict:
 
 
 def _ln_small(torch, label, hp, ftype, model, write_s, fitted) -> dict:
-    """A 2-layer file at published widths, loaded: its logits over a
+    """A 1-layer file at published widths, loaded: its logits over a
     130-token prefill (every row) and QUIRK_DECODE decode steps within the
     gate of the plain path at bf16 KV, and the launches its path predicts
     over a LN_PROMPT-token prompt."""
@@ -4419,7 +4452,7 @@ def _ln_small(torch, label, hp, ftype, model, write_s, fitted) -> dict:
     checks, bad = _kernels_vs_plain(model, prompt[:130], [("bf16", None)],
                                     QUIRK_DECODE)
     out = {"phase": f"quirks_ln/{label}", "arch": model.hp.arch,
-           "n_layer": hp["n_layer"], "ftype": ftype, "fitted_types": fitted,
+           "n_layer": model.hp.n_layer, "ftype": ftype, "fitted_types": fitted,
            "write_gguf_s": write_s, "load_s": model.load_seconds,
            "plain_vs_kernel_nmse": checks, "gate": LOGITS_GATE,
            "path": _path_prediction(torch, model, prompt, 1024)}
@@ -4444,8 +4477,8 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
     once a layer a decode step: no window binds; K1's GEMV four times a
     layer and once for the head) and its logits within the gate; Phi-3's
     rope table at n_ctx 8192 (long) and 2048 (short); the sched phase's
-    eight requests at bf16 and q8_0 KV against their replay. Then the nine
-    2-layer files of QUIRK_LN_SMALL (_small_files: _small_load on three
+    eight requests at bf16 KV against their replay. Then the eight
+    1-layer files of QUIRK_LN_SMALL (_small_files: _small_load on three
     host threads, _ln_small as each load completes), the K2, K3 and K3-q8 rows
     at D = 80 and 96 and K3 at G = 71 (_ln_rows), and the registers and
     spills of the D = 80 and 96 builds (a spill fails the build phase)."""
@@ -4470,15 +4503,14 @@ def phase_quirks_ln(torch, kc, nvidia_smi: str, build: dict,
         r = _serve(torch, f"quirks_ln/{label}", hp, seed,
                    [("bf16", None), ("q8_0", None)], 2, DENSE_PATH, profile,
                    ftype=ftype, n_ctx=n_ctxs[0], n_decode=QUIRK_DECODE,
-                   rows=more)
+                   rows=more, joint=False)
         r["seconds"] = time.time() - t0
         files[label] = r
         _add_launches(launches, r["launches"])
         for p in r["rows"]["path"]:
             for step in ("prefill", "decode"):
                 _add_launches(launches, p["launches"][step])
-        for kv in ("bf16", "q8_0"):
-            _add_launches(launches, r["rows"]["sched"][kv]["launches"])
+        _add_launches(launches, r["rows"]["sched"]["bf16"]["launches"])
     _small_files(QUIRK_LN_SMALL, files, launches,
                  lambda label, hp, ftype, *loaded: _ln_small(
                      torch, label, hp, ftype, *loaded))
@@ -4529,7 +4561,7 @@ BITNET_3B = dict(arch="bitnet", n_vocab=32002, n_embd=3200, n_head=32,
                  n_head_kv=32, head_dim=100, n_layer=2, n_ff=8640,
                  tied=True, sub_norms=True)
 # the other llama-body archs at published widths (each model's
-# config.json), depth cut to 2 layers
+# config.json), depth cut to 1 layer (2 until PR 19), Q8_0
 BODY_SMALL_HP = {
     # internlm/internlm2-7b: GQA 32/8, rope base 1e6
     "internlm2_7b": dict(arch="internlm2", n_vocab=92544, n_embd=4096,
@@ -4573,11 +4605,12 @@ BODY_SMALL_HP = {
                       ffn_norm=False),
 }
 # GPT-2 (openai-community/gpt2 config.json) published widths, depth cut
-# from 12 to 6 layers (full depth until the multimodal phase): 1024
+# from 12 to 2 layers (full depth until the multimodal phase, 6 until the
+# recurrent one): 1024
 # learned positions, LayerNorms with biases, fused QKV with bias, wo
 # bias, a non-gated GELU FFN with biases, tied head
 GPT2_124M = dict(arch="gpt2", n_vocab=50257, n_embd=768, n_head=12,
-                 n_head_kv=12, head_dim=64, n_layer=6, n_ff=3072,
+                 n_head_kv=12, head_dim=64, n_layer=2, n_ff=3072,
                  ln_eps=1e-5, norm_bias=True, fused_qkv=True, qkv_bias=True,
                  bo=True, ffn="up", ffn_bias=True, tied=True, pos_rows=1024)
 # BLOOM-560m (bigscience/bloom-560m config.json) published widths, depth
@@ -4619,7 +4652,7 @@ R7B_PROMPT = 4608 + 64      # past Command R7B's 4096 window: 10 K2 chunks
 R7B_SHIFT = (64, 512)       # n_keep, n_discard of its context shift
 
 
-def _small_load(label, hp, ftype, seed, n_layer=2) -> tuple:
+def _small_load(label, hp, ftype, seed, n_layer=1) -> tuple:
     """A file of n_layer layers at published widths, written (no
     tokenizer: its checks feed token ids) and loaded on the card: (Model,
     seconds the write took, the types _fit_type chose)."""
@@ -4639,26 +4672,25 @@ def _small_load(label, hp, ftype, seed, n_layer=2) -> tuple:
 
 def _small_check(torch, phase, label, model, write_s, fitted,
                  recheck: bool = True) -> dict:
-    """A loaded 2-layer file: generate() on a 16-token prompt and one
-    batched decode of 8 rows at bf16 and q8_0 KV, its logits over a
-    130-token prefill (every row) and QUIRK_DECODE decode steps within the
-    gate of the plain path at bf16 KV, and the launches its path predicts
-    over a LN_PROMPT-token prompt at bf16 and q8_0 KV. recheck False (the
-    clock) holds the logits to the plain path that once: the path
-    predictions count launches alone and the joint-min witness is not
-    traced."""
+    """A loaded small file: generate() on a 16-token prompt and one
+    batched decode of 8 rows, its logits over a 130-token prefill (every
+    row) and QUIRK_DECODE decode steps within the gate of the plain path,
+    and the launches its path predicts over a LN_PROMPT-token prompt, all
+    at bf16 KV (q8_0 KV, the same kernels' K3-q8 path, was cut for the
+    smoke's clock in PR 19: each phase's headline files serve at both).
+    recheck False (the clock) holds the logits to the plain path that
+    once: the path prediction counts launches alone and the joint-min
+    witness is not traced."""
     from llama_cpp_test_tpu_torch.runtime.engine import Context
 
     hp = model.hp
     rng = np.random.default_rng(13)
     prompt = rng.integers(3, hp.n_vocab, size=LN_PROMPT).tolist()
-    served = {}
-    for kv in ("bf16", "q8_0"):
-        ctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16,
-                      kv_type=kv)
-        served[kv] = _serve_requests(torch, ctx, [prompt[:16], prompt[:24]],
-                                     hp.n_vocab, 8)
-        del ctx
+    ctx = Context(model, n_ctx=1024, n_seq_max=8, block_size=16,
+                  kv_type="bf16")
+    served = {"bf16": _serve_requests(torch, ctx, [prompt[:16], prompt[:24]],
+                                      hp.n_vocab, 8)}
+    del ctx
     checks, bad = _kernels_vs_plain(model, prompt[:130], [("bf16", None)],
                                     QUIRK_DECODE, recheck)
     out = {"phase": f"{phase}/{label}", "arch": hp.arch,
@@ -4666,8 +4698,8 @@ def _small_check(torch, phase, label, model, write_s, fitted,
            "fitted_types": fitted, "write_gguf_s": write_s,
            "load_s": model.load_seconds, "requests": served,
            "plain_vs_kernel_nmse": checks, "gate": LOGITS_GATE,
-           "path": [_path_prediction(torch, model, prompt, 1024, kv,
-                                     recheck) for kv in ("bf16", "q8_0")]}
+           "path": [_path_prediction(torch, model, prompt, 1024, "bf16",
+                                     recheck)]}
     emit(out)
     check(not bad, f"{label}: logits outside the gate: {bad}")
     out["launches"] = {}
@@ -4679,7 +4711,7 @@ def _small_check(torch, phase, label, model, write_s, fitted,
 
 def _small_files(specs, files, launches, check) -> None:
     """The small files of specs ((label, geometry, type, seed[, layers]),
-    2 layers by default), written and loaded three at a time on host
+    1 layer by default), written and loaded three at a time on host
     threads (their vocabularies repack for seconds each) while the card
     checks the ones already loaded, in the order they load, by
     check(label, geometry, type, model, write seconds, fitted types); a
@@ -4748,11 +4780,11 @@ def _shift_vs_plain(torch, model, prompt, n_ctx: int, kv: str) -> dict:
 BODY_FILES = (("minicpm_2b", MINICPM_2B, "Q8_0", 71, 1024),
               ("command_r7b", COMMAND_R7B, "Q4_K", 72, 5120),
               ("bitnet_3b", BITNET_3B, "Q8_0", 73, 1024))
-BODY_SMALL = tuple((label, hp, "Q4_K", 74 + i)
+BODY_SMALL = tuple((label, hp, "Q8_0", 74 + i)
                    for i, (label, hp) in enumerate(BODY_SMALL_HP.items()))
 POSITION_FILES = (("gpt2", GPT2_124M, "Q4_K", 91),
                   ("bloom_560m", BLOOM_560M, "Q4_K", 92))
-POSITION_SMALL = tuple((label, hp, "Q4_K", 93 + i) for i, (label, hp)
+POSITION_SMALL = tuple((label, hp, "Q8_0", 93 + i) for i, (label, hp)
                        in enumerate(POSITION_SMALL_HP.items()))
 
 
@@ -4780,7 +4812,7 @@ def _headline(torch, phase, label, hp, ftype, seed, n_ctx, nvidia_smi,
     r = _serve(torch, f"{phase}/{label}", hp, seed,
                [("bf16", None), ("q8_0", None)], 8, (), profile,
                ftype=ftype, n_ctx=min(n_ctx, hp.get("pos_rows") or n_ctx),
-               n_decode=QUIRK_DECODE, rows=more)
+               n_decode=QUIRK_DECODE, rows=more, joint=False)
     r["seconds"] = time.time() - t0
     return r
 
@@ -4803,7 +4835,7 @@ def phase_quirks_body(torch, kc, nvidia_smi: str, build: dict,
     _headline at bf16 and q8_0 KV; Command R7B over a R7B_PROMPT-token
     prompt past its window (K3 on its global layer alone) and one context
     shift at each KV type held to the plain path (_shift_vs_plain). Then
-    the nine 2-layer files of BODY_SMALL (_small_files) and the registers
+    the nine 1-layer files of BODY_SMALL (_small_files) and the registers
     and spills of the D = 100 builds (a spill fails the build phase; the
     kernels phase holds K2, K3 and K3-q8 at D = 100 to their plain
     versions)."""
@@ -4837,13 +4869,13 @@ def phase_quirks_body(torch, kc, nvidia_smi: str, build: dict,
 
 def phase_positions(torch, kc, nvidia_smi: str,
                     profile: bool = False) -> dict:
-    """The position axes. GPT-2 (Q4_K, 1024 learned positions; 6 of 12
+    """The position axes. GPT-2 (Q4_K, 1024 learned positions; 2 of 12
     layers) and BLOOM-560m (Q4_K, ALiBi, the embedding LayerNorm; 2 of 24
     layers) at published widths through _headline at bf16 and q8_0 KV: K2
     once a layer a
     chunk and K3 (K3-q8) once a layer a step on GPT-2, neither on BLOOM,
     whose attention takes the gather path as the reference sends ALiBi to
-    XLA; then the five 2-layer files of POSITION_SMALL (StarCoderBase-1B,
+    XLA; then the five 1-layer files of POSITION_SMALL (StarCoderBase-1B,
     MPT-7B, Jais-13B, Refact-1.6B, Baichuan2-13B) with the same launch
     checks."""
     files, launches = {}, {}
@@ -4901,20 +4933,21 @@ ENCODER_TEXTS = ("the people of the world could find water",
 
 def _openelm_270m() -> dict:
     """OpenELM-270M (apple/OpenELM-270M config.json) published widths,
-    depth cut from 16 to 8 layers (0, 2, 4, 6, 9, 11, 13 and 15, the first
-    and the last kept; full depth until the multimodal phase): 1280 wide,
+    depth cut from 16 to 4 layers (0, 5, 10 and 15, the first and the last
+    kept; full depth until the multimodal phase, 8 until the recurrent
+    one): 1280 wide,
     D = 64, query heads from 12 to 20 on KV heads from 3 to 5 (G = 4), FFN
     multipliers from 0.5 to 4.0 (divisor 256), shared per-head QK RMS
     norms, a fused qkv, NEOX rope, tied head of 32000. The per-layer
     arrays are written here, not copied (PERF.md §4, synthetic): layer i
     of 16 has KV heads 3 + round(2 i / 15) and FFN 1280 x linspace(0.5, 4,
     16)[i] rounded up to 256."""
-    kept = [0, 2, 4, 6, 9, 11, 13, 15]
+    kept = [0, 5, 10, 15]
     kv = [3 + round(2 * i / 15) for i in kept]
     ff = [int(-(-m * 1280 // 256) * 256)
           for m in np.linspace(0.5, 4.0, 16)[kept]]
     return dict(arch="openelm", n_vocab=32000, n_embd=1280, n_head=20,
-                n_head_kv=5, head_dim=64, n_layer=8, n_ff=max(ff),
+                n_head_kv=5, head_dim=64, n_layer=4, n_ff=max(ff),
                 rms_eps=1e-6, fused_qkv=True, qk_norm="shared", tied=True,
                 n_head_layers=[4 * k for k in kv], n_head_kv_layers=kv,
                 n_ff_layers=ff)
@@ -4922,12 +4955,13 @@ def _openelm_270m() -> dict:
 
 OPENELM_270M = _openelm_270m()
 # DeciLM-7B (Deci/DeciLM-7B config.json) published widths, depth cut from
-# 32 to 4 layers: 4096 wide, 32 heads at D = 128, FFN 14336, per-layer KV
-# heads (its num_key_value_heads_per_layer; the four written here, 4, 4,
-# 2 and 2, are synthetic, PERF.md §4), NORM rope
+# 32 to 2 layers (4 until the recurrent phase): 4096 wide, 32 heads at
+# D = 128, FFN 14336, per-layer KV heads (its
+# num_key_value_heads_per_layer; the two written here, 4 and 2, are
+# synthetic, PERF.md §4), NORM rope
 DECILM_7B = dict(arch="deci", n_vocab=32000, n_embd=4096, n_head=32,
-                 n_head_kv=4, head_dim=128, n_layer=4, n_ff=14336,
-                 n_head_kv_layers=[4, 4, 2, 2])
+                 n_head_kv=4, head_dim=128, n_layer=2, n_ff=14336,
+                 n_head_kv_layers=[4, 2])
 # Llama-3.1-Nemotron-51B (nvidia/Llama-3_1-Nemotron-51B-Instruct
 # config.json block_configs) widths, 3 layers, one of each kind: attention
 # (64 heads on 8, D = 128, FFN 28672: ffn_mult 5.25), attention-free (FFN
@@ -4937,20 +4971,22 @@ NEMOTRON_51B = dict(arch="deci", n_vocab=128256, n_embd=8192, n_head=64,
                     n_head_layers=[64, 0, 64], n_head_kv_layers=[8, 0, 0],
                     n_ff_layers=[28672, 14336, 7168])
 # Chameleon-7B (facebook/chameleon-7b config.json) published widths, depth
-# cut from 32 to 4 layers: MHA at D = 128, FFN 11008, per-head QK
-# LayerNorms with biases, NORM rope, vocab 65536
+# cut from 32 to 1 layer (4 until the recurrent phase, 2 until PR 19's
+# second cut): MHA at D = 128,
+# FFN 11008, per-head QK LayerNorms with biases, NORM rope, vocab 65536
 CHAMELEON_7B = dict(arch="chameleon", n_vocab=65536, n_embd=4096,
-                    n_head=32, n_head_kv=32, head_dim=128, n_layer=4,
+                    n_head=32, n_head_kv=32, head_dim=128, n_layer=2,
                     n_ff=11008, qk_norm="head_bias")
-# Chameleon-34B (facebook/chameleon-30b config.json) widths, 2 layers:
+# Chameleon-34B (facebook/chameleon-30b config.json) widths, 1 layer (2
+# until PR 19):
 # 8192 wide, 64 heads on 8 at D = 128, FFN 22016, swin_norm (the norms on
 # the branch outputs, no pre-norms)
 CHAMELEON_34B = dict(CHAMELEON_7B, n_embd=8192, n_head=64, n_head_kv=8,
                      n_layer=2, n_ff=22016, meta={"swin_norm": True})
-GEOMETRY_SMALL = (("decilm_7b", DECILM_7B, "Q4_K", 111, 4),
+GEOMETRY_SMALL = (("decilm_7b", DECILM_7B, "Q4_K", 111, 2),
                   ("nemotron_51b_width", NEMOTRON_51B, "Q4_K", 112, 3),
-                  ("chameleon_7b", CHAMELEON_7B, "Q4_K", 113, 4),
-                  ("chameleon_34b_swin", CHAMELEON_34B, "Q4_K", 114, 2))
+                  ("chameleon_7b", CHAMELEON_7B, "Q4_K", 113, 1),
+                  ("chameleon_34b_swin", CHAMELEON_34B, "Q4_K", 114, 1))
 
 
 def _embed_ids(tok, rng, n: int) -> list:
@@ -5205,8 +5241,8 @@ def _session(torch, model, prompt, kv: str) -> dict:
 
 def _geometry_small(torch, label, model, write_s, fitted,
                     profile: bool = False) -> dict:
-    """A small geometry file through _small_check (bf16 and q8_0 KV), then
-    greedy tokens at equal batches at each KV type; with profile, the
+    """A small geometry file through _small_check (bf16 KV), then greedy
+    tokens at equal batches at bf16 and q8_0 KV; with profile, the
     decode and prefill breakdown of phase_profile at each."""
     out = _small_check(torch, "geometry", label, model, write_s, fitted)
     out["greedy"] = [_greedy_batches(torch, model, kv)
@@ -5236,17 +5272,17 @@ def _geometry_rows(kc) -> dict:
 def phase_geometry(torch, kc, nvidia_smi: str,
                    profile: bool = False) -> dict:
     """Per-layer geometry and chameleon. OpenELM-270M (Q4_K) at published
-    widths and 8 of 16 layers through _headline at bf16 and q8_0 KV (K2
+    widths and 4 of 16 layers through _headline at bf16 and q8_0 KV (K2
     and K3 at each layer's own G), with a session save/restore, one
     context shift held to the plain path and greedy tokens at equal
     batches, at each KV type; then GEOMETRY_SMALL (_small_files):
-    DeciLM-7B at 4 layers of two KV counts, a Nemotron-51B-width file of 3
+    DeciLM-7B at 2 layers of two KV counts, a Nemotron-51B-width file of 3
     layers (attention,
     attention-free, linear attention; K2 and K3 on its attention layer
-    alone), Chameleon-7B at 4 layers (QK LayerNorms with biases) and a
-    Chameleon-34B-width swin-norm file at 2, each at bf16 and q8_0 KV
-    (_geometry_small); then K3 rows at DeciLM-7B's and OpenELM's
-    widest G (_geometry_rows)."""
+    alone), Chameleon-7B at 1 layer (QK LayerNorms with biases) and a
+    Chameleon-34B-width swin-norm file at 1, each at bf16 KV and its
+    greedy tokens at bf16 and q8_0 KV (_geometry_small); then K3 rows at
+    DeciLM-7B's and OpenELM's widest G (_geometry_rows)."""
     files, launches = {}, {}
 
     def extra(model, prompt):
@@ -5335,7 +5371,8 @@ MINICPM3_4B = dict(
           "attention.value_length": 64, "embedding_scale": 12.0,
           "residual_scale": 1.4 / 62 ** 0.5, "logit_scale": 2560 / 256})
 # the published widths of the other MoE files (each model's config.json),
-# depth cut to 2 layers (1 for DBRX, Grok-1 and Arctic)
+# depth cut to 1 layer (2 for deepseek-moe-16b's dense lead and a MoE
+# layer; the others at 2 until PR 19)
 MOE_SMALL_HP = {
     # Qwen/Qwen1.5-MoE-A2.7B: 60 experts top-4 of 1408 (not renormalized),
     # a sigmoid-gated shared expert of 5632, Q/K/V biases; 24 layers
@@ -5408,13 +5445,26 @@ MOE_SMALL_HP = {
 }
 # (label, geometry, GGUF type, seed, layers): the big-expert files take
 # Q2_K, whose random blocks the host synthesizes fastest
-MOE_SMALL = (("deepseek_v3", DEEPSEEK_V3, "Q2_K", 131, 2),
-             ("minicpm3_4b", dict(MINICPM3_4B, n_layer=2), "Q4_K", 132, 2),
-             *((label, hp, "Q4_K", 133 + i, 2) for i, (label, hp) in
-               enumerate(list(MOE_SMALL_HP.items())[:6])),
-             *((label, hp, "Q2_K", 139 + i, 1) for i, (label, hp) in
-               enumerate(list(MOE_SMALL_HP.items())[6:])))
-MOE_ROW_FILES = {"qwen3_30b_a3b": ("gate",), "arctic": ("gate",)}
+_MOE_SMALL = {spec[0]: spec for spec in (
+    ("deepseek_v3", DEEPSEEK_V3, "Q2_K", 131, 2),
+    ("minicpm3_4b", dict(MINICPM3_4B, n_layer=1), "Q4_K", 132, 1),
+    # one MoE layer each (2 until PR 19), deepseek-moe-16b's dense lead
+    # layer and its first MoE layer
+    *((label, hp, "Q4_K", 133 + i, 2 if label == "deepseek_moe_16b" else 1)
+      for i, (label, hp) in enumerate(list(MOE_SMALL_HP.items())[:6])),
+    *((label, hp, "Q2_K", 139 + i, 1) for i, (label, hp) in
+      enumerate(list(MOE_SMALL_HP.items())[6:])))}
+# the host writes and loads each file while the card checks the one
+# before (the first while V2-Lite serves), and the host's share sets the
+# clock (129 s of writes and loads against 58 s of checks, PR 19 run 9,
+# PERF.md §6), so the largest file goes first and each large one follows
+# a long check. Grok-1 and Arctic (55 s of that host time) are left out
+# for the smoke's clock since PR 19 (ROADMAP §2 C (t)); their geometry
+# stays above for a run that adds them back
+MOE_SMALL = tuple(_MOE_SMALL[label] for label in (
+    "deepseek_v3", "qwen3_30b_a3b", "dbrx", "qwen15_moe_a27b", "phi35_moe",
+    "deepseek_moe_16b", "olmoe_1b_7b", "granite3_3b_a800m", "minicpm3_4b"))
+MOE_ROW_FILES = {"qwen3_30b_a3b": ("gate",)}
 
 
 def _host_load(label, hp, ftype, seed, n_layer) -> tuple:
@@ -5479,14 +5529,15 @@ def phase_moe_forms(torch, kc, nvidia_smi: str, kept: Kept, build: dict,
     a MoE layer a step), the Scheduler's greedy tokens and cli.main's
     printout equal to generate()'s, K4 rows on its stacks (top-6 of 64)
     and K2, K3 and K3-q8 rows at D = 192. Then MOE_SMALL one at a time on
-    the card, the next written and loaded into host planes meanwhile,
-    each freed before the next, each held to the plain path once
-    (_small_check with recheck False): DeepSeek-V3 (2 layers; sigmoid gating,
-    the selection bias) and MiniCPM3-4B (2 layers; MLA at D = 96), the
-    six 2-layer files and DBRX, Grok-1 and Arctic at one layer, each
-    through _small_check; K4 rows on Qwen3-30B-A3B's (top-8 of 128) and
-    Arctic's (top-2 of 128, K = 7168) gate stacks, K2 at V3's 128 heads;
-    the ptxas registers and spills of the D = 192 builds."""
+    the card, the next written and loaded into host planes meanwhile (the
+    first while V2-Lite serves), each freed before the next, each held to
+    the plain path once (_small_check with recheck False): DeepSeek-V3 (2
+    layers; sigmoid gating, the selection bias), MiniCPM3-4B (1 layer; MLA
+    at D = 96), five MoE files at 1 layer, deepseek-moe-16b at 2 (its
+    dense lead and a MoE layer) and DBRX at one layer, each through
+    _small_check; K4 rows on Qwen3-30B-A3B's gate stack (top-8 of 128), K2
+    at V3's 128 heads; the ptxas registers and spills of the D = 192
+    builds."""
     from llama_cpp_test_tpu_torch.runtime.engine import Model
 
     files, launches, rows = {}, {}, {}
@@ -5507,16 +5558,17 @@ def phase_moe_forms(torch, kc, nvidia_smi: str, kept: Kept, build: dict,
         return out
 
     # the small files write and load into host planes on one thread, one
-    # ahead of the card (two at once, or one beside V2-Lite's serve, slowed
-    # the card's host-bound steps more than they hid; PERF.md §6)
+    # ahead of the card, the first beside V2-Lite's serve (two at once
+    # slowed the card's host-bound steps more than they hid; PERF.md §6)
     ex = ThreadPoolExecutor(max_workers=1)
     try:
+        nxt = ex.submit(_host_load, *MOE_SMALL[0])
         t0 = time.time()
         files["deepseek_v2_lite"] = _serve(
             torch, "moe_forms/deepseek_v2_lite", lite, 121,
             [("bf16", None), ("q8_0", None)], 8, MOE_PATH, profile,
             ftype="Q4_K", keep=(kept, "deepseek_v2_lite"),
-            n_decode=QUIRK_DECODE, rows=more)
+            n_decode=QUIRK_DECODE, rows=more, joint=False)
         files["deepseek_v2_lite"]["seconds"] = time.time() - t0
         emit({"phase": "moe_forms/deepseek_v2_lite",
               "seconds": files["deepseek_v2_lite"]["seconds"]})
@@ -5529,7 +5581,6 @@ def phase_moe_forms(torch, kc, nvidia_smi: str, kept: Kept, build: dict,
         rows["DeepSeek-V2-Lite K2 T=512"] = kc.flash_prefill(lite, t=512)
         rows["DeepSeek-V3 K2 T=512"] = kc.flash_prefill(DEEPSEEK_V3, t=512)
         check(not kc.failures, f"kernels outside their gate: {kc.failures}")
-        nxt = ex.submit(_host_load, *MOE_SMALL[0])
         for i, spec in enumerate(MOE_SMALL):
             label = spec[0]
             php, w, write_s, load_s, fitted = nxt.result()
@@ -5539,7 +5590,7 @@ def phase_moe_forms(torch, kc, nvidia_smi: str, kept: Kept, build: dict,
             model = Model.from_weights(php, w, device="cuda")
             del w
             # held to the plain path once (the clock; V2-Lite is held at
-            # every step of its paths, with the joint-min witness)
+            # every step of its paths)
             out = _small_check(torch, "moe_forms", label, model, write_s,
                                fitted, recheck=False)
             out["host_load_s"] = load_s
@@ -5991,6 +6042,627 @@ def phase_multimodal(torch, kc, nvidia_smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# recurrent: the state-space and rwkv families, plain f32 torch (no kernel)
+
+# state-spaces/mamba-130m config.json as the reference's converter reads
+# it: d_model 768, n_layer 24, vocab 50277 padded to a multiple of 8
+# (50280); d_inner 2 d_model, d_state 16, d_conv 4, dt_rank ceil(768 / 16);
+# tied embeddings (no output.weight); full depth
+MAMBA_130M = dict(arch="mamba", n_vocab=50280, n_embd=768, n_layer=24,
+                  d_inner=1536, d_state=16, d_conv=4, dt_rank=48)
+# RWKV/v6-Finch-1B6-HF: hidden 2048, head_size 64, intermediate 7168,
+# time_mix_extra_dim 32, time_decay_extra_dim 64, vocab 65536,
+# rescale_every 6; depth cut from 24 to 6 layers, so one rescale fires
+RWKV6_1B6 = dict(arch="rwkv6", n_vocab=65536, n_embd=2048, n_layer=6,
+                 head_size=64, n_ff=7168, lerp_rank=32, decay_rank=64,
+                 rescale_every=6)
+# fla-hub/rwkv7-1.5B-world: hidden 2048, head_dim 64, intermediate 8192,
+# decay / a / v / gate low-rank dims 96 / 96 / 64 / 256, vocab 65536;
+# depth cut from 24 to 2 layers, so v_first crosses a layer
+RWKV7_1B5 = dict(arch="rwkv7", n_vocab=65536, n_embd=2048, n_layer=2,
+                 head_size=64, n_ff=8192, w_rank=96, a_rank=96, v_rank=64,
+                 g_rank=256)
+# the hybrids at their hosts' widths, with a Qwen2 BPE vocab:
+# recursal/QRWKV6-32B-Instruct-Preview-v0.1, Qwen2.5-32B-Instruct's body
+# (hidden 5120, 40 heads so head_size 128, 8 KV heads, intermediate
+# 27648, vocab 152064, untied head) under RWKV-6 time mixing; lerp and
+# decay low ranks 64 and 128 (the upstream converter's defaults at a
+# width >= 4096); depth cut from 64 to 1 layer
+QRWKV6_32B = dict(arch="rwkv6qwen2", n_vocab=152064, n_embd=5120, n_layer=1,
+                  head_size=128, n_ff=27648, n_head_kv=8, lerp_rank=64,
+                  decay_rank=128)
+# RWKV-Red-Team/ARWKV-R1-1B5, DeepSeek-R1-Distill-Qwen-1.5B's body
+# (hidden 1536, intermediate 8960, vocab 151936, untied head) under RWKV-7
+# time mixing at head size 64; low ranks w/a/v/g 64/64/32/128 (the
+# upstream converter's ARWKV constants, the gate kept); depth cut from 28
+# to 2 layers, so v_first crosses a layer
+ARWKV7_1B5 = dict(arch="arwkv7", n_vocab=151936, n_embd=1536, n_layer=2,
+                  head_size=64, n_ff=8960, w_rank=64, a_rank=64, v_rank=32,
+                  g_rank=128)
+REC_FILES = (("mamba_130m", MAMBA_130M, 151), ("rwkv6_1b6", RWKV6_1B6, 152),
+             ("rwkv7_1b5", RWKV7_1B5, 153),
+             ("qrwkv6_32b", QRWKV6_32B, 154), ("arwkv7_1b5", ARWKV7_1B5, 155))
+REC_PROMPT = 32      # prefill tokens of the card/CPU and step checks
+REC_NEW = 16         # greedy tokens each check continues
+# f32 logits on the card against the CPU's, NMSE: the runs measured 1.2e-12
+# to 5.3e-12 (PERF.md §6), so a chain computed below f32 (TF32 or bf16
+# matmuls) fails it
+REC_GATE = 1e-9
+REC_POOL_B = 4       # rows of the pool's batched decode
+REC_CTX = 48         # the Scheduler's n_ctx: one request runs past it
+
+
+class _F16Pool:
+    """Seeded f16 weights as seeded slices of one shared draw
+    (f16_weights: magnitudes in [2^-6, 2^-5), random signs), so a GB-size
+    file costs one copy a tensor instead of a draw. A tensor larger than
+    the draw (a 152k-row embedding) wraps around it from a seeded offset."""
+
+    def __init__(self, rng, n: int):
+        self.rng = rng
+        self.a = f16_weights(rng, n)
+
+    def take(self, *shape, scale: float = 1.0) -> np.ndarray:
+        n = int(np.prod(shape))
+        if n > self.a.size:
+            off = int(self.rng.integers(0, self.a.size))
+            out = np.resize(np.roll(self.a, -off), n).reshape(shape)
+        else:
+            off = int(self.rng.integers(0, self.a.size - n + 1))
+            out = self.a[off:off + n].reshape(shape)
+        return out * np.float16(scale) if scale != 1.0 else out
+
+
+def rwkv_vocab(n_vocab: int, seed: int) -> dict:
+    """Tokenizer metadata of an RWKV World vocab (tokenizer.ggml.model
+    "rwkv", the trie tokenizer) laid out as the reference's converter
+    writes it: <s> at id 0, then printable ASCII, the words of _WORDS
+    with and without a leading space and seeded letter strings of 2-8
+    letters up to World's 65530 entries, then [PADn] to n_vocab."""
+    rng = np.random.default_rng(seed)
+    n_real = min(n_vocab, 65530)
+    pieces = dict.fromkeys([chr(c) for c in range(32, 127)] +
+                           [" " + w for w in _WORDS] + list(_WORDS))
+    letters = np.array(list(_LETTERS))
+    while len(pieces) < n_real - 1:
+        lens = rng.integers(2, 9, size=4096)
+        rows = rng.choice(letters, size=(4096, 8),
+                          p=_LETTER_P / _LETTER_P.sum())
+        spaces = rng.random(4096) < 0.5
+        for n, row, sp in zip(lens, rows, spaces):
+            pieces.setdefault((" " if sp else "") + "".join(row[:n]))
+    tokens = ["<s>"] + list(pieces)[:n_real - 1]
+    types = [3] + [1] * (len(tokens) - 1)
+    tokens += [f"[PAD{i}]" for i in range(len(tokens), n_vocab)]
+    types += [5] * (n_vocab - len(types))
+    return {"tokenizer.ggml.model": "rwkv", "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.token_type": np.asarray(types, np.int32),
+            "tokenizer.ggml.bos_token_id": 0,
+            "tokenizer.ggml.eos_token_id": 0,
+            "tokenizer.ggml.add_bos_token": False}
+
+
+def write_recurrent_gguf(path: str, hp: dict, seed: int, pool) -> None:
+    """A recurrent GGUF (mamba, rwkv6, rwkv6qwen2, rwkv7, arwkv7) of
+    geometry hp in the reference converter's layout and types: matrices
+    F16 (pool slices), vectors, norms, lerps and rwkv6's 3-D time_mix_w2
+    F32 (seeded draws in the ranges trained models hold: decays, dt
+    biases, lerps in [0, 1], mamba's A = -(1..d_state)); a synthesized
+    vocab (bpe_vocab for mamba, the same with Qwen2's pre-tokenizer for
+    the hybrids, rwkv_vocab for rwkv6 and rwkv7)."""
+    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    arch, c, v, n_layer = (hp[k] for k in ("arch", "n_embd", "n_vocab",
+                                           "n_layer"))
+    w = GGUFWriter(path, arch=arch)
+    mat = lambda name, *shape, scale=1.0: w.add_tensor(
+        name, pool.take(*shape, scale=scale), ggml_type=GGMLType.F16)
+    uni = lambda name, lo, hi, *shape: w.add_tensor(
+        name, rng.uniform(lo, hi, shape).astype(np.float32))
+
+    def norm(name, bias=True):
+        uni(name + ".weight", 0.95, 1.05, c)
+        if bias:
+            uni(name + ".bias", -0.05, 0.05, c)
+
+    md = {"context_length": 1048576, "embedding_length": c,
+          "block_count": n_layer, "vocab_size": v}
+    rms = arch in ("mamba", "rwkv6qwen2", "arwkv7")
+    md["attention.layer_norm_rms_epsilon" if rms else
+       "attention.layer_norm_epsilon"] = 1e-5
+    if arch == "mamba":
+        di, n, r = hp["d_inner"], hp["d_state"], hp["dt_rank"]
+        md.update({"ssm.conv_kernel": hp["d_conv"], "ssm.inner_size": di,
+                   "ssm.state_size": n, "ssm.time_step_rank": r})
+    else:
+        md.update({"wkv.head_size": hp["head_size"],
+                   "feed_forward_length": hp["n_ff"],
+                   "attention.head_count": 0})
+    if arch == "rwkv6":
+        md["rescale_every_n_layers"] = hp["rescale_every"]
+    if arch in ("rwkv6qwen2", "arwkv7"):
+        md["token_shift_count"] = 1
+    if arch == "rwkv6qwen2":
+        md["attention.head_count_kv"] = hp["n_head_kv"]
+    if arch in ("rwkv7", "arwkv7"):
+        md.update({"attention.decay_lora_rank": hp["w_rank"],
+                   "attention.iclr_lora_rank": hp["a_rank"],
+                   "attention.value_residual_mix_lora_rank": hp["v_rank"],
+                   "attention.gate_lora_rank": hp["g_rank"]})
+    md = {f"{arch}.{k}": val for k, val in md.items()}
+    if arch in ("rwkv6", "rwkv7"):
+        md.update(rwkv_vocab(v, seed))
+    else:
+        md.update(bpe_vocab(v, seed))
+        if arch != "mamba":
+            md["tokenizer.ggml.pre"] = "qwen2"
+    for key, val in md.items():
+        w.add_kv(key, val)
+
+    mat("token_embd.weight", v, c)
+    if arch in ("rwkv6", "rwkv7"):
+        norm("token_embd_norm")
+    norm("output_norm", bias=not rms)
+    if arch != "mamba":              # Mamba-130M ties its head
+        mat("output.weight", v, c)
+    for i in range(n_layer):
+        p = f"blk.{i}."
+        norm(p + "attn_norm", bias=not rms)
+        if arch == "mamba":
+            k = hp["d_conv"]
+            mat(p + "ssm_in.weight", 2 * di, c)
+            mat(p + "ssm_conv1d.weight", di, k, scale=16.0)
+            uni(p + "ssm_conv1d.bias", -0.1, 0.1, di)
+            mat(p + "ssm_x.weight", r + 2 * n, di)
+            mat(p + "ssm_dt.weight", di, r)
+            # softplus of the bias gives dt in [0.01, 0.1], the init range
+            uni(p + "ssm_dt.bias", -4.6, -2.3, di)
+            w.add_tensor(p + "ssm_a.weight", -np.tile(
+                np.arange(1, n + 1, dtype=np.float32), (di, 1)),
+                ggml_type=GGMLType.F16)
+            uni(p + "ssm_d.weight", 0.9, 1.1, di)
+            mat(p + "ssm_out.weight", c, di)
+            continue
+        hd = hp["head_size"]
+        h, ff = c // hd, hp["n_ff"]
+        if arch in ("rwkv6", "rwkv7"):
+            norm(p + "attn_norm_2")
+        else:
+            norm(p + "ffn_norm", bias=False)
+        if arch.startswith("rwkv6"):
+            e, e2 = hp["lerp_rank"], hp["decay_rank"]
+            kv = hp.get("n_head_kv", h) * hd
+            uni(p + "time_mix_lerp_x.weight", 0.0, 1.0, c)
+            uni(p + "time_mix_lerp_fused.weight", 0.0, 1.0, 5, c)
+            mat(p + "time_mix_w1.weight", 5 * e, c)
+            w.add_tensor(p + "time_mix_w2.weight",
+                         pool.take(5, c, e).astype(np.float32))
+            uni(p + "time_mix_decay.weight", -6.0, -1.0, c)
+            mat(p + "time_mix_decay_w1.weight", e2, c)
+            mat(p + "time_mix_decay_w2.weight", c, e2)
+            mat(p + "time_mix_key.weight", kv, c)
+            mat(p + "time_mix_value.weight", kv, c)
+            mat(p + "time_mix_receptance.weight", c, c)
+            mat(p + "time_mix_gate.weight", c, c)
+            mat(p + "time_mix_output.weight", c, c)
+            if arch == "rwkv6":
+                mat(p + "time_mix_first.weight", h, hd, scale=32.0)
+                norm(p + "time_mix_ln")
+                uni(p + "channel_mix_lerp_k.weight", 0.0, 1.0, c)
+                uni(p + "channel_mix_lerp_r.weight", 0.0, 1.0, c)
+                mat(p + "channel_mix_key.weight", ff, c)
+                mat(p + "channel_mix_receptance.weight", c, c)
+                mat(p + "channel_mix_value.weight", c, ff)
+            else:
+                for name, n_out in (("key", kv), ("value", kv),
+                                    ("receptance", c)):
+                    uni(p + f"time_mix_{name}.bias", -0.1, 0.1, n_out)
+        else:
+            uni(p + "time_mix_lerp_fused.weight", 0.0, 1.0, 6, c)
+            for x, rank, lo, hi in (("w", hp["w_rank"], -2.0, 0.0),
+                                    ("a", hp["a_rank"], -0.5, 0.5),
+                                    ("v", hp["v_rank"], 0.5, 1.5)):
+                # layer 0's v0/v1/v2 are the dummies llama.cpp writes
+                uni(p + f"time_mix_{x}0.weight", lo, hi, c)
+                mat(p + f"time_mix_{x}1.weight", rank, c)
+                mat(p + f"time_mix_{x}2.weight", c, rank)
+            mat(p + "time_mix_g1.weight", hp["g_rank"], c)
+            mat(p + "time_mix_g2.weight", c, hp["g_rank"])
+            uni(p + "time_mix_k_k.weight", 0.5, 1.0, c)
+            uni(p + "time_mix_k_a.weight", 0.5, 1.0, c)
+            mat(p + "time_mix_r_k.weight", h, hd, scale=16.0)
+            for name in ("key", "value", "receptance", "output"):
+                mat(p + f"time_mix_{name}.weight", c, c)
+            norm(p + "time_mix_ln")
+            if arch == "rwkv7":
+                uni(p + "channel_mix_lerp_k.weight", 0.0, 1.0, c)
+                mat(p + "channel_mix_key.weight", ff, c)
+                mat(p + "channel_mix_value.weight", c, ff)
+        if arch in ("rwkv6qwen2", "arwkv7"):
+            mat(p + "ffn_gate.weight", ff, c)
+            mat(p + "ffn_up.weight", ff, c)
+            mat(p + "ffn_down.weight", c, ff)
+    w.write()
+
+
+def _rec_parity(rows, ref_rows, toks) -> dict:
+    """Greedy tokens of one path against another's logits on the same
+    teacher-forced steps (rows[i], ref_rows[i]: the logits each path gave
+    before toks[i]): equal, or the first difference where the reference's
+    top-2 gap is within the largest logit difference of the two paths on
+    that row (_greedy_parity's rule)."""
+    diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+               for a, b in zip(rows, ref_rows))
+    for i, t in enumerate(toks):
+        lp = np.asarray(ref_rows[i])
+        if int(np.argmax(lp)) != t:
+            top = np.sort(lp)[-2:]
+            gap = float(top[1] - top[0])
+            row_diff = float(np.abs(np.asarray(rows[i]) - lp).max())
+            return {"same": False, "first_diff": i, "ref_gap": gap,
+                    "logit_diff": row_diff, "within": gap <= row_diff,
+                    "max_logit_diff": diff}
+    return {"same": True, "max_logit_diff": diff}
+
+
+def _rec_forced(ctx_cls, model, prompt, toks) -> list:
+    """A single-sequence Context's logits before each of toks, the prompt
+    prefilled and toks fed one at a time."""
+    ctx = ctx_cls(model)
+    rows = [ctx.prefill(prompt)]
+    for t in toks[:-1]:
+        rows.append(ctx.decode(t))
+    return rows
+
+
+def _rec_pool(torch, ctx_cls, model, rng, n_vocab) -> dict:
+    """RecurrentContext on the card: five sequences prefilled, the second
+    freed and its row taken again by a new one, then REC_POOL_B rows
+    decoded greedily together for REC_NEW steps in an order that is not
+    the rows'; each sequence's tokens against its solo Context's logits
+    on the same steps (_rec_parity), and the wall ms a batched step."""
+    from llama_cpp_test_tpu_torch.runtime.recurrent import RecurrentContext
+
+    ctx = RecurrentContext(model, n_ctx=256, n_seq_max=REC_POOL_B + 1)
+    prompts = [rng.integers(1, n_vocab, n).tolist() for n in (8, 13, 21, 32,
+                                                              5)]
+    seqs = [ctx.new_seq() for _ in prompts]
+    last = [ctx.prefill(s, p) for s, p in zip(seqs, prompts)]
+    freed = seqs[1].row
+    ctx.free_seq(seqs[1])
+    seqs[1] = ctx.new_seq()
+    check(seqs[1].row == freed, "the pool did not reuse a freed row")
+    last[1] = ctx.prefill(seqs[1], prompts[4])
+    prompts[1] = prompts[4]
+    order = [3, 1, 0, 2]
+    check(sorted(seqs[i].row for i in order) != [seqs[i].row for i in order],
+          "the batch's rows are in order")
+    toks = [[int(np.argmax(last[i]))] for i in range(REC_POOL_B)]
+    rows = [[last[i]] for i in range(REC_POOL_B)]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(REC_NEW - 1):
+        lg = ctx.decode([seqs[i] for i in order], [toks[i][-1] for i in order])
+        for j, i in enumerate(order):
+            rows[i].append(lg[j])
+            toks[i].append(int(np.argmax(lg[j])))
+    step_ms = (time.time() - t0) * 1e3 / (REC_NEW - 1)
+    par = [_rec_parity(rows[i], _rec_forced(ctx_cls, model, prompts[i],
+                                            toks[i]), toks[i])
+           for i in range(REC_POOL_B)]
+    return {"rows": [seqs[i].row for i in order], "freed_row": freed,
+            "decode_ms_b4": step_ms, "parity": par}
+
+
+def _rec_solo(ctx_cls, model, prompt, toks, tol: float) -> dict:
+    """Greedy tokens of a batched path against a solo Context's logits on
+    the same steps: equal, or the first difference where the solo top-2
+    gap is within tol (the largest logit difference of batched and solo
+    decode the pool check measured on the file)."""
+    for i, lg in enumerate(_rec_forced(ctx_cls, model, prompt, toks)):
+        if int(np.argmax(lg)) != toks[i]:
+            top = np.sort(lg)[-2:]
+            gap = float(top[1] - top[0])
+            return {"same": False, "first_diff": i, "solo_gap": gap,
+                    "tol": tol, "within": gap <= tol}
+    return {"same": True}
+
+
+def _rec_sched(ctx_cls, model, rng, n_vocab, tol: float) -> dict:
+    """The Scheduler over a RecurrentContext: 8 mixed requests (four greedy,
+    four seeded) on 4 slots at n_ctx REC_CTX, the longest running past it
+    (shift_context must fire); every request finishes by length with its
+    tokens, and each greedy request's tokens hold against its solo
+    Context's logits (_rec_solo)."""
+    from llama_cpp_test_tpu_torch.runtime.recurrent import RecurrentContext
+    from llama_cpp_test_tpu_torch.runtime.sampling import SamplerParams
+    from llama_cpp_test_tpu_torch.runtime.scheduler import GenRequest, Scheduler
+
+    lens = (4, 9, 16, 24, 6, 12, 20, 32)
+    new = [REC_NEW] * 7 + [REC_CTX // 2]      # 32 + 24 tokens: past n_ctx
+    ctx = RecurrentContext(model, n_ctx=REC_CTX, n_seq_max=4)
+    shifts = []
+    shift = ctx.shift_context
+    ctx.shift_context = lambda s, keep, n: (shifts.append(n),
+                                            shift(s, keep, n))
+    sched = Scheduler(ctx, n_slots=4, chunk_size=16)
+    reqs = []
+    for i, (n, m) in enumerate(zip(lens, new)):
+        sp = (SamplerParams(temp=0.0) if i % 2 == 0 or i == 7 else
+              SamplerParams(temp=0.8, top_k=40, top_p=0.95, min_p=0.05,
+                            seed=i))
+        reqs.append(sched.submit(GenRequest(
+            rng.integers(1, n_vocab, n).tolist(), max_tokens=m,
+            ignore_eos=True, sampling=sp)))
+    t0 = time.time()
+    sched.run()
+    wall = time.time() - t0
+    check(all(r.finish_reason == "length" and len(r.output_tokens) == m
+              for r, m in zip(reqs, new)),
+          f"sched: {[(r.finish_reason, len(r.output_tokens)) for r in reqs]}")
+    check(shifts, "sched: no context shift past n_ctx")
+    par = [_rec_solo(ctx_cls, model, r.prompt_tokens, r.output_tokens, tol)
+           for r in reqs if r.sampling.temp == 0.0]
+    m = sched.metrics()
+    return {"wall_s": wall, "gen_tok_per_s": m["gen_tok_per_s"],
+            "prompt_tok_per_s": m["prompt_tok_per_s"],
+            "slow_path_tokens": m["gen_tokens_slow_path"],
+            "shifts": len(shifts), "greedy_parity": par}
+
+
+def _rec_token_bytes(model) -> int:
+    """f32 bytes one decoded token reads: every layer tensor and the head
+    (the tied embedding once); the embedding row is left out."""
+    w = model.weights
+    n = sum(t.numel() for ly in w.layers for t in vars(ly).values()
+            if t is not None)
+    n += w.output.numel()
+    n += sum(getattr(w, f).numel() for f in ("output_norm", "output_norm_w",
+                                             "output_norm_b", "tok_norm_w",
+                                             "tok_norm_b")
+             if getattr(w, f, None) is not None)
+    return 4 * n
+
+
+def _rec_file(torch, label, hp, path, nvidia_smi,
+              profile: bool = False) -> dict:
+    """One recurrent file on the card: a REC_PROMPT-token prefill and
+    REC_NEW greedy steps (timed: the wall ms of the prefill and of a
+    decoded token at B = 1); the prompt and that continuation prefilled at
+    once on the card and on the CPU (the card's weights copied there), the
+    prompt's rows within REC_GATE and the CPU's argmax on each
+    continuation row the card's token (so the CPU's greedy run gives the
+    card's tokens; _rec_parity's near tie otherwise); a prefill of T then
+    one decode against a prefill of T + 1; the pool (_rec_pool) and the
+    Scheduler (_rec_sched); a device profile of 2 decode steps (with
+    profile: 8 steps and the prefill too), the launches a decoded token
+    and the decode byte bound. On mamba also the CLI and the server
+    (_rec_cli_server).
+    seconds_by_check holds where the phase's time went."""
+    from llama_cpp_test_tpu_torch.runtime.recurrent import classes
+
+    model_cls, ctx_cls = classes(hp["arch"])
+    t0 = time.time()
+    model = model_cls(path, device="cuda")
+    torch.cuda.synchronize()
+    out = {"load_s": time.time() - t0, "card": nvidia_smi}
+    secs = out["seconds_by_check"] = {}
+    rng = np.random.default_rng(hp["n_vocab"] + hp["n_layer"])
+    v = hp["n_vocab"]
+    prompt = rng.integers(1, v, REC_PROMPT).tolist()
+    t_check = time.time()
+    ctx = ctx_cls(model)
+    t0 = time.time()
+    lg = ctx.prefill(prompt)
+    out["prefill_ms"] = (time.time() - t0) * 1e3
+    toks, rows = [], [lg]
+    t0 = time.time()
+    for _ in range(REC_NEW):       # generate()'s greedy loop, timed
+        toks.append(int(np.argmax(rows[-1])))
+        rows.append(ctx.decode(toks[-1]))
+    out["decode_ms_b1"] = (time.time() - t0) * 1e3 / REC_NEW
+    seq = prompt + toks[:-1]
+    lc = ctx_cls(model).prefill(seq, all_logits=True)
+    once = ctx_cls(model).prefill(prompt + toks[:1])
+    out["step_vs_once_nmse"] = nmse(rows[1], once)
+    secs["card"] = time.time() - t_check
+    check(np.isfinite(lc).all() and lc.shape == (len(seq), v),
+          f"{label}: logits {lc.shape}, finite {np.isfinite(lc).all()}")
+    check(out["step_vs_once_nmse"] < REC_GATE,
+          f"{label}: prefill T + decode vs prefill T + 1 NMSE "
+          f"{out['step_vs_once_nmse']}")
+    t0 = time.time()
+    cpu = model_cls.from_weights(model.hp, model.weights, device="cpu")
+    lp = ctx_cls(cpu).prefill(seq, all_logits=True)
+    del cpu
+    secs["cpu"] = time.time() - t0
+    out["card_vs_cpu_nmse"] = nmse(lc[:REC_PROMPT], lp[:REC_PROMPT])
+    out["card_vs_cpu_nmse_continuation"] = nmse(lc[REC_PROMPT:],
+                                                lp[REC_PROMPT:])
+    out["greedy_vs_cpu"] = _rec_parity(lc[REC_PROMPT - 1:],
+                                       lp[REC_PROMPT - 1:], toks)
+    check(out["card_vs_cpu_nmse"] < REC_GATE,
+          f"{label}: card vs CPU logits NMSE {out['card_vs_cpu_nmse']}")
+    check(out["greedy_vs_cpu"]["same"] or out["greedy_vs_cpu"]["within"],
+          f"{label}: card greedy {toks} vs CPU: {out['greedy_vs_cpu']}")
+    t0 = time.time()
+    out["pool"] = _rec_pool(torch, ctx_cls, model, rng, v)
+    secs["pool"] = time.time() - t0
+    bad = [p for p in out["pool"]["parity"]
+           if not (p["same"] or p["within"])]
+    check(not bad, f"{label}: pool decode vs solo: {bad}")
+    tol = max(p["max_logit_diff"] for p in out["pool"]["parity"])
+    t0 = time.time()
+    out["sched"] = _rec_sched(ctx_cls, model, rng, v, tol)
+    secs["sched"] = time.time() - t0
+    bad = [p for p in out["sched"]["greedy_parity"]
+           if not (p["same"] or p["within"])]
+    check(not bad, f"{label}: Scheduler greedy vs solo: {bad}")
+    t0 = time.time()
+    nb = _rec_token_bytes(model)
+    out["decode_bytes"] = nb
+    out["decode_bound_ms"] = nb / PEAK_BYTES * 1e3
+    state = {"ctx": ctx_cls(model)}
+    state["ctx"].prefill(prompt)
+    n = 8 if profile else 2
+
+    def decode_n():
+        for t in toks[:n]:
+            state["ctx"].decode(t)
+
+    out["profile"] = {f"decode_{n}_steps": _profiled(torch, decode_n)}
+    if profile:
+        out["profile"]["prefill_32"] = _profiled(
+            torch, lambda: ctx_cls(model).prefill(prompt))
+    out["launches_per_token"] = out["profile"][f"decode_{n}_steps"][
+        "device_kernel_launches"] / n
+    for p in out["profile"].values():
+        p["top"] = p["top"][:3]
+    secs["profile"] = time.time() - t0
+    if hp["arch"] == "mamba":
+        t0 = time.time()
+        out["entry_points"] = _rec_cli_server(torch, path, model, nvidia_smi)
+        secs["entry_points"] = time.time() - t0
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rec_cli_server(torch, path, model, nvidia_smi) -> dict:
+    """On the Mamba-130M file (model: the file loaded on the card):
+    cli.main's printout (-n REC_NEW) equal to the prompt and the pieces
+    generate() gives (to an end of generation),
+    and the server over HTTP: one greedy /completion equal to generate(),
+    one streamed chat request whose deltas join to the unstreamed reply's
+    content and to generate()'s pieces on the chat prompt, /embeddings and
+    a slot save answering 400."""
+    import io
+
+    from llama_cpp_test_tpu_torch.cli import main as cli
+    from llama_cpp_test_tpu_torch.models.mamba import MambaContext, generate
+    from llama_cpp_test_tpu_torch.ops import _cuda
+    from llama_cpp_test_tpu_torch.server.chat import apply_chat_template
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-m", path, "-p", CLI_TEXT, "-n", str(REC_NEW)])
+    out = {"cli_wall_s": time.time() - t0}
+    tok = model.tokenizer
+    ids = tok.encode(CLI_TEXT, add_special=True)
+    full = list(generate(MambaContext(model), ids, REC_NEW))
+    eog = [i for i, t in enumerate(full) if tok.vocab.is_eog(t)]
+    toks = full[:eog[0]] if eog else full
+    want = CLI_TEXT + "".join(tok.token_to_piece(t) for t in toks) + "\n"
+    out["cli_same_as_generate"] = buf.getvalue() == want
+    check(rc == 0 and buf.getvalue() == want,
+          f"recurrent cli: rc {rc}, printed {buf.getvalue()!r}, generate() "
+          f"gives {want!r}")
+    pre, launches = dict(_cuda.LAUNCHES), dict.fromkeys(_cuda.LAUNCHES, 0)
+    msgs = [{"role": "user", "content": CLI_TEXT}]
+    with _server(path, launches, n_ctx=256, n_slots=2) as (srv, c):
+        check(srv.recurrent, "the server did not take the recurrent branch")
+        body = {"prompt": CLI_TEXT, "n_predict": REC_NEW, "temperature": 0.0,
+                "ignore_eos": True}
+        status, got = c.post("/completion", body)
+        want = tok.decode(full)
+        out["completion_same_as_generate"] = status == 200 and \
+            _text(got) == want
+        check(out["completion_same_as_generate"],
+              f"recurrent /completion: {status} {got} vs {want!r}")
+        chat = {"messages": msgs, "max_tokens": 8, "temperature": 0.0,
+                "ignore_eos": True}
+        chunks = c.stream("/v1/chat/completions", chat)
+        streamed = "".join(ch["choices"][0]["delta"].get("content") or ""
+                           for ch in chunks)
+        status, whole = c.post("/v1/chat/completions", chat)
+        pids = srv._tokenize_prompt(apply_chat_template(
+            srv.model.reader.metadata, msgs))
+        gen = list(generate(MambaContext(model), pids, 8))
+        # streamed: the pieces; unstreamed: the decoded text
+        out["chat"] = {
+            "chunks": len(chunks),
+            "finish": chunks[-1]["choices"][0]["finish_reason"],
+            "stream_same_as_generate": streamed == "".join(
+                tok.token_to_piece(t) for t in gen),
+            "same_as_generate": status == 200 and
+            whole["choices"][0]["message"]["content"] == tok.decode(gen)}
+        check(out["chat"]["finish"] == "length" and
+              out["chat"]["stream_same_as_generate"] and
+              out["chat"]["same_as_generate"],
+              f"recurrent chat: {status} {out['chat']} {streamed!r} {whole}")
+        status, _ = c.post("/embeddings", {"content": "hello"})
+        out["embeddings_status"] = status
+        status, body = c.post("/slots/0?action=save", {})
+        out["slot_save_status"] = status
+        check(out["embeddings_status"] == 400 and status == 400,
+              f"recurrent server: /embeddings {out['embeddings_status']}, "
+              f"slot save {status} {body}")
+    # the client zeroes the counts before each request (_Http): the
+    # phase's own go back, with the server's added
+    for k in pre:
+        _cuda.LAUNCHES[k] = pre[k] + launches[k]
+    out["card"] = nvidia_smi
+    return out
+
+
+def phase_recurrent(torch, nvidia_smi: str, profile: bool = False) -> dict:
+    """The recurrent families through the port's entry points on the card,
+    plain f32 torch as the reference computes them (no kernel of the
+    port's runs, so every launch count stays 0): Mamba-130M (24 layers),
+    RWKV-6 World 1.6B (6 of 24), RWKV-7 World 1.5B (2 of 24), QRWKV6-32B
+    (1 of 64) and ARWKV-R1-1.5B (2 of 28) at published widths from seeded
+    F16 files (write_recurrent_gguf, one shared f16 draw, each file written
+    on a host thread while the card checks the one before, and removed
+    after its checks), each through
+    _rec_file; on Mamba-130M also cli.main and the server
+    (_rec_cli_server)."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+
+    before = dict(_cuda.LAUNCHES)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rec_")
+    out = {"files": {}}
+    ex = ThreadPoolExecutor(max_workers=1)
+    try:
+        t0 = time.time()
+        pool = _F16Pool(np.random.default_rng(150), (1 << 27) + (1 << 22))
+        emit({"phase": "recurrent", "pool_s": time.time() - t0})
+
+        def write(label, hp, seed):
+            t0 = time.time()
+            path = os.path.join(tmp, f"{label}.gguf")
+            write_recurrent_gguf(path, hp, seed, pool)
+            return path, time.time() - t0
+
+        # each file is written on a host thread while the card checks the
+        # one before, in REC_FILES' order (the pool's draws stay in order)
+        nxt = ex.submit(write, *REC_FILES[0])
+        for i, (label, hp, seed) in enumerate(REC_FILES):
+            t0 = time.time()
+            path, write_s = nxt.result()
+            if i + 1 < len(REC_FILES):
+                nxt = ex.submit(write, *REC_FILES[i + 1])
+            r = _rec_file(torch, label, hp, path, nvidia_smi, profile=profile)
+            os.remove(path)
+            r["write_s"] = write_s
+            r["seconds"] = time.time() - t0
+            emit({"phase": f"recurrent/{label}", **r})
+            out["files"][label] = r
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    check(not any(launches.values()),
+          f"recurrent: a kernel of the port launched: {launches}")
+    emit({"phase": "recurrent", "seconds": {
+        k: round(f["seconds"], 1) for k, f in out["files"].items()},
+        "card": nvidia_smi})
+    return {"launches": launches, "rows": {}, "files": out["files"]}
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
                  "paged_decode_merge_kernel",
@@ -6164,6 +6836,8 @@ def main() -> int:
                                     smi, kept, build, prof)
         serves["multimodal"] = timed("multimodal", phase_multimodal, torch,
                                      kc, smi)
+        serves["recurrent"] = timed("recurrent", phase_recurrent, torch, smi,
+                                    prof)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -6,8 +6,12 @@ model runs on the CUDA device (main(argv, device=...) lets a caller pick
 another). LoRA adapters (--lora, --lora-scaled) and control vectors
 (--control-vector, --control-vector-scaled) attach as the reference
 attaches them, except that several adapters all apply (the reference
-keeps only the last; ROADMAP §3, fault 9). The recurrent and
-encoder-decoder families and tensor parallelism raise
+keeps only the last; ROADMAP §3, fault 9). A recurrent file (mamba,
+rwkv6, rwkv6qwen2, rwkv7, arwkv7) runs one-shot greedy generation on its
+own Context, as the reference's _run_mamba/_run_rwkv6/_run_rwkv7 do
+(sampling flags ignored, as there); --lora, --control-vector,
+--prompt-cache and -tp > 1 are refused on it (the reference ignores
+them). The encoder-decoder families and tensor parallelism raise
 NotImplementedError until the port carries them (ROADMAP items 9 and 13).
 
 Usage:
@@ -66,6 +70,52 @@ def _refuse_unported(args, arch: str) -> None:
             "-tp > 1 is not ported yet (ROADMAP item 13)")
 
 
+def _run_recurrent(args, arch: str, device) -> int:
+    """One-shot greedy generation for a recurrent file (no KV cache): its
+    model class and Context (models/mamba.py, rwkv6.py, rwkv7.py), the
+    reference's banner, the prompt echoed, pieces until end of generation
+    or -n tokens."""
+    for flag, on in (("--lora", args.lora or args.lora_scaled),
+                     ("--control-vector",
+                      args.control_vector or args.control_vector_scaled),
+                     ("--prompt-cache", args.prompt_cache),
+                     ("-tp > 1", args.tensor_parallel > 1)):
+        if on:
+            raise ValueError(
+                f"{flag} does not apply to a recurrent {arch} file: it "
+                "carries state, not a KV cache or a llama body, and runs "
+                "on one device")
+    from ..models.mamba import generate
+    from ..runtime.recurrent import classes
+
+    cls, ctx_cls = classes(arch)
+    t0 = time.time()
+    model = cls(args.model, device=device)
+    hp = model.hp
+    size = (f"d_inner={hp.d_inner}" if arch == "mamba"
+            else f"head_size={hp.head_size}")
+    name = "rwkv6" if arch == "rwkv6qwen2" else arch
+    print(f"# {name} model loaded in {time.time()-t0:.1f}s "
+          f"(n_layer={hp.n_layer}, {size})", file=sys.stderr)
+    if model.tokenizer is None:
+        print("error: model has no tokenizer", file=sys.stderr)
+        return 1
+    prompt = args.prompt or ""
+    if args.file:
+        with open(args.file, encoding="utf-8") as f:
+            prompt = f.read()
+    toks = model.tokenizer.encode(prompt, add_special=True)
+    vocab = model.tokenizer.vocab
+    sys.stdout.write(prompt)
+    for tok in generate(ctx_cls(model), toks, args.n_predict):
+        if vocab.is_eog(tok):
+            break
+        sys.stdout.write(model.tokenizer.token_to_piece(tok))
+        sys.stdout.flush()
+    sys.stdout.write("\n")
+    return 0
+
+
 def _attach_adapters(args, model) -> None:
     """--lora/--lora-scaled and --control-vector(-scaled) onto the model's
     weights. One adapter attaches as the reference attaches it (scale
@@ -105,8 +155,13 @@ def main(argv=None, device=None) -> int:
     from ..runtime.engine import Context, Model
     from ..runtime.scheduler import GenRequest, Scheduler
 
-    _refuse_unported(args, open_gguf(args.model).metadata.get(
-        "general.architecture", "llama"))
+    from ..models.registry import RECURRENT
+
+    arch = open_gguf(args.model).metadata.get("general.architecture",
+                                              "llama")
+    if arch in RECURRENT:
+        return _run_recurrent(args, arch, device)
+    _refuse_unported(args, arch)
     t0 = time.time()
     overrides = parse_kv_overrides(getattr(args, "override_kv", None))
     overrides.update(rope_kv_overrides(args))

@@ -163,5 +163,5 @@ class GGUFWriter:
             pad = -f.tell() % self.alignment
             f.write(b"\x00" * pad)
             for _, _, _, packed in self._tensors:
-                f.write(packed.tobytes())
+                f.write(memoryview(packed))    # no copy of the bytes
                 f.write(b"\x00" * (-packed.nbytes % self.alignment))

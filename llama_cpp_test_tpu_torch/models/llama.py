@@ -584,6 +584,9 @@ def load_weights(reader: GGUFReader, hp: HParams | None = None
     """Load + repack all tensors of a GGUF of a ported arch into host
     planes."""
     if hp is None:
+        # a recurrent or unported arch is refused before its hparams are
+        # read as a llama body's
+        check_arch(reader.metadata.get("general.architecture", "llama"))
         hp = hparams_from_metadata(reader.metadata)
     _check_supported(reader, hp)
     t = reader.tensors

@@ -34,9 +34,13 @@ MLA attention, sigmoid gating and the selection bias of V3), phimoe (the
 sparsemixer), dbrx, grok (GELU experts, post-branch norms, an attention
 softcap) and arctic (a dense MLP beside the experts), and minicpm3 (MLA
 with a q LoRA at head dim 96); and qwen2vl (qwen2's body, whose image
-tokens rope by their M-RoPE streams). Every other arch the reference
-registers is refused by name with the item that ports it: 9 the other
-model families.
+tokens rope by their M-RoPE streams). The recurrent families (RECURRENT:
+mamba, rwkv6, rwkv6qwen2, rwkv7, arwkv7) carry state instead of a KV
+cache: they load through their own model classes (models/mamba.py,
+rwkv6.py, rwkv7.py) and serve through runtime/recurrent.RecurrentContext,
+and the paged engine refuses them naming that class. Every other arch the
+reference registers is refused by name with the item that ports it: 9 the
+other model families (t5, t5encoder, wavtokenizer-dec).
 """
 from __future__ import annotations
 
@@ -51,18 +55,30 @@ PORTED = ("llama", "mistral", "mixtral", "gemma", "gemma2", "gemma3",
           "deepseek", "phimoe", "dbrx", "arctic", "grok", "granitemoe",
           "minicpm3", "qwen2vl")
 
-_ITEM_9 = ("t5", "t5encoder", "mamba", "rwkv6", "rwkv6qwen2", "rwkv7",
-           "arwkv7", "wavtokenizer-dec")
+# arch -> the class that loads it
+RECURRENT = {"mamba": "models.mamba.MambaModel / MambaContext",
+             "rwkv6": "models.rwkv6.Rwkv6Model / Rwkv6Context",
+             "rwkv6qwen2": "models.rwkv6.Rwkv6Model / Rwkv6Context",
+             "rwkv7": "models.rwkv7.Rwkv7Model / Rwkv7Context",
+             "arwkv7": "models.rwkv7.Rwkv7Model / Rwkv7Context"}
+
+_ITEM_9 = ("t5", "t5encoder", "wavtokenizer-dec")
 UNPORTED = dict.fromkeys(_ITEM_9, 9)
 _ITEMS = {9: "the other model families"}
 
 
 def check_arch(arch: str) -> None:
-    """Raise unless the port serves `arch`: NotImplementedError naming the
+    """Raise unless the paged engine serves `arch`: ValueError naming the
+    model class of a recurrent arch, NotImplementedError naming the
     ROADMAP item for an arch the reference serves, ValueError for one
     neither package registers."""
     if arch in PORTED:
         return
+    if arch in RECURRENT:
+        raise ValueError(
+            f"{arch} is a recurrent arch with no KV cache: load it with "
+            f"{RECURRENT[arch]} (served by runtime.recurrent."
+            "RecurrentContext)")
     if arch in UNPORTED:
         item = UNPORTED[arch]
         raise NotImplementedError(

@@ -2,7 +2,9 @@
 (reference examples/server/server.cpp:1220,2794).
 
 Counterpart of llama_cpp_test_tpu/runtime/scheduler.py over the port's
-single-device Context, with server-side speculative decoding (draft_ctx).
+single-device Context, with server-side speculative decoding (draft_ctx),
+or over a recurrent state pool (runtime/recurrent.RecurrentContext), whose
+capability flags turn windows, candidate sampling and prefix reuse off.
 
 Requests queue up; each gets a slot with its own sequence, sampler chain and
 stop conditions. Every `step()`:
@@ -129,6 +131,10 @@ class Scheduler:
         # (device_sampling.eligible): one host sync per window instead of a
         # logits download per token
         self.decode_window = decode_window
+        if not getattr(ctx, "supports_windows", True):
+            # recurrent contexts (runtime/recurrent.py): a batched decode is
+            # already one step; the paged window machinery does not apply
+            self.decode_window = 1
         self._step_count = 0
         self._req_ids = itertools.count()
         self.tokenizer = ctx.model.tokenizer
@@ -239,7 +245,8 @@ class Scheduler:
             # kept by K-shifting them to their new positions
             # (Context.compact_reuse, the reference's n_cache_reuse path)
             reuse = 0
-            if slot.seq is not None and slot.cache_tokens:
+            if slot.seq is not None and slot.cache_tokens and \
+                    getattr(self.ctx, "supports_prefix_reuse", True):
                 # never reuse the whole prompt: the last token must be
                 # re-decoded to produce logits
                 max_keep = len(req.prompt_tokens) - 1
@@ -285,6 +292,7 @@ class Scheduler:
             final = (slot.n_prompt_done + len(chunk) >=
                      len(req.prompt_tokens))
             use_cand = (final and self.draft_ctx is None and
+                        getattr(self.ctx, "supports_candidates", True) and
                         ds.host_candidates_eligible(req.sampling))
             if use_cand:
                 vals, ids = self.ctx.prefill(slot.seq, chunk,
@@ -417,7 +425,8 @@ class Scheduler:
             return
         from . import device_sampling as ds
 
-        if all(ds.host_candidates_eligible(s.req.sampling) for s in gen):
+        if getattr(self.ctx, "supports_candidates", True) and all(
+                ds.host_candidates_eligible(s.req.sampling) for s in gen):
             self._decode_host_step_candidates(gen)
             return
         t0 = time.time()
@@ -584,6 +593,8 @@ class Scheduler:
         # Base seed fixed at 0: per-row noise is keyed on (row seed, pos) so
         # fixed-seed requests reproduce across scheduler states.
         seqs = [s.seq for s in gen]
+        allow_chain = allow_chain and getattr(
+            self.ctx, "supports_window_chaining", True)
         handle = self.ctx.decode_window_async(
             seqs, [s.next_token for s in gen],
             [s.req.sampling for s in gen], w, seed=0,

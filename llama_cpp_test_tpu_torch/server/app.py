@@ -24,7 +24,11 @@ so a chained decode window still in flight when a step returns runs
 before anything another thread queues. LoRA adapters (lora=, --lora)
 have hot-swappable scales (POST /lora-adapters): the new scales attach
 under ctx_lock, between two scheduler steps, and a window already queued
-keeps the tensors it was queued with. An arch the port does not serve
+keeps the tensors it was queued with. A recurrent file (mamba, rwkv6,
+rwkv6qwen2, rwkv7, arwkv7) is served by the same Scheduler over a
+runtime/recurrent.RecurrentContext state pool: a draft model, LoRA
+adapters or followers raise ValueError, and /embeddings and slot
+save/restore answer 400. An arch the port does not serve
 (models/registry: ROADMAP item 9) and multi-device serving (item 13)
 raise NotImplementedError. An encoder (bert, nomic-bert,
 jina-bert-v2) serves /v1/embeddings and /rerank with its own pooling and
@@ -152,21 +156,39 @@ class LlamaServer:
                  chat_template: str | None = None, followers=None,
                  device=None):
         from ..gguf.reader import open_gguf
-        from ..models.registry import check_arch
+        from ..models.registry import RECURRENT, check_arch
 
-        check_arch(open_gguf(model_path).metadata.get("general.architecture",
-                                                      "llama"))
+        arch = open_gguf(model_path).metadata.get("general.architecture",
+                                                  "llama")
+        # a recurrent model (state-space / rwkv) rides a state pool behind
+        # the same Scheduler and endpoints (runtime/recurrent.py, the
+        # reference's recurrent-cache mode)
+        self.recurrent = arch in RECURRENT
+        if self.recurrent and followers is not None:
+            raise ValueError("recurrent models run single-device")
+        if self.recurrent and (draft_model_path or lora):
+            raise ValueError("draft models / LoRA are not supported for "
+                             "recurrent models")
+        if not self.recurrent:
+            check_arch(arch)
         if followers is not None:
             raise NotImplementedError(
                 "multi-host serving is not ported yet (ROADMAP item 13)")
-        self.model = Model(model_path, device=device,
-                           kv_overrides=kv_overrides)
+        if self.recurrent:
+            from ..runtime.recurrent import RecurrentContext, classes
+
+            self.model = classes(arch)[0](model_path, device=device)
+            ctx = RecurrentContext(self.model, n_ctx=n_ctx,
+                                   n_seq_max=n_slots)
+        else:
+            self.model = Model(model_path, device=device,
+                               kv_overrides=kv_overrides)
+            n_ctx = fit_n_ctx(self.model, n_ctx)
+            ctx = Context(self.model, n_ctx=n_ctx, n_seq_max=n_slots,
+                          kv_type=kv_type)
         # --chat-template: force a builtin template name or jinja source
         self.chat_template = chat_template
         self.alias = model_alias or model_path.rsplit("/", 1)[-1]
-        n_ctx = fit_n_ctx(self.model, n_ctx)
-        ctx = Context(self.model, n_ctx=n_ctx, n_seq_max=n_slots,
-                      kv_type=kv_type)
         draft_ctx = None
         if draft_model_path:
             # server-side speculative decoding (-md analogue, reference
@@ -369,6 +391,11 @@ class LlamaServer:
         if not (0 <= slot_id < len(self.sched.slots)):
             raise web.HTTPNotFound(text='{"error": "no such slot"}',
                                    content_type="application/json")
+        if action in ("save", "restore") and self.recurrent:
+            raise web.HTTPBadRequest(
+                text='{"error": "slot save/restore is not supported for '
+                     'recurrent models"}',
+                content_type="application/json")
         if action in ("save", "restore") and not self.slot_save_path:
             raise web.HTTPBadRequest(
                 text='{"error": "server started without --slot-save-path"}',

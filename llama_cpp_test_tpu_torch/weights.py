@@ -25,7 +25,9 @@ tensors holding A and B rounded to bf16, a control vector as float32.
 
 The vision towers' parameters cross the same way
 (port_clip_from_reference, port_qwen2vl_vision_from_reference): the
-reference's loaded float arrays as the port's models on a device.
+reference's loaded float arrays as the port's models on a device; so do
+the recurrent families' (port_mamba_from_reference,
+port_rwkv6_from_reference, port_rwkv7_from_reference).
 """
 from __future__ import annotations
 
@@ -162,6 +164,45 @@ def port_qwen2vl_vision_from_reference(jm, device=None):
     from .models import qwen2vl_vision as qv
 
     return qv.convert(jm, resolve_device(device))
+
+
+def _port_recurrent(jm, model_cls, hp_cls, device):
+    """The reference's loaded recurrent model (its hparams and numpy
+    weights) as the port's model_cls on device: the same hparams fields,
+    every array float32 on the device, no file and no tokenizer behind
+    it."""
+    from .device import resolve_device
+
+    hp = hp_cls(**{f.name: getattr(jm.hp, f.name)
+                   for f in dataclasses.fields(hp_cls)})
+    return model_cls.from_weights(hp, jm.weights, resolve_device(device))
+
+
+def port_mamba_from_reference(jm, device=None):
+    """The reference's loaded MambaModel as the port's (models/mamba.py),
+    float32 on device (CUDA unless the caller asks for the CPU)."""
+    from .models import mamba
+
+    return _port_recurrent(jm, mamba.MambaModel, mamba.MambaHParams,
+                           device)
+
+
+def port_rwkv6_from_reference(jm, device=None):
+    """The reference's loaded Rwkv6Model (rwkv6 or rwkv6qwen2) as the
+    port's (models/rwkv6.py), float32 on device."""
+    from .models import rwkv6
+
+    return _port_recurrent(jm, rwkv6.Rwkv6Model, rwkv6.Rwkv6HParams,
+                           device)
+
+
+def port_rwkv7_from_reference(jm, device=None):
+    """The reference's loaded Rwkv7Model (rwkv7 or arwkv7) as the port's
+    (models/rwkv7.py), float32 on device."""
+    from .models import rwkv7
+
+    return _port_recurrent(jm, rwkv7.Rwkv7Model, rwkv7.Rwkv7HParams,
+                           device)
 
 
 def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:

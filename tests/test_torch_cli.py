@@ -172,7 +172,7 @@ def test_unported_options_raise(model_path, flags):
             device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mamba", "rwkv6", "rwkv7", "t5"])
+@pytest.mark.parametrize("arch", ["t5", "t5encoder", "wavtokenizer-dec"])
 def test_other_families_raise(tmp_path, arch):
     path = str(tmp_path / f"{arch}.gguf")
     GGUFWriter(path, arch=arch).write()

@@ -497,14 +497,14 @@ def test_rerank_order_matches_jax(client, jclient):
 
 
 def test_unported_serving_raises(path, tmp_path):
-    """Recurrent families (ROADMAP item 9) and multi-device serving (item
-    13) raise instead of serving something else."""
+    """The encoder-decoder family (ROADMAP item 9) and multi-device
+    serving (item 13) raise instead of serving something else."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
-    mamba = str(tmp_path / "mamba.gguf")
-    GGUFWriter(mamba, arch="mamba").write()
+    t5 = str(tmp_path / "t5.gguf")
+    GGUFWriter(t5, arch="t5").write()
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        papp.LlamaServer(mamba, device="cpu")
+        papp.LlamaServer(t5, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         papp.LlamaServer(path, device="cpu", followers=[])
     for flags in (["--coordinator", "localhost:1234"], ["-tp", "2"]):
