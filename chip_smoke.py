@@ -266,12 +266,42 @@ non-zero before the final line:
            and the server (/completion, a streamed chat, /embeddings and
            a slot save answering 400); then the rwkv6qwen2 and arwkv7
            branches at the CPU tests' widths
+  t5       the encoder-decoder family, plain f32 torch (no kernel of the
+           port launches: every count stays 0): flan-t5-base (gated-gelu,
+           untied head) and t5-small (relu, the scaled tied head) at
+           published widths and full depth from seeded F16 files with a
+           synthesized T5 unigram vocab, and t5-small's encoder as a
+           t5encoder file; each loaded on the card and its weights copied
+           to the CPU: a 64-token encode on both within NMSE 1e-9; on the
+           t5 files 16 greedy decoder steps on the card against the CPU fed
+           the same tokens (every step within 1e-9, the CPU's argmax the
+           card's token), cli.main's printout (-n 32) equal to generate()'s
+           pieces; on the t5encoder file cli.main returning 1 with the
+           reference's message; the encode wall and busy ms at T = 64 and
+           512 against the f32 flop bound, a decoder step's wall, busy ms
+           and launches at n_ctx 512 against the f32 byte bound
+  tts      llama-tts: WavTokenizer-large-75 (F16, full depth) decoding 750
+           seeded codes (10 s of audio) on the card, cuDNN's TF32 allowed
+           as torch leaves it, and on the CPU: spectra and audio within
+           NMSE 1e-9, the wall and busy ms, real-time factor and f32 flop
+           bound; then OuteTTS-0.2-500M (Q8_0 at published widths, 2 of 24
+           layers, vocab 157696 with OuteTTS's marks and codes) whose tied
+           embedding makes greedy decoding walk 40 seeded codes, a timing
+           token past the code range and <|audio_end|> (chain_rows):
+           cli.tts's text-to-codes loop with K1's GEMM and GEMV, K2 and K3
+           launched as the path predicts, every step within the logits
+           gate of the plain path, the greedy tokens the chain; cli.tts
+           end to end (the same launches; a 24 kHz WAV of 320 samples a
+           kept code, within 1 LSB of decode_codes + embd_to_audio of those
+           codes; the timing token dropped) and in --codes mode; K1's int8
+           GEMV row at OuteTTS's 157696-row head
   timings  the seconds of each phase
 
 Every file the serve phases write carries a synthesized tokenizer
 (write_llama_gguf's vocab: SPM for 32000 tokens and for the gemma, qwen,
 phi and other vocabularies, Llama-3's BPE layout for 128256, BERT's
-WordPiece layout for the encoders); nothing is downloaded.
+WordPiece layout for the encoders, OuteTTS's for 157696; T5's unigram
+vocab for the t5 files); nothing is downloaded.
 
 Before the last line it prints the kernels summary and the card's
 nvidia-smi name and power limit; the last line is
@@ -797,6 +827,108 @@ def wpm_vocab(n_vocab: int, seed: int) -> dict:
             "tokenizer.ggml.add_eos_token": True}
 
 
+def t5_vocab(n_vocab: int, seed: int, n_extra: int = 100) -> dict:
+    """Tokenizer metadata of a T5 unigram vocab (tokenizer.ggml.model
+    "t5", the UGM tokenizer) laid out as T5's sentencepiece model as
+    llama.cpp converts it: <pad> 0, </s> 1, <unk> 2, then pieces with
+    nearly equal scores (so the fewest pieces win): the '▁' space
+    mark, printable ASCII, the words of _WORDS with and without the mark,
+    then seeded letter strings of 2-8 letters; the last n_extra tokens are
+    the <extra_id_N> sentinels (N from n_extra - 1 down). An encoded text
+    ends with </s>."""
+    rng = np.random.default_rng(seed)
+    want = n_vocab - 3 - n_extra
+    pieces = dict.fromkeys(["▁"] + [chr(c) for c in range(33, 127)] +
+                           ["▁" + w for w in _WORDS] + list(_WORDS))
+    letters = np.array(list(_LETTERS))
+    while len(pieces) < want:
+        lens = rng.integers(2, 9, size=4096)
+        rows = rng.choice(letters, size=(4096, 8), p=_LETTER_P / _LETTER_P.sum())
+        marks = rng.random(4096) < 0.5
+        for n, row, mark in zip(lens, rows, marks):
+            pieces.setdefault(("▁" if mark else "") + "".join(row[:n]))
+    tokens = ["<pad>", "</s>", "<unk>"] + list(pieces)[:want] + [
+        f"<extra_id_{i}>" for i in range(n_extra - 1, -1, -1)]
+    scores = [0.0] * 3 + [-1.0 - 1e-3 * i for i in range(want)] + \
+        [0.0] * n_extra
+    types = [3, 3, 2] + [1] * want + [4] * n_extra
+    return {"tokenizer.ggml.model": "t5", "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.scores": np.asarray(scores, np.float32),
+            "tokenizer.ggml.token_type": np.asarray(types, np.int32),
+            "tokenizer.ggml.eos_token_id": 1,
+            "tokenizer.ggml.unknown_token_id": 2,
+            "tokenizer.ggml.padding_token_id": 0,
+            "tokenizer.ggml.add_bos_token": False,
+            "tokenizer.ggml.add_eos_token": True,
+            "tokenizer.ggml.add_space_prefix": True}
+
+
+CODE_TOKEN_OFFSET = 151672          # OuteTTS v0.2's "<|0|>" (tts.cpp:720)
+QWEN2_REGULAR = 151643              # Qwen2.5's byte-level BPE tokens
+OUTETTS_MARKS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>",
+                 "<|text_start|>", "<|text_end|>", "<|text_sep|>",
+                 "<|audio_start|>", "<|audio_end|>")
+
+
+def outetts_vocab(n_vocab: int, seed: int, n_bpe: int = QWEN2_REGULAR,
+                  n_codes: int = 4100) -> dict:
+    """Tokenizer metadata of OuteTTS-0.2's vocab laid out as llama.cpp's
+    converter writes it (tokenizer.ggml.model "gpt2", pre "qwen2"): n_bpe
+    byte-level BPE tokens (bpe_vocab's; [UNUSED_i] fill the rest of
+    Qwen2.5's 151643), Qwen's control tokens <|endoftext|> (the EOS),
+    <|im_start|>, <|im_end|>, then OuteTTS's user-defined marks
+    (<|text_start|> ... <|audio_end|>) and reserved ones up to
+    CODE_TOKEN_OFFSET, the audio codes <|0|> ... <|n_codes - 1|>, then
+    timing tokens <|t_0.00|> ... to n_vocab. A prompt's marks match as
+    written (user-defined tokens do); its '\\n' is the byte token 10."""
+    md = bpe_vocab(n_bpe, seed, n_special=0)
+    tokens = md["tokenizer.ggml.tokens"] + [
+        f"[UNUSED_{i}]" for i in range(n_bpe, QWEN2_REGULAR)]
+    types = [1] * n_bpe + [5] * (QWEN2_REGULAR - n_bpe)
+    tokens += list(OUTETTS_MARKS) + [
+        f"<|reserved_{i}|>" for i in range(CODE_TOKEN_OFFSET - QWEN2_REGULAR
+                                          - len(OUTETTS_MARKS))]
+    types += [3, 3, 3] + [4] * (CODE_TOKEN_OFFSET - QWEN2_REGULAR - 3)
+    tokens += [f"<|{i}|>" for i in range(n_codes)]
+    tokens += [f"<|t_{i / 100:.2f}|>" for i in range(n_vocab - len(tokens))]
+    types += [4] * (n_vocab - len(types))
+    return {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "qwen2",
+            "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.token_type": np.asarray(types, np.int32),
+            "tokenizer.ggml.merges": md["tokenizer.ggml.merges"],
+            "tokenizer.ggml.eos_token_id": QWEN2_REGULAR,
+            "tokenizer.ggml.bos_token_id": QWEN2_REGULAR,
+            "tokenizer.ggml.add_bos_token": False}
+
+
+CHAIN_SCALE = 64.0      # the first chain row's norm (random rows: ~0.2)
+CHAIN_PHI2 = 0.1        # the chain's step: the next row wins by e^0.05
+
+
+def chain_rows(c: int, chain, seed: int) -> dict:
+    """Token-embedding rows of width c that make greedy decoding of a
+    tied-head model walk `chain` (token ids) one step at a time: row j is
+    CHAIN_SCALE e^(CHAIN_PHI2 j) v_j, with unit v_j whose Gram is
+    exp(-CHAIN_PHI2 (j - k)^2 / 2) (built exactly from its
+    eigendecomposition, turned into width c by a seeded orthonormal
+    basis). These rows dwarf the random rows and the layers' output, so
+    the hidden state at token chain[k] is ~ row k, and the logit of
+    chain[k + m] is proportional to e^(CHAIN_PHI2 (k + m - m^2 / 2)): the
+    next token wins by e^(CHAIN_PHI2 / 2), 5% of its logit, and a token
+    past it or before it loses."""
+    n = len(chain)
+    check(n <= c, f"a chain of {n} tokens needs a width of at least {n}")
+    j = np.arange(n)
+    w, u = np.linalg.eigh(np.exp(-0.5 * CHAIN_PHI2 * (j[:, None] - j) ** 2))
+    v = u * np.sqrt(np.clip(w, 0.0, None))          # rows: that Gram
+    basis, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal(
+        (c, n)))
+    v = v @ basis.T
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return {int(t): CHAIN_SCALE * np.exp(CHAIN_PHI2 * i) * v[i]
+            for i, t in enumerate(chain)}
+
+
 def write_llama_gguf(path: str, hp: dict, seed: int,
                      ftype: str = "Q4_K", vocab: str | None = "auto",
                      vocab_seed: int | None = None,
@@ -848,8 +980,11 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     the tokenizer written beside them (from vocab_seed, default seed),
     "spm" (spm_vocab), "bpe" (bpe_vocab) or "wpm" (wpm_vocab, BERT's);
     "auto" takes "wpm" for an encoder, "bpe" for Llama-3's 128256 tokens
-    and "spm" for any other size; None writes none. chat_template: the
-    tokenizer.chat_template written with it."""
+    and "spm" for any other size, a dict is the tokenizer metadata itself;
+    None writes none. chat_template: the tokenizer.chat_template written
+    with it. hp["embd_rows"] ({token id: float vector}) writes those rows
+    of a Q8_0 token_embd as the vectors quantized (q8_0_row), the rest of
+    the plane random blocks."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
     rng = np.random.default_rng(seed)
@@ -897,7 +1032,9 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
     post = hp.get("post_norm", False)
     if vocab == "auto":
         vocab = "wpm" if post else "bpe" if v == 128256 else "spm"
-    if vocab is not None:
+    if isinstance(vocab, dict):
+        meta.update(vocab)
+    elif vocab is not None:
         meta.update({"spm": spm_vocab, "bpe": bpe_vocab,
                      "wpm": wpm_vocab}[vocab](
             v, seed if vocab_seed is None else vocab_seed))
@@ -914,14 +1051,21 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             fitted[role] = ft.name
         return ft
 
-    def quant(name, n, k, e=1, gt=None):
+    def quant(name, n, k, e=1, gt=None, rows=None):
         role = name.split(".")[-2]
         # a shared expert takes its FFN role's type, an MLA plane attn_q's
         base = role.replace("_shexp", "")
         gt = fit(role, gt or types.get(base, types["attn_q"]), k)
         shape = (k, n) if e == 1 else (k, n, e)
-        w.add_tensor(name, random_blocks(rng, gt, n * e, k),
-                     ggml_type=gt, raw_ggml_shape=shape)
+        raw = random_blocks(rng, gt, n * e, k)
+        if rows:
+            from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
+
+            check(gt == GGMLType.Q8_0, f"{name}: designed rows need Q8_0")
+            per_row = raw.size // n
+            for r, vec in rows.items():
+                raw[r * per_row:(r + 1) * per_row] = q8_0_row(vec)
+        w.add_tensor(name, raw, ggml_type=gt, raw_ggml_shape=shape)
 
     def vec(name, *shape, mean=1.0, std=0.05):
         w.add_tensor(name, mean + std * rng.standard_normal(shape).astype(
@@ -933,7 +1077,7 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
             vec(name[:-len("weight")] + "bias", n, mean=0.0)
 
     bias = lambda name, n: vec(name, n, mean=0.0, std=0.1)
-    quant("token_embd.weight", v, c)
+    quant("token_embd.weight", v, c, rows=hp.get("embd_rows"))
     if hp.get("pos_rows"):
         vec("position_embd.weight", hp["pos_rows"], c, mean=0.0, std=0.02)
     if hp.get("types"):
@@ -1059,6 +1203,20 @@ def write_llama_gguf(path: str, hp: dict, seed: int,
                 np.float32))
     w.write()
     return fitted
+
+
+def q8_0_row(x) -> np.ndarray:
+    """A float vector (length a multiple of 32) as Q8_0 block bytes: per
+    32 values an f16 scale d = max|x| / 127 and int8 round(x / d)."""
+    x = np.asarray(x, np.float32).reshape(-1, 32)
+    d = (np.abs(x).max(axis=1) / 127.0).astype(np.float16)
+    inv = np.divide(1.0, d.astype(np.float32), where=d > 0,
+                    out=np.zeros(d.shape, np.float32))
+    q = np.clip(np.rint(x * inv[:, None]), -127, 127).astype(np.int8)
+    raw = np.empty((x.shape[0], 34), np.uint8)
+    raw[:, :2] = d.view(np.uint8).reshape(-1, 2)
+    raw[:, 2:] = q.view(np.uint8)
+    return raw.reshape(-1)
 
 
 def _fit_type(ggml_type, k: int):
@@ -6093,6 +6251,9 @@ REC_POOL_B = 4       # rows of the pool's batched decode
 REC_CTX = 48         # the Scheduler's n_ctx: one request runs past it
 
 
+F16_POOL_STD = 0.0239    # std of f16_weights' magnitudes in [2^-6, 2^-5)
+
+
 class _F16Pool:
     """Seeded f16 weights as seeded slices of one shared draw
     (f16_weights: magnitudes in [2^-6, 2^-5), random signs), so a GB-size
@@ -6111,7 +6272,15 @@ class _F16Pool:
         else:
             off = int(self.rng.integers(0, self.a.size - n + 1))
             out = self.a[off:off + n].reshape(shape)
-        return out * np.float16(scale) if scale != 1.0 else out
+        if scale == 1.0:
+            return out
+        k = np.log2(scale)
+        if k == round(k) and -8 <= k <= 21:
+            # a power of two moves the exponent field (every draw has 9):
+            # exact, and ~20x faster than numpy's f16 multiply
+            return (out.view(np.uint16) + np.uint16((int(k) << 10) & 0xFFFF)
+                    ).view(np.float16)
+        return out * np.float16(scale)
 
 
 def rwkv_vocab(n_vocab: int, seed: int) -> dict:
@@ -6663,6 +6832,764 @@ def phase_recurrent(torch, nvidia_smi: str, profile: bool = False) -> dict:
     return {"launches": launches, "rows": {}, "files": out["files"]}
 
 
+# ---------------------------------------------------------------------------
+# t5: the encoder-decoder family, plain f32 torch (no kernel)
+
+# google/flan-t5-base config.json: d_model 768, d_kv 64, d_ff 2048, 12
+# encoder and 12 decoder layers, 12 heads, 32 buckets, vocab 32128,
+# gated-gelu, untied head; full depth
+FLAN_T5_BASE = dict(arch="t5", n_vocab=32128, n_embd=768, d_kv=64,
+                    n_ff=2048, n_layer=12, n_head=12, n_buckets=32,
+                    gated=True, tied=False)
+# google-t5/t5-small config.json: d_model 512, d_kv 64, d_ff 2048, 6 + 6
+# layers, 8 heads, relu, the tied head scaled by d_model^-0.5; full depth.
+# The embedding drawn at std 0.5: at HF's init std 1 the fed token's own
+# row wins the tied head, and greedy decoding never leaves <pad>
+T5_SMALL = dict(arch="t5", n_vocab=32128, n_embd=512, d_kv=64, n_ff=2048,
+                n_layer=6, n_head=8, n_buckets=32, gated=False, tied=True,
+                embd_std=0.5)
+T5_FILES = (("flan_t5_base", FLAN_T5_BASE, 161), ("t5_small", T5_SMALL, 162),
+            ("t5_small_encoder", dict(T5_SMALL, arch="t5encoder"), 162))
+T5_PROMPT = 64          # encoder tokens of the card/CPU checks
+T5_DECODE = 16          # decoder steps held to the CPU
+T5_GEN = 32             # generate()'s and the CLI's -n
+T5_CTX = 512            # the decoder cache of the checks and timings
+# f32 card against CPU, NMSE, as REC_GATE: TF32 or bf16 products would
+# sit orders above it
+T5_GATE = 1e-9
+T5_TEXT = ("translate English to German: the people of the world could "
+           "find water in the little house")
+
+
+def write_t5_gguf(path: str, hp: dict, seed: int, pool) -> None:
+    """A t5 / t5encoder GGUF of geometry hp as the reference's converter
+    writes it (enc.blk.* / dec.blk.*, attn_o, attn_rel_b on layer 0 only,
+    d_kv key/value lengths, the bucket count, decoder_start_token_id 0):
+    matrices F16 (pool slices) at the std of HF T5's initialization to
+    the nearest power of two (T5PreTrainedModel._init_weights: q (d_model
+    d_kv)^-0.5, k, v and wi d_model^-0.5, o (H d_kv)^-0.5, wo d_ff^-0.5,
+    the embedding 1, or hp["embd_std"] where given, an untied head
+    d_model^-0.5), norms F32 in [0.95, 1.05], the bucket biases F32
+    N(0, 0.5); a synthesized T5 unigram vocab (t5_vocab).
+    (At the pool's own std, ~0.024 for every matrix, the unscaled
+    attention's logits reach a spread of ~10 and the encoder turns f32
+    rounding into an NMSE of ~1e-9 against float64.)"""
+    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    arch, c, v, n_layer = (hp[k] for k in ("arch", "n_embd", "n_vocab",
+                                           "n_layer"))
+    hd, ff, nb = hp["n_head"] * hp["d_kv"], hp["n_ff"], hp["n_buckets"]
+    w = GGUFWriter(path, arch=arch)
+    md = {"context_length": 512, "embedding_length": c,
+          "block_count": n_layer, "feed_forward_length": ff,
+          "attention.head_count": hp["n_head"],
+          "attention.key_length": hp["d_kv"],
+          "attention.value_length": hp["d_kv"],
+          "attention.layer_norm_rms_epsilon": 1e-6,
+          "attention.relative_buckets_count": nb,
+          "decoder_start_token_id": 0}
+    md = {f"{arch}.{k}": val for k, val in md.items()}
+    md.update(t5_vocab(v, seed))
+    for key, val in md.items():
+        w.add_kv(key, val)
+    def mat(name, *shape, std):
+        scale = 2.0 ** round(float(np.log2(std / F16_POOL_STD)))
+        w.add_tensor(name, pool.take(*shape, scale=scale),
+                     ggml_type=GGMLType.F16)
+
+    norm = lambda name: w.add_tensor(
+        name, rng.uniform(0.95, 1.05, c).astype(np.float32))
+    sc, sq, so, sf = c ** -0.5, (c * hp["d_kv"]) ** -0.5, hd ** -0.5, \
+        ff ** -0.5
+
+    mat("token_embd.weight", v, c, std=hp.get("embd_std", 1.0))
+    if not hp["tied"] and arch == "t5":
+        mat("output.weight", v, c, std=sc)
+    sides = ("enc", "dec") if arch == "t5" else ("enc",)
+    for side in sides:
+        norm(f"{side}.output_norm.weight")
+        for i in range(n_layer):
+            p = f"{side}.blk.{i}."
+            norm(p + "attn_norm.weight")
+            for name, std in (("attn_q", sq), ("attn_k", sc), ("attn_v", sc)):
+                mat(p + name + ".weight", hd, c, std=std)
+            mat(p + "attn_o.weight", c, hd, std=so)
+            if i == 0:
+                w.add_tensor(p + "attn_rel_b.weight", 0.5 * rng.standard_normal(
+                    (nb, hp["n_head"])).astype(np.float32))
+            if side == "dec":
+                norm(p + "cross_attn_norm.weight")
+                for name, std in (("cross_attn_q", sq), ("cross_attn_k", sc),
+                                  ("cross_attn_v", sc)):
+                    mat(p + name + ".weight", hd, c, std=std)
+                mat(p + "cross_attn_o.weight", c, hd, std=so)
+            norm(p + "ffn_norm.weight")
+            if hp["gated"]:
+                mat(p + "ffn_gate.weight", ff, c, std=sc)
+            mat(p + "ffn_up.weight", ff, c, std=sc)
+            mat(p + "ffn_down.weight", c, ff, std=sf)
+    w.write()
+
+
+def _t5_encode_flops(hp: dict, t: int) -> float:
+    """Multiply-adds x 2 of the encoder over t tokens: every block's
+    projections and FFN, its attention products (QK^T and PV)."""
+    c, hd, ff = hp["n_embd"], hp["n_head"] * hp["d_kv"], hp["n_ff"]
+    per = 4 * c * hd + (3 if hp["gated"] else 2) * c * ff
+    return hp["n_layer"] * (2.0 * t * per + 4.0 * t * t * hd)
+
+
+def _t5_step_bytes(model, n_enc: int, t: int) -> int:
+    """f32 bytes one decoder step at position t reads: the decoder's
+    tensors but the cross K/V projections (applied once, at encode) and
+    the head (the embedding row left out), the cross K/V of n_enc encoder
+    rows and t + 1 rows of the self cache, each once."""
+    hp = model.hp
+    n = sum(x.numel() for b in model.dec for k, x in vars(b).items()
+            if x is not None and k not in ("cross_wk", "cross_wv"))
+    n += model.dec_norm.numel()
+    n += (model.output if model.output is not None else model.tok_embd
+          ).numel()
+    kv = 2 * hp.n_layer * hp.n_head * hp.d_kv * (n_enc + t + 1)
+    return 4 * (n + kv)
+
+
+def _t5_forced(ctx, start: int, toks) -> list:
+    """The decoder's logits before each of toks, fed start then toks[:-1]
+    (the prompt encoded already)."""
+    ctx.reset_decoder()
+    feed = [start] + list(toks[:-1])
+    return [ctx.decode(t) for t in feed]
+
+
+def _t5_timings(torch, model, hp, rng) -> dict:
+    """The encoder's wall and busy ms at T = 64 and 512 against the f32
+    flop bound, and a decoder step's wall, busy ms and launches at n_ctx
+    T5_CTX against the f32 byte bound; the idle shares."""
+    from llama_cpp_test_tpu_torch.models.t5 import T5Context, encode_hidden
+
+    out = {}
+    v = hp["n_vocab"]
+    for t in (T5_PROMPT, 512):
+        ids = rng.integers(3, v - 100, t).tolist()
+        encode_hidden(model, ids)                      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        encode_hidden(model, ids)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        prof = _profiled(torch, lambda: encode_hidden(model, ids))
+        flops = _t5_encode_flops(hp, t)
+        out[f"encode_{t}"] = {
+            "wall_ms": wall, "busy_ms": prof["device_busy_ms"],
+            "idle_share": 1.0 - prof["device_busy_ms"] / wall,
+            "launches": prof["device_kernel_launches"],
+            "gflop": flops / 1e9, "f32_bound_ms": flops / PEAK_FP32 * 1e3,
+            "top": prof["top"][:3]}
+    if model.dec is None:
+        return out
+    ctx = T5Context(model, n_ctx=T5_CTX)
+    ctx.encode(rng.integers(3, v - 100, T5_PROMPT).tolist())
+    tok, n = 0, T5_GEN
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        tok = int(np.argmax(ctx.decode(tok)))
+    wall = (time.time() - t0) * 1e3 / n
+    state = {"tok": tok}
+
+    def decode8():
+        for _ in range(8):
+            state["tok"] = int(np.argmax(ctx.decode(state["tok"])))
+
+    prof = _profiled(torch, decode8)
+    nb = _t5_step_bytes(model, T5_PROMPT, n + 4)
+    out["decode"] = {
+        "n_ctx": T5_CTX, "position": n, "wall_ms": wall,
+        "busy_ms": prof["device_busy_ms"] / 8,
+        "idle_share": prof["idle_share"],
+        "launches_per_token": prof["device_kernel_launches"] / 8,
+        "bytes": nb, "f32_bound_ms": nb / PEAK_BYTES * 1e3,
+        "top": prof["top"][:3]}
+    return out
+
+
+def _t5_cli(torch, path, model) -> dict:
+    """cli.main on the file: a t5 file's printout equal to generate()'s
+    pieces (-n T5_GEN, EOS the vocab's) and not empty, a t5encoder file
+    returning 1 with the reference's message."""
+    import io
+
+    from llama_cpp_test_tpu_torch.cli import main as cli
+    from llama_cpp_test_tpu_torch.models.t5 import T5Context, generate
+
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = cli.main(["-m", path, "-p", T5_TEXT, "-n", str(T5_GEN)])
+    out = {"rc": rc, "wall_s": time.time() - t0}
+    if model.dec is None:
+        msg = "t5encoder GGUFs are embedding-only"
+        out["message"] = msg in err.getvalue()
+        check(rc == 1 and not buf.getvalue() and out["message"],
+              f"t5encoder cli: rc {rc}, {buf.getvalue()!r}, "
+              f"{err.getvalue()!r}")
+        return out
+    tok = model.tokenizer
+    ids = tok.encode(T5_TEXT, add_special=True)
+    check(ids[-1] == tok.vocab.eos_id, "T5's encode did not end with </s>")
+    toks = list(generate(T5Context(model, n_ctx=max(64, T5_GEN + 8)), ids,
+                         T5_GEN, eos_id=tok.vocab.eos_id))
+    want = "".join(tok.token_to_piece(t) for t in toks) + "\n"
+    out.update(prompt_tokens=len(ids), generated=len(toks),
+               distinct_tokens=sorted(set(toks)),
+               same_as_generate=buf.getvalue() == want)
+    check(rc == 0 and out["same_as_generate"],
+          f"t5 cli: rc {rc}, printed {buf.getvalue()!r}, generate() gives "
+          f"{want!r}")
+    check(buf.getvalue().strip(), f"t5 cli: printed no piece ({toks})")
+    return out
+
+
+def _t5_file(torch, label, hp, path, nvidia_smi) -> dict:
+    """One T5 file on the card, its weights copied to the CPU: a
+    T5_PROMPT-token encode on both within T5_GATE; on a t5 file T5_DECODE
+    greedy decoder steps on the card (fed its own tokens) against the CPU
+    fed the same tokens, every step within T5_GATE and the CPU's argmax
+    the card's token, greedy leaving the start token; generate() and
+    cli.main (_t5_cli); the timings (_t5_timings)."""
+    from llama_cpp_test_tpu_torch.models.t5 import T5Context, T5Model
+
+    t0 = time.time()
+    model = T5Model(path, device="cuda")
+    torch.cuda.synchronize()
+    out = {"load_s": time.time() - t0, "n_layer": hp["n_layer"],
+           "card": nvidia_smi}
+    secs = out["seconds_by_check"] = {}
+    t0 = time.time()
+    cpu = T5Model.from_weights(model.hp, model, device="cpu")
+    secs["cpu_copy"] = time.time() - t0
+    rng = np.random.default_rng(hp["n_embd"] + hp["n_layer"])
+    prompt = rng.integers(3, hp["n_vocab"] - 100, T5_PROMPT).tolist()
+    ctx, ctx_p = T5Context(model, n_ctx=T5_CTX), T5Context(cpu, n_ctx=T5_CTX)
+    t0 = time.time()
+    enc_k, enc_p = ctx.encode(prompt), ctx_p.encode(prompt)
+    out["encode_nmse"] = nmse(enc_k, enc_p)
+    check(np.isfinite(enc_k).all() and enc_k.shape == (T5_PROMPT,
+                                                        hp["n_embd"]),
+          f"{label}: encoder output {enc_k.shape}")
+    check(out["encode_nmse"] < T5_GATE,
+          f"{label}: encode card vs CPU NMSE {out['encode_nmse']}")
+    if model.dec is not None:
+        start, toks, rows = model.hp.dec_start_token, [], []
+        tok = start
+        for _ in range(T5_DECODE):
+            rows.append(ctx.decode(tok))
+            tok = int(np.argmax(rows[-1]))
+            toks.append(tok)
+        rows_p = _t5_forced(ctx_p, start, toks)
+        errs = [nmse(a, b) for a, b in zip(rows, rows_p)]
+        argmax = [int(np.argmax(r)) for r in rows_p]
+        out.update(decode_nmse_max=max(errs), tokens=toks,
+                   distinct_tokens=sorted(set(toks)),
+                   cpu_argmax_same=argmax == toks)
+        check(set(toks) != {start}, f"{label}: greedy decoding stays on "
+                                    f"the start token {start}")
+        check(all(np.isfinite(r).all() and r.shape == (hp["n_vocab"],)
+                  for r in rows), f"{label}: decoder logits")
+        check(max(errs) < T5_GATE,
+              f"{label}: decode card vs CPU NMSE {errs}")
+        check(argmax == toks, f"{label}: card tokens {toks}, CPU argmax "
+                              f"{argmax}")
+    secs["card_vs_cpu"] = time.time() - t0
+    del cpu, ctx_p
+    t0 = time.time()
+    out["cli"] = _t5_cli(torch, path, model)
+    secs["cli"] = time.time() - t0
+    t0 = time.time()
+    out["timings"] = _t5_timings(torch, model, hp, rng)
+    secs["timings"] = time.time() - t0
+    del model, ctx
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_t5(torch, nvidia_smi: str) -> dict:
+    """The encoder-decoder family through the port's entry points on the
+    card, plain f32 torch as the reference computes it (no kernel of the
+    port's runs, so every launch count stays 0): flan-t5-base (gated-gelu,
+    untied head) and t5-small (relu, the scaled tied head) at published
+    widths and full depth, and t5-small's encoder as a t5encoder file,
+    from seeded F16 files (write_t5_gguf, one shared f16 draw) with a
+    synthesized T5 unigram vocab, each through _t5_file."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+
+    before = dict(_cuda.LAUNCHES)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_t5_")
+    out = {"files": {}}
+    try:
+        pool = _F16Pool(np.random.default_rng(160), 1 << 25)
+        for label, hp, seed in T5_FILES:
+            t0 = time.time()
+            path = os.path.join(tmp, f"{label}.gguf")
+            write_t5_gguf(path, hp, seed, pool)
+            write_s = time.time() - t0
+            r = _t5_file(torch, label, hp, path, nvidia_smi)
+            os.remove(path)
+            r["write_s"] = write_s
+            r["seconds"] = time.time() - t0
+            emit({"phase": f"t5/{label}", **r})
+            out["files"][label] = r
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    check(not any(launches.values()),
+          f"t5: a kernel of the port launched: {launches}")
+    emit({"phase": "t5", "seconds": {
+        k: round(f["seconds"], 1) for k, f in out["files"].items()},
+        "card": nvidia_smi})
+    return {"launches": launches, "rows": {}, "files": out["files"]}
+
+
+# ---------------------------------------------------------------------------
+# tts: the OuteTTS text-to-codes LLM (K1, K2, K3) and the WavTokenizer
+# vocoder (plain f32 torch)
+
+# novateur/WavTokenizer-large-speech-75token as llama.cpp's converter
+# writes it (the vocoder of its tts example): features 512, posnet 768 x
+# 6, convnext 768 x 12, FFN 2304, 4096 codes, n_fft 1280 (head 1282), hop
+# 320, 32 groups; F16 matrices, full depth
+WAVTOK_75 = dict(features=512, posnet=768, posnet_layers=6, convnext=768,
+                 convnext_layers=12, n_ff=2304, n_codes=4096, n_fft=1280,
+                 groups=32)
+TTS_HOP = 320           # 24 kHz / 75 codes a second
+TTS_RATE = 24000
+TTS_CODES = 750         # 10 s of audio through the vocoder on card and CPU
+# OuteTTS-0.2-500M (OuteAI/OuteTTS-0.2-500M config.json): Qwen2.5-0.5B's
+# body, 896 wide, 14 heads on 2 KV (head 64), FFN 4864, Q/K/V biases,
+# rope base 1e6, tied head, vocab 157696; Q8_0 as the tts example's file;
+# depth cut from 24 to 2 layers for the clock
+OUTETTS_500M = dict(arch="qwen2", n_vocab=157696, n_embd=896, n_head=14,
+                    n_head_kv=2, head_dim=64, n_layer=2, n_ff=4864,
+                    rope_base=1e6, rms_eps=1e-6, tied=True, qkv_bias=True)
+TTS_CHAIN = 40          # codes the OuteTTS file's greedy decoding walks
+TTS_TEXT = "Hello world, the people could find water"
+TTS_N = 64              # the CLI's -n: the chain ends on <|audio_end|> first
+
+
+def write_wavtokenizer_gguf(path: str, spec: dict, seed: int, pool) -> None:
+    """A wavtokenizer-dec GGUF of geometry spec as llama.cpp's converter
+    lays it out: matrices and convolution kernels F16 (pool slices), norms
+    F32 in [0.95, 1.05], biases F32 N(0, 0.02), convnext gamma F32 in
+    [0.05, 0.15]."""
+    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    a = "wavtokenizer-dec"
+    fe, pe, ce, ff = (spec[k] for k in ("features", "posnet", "convnext",
+                                        "n_ff"))
+    w = GGUFWriter(path, arch=a)
+    for k, v in {"features_length": fe, "embedding_length": ce,
+                 "posnet.embedding_length": pe,
+                 "posnet.block_count": spec["posnet_layers"],
+                 "convnext.embedding_length": ce,
+                 "convnext.block_count": spec["convnext_layers"],
+                 "feed_forward_length": ff,
+                 "attention.group_norm_epsilon": 1e-6,
+                 "attention.group_norm_groups": spec["groups"],
+                 "attention.layer_norm_epsilon": 1e-6,
+                 "vocab_size": spec["n_codes"]}.items():
+        w.add_kv(f"{a}.{k}", v)
+    mat = lambda name, *shape: w.add_tensor(name, pool.take(*shape),
+                                            ggml_type=GGMLType.F16)
+    vec = lambda name, n, lo, hi: w.add_tensor(
+        name, rng.uniform(lo, hi, n).astype(np.float32))
+    bias = lambda name, n: w.add_tensor(
+        name, 0.02 * rng.standard_normal(n).astype(np.float32))
+
+    def norm(p, n):
+        vec(p + ".weight", n, 0.95, 1.05)
+        bias(p + ".bias", n)
+
+    mat("token_embd.weight", spec["n_codes"], fe)
+    mat("conv1d.weight", pe, fe, 7)
+    bias("conv1d.bias", pe)
+    norm("token_embd_norm", pe)
+    norm("output_norm", ce)
+    mat("output.weight", spec["n_fft"] + 2, ce)
+    bias("output.bias", spec["n_fft"] + 2)
+    for i in range(spec["posnet_layers"]):
+        p = f"posnet.{i}."
+        if i == 2:
+            norm(p + "attn_norm", pe)
+            for name in ("attn_q", "attn_k", "attn_v", "attn_output"):
+                mat(p + name + ".weight", pe, pe, 1)
+                bias(p + name + ".bias", pe)
+        elif i == spec["posnet_layers"] - 1:
+            norm(p + "norm", pe)
+        else:
+            for j in (1, 2):
+                norm(p + f"norm{j}", pe)
+                mat(p + f"conv{j}.weight", pe, pe, 3)
+                bias(p + f"conv{j}.bias", pe)
+    for i in range(spec["convnext_layers"]):
+        p = f"convnext.{i}."
+        mat(p + "dw.weight", ce, 1, 7)
+        bias(p + "dw.bias", ce)
+        norm(p + "norm", ce)
+        mat(p + "pw1.weight", ff, ce)
+        bias(p + "pw1.bias", ff)
+        mat(p + "pw2.weight", ce, ff)
+        bias(p + "pw2.bias", ce)
+        vec(p + "gamma", ce, 0.05, 0.15)
+    w.write()
+
+
+def _vocoder_flops(spec: dict, t: int) -> float:
+    """Multiply-adds x 2 of the vocoder over t codes: the input conv, the
+    posnet's convolutions and 1x1-conv attention (its two T x T products
+    too), the convnext stack and the head."""
+    fe, pe, ce, ff = (spec[k] for k in ("features", "posnet", "convnext",
+                                        "n_ff"))
+    n_res = spec["posnet_layers"] - 2
+    macs = t * pe * fe * 7 + n_res * 2 * t * pe * pe * 3 + \
+        4 * t * pe * pe + 2 * t * t * pe + \
+        spec["convnext_layers"] * (t * ce * 7 + 2 * t * ce * ff) + \
+        t * ce * (spec["n_fft"] + 2)
+    return 2.0 * macs
+
+
+def _vocoder(torch, path, nvidia_smi) -> dict:
+    """The vocoder file on the card and its tensors copied to the CPU:
+    TTS_CODES seeded codes decoded on both (with cuDNN's TF32 allowed, as
+    torch leaves it: decode_codes turns it off for its convolutions), the
+    spectra and the host iSTFT's audio within T5_GATE; the wall and busy
+    ms of decode_codes, the iSTFT's wall, the real-time factor (audio
+    seconds a wall second) and the f32 flop bound. Returns (model,
+    readings)."""
+    from llama_cpp_test_tpu_torch.models import wavtokenizer as wt
+
+    t0 = time.time()
+    voc = wt.load_wavtokenizer(path, device="cuda")
+    torch.cuda.synchronize()
+    out = {"load_s": time.time() - t0, "card": nvidia_smi}
+    check(voc.n_fft == WAVTOK_75["n_fft"] and
+          voc.n_codes == WAVTOK_75["n_codes"],
+          f"vocoder: n_fft {voc.n_fft}, {voc.n_codes} codes")
+    codes = np.random.default_rng(171).integers(0, voc.n_codes, TTS_CODES)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        embd = wt.decode_codes(voc, codes)              # warm-up, and the output
+        torch.cuda.synchronize()
+        t0 = time.time()
+        wt.decode_codes(voc, codes)
+        decode_ms = (time.time() - t0) * 1e3
+        prof = _profiled(torch, lambda: wt.decode_codes(voc, codes))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    t0 = time.time()
+    cpu = wt.convert(voc, "cpu")
+    embd_p = wt.decode_codes(cpu, codes)
+    out["cpu_s"] = time.time() - t0
+    del cpu
+    t0 = time.time()
+    audio = wt.embd_to_audio(embd, n_fft=voc.n_fft, n_hop=TTS_HOP)
+    istft_ms = (time.time() - t0) * 1e3
+    audio_p = wt.embd_to_audio(embd_p, n_fft=voc.n_fft, n_hop=TTS_HOP)
+    flops = _vocoder_flops(WAVTOK_75, TTS_CODES)
+    seconds = audio.size / TTS_RATE
+    out.update(codes=TTS_CODES, spectrum_nmse=nmse(embd, embd_p),
+               audio_nmse=nmse(audio, audio_p), samples=int(audio.size),
+               audio_s=seconds, decode_wall_ms=decode_ms,
+               decode_busy_ms=prof["device_busy_ms"],
+               idle_share=1.0 - prof["device_busy_ms"] / decode_ms,
+               launches=prof["device_kernel_launches"], istft_ms=istft_ms,
+               rtf=seconds / ((decode_ms + istft_ms) / 1e3),
+               gflop=flops / 1e9, f32_bound_ms=flops / PEAK_FP32 * 1e3,
+               top=prof["top"][:4])
+    check(np.isfinite(embd).all() and embd.shape == (TTS_CODES,
+                                                     voc.n_fft + 2),
+          f"vocoder: spectra {embd.shape}")
+    check(audio.size == TTS_CODES * TTS_HOP,
+          f"vocoder: {audio.size} samples for {TTS_CODES} codes")
+    check(out["spectrum_nmse"] < T5_GATE and out["audio_nmse"] < T5_GATE,
+          f"vocoder: card vs CPU NMSE {out['spectrum_nmse']} (spectra), "
+          f"{out['audio_nmse']} (audio)")
+    return voc, out
+
+
+def _tts_chain(vocab: dict, seed: int) -> tuple:
+    """The OuteTTS file's greedy walk (chain_rows): the prompt's last
+    token ('\\n', byte token 10), TTS_CHAIN seeded distinct codes with a
+    timing token past the code range among them, then <|audio_end|>.
+    Returns (the chain, the codes the CLI keeps)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.choice(WAVTOK_75["n_codes"], TTS_CHAIN, replace=False)
+    toks = vocab["tokenizer.ggml.tokens"]
+    timing = toks.index("<|t_0.07|>")
+    ids = [CODE_TOKEN_OFFSET + int(c) for c in codes]
+    ids.insert(TTS_CHAIN // 2, timing)
+    return [10] + ids + [toks.index("<|audio_end|>")], codes.astype(np.int32)
+
+
+def _tts_prediction(model, n_steps: int) -> dict:
+    """The launches cli.tts's LLM half must make: the prompt's prefill (one
+    chunk) launches K2 once a layer, K1's GEMM once a quantized projection
+    plane and its GEMV once for the head (the last position alone); each
+    of n_steps decode steps K1's GEMV once a plane and the head
+    (_k1_per_step) and K3 once a layer."""
+    n_layer, k1 = model.hp.n_layer, _k1_per_step(model)
+    return {"flash_prefill": n_layer, "qmm_gemm": k1 - 1,
+            "qmm_gemv": 1 + k1 * n_steps, "paged_decode": n_layer * n_steps,
+            "paged_decode_q8": 0, "qmm_cache": 0, "gmm_gemv": 0,
+            "gmm_gemm": 0}
+
+
+def _read_wav(path) -> tuple:
+    import wave
+
+    with wave.open(path, "rb") as f:
+        head = (f.getnchannels(), f.getsampwidth(), f.getframerate())
+        return head, np.frombuffer(f.readframes(f.getnframes()), np.int16)
+
+
+@contextlib.contextmanager
+def _record_branches():
+    """Collect each layer's attention branch (after wo and its bias) and
+    FFN branch (before the down bias), float32 on the host [T, C], as
+    (role, array) in call order, by wrapping models.llama._attention and
+    _ffn while the block runs: what the layers add to the residual,
+    apart from the embedding row it carries."""
+    from llama_cpp_test_tpu_torch.models import llama
+
+    orig_attn, orig_ffn, calls = llama._attention, llama._ffn, []
+
+    def attn(*a, **kw):
+        y = orig_attn(*a, **kw)
+        calls.append(("attn", y[0].float().cpu().numpy()))
+        return y
+
+    def ffn(*a, **kw):
+        y = orig_ffn(*a, **kw)
+        calls.append(("ffn", y[0].float().cpu().numpy()))
+        return y
+
+    llama._attention, llama._ffn = attn, ffn
+    try:
+        yield calls
+    finally:
+        llama._attention, llama._ffn = orig_attn, orig_ffn
+
+
+def _branch_nmse(calls_p, calls_k, n_layer: int, n_prompt: int) -> dict:
+    """The kernel path's attention and FFN branches (_record_branches)
+    against the plain path's, one NMSE a step and role over every layer
+    at the step's real positions (the prompt's n_prompt in the prefill,
+    one row a decode step)."""
+    per = 2 * n_layer
+    out = {"attn": [], "ffn": []}
+    check(len(calls_p) == len(calls_k) and len(calls_p) % per == 0,
+          f"branches: {len(calls_p)} plain and {len(calls_k)} kernel calls")
+    for i in range(0, len(calls_p), per):
+        for role, errs in out.items():
+            pairs = [(p[:n_prompt], k[:n_prompt]) for (r, p), (_, k) in
+                     zip(calls_p[i:i + per], calls_k[i:i + per])
+                     if r == role]
+            errs.append(nmse(np.concatenate([p for p, _ in pairs]),
+                             np.concatenate([k for _, k in pairs])))
+    return out
+
+
+def _tts_llm(torch, kc, path, voc_path, voc, chain, codes, tmp,
+             nvidia_smi) -> dict:
+    """The OuteTTS file: cli.tts's greedy text-to-codes loop
+    (generate_codes) on a kernel Context with the launch counts zeroed,
+    held to the path's prediction, its tokens the designed chain; the
+    kernel and the plain paths teacher-forced on those tokens
+    (_launch_counts, the kernel path's launches those of generate_codes):
+    every step's logits within LOGITS_GATE, the greedy tokens by
+    _greedy_parity, and every step's attention and FFN branches
+    (_record_branches) within LOGITS_GATE, which the designed embedding
+    rows cannot hide; then cli.tts.main end to end (launches as
+    predicted; the WAV at 24 kHz, TTS_HOP samples a kept code, equal
+    within 1 LSB to decode_codes + embd_to_audio of those codes) and
+    --codes mode on the same codes; K1's int8 GEMV row on a random Q8_0
+    plane at the head's geometry."""
+    import io
+
+    from llama_cpp_test_tpu_torch.cli import tts
+    from llama_cpp_test_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_test_tpu_torch.models import wavtokenizer as wt
+    from llama_cpp_test_tpu_torch.ops import _cuda
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
+    from llama_cpp_test_tpu_torch.weights import qtensor_to_torch
+
+    t0 = time.time()
+    model = Model(path, device="cuda")
+    out = {"load_s": time.time() - t0, "n_layer": model.hp.n_layer,
+           "card": nvidia_smi}
+    ctx = lambda **kw: Context(model, n_ctx=512, n_seq_max=1, **kw)
+    c = ctx()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.time()
+    toks = tts.generate_codes(model, c, TTS_TEXT, TTS_N)
+    torch.cuda.synchronize()
+    out["generate_s"] = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    want = _tts_prediction(model, len(toks))
+    out.update(tokens=len(toks), launches=launches, predicted=want,
+               chain_walked=toks == chain[1:-1])
+    check(out["chain_walked"], f"tts: greedy tokens {toks}, the file's "
+                               f"chain {chain[1:-1]}")
+    for k, n in want.items():
+        check(launches[k] == n, f"tts: {k} launched {launches[k]} times, "
+                                f"the path predicts {n}")
+    # the kernel and the plain paths teacher-forced on those tokens
+    ids = model.tokenizer.encode(tts.build_prompt(TTS_TEXT),
+                                 add_special=True)
+    with _record_branches() as br_k:
+        got = _launch_counts(torch, ctx(), ids, len(toks), toks)
+    with _record_branches() as br_p:
+        plain = _launch_counts(torch, ctx(plain=True), ids, len(toks), toks)
+    forced = {k: got["prefill"][k] + got["decode"][k] for k in launches}
+    check(forced == launches, f"tts: teacher-forced launches {forced}, "
+                              f"generate_codes {launches}")
+    rows_k, rows_p = got["rows"], plain["rows"]
+    errs = [nmse(a, b) for a, b in zip(rows_p, rows_k)]
+    parity = _greedy_parity([r[None] for r in rows_k],
+                            [r[None] for r in rows_p], toks)
+    branches = _branch_nmse(br_p, br_k, model.hp.n_layer, len(ids))
+    out.update(logits_nmse_max=max(errs), gate=LOGITS_GATE, greedy=parity,
+               attn_nmse_max=max(branches["attn"]),
+               ffn_nmse_max=max(branches["ffn"]))
+    check(all(np.isfinite(r).all() for r in rows_k) and
+          max(errs) < LOGITS_GATE, f"tts: logits off the plain path: {errs}")
+    check(parity["same"] or parity["within"],
+          f"tts: greedy tokens differ past the logit difference: {parity}")
+    check(out["attn_nmse_max"] < LOGITS_GATE and
+          out["ffn_nmse_max"] < LOGITS_GATE,
+          f"tts: layer branches off the plain path: {branches}")
+    kept = tts.audio_codes(toks, voc.n_codes)
+    check(np.array_equal(kept, codes), f"tts: kept codes {kept.tolist()}")
+    # the CLI end to end, then --codes on the same codes
+    wav, wav2 = os.path.join(tmp, "tts.wav"), os.path.join(tmp, "codes.wav")
+    argv = ["-m", path, "-mv", voc_path, "-p", TTS_TEXT, "-n", str(TTS_N),
+            "-c", "512", "-o", wav]
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        rc = tts.main(argv)
+    torch.cuda.synchronize()
+    out["cli_wall_s"] = time.time() - t0
+    out["cli_launches"] = dict(_cuda.LAUNCHES)
+    with contextlib.redirect_stderr(err):
+        rc2 = tts.main(["-mv", voc_path, "--codes",
+                        ",".join(str(x) for x in codes), "-o", wav2])
+    check(rc == rc2 == 0, f"tts cli: rc {rc}, --codes rc {rc2}: "
+                          f"{err.getvalue()!r}")
+    check(out["cli_launches"] == launches,
+          f"tts cli: launches {out['cli_launches']}, generate_codes "
+          f"{launches}")
+    check(f"# generated {len(codes)} audio codes" in err.getvalue(),
+          f"tts cli: {err.getvalue()!r}")
+    (head, pcm), (head2, pcm2) = _read_wav(wav), _read_wav(wav2)
+    ref = os.path.join(tmp, "ref.wav")
+    wt.write_wav(ref, wt.embd_to_audio(wt.decode_codes(voc, codes),
+                                       n_fft=voc.n_fft, n_hop=TTS_HOP))
+    _, pcm_ref = _read_wav(ref)
+    out.update(wav_header=head, samples=int(pcm.size),
+               wav_vs_decode_lsb=int(np.abs(pcm.astype(np.int32)
+                                            - pcm_ref).max()),
+               codes_mode_lsb=int(np.abs(pcm2.astype(np.int32)
+                                         - pcm_ref).max()))
+    check(head == head2 == (1, 2, TTS_RATE) and
+          pcm.size == pcm2.size == len(codes) * TTS_HOP,
+          f"tts wav: {head} {pcm.size}, --codes {head2} {pcm2.size}")
+    check(out["wav_vs_decode_lsb"] <= 1 and out["codes_mode_lsb"] <= 1,
+          f"tts wav off decode_codes + embd_to_audio: "
+          f"{out['wav_vs_decode_lsb']}, {out['codes_mode_lsb']} LSB")
+    # a profile of the prefill and 8 decode steps
+    c2 = ctx()
+    s2 = c2.new_seq()
+
+    def prefill_decode8():
+        c2.prefill(s2, ids)
+        for t in toks[:8]:
+            c2.decode([s2], [t])
+
+    prof = _profiled(torch, prefill_decode8)
+    out["profile_prefill_decode8"] = {
+        k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                             "gemv_ms", "device_kernel_launches")}
+    del model, c, c2
+    torch.cuda.empty_cache()
+    # K1 at the head's geometry on a random plane: the file's head carries
+    # the designed rows, whose outputs would dwarf the others' in the NMSE
+    head = _qmm_planes(np.random.default_rng(177), OUTETTS_500M,
+                       GGMLType.Q8_0, ["lm_head"])["lm_head"]
+    out["rows"] = {"OuteTTS head M=1": kc.qmm(
+        "OuteTTS-0.2-500M lm head", "int8", qtensor_to_torch(head, "cuda"),
+        1)}
+    return out
+
+
+def phase_tts(torch, kc, nvidia_smi: str) -> dict:
+    """llama-tts on the card: WavTokenizer-large-75 (F16, full depth;
+    _vocoder: 750 codes on card and CPU) and OuteTTS-0.2-500M (Q8_0 at
+    published widths, 2 of 24 layers; _tts_llm through cli.tts). Random
+    weights land the argmax anywhere, so the OuteTTS file's tied
+    embedding carries designed rows (chain_rows): greedy decoding after
+    the prompt walks TTS_CHAIN seeded codes, with a timing token past the
+    code range among them (the port drops it, ROADMAP §3 fault 26), then
+    <|audio_end|>, which ends the loop before -n."""
+    from llama_cpp_test_tpu_torch.ops import _cuda
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tts_")
+    out = {"rows": {}}
+    try:
+        t0 = time.time()
+        pool = _F16Pool(np.random.default_rng(170), 1 << 23)
+        voc_path = os.path.join(tmp, "wavtokenizer_75.gguf")
+        write_wavtokenizer_gguf(voc_path, WAVTOK_75, 172, pool)
+        write_s = time.time() - t0
+        voc, out["vocoder"] = _vocoder(torch, voc_path, nvidia_smi)
+        out["vocoder"]["write_s"] = write_s
+        out["vocoder"]["seconds"] = time.time() - t0
+        emit({"phase": "tts/vocoder", **out["vocoder"]})
+        t0 = time.time()
+        vocab = outetts_vocab(OUTETTS_500M["n_vocab"], 173)
+        chain, codes = _tts_chain(vocab, 174)
+        path = os.path.join(tmp, "outetts_500m.gguf")
+        write_llama_gguf(path, dict(OUTETTS_500M, embd_rows=chain_rows(
+            OUTETTS_500M["n_embd"], chain, 175)), seed=176, ftype="Q8_0",
+            vocab=vocab)
+        write_s = time.time() - t0
+        r = _tts_llm(torch, kc, path, voc_path, voc, chain, codes, tmp,
+                     nvidia_smi)
+        r["write_s"] = write_s
+        r["seconds"] = time.time() - t0
+        out["rows"] = r.pop("rows")
+        out["llm"] = r
+        emit({"phase": "tts/outetts", **r})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not kc.failures, f"kernels outside their gate: {kc.failures}")
+    out["launches"] = out["llm"]["cli_launches"]
+    missing = [k for k in DENSE_PATH if out["launches"][k] <= 0]
+    check(not missing, f"tts: kernels not launched: {missing}")
+    emit({"phase": "tts", "seconds": {
+        "vocoder": round(out["vocoder"]["seconds"], 1),
+        "outetts": round(out["llm"]["seconds"], 1)}, "card": nvidia_smi})
+    return out
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
                  "paged_decode_merge_kernel",
@@ -6838,6 +7765,8 @@ def main() -> int:
                                      kc, smi)
         serves["recurrent"] = timed("recurrent", phase_recurrent, torch, smi,
                                     prof)
+        serves["t5"] = timed("t5", phase_t5, torch, smi)
+        serves["tts"] = timed("tts", phase_tts, torch, kc, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -6862,10 +7791,11 @@ def main() -> int:
                              if r["kernel"] == name]
     # and the attention rows at D = 256 (Gemma's geometry), 80 and 96
     # (Phi-2's, Phi-3's), G = 71 (Falcon-7B's), BERT-base's bidirectional
-    # K2, the K3 rows of DeciLM-7B's and OpenELM-270M's G, and D = 192
-    # (DeepSeek's MLA) with K4 at the new routings
+    # K2, the K3 rows of DeciLM-7B's and OpenELM-270M's G, D = 192
+    # (DeepSeek's MLA) with K4 at the new routings, and K1's int8 GEMV at
+    # OuteTTS's 157696-row head
     for phase in ("quirks", "quirks_ln", "encoders", "geometry",
-                  "moe_forms", "multimodal", "cli"):
+                  "moe_forms", "multimodal", "cli", "tts"):
         for row in serves[phase]["rows"].values():
             shape_rows.setdefault(row["kernel"], []).append(row)
     kernels = []

@@ -11,8 +11,12 @@ rwkv6, rwkv6qwen2, rwkv7, arwkv7) runs one-shot greedy generation on its
 own Context, as the reference's _run_mamba/_run_rwkv6/_run_rwkv7 do
 (sampling flags ignored, as there); --lora, --control-vector,
 --prompt-cache and -tp > 1 are refused on it (the reference ignores
-them). The encoder-decoder families and tensor parallelism raise
-NotImplementedError until the port carries them (ROADMAP items 9 and 13).
+them). A t5 file encodes the prompt and decodes greedily from its
+decoder start token (models/t5.py, the reference's _run_t5), with the same
+refusals; a t5encoder file is embedding-only and returns 1, as there. A
+wavtokenizer-dec file is refused naming its loader (cli/tts.py drives
+it), and tensor parallelism raises NotImplementedError until the port
+carries it (ROADMAP item 13).
 
 Usage:
   python -m llama_cpp_test_tpu_torch.cli.main -m model.gguf -p "prompt" -n 64
@@ -60,8 +64,8 @@ def build_parser():
 
 
 def _refuse_unported(args, arch: str) -> None:
-    """An arch the port does not serve names its ROADMAP item
-    (models/registry); so does -tp > 1."""
+    """An arch the paged engine does not host raises naming its loader
+    (models/registry.check_arch); -tp > 1 names its ROADMAP item."""
     from ..models.registry import check_arch
 
     check_arch(arch)
@@ -70,21 +74,33 @@ def _refuse_unported(args, arch: str) -> None:
             "-tp > 1 is not ported yet (ROADMAP item 13)")
 
 
-def _run_recurrent(args, arch: str, device) -> int:
-    """One-shot greedy generation for a recurrent file (no KV cache): its
-    model class and Context (models/mamba.py, rwkv6.py, rwkv7.py), the
-    reference's banner, the prompt echoed, pieces until end of generation
-    or -n tokens."""
+def _refuse_paged_options(args, what: str) -> None:
+    """The options of the paged llama path, refused on another family's
+    file (the reference ignores them there)."""
     for flag, on in (("--lora", args.lora or args.lora_scaled),
                      ("--control-vector",
                       args.control_vector or args.control_vector_scaled),
                      ("--prompt-cache", args.prompt_cache),
                      ("-tp > 1", args.tensor_parallel > 1)):
         if on:
-            raise ValueError(
-                f"{flag} does not apply to a recurrent {arch} file: it "
-                "carries state, not a KV cache or a llama body, and runs "
-                "on one device")
+            raise ValueError(f"{flag} does not apply to {what}")
+
+
+def _prompt(args) -> str:
+    if args.file:
+        with open(args.file, encoding="utf-8") as f:
+            return f.read()
+    return args.prompt or ""
+
+
+def _run_recurrent(args, arch: str, device) -> int:
+    """One-shot greedy generation for a recurrent file (no KV cache): its
+    model class and Context (models/mamba.py, rwkv6.py, rwkv7.py), the
+    reference's banner, the prompt echoed, pieces until end of generation
+    or -n tokens."""
+    _refuse_paged_options(
+        args, f"a recurrent {arch} file: it carries state, not a KV cache "
+              "or a llama body, and runs on one device")
     from ..models.mamba import generate
     from ..runtime.recurrent import classes
 
@@ -100,16 +116,47 @@ def _run_recurrent(args, arch: str, device) -> int:
     if model.tokenizer is None:
         print("error: model has no tokenizer", file=sys.stderr)
         return 1
-    prompt = args.prompt or ""
-    if args.file:
-        with open(args.file, encoding="utf-8") as f:
-            prompt = f.read()
+    prompt = _prompt(args)
     toks = model.tokenizer.encode(prompt, add_special=True)
     vocab = model.tokenizer.vocab
     sys.stdout.write(prompt)
     for tok in generate(ctx_cls(model), toks, args.n_predict):
         if vocab.is_eog(tok):
             break
+        sys.stdout.write(model.tokenizer.token_to_piece(tok))
+        sys.stdout.flush()
+    sys.stdout.write("\n")
+    return 0
+
+
+def _run_t5(args, device) -> int:
+    """Encoder-decoder generation (t5): the encoder over the prompt, then
+    the decoder's greedy loop seeded with decoder_start_token (the
+    reference's _run_t5, main.cpp's T5 flow): its banner, the pieces
+    until EOS (the vocab's, or 1) or -n tokens. A t5encoder file is
+    embedding-only and returns 1."""
+    _refuse_paged_options(
+        args, "an encoder-decoder file: it has no paged KV cache or llama "
+              "body and runs on one device")
+    from ..models.t5 import T5Context, T5Model, generate
+
+    t0 = time.time()
+    model = T5Model(args.model, device=device)
+    print(f"# t5 model loaded in {time.time()-t0:.1f}s "
+          f"(n_layer={model.hp.n_layer}, d_kv={model.hp.d_kv})",
+          file=sys.stderr)
+    if model.tokenizer is None:
+        print("error: model has no tokenizer", file=sys.stderr)
+        return 1
+    if model.dec is None:
+        print("error: t5encoder GGUFs are embedding-only — use "
+              "llama-embedding", file=sys.stderr)
+        return 1
+    toks = model.tokenizer.encode(_prompt(args), add_special=True)
+    ctx = T5Context(model, n_ctx=max(64, args.n_predict + 8))
+    vocab = model.tokenizer.vocab
+    eos = vocab.eos_id if vocab.eos_id is not None else 1
+    for tok in generate(ctx, toks, args.n_predict, eos_id=eos):
         sys.stdout.write(model.tokenizer.token_to_piece(tok))
         sys.stdout.flush()
     sys.stdout.write("\n")
@@ -161,6 +208,8 @@ def main(argv=None, device=None) -> int:
                                               "llama")
     if arch in RECURRENT:
         return _run_recurrent(args, arch, device)
+    if arch in ("t5", "t5encoder"):
+        return _run_t5(args, device)
     _refuse_unported(args, arch)
     t0 = time.time()
     overrides = parse_kv_overrides(getattr(args, "override_kv", None))

@@ -38,10 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..gguf.constants import GGMLType
 from ..gguf.reader import open_gguf
 from ..ops import layers
 from ..tokenizer import load_tokenizer
+from ..weights import convert_fields, host_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,28 +77,6 @@ class MambaWeights:
     output_norm: Any
     output: Any          # [V, d_model] (possibly the tied embedding)
     layers: list
-
-
-def to_tensor(a, device) -> torch.Tensor | None:
-    """A float array (numpy or tensor) as a float32 tensor on device. A
-    half-precision tensor moves in its own type and widens there (exact),
-    so a file's F16 weights cross to the card at half the bytes."""
-    if a is None:
-        return None
-    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-        np.array(a, np.float32, copy=True))
-    return t.to(device=device).to(dtype=torch.float32)
-
-
-def convert_fields(obj, cls, device):
-    """An instance of dataclass cls from any object with its fields (the
-    reference's loaded numpy arrays too), every array field a float32
-    tensor on device; a `layers` field is passed as it is."""
-    out = {}
-    for f in dataclasses.fields(cls):
-        v = getattr(obj, f.name)
-        out[f.name] = v if f.name == "layers" else to_tensor(v, device)
-    return cls(**out)
 
 
 def convert_weights(w, device, weights_cls=MambaWeights,
@@ -190,23 +168,6 @@ class MambaModel:
         self.hp = hp
         self.weights = convert_weights(w, self.device)
         return self
-
-
-_RAW = {GGMLType.F32: torch.float32, GGMLType.F16: torch.float16,
-        GGMLType.BF16: torch.bfloat16}
-
-
-def host_tensor(r, name: str):
-    """A GGUF tensor on the host in numpy's row-major order (ggml lists the
-    fastest axis first, so the shape reverses): an F32, F16 or BF16 tensor
-    as a torch tensor of its own type (to_tensor widens it to f32, exact),
-    any other type dequantized to f32 numpy."""
-    info = r.tensors[name]
-    dtype = _RAW.get(info.ggml_type)
-    if dtype is None:
-        return r.dequantize(name, np.float32)
-    raw = torch.from_numpy(np.array(r.tensor_bytes(name)))  # off the mmap
-    return raw.view(dtype).reshape(tuple(reversed(info.shape)))
 
 
 def _layer_ws(ly: MambaLayer) -> tuple:

@@ -1,5 +1,6 @@
-"""Architecture registry: the GGUF `general.architecture` strings the port
-serves, and the ROADMAP item that takes each one it does not serve yet.
+"""Architecture registry: the GGUF `general.architecture` strings the
+port's paged engine serves, and the model class or loader that takes each
+of the others.
 
 Counterpart of llama_cpp_test_tpu/models/registry.py, trimmed to the
 archs of the llama body the port carries (models/llama.py): llama,
@@ -38,9 +39,12 @@ tokens rope by their M-RoPE streams). The recurrent families (RECURRENT:
 mamba, rwkv6, rwkv6qwen2, rwkv7, arwkv7) carry state instead of a KV
 cache: they load through their own model classes (models/mamba.py,
 rwkv6.py, rwkv7.py) and serve through runtime/recurrent.RecurrentContext,
-and the paged engine refuses them naming that class. Every other arch the
-reference registers is refused by name with the item that ports it: 9 the
-other model families (t5, t5encoder, wavtokenizer-dec).
+and the paged engine refuses them naming that class. The encoder-decoder
+and audio families (NOT_PAGED: t5 and t5encoder, models/t5.py;
+wavtokenizer-dec, the vocoder of cli/tts.py, models/wavtokenizer.py) load
+through their own loaders, and the paged engine refuses them naming the
+loader, as the reference's does. So every arch the reference registers is
+served.
 """
 from __future__ import annotations
 
@@ -62,16 +66,20 @@ RECURRENT = {"mamba": "models.mamba.MambaModel / MambaContext",
              "rwkv7": "models.rwkv7.Rwkv7Model / Rwkv7Context",
              "arwkv7": "models.rwkv7.Rwkv7Model / Rwkv7Context"}
 
-_ITEM_9 = ("t5", "t5encoder", "wavtokenizer-dec")
-UNPORTED = dict.fromkeys(_ITEM_9, 9)
-_ITEMS = {9: "the other model families"}
+# arch -> the loader of a family the paged engine does not host, with the
+# reference's refusal (llama_cpp_test_tpu/models/llama.py:311-318)
+_T5 = ("is an encoder-decoder arch: load it with models.t5.T5Model / "
+       "T5Context (llama_encode + decode flow)")
+NOT_PAGED = {"t5": _T5, "t5encoder": _T5,
+             "wavtokenizer-dec": "is an audio-codec decoder: load it with "
+                                 "models.wavtokenizer.load_wavtokenizer "
+                                 "(llama-tts CLI)"}
 
 
 def check_arch(arch: str) -> None:
     """Raise unless the paged engine serves `arch`: ValueError naming the
-    model class of a recurrent arch, NotImplementedError naming the
-    ROADMAP item for an arch the reference serves, ValueError for one
-    neither package registers."""
+    model class of a recurrent arch or the loader of an encoder-decoder or
+    audio one, ValueError for one neither package registers."""
     if arch in PORTED:
         return
     if arch in RECURRENT:
@@ -79,10 +87,7 @@ def check_arch(arch: str) -> None:
             f"{arch} is a recurrent arch with no KV cache: load it with "
             f"{RECURRENT[arch]} (served by runtime.recurrent."
             "RecurrentContext)")
-    if arch in UNPORTED:
-        item = UNPORTED[arch]
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ROADMAP item {item}, "
-            f"{_ITEMS[item]}); the port serves {list(PORTED)}")
+    if arch in NOT_PAGED:
+        raise ValueError(f"{arch} {NOT_PAGED[arch]}")
     raise ValueError(f"architecture {arch!r} has no implemented forward "
                      f"pass; the port serves {list(PORTED)}")

@@ -46,8 +46,9 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..gguf.reader import open_gguf
 from ..tokenizer import load_tokenizer
+from ..weights import host_tensor
 from .mamba import (RecurrentArch, SeqContext, convert_weights,  # noqa: F401
-                    generate, host_tensor)
+                    generate)
 from .rwkv6 import _ln, _rms, weights_t, zero_state
 
 

@@ -28,9 +28,11 @@ keeps the tensors it was queued with. A recurrent file (mamba, rwkv6,
 rwkv6qwen2, rwkv7, arwkv7) is served by the same Scheduler over a
 runtime/recurrent.RecurrentContext state pool: a draft model, LoRA
 adapters or followers raise ValueError, and /embeddings and slot
-save/restore answer 400. An arch the port does not serve
-(models/registry: ROADMAP item 9) and multi-device serving (item 13)
-raise NotImplementedError. An encoder (bert, nomic-bert,
+save/restore answer 400. A t5, t5encoder or wavtokenizer-dec file raises
+ValueError naming its loader (models/registry.NOT_PAGED), as the
+reference's server raises through Model: neither server hosts an
+encoder-decoder or a vocoder. Multi-device serving (ROADMAP item 13)
+raises NotImplementedError. An encoder (bert, nomic-bert,
 jina-bert-v2) serves /v1/embeddings and /rerank with its own pooling and
 causality; its n_ctx is cut to a learned position table (fit_n_ctx), and
 a generation request answers 400, as it has no LM head (the reference's

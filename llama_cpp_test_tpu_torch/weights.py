@@ -2,6 +2,10 @@
 models/llama.device_put_weights), and the reference's loaded parameters
 carried across as host planes.
 
+The dense families' loaders (mamba, the rwkv families, T5, the vocoder)
+read a GGUF tensor to the host with host_tensor and move it as float32
+with to_tensor, or a whole dataclass of arrays with convert_fields.
+
 to_device takes LlamaWeights whose QTensor planes and norm vectors are
 numpy arrays: the port's own loader output, or port_weights_from_reference
 of the reference's parameters (every LayerWeights field by name: the
@@ -27,7 +31,9 @@ The vision towers' parameters cross the same way
 (port_clip_from_reference, port_qwen2vl_vision_from_reference): the
 reference's loaded float arrays as the port's models on a device; so do
 the recurrent families' (port_mamba_from_reference,
-port_rwkv6_from_reference, port_rwkv7_from_reference).
+port_rwkv6_from_reference, port_rwkv7_from_reference), T5's
+(port_t5_from_reference) and the vocoder's
+(port_wavtokenizer_from_reference).
 """
 from __future__ import annotations
 
@@ -36,8 +42,48 @@ import dataclasses
 import numpy as np
 import torch
 
+from .gguf.constants import GGMLType
 from .models.llama import LayerWeights, LlamaWeights
 from .quant.repack import QTensor
+
+
+def to_tensor(a, device) -> torch.Tensor | None:
+    """A float array (numpy or tensor) as a float32 tensor on device. A
+    half-precision tensor moves in its own type and widens there (exact),
+    so a file's F16 weights cross to the card at half the bytes."""
+    if a is None:
+        return None
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.array(a, np.float32, copy=True))
+    return t.to(device=device).to(dtype=torch.float32)
+
+
+def convert_fields(obj, cls, device):
+    """An instance of dataclass cls from any object with its fields (the
+    reference's loaded numpy arrays too), every array field a float32
+    tensor on device; a `layers` field is passed as it is."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        out[f.name] = v if f.name == "layers" else to_tensor(v, device)
+    return cls(**out)
+
+
+_RAW = {GGMLType.F32: torch.float32, GGMLType.F16: torch.float16,
+        GGMLType.BF16: torch.bfloat16}
+
+
+def host_tensor(r, name: str):
+    """A GGUF tensor on the host in numpy's row-major order (ggml lists the
+    fastest axis first, so the shape reverses): an F32, F16 or BF16 tensor
+    as a torch tensor of its own type (to_tensor widens it to f32, exact),
+    any other type dequantized to f32 numpy."""
+    info = r.tensors[name]
+    dtype = _RAW.get(info.ggml_type)
+    if dtype is None:
+        return r.dequantize(name, np.float32)
+    raw = torch.from_numpy(np.array(r.tensor_bytes(name)))  # off the mmap
+    return raw.view(dtype).reshape(tuple(reversed(info.shape)))
 
 
 def array_to_torch(a, device: torch.device | str) -> torch.Tensor | None:
@@ -203,6 +249,26 @@ def port_rwkv7_from_reference(jm, device=None):
 
     return _port_recurrent(jm, rwkv7.Rwkv7Model, rwkv7.Rwkv7HParams,
                            device)
+
+
+def port_t5_from_reference(jm, device=None):
+    """The reference's loaded T5Model (t5 or t5encoder) as the port's
+    (models/t5.py), float32 on device (CUDA unless the caller asks for the
+    CPU)."""
+    from .device import resolve_device
+    from .models import t5
+
+    hp = t5.T5HParams(**{f.name: getattr(jm.hp, f.name)
+                         for f in dataclasses.fields(t5.T5HParams)})
+    return t5.T5Model.from_weights(hp, jm, resolve_device(device))
+
+
+def port_wavtokenizer_from_reference(jm, device=None):
+    """The reference's loaded WavTokenizer (numpy tensors) as the port's
+    (models/wavtokenizer.py), float32 on device."""
+    from .models import wavtokenizer
+
+    return wavtokenizer.convert(jm, device)
 
 
 def to_device(w: LlamaWeights, device: torch.device | str) -> LlamaWeights:

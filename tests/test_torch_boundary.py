@@ -4,8 +4,9 @@ path, on the MoE + q8_0-KV path, on an IQ4_XS file, in its kernel probes
 (which load nothing of the JAX package's tools/ either) and through the
 CLI, the scheduler, device sampling and the tokenizers (which load no
 `regex` either), through LoRA, control vectors, tracing, imatrix,
-lookahead, prompt lookup and their CLIs, and asking for CUDA where there
-is none raises instead of running on the CPU."""
+lookahead, prompt lookup and their CLIs, through T5 (its Context and the
+CLI's T5 branch) and the vocoder (cli.tts --codes), and asking for CUDA
+where there is none raises instead of running on the CPU."""
 import json
 import os
 import subprocess
@@ -325,3 +326,62 @@ def test_new_entry_points_default_to_cuda(tmp_path, entry):
     main = importlib.import_module(f"llama_cpp_test_tpu_torch.{entry}").main
     with pytest.raises(RuntimeError, match="CUDA"):
         main(argv)
+
+
+_T5_TTS = r"""
+import importlib.abc, io, json, sys
+from contextlib import redirect_stdout
+sys.path.insert(0, sys.argv[1])
+
+
+class _Blocked(importlib.abc.MetaPathFinder):
+    NAMES = ("jax", "jaxlib", "llama_cpp_test_tpu", "ml_dtypes", "regex")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.NAMES:
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+import numpy as np
+from llama_cpp_test_tpu_torch.cli import main as cli, tts
+from llama_cpp_test_tpu_torch.models import t5, wavtokenizer
+m = t5.T5Model(sys.argv[2], device="cpu")
+ctx = t5.T5Context(m, n_ctx=16)
+enc = ctx.encode([3, 17, 42, 9])
+logits = [ctx.decode(t) for t in (0, 7, 22)]
+buf = io.StringIO()
+with redirect_stdout(buf):
+    rc = cli.main(["-m", sys.argv[2], "-p", "hello world", "-n", "4"],
+                  device="cpu")
+rc_tts = tts.main(["-mv", sys.argv[3], "--codes", "1,2,3,4,5", "-o", "o.wav"],
+                  device="cpu")
+voc = wavtokenizer.load_wavtokenizer(sys.argv[3], device="cpu")
+bad = sorted(k for k in sys.modules if k.split(".")[0] in _Blocked.NAMES)
+print(json.dumps({"enc": list(enc.shape), "finite": bool(
+    np.isfinite(np.stack(logits)).all()), "rc": [rc, rc_tts],
+    "text": bool(buf.getvalue().strip()), "n_fft": voc.n_fft, "bad": bad}))
+"""
+
+
+def test_t5_and_tts_import_no_jax_or_reference(tmp_path):
+    """T5 encode + decode, cli.main's T5 branch and cli.tts --codes (the
+    vocoder alone) run with JAX, the JAX package, ml_dtypes and regex
+    blocked, and load none of them."""
+    from test_torch_t5 import t5_file
+    from test_tts import make_vocoder
+
+    import numpy as np
+
+    path = t5_file(tmp_path, "gated_untied")
+    voc = str(tmp_path / "voc.gguf")
+    make_vocoder(voc, np.random.default_rng(0))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _T5_TTS, ROOT, path, voc],
+                         env=env, capture_output=True, text=True, timeout=300,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"enc": [4, 48], "finite": True, "rc": [0, 0],
+                   "text": True, "n_fft": 64, "bad": []}

@@ -174,10 +174,30 @@ def test_unported_options_raise(model_path, flags):
 
 @pytest.mark.parametrize("arch", ["t5", "t5encoder", "wavtokenizer-dec"])
 def test_other_families_raise(tmp_path, arch):
-    path = str(tmp_path / f"{arch}.gguf")
-    GGUFWriter(path, arch=arch).write()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        run(pmain, ["-m", path, "-p", "hi", "-n", "2"], device="cpu")
+    """The families of ROADMAP item 9 through the CLI, as the reference's
+    CLI takes them: a t5 file prints its greedy pieces, a t5encoder file
+    is embedding-only (return 1), a wavtokenizer-dec file raises the
+    reference's ValueError naming its loader (the tts CLI drives it)."""
+    from test_torch_t5 import TEXT, t5_file
+
+    from llama_cpp_test_tpu_torch.models import t5 as pt5
+
+    if arch == "wavtokenizer-dec":
+        path = str(tmp_path / f"{arch}.gguf")
+        GGUFWriter(path, arch=arch).write()
+        with pytest.raises(ValueError, match="load_wavtokenizer"):
+            run(pmain, ["-m", path, "-p", "hi", "-n", "2"], device="cpu")
+        return
+    path = t5_file(tmp_path, arch=arch)
+    rc, out = run(pmain, ["-m", path, "-p", TEXT, "-n", "8"], device="cpu")
+    if arch == "t5encoder":
+        assert (rc, out) == (1, "")
+        return
+    m = pt5.T5Model(path, device="cpu")
+    toks = list(pt5.generate(pt5.T5Context(m, n_ctx=64), m.tokenizer.encode(
+        TEXT, add_special=True), 8, eos_id=m.tokenizer.vocab.eos_id))
+    assert rc == 0 and toks
+    assert out == "".join(m.tokenizer.token_to_piece(t) for t in toks) + "\n"
 
 
 def test_default_device_is_cuda(model_path):

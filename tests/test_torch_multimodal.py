@@ -319,11 +319,12 @@ def test_apply_mrope_equal_streams_is_apply_rope():
 def test_qwen2vl_is_ported_with_its_sections(paths):
     """qwen2vl is in PORTED, its HParams (mrope_sections the first three
     dimension_sections, NEOX rope) equal the JAX package's, and no
-    refusal names item 7."""
+    refusal names item 7 (the paged engine takes it)."""
     from llama_cpp_test_tpu.gguf.reader import GGUFReader
     from llama_cpp_test_tpu.models import hparams as jhparams
 
-    assert "qwen2vl" in pregistry.PORTED and 7 not in pregistry._ITEMS
+    assert "qwen2vl" in pregistry.PORTED
+    pregistry.check_arch("qwen2vl")
     with GGUFReader(paths["qwen2vl"]) as r:
         jhp = jhparams.hparams_from_metadata(r.metadata)
     php = phparams.hparams_from_metadata(

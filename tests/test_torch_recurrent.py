@@ -21,7 +21,7 @@ over HTTP (/props, /completion, a streamed chat, /embeddings and slot
 save answering 400, a draft model or LoRA refused); cli.main's printout
 equal to the JAX CLI's, and its paged-only options refused; the paged
 Model refusing each recurrent arch by its class; check_arch still
-refusing t5 as item 9; and a paged Context still taking the candidate
+refusing t5 naming its model class; and a paged Context still taking the candidate
 prefill, the host-candidates decode, prefix reuse and decode windows.
 """
 import asyncio
@@ -400,14 +400,17 @@ def test_paged_model_refuses_recurrent(tmp_path, arch, cls):
     PWriter(p, arch=arch).write()
     with pytest.raises(ValueError, match=cls):
         pengine.Model(p, device="cpu")
-    assert arch in pregistry.RECURRENT and arch not in pregistry.UNPORTED
+    assert arch in pregistry.RECURRENT and arch not in pregistry.NOT_PAGED
 
 
 def test_check_arch_still_refuses_t5():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    """The paged engine refuses t5 naming its own model class, as the
+    reference's loader does, and the families it leaves to their own
+    loaders are t5, t5encoder and wavtokenizer-dec."""
+    with pytest.raises(ValueError, match="models.t5.T5Model"):
         pregistry.check_arch("t5")
-    assert set(pregistry.UNPORTED) == {"t5", "t5encoder",
-                                       "wavtokenizer-dec"}
+    assert set(pregistry.NOT_PAGED) == {"t5", "t5encoder",
+                                        "wavtokenizer-dec"}
 
 
 def test_default_device_is_cuda(path):

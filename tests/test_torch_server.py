@@ -497,13 +497,14 @@ def test_rerank_order_matches_jax(client, jclient):
 
 
 def test_unported_serving_raises(path, tmp_path):
-    """The encoder-decoder family (ROADMAP item 9) and multi-device
-    serving (item 13) raise instead of serving something else."""
+    """An encoder-decoder file raises the reference's ValueError naming
+    its model class (neither server hosts T5), and multi-device serving
+    (ROADMAP item 13) raises instead of serving something else."""
     from llama_cpp_test_tpu_torch.gguf.writer import GGUFWriter
 
     t5 = str(tmp_path / "t5.gguf")
     GGUFWriter(t5, arch="t5").write()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(ValueError, match="models.t5.T5Model"):
         papp.LlamaServer(t5, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         papp.LlamaServer(path, device="cpu", followers=[])
