@@ -295,6 +295,25 @@ non-zero before the final line:
            kept code, within 1 LSB of decode_codes + embd_to_audio of those
            codes; the timing token dropped) and in --codes mode; K1's int8
            GEMV row at OuteTTS's 157696-row head
+  quantize llama-quantize as a user runs it: TinyLlama-1.1B at published
+           widths, 1 of 22 layers (cut for the smoke's clock), written
+           as F16 with the synthesized SPM vocab; runtime.imatrix.main
+           over a seeded text of 1100 words on the card (8 tensors, sums
+           finite and positive); quant.quantize_model.main to Q4_K_M with
+           that imatrix (Q4_K with Q6_K head, attn_v and ffn_down; the
+           types by tensor and the seconds printed); models.llama
+           .load_weights of the file timed with the native repack
+           (native/ggufio.cpp) and with the numpy one, their Q4_K and
+           Q6_K planes bit-equal; Model(path) on cuda: a 130-token
+           prefill and 8 greedy decode steps with K1's GEMM once a layer
+           plane and its GEMV once for the head in the prefill, K2 once,
+           K1's GEMV once a plane and K3 once a step, the logits of every
+           row within the gate of the plain path and the greedy tokens
+           the plain path's (or first different within the two paths'
+           logit difference); cli.gguf_split into shards of 4 tensors,
+           the first loaded through Model giving the file's 16 greedy
+           tokens, and the merged shards' cli.gguf_hash digests the
+           file's; cli.quantize_stats -l blk.0 -t Q4_K over the F16 file
   timings  the seconds of each phase
 
 Every file the serve phases write carries a synthesized tokenizer
@@ -638,6 +657,12 @@ def random_blocks(rng, ggml_type, n: int, k: int) -> np.ndarray:
         bits = raw.view(np.uint16)
         bits &= 0x80FF
         bits |= 60 << 8
+    elif ggml_type == GGMLType.F16:
+        # random sign and mantissa under the exponent field 8: |w| in
+        # [2^-7, 2^-6), std ~0.012, the other types' scale
+        bits = raw.view(np.uint16)
+        bits &= 0x83FF
+        bits |= 8 << 10
     else:
         raise ValueError(ggml_type)
     return raw.reshape(-1)
@@ -650,9 +675,9 @@ _ROLES = ("token_embd", "output", "attn_q", "attn_k", "attn_v",
 def file_types(ftype: str) -> dict:
     """Tensor role -> GGML type of a file of type ftype, by the JAX
     package's per-tensor rules (quant/quantize_model.tensor_target_type):
-    a Q4_K, Q8_0, IQ4_XS or BF16 file is that type throughout; a Q2_K file
-    keeps a Q6_K head; an IQ1_S file bumps attn_v to Q4_K and ffn_down to
-    IQ2_XXS, keeps a Q5_K head and a Q2_K token embedding."""
+    a Q4_K, Q8_0, IQ4_XS, BF16 or F16 file is that type throughout; a
+    Q2_K file keeps a Q6_K head; an IQ1_S file bumps attn_v to Q4_K and
+    ffn_down to IQ2_XXS, keeps a Q5_K head and a Q2_K token embedding."""
     from llama_cpp_test_tpu_torch.gguf.constants import GGMLType as T
 
     base = dict.fromkeys(_ROLES, T[ftype])
@@ -660,6 +685,7 @@ def file_types(ftype: str) -> dict:
             "Q8_0": base,
             "IQ4_XS": base,
             "BF16": base,
+            "F16": base,
             "Q2_K": {**base, "output": T.Q6_K},
             "IQ1_S": {**base, "attn_v": T.Q4_K, "ffn_down": T.IQ2_XXS,
                       "output": T.Q5_K, "token_embd": T.Q2_K}}[ftype]
@@ -7590,6 +7616,224 @@ def phase_tts(torch, kc, nvidia_smi: str) -> dict:
     return out
 
 
+# TinyLlama-1.1B at its published widths as an F16 file, depth cut from
+# 22 to 1 layer for the smoke's clock: the quantize phase's source
+QUANT_HP = dict(TINYLLAMA, n_layer=1)
+QUANT_FTYPE = "Q4_K_M"
+QUANT_WORDS = 1100          # seeded calibration words: ~1670 tokens
+QUANT_PROMPT = 130          # prefill tokens of the serve checks
+QUANT_SPLIT = 4             # tensors a shard of the split check
+
+
+def _plane_equal(a, b) -> bool:
+    """Two host QTensors of one tensor: the same layout and bits."""
+    return (a.kind, a.shape, a.group, a.layout) == (
+        b.kind, b.shape, b.group, b.layout) and all(
+        (x is None and y is None) or (x is not None and y is not None and
+                                      x.dtype == y.dtype and
+                                      np.array_equal(x, y))
+        for x, y in ((a.qs, b.qs), (a.scale, b.scale), (a.min_, b.min_)))
+
+
+def _load_host(path, native: bool) -> tuple:
+    """models.llama.load_weights of the file at path with the native
+    repack on or off (host planes, no device): (seconds, weights)."""
+    from llama_cpp_test_tpu_torch.gguf.reader import open_gguf
+    from llama_cpp_test_tpu_torch.models import llama
+    from llama_cpp_test_tpu_torch.quant import repack
+
+    orig = repack.NATIVE
+    repack.NATIVE = native
+    try:
+        with open_gguf(path) as r:
+            t0 = time.time()
+            _, w = llama.load_weights(r)
+            return time.time() - t0, w
+    finally:
+        repack.NATIVE = orig
+
+
+def _quant_serve(torch, model, prompt) -> dict:
+    """The quantized file served on the card: a prefill of the prompt and
+    QUIRK_DECODE greedy steps with K1's GEMV and GEMM, K2 and K3 launched
+    as the path predicts (_path_prediction, plus K1's GEMM once a layer
+    plane and its GEMV once for the head in the prefill), the logits of
+    every prefill row and decode step within the gate of the plain path
+    (_kernels_vs_plain), and the greedy tokens against the plain path's
+    own greedy decode at the same batch (_greedy_parity)."""
+    from llama_cpp_test_tpu_torch.runtime.engine import Context
+
+    pred = _path_prediction(torch, model, prompt, 1024)
+    planes = _k1_per_step(model) - 1            # the head is one plane
+    want = {"qmm_gemm": planes, "qmm_gemv": 1}
+    for k, n in want.items():
+        got = pred["launches"]["prefill"][k]
+        check(got == n, f"quantize: {k} launched {got} times in the "
+                        f"prefill, the path predicts {n}")
+    pred["predicted"]["prefill"].update(want)
+    checks, bad = _kernels_vs_plain(model, prompt, [("bf16", None)],
+                                    QUIRK_DECODE, joint=False)
+    check(not bad, f"quantize: logits outside the gate: {bad}")
+    ctx = lambda **kw: Context(model, n_ctx=1024, n_seq_max=1,
+                               block_size=16, **kw)
+    steps_k, toks = _trace(ctx(), prompt, n_decode=QUIRK_DECODE)
+    with _plain_min("fold"):
+        steps_p, toks_p = _trace(ctx(plain=True), prompt,
+                                 n_decode=QUIRK_DECODE)
+    parity = _greedy_parity([lg for lg, _ in steps_k],
+                            [lg for lg, _ in steps_p], toks)
+    parity["tokens_equal"] = toks == toks_p
+    check(parity["same"] or parity["within"],
+          f"quantize: greedy tokens off the plain path's: {parity}")
+    launches = {k: pred["launches"]["prefill"][k] +
+                pred["launches"]["decode"][k]
+                for k in pred["launches"]["prefill"]}
+    return {"path": pred, "plain_vs_kernel_nmse": checks,
+            "greedy": {"kernel": toks, "plain": toks_p, **parity},
+            "launches": launches}
+
+
+def _quant_split(torch, path, model, tmp, prompt) -> dict:
+    """cli.gguf_split of the quantized file into shards of QUANT_SPLIT
+    tensors: the first shard loaded through Model serves the unsplit
+    file's greedy tokens; cli.gguf_split --merge of the shards hashes
+    (cli.gguf_hash) as the file does."""
+    import io
+
+    from llama_cpp_test_tpu_torch.cli import gguf_hash, gguf_split
+    from llama_cpp_test_tpu_torch.runtime.engine import Context, Model, generate
+
+    prefix = os.path.join(tmp, "split", "tinyllama")
+    os.makedirs(os.path.dirname(prefix))
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(gguf_split.main(["--split-max-tensors", str(QUANT_SPLIT), path,
+                               prefix]) == 0, "gguf_split returned nonzero")
+    shards = sorted(os.listdir(os.path.dirname(prefix)))
+    first = os.path.join(os.path.dirname(prefix), shards[0])
+    split_model = Model(first, device="cuda")
+    gen = lambda m: list(generate(Context(m, n_ctx=1024, n_seq_max=1),
+                                  prompt, 16))
+    toks, split_toks = gen(model), gen(split_model)
+    del split_model
+    merged = os.path.join(tmp, "merged.gguf")
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(gguf_split.main(["--merge", first, merged]) == 0,
+              "gguf_split --merge returned nonzero")
+    h_file, h_merged = (gguf_hash.hash_gguf(p) for p in (path, merged))
+    out = {"shards": len(shards), "tokens": toks,
+           "split_tokens_equal": split_toks == toks,
+           "merged_hash_equal": h_merged == h_file,
+           "model_sha256": h_file["<model>"], "seconds": time.time() - t0}
+    check(len(shards) > 1 and out["split_tokens_equal"],
+          f"quantize: the split file's greedy tokens {split_toks} differ "
+          f"from the file's {toks}")
+    check(out["merged_hash_equal"], "quantize: the merged file's tensor "
+                                    "hashes differ from the file's")
+    return out
+
+
+def phase_quantize(torch, nvidia_smi: str) -> dict:
+    """llama-quantize as a user runs it, on the card where the port runs
+    a model: TinyLlama-1.1B (QUANT_HP: published widths, 1 of 22 layers,
+    the synthesized SPM vocab) written as F16; runtime.imatrix.main over
+    a seeded text on the card; quant.quantize_model.main to Q4_K_M with
+    that imatrix (the types by tensor and the seconds printed); the file
+    loaded through Model, its Q4_K and Q6_K planes repacked by the native
+    repack, load_weights timed with the native and with the numpy repack
+    and their planes bit-equal; served (_quant_serve); split, reloaded
+    and merged (_quant_split); cli.quantize_stats -l blk.0 -t Q4_K over
+    the F16 source."""
+    import io
+    from collections import Counter
+
+    from llama_cpp_test_tpu_torch.cli import quantize_stats
+    from llama_cpp_test_tpu_torch.gguf.reader import GGUFReader
+    from llama_cpp_test_tpu_torch.quant import quantize_model
+    from llama_cpp_test_tpu_torch.runtime import imatrix
+    from llama_cpp_test_tpu_torch.runtime.engine import Model
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quant_")
+    out, sec = {"phase": "quantize", "card": nvidia_smi}, {}
+    try:
+        src, dst = (os.path.join(tmp, f"tinyllama_{t}.gguf")
+                    for t in ("f16", "q4_k_m"))
+        t0 = time.time()
+        write_llama_gguf(src, QUANT_HP, seed=181, ftype="F16")
+        sec["write_f16"] = time.time() - t0
+        rng = np.random.default_rng(182)
+        text = os.path.join(tmp, "calibration.txt")
+        with open(text, "w") as f:
+            f.write(" ".join(rng.choice(_WORDS, QUANT_WORDS)))
+        npz = os.path.join(tmp, "imatrix.npz")
+        t0 = time.time()
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            check(imatrix.main(["-m", src, "-f", text, "-o", npz]) == 0,
+                  "imatrix.main returned nonzero")
+        sec["imatrix"] = time.time() - t0
+        sums = imatrix.IMatrixCollector.load(npz)
+        out["imatrix"] = {"tensors": len(sums),
+                          "line": err.getvalue().strip().splitlines()[-1]}
+        check(len(sums) == 7 * QUANT_HP["n_layer"] + 1 and all(
+            np.isfinite(v).all() and (v > 0).all() for v in sums.values()),
+            f"imatrix: {len(sums)} tensors, finite and positive sums")
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as so, \
+                contextlib.redirect_stderr(io.StringIO()):
+            check(quantize_model.main([src, dst, QUANT_FTYPE, "--imatrix",
+                                       npz]) == 0,
+                  "quantize_model.main returned nonzero")
+        sec["quantize"] = time.time() - t0
+        with GGUFReader(dst) as r:
+            types = {n: i.ggml_type.name for n, i in r.tensors.items()}
+        out["quantize"] = {"line": so.getvalue().strip(),
+                           "types": dict(Counter(types.values()))}
+        check(types["token_embd.weight"] == "Q4_K" and
+              types["output.weight"] == "Q6_K" and
+              types["blk.0.attn_v.weight"] == "Q6_K" and
+              types["blk.0.ffn_down.weight"] == "Q6_K" and
+              types["blk.0.attn_q.weight"] == "Q4_K",
+              f"quantize: Q4_K_M's per-tensor types: {types}")
+        sec["load_weights_native"], wn = _load_host(dst, True)
+        sec["load_weights_numpy"], wp = _load_host(dst, False)
+        lw_n, lw_p = wn.layers[0], wp.layers[0]
+        same = {"Q4_K blk.0.attn_q": _plane_equal(lw_n.wq, lw_p.wq),
+                "Q6_K blk.0.ffn_down": _plane_equal(lw_n.w_down, lw_p.w_down),
+                "Q6_K output": _plane_equal(wn.output, wp.output),
+                "Q4_K token_embd (rows)": _plane_equal(wn.tok_embd,
+                                                        wp.tok_embd)}
+        out["planes_bit_equal"] = same
+        check(all(same.values()), f"quantize: native planes differ: {same}")
+        del wn, wp
+        t0 = time.time()
+        model = Model(dst, device="cuda")
+        sec["model_load"] = time.time() - t0
+        prompt = np.random.default_rng(183).integers(
+            3, QUANT_HP["n_vocab"], QUANT_PROMPT).tolist()
+        t0 = time.time()
+        out.update(_quant_serve(torch, model, prompt))
+        sec["serve_checks"] = time.time() - t0
+        out["split"] = _quant_split(torch, dst, model, tmp, prompt)
+        sec["split"] = out["split"]["seconds"]
+        del model
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as so:
+            check(quantize_stats.main(["-m", src, "-l", "blk.0", "-t",
+                                       "Q4_K"]) == 0,
+                  "quantize_stats returned nonzero")
+        sec["quantize_stats"] = time.time() - t0
+        out["quantize_stats"] = so.getvalue().strip()
+        check(out["quantize_stats"].startswith("Q4_K     overall rmse"),
+              f"quantize_stats printed {out['quantize_stats']!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = sec
+    missing = [k for k in DENSE_PATH if out["launches"][k] <= 0]
+    check(not missing, f"quantize: kernels not launched: {missing}")
+    emit(out)
+    return out
+
+
 _PORT_KERNELS = ("qmm_gemv_kernel", "qmm_gemm_kernel", "qmm_cache_kernel",
                  "flash_prefill_kernel", "paged_decode_kernel",
                  "paged_decode_merge_kernel",
@@ -7767,6 +8011,7 @@ def main() -> int:
                                     prof)
         serves["t5"] = timed("t5", phase_t5, torch, smi)
         serves["tts"] = timed("tts", phase_tts, torch, kc, smi)
+        serves["quantize"] = timed("quantize", phase_quantize, torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -1,16 +1,22 @@
-"""numpy decoders for the GGUF block formats.
+"""numpy codecs for the GGUF block formats.
 
-Counterpart of llama_cpp_test_tpu/quant/codecs.py, decode only: F32/F16/
+Counterpart of llama_cpp_test_tpu/quant/codecs.py. Decoders: F32/F16/
 BF16, the legacy formats (Q4_0, Q4_1, Q5_0, Q5_1, Q8_0), the K-quants
 (Q2_K to Q6_K), the non-linear nibble formats (IQ4_NL, IQ4_XS), the
 codebook i-quants (IQ2_XXS/XS/S, IQ3_XXS/S, IQ1_S/M) and the ternary TQ1_0/
-TQ2_0. Byte layouts are file-format facts; every decoder works on all
-blocks of a tensor at once. The codebook grids are format constants,
-shipped as data/iq_grids.npz.
+TQ2_0. Encoders: the same types but the codebook i-quants, whose encoders
+live in iq_quantize.py; quantize() reaches both. Byte layouts are
+file-format facts; every codec works on all blocks of a tensor at once.
+The encoders keep the reference's arithmetic step for step, so they write
+the same bytes; the importance weights (an imatrix) travel as an argument
+rather than through a module global, so that quantize() can encode the
+row spans of a large tensor on a thread pool. The codebook grids are
+format constants, shipped as data/iq_grids.npz.
 """
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -42,6 +48,35 @@ def _q3k_unpack_scales(raw12: np.ndarray) -> np.ndarray:
     j = np.arange(16)
     hi = (raw12[:, 8 + (j % 4)] >> (2 * (j // 4))[None, :].astype(np.uint8)) & 3
     return lo | (hi << 4)
+
+
+# ---------------------------------------------------------------------------
+# encoder helpers
+
+
+def _f16b(x: np.ndarray) -> np.ndarray:
+    """float array (...,) -> fp16 little-endian bytes, shape (..., 2)."""
+    h = np.ascontiguousarray(x.astype(np.float16))
+    return h[..., None].view(np.uint8)
+
+
+def _safe_inv(d: np.ndarray) -> np.ndarray:
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = np.where(d != 0.0, 1.0 / d, 0.0)
+    return inv.astype(np.float32)
+
+
+def _max_by_abs(x: np.ndarray) -> np.ndarray:
+    """Per-row element of the largest magnitude, sign kept (x[argmax |x|])."""
+    idx = np.argmax(np.abs(x), axis=-1)
+    return np.take_along_axis(x, idx[..., None], axis=-1)[..., 0]
+
+
+def _pack_qh32(qhi: np.ndarray) -> np.ndarray:
+    """(nb, 32) high bits -> (nb, 4) bytes of a little-endian u32 bitfield."""
+    bits = (qhi.astype(np.uint32) & 1) << np.arange(32, dtype=np.uint32)
+    word = bits.sum(axis=1, dtype=np.uint32)
+    return word[:, None].view(np.uint8).reshape(-1, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +272,392 @@ def tq2_0_dequantize(raw: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# encoders: float blocks (nb, block) -> packed bytes (nb, block bytes).
+# w, where given, is the importance of each value, shaped like x.
+
+
+# Q4_0: d = x[argmax |x|] / -8, q = trunc(x / d + 8.5)
+def q4_0_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    m = _max_by_abs(x)
+    d = (m / -8.0).astype(np.float32)
+    q = np.clip(np.trunc(x * _safe_inv(d)[:, None] + 8.5), 0, 15).astype(np.uint8)
+    out = np.empty((nb, 18), dtype=np.uint8)
+    out[:, 0:2] = _f16b(d)
+    out[:, 2:18] = q[:, :16] | (q[:, 16:] << 4)
+    return out
+
+
+# Q4_1: d = (max - min) / 15, m = min
+def q4_1_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    mn = x.min(axis=-1)
+    mx = x.max(axis=-1)
+    d = ((mx - mn) / 15.0).astype(np.float32)
+    q = np.clip(np.trunc((x - mn[:, None]) * _safe_inv(d)[:, None] + 0.5), 0, 15).astype(np.uint8)
+    out = np.empty((nb, 20), dtype=np.uint8)
+    out[:, 0:2] = _f16b(d)
+    out[:, 2:4] = _f16b(mn.astype(np.float32))
+    out[:, 4:20] = q[:, :16] | (q[:, 16:] << 4)
+    return out
+
+
+def q5_0_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    m = _max_by_abs(x)
+    d = (m / -16.0).astype(np.float32)
+    q = np.clip(np.trunc(x * _safe_inv(d)[:, None] + 16.5), 0, 31).astype(np.uint8)
+    out = np.empty((nb, 22), dtype=np.uint8)
+    out[:, 0:2] = _f16b(d)
+    out[:, 2:6] = _pack_qh32(q >> 4)
+    out[:, 6:22] = (q[:, :16] & 0xF) | ((q[:, 16:] & 0xF) << 4)
+    return out
+
+
+def q5_1_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    mn = x.min(axis=-1)
+    mx = x.max(axis=-1)
+    d = ((mx - mn) / 31.0).astype(np.float32)
+    q = np.clip(np.trunc((x - mn[:, None]) * _safe_inv(d)[:, None] + 0.5), 0, 31).astype(np.uint8)
+    out = np.empty((nb, 24), dtype=np.uint8)
+    out[:, 0:2] = _f16b(d)
+    out[:, 2:4] = _f16b(mn.astype(np.float32))
+    out[:, 4:8] = _pack_qh32(q >> 4)
+    out[:, 8:24] = (q[:, :16] & 0xF) | ((q[:, 16:] & 0xF) << 4)
+    return out
+
+
+def q8_0_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    amax = np.abs(x).max(axis=-1)
+    d = (amax / 127.0).astype(np.float32)
+    q = np.rint(x * _safe_inv(d)[:, None]).astype(np.int8)
+    out = np.empty((nb, 34), dtype=np.uint8)
+    out[:, 0:2] = _f16b(d)
+    out[:, 2:34] = q.view(np.uint8)
+    return out
+
+
+# The K-quants fit a scale (and a min) a group, fold them into the packed
+# sub-scales and requantize. REFINE_ITERS alternating least-squares sweeps
+# refine each group's fit (the reference's default); set_refine_iters(0)
+# skips them (a greedier fit, the same format).
+REFINE_ITERS = 2
+
+
+def set_refine_iters(n: int) -> None:
+    global REFINE_ITERS
+    REFINE_ITERS = int(n)
+
+
+def _group_scale_min(x: np.ndarray, nmax: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-group affine fit x ~= scale*q - min, q in [0, nmax], min >= 0."""
+    mn = np.minimum(x.min(axis=-1), 0.0)
+    mx = np.maximum(x.max(axis=-1), 0.0)
+    scale = (mx - mn) / nmax
+    return scale.astype(np.float32), (-mn).astype(np.float32)
+
+
+def _ls_refine_affine(x, scale, mn, nmax, w=None, iters=None):
+    """Alternating least squares of (scale, min) given the rounding; with
+    importance weights w the fit minimizes the weighted error."""
+    if iters is None:
+        iters = REFINE_ITERS
+    for _ in range(iters):
+        q = np.clip(np.rint((x + mn[..., None]) * _safe_inv(scale)[..., None]), 0, nmax)
+        # solve min_{s,m} sum w*(s*q - m - x)^2 per group
+        if w is None:
+            n = x.shape[-1]
+            sq = q.sum(-1)
+            sqq = (q * q).sum(-1)
+            sx = x.sum(-1)
+            sxq = (x * q).sum(-1)
+        else:
+            n = w.sum(-1)
+            sq = (w * q).sum(-1)
+            sqq = (w * q * q).sum(-1)
+            sx = (w * x).sum(-1)
+            sxq = (w * x * q).sum(-1)
+        det = n * sqq - sq * sq
+        with np.errstate(divide="ignore", invalid="ignore"):
+            s_new = np.where(det > 0, (n * sxq - sq * sx) / det, scale)
+            m_new = np.where(det > 0, -(sqq * sx - sq * sxq) / det, mn)
+        ok = (s_new > 0) & (m_new >= 0)
+        scale = np.where(ok, s_new, scale).astype(np.float32)
+        mn = np.where(ok, m_new, mn).astype(np.float32)
+    return scale, mn
+
+
+def _signed_group_scale(x: np.ndarray, nmax: int, w=None, iters=None) -> np.ndarray:
+    """Per-group symmetric fit x ~= scale*q, q in [-nmax-1, nmax]."""
+    if iters is None:
+        iters = REFINE_ITERS
+    m = _max_by_abs(x)
+    scale = (m / -(nmax + 1)).astype(np.float32)
+    for _ in range(iters):
+        q = np.clip(np.rint(x * _safe_inv(scale)[..., None]), -(nmax + 1), nmax)
+        if w is None:
+            sqq = (q * q).sum(-1)
+            sxq = (x * q).sum(-1)
+        else:
+            sqq = (w * q * q).sum(-1)
+            sxq = (w * x * q).sum(-1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            s_new = np.where(sqq > 0, sxq / sqq, scale)
+        scale = s_new.astype(np.float32)
+    return scale
+
+
+def _groups(w, shape):
+    return None if w is None else w.reshape(shape)
+
+
+# Q2_K: 16 groups of 16; 4-bit scale + 4-bit min a group
+def q2_k_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    g = x.reshape(nb, 16, 16)
+    scale, mn = _group_scale_min(g, 3)
+    scale, mn = _ls_refine_affine(g, scale, mn, 3, _groups(w, g.shape))
+    smax = scale.max(axis=1)
+    mmax = mn.max(axis=1)
+    d = (smax / 15.0).astype(np.float32)
+    dmin = (mmax / 15.0).astype(np.float32)
+    d16 = d.astype(np.float16).astype(np.float32)
+    dmin16 = dmin.astype(np.float16).astype(np.float32)
+    sc = np.clip(np.rint(scale * _safe_inv(d)[:, None]), 0, 15).astype(np.uint8)
+    m4 = np.clip(np.rint(mn * _safe_inv(dmin)[:, None]), 0, 15).astype(np.uint8)
+    eff_s = d16[:, None, None] * sc[..., None]
+    eff_m = dmin16[:, None, None] * m4[..., None]
+    q = np.clip(np.rint((g + eff_m) * _safe_inv(eff_s)), 0, 3).astype(np.uint8)
+    # packed in the decoder's order: (half, shift, byte l)
+    qv = q.reshape(nb, 2, 4, 32)
+    qs = np.zeros((nb, 2, 32), dtype=np.uint8)
+    for shift in range(4):
+        qs |= qv[:, :, shift, :] << (2 * shift)
+    out = np.empty((nb, 84), dtype=np.uint8)
+    out[:, 0:16] = sc | (m4 << 4)
+    out[:, 16:80] = qs.reshape(nb, 64)
+    out[:, 80:82] = _f16b(d)
+    out[:, 82:84] = _f16b(dmin)
+    return out
+
+
+def _q3k_pack_scales(s6: np.ndarray) -> np.ndarray:
+    """(nb, 16) values in [0, 63] -> (nb, 12) packed bytes."""
+    nb = s6.shape[0]
+    lo = s6 & 0xF
+    hi = s6 >> 4
+    out = np.zeros((nb, 12), dtype=np.uint8)
+    out[:, 0:8] = lo[:, 0:8] | (lo[:, 8:16] << 4)
+    for j in range(16):
+        out[:, 8 + j % 4] |= (hi[:, j] & 3) << (2 * (j // 4))
+    return out
+
+
+# Q3_K: 16 groups of 16; 6-bit signed scales; 3-bit signed values
+def q3_k_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    g = x.reshape(nb, 16, 16)
+    scale = _signed_group_scale(g, 3, _groups(w, g.shape))
+    smax = _max_by_abs(scale)
+    d = (smax / -32.0).astype(np.float32)
+    d16 = d.astype(np.float16).astype(np.float32)
+    s6 = np.clip(np.rint(scale * _safe_inv(d)[:, None]), -32, 31).astype(np.int32)
+    eff = d16[:, None, None] * s6[..., None].astype(np.float32)
+    q = np.clip(np.rint(g * _safe_inv(eff)), -4, 3).astype(np.int8)
+    qp = (q + 4).astype(np.uint8)  # [0, 7]: low 2 bits in qs, high bit in hmask
+    qv = qp.reshape(nb, 2, 4, 32)  # (half, shift, l)
+    qs = np.zeros((nb, 2, 32), dtype=np.uint8)
+    hm = np.zeros((nb, 32), dtype=np.uint8)
+    for half in range(2):
+        for shift in range(4):
+            qs[:, half] |= (qv[:, half, shift] & 3) << (2 * shift)
+            hm |= (qv[:, half, shift] >> 2) << (half * 4 + shift)
+    out = np.empty((nb, 110), dtype=np.uint8)
+    out[:, 0:32] = hm
+    out[:, 32:96] = qs.reshape(nb, 64)
+    out[:, 96:108] = _q3k_pack_scales((s6 + 32).astype(np.uint8))
+    out[:, 108:110] = _f16b(d)
+    return out
+
+
+def _k4_pack_scale_min(sc: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """(nb, 8) 6-bit scales + (nb, 8) 6-bit mins -> (nb, 12) packed."""
+    nb = sc.shape[0]
+    out = np.zeros((nb, 12), dtype=np.uint8)
+    out[:, 0:4] = (sc[:, 0:4] & 63) | ((sc[:, 4:8] >> 4) << 6)
+    out[:, 4:8] = (m[:, 0:4] & 63) | ((m[:, 4:8] >> 4) << 6)
+    out[:, 8:12] = (sc[:, 4:8] & 0xF) | ((m[:, 4:8] & 0xF) << 4)
+    return out
+
+
+def _k4_fit(x: np.ndarray, nmax: int, w=None):
+    """The Q4_K/Q5_K super-block fit -> d, dmin, sc6, m6, q."""
+    nb = x.shape[0]
+    g = x.reshape(nb, 8, 32)
+    scale, mn = _group_scale_min(g, nmax)
+    scale, mn = _ls_refine_affine(g, scale, mn, nmax, _groups(w, g.shape))
+    d = (scale.max(axis=1) / 63.0).astype(np.float32)
+    dmin = (mn.max(axis=1) / 63.0).astype(np.float32)
+    d16 = d.astype(np.float16).astype(np.float32)
+    dmin16 = dmin.astype(np.float16).astype(np.float32)
+    sc6 = np.clip(np.rint(scale * _safe_inv(d)[:, None]), 0, 63).astype(np.uint8)
+    m6 = np.clip(np.rint(mn * _safe_inv(dmin)[:, None]), 0, 63).astype(np.uint8)
+    eff_s = d16[:, None, None] * sc6[..., None]
+    eff_m = dmin16[:, None, None] * m6[..., None]
+    q = np.clip(np.rint((g + eff_m) * _safe_inv(eff_s)), 0, nmax).astype(np.uint8)
+    return d, dmin, sc6, m6, q
+
+
+# Q4_K: 8 groups of 32; 6-bit scales + mins packed into 12 bytes
+def q4_k_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    d, dmin, sc6, m6, q = _k4_fit(x, 15, w)
+    out = np.empty((nb, 144), dtype=np.uint8)
+    out[:, 0:2] = _f16b(d)
+    out[:, 2:4] = _f16b(dmin)
+    out[:, 4:16] = _k4_pack_scale_min(sc6, m6)
+    qc = q.reshape(nb, 4, 2, 32)  # chunks of 64: (lo group, hi group)
+    out[:, 16:144] = (qc[:, :, 0] | (qc[:, :, 1] << 4)).reshape(nb, 128)
+    return out
+
+
+# Q5_K: Q4_K's fit at 5 bits, the high bit of each value in qh
+def q5_k_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    d, dmin, sc6, m6, q = _k4_fit(x, 31, w)
+    out = np.empty((nb, 176), dtype=np.uint8)
+    out[:, 0:2] = _f16b(d)
+    out[:, 2:4] = _f16b(dmin)
+    out[:, 4:16] = _k4_pack_scale_min(sc6, m6)
+    qc = q.reshape(nb, 4, 2, 32)
+    qh = np.zeros((nb, 32), dtype=np.uint8)
+    for g in range(8):
+        qh |= (q.reshape(nb, 8, 32)[:, g] >> 4) << g
+    out[:, 16:48] = qh
+    out[:, 48:176] = ((qc[:, :, 0] & 0xF) | ((qc[:, :, 1] & 0xF) << 4)).reshape(nb, 128)
+    return out
+
+
+# Q6_K: 16 groups of 16; int8 scales; 6-bit signed values
+def q6_k_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    g = x.reshape(nb, 16, 16)
+    scale = _signed_group_scale(g, 31, _groups(w, g.shape))
+    smax = _max_by_abs(scale)
+    d = (smax / -128.0).astype(np.float32)
+    d16 = d.astype(np.float16).astype(np.float32)
+    s8 = np.clip(np.rint(scale * _safe_inv(d)[:, None]), -128, 127).astype(np.int8)
+    eff = d16[:, None, None] * s8[..., None].astype(np.float32)
+    q = np.clip(np.rint(g * _safe_inv(eff)), -32, 31).astype(np.int8)
+    qp = (q + 32).astype(np.uint8).reshape(nb, 256)
+    # per 128-value half: q1=v[0:32] q2=v[32:64] q3=v[64:96] q4=v[96:128]
+    v = qp.reshape(nb, 2, 4, 32)
+    ql = np.empty((nb, 2, 64), dtype=np.uint8)
+    ql[:, :, 0:32] = (v[:, :, 0] & 0xF) | ((v[:, :, 2] & 0xF) << 4)
+    ql[:, :, 32:64] = (v[:, :, 1] & 0xF) | ((v[:, :, 3] & 0xF) << 4)
+    qh = ((v[:, :, 0] >> 4) | ((v[:, :, 1] >> 4) << 2)
+          | ((v[:, :, 2] >> 4) << 4) | ((v[:, :, 3] >> 4) << 6))
+    out = np.empty((nb, 210), dtype=np.uint8)
+    out[:, 0:128] = ql.reshape(nb, 128)
+    out[:, 128:192] = qh.reshape(nb, 64)
+    out[:, 192:208] = s8.view(np.uint8)
+    out[:, 208:210] = _f16b(d)
+    return out
+
+
+def _iq4_nearest(xs: np.ndarray) -> np.ndarray:
+    """The nearest LUT index of each scaled value."""
+    return np.abs(xs[..., None] - KVALUES_IQ4NL).argmin(axis=-1).astype(np.uint8)
+
+
+def _iq4_fit_scale(x: np.ndarray, init_d: np.ndarray, iters: int = 4):
+    """Least-squares refinement of d so that x ~= d * LUT[q]."""
+    d = init_d
+    for _ in range(iters):
+        q = _iq4_nearest(x * _safe_inv(d)[..., None])
+        lw = KVALUES_IQ4NL[q]
+        num = (x * lw).sum(-1)
+        den = (lw * lw).sum(-1)
+        d = np.where(den > 0, num / den, d).astype(np.float32)
+    return d, _iq4_nearest(x * _safe_inv(d)[..., None])
+
+
+# IQ4_NL: {fp16 d; 16 nibbles of LUT indices} per 32
+def iq4_nl_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    m = _max_by_abs(x)
+    d0 = (m / -127.0).astype(np.float32)
+    d, q = _iq4_fit_scale(x, d0)
+    d16 = d.astype(np.float16).astype(np.float32)
+    q = _iq4_nearest(x * _safe_inv(d16)[..., None])
+    out = np.empty((nb, 18), dtype=np.uint8)
+    out[:, 0:2] = _f16b(d)
+    out[:, 2:18] = q[:, :16] | (q[:, 16:] << 4)
+    return out
+
+
+# IQ4_XS: 8 groups of 32 with 6-bit scales (stored as ls + 32) under one d
+def iq4_xs_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    g = x.reshape(nb, 8, 32)
+    m = _max_by_abs(g)
+    d0 = (m / -127.0).astype(np.float32)
+    sg, _ = _iq4_fit_scale(g, d0)  # per-group scale
+    smax = _max_by_abs(sg)
+    d = (smax / -31.0).astype(np.float32)
+    d16 = d.astype(np.float16).astype(np.float32)
+    ls = np.clip(np.rint(sg * _safe_inv(d)[:, None]) + 32, 0, 63).astype(np.uint8)
+    eff = d16[:, None] * (ls.astype(np.float32) - 32)
+    q = _iq4_nearest(g * _safe_inv(eff)[..., None])
+    out = np.zeros((nb, 136), dtype=np.uint8)
+    out[:, 0:2] = _f16b(d)
+    sh = np.zeros(nb, dtype=np.uint16)
+    for gi in range(8):
+        sh |= ((ls[:, gi] >> 4).astype(np.uint16)) << (2 * gi)
+    out[:, 2:4] = sh[:, None].view(np.uint8).reshape(nb, 2)
+    out[:, 4:8] = (ls[:, 0::2] & 0xF) | ((ls[:, 1::2] & 0xF) << 4)
+    out[:, 8:136] = (q[:, :, 0:16] | (q[:, :, 16:32] << 4)).reshape(nb, 128)
+    return out
+
+
+def _tq1_pack(trits: np.ndarray, n_levels: int) -> np.ndarray:
+    """(nb, n_levels, width) trits {0,1,2} -> packed bytes (nb, width):
+    big-endian base 3, stripe 0 the most significant trit, encoded as
+    ceil(acc * 256 / 243) so that _tq1_unpack's fixed point inverts it."""
+    wts = (3 ** np.arange(4, 4 - n_levels, -1, dtype=np.uint16))[None, :, None]
+    acc = (trits.astype(np.uint16) * wts).sum(axis=1)
+    return ((acc * 256 + 242) // 243).astype(np.uint8)
+
+
+def tq1_0_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    d = np.abs(x).max(axis=-1).astype(np.float32)
+    q = (np.clip(np.rint(x * _safe_inv(d)[:, None]), -1, 1).astype(np.int8) + 1).astype(np.uint8)
+    out = np.empty((nb, 54), dtype=np.uint8)
+    out[:, 0:32] = _tq1_pack(q[:, 0:160].reshape(nb, 5, 32), 5)
+    out[:, 32:48] = _tq1_pack(q[:, 160:240].reshape(nb, 5, 16), 5)
+    out[:, 48:52] = _tq1_pack(q[:, 240:256].reshape(nb, 4, 4), 4)
+    out[:, 52:54] = _f16b(d)
+    return out
+
+
+def tq2_0_quantize(x: np.ndarray, w=None) -> np.ndarray:
+    nb = x.shape[0]
+    d = np.abs(x).max(axis=-1).astype(np.float32)
+    q = (np.clip(np.rint(x * _safe_inv(d)[:, None]), -1, 1).astype(np.int8) + 1).astype(np.uint8)
+    v = q.reshape(nb, 2, 4, 32)  # 2 sub-blocks of 128, 4 crumbs a byte
+    qs = np.zeros((nb, 2, 32), dtype=np.uint8)
+    for j in range(4):
+        qs |= v[:, :, j] << (2 * j)
+    out = np.empty((nb, 66), dtype=np.uint8)
+    out[:, 0:64] = qs.reshape(nb, 64)
+    out[:, 64:66] = _f16b(d)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # i-quants with codebooks (IQ2_XXS/XS/S, IQ3_XXS/S, IQ1_S/M)
 
 _IQ_GRIDS: dict[str, np.ndarray] | None = None
@@ -424,8 +845,95 @@ _DEQUANTIZERS = {
 }
 
 
+_QUANTIZERS = {
+    GGMLType.Q4_0: q4_0_quantize,
+    GGMLType.Q4_1: q4_1_quantize,
+    GGMLType.Q5_0: q5_0_quantize,
+    GGMLType.Q5_1: q5_1_quantize,
+    GGMLType.Q8_0: q8_0_quantize,
+    GGMLType.Q2_K: q2_k_quantize,
+    GGMLType.Q3_K: q3_k_quantize,
+    GGMLType.Q4_K: q4_k_quantize,
+    GGMLType.Q5_K: q5_k_quantize,
+    GGMLType.Q6_K: q6_k_quantize,
+    GGMLType.IQ4_NL: iq4_nl_quantize,
+    GGMLType.IQ4_XS: iq4_xs_quantize,
+    GGMLType.TQ1_0: tq1_0_quantize,
+    GGMLType.TQ2_0: tq2_0_quantize,
+}
+
+
+def supported_quantize_types() -> list[GGMLType]:
+    """The block types of _QUANTIZERS; quantize() also takes F32/F16/BF16
+    and the codebook i-quants of iq_quantize.IQ_QUANTIZERS."""
+    return sorted(_QUANTIZERS, key=int)
+
+
 def supported_dequantize_types() -> list[GGMLType]:
     return sorted(_DEQUANTIZERS, key=int)
+
+
+# A tensor of at least PARALLEL_MIN values is encoded in row spans of
+# about SPAN values on _POOL's threads (numpy releases the GIL in its
+# loops, and a span's temporaries stay in cache). The encoders of
+# _QUANTIZERS treat every block alone with elementwise steps and
+# reductions along a block, so a span's bytes are those of the whole
+# tensor's; the codebook encoders score blocks with matrix products,
+# whose summation order may follow the row count, and run in one call.
+PARALLEL_MIN = 1 << 20
+SPAN = 1 << 18
+_POOL = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+
+
+def quantize(x: np.ndarray, ggml_type: GGMLType,
+             weights: np.ndarray | None = None) -> np.ndarray:
+    """Float rows (n, k) -> packed uint8 (n, row bytes). weights: the
+    optional importance [k] of each column (an imatrix's sums of squared
+    activations); the fits then minimize the weighted error."""
+    if ggml_type == GGMLType.F32:
+        return np.ascontiguousarray(x.astype(np.float32)).view(np.uint8)
+    if ggml_type == GGMLType.F16:
+        return np.ascontiguousarray(x.astype(np.float16)).view(np.uint8)
+    if ggml_type == GGMLType.BF16:
+        f32 = np.ascontiguousarray(x.astype(np.float32))
+        return (f32.view(np.uint32) >> 16).astype(np.uint16).view(np.uint8)
+    fn = _QUANTIZERS.get(ggml_type)
+    spans = fn is not None
+    if fn is None:
+        from .iq_quantize import IQ_QUANTIZERS
+
+        fn = IQ_QUANTIZERS.get(ggml_type)
+    if fn is None:
+        raise NotImplementedError(
+            f"quantize to {ggml_type.name}: this port encodes F32/F16/BF16 "
+            "and the block types " + ", ".join(
+                t.name for t in supported_quantize_types()) +
+            " and the codebook i-quants")
+    x = np.asarray(x, dtype=np.float32)
+    orig_rows = x.shape[:-1]
+    k = x.shape[-1]
+    blk, nbytes = GGML_BLOCK_SIZES[ggml_type]
+    if k % blk:
+        raise ValueError(f"row length {k} not divisible by block size {blk}")
+    blocks = x.reshape(-1, blk)
+    per = k // blk                      # blocks a row
+    n = blocks.shape[0] // per
+    wcol = None
+    if weights is not None:
+        wcol = np.asarray(weights, np.float32).reshape(k)
+        wcol = np.maximum(wcol, wcol.mean() * 1e-3 + 1e-12)
+
+    def run(lo: int, hi: int) -> np.ndarray:
+        w = None if wcol is None else np.tile(wcol, hi - lo).reshape(-1, blk)
+        return fn(blocks[lo * per:hi * per], w)
+
+    if spans and x.size >= PARALLEL_MIN:
+        step = max(1, SPAN // k)
+        out = np.concatenate(list(_POOL.map(
+            lambda lo: run(lo, min(lo + step, n)), range(0, n, step))))
+    else:
+        out = run(0, n)
+    return out.reshape(*orig_rows, per * nbytes)
 
 
 def dequantize(raw: np.ndarray, ggml_type: GGMLType) -> np.ndarray:

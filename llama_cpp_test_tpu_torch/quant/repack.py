@@ -20,6 +20,11 @@ layout "rows" (embedding tables): qs [N/pack, K], f32 scales.
 bf16 planes are kept on the host as numpy uint16 bit patterns
 (round-to-nearest-even from float32); weights.py views them as
 torch.bfloat16 on upload.
+
+Q8_0, Q4_0, Q4_1, Q4_K and Q6_K go through the threaded C++ repack of
+native/ggufio.cpp while NATIVE is set (the default): the same planes,
+bit for bit, at several times the rate. The numpy path below is the
+plain version it is held against, and the path of every other type.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Any
 
 import numpy as np
 
+from .. import native
 from ..gguf.constants import GGML_BLOCK_SIZES, GGMLType
 from . import codecs
 from .codecs import (KVALUES_IQ4NL, _k4_unpack_scale_min, _q3k_unpack_scales,
@@ -37,6 +43,10 @@ from .codecs import (KVALUES_IQ4NL, _k4_unpack_scale_min, _q3k_unpack_scales,
 from .iq_repack import IQ_DECOMPOSERS
 
 PACK = {"dense": 1, "int8": 1, "u4": 2, "u2": 4, "u4lut": 2, "u2lut": 4}
+# repack() takes native/ggufio.cpp for the types it covers
+# (native.TYPES); False keeps every type on the numpy path (the plain
+# version)
+NATIVE = True
 BITS = {"u4": 4, "u2": 2, "u4lut": 4, "u2lut": 2}
 
 
@@ -349,6 +359,13 @@ def repack(raw: np.ndarray, ggml_type: GGMLType, n: int, k: int,
     """Packed GGUF row-major bytes for an (N=n rows, K=k cols) weight ->
     plane layout. Rows padded so N/pack is a multiple of tile_n."""
     assert layout in ("t", "rows")
+    if NATIVE and ggml_type in native.TYPES:
+        pack = PACK[native.TYPES[ggml_type][0]]
+        n_full = n + (-n % (pack * tile_n))
+        kind, g, qs, s, m = native.native_planes(raw, ggml_type, n, k,
+                                                 n_full, layout)
+        return QTensor(kind, (n_full, k), n, g, qs, s, m,
+                       ggml_type=ggml_type, layout=layout)
     if ggml_type == GGMLType.BF16 and layout == "t":
         # the bf16 bits as they are: widened to float32 and rounded back
         # they would come out the same

@@ -157,6 +157,13 @@ class Scheduler:
     # -- submission -----------------------------------------------------------
 
     def submit(self, req: GenRequest) -> GenRequest:
+        # a prompt the context cannot hold is refused here: admitted, its
+        # prefill would raise inside step() and end the caller's loop (the
+        # reference clips its block table instead; ROADMAP §3, fault 27)
+        if len(req.prompt_tokens) > self.ctx.n_ctx:
+            raise ValueError(
+                f"prompt of {len(req.prompt_tokens)} tokens exceeds "
+                f"n_ctx={self.ctx.n_ctx}")
         req.id = next(self._req_ids)
         req.t_submit = time.time()
         req.n_prompt = len(req.prompt_tokens)
@@ -190,6 +197,12 @@ class Scheduler:
             req = self.queue[0]
             need = (len(req.prompt_tokens) + req.max_tokens +
                     self.ctx.block_size - 1) // self.ctx.block_size
+            # a slot never holds more than n_ctx tokens (the context shift
+            # or the n_ctx stop bounds it), so it never needs more than a
+            # block table's width; uncapped, a request whose max_tokens
+            # outruns the pool waits forever and blocks the queue behind
+            # it (the reference's hang; ROADMAP §3, fault 28)
+            need = min(need, getattr(self.ctx, "nbmax", need))
             if need > self._free_blocks():
                 # reclaim caches kept by idle slots (prefix-reuse holdovers)
                 for other in self.slots:

@@ -549,11 +549,24 @@ class LlamaServer:
                                  "/rerank, and has no LM head"}),
                 content_type="application/json")
 
+    def _check_prompt(self, prompt_tokens) -> None:
+        """A prompt longer than n_ctx is refused before it is queued for
+        the engine thread (Scheduler.submit would raise there, on the
+        thread; the reference lets it through; ROADMAP §3, fault 27)."""
+        n_ctx = self.sched.ctx.n_ctx
+        if len(prompt_tokens) > n_ctx:
+            raise web.HTTPBadRequest(
+                text=json.dumps({"error": f"the prompt has "
+                                 f"{len(prompt_tokens)} tokens, more than "
+                                 f"the context's n_ctx={n_ctx}"}),
+                content_type="application/json")
+
     async def completions(self, request):
         """llama.cpp-style /completion and OpenAI /v1/completions."""
         self._check_generates()
         body = await request.json()
         prompt_tokens = self._tokenize_prompt(body.get("prompt", ""))
+        self._check_prompt(prompt_tokens)
         rid = f"cmpl-{uuid.uuid4().hex[:12]}"
         if body.get("stream"):
             return await self._stream_completion(
@@ -611,6 +624,7 @@ class LlamaServer:
         self._check_generates()
         body = await request.json()
         prompt_tokens = self._fim_prompt(body)
+        self._check_prompt(prompt_tokens)
         rid = f"infill-{uuid.uuid4().hex[:12]}"
         if body.get("stream"):
             return await self._stream_completion(
@@ -639,6 +653,7 @@ class LlamaServer:
             self.model.reader.metadata, body.get("messages", []),
             template_override=self.chat_template, tools=tools)
         prompt_tokens = self._tokenize_prompt(prompt)
+        self._check_prompt(prompt_tokens)
         rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
         if body.get("stream"):
             return await self._stream_completion(

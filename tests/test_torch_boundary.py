@@ -5,8 +5,9 @@ path, on the MoE + q8_0-KV path, on an IQ4_XS file, in its kernel probes
 CLI, the scheduler, device sampling and the tokenizers (which load no
 `regex` either), through LoRA, control vectors, tracing, imatrix,
 lookahead, prompt lookup and their CLIs, through T5 (its Context and the
-CLI's T5 branch) and the vocoder (cli.tts --codes), and asking for CUDA
-where there is none raises instead of running on the CPU."""
+CLI's T5 branch) and the vocoder (cli.tts --codes), through the
+quantizers, the native repack and the host-only file tools, and asking
+for CUDA where there is none raises instead of running on the CPU."""
 import json
 import os
 import subprocess
@@ -385,3 +386,72 @@ def test_t5_and_tts_import_no_jax_or_reference(tmp_path):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"enc": [4, 48], "finite": True, "rc": [0, 0],
                    "text": True, "n_fft": 64, "bad": []}
+
+
+_QUANT_TOOLS = r"""
+import importlib.abc, io, json, sys
+from contextlib import redirect_stderr, redirect_stdout
+sys.path.insert(0, sys.argv[1])
+
+
+class _Blocked(importlib.abc.MetaPathFinder):
+    NAMES = ("jax", "jaxlib", "llama_cpp_test_tpu", "ml_dtypes", "regex")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.NAMES:
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+import numpy as np
+from llama_cpp_test_tpu_torch import native
+from llama_cpp_test_tpu_torch.cli import (gbnf_validator, gguf_hash, gguf_split,
+                                          quantize_stats, tokenize)
+from llama_cpp_test_tpu_torch.quant import codecs, iq_quantize, quantize_model
+from llama_cpp_test_tpu_torch.runtime import imatrix
+from llama_cpp_test_tpu_torch.runtime.engine import Context, Model
+path = sys.argv[2]
+m = Model(path, device="cpu")
+coll = imatrix.IMatrixCollector(m)
+coll.collect(list(range(3, 67)), chunk=32)
+coll.save("im.npz")
+x = np.random.default_rng(0).standard_normal((2, 256)).astype(np.float32)
+iq = codecs.quantize(x, codecs.GGMLType.IQ2_XS)
+with open("g.gbnf", "w") as f:
+    f.write('root ::= [a-z]+')
+with open("in.txt", "w") as f:
+    f.write("abc")
+buf = io.StringIO()
+with redirect_stdout(buf), redirect_stderr(io.StringIO()):
+    rcs = [quantize_model.main([path, "q.gguf", "Q8_0", "--imatrix", "im.npz"]),
+           quantize_stats.main(["-m", path, "-t", "Q8_0"]),
+           gguf_hash.main(["q.gguf"]),
+           gguf_split.main(["--split-max-tensors", "8", "q.gguf", "s"]),
+           tokenize.main(["-m", path, "-p", "hello", "--ids"]),
+           gbnf_validator.main(["g.gbnf", "in.txt"])]
+split = Model("s-00001-of-00003.gguf", device="cpu")     # native repack
+ctx = Context(split, n_ctx=64, n_seq_max=1, block_size=8)
+logits = ctx.prefill(ctx.new_seq(), [3, 17, 42])
+bad = sorted(k for k in sys.modules if k.split(".")[0] in _Blocked.NAMES)
+print(json.dumps({"rcs": rcs, "iq": list(iq.shape), "libs": len(native._libs),
+                  "finite": bool(np.isfinite(logits).all()), "bad": bad}))
+"""
+
+
+def test_quantize_and_file_tools_import_no_jax_or_reference(tmp_path):
+    """The quantizers (quantize_model with an imatrix the port collected,
+    an i-quant encoder), the native repack of a split Q8_0 file and the
+    host-only CLIs (quantize_stats, gguf_hash, gguf_split, tokenize,
+    gbnf_validator) run with JAX, the JAX package, ml_dtypes and regex
+    blocked, and load none of them."""
+    path = str(tmp_path / "tiny.gguf")
+    make_tiny_gguf(path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _QUANT_TOOLS, ROOT, path],
+                         env=env, capture_output=True, text=True, timeout=300,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"rcs": [0, 0, 0, 0, 0, 0], "iq": [2, 74], "libs": 1,
+                   "finite": True, "bad": []}

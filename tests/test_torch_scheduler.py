@@ -238,3 +238,48 @@ def test_one_slot_readmits_what_its_cache_holds(sides):
     got = run(p, 100)
     assert out(got) == out(run(p, 100, warm=False))
     assert got.finish_reason == "length"
+
+
+def alone(m, prompt, n):
+    s = make(m, n_slots=2)
+    r = s.submit(req(m, prompt, n))
+    s.run()
+    return r
+
+
+def test_long_max_tokens_does_not_block_the_queue(sides):
+    """Reference fault 28: admission asks for the blocks of prompt +
+    max_tokens, so a request whose max_tokens outruns the whole pool is
+    never admitted and holds every request behind it in the queue (the
+    JAX scheduler). A slot never holds more than n_ctx tokens, so the
+    port caps the ask at the block table's width: both requests finish,
+    the long one through context shifts."""
+    j, p = sides
+
+    def pair(m):
+        s = make(m, n_slots=2)          # 16 blocks of 8; 500 tokens ask 63
+        return s, s.submit(req(m, [3, 17, 42], 500)), \
+            s.submit(req(m, [9, 4, 7, 22], 6))
+
+    s, long, short = pair(j)
+    for _ in range(200):
+        s.step()
+    assert long.finish_reason is None and short.finish_reason is None
+    assert len(s.queue) == 2
+    s, long, short = pair(p)
+    s.run()
+    assert (long.finish_reason, len(long.output_tokens)) == ("length", 500)
+    assert out(short) == out(alone(p, [9, 4, 7, 22], 6))
+
+
+def test_prompt_longer_than_n_ctx_is_refused_at_submit(sides):
+    """Reference fault 27: the port's Scheduler refuses a prompt longer
+    than n_ctx when it is submitted, naming n_ctx, and serves the next
+    request; the JAX Scheduler takes it."""
+    _, p = sides
+    s = make(p, n_slots=2)
+    with pytest.raises(ValueError, match="n_ctx=64"):
+        s.submit(req(p, list(range(3, 83)), 4))
+    r = s.submit(req(p, [3, 17, 42], 4))
+    s.run()
+    assert r.finish_reason == "length" and len(r.output_tokens) == 4

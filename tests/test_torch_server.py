@@ -167,6 +167,23 @@ def test_completion_with_token_prompt(client):
     assert b1["choices"][0]["text"] == b2["choices"][0]["text"]
 
 
+def test_prompt_longer_than_n_ctx_answers_400_and_serving_goes_on(client):
+    """Reference fault 27: an 80-token prompt on the n_ctx = 64 fixture is
+    refused with a 400 that names n_ctx before it reaches the engine
+    thread, which goes on serving (the JAX server's thread ends on it)."""
+    status, body = client.post("/v1/completions", {
+        "prompt": list(range(3, 83)), "max_tokens": 4, "temperature": 0.0})
+    assert status == 400 and "n_ctx=64" in body["error"]
+    status, body = client.post("/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "hello world " * 40}],
+        "max_tokens": 4, "stream": True})
+    assert status == 400 and "n_ctx=64" in body["error"]
+    status, body = client.post("/v1/completions", {
+        "prompt": [3, 17, 42], "max_tokens": 4, "temperature": 0.0,
+        "ignore_eos": True})
+    assert status == 200 and body["usage"]["completion_tokens"] == 4
+
+
 def test_streaming(client):
     """The streamed pieces, concatenated, equal the unstreamed text."""
     body = {"prompt": "hello world", "max_tokens": 8, "temperature": 0.0,
